@@ -6,13 +6,20 @@
 Phases, each printing JSON lines; any failure raises and the exit code is not 0:
   1. device: the card (nvidia-smi name and power limit), TF32 off for every comparison;
   2. build: nvcc builds freqfusion_tpu_torch/csrc into a library (seconds printed);
-  3. kernels: each CUDA kernel against its plain PyTorch version at the slice's shapes;
-  4. slice: NAFNetSR at its published width (random weights from a seed) serves three
+  3. kernels: each CUDA kernel against its plain PyTorch version at the slices' shapes,
+     with its time, the plain version's, the card's bound for the same work and, where one
+     PyTorch call computes the same function, that call's time;
+  4. NAF slice: NAFNetSR at its published width (random weights from a seed) serves three
      PNG requests through InferencePipeline's uint8 protocol; the forward is checked
      against the plain versions, every kernel must have been launched, and per-image
-     times are taken for both paths.
-The last two lines are the kernels' summary and {"ok": true, "device": {...}}. It exits
-non-zero without a CUDA card. The PNGs go to build/chip_smoke/ in the checkout.
+     times are taken for both paths;
+  5. DAT slice: the same for DAT at its shipped width and depth (embed 180, 6 x 6 blocks,
+     split (8, 32)), whose every block runs the window-attention, AIM and SGFN kernels;
+     it also times the weight re-layout and padding that every forward repeats.
+With --profile, one DAT forward is also traced with torch.profiler and its device time is
+printed by kernel. The last two lines are the kernels' summary and
+{"ok": true, "device": {...}}. It exits non-zero without a CUDA card. The PNGs go to
+build/chip_smoke/ in the checkout.
 """
 
 from __future__ import annotations
@@ -22,13 +29,18 @@ import os
 import subprocess
 import sys
 import time
+from statistics import fmean as mean
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from freqfusion_tpu_torch.infer.io import InferencePipeline
+from freqfusion_tpu_torch.models import dat as dat_model
+from freqfusion_tpu_torch.models.dat import DAT
 from freqfusion_tpu_torch.models.nafnet import NAFNetSR
-from freqfusion_tpu_torch.ops.kernels import _build, conv3x3, nafblock
+from freqfusion_tpu_torch.ops import windows
+from freqfusion_tpu_torch.ops.kernels import _build, aim, conv3x3, nafblock, sgfn, wattn
 from freqfusion_tpu_torch.utils.imageio import list_images, load_image, save_image
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -41,7 +53,17 @@ SLICE_RTOL = 1e-3        # max |Δ| <= SLICE_RTOL * max|plain| on the whole forw
 # (name, B, H, W, C): the NAF levels of the 512x352 bucket at HR, and one ragged case
 BLOCK_CASES = [("enc0_hr", 1, 1408, 2048, 64), ("enc1", 1, 704, 1024, 128),
                ("enc2", 1, 352, 512, 256), ("ragged", 2, 37, 45, 64)]
-CONV_CASES = [("intro", 1, 1408, 2048, 3, 64), ("ending", 1, 1408, 2048, 64, 3)]
+# the last one is DAT's group-ending conv at the 512x352 bucket: the summary's B3 numbers
+CONV_CASES = [("intro", 1, 1408, 2048, 3, 64), ("ending", 1, 1408, 2048, 64, 3),
+              ("dat_180", 1, 352, 512, 180, 180)]
+# DAT at the 512x352 bucket (embed 180, 3 heads of 30 a branch, hidden 720), a ragged case
+# for the halos and a small multi-batch case for the windows
+DAT_C, DAT_HEADS, DAT_HIDDEN = 180, 3, 720
+DAT_CASES = [("bucket", 1, 352, 512), ("ragged", 2, 37, 45)]
+WATTN_CASES = [("8x32", 1, 352, 512, 8, 32, False), ("8x32_shift", 1, 352, 512, 8, 32, True),
+               ("32x8", 1, 352, 512, 32, 8, False), ("32x8_shift", 1, 352, 512, 32, 8, True),
+               ("batch2", 2, 64, 96, 8, 32, True)]
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: f32 outside the tensor cores, HBM3
 
 
 def emit(phase: str, **kw) -> None:
@@ -65,6 +87,14 @@ def cuda_ms(fn, iters: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple:
+    """(least milliseconds the card could take, what sets it): the larger of the
+    operations over the f32 peak and the bytes (each input read once, each output
+    written once) over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def block_params(c: int, gen: torch.Generator) -> dict:
@@ -109,26 +139,34 @@ def set_kernels(model: torch.nn.Module, on: bool) -> None:
             m.kernels = on
 
 
+LAUNCH_COUNTS = (nafblock.launches, conv3x3.launches, wattn.launches, aim.launches,
+                 sgfn.launches)
+
+
 def reset_launches() -> None:
-    for counts in (nafblock.launches, conv3x3.launches):
+    for counts in LAUNCH_COUNTS:
         for k in counts:
             counts[k] = 0
 
 
-def phase_device() -> str:
+def read_launches() -> dict:
+    return {k: n for counts in LAUNCH_COUNTS for k, n in counts.items()}
+
+
+def phase_device() -> tuple:
+    """Returns (torch's device name, nvidia-smi's "name, power limit" line)."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check "
                          "runs only on an NVIDIA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
     emit("device", nvidia_smi=smi, kind=name, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda)
-    return name
+    return name, smi
 
 
 def phase_build() -> None:
@@ -138,11 +176,7 @@ def phase_build() -> None:
     emit("build", seconds=secs, library=os.path.relpath(path, ROOT), ptxas=regs)
 
 
-def phase_kernels(gen: torch.Generator) -> dict:
-    """Each kernel against its plain version at the slice's shapes; returns the numbers
-    for the summary line."""
-    res = {"naf_block_stage_a": {"err": 0.0}, "naf_block_stage_b": {"err": 0.0},
-           "conv3x3_dense": {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}}
+def naf_kernel_cases(gen: torch.Generator, res: dict) -> None:
     for name, b, h, w, c in BLOCK_CASES:
         x = torch.randn(b, h, w, c, generator=gen, device="cuda")
         p = block_params(c, gen)
@@ -164,18 +198,28 @@ def phase_kernels(gen: torch.Generator) -> dict:
                  a_plain_ms=cuda_ms(lambda: nafblock.naf_block_stage_a_plain(*a_args)),
                  b_ms=cuda_ms(lambda: nafblock.naf_block_stage_b(*b_args)),
                  b_plain_ms=cuda_ms(lambda: nafblock.naf_block_stage_b_plain(*b_args)))
+        npix = b * h * w
+        # stage A: LN, 1x1 C->2C, depthwise 3x3 on 2C, gate; reads x, writes g and the sums
+        a_bound = bound_ms(npix * (4 * c * c + 36 * c + 9 * c),
+                           4 * (2 * npix * c + 2 * c * c + 24 * c + b * c))
+        # stage B: three 1x1 products (C->C, C->2C, C->C), LN, gates; reads g, x, writes out
+        b_bound = bound_ms(npix * (8 * c * c + 16 * c),
+                           4 * (3 * npix * c + 4 * c * c + 9 * c + b * c))
         emit("kernel", kernel="naf_block", case=name, shape=[b, h, w, c],
              g_max_abs_err=g_err, g_bound=KERNEL_ATOL,
              sums_max_rel_err=sums_ratio, sums_bound=SUMS_RTOL,
-             out_max_abs_err=y_err, out_bound=KERNEL_ATOL, **t)
+             out_max_abs_err=y_err, out_bound=KERNEL_ATOL, a_bound_ms=a_bound[0],
+             b_bound_ms=b_bound[0], **t)
         require(g_err <= KERNEL_ATOL, f"B1 g error {g_err} at {name}")
         require(sums_ratio <= SUMS_RTOL, f"B1 sums error {sums_ratio} at {name}")
         require(y_err <= KERNEL_ATOL, f"B2 output error {y_err} at {name}")
         res["naf_block_stage_a"]["err"] = max(res["naf_block_stage_a"]["err"], g_err)
         res["naf_block_stage_b"]["err"] = max(res["naf_block_stage_b"]["err"], y_err)
         if name == "enc0_hr":   # the heaviest level: the summary's times
-            res["naf_block_stage_a"].update(ms=t["a_ms"], plain_ms=t["a_plain_ms"])
-            res["naf_block_stage_b"].update(ms=t["b_ms"], plain_ms=t["b_plain_ms"])
+            res["naf_block_stage_a"].update(ms=t["a_ms"], plain_ms=t["a_plain_ms"],
+                                            bound=a_bound)
+            res["naf_block_stage_b"].update(ms=t["b_ms"], plain_ms=t["b_plain_ms"],
+                                            bound=b_bound)
         del x, g, g_ref, y, y_ref, full, full_ref
     for name, b, h, w, cin, cout in CONV_CASES:
         x = torch.randn(b, h, w, cin, generator=gen, device="cuda")
@@ -185,13 +229,157 @@ def phase_kernels(gen: torch.Generator) -> dict:
                - conv3x3.conv3x3_dense_plain(x, wt, bias)).abs().max().item()
         ms = cuda_ms(lambda: conv3x3.conv3x3_dense(x, wt, bias))
         plain_ms = cuda_ms(lambda: conv3x3.conv3x3_dense_plain(x, wt, bias))
+        # the library call alone: cuDNN on the same tensors, f32 (TF32 off), NCHW views
+        xv, wv = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)
+        lib_ms = cuda_ms(lambda: F.conv2d(xv, wv, bias, padding=1))
+        bnd = bound_ms(b * h * w * 18 * cin * cout,
+                       4 * (b * h * w * (cin + cout) + 9 * cin * cout + cout))
         emit("kernel", kernel="conv3x3_dense", case=name, shape=[b, h, w, cin, cout],
-             max_abs_err=err, bound=KERNEL_ATOL, ms=ms, plain_cudnn_ms=plain_ms)
+             max_abs_err=err, bound=KERNEL_ATOL, ms=ms, plain_ms=plain_ms,
+             library_cudnn_ms=lib_ms, bound_ms=bnd[0], bound_by=bnd[1])
         require(err <= KERNEL_ATOL, f"B3 error {err} at {name}")
         r = res["conv3x3_dense"]
         r["err"] = max(r["err"], err)
-        r["ms"] += ms             # summary: intro + ending, the two per NAF forward
-        r["plain_ms"] += plain_ms
+        if name == "dat_180":   # the heaviest use: the summary's times
+            r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound=bnd)
+        del x
+
+
+def dat_kernel_cases(gen: torch.Generator, res: dict) -> None:
+    """B4, B5a, B5b and B6 at DAT's full width. Bounds as for the NAF kernels: outputs of
+    O(1) within KERNEL_ATOL of the plain version, sums within SUMS_RTOL * sum|.|."""
+    c, heads, hid = DAT_C, DAT_HEADS, DAT_HIDDEN
+    half, mid, co = hid // 2, c // 16, c // 2
+    hd = co // heads
+
+    def r(*shape, std=1.0, mean=0.0):
+        return mean + std * torch.randn(*shape, generator=gen, device="cuda")
+
+    times = []
+    for name, b, h, w, hs, ws, shifted in WATTN_CASES:
+        n = hs * ws
+        x = r(b, h, w, c)   # the block's LayerNorm output: O(1)
+        # the mask as the model hands it over, its 4 window types on the card; the small
+        # case takes the whole image's numpy mask, which the wrapper reduces and checks
+        mask = None
+        if shifted and name == "batch2":
+            mask = windows.shift_attn_mask(h, w, hs, ws, hs // 2, ws // 2)
+        elif shifted:
+            mask = torch.from_numpy(
+                windows.shift_mask_types(hs, ws, hs // 2, ws // 2).copy()).cuda()
+        args = (x, r(c, 3 * co, std=c ** -0.5), r(3 * co, std=0.1), r(heads, n, n, std=0.5),
+                mask, (hs, ws), heads)
+        got = wattn.fused_window_attention_xqkv(*args)
+        want = wattn.fused_window_attention_xqkv_plain(*args)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        del got, want
+        ms = cuda_ms(lambda: wattn.fused_window_attention_xqkv(*args), iters=5)
+        plain_ms = cuda_ms(lambda: wattn.fused_window_attention_xqkv_plain(*args), iters=5)
+        npix, nwin = b * h * w, b * (h // hs) * (w // ws)
+        # projection, q k^T and p v, bias (+ mask) and softmax; reads x, the weights, the
+        # bias and the 4 mask types, writes the co-wide image
+        bnd = bound_ms(npix * 2 * c * 3 * co + nwin * heads * n * n * (4 * hd + 8),
+                       4 * (npix * (c + co) + c * 3 * co + 3 * co
+                            + (heads + (4 if shifted else 0)) * n * n))
+        emit("kernel", kernel="fused_window_attention_xqkv", case=name,
+             shape=[b, h, w, c], window=[hs, ws], shifted=shifted, max_abs_err=err,
+             bound=KERNEL_ATOL, max_abs_plain=scale, ms=ms, plain_ms=plain_ms,
+             bound_ms=bnd[0], bound_by=bnd[1])
+        require(err <= KERNEL_ATOL, f"B4 error {err} at {name}")
+        res["fused_window_attention_xqkv"]["err"] = max(
+            res["fused_window_attention_xqkv"]["err"], err)
+        if name != "batch2":   # the main path's mix: both orientations, half shifted
+            times.append((ms, plain_ms, bnd))
+        del x, args
+    res["fused_window_attention_xqkv"].update(
+        ms=mean(t[0] for t in times), plain_ms=mean(t[1] for t in times),
+        bound=(mean(t[2][0] for t in times), times[0][2][1]))
+
+    for name, b, h, w in DAT_CASES:
+        npix = b * h * w
+        v, att, chmap = r(b, h, w, c), r(b, h, w, c), r(b, 1, 1, c)
+        a_args = (v, r(3, 3, 1, c, std=1 / 3), r(c, std=0.1), r(c, std=0.2, mean=1.0),
+                  r(c, std=0.1))
+        cx, sums = aim.aim_conv_branch(*a_args)
+        cx_ref, sums_ref = aim.aim_conv_branch_plain(*a_args)
+        torch.cuda.synchronize()
+        a_err = (cx - cx_ref).abs().max().item()
+        sums_ratio = ((sums - sums_ref).abs()
+                      / cx_ref.abs().sum((1, 2), keepdim=True)).max().item()
+        a_ms = cuda_ms(lambda: aim.aim_conv_branch(*a_args))
+        a_plain = cuda_ms(lambda: aim.aim_conv_branch_plain(*a_args))
+        # 9 FMAs, the BN affine and an erf GELU per element; reads v, writes conv_x
+        a_bnd = bound_ms(npix * c * 30, 4 * (2 * npix * c + 12 * c + b * c))
+        emit("kernel", kernel="aim_conv_branch", case=name, shape=[b, h, w, c],
+             max_abs_err=a_err, bound=KERNEL_ATOL, sums_max_rel_err=sums_ratio,
+             sums_bound=SUMS_RTOL, ms=a_ms, plain_ms=a_plain, bound_ms=a_bnd[0],
+             bound_by=a_bnd[1])
+        require(a_err <= KERNEL_ATOL, f"B5a error {a_err} at {name}")
+        require(sums_ratio <= SUMS_RTOL, f"B5a sums error {sums_ratio} at {name}")
+        res["aim_conv_branch"]["err"] = max(res["aim_conv_branch"]["err"], a_err)
+        del cx, v
+
+        b_args = (att, cx_ref, chmap, r(1, 1, c, mid, std=c ** -0.5), r(mid, std=0.1),
+                  r(mid, std=0.2, mean=1.0), r(mid, std=0.1), r(1, 1, mid, 1, std=mid ** -0.5),
+                  r(1, std=0.1), r(c, c, std=c ** -0.5), r(c, std=0.1))
+        # S-Map C->mid->1, two gates, the sum, proj C->C; reads attened, conv_x, writes out
+        b_bnd = bound_ms(npix * (2 * c * mid + 2 * mid + 2 * c * c + 8 * c),
+                         4 * (3 * npix * c + b * c + c * mid + c * c + 3 * mid + c + 2))
+        b_times = []
+        for swap in (False, True):
+            got = aim.aim_gates_proj(*b_args, swap=swap)
+            want = aim.aim_gates_proj_plain(*b_args, swap=swap)
+            torch.cuda.synchronize()
+            b_err = (got - want).abs().max().item()
+            del got, want
+            b_ms = cuda_ms(lambda: aim.aim_gates_proj(*b_args, swap=swap))
+            b_plain = cuda_ms(lambda: aim.aim_gates_proj_plain(*b_args, swap=swap))
+            emit("kernel", kernel="aim_gates_proj", case=name, swap=swap,
+                 shape=[b, h, w, c], max_abs_err=b_err, bound=KERNEL_ATOL, ms=b_ms,
+                 plain_ms=b_plain, bound_ms=b_bnd[0], bound_by=b_bnd[1])
+            require(b_err <= KERNEL_ATOL, f"B5b error {b_err} at {name}, swap={swap}")
+            res["aim_gates_proj"]["err"] = max(res["aim_gates_proj"]["err"], b_err)
+            b_times.append((b_ms, b_plain))
+        del att, cx_ref, b_args
+
+        t_args = (r(b, h, w, c), r(b, h, w, c), r(c, std=0.1, mean=1.0), r(c, std=0.1),
+                  r(c, hid, std=c ** -0.5), r(hid, std=0.1), r(half, std=0.1, mean=1.0),
+                  r(half, std=0.1), r(3, 3, 1, half, std=1 / 3), r(half, std=0.1),
+                  r(half, c, std=half ** -0.5), r(c, std=0.1))
+        got = sgfn.fused_sgfn_tail(*t_args)
+        want = sgfn.fused_sgfn_tail_plain(*t_args)
+        torch.cuda.synchronize()
+        t_err = (got - want).abs().max().item()
+        t_scale = want.abs().max().item()
+        del got, want
+        t_ms = cuda_ms(lambda: sgfn.fused_sgfn_tail(*t_args), iters=5)
+        t_plain = cuda_ms(lambda: sgfn.fused_sgfn_tail_plain(*t_args), iters=5)
+        # fc1 C->hid, fc2 hid/2->C, two LNs, GELU on hid, depthwise 3x3 and gate on hid/2;
+        # reads a and shortcut, writes out
+        t_bnd = bound_ms(npix * (2 * c * hid + 2 * half * c + 8 * c + 10 * hid + 28 * half),
+                         4 * (3 * npix * c + c * hid + half * c + hid + 13 * half + 3 * c))
+        emit("kernel", kernel="fused_sgfn_tail", case=name, shape=[b, h, w, c],
+             hidden=hid, max_abs_err=t_err, bound=KERNEL_ATOL, max_abs_plain=t_scale,
+             ms=t_ms, plain_ms=t_plain, bound_ms=t_bnd[0], bound_by=t_bnd[1])
+        require(t_err <= KERNEL_ATOL, f"B6 error {t_err} at {name}")
+        res["fused_sgfn_tail"]["err"] = max(res["fused_sgfn_tail"]["err"], t_err)
+        del t_args
+        if name == "bucket":   # the summary's times
+            res["aim_conv_branch"].update(ms=a_ms, plain_ms=a_plain, bound=a_bnd)
+            res["aim_gates_proj"].update(ms=mean(t[0] for t in b_times),
+                                         plain_ms=mean(t[1] for t in b_times), bound=b_bnd)
+            res["fused_sgfn_tail"].update(ms=t_ms, plain_ms=t_plain, bound=t_bnd)
+
+
+def phase_kernels(gen: torch.Generator) -> dict:
+    """Each kernel against its plain version at the slices' shapes; returns the numbers
+    for the summary line."""
+    res = {k: {"err": 0.0, "library_ms": None} for k in KERNELS}
+    naf_kernel_cases(gen, res)
+    dat_kernel_cases(gen, res)
+    torch.cuda.empty_cache()
     return res
 
 
@@ -211,16 +399,20 @@ def write_requests(directory: str) -> list:
     return paths
 
 
-def phase_slice(gen_cpu: torch.Generator) -> dict:
-    model = NAFNetSR()
-    randomize_(model, gen_cpu)
-    pipe = InferencePipeline(model, "cuda")
-    req_dir, sr_dir = os.path.join(OUT, "requests"), os.path.join(OUT, "sr")
+def phase_slice(tag: str, model: torch.nn.Module, forward, expected: tuple,
+                time_buckets: int, extra_times=None) -> dict:
+    """Serves the three requests through InferencePipeline with `model`, checks the
+    forward of image 0 (kernels against plain versions, `forward(x)` -> (pre-clamp sr,
+    features, (h, w) to crop to)), requires every kernel in `expected` to have launched on
+    the served path, and times the first `time_buckets` buckets (`extra_times(model)`,
+    where given, adds its own entries to that line). Returns the launches."""
+    pipe = InferencePipeline(model)   # the card is the default device
+    req_dir, sr_dir = os.path.join(OUT, "requests"), os.path.join(OUT, f"sr_{tag}")
     write_requests(req_dir)
     files = list_images(req_dir)
     lrs = [load_image(f) for f in files]
     plans = [pipe._plan_or_raise(lr.shape[0], lr.shape[1]) for lr in lrs]
-    emit("slice_setup", params=sum(p.numel() for p in model.parameters()),
+    emit(f"{tag}_setup", params=sum(p.numel() for p in model.parameters()),
          requests=[list(lr.shape) for lr in lrs], buckets=plans)
 
     # the main path: dispatch image i+1 before materialising image i
@@ -235,25 +427,24 @@ def phase_slice(gen_cpu: torch.Generator) -> dict:
         pending = (handle, f)
     outs.append((pending[1], pipe.materialize_u8(pending[0])[0]))
     serve_s = time.perf_counter() - t0
-    counts = {**nafblock.launches, **conv3x3.launches}
+    counts = {k: n for k, n in read_launches().items() if n or k in expected}
     for f, arr in outs:
         save_image(arr, os.path.join(sr_dir, os.path.basename(f)))
     for (f, arr), lr in zip(outs, lrs):
         require(arr.shape == (4 * lr.shape[0], 4 * lr.shape[1], 3) and
                 arr.dtype == np.uint8, f"{f}: output {arr.shape} {arr.dtype}")
-    emit("slice_serve", images=len(outs), seconds=serve_s,
+    emit(f"{tag}_serve", images=len(outs), seconds=serve_s,
          outputs=[list(a.shape) for _, a in outs], launches=counts)
-    for k, n in counts.items():
-        require(n > 0, f"kernel {k} was not launched on the main path")
+    for k in expected:
+        require(counts[k] > 0, f"kernel {k} was not launched on the {tag} main path")
 
     # the same forward of image 0, kernels against plain versions
     with torch.inference_mode():
         x = torch.from_numpy(pipe._pad([lrs[0]], *plans[0])).cuda()
-        x_in, (h, w) = model.unet_input(x)
-        out_k, feats_k = model.nafnet(x_in)
+        out_k, feats_k, (h, w) = forward(x)
         u8_k = torch.round(out_k[:, :h, :w].clamp(0, 1) * 255).to(torch.uint8)
         set_kernels(model, False)
-        out_p, feats_p = model.nafnet(x_in)
+        out_p, feats_p, _ = forward(x)
         set_kernels(model, True)
         torch.cuda.synchronize()
     lr_h, lr_w = lrs[0].shape[:2]
@@ -266,19 +457,20 @@ def phase_slice(gen_cpu: torch.Generator) -> dict:
     o = out_k[:, :h, :w]
     inside = ((o > 0) & (o < 1)).float().mean().item()
     finite = bool(torch.isfinite(out_k).all() and torch.isfinite(feats_k).all())
-    emit("slice_check", out_max_abs_err=out_err, out_bound=out_bound,
+    emit(f"{tag}_check", out_max_abs_err=out_err, out_bound=out_bound,
          feats_max_abs_err=feats_err, feats_bound=feats_bound,
          share_inside_0_1=inside, served_vs_forward_max_lsb=lsb, finite=finite)
     require(finite, "non-finite output")
-    require(out_err <= out_bound, f"slice output error {out_err} > {out_bound}")
-    require(feats_err <= feats_bound, f"slice feats error {feats_err} > {feats_bound}")
+    require(out_err <= out_bound, f"{tag} output error {out_err} > {out_bound}")
+    require(feats_err <= feats_bound, f"{tag} feats error {feats_err} > {feats_bound}")
     require(inside > 0.05, f"only {inside:.3f} of the output lies in (0,1)")
     require(lsb <= 1, f"served image differs from its forward by {lsb} LSB")
-    del out_k, feats_k, out_p, feats_p, x_in
+    del out_k, feats_k, out_p, feats_p, x
 
     # per-image device time of the forward at each request's bucket
     times = []
-    for lr, plan in zip(lrs, plans):
+    torch.cuda.reset_peak_memory_stats()
+    for lr, plan in list(zip(lrs, plans))[:time_buckets]:
         with torch.inference_mode():
             xb = torch.from_numpy(pipe._pad([lr], *plan)).cuda()
             ms = {}
@@ -290,27 +482,162 @@ def phase_slice(gen_cpu: torch.Generator) -> dict:
                           kernel_ms=ms["kernel"], kernel_ms_again=ms["kernel2"],
                           plain_ms=ms["plain"]))
     torch.cuda.synchronize()
-    emit("slice_time", per_image=times,
-         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    emit(f"{tag}_time", per_image=times,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         **(extra_times(model) if extra_times else {}))
     return counts
 
 
+def naf_slice(gen_cpu: torch.Generator) -> dict:
+    model = NAFNetSR()
+    randomize_(model, gen_cpu)
+
+    def forward(x):
+        x_in, hw = model.unet_input(x)
+        out, feats = model.nafnet(x_in)
+        return out, feats, hw
+
+    return phase_slice("slice", model, forward,
+                       ("naf_block_stage_a", "naf_block_stage_b", "conv3x3_dense"),
+                       time_buckets=1)
+
+
+def randomize_dat_(model: torch.nn.Module, gen: torch.Generator) -> None:
+    """Seeded random weights with nothing an identity: convs and Linears N(0, 1/fan_in),
+    LayerNorm / BatchNorm weights and `temperature` N(1, 0.1), biases N(0, 0.02), BN
+    running means U(-0.2, 0.2) and variances U(0.6, 1.4). `conv_last` is scaled by 0.1
+    more, so that the output stays near the RGB mean and mostly inside (0, 1)."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if p.dim() >= 2 and leaf == "weight":
+                std, mean = p[0].numel() ** -0.5, 0.0
+                if name.startswith("conv_last."):
+                    std *= 0.1
+            elif leaf in ("weight", "temperature"):
+                std, mean = 0.1, 1.0
+            else:
+                std, mean = 0.02, 0.0
+            p.copy_(mean + std * torch.randn(p.shape, generator=gen))
+        for name, buf in model.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_(torch.rand(buf.shape, generator=gen) * 0.4 - 0.2)
+            elif name.endswith("running_var"):
+                buf.copy_(torch.rand(buf.shape, generator=gen) * 0.8 + 0.6)
+
+
+def dat_weight_prep(model: DAT) -> None:
+    """The weight work that one DAT forward repeats in every block and nothing else: the
+    modules keep torch's layouts, so each call re-lays its weights out for the kernels
+    (transposes, the branches' qkv columns) and the wrappers zero-pad them."""
+    for group in model.layers:
+        for blk in group.blocks:
+            a = blk.attn
+            a.conv_weights()
+            aim._padded_proj(a.gates_weights()[6])
+            w1, b1, _, _, _, _, w2, _ = blk.ffn.raw()
+            sgfn._padded_weights(w1, b1, w2)
+            wqkv = dat_model._io(a.qkv)
+            if isinstance(a, dat_model.AdaptiveSpatialAttention):
+                c, heads = wqkv.shape[0], a.num_heads // 2
+                for br in range(2):
+                    wb, bb = dat_model._branch_qkv_slices(wqkv, a.qkv.bias, c, c // 2, br)
+                    wattn._padded_head_weights(wb, bb, heads, c // 2 // heads,
+                                               -(-c // 16) * 16)
+
+
+DAT_KERNELS = ("conv3x3_dense", "fused_window_attention_xqkv", "aim_conv_branch",
+               "aim_gates_proj", "fused_sgfn_tail")
+
+
+def dat_slice(gen_cpu: torch.Generator, profile: bool) -> dict:
+    model = DAT()
+    randomize_dat_(model, gen_cpu)
+
+    def forward(x):
+        sr, deep = model(x)
+        return sr, deep, (x.shape[1] * model.upscale, x.shape[2] * model.upscale)
+
+    def weight_prep_ms(m):
+        with torch.inference_mode():
+            return {"weight_prep_ms_per_image": cuda_ms(lambda: dat_weight_prep(m), iters=3)}
+
+    counts = phase_slice("dat", model, forward, DAT_KERNELS, time_buckets=3,
+                         extra_times=weight_prep_ms)
+    # per image: 7 convs (6 groups + conv_after_body), 36 of each AIM kernel and of the
+    # tail (every block), 36 window attentions (18 spatial blocks x 2 branches)
+    per_image = {"conv3x3_dense": 7, "fused_window_attention_xqkv": 36,
+                 "aim_conv_branch": 36, "aim_gates_proj": 36, "fused_sgfn_tail": 36}
+    for k, n in per_image.items():
+        require(counts[k] == n * len(REQUESTS),
+                f"{k}: {counts[k]} launches on the DAT path, expected {n} per image")
+    if profile:
+        profile_forward(model)
+    return counts
+
+
+def profile_forward(model: torch.nn.Module) -> None:
+    """Device time of one DAT forward at the 512x352 bucket by kernel (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.rand(1, 352, 512, 3, device="cuda")
+    with torch.inference_mode():
+        model(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model(x)
+            torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue   # an operator's row repeats its kernels' time
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    own = sum(ms for ms, _, k in rows if "(anonymous namespace)::" in k and "at::" not in k)
+    emit("dat_profile", total_device_ms=sum(r[0] for r in rows), hand_written_ms=own,
+         top=[dict(ms=round(ms, 3), calls=n, name=k[:90]) for ms, n, k in rows[:24]])
+
+
+# name -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "naf_block_stage_a": ("freqfusion_tpu_torch/csrc/nafblock.cu",
+                          "freqfusion_tpu/ops/pallas/nafblock.py:164"),
+    "naf_block_stage_b": ("freqfusion_tpu_torch/csrc/nafblock.cu",
+                          "freqfusion_tpu/ops/pallas/nafblock.py:229"),
+    "conv3x3_dense": ("freqfusion_tpu_torch/csrc/conv3x3.cu",
+                      "freqfusion_tpu/ops/pallas/cab.py:267"),
+    "fused_window_attention_xqkv": ("freqfusion_tpu_torch/csrc/wattn.cu",
+                                    "freqfusion_tpu/ops/pallas/wattn.py:599"),
+    "aim_conv_branch": ("freqfusion_tpu_torch/csrc/aim.cu",
+                        "freqfusion_tpu/ops/pallas/aim.py:77"),
+    "aim_gates_proj": ("freqfusion_tpu_torch/csrc/aim.cu",
+                       "freqfusion_tpu/ops/pallas/aim.py:161"),
+    "fused_sgfn_tail": ("freqfusion_tpu_torch/csrc/sgfn.cu",
+                        "freqfusion_tpu/ops/pallas/sgfn.py:82"),
+}
+
+
 def main() -> None:
-    kind = phase_device()
+    t0 = time.perf_counter()
+    kind, smi = phase_device()
     phase_build()
     gen = torch.Generator("cuda").manual_seed(SEED)
     res = phase_kernels(gen)
-    counts = phase_slice(torch.Generator().manual_seed(SEED))
-    sources = {"naf_block_stage_a": ("freqfusion_tpu_torch/csrc/nafblock.cu",
-                                     "freqfusion_tpu/ops/pallas/nafblock.py:164"),
-               "naf_block_stage_b": ("freqfusion_tpu_torch/csrc/nafblock.cu",
-                                     "freqfusion_tpu/ops/pallas/nafblock.py:229"),
-               "conv3x3_dense": ("freqfusion_tpu_torch/csrc/conv3x3.cu",
-                                 "freqfusion_tpu/ops/pallas/cab.py:267")}
+    naf_counts = naf_slice(torch.Generator().manual_seed(SEED))
+    torch.cuda.empty_cache()
+    dat_counts = dat_slice(torch.Generator().manual_seed(SEED), "--profile" in sys.argv[1:])
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
-                "launches": counts[k], "max_abs_err": res[k]["err"],
-                "ms": res[k]["ms"], "plain_ms": res[k]["plain_ms"]}
-               for k, (src, rep) in sources.items()]
+                "launches": naf_counts.get(k, 0) + dat_counts.get(k, 0),
+                "launches_by_path": {tag: n[k] for tag, n in (("naf", naf_counts),
+                                                              ("dat", dat_counts)) if k in n},
+                "max_abs_err": res[k]["err"], "ms": res[k]["ms"],
+                "plain_ms": res[k]["plain_ms"], "bound_ms": res[k]["bound"][0],
+                "bound_by": res[k]["bound"][1], "library_ms": res[k]["library_ms"]}
+               for k, (src, rep) in KERNELS.items()]
+    emit("done", seconds=time.perf_counter() - t0)
+    print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -117,3 +117,52 @@ __device__ __forceinline__ void tile_matmul(const float* A, int lda, int K,
             for (int j = 0; j < 4; ++j) epi(r0 + i, n0 + cg * 4 + j, a[i][j], b[i][j]);
     }
 }
+
+// sums[b][c] = sum over blocks of part[b][blk][c], in a fixed order: the second pass of a
+// reduction across blocks (each block writes its partial sums; no atomics, so the sums
+// are the same from run to run).
+static __global__ void sum_partials_kernel(const float* __restrict__ part,
+                                           float* __restrict__ sums, int nblk, int C) {
+    __shared__ float s[32][33];
+    const int c = blockIdx.y * 32 + threadIdx.x, bi = blockIdx.x, ly = threadIdx.y;
+    float acc = 0.f;
+    if (c < C)
+        for (int i = ly; i < nblk; i += 32) acc += part[((size_t)bi * nblk + i) * C + c];
+    s[ly][threadIdx.x] = acc;
+    __syncthreads();
+    if (ly == 0 && c < C) {
+        float t = 0.f;
+        for (int k = 0; k < 32; ++k) t += s[k][threadIdx.x];
+        sums[bi * C + c] = t;
+    }
+}
+
+static inline cudaError_t sum_partials(const float* part, float* sums, int B, int nblk,
+                                       int C, cudaStream_t st) {
+    sum_partials_kernel<<<dim3(B, (C + 31) / 32), dim3(32, 32), 0, st>>>(part, sums, nblk, C);
+    return cudaGetLastError();
+}
+
+// Exact (erf) GELU and the logistic function, as torch computes them in f32.
+__device__ __forceinline__ float gelu_erf(float x) {
+    return 0.5f * x * (1.f + erff(x * 0.70710678118654752440f));
+}
+__device__ __forceinline__ float sigmoid_f32(float x) { return 1.f / (1.f + expf(-x)); }
+
+// Writes LN(src) * w + b into dst[0..C) using one warp (src == dst is allowed). The warp's
+// own earlier writes to src must be ordered before the call (__syncwarp or a barrier).
+__device__ __forceinline__ void warp_layernorm(const float* src, float* dst,
+                                               const float* __restrict__ w,
+                                               const float* __restrict__ b, int C, float eps) {
+    const int lane = threadIdx.x & 31;
+    float s = 0.f;
+    for (int c = lane; c < C; c += 32) s += src[c];
+    const float u = warp_sum(s) / C;
+    float q = 0.f;
+    for (int c = lane; c < C; c += 32) {
+        const float d = src[c] - u;
+        q = fmaf(d, d, q);
+    }
+    const float inv = 1.f / sqrtf(warp_sum(q) / C + eps);
+    for (int c = lane; c < C; c += 32) dst[c] = (src[c] - u) * inv * w[c] + b[c];
+}

@@ -45,23 +45,6 @@ constexpr int kHR = 112;                          // halo rows padded to 16 * 7
 constexpr int kCJ = 64;                           // gate channels per pass
 constexpr float kEps = 1e-6f;
 
-// Writes LN(src) with weight/bias into dst[0..C) using one warp.
-__device__ __forceinline__ void warp_layernorm(const float* src, float* dst,
-                                               const float* __restrict__ w,
-                                               const float* __restrict__ b, int C) {
-    const int lane = threadIdx.x & 31;
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += src[c];
-    const float u = warp_sum(s) / C;
-    float q = 0.f;
-    for (int c = lane; c < C; c += 32) {
-        const float d = src[c] - u;
-        q = fmaf(d, d, q);
-    }
-    const float inv = 1.f / sqrtf(warp_sum(q) / C + kEps);
-    for (int c = lane; c < C; c += 32) dst[c] = (src[c] - u) * inv * w[c] + b[c];
-}
-
 // MINB blocks per SM: 2 where shared memory holds two (C = 64), which caps a thread at
 // 128 registers; at C >= 128 one block fits and the cap would only add spills
 template <int MINB>
@@ -98,7 +81,7 @@ naf_stage_a_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
     for (int p = warp; p < kHP; p += kThreads / 32) {
         const int y = ty0 - 1 + p / kHW, xx = tx0 - 1 + p % kHW;
         if (y >= 0 && y < H && xx >= 0 && xx < W)
-            warp_layernorm(xn + p * lda, xn + p * lda, lnw, lnb, C);
+            warp_layernorm(xn + p * lda, xn + p * lda, lnw, lnb, C, kEps);
     }
     // tile_matmul synchronises before it reads xn
 
@@ -153,23 +136,6 @@ naf_stage_a_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
     }
 }
 
-// sums[b][c] = sum over blocks of part[b][blk][c], in a fixed order.
-__global__ void naf_sum_kernel(const float* __restrict__ part, float* __restrict__ sums,
-                               int nblk, int C) {
-    __shared__ float s[32][33];
-    const int c = blockIdx.y * 32 + threadIdx.x, bi = blockIdx.x, ly = threadIdx.y;
-    float acc = 0.f;
-    if (c < C)
-        for (int i = ly; i < nblk; i += 32) acc += part[((size_t)bi * nblk + i) * C + c];
-    s[ly][threadIdx.x] = acc;
-    __syncthreads();
-    if (ly == 0 && c < C) {
-        float t = 0.f;
-        for (int k = 0; k < 32; ++k) t += s[k][threadIdx.x];
-        sums[bi * C + c] = t;
-    }
-}
-
 // Stage B for blocks of 16 * TM pixels.
 template <int TM>
 __global__ void __launch_bounds__(kThreads)
@@ -209,7 +175,7 @@ naf_stage_b_kernel(const float* __restrict__ g, const float* __restrict__ x,
     });
     __syncthreads();
     for (int p = threadIdx.x >> 5; p < P; p += kThreads / 32)
-        if (p0 + p < npix) warp_layernorm(out + (p0 + p) * C, s0 + p * lda, ln2w, ln2b, C);
+        if (p0 + p < npix) warp_layernorm(out + (p0 + p) * C, s0 + p * lda, ln2w, ln2b, C, kEps);
     tile_matmul<TM, true>(s0, lda, C, w4, 2 * C, C, C, ws,
                           [&](int p, int n, float a, float b) {
                               sh[p * lda + n] = (a + b4[n]) * (b + b4[C + n]);
@@ -261,9 +227,7 @@ int naf_stage_a(const float* x, const float* lnw, const float* lnb, const float*
     kernel<<<grid, kThreads, smem, st>>>(x, lnw, lnb, w1, b1, wdw, bdw, g, part, H, W, C);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    naf_sum_kernel<<<dim3(B, (C + 31) / 32), dim3(32, 32), 0, st>>>(
-        part, sums, naf_stage_a_blocks(H, W), C);
-    return cudaGetLastError();
+    return sum_partials(part, sums, B, naf_stage_a_blocks(H, W), C, st);
 }
 
 int naf_stage_b(const float* g, const float* x, const float* att, const float* w3,

@@ -1,8 +1,8 @@
 """Whole-image serving of an SR module. Twin of ``freqfusion_tpu/infer/io.py``.
 
-``InferencePipeline`` serves the ``nn.Module`` it is given (``NAFNetSR`` for now): each
-image is reflect-padded to a 32-px bucket, run whole, cropped, and converted to uint8 on
-the device. The batch protocol (``dispatch_batch_u8`` / ``materialize_u8``) lets a caller
+``InferencePipeline`` serves the ``nn.Module`` it is given (``NAFNetSR`` or ``DAT``: any
+module that returns ``(sr, features)`` and has ``upscale``): each image is reflect-padded
+to a 32-px bucket, run whole, cropped, and converted to uint8 on the device. The batch protocol (``dispatch_batch_u8`` / ``materialize_u8``) lets a caller
 dispatch image i+1 before it copies image i back. Images that the plan sends to the tiled
 path are not served yet: tiling and ``model_func`` come with the ensemble.
 """
@@ -17,14 +17,15 @@ from torch import nn
 
 
 class InferencePipeline:
-    """Runs an SR module on whole images at 32-px buckets on one device."""
+    """Runs an SR module on whole images at 32-px buckets on one device: the card, unless
+    the caller names another (``"cpu"``). Without a card the default raises."""
 
     # JAX twin's defaults: 280000 px covers every DIV2K x4 LR frame after 32-px padding;
     # at most 6 distinct buckets, after which images pad up to a bucket already in use
     WHOLE_IMAGE_MAX_PX = 280000
     WHOLE_IMAGE_MAX_SHAPES = 6
 
-    def __init__(self, model: nn.Module, device, dtype: torch.dtype = torch.float32):
+    def __init__(self, model: nn.Module, device="cuda", dtype: torch.dtype = torch.float32):
         self.device = torch.device(device)
         self.dtype = dtype
         self.model = model.to(device=self.device, dtype=dtype).eval()

@@ -3,9 +3,26 @@
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.conv3x3 import conv3x3_dense, conv3x3_dense_plain
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU, as the reference's nn.GELU()."""
+    return F.gelu(x)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d (the reference's state-dict keys, `num_batches_tracked` included)
+    that the port only ever uses in eval mode, as a fixed per-channel affine of its
+    running statistics (the JAX package's ``BatchNormEval``)."""
+
+    def affine_eval(self):
+        """(scale, shift) with eval-mode BN(x) = x * scale + shift."""
+        scale = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return scale, self.bias - self.running_mean * scale
 
 
 class SeamConv(nn.Module):

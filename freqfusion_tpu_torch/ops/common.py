@@ -17,6 +17,14 @@ def channel_layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return F.layer_norm(x, (x.shape[-1],), weight, bias, eps)
 
 
+def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """nn.LayerNorm over the last axis with its default eps 1e-5: DAT's norms and the LN
+    inside its kernels (the JAX package's ``apply_ln``). NAF's LayerNorm2d above is the
+    same function at eps 1e-6; the two must not be mixed up."""
+    return F.layer_norm(x, (x.shape[-1],), weight, bias, eps)
+
+
 def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
     """PixelShuffle on NHWC with torch's channel order: C is viewed as (C_out, r, r)."""
     *lead, h, w, c = x.shape

@@ -1,7 +1,8 @@
 """Builds the hand-written CUDA kernels in ``freqfusion_tpu_torch/csrc`` at first use.
 
-All ``*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` into one shared library with a
-plain C interface and loaded with ``ctypes``. The library's name carries a hash of the
+Each ``*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``, all started together, and
+the objects are linked into one shared library with a plain C interface, loaded with
+``ctypes``. The library's name carries a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one is loaded from the
 build directory. Nothing here runs when the module is imported: the CPU tests import every
 module on a machine without ``nvcc``.
@@ -23,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +34,11 @@ SIGNATURES = {
     "naf_stage_b": [_P] * 14 + [_I] * 4 + [_P],
     "conv3x3_dense": [_P] * 4 + [_I] * 5 + [_P],
     "naf_stage_a_blocks": [_I, _I],
+    "wattn_xqkv": [_P] * 6 + [_I] * 9 + [_P],
+    "aim_conv_branch": [_P] * 8 + [_I] * 4 + [_P],
+    "aim_conv_branch_blocks": [_I, _I],
+    "aim_gates_proj": [_P] * 12 + [_I] * 8 + [_P],
+    "sgfn_tail": [_P] * 15 + [_I] * 9 + [_P],
 }
 
 
@@ -71,14 +77,34 @@ def build() -> tuple[Path, float, str]:
         return lib, 0.0, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    # one compiler per source, all running at once; then one link
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    out, failed = "", None
+    for cmd, _, proc in jobs:
+        text = proc.communicate()[0]
+        out += text
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, text)
+    objs = [obj for _, obj, _ in jobs]
+    if failed is None:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *[str(o) for o in objs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        out += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed = (cmd, proc.returncode, proc.stdout + proc.stderr)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     secs = time.perf_counter() - t0
-    out = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    if failed is not None:
+        cmd, rc, text = failed
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
     log.write_text(out)
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees a half-written file
     return lib, secs, out

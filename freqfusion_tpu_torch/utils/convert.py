@@ -65,6 +65,75 @@ def nafnet_key(path: Tuple[str, ...]) -> str:
     return ".".join(toks + [leaf])
 
 
+# Renames of the JAX DAT's module paths back to the reference layout (own copy of the
+# tables beside the JAX package's ``dat_key_fn``).
+_DAT_SEQ = {
+    "before_rg_norm": "before_RG.1", "conv_before_upsample": "conv_before_upsample.0",
+    "dwconv": "dwconv.0", "dwconv_bn": "dwconv.1", "sg_norm": "sg.norm", "sg_conv": "sg.conv",
+    "pos1_norm": "pos1.0", "pos1_fc": "pos1.2", "pos2_norm": "pos2.0", "pos2_fc": "pos2.2",
+    "pos3_norm": "pos3.0", "pos3_fc": "pos3.2",
+}
+_DAT_CI = {"fc1": "1", "bn": "2", "fc2": "4"}   # Sequential(GAP, Conv, BN, GELU, Conv)
+_DAT_SI = {"fc1": "0", "bn": "1", "fc2": "3"}   # Sequential(Conv, BN, GELU, Conv)
+
+
+def dat_key(path: Tuple[str, ...]) -> str:
+    """Unrolled JAX DAT param path -> reference torch key:
+    ('layers_0','blocks_1','attn','attns_0','pos','pos1_fc','kernel') ->
+    'layers.0.blocks.1.attn.attns.0.pos.pos1.2.weight'."""
+    parts = [p for p in path if p != "params"]
+    toks = []
+    for i, p in enumerate(parts[:-1]):
+        m = _IDX.match(p)
+        if p == "conv_branch":
+            continue   # the JAX AIM conv-branch wrapper is flat in the reference
+        if m and m.group(1) == "upsample":
+            toks.extend(["upsample", str(2 * int(m.group(2)))])
+        elif p in _DAT_SEQ:
+            toks.append(_DAT_SEQ[p])
+        elif p in ("fc1", "bn", "fc2") and i and parts[i - 1] in (
+                "channel_interaction", "spatial_interaction"):
+            toks.append((_DAT_CI if parts[i - 1] == "channel_interaction" else _DAT_SI)[p])
+        elif m:
+            toks.extend([m.group(1), m.group(2)])
+        else:
+            toks.append(p)
+    leaf = {"kernel": "weight", "scale": "weight"}.get(parts[-1], parts[-1])
+    return ".".join(toks + [leaf])
+
+
+def dat_params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's DAT param tree, as nested dicts of arrays -> a state dict for the
+    port's ``DAT``.
+
+    Takes both JAX layouts: the unrolled ``layers_i/...`` and the scan-stacked
+    ``layers/g{0,1}/...``, whose leaves carry a leading axis over the (even, odd) group
+    pairs: slice gi of ``g`` is torch group 2*gi+g. Dense kernels go [in,out] -> [out,in],
+    convs HWIO -> OIHW (the depthwise (3,3,1,C) -> (C,1,3,3)), LayerNorm ``scale`` ->
+    ``weight``; each BatchNorm also gets the ``num_batches_tracked`` counter nn.BatchNorm2d
+    keeps."""
+    sd = {}
+
+    def put(path, a):
+        a = np.asarray(a, dtype=np.float32)
+        if path[-1] == "kernel":
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+        key = dat_key(path)
+        sd[key] = torch.from_numpy(np.ascontiguousarray(a))
+        if key.endswith("running_mean"):
+            sd[key[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
+
+    for path, leaf in _flatten(params):
+        path = tuple(p for p in path if p != "params")
+        if path[0] == "layers":   # scan-stacked pairs
+            g = int(path[1][1:])
+            for gi, piece in enumerate(np.asarray(leaf)):
+                put((f"layers_{2 * gi + g}",) + path[2:], piece)
+        else:
+            put(path, leaf)
+    return sd
+
+
 def nafnet_params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX package's NAFNetSR (or NAFNet) param tree, as nested dicts of arrays ->
     a state dict for the port's ``NAFNet``.

@@ -92,7 +92,11 @@ def test_port_imports_without_jax():
         "import freqfusion_tpu_torch.ops.common, freqfusion_tpu_torch.ops.resize\n"
         "import freqfusion_tpu_torch.ops.kernels.nafblock\n"
         "import freqfusion_tpu_torch.ops.kernels.conv3x3\n"
+        "import freqfusion_tpu_torch.ops.windows\n"
+        "import freqfusion_tpu_torch.ops.kernels.wattn, freqfusion_tpu_torch.ops.kernels.aim\n"
+        "import freqfusion_tpu_torch.ops.kernels.sgfn\n"
         "import freqfusion_tpu_torch.models.layers, freqfusion_tpu_torch.models.nafnet\n"
+        "import freqfusion_tpu_torch.models.dat\n"
         "import freqfusion_tpu_torch.infer.io\n"
         "import freqfusion_tpu_torch.utils.convert, freqfusion_tpu_torch.utils.imageio\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

@@ -4,10 +4,12 @@ Marked `cuda`: each test skips without a card. On a machine with one:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
 """
 
+import numpy as np
 import pytest
 import torch
 
-from freqfusion_tpu_torch.ops.kernels import conv3x3, nafblock
+from freqfusion_tpu_torch.ops import windows
+from freqfusion_tpu_torch.ops.kernels import aim, conv3x3, nafblock, sgfn, wattn
 
 pytestmark = pytest.mark.cuda
 
@@ -60,6 +62,144 @@ def test_conv3x3_kernel_matches_plain(gen, cin, cout):
     b = torch.randn(cout, generator=gen, device="cuda") * 0.1
     torch.testing.assert_close(conv3x3.conv3x3_dense(x, w, b),
                                conv3x3.conv3x3_dense_plain(x, w, b), atol=1e-4, rtol=0)
+
+
+def _r(gen, *shape, std=1.0, mean=0.0):
+    return mean + std * torch.randn(*shape, generator=gen, device="cuda")
+
+
+@pytest.mark.parametrize("b,h,w,hs,ws,cin,heads,hd,with_mask", [
+    (2, 16, 64, 8, 32, 180, 3, 30, True), (1, 64, 32, 32, 8, 180, 3, 30, False),
+    (2, 16, 32, 8, 8, 24, 2, 6, True), (1, 8, 32, 8, 16, 64, 4, 32, True)])
+def test_window_attention_xqkv_kernel_matches_plain(gen, b, h, w, hs, ws, cin, heads, hd,
+                                                    with_mask):
+    n, co = hs * ws, heads * hd
+    x = _r(gen, b, h, w, cin)
+    wqkv, bqkv = _r(gen, cin, 3 * co, std=cin ** -0.5), _r(gen, 3 * co, std=0.1)
+    bias = _r(gen, heads, n, n, std=0.5)
+    mask = windows.shift_attn_mask(h, w, hs, ws, hs // 2, ws // 2) if with_mask else None
+    n0 = wattn.launches["fused_window_attention_xqkv"]
+    got = wattn.fused_window_attention_xqkv(x, wqkv, bqkv, bias, mask, (hs, ws), heads)
+    want = wattn.fused_window_attention_xqkv_plain(x, wqkv, bqkv, bias, mask, (hs, ws), heads)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert wattn.launches["fused_window_attention_xqkv"] == n0 + 1
+    if with_mask:   # the 4 window types as a tensor, as the model hands them over
+        types = torch.from_numpy(
+            windows.shift_mask_types(hs, ws, hs // 2, ws // 2).copy()).cuda()
+        again = wattn.fused_window_attention_xqkv(x, wqkv, bqkv, bias, types, (hs, ws), heads)
+        torch.testing.assert_close(again, got, atol=0, rtol=0)
+
+
+def test_dat_on_the_card_raises_where_the_window_kernel_is_not_ported(gen):
+    """A CUDA image that is not whole windows of 64 tokens or more would need the
+    pre-projected window-attention kernel: the model raises and launches nothing in its
+    place; with kernels off the plain versions run."""
+    from freqfusion_tpu_torch.models.dat import DAT
+    model = DAT(embed_dim=64, depths=(2,), num_heads=(4,), split_size=(8, 8),
+                expansion=2.0).cuda().eval()
+    ragged = torch.rand(1, 20, 24, 3, generator=gen, device="cuda")
+    n0 = dict(wattn.launches)
+    with torch.inference_mode():
+        sr, _ = model(torch.rand(1, 16, 24, 3, generator=gen, device="cuda"))
+        assert sr.shape == (1, 64, 96, 3)
+        assert wattn.launches["fused_window_attention_xqkv"] == n0["fused_window_attention_xqkv"] + 2
+        with pytest.raises(NotImplementedError, match="fused_window_attention_qkv"):
+            model(ragged)
+        for m in model.modules():
+            if hasattr(m, "kernels"):
+                m.kernels = False
+        sr, _ = model(ragged)
+    assert sr.shape == (1, 80, 96, 3) and bool(torch.isfinite(sr).all())
+    assert wattn.launches["fused_window_attention_xqkv"] == n0["fused_window_attention_xqkv"] + 2
+
+
+def _aim_params(gen, c):
+    mid = max(c // 16, 1)
+    return dict(wdw=_r(gen, 3, 3, 1, c, std=1 / 3), bdw=_r(gen, c, std=0.1),
+                bn_s=_r(gen, c, std=0.2, mean=1.0), bn_b=_r(gen, c, std=0.1),
+                si_w1=_r(gen, 1, 1, c, mid, std=c ** -0.5), si_b1=_r(gen, mid, std=0.1),
+                si_s=_r(gen, mid, std=0.2, mean=1.0), si_b=_r(gen, mid, std=0.1),
+                si_w2=_r(gen, 1, 1, mid, 1, std=mid ** -0.5), si_b2=_r(gen, 1, std=0.1),
+                proj_w=_r(gen, c, c, std=c ** -0.5), proj_b=_r(gen, c, std=0.1))
+
+
+@pytest.mark.parametrize("b,h,w,c", [(2, 37, 45, 180), (1, 8, 32, 64), (3, 5, 7, 20)])
+def test_aim_kernels_match_plain(gen, b, h, w, c):
+    p = _aim_params(gen, c)
+    v, att, chmap = _r(gen, b, h, w, c), _r(gen, b, h, w, c), _r(gen, b, 1, 1, c)
+    a_args = (v, p["wdw"], p["bdw"], p["bn_s"], p["bn_b"])
+    n0 = dict(aim.launches)
+    cx, sums = aim.aim_conv_branch(*a_args)
+    cx_ref, sums_ref = aim.aim_conv_branch_plain(*a_args)
+    torch.testing.assert_close(cx, cx_ref, atol=1e-4, rtol=0)
+    # sums are taken in another order: bound each by 1e-5 of its sum of |conv_x|
+    assert ((sums - sums_ref).abs() <= 1e-5 * cx_ref.abs().sum((1, 2), keepdim=True)).all()
+    for swap in (False, True):
+        b_args = (att, cx_ref, chmap, p["si_w1"], p["si_b1"], p["si_s"], p["si_b"],
+                  p["si_w2"], p["si_b2"], p["proj_w"], p["proj_b"])
+        torch.testing.assert_close(aim.aim_gates_proj(*b_args, swap=swap),
+                                   aim.aim_gates_proj_plain(*b_args, swap=swap),
+                                   atol=1e-4, rtol=0)
+    assert aim.launches["aim_conv_branch"] == n0["aim_conv_branch"] + 1
+    assert aim.launches["aim_gates_proj"] == n0["aim_gates_proj"] + 2
+
+
+def _sgfn_args(gen, b, h, w, c, hidden):
+    half = hidden // 2
+    return (_r(gen, b, h, w, c), _r(gen, b, h, w, c), _r(gen, c, std=0.1, mean=1.0),
+            _r(gen, c, std=0.1), _r(gen, c, hidden, std=c ** -0.5), _r(gen, hidden, std=0.1),
+            _r(gen, half, std=0.1, mean=1.0), _r(gen, half, std=0.1),
+            _r(gen, 3, 3, 1, half, std=1 / 3), _r(gen, half, std=0.1),
+            _r(gen, half, c, std=half ** -0.5), _r(gen, c, std=0.1))
+
+
+@pytest.mark.parametrize("b,h,w,c,hidden", [(2, 37, 45, 180, 720), (1, 8, 32, 64, 128),
+                                            (3, 5, 7, 20, 40)])
+def test_sgfn_tail_kernel_matches_plain(gen, b, h, w, c, hidden):
+    args = _sgfn_args(gen, b, h, w, c, hidden)
+    n0 = sgfn.launches["fused_sgfn_tail"]
+    torch.testing.assert_close(sgfn.fused_sgfn_tail(*args), sgfn.fused_sgfn_tail_plain(*args),
+                               atol=1e-4, rtol=0)
+    assert sgfn.launches["fused_sgfn_tail"] == n0 + 1
+
+
+def test_dat_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    x = _r(gen, 1, 16, 32, 24)
+    wqkv, bqkv, bias = _r(gen, 24, 36), _r(gen, 36), _r(gen, 2, 128, 128)
+    with pytest.raises(ValueError, match="multiple of the"):
+        wattn.fused_window_attention_xqkv(x[:, :15].contiguous(), wqkv, bqkv, bias, None,
+                                          (8, 16), 2)
+    with pytest.raises(ValueError, match="tokens per window"):
+        wattn.fused_window_attention_xqkv(x, wqkv, bqkv, _r(gen, 2, 8, 8), None, (2, 4), 2)
+    with pytest.raises(ValueError, match="heads up to"):
+        wattn.fused_window_attention_xqkv(x, _r(gen, 24, 3 * 40), _r(gen, 3 * 40),
+                                          _r(gen, 1, 128, 128), None, (8, 16), 1)
+    with pytest.raises(TypeError, match="numpy"):
+        wattn.fused_window_attention_xqkv(x, wqkv, bqkv, bias, torch.zeros(2, 128, 128),
+                                          (8, 16), 2)
+    with pytest.raises(ValueError, match="window type"):
+        bad = np.array(windows.shift_attn_mask(24, 48, 8, 16, 4, 8))
+        bad[4, 0, 1] = -100.0   # the middle one of 3 x 3 windows is no longer interior
+        wattn.fused_window_attention_xqkv(_r(gen, 1, 24, 48, 24), wqkv, bqkv, bias, bad,
+                                          (8, 16), 2)
+    with pytest.raises(ValueError, match="float32"):
+        wattn.fused_window_attention_xqkv(x.double(), wqkv, bqkv, bias, None, (8, 16), 2)
+    p = _aim_params(gen, 18)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        aim.aim_conv_branch(_r(gen, 1, 4, 4, 18), p["wdw"], p["bdw"], p["bn_s"], p["bn_b"])
+    p = _aim_params(gen, 20)
+    with pytest.raises(ValueError, match="contiguous"):
+        aim.aim_conv_branch(_r(gen, 1, 4, 20, 4).transpose(2, 3), p["wdw"], p["bdw"],
+                            p["bn_s"], p["bn_b"])
+    with pytest.raises(ValueError, match="expected shape"):
+        aim.aim_gates_proj(_r(gen, 1, 4, 4, 20), _r(gen, 1, 4, 5, 20), _r(gen, 1, 1, 1, 20),
+                           p["si_w1"], p["si_b1"], p["si_s"], p["si_b"], p["si_w2"],
+                           p["si_b2"], p["proj_w"], p["proj_b"])
+    args = list(_sgfn_args(gen, 1, 4, 4, 20, 40))
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        sgfn.fused_sgfn_tail(args[0], args[1].cpu(), *args[2:])
+    with pytest.raises(ValueError, match="multiples of 4"):
+        sgfn.fused_sgfn_tail(*_sgfn_args(gen, 1, 4, 4, 20, 36))
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
