@@ -15,9 +15,13 @@ Phases, each printing JSON lines; any failure raises and the exit code is not 0:
      times are taken for both paths;
   5. DAT slice: the same for DAT at its shipped width and depth (embed 180, 6 x 6 blocks,
      split (8, 32)), whose every block runs the window-attention, AIM and SGFN kernels;
-     it also times the weight re-layout and padding that every forward repeats.
-With --profile, one DAT forward is also traced with torch.profiler and its device time is
-printed by kernel. The last two lines are the kernels' summary and
+     it also times the weight re-layout and padding that every forward repeats;
+  6. HAT slice: the same for HAT-L at its full width and depth (embed 180, 12 groups of
+     6 HAB + 1 OCAB, window 16), whose every HAB runs the CAB-chain and fused-block
+     kernels and every OCAB the overlapping-attention and residual-MLP kernels.
+With --profile [dat|hat], one forward of that model (DAT if none is named) is also traced
+with torch.profiler and its device time is printed by kernel. The last two lines are the
+kernels' summary and
 {"ok": true, "device": {...}}. It exits non-zero without a CUDA card. The PNGs go to
 build/chip_smoke/ in the checkout.
 """
@@ -38,9 +42,11 @@ import torch.nn.functional as F
 from freqfusion_tpu_torch.infer.io import InferencePipeline
 from freqfusion_tpu_torch.models import dat as dat_model
 from freqfusion_tpu_torch.models.dat import DAT
+from freqfusion_tpu_torch.models.hat import HAT
 from freqfusion_tpu_torch.models.nafnet import NAFNetSR
 from freqfusion_tpu_torch.ops import windows
-from freqfusion_tpu_torch.ops.kernels import _build, aim, conv3x3, nafblock, sgfn, wattn
+from freqfusion_tpu_torch.ops.kernels import (_build, aim, cab, conv3x3, nafblock, sgfn,
+                                              wattn)
 from freqfusion_tpu_torch.utils.imageio import list_images, load_image, save_image
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -63,6 +69,10 @@ DAT_CASES = [("bucket", 1, 352, 512), ("ragged", 2, 37, 45)]
 WATTN_CASES = [("8x32", 1, 352, 512, 8, 32, False), ("8x32_shift", 1, 352, 512, 8, 32, True),
                ("32x8", 1, 352, 512, 32, 8, False), ("32x8_shift", 1, 352, 512, 32, 8, True),
                ("batch2", 2, 64, 96, 8, 32, True)]
+# HAT-L at the 512x352 bucket (embed 180, 6 heads of 30, window 16, OCAB window 24, CAB mid
+# 60, hidden 360): (name, B, H, W); "batch2" is a few windows, "ragged" takes any H, W
+HAT_C, HAT_HEADS, HAT_WINDOW, HAT_OVERLAP, HAT_MID, HAT_HIDDEN = 180, 6, 16, 8, 60, 360
+HAT_CASES = [("bucket", 1, 352, 512), ("batch2", 2, 32, 48), ("ragged", 2, 37, 45)]
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: f32 outside the tensor cores, HBM3
 
 
@@ -140,7 +150,7 @@ def set_kernels(model: torch.nn.Module, on: bool) -> None:
 
 
 LAUNCH_COUNTS = (nafblock.launches, conv3x3.launches, wattn.launches, aim.launches,
-                 sgfn.launches)
+                 sgfn.launches, cab.launches)
 
 
 def reset_launches() -> None:
@@ -373,12 +383,145 @@ def dat_kernel_cases(gen: torch.Generator, res: dict) -> None:
             res["fused_sgfn_tail"].update(ms=t_ms, plain_ms=t_plain, bound=t_bnd)
 
 
+def hat_kernel_cases(gen: torch.Generator, res: dict) -> None:
+    """B7, B8, B9 and B10 at HAT-L's full width, with the bounds of the other kernels:
+    outputs within KERNEL_ATOL of the plain version, sums within SUMS_RTOL * sum|.|. The
+    summary's times are those of the bucket: for B7 and B8 the mean of the unshifted and the
+    shifted call, which the main path makes equally often."""
+    c, heads, ws, ov, mid, hid = HAT_C, HAT_HEADS, HAT_WINDOW, HAT_OVERLAP, HAT_MID, HAT_HIDDEN
+    n, nk, hd, s = ws * ws, (ws + ov) ** 2, HAT_C // HAT_HEADS, HAT_WINDOW // 2
+
+    def r(*shape, std=1.0, mean=0.0):
+        return mean + std * torch.randn(*shape, generator=gen, device="cuda")
+
+    def record(name, case, err, ms, plain_ms, bnd, summary):
+        require(err <= KERNEL_ATOL, f"{name} error {err} at {case}")
+        res[name]["err"] = max(res[name]["err"], err)
+        if summary:
+            res[name].setdefault("times", []).append((ms, plain_ms, bnd))
+
+    for name, b, h, w in HAT_CASES:
+        npix, whole = b * h * w, h % ws == 0 and w % ws == 0
+        # B7: LN, two dense 3x3 convs through mid channels, GELU on mid; reads x, writes u
+        c_args = (r(b, h, w, c), r(c, std=0.1, mean=1.0), r(c, std=0.1),
+                  r(3, 3, c, mid, std=(9 * c) ** -0.5), r(mid, std=0.1),
+                  r(3, 3, mid, c, std=(9 * mid) ** -0.5), r(c, std=0.1))
+        c_bnd = bound_ms(npix * (36 * c * mid + 10 * c + 10 * mid),
+                         4 * (2 * npix * c + 18 * c * mid + 3 * c + mid + b * c))
+        for shift in (0, s if whole else 3):
+            u, sums = cab.cab_chain(*c_args, out_shift=shift)
+            u_ref, sums_ref = cab.cab_chain_plain(*c_args, out_shift=shift)
+            torch.cuda.synchronize()
+            err = (u - u_ref).abs().max().item()
+            ratio = ((sums - sums_ref).abs() / u_ref.abs().sum((1, 2), keepdim=True)).max().item()
+            del u, u_ref
+            ms = cuda_ms(lambda: cab.cab_chain(*c_args, out_shift=shift), iters=5)
+            plain_ms = cuda_ms(lambda: cab.cab_chain_plain(*c_args, out_shift=shift), iters=5)
+            emit("kernel", kernel="cab_chain", case=name, shape=[b, h, w, c], out_shift=shift,
+                 max_abs_err=err, bound=KERNEL_ATOL, sums_max_rel_err=ratio,
+                 sums_bound=SUMS_RTOL, ms=ms, plain_ms=plain_ms, bound_ms=c_bnd[0],
+                 bound_by=c_bnd[1])
+            require(ratio <= SUMS_RTOL, f"B7 sums error {ratio} at {name}")
+            record("cab_chain", name, err, ms, plain_ms, c_bnd, name == "bucket")
+        del c_args
+
+        # B10: residual, LN, fc1, GELU, fc2, residual; reads a and shortcut, writes out
+        m_args = (r(b, h, w, c), r(b, h, w, c), r(c, std=0.1, mean=1.0), r(c, std=0.1),
+                  r(c, hid, std=c ** -0.5), r(hid, std=0.1), r(hid, c, std=hid ** -0.5),
+                  r(c, std=0.1))
+        got = wattn.fused_residual_ln_mlp(*m_args)
+        want = wattn.fused_residual_ln_mlp_plain(*m_args)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        del got, want
+        ms = cuda_ms(lambda: wattn.fused_residual_ln_mlp(*m_args), iters=5)
+        plain_ms = cuda_ms(lambda: wattn.fused_residual_ln_mlp_plain(*m_args), iters=5)
+        m_bnd = bound_ms(npix * (4 * c * hid + 12 * c + 10 * hid),
+                         4 * (3 * npix * c + 2 * c * hid + hid + 3 * c))
+        emit("kernel", kernel="fused_residual_ln_mlp", case=name, shape=[b, h, w, c],
+             hidden=hid, max_abs_err=err, bound=KERNEL_ATOL, ms=ms, plain_ms=plain_ms,
+             bound_ms=m_bnd[0], bound_by=m_bnd[1])
+        record("fused_residual_ln_mlp", name, err, ms, plain_ms, m_bnd, name == "bucket")
+        del m_args
+        if not whole:
+            continue
+        nwin = b * (h // ws) * (w // ws)
+
+        # B8: LN1, qkv, q k^T and p v with bias (+ mask) and softmax, proj, residuals, LN2,
+        # MLP; reads x and conv_x, the weights, the bias and the 4 mask types, writes out
+        h_args = (r(b, h, w, c), r(b, h, w, c, std=3.0), r(c, std=0.1, mean=1.0),
+                  r(c, std=0.1), r(c, std=0.1, mean=1.0), r(c, std=0.1),
+                  r(c, 3 * c, std=c ** -0.5), r(3 * c, std=0.1), r(c, c, std=c ** -0.5),
+                  r(c, std=0.1), r(c, hid, std=c ** -0.5), r(hid, std=0.1),
+                  r(hid, c, std=hid ** -0.5), r(c, std=0.1), r(heads, n, n, std=0.5))
+        gate = r(b, 1, 1, c, std=0.2, mean=0.5)
+        # the mask as the model hands it over, its 4 window types on the card; the small
+        # case takes the whole image's numpy mask, which the wrapper reduces and checks
+        types = torch.from_numpy(windows.shift_mask_types(ws, ws, s, s).copy()).cuda()
+        full = windows.shift_attn_mask(h, w, ws, ws, s, s)
+        for case, mask, in_shift, cab_scale in (
+                ("unshifted", None, 0, gate),
+                ("in_shift", types if name == "bucket" else full, s, gate),
+                ("no_cab_scale", None, 0, None)):
+            kw = dict(cab_scale=cab_scale, in_shift=in_shift)
+            got = wattn.fused_hab_block(*h_args, mask, (ws, ws), heads, 0.01, **kw)
+            want = wattn.fused_hab_block_plain(*h_args, mask, (ws, ws), heads, 0.01, **kw)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            del got, want
+            ms = cuda_ms(lambda: wattn.fused_hab_block(*h_args, mask, (ws, ws), heads, 0.01,
+                                                       **kw), iters=5)
+            plain_ms = cuda_ms(lambda: wattn.fused_hab_block_plain(
+                *h_args, mask, (ws, ws), heads, 0.01, **kw), iters=5)
+            h_bnd = bound_ms(
+                npix * (8 * c * c + 4 * c * hid + 24 * c + 10 * hid)
+                + nwin * heads * n * n * (4 * hd + 8),
+                4 * (3 * npix * c + 4 * c * c + 2 * c * hid + 8 * c + hid + b * c
+                     + (heads + (4 if in_shift else 0)) * n * n))
+            emit("kernel", kernel="fused_hab_block", case=f"{name}_{case}", shape=[b, h, w, c],
+                 window=ws, in_shift=in_shift, cab_scale=cab_scale is not None,
+                 max_abs_err=err, bound=KERNEL_ATOL, max_abs_plain=scale, ms=ms,
+                 plain_ms=plain_ms, bound_ms=h_bnd[0], bound_by=h_bnd[1])
+            record("fused_hab_block", f"{name}_{case}", err, ms, plain_ms, h_bnd,
+                   name == "bucket" and case != "no_cab_scale")
+        del h_args
+
+        # B9: q k^T and p v over the 24 x 24 keys of each 16 x 16 window, bias, softmax,
+        # proj; reads q, k, v, the bias and the weights, writes out
+        o_args = (r(b, h, w, c), r(b, h, w, c), r(b, h, w, c), r(c, c, std=c ** -0.5),
+                  r(c, std=0.1), r(heads, n, nk, std=0.5))
+        got = wattn.fused_overlap_attention(*o_args, ws, ov, heads)
+        want = wattn.fused_overlap_attention_plain(*o_args, ws, ov, heads)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        del got, want
+        ms = cuda_ms(lambda: wattn.fused_overlap_attention(*o_args, ws, ov, heads), iters=5)
+        plain_ms = cuda_ms(lambda: wattn.fused_overlap_attention_plain(*o_args, ws, ov, heads),
+                           iters=5)
+        o_bnd = bound_ms(npix * 2 * c * c + nwin * heads * n * nk * (4 * hd + 8),
+                         4 * (4 * npix * c + c * c + c + heads * n * nk))
+        emit("kernel", kernel="fused_overlap_attention", case=name, shape=[b, h, w, c],
+             window=ws, overlap=ov, max_abs_err=err, bound=KERNEL_ATOL, ms=ms,
+             plain_ms=plain_ms, bound_ms=o_bnd[0], bound_by=o_bnd[1])
+        record("fused_overlap_attention", name, err, ms, plain_ms, o_bnd, name == "bucket")
+        del o_args
+        torch.cuda.empty_cache()
+    for k in ("cab_chain", "fused_hab_block", "fused_overlap_attention",
+              "fused_residual_ln_mlp"):
+        times = res[k].pop("times")
+        res[k].update(ms=mean(t[0] for t in times), plain_ms=mean(t[1] for t in times),
+                      bound=times[0][2])
+
+
 def phase_kernels(gen: torch.Generator) -> dict:
     """Each kernel against its plain version at the slices' shapes; returns the numbers
     for the summary line."""
     res = {k: {"err": 0.0, "library_ms": None} for k in KERNELS}
     naf_kernel_cases(gen, res)
     dat_kernel_cases(gen, res)
+    torch.cuda.empty_cache()
+    hat_kernel_cases(gen, res)
     torch.cuda.empty_cache()
     return res
 
@@ -502,15 +645,18 @@ def naf_slice(gen_cpu: torch.Generator) -> dict:
                        time_buckets=1)
 
 
-def randomize_dat_(model: torch.nn.Module, gen: torch.Generator) -> None:
-    """Seeded random weights with nothing an identity: convs and Linears N(0, 1/fan_in),
-    LayerNorm / BatchNorm weights and `temperature` N(1, 0.1), biases N(0, 0.02), BN
-    running means U(-0.2, 0.2) and variances U(0.6, 1.4). `conv_last` is scaled by 0.1
-    more, so that the output stays near the RGB mean and mostly inside (0, 1)."""
+def randomize_transformer_(model: torch.nn.Module, gen: torch.Generator) -> None:
+    """Seeded random weights with nothing an identity, for DAT and HAT: convs and Linears
+    N(0, 1/fan_in), HAT's relative-position bias tables N(0, 0.5), LayerNorm / BatchNorm
+    weights and `temperature` N(1, 0.1), biases N(0, 0.02), BN running means U(-0.2, 0.2)
+    and variances U(0.6, 1.4). `conv_last` is scaled by 0.1 more, so that the output stays
+    near the RGB mean and mostly inside (0, 1)."""
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if p.dim() >= 2 and leaf == "weight":
+            if leaf == "relative_position_bias_table":
+                std, mean = 0.5, 0.0
+            elif p.dim() >= 2 and leaf == "weight":
                 std, mean = p[0].numel() ** -0.5, 0.0
                 if name.startswith("conv_last."):
                     std *= 0.1
@@ -552,7 +698,7 @@ DAT_KERNELS = ("conv3x3_dense", "fused_window_attention_xqkv", "aim_conv_branch"
 
 def dat_slice(gen_cpu: torch.Generator, profile: bool) -> dict:
     model = DAT()
-    randomize_dat_(model, gen_cpu)
+    randomize_transformer_(model, gen_cpu)
 
     def forward(x):
         sr, deep = model(x)
@@ -572,12 +718,64 @@ def dat_slice(gen_cpu: torch.Generator, profile: bool) -> dict:
         require(counts[k] == n * len(REQUESTS),
                 f"{k}: {counts[k]} launches on the DAT path, expected {n} per image")
     if profile:
-        profile_forward(model)
+        profile_forward("dat", model)
     return counts
 
 
-def profile_forward(model: torch.nn.Module) -> None:
-    """Device time of one DAT forward at the 512x352 bucket by kernel (torch.profiler)."""
+def hat_weight_prep(model: HAT) -> None:
+    """The weight work that one HAT forward repeats in every block and nothing else: the
+    modules keep torch's layouts, so each call re-lays its weights out for the kernels
+    (transposes, the bias gathers) and the wrappers zero-pad them."""
+    c = model.conv_first.out_channels
+    kp, npad = -(-c // 16) * 16, -(-c // 64) * 64
+    for group in model.layers:
+        for blk in group.residual_group.blocks:
+            cab._padded_weights(*blk.conv_block.raw())
+            wqkv, bqkv, wproj, _, _ = blk.attn.raw()
+            wattn._padded_head_weights(wqkv, bqkv, blk.num_heads, c // blk.num_heads, kp)
+            wattn._padded_proj(wproj, kp, npad)
+            w1, _, w2, _ = blk.mlp.raw()
+            wattn._mlp_padded_weights(c, w1, w2)
+        oc = group.residual_group.overlap_attn
+        windows.oca_bias_from_table(oc.relative_position_bias_table, oc.window,
+                                    oc.overlap_window, oc.relative_position_index)
+        wattn._padded_proj(dat_model._io(oc.proj), kp, npad)
+        w1, _, w2, _ = oc.mlp.raw()
+        wattn._mlp_padded_weights(c, w1, w2)
+
+
+HAT_KERNELS = ("conv3x3_dense", "cab_chain", "fused_hab_block", "fused_overlap_attention",
+               "fused_residual_ln_mlp")
+
+
+def hat_slice(gen_cpu: torch.Generator, profile: bool) -> dict:
+    model = HAT()   # HAT-L: 12 groups of 6 HAB + 1 OCAB at embed 180
+    randomize_transformer_(model, gen_cpu)
+
+    def forward(x):
+        sr, deep = model(x)
+        return sr, deep, (x.shape[1] * model.upscale, x.shape[2] * model.upscale)
+
+    def weight_prep_ms(m):
+        with torch.inference_mode():
+            return {"weight_prep_ms_per_image": cuda_ms(lambda: hat_weight_prep(m), iters=3)}
+
+    counts = phase_slice("hat", model, forward, HAT_KERNELS, time_buckets=3,
+                         extra_times=weight_prep_ms)
+    # per image: 72 HABs (a CAB chain and a fused block each), 12 OCABs (an overlapping
+    # attention and a residual MLP each), 13 convs (12 groups + conv_after_body)
+    per_image = {"cab_chain": 72, "fused_hab_block": 72, "fused_overlap_attention": 12,
+                 "fused_residual_ln_mlp": 12, "conv3x3_dense": 13}
+    for k, n in per_image.items():
+        require(counts[k] == n * len(REQUESTS),
+                f"{k}: {counts[k]} launches on the HAT path, expected {n} per image")
+    if profile:
+        profile_forward("hat", model)
+    return counts
+
+
+def profile_forward(tag: str, model: torch.nn.Module) -> None:
+    """Device time of one forward at the 512x352 bucket by kernel (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
     x = torch.rand(1, 352, 512, 3, device="cuda")
     with torch.inference_mode():
@@ -596,7 +794,7 @@ def profile_forward(model: torch.nn.Module) -> None:
         rows.append((us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     own = sum(ms for ms, _, k in rows if "(anonymous namespace)::" in k and "at::" not in k)
-    emit("dat_profile", total_device_ms=sum(r[0] for r in rows), hand_written_ms=own,
+    emit(f"{tag}_profile", total_device_ms=sum(r[0] for r in rows), hand_written_ms=own,
          top=[dict(ms=round(ms, 3), calls=n, name=k[:90]) for ms, n, k in rows[:24]])
 
 
@@ -616,6 +814,14 @@ KERNELS = {
                        "freqfusion_tpu/ops/pallas/aim.py:161"),
     "fused_sgfn_tail": ("freqfusion_tpu_torch/csrc/sgfn.cu",
                         "freqfusion_tpu/ops/pallas/sgfn.py:82"),
+    "cab_chain": ("freqfusion_tpu_torch/csrc/cab.cu", "freqfusion_tpu/ops/pallas/cab.py:145"),
+    # B8 and B9 end in the row kernels of csrc/hat_rows.cu
+    "fused_hab_block": ("freqfusion_tpu_torch/csrc/wattn.cu",
+                        "freqfusion_tpu/ops/pallas/wattn.py:273"),
+    "fused_overlap_attention": ("freqfusion_tpu_torch/csrc/oca.cu",
+                                "freqfusion_tpu/ops/pallas/wattn.py:706"),
+    "fused_residual_ln_mlp": ("freqfusion_tpu_torch/csrc/hat_rows.cu",
+                              "freqfusion_tpu/ops/pallas/wattn.py:427"),
 }
 
 
@@ -625,13 +831,19 @@ def main() -> None:
     phase_build()
     gen = torch.Generator("cuda").manual_seed(SEED)
     res = phase_kernels(gen)
-    naf_counts = naf_slice(torch.Generator().manual_seed(SEED))
+    args = sys.argv[1:]
+    profiled = None
+    if "--profile" in args:   # --profile [dat|hat]
+        nxt = args[args.index("--profile") + 1:][:1]
+        profiled = nxt[0] if nxt and nxt[0] in ("dat", "hat") else "dat"
+    paths = [("naf", naf_slice(torch.Generator().manual_seed(SEED)))]
     torch.cuda.empty_cache()
-    dat_counts = dat_slice(torch.Generator().manual_seed(SEED), "--profile" in sys.argv[1:])
+    paths.append(("dat", dat_slice(torch.Generator().manual_seed(SEED), profiled == "dat")))
+    torch.cuda.empty_cache()
+    paths.append(("hat", hat_slice(torch.Generator().manual_seed(SEED), profiled == "hat")))
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
-                "launches": naf_counts.get(k, 0) + dat_counts.get(k, 0),
-                "launches_by_path": {tag: n[k] for tag, n in (("naf", naf_counts),
-                                                              ("dat", dat_counts)) if k in n},
+                "launches": sum(n.get(k, 0) for _, n in paths),
+                "launches_by_path": {tag: n[k] for tag, n in paths if k in n},
                 "max_abs_err": res[k]["err"], "ms": res[k]["ms"],
                 "plain_ms": res[k]["plain_ms"], "bound_ms": res[k]["bound"][0],
                 "bound_by": res[k]["bound"][1], "library_ms": res[k]["library_ms"]}

@@ -48,12 +48,16 @@ __host__ __device__ constexpr int tile_matmul_ws(bool pair) {
 //   K % kKC == 0, N % 64 == 0, W and off_b 16-byte aligned.
 // Thread t owns rows (t/16)*TM .. +TM-1 and columns 4*(t%16) .. +3 of each pass: per four
 // k it reads TM + 4 (or TM + 8) float4s from shared memory for 16*TM (32*TM) FMAs.
-template <int TM, bool PAIR, typename Epi>
-__device__ __forceinline__ void tile_matmul(const float* A, int lda, int K,
-                                            const float* __restrict__ W, int ldw, int N,
-                                            int off_b, float* ws, Epi epi) {
+// With ILV (tile_matmul_interleaved) it owns rows t/16, t/16 + 16, .. instead: the two
+// half-warps then read neighbouring rows, lda floats apart, which at TM = 8 keeps their
+// broadcasts on different banks where 8 * lda floats apart would not (lda % 32 == 4).
+template <int TM, bool PAIR, bool ILV, typename Epi>
+__device__ __forceinline__ void tile_matmul_impl(const float* A, int lda, int K,
+                                                 const float* __restrict__ W, int ldw, int N,
+                                                 int off_b, float* ws, Epi epi) {
     constexpr int KC = kKC, NT = 64, WS = PAIR ? 2 * NT : NT, STAGE = KC * WS;
-    const int tid = threadIdx.x, cg = tid & 15, r0 = (tid >> 4) * TM;
+    const int tid = threadIdx.x, cg = tid & 15;
+    auto row = [&](int i) { return ILV ? (tid >> 4) + 16 * i : (tid >> 4) * TM + i; };
     const int nk = K / KC;
     auto stage = [&](int buf, int n0, int k0) {
         for (int e = tid; e < KC * WS / 4; e += kThreads) {
@@ -86,7 +90,7 @@ __device__ __forceinline__ void tile_matmul(const float* A, int lda, int K,
                 float4 av[TM];
 #pragma unroll
                 for (int i = 0; i < TM; ++i)
-                    av[i] = *reinterpret_cast<const float4*>(ac + (r0 + i) * lda + k);
+                    av[i] = *reinterpret_cast<const float4*>(ac + row(i) * lda + k);
 #pragma unroll
                 for (int kk = 0; kk < 4; ++kk) {
                     const float4 w = *reinterpret_cast<const float4*>(wc + (k + kk) * WS + cg * 4);
@@ -114,8 +118,22 @@ __device__ __forceinline__ void tile_matmul(const float* A, int lda, int K,
 #pragma unroll
         for (int i = 0; i < TM; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) epi(r0 + i, n0 + cg * 4 + j, a[i][j], b[i][j]);
+            for (int j = 0; j < 4; ++j) epi(row(i), n0 + cg * 4 + j, a[i][j], b[i][j]);
     }
+}
+
+template <int TM, bool PAIR, typename Epi>
+__device__ __forceinline__ void tile_matmul(const float* A, int lda, int K,
+                                            const float* __restrict__ W, int ldw, int N,
+                                            int off_b, float* ws, Epi epi) {
+    tile_matmul_impl<TM, PAIR, false>(A, lda, K, W, ldw, N, off_b, ws, epi);
+}
+
+template <int TM, typename Epi>
+__device__ __forceinline__ void tile_matmul_interleaved(const float* A, int lda, int K,
+                                                        const float* __restrict__ W, int ldw,
+                                                        int N, float* ws, Epi epi) {
+    tile_matmul_impl<TM, false, true>(A, lda, K, W, ldw, N, 0, ws, epi);
 }
 
 // sums[b][c] = sum over blocks of part[b][blk][c], in a fixed order: the second pass of a
@@ -149,20 +167,33 @@ __device__ __forceinline__ float gelu_erf(float x) {
 }
 __device__ __forceinline__ float sigmoid_f32(float x) { return 1.f / (1.f + expf(-x)); }
 
+// Mean and 1/std (biased variance, eps inside the root) of src[0..C), taken by one warp;
+// every lane receives both. src may lie in shared or device memory.
+__device__ __forceinline__ void warp_ln_stats(const float* src, int C, float eps, float& u,
+                                              float& inv) {
+    const int lane = threadIdx.x & 31;
+    float s = 0.f;
+    for (int c = lane; c < C; c += 32) s += src[c];
+    u = warp_sum(s) / C;
+    float q = 0.f;
+    for (int c = lane; c < C; c += 32) {
+        const float d = src[c] - u;
+        q = fmaf(d, d, q);
+    }
+    inv = 1.f / sqrtf(warp_sum(q) / C + eps);
+}
+
 // Writes LN(src) * w + b into dst[0..C) using one warp (src == dst is allowed). The warp's
 // own earlier writes to src must be ordered before the call (__syncwarp or a barrier).
 __device__ __forceinline__ void warp_layernorm(const float* src, float* dst,
                                                const float* __restrict__ w,
                                                const float* __restrict__ b, int C, float eps) {
     const int lane = threadIdx.x & 31;
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += src[c];
-    const float u = warp_sum(s) / C;
-    float q = 0.f;
-    for (int c = lane; c < C; c += 32) {
-        const float d = src[c] - u;
-        q = fmaf(d, d, q);
-    }
-    const float inv = 1.f / sqrtf(warp_sum(q) / C + eps);
+    float u, inv;
+    warp_ln_stats(src, C, eps, u, inv);
     for (int c = lane; c < C; c += 32) dst[c] = (src[c] - u) * inv * w[c] + b[c];
 }
+
+// Rows of K a tile holds at a time when a product takes its K in two halves: the larger
+// half of Kp in weight chunks.
+__host__ __device__ constexpr int first_half(int Kp) { return (Kp / kKC + 1) / 2 * kKC; }

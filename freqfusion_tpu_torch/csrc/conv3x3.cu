@@ -14,11 +14,18 @@
 // Each thread computes a column of 4 output pixels x COT output channels in registers, so
 // each staged weight feeds 4 pixels and each staged input up to 3 of them. COT follows Cout
 // (4, 8 or 16), so the 64->3 ending does not compute 13 dead channels. It takes any Cin
-// and Cout (HAT and DAT use it at 180 -> 180 later).
+// and Cout.
+//
+// The wide case. HAT and DAT use the conv at 180 -> 180 (330 k FLOPs a pixel for 1.4 KB:
+// bound by operations), where the kernel above makes 12 passes of 16 output channels over
+// the input and reads shared memory once per 1.3 FMAs. With both widths at 32 or more (and
+// multiples of 4) the conv goes through the implicit-GEMM kernel of conv_gemm.cuh instead,
+// which the CAB chain uses too: 64 output channels a pass, 8 + 4 float4s read for 128 FMAs.
+// The wrapper then hands over the weights zero-padded to [9][Cinp][Np] and the bias [Np].
 //
 // Layout: x [B,H,W,Cin], w [3][3][Cin][Cout] (HWIO), bias [Cout], out [B,H,W,Cout]; f32.
 
-#include "common.cuh"
+#include "conv_gemm.cuh"
 
 namespace {
 
@@ -133,9 +140,27 @@ cudaError_t launch(const float* x, const float* w, const float* bias, float* out
 
 }  // namespace
 
+// Whether the wide case applies: the wrapper then passes padded weights (wpad, bpad).
+extern "C" int conv3x3_dense_is_wide(int Cin, int Cout) {
+    return Cin % 4 == 0 && Cout % 4 == 0 && Cin >= 32 && Cout >= 32;
+}
+
 extern "C" int conv3x3_dense(const float* x, const float* w, const float* bias, float* out,
-                             int B, int H, int W, int Cin, int Cout, void* stream) {
+                             int B, int H, int W, int Cin, int Cout, const float* wpad,
+                             const float* bpad, int Cinp, int Np, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (conv3x3_dense_is_wide(Cin, Cout)) {
+        if (!wpad || !bpad || Cinp % kKC || Cinp < Cin || Np % kNT || Np < Cout)
+            return cudaErrorInvalidValue;
+        const int smem = (int)conv_gemm_smem_bytes();
+        cudaError_t err = cudaFuncSetAttribute(
+            conv3x3_gemm_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return err;
+        dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B);
+        conv3x3_gemm_kernel<false><<<grid, kThreads, smem, st>>>(
+            x, nullptr, nullptr, wpad, bpad, out, nullptr, H, W, Cin, Cinp, Np, Cout, 0);
+        return cudaGetLastError();
+    }
     if (Cout <= 4) return launch<4>(x, w, bias, out, B, H, W, Cin, Cout, st);
     if (Cout <= 8) return launch<8>(x, w, bias, out, B, H, W, Cin, Cout, st);
     return launch<16>(x, w, bias, out, B, H, W, Cin, Cout, st);

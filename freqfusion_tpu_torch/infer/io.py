@@ -1,8 +1,9 @@
 """Whole-image serving of an SR module. Twin of ``freqfusion_tpu/infer/io.py``.
 
-``InferencePipeline`` serves the ``nn.Module`` it is given (``NAFNetSR`` or ``DAT``: any
-module that returns ``(sr, features)`` and has ``upscale``): each image is reflect-padded
-to a 32-px bucket, run whole, cropped, and converted to uint8 on the device. The batch protocol (``dispatch_batch_u8`` / ``materialize_u8``) lets a caller
+``InferencePipeline`` serves the ``nn.Module`` it is given (``NAFNetSR``, ``DAT`` or
+``HAT``: any module that returns ``(sr, features)`` and has ``upscale``): each image is
+reflect-padded to a 32-px bucket (a whole number of DAT's 32-px and of HAT's 16-px
+windows), run whole, cropped, and converted to uint8 on the device. The batch protocol (``dispatch_batch_u8`` / ``materialize_u8``) lets a caller
 dispatch image i+1 before it copies image i back. Images that the plan sends to the tiled
 path are not served yet: tiling and ``model_func`` come with the ensemble.
 """

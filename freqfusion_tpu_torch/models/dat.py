@@ -39,26 +39,13 @@ from ..ops.kernels.aim import (aim_conv_branch, aim_conv_branch_plain, aim_gates
 from ..ops.kernels.sgfn import fused_sgfn_tail, fused_sgfn_tail_plain
 from ..ops.kernels.wattn import (fused_window_attention_xqkv,
                                  fused_window_attention_xqkv_plain, window_attention_plain)
-from .layers import BatchNorm2d, SeamConv, gelu
+from .layers import (BatchNorm2d, SeamConv, conv_nhwc as _conv_nhwc, gelu, hwio as _hwio,
+                     linear_io as _io)
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
 
 #: Fewest tokens per window for the in-kernel-qkv attention (the JAX package's gate).
 MIN_FUSED_TOKENS = 64
-
-
-def _conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
-
-
-def _hwio(conv: nn.Conv2d) -> torch.Tensor:
-    """A conv's OIHW weight in the kernels' HWIO layout."""
-    return conv.weight.permute(2, 3, 1, 0).contiguous()
-
-
-def _io(lin: nn.Linear) -> torch.Tensor:
-    """A Linear's [out,in] weight as the [in,out] matrix of x @ w."""
-    return lin.weight.t().contiguous()
 
 
 class DynamicPosBias(nn.Module):

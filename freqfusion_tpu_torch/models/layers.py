@@ -14,6 +14,21 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
+def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A library conv on an NHWC tensor."""
+    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
+
+
+def hwio(conv: nn.Conv2d) -> torch.Tensor:
+    """A conv's OIHW weight in the kernels' HWIO layout."""
+    return conv.weight.permute(2, 3, 1, 0).contiguous()
+
+
+def linear_io(lin: nn.Linear) -> torch.Tensor:
+    """A Linear's [out,in] weight as the [in,out] matrix of x @ w."""
+    return lin.weight.t().contiguous()
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d (the reference's state-dict keys, `num_batches_tracked` included)
     that the port only ever uses in eval mode, as a fixed per-channel affine of its

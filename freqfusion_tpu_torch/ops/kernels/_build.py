@@ -28,17 +28,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry point -> argument types; every entry returns its cudaError_t as an int.
 SIGNATURES = {
     "naf_stage_a": [_P] * 10 + [_I] * 4 + [_P],
     "naf_stage_b": [_P] * 14 + [_I] * 4 + [_P],
-    "conv3x3_dense": [_P] * 4 + [_I] * 5 + [_P],
+    "conv3x3_dense": [_P] * 4 + [_I] * 5 + [_P, _P, _I, _I, _P],
+    "conv3x3_dense_is_wide": [_I, _I],
     "naf_stage_a_blocks": [_I, _I],
     "wattn_xqkv": [_P] * 6 + [_I] * 9 + [_P],
     "aim_conv_branch": [_P] * 8 + [_I] * 4 + [_P],
     "aim_conv_branch_blocks": [_I, _I],
     "aim_gates_proj": [_P] * 12 + [_I] * 8 + [_P],
     "sgfn_tail": [_P] * 15 + [_I] * 9 + [_P],
+    "cab_chain": [_P] * 11 + [_I] * 9 + [_P],
+    "cab_chain_blocks": [_I, _I],
+    "hab_attention": [_P] * 8 + [_I] * 9 + [_P],
+    "hab_tail": [_P] * 14 + [_I] * 9 + [_F, _P],
+    "residual_ln_mlp": [_P] * 10 + [_L] + [_I] * 5 + [_P],
+    "rows_linear": [_P] * 4 + [_L] + [_I] * 3 + [_P],
+    "oca_attention": [_P] * 5 + [_I] * 8 + [_P],
 }
 
 

@@ -1,0 +1,81 @@
+"""HAT's CAB conv chain with the channel-attention pool's sums: kernel B7 and its plain
+version.
+
+Twin of ``freqfusion_tpu/ops/pallas/cab.py:cab_chain``:
+
+    u = conv3x3(GELU(conv3x3(LN1(x)) + b1)) + b2        both dense, SAME
+    sums = sum of u over the image, [B,1,1,C]
+
+and with ``out_shift = s`` the returned image is ``roll(u, (-s, -s), (1, 2))``, the roll
+folded into the store; the sums are those of u either way. On a CUDA tensor the wrapper
+launches the kernels from ``csrc/cab.cu`` or raises; on a CPU tensor it runs the plain
+PyTorch version. x [B,H,W,C] NHWC f32; w1 [3,3,C,mid], w2 [3,3,mid,C] HWIO; LayerNorm eps
+1e-5.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..common import layernorm
+from . import _build
+from .conv3x3 import conv3x3_dense_plain
+
+#: Kernel launches since the last reset. Plain runs are not counted.
+launches = {"cab_chain": 0}
+
+
+def cab_chain_plain(x, ln_w, ln_b, w1, b1, w2, b2, out_shift: int = 0):
+    # SAME padding zeroes LN1(x), and again GELU(conv1 + b1): F.conv2d pads its own input
+    g = F.gelu(conv3x3_dense_plain(layernorm(x, ln_w, ln_b), w1, b1))
+    u = conv3x3_dense_plain(g, w2, b2)
+    sums = u.sum(dim=(1, 2), keepdim=True)
+    if out_shift:
+        u = torch.roll(u, (-out_shift, -out_shift), dims=(1, 2))
+    return u, sums
+
+
+def _padded_weights(w1, b1, w2, b2):
+    """(cinp, np1, mp, np2, w1p [9,cinp,np1], b1p [np1], w2p [9,mp,np2], b2p [np2]): the
+    streamed products take input channels in steps of 16 and output channels in steps of
+    64, so the weights and biases are zero-padded; the intermediate is mp channels wide."""
+    c, mid = w1.shape[2], w1.shape[3]
+    cinp, np1 = -(-c // 16) * 16, -(-mid // 64) * 64
+    mp, np2 = -(-mid // 16) * 16, -(-c // 64) * 64
+    w1p = F.pad(w1.reshape(9, c, mid), (0, np1 - mid, 0, cinp - c))
+    w2p = F.pad(w2.reshape(9, mid, c), (0, np2 - c, 0, mp - mid))
+    return cinp, np1, mp, np2, w1p, F.pad(b1, (0, np1 - mid)), w2p, F.pad(b2, (0, np2 - c))
+
+
+def cab_chain(x, ln_w, ln_b, w1, b1, w2, b2, out_shift: int = 0):
+    """Kernel B7 on CUDA, its plain version on the CPU. Returns (u [B,H,W,C] rolled by
+    (-out_shift, -out_shift), sums [B,1,1,C])."""
+    if x.device.type == "cpu":
+        return cab_chain_plain(x, ln_w, ln_b, w1, b1, w2, b2, out_shift)
+    b, h, w, c = x.shape
+    mid = w1.shape[-1]
+    if c % 4:
+        raise ValueError(f"cab_chain: C={c} is not a multiple of 4")
+    if not 0 <= out_shift < min(h, w):
+        raise ValueError(f"cab_chain: out_shift={out_shift} outside [0, min(H, W)) at {h}x{w}")
+    _build.require(x, "x")
+    for name, t, shape in (("ln_w", ln_w, (c,)), ("ln_b", ln_b, (c,)),
+                           ("w1", w1, (3, 3, c, mid)), ("b1", b1, (mid,)),
+                           ("w2", w2, (3, 3, mid, c)), ("b2", b2, (c,))):
+        _build.require(t, name, shape)
+    cinp, np1, mp, np2, w1p, b1p, w2p, b2p = _padded_weights(w1, b1, w2, b2)
+    lib = _build.library()
+    g = torch.empty((b, h, w, mp), device=x.device, dtype=torch.float32)
+    u = torch.empty_like(x)
+    part = torch.empty((b, lib.cab_chain_blocks(h, w), c), device=x.device,
+                       dtype=torch.float32)
+    sums = torch.empty((b, 1, 1, c), device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        err = lib.cab_chain(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1p.data_ptr(),
+                            b1p.data_ptr(), w2p.data_ptr(), b2p.data_ptr(), g.data_ptr(),
+                            u.data_ptr(), part.data_ptr(), sums.data_ptr(), b, h, w, c, cinp,
+                            np1, mp, np2, out_shift, _build.stream_ptr(x.device))
+    _build.check(err, "cab_chain")
+    launches["cab_chain"] += 1
+    return u, sums

@@ -2,7 +2,9 @@
 
 Twin of ``freqfusion_tpu/ops/pallas/cab.py:conv3x3_dense``. On a CUDA tensor the wrapper
 launches the kernel from ``csrc/conv3x3.cu`` or raises; on a CPU tensor it runs the plain
-version (``F.conv2d``). x [B,H,W,Cin] NHWC, w [3,3,Cin,Cout] HWIO, b [Cout]; f32.
+version (``F.conv2d``). x [B,H,W,Cin] NHWC, w [3,3,Cin,Cout] HWIO, b [Cout]; f32. With both
+widths at 32 or more the source's implicit-GEMM kernel runs (HAT's and DAT's 180 -> 180),
+on weights that the wrapper zero-pads for its 16-channel chunks and 64-channel passes.
 """
 
 from __future__ import annotations
@@ -31,10 +33,18 @@ def conv3x3_dense(x, w, b):
     _build.require(w, "w", (3, 3, cin, cout))
     _build.require(b, "b", (cout,))
     lib = _build.library()
+    wpad, bpad, cinp, npad = None, None, 0, 0
+    if lib.conv3x3_dense_is_wide(cin, cout):
+        cinp, npad = -(-cin // 16) * 16, -(-cout // 64) * 64
+        wpad = F.pad(w.reshape(9, cin, cout), (0, npad - cout, 0, cinp - cin))
+        bpad = F.pad(b, (0, npad - cout))
     out = torch.empty((bsz, h, wd, cout), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         err = lib.conv3x3_dense(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                bsz, h, wd, cin, cout, _build.stream_ptr(x.device))
+                                bsz, h, wd, cin, cout,
+                                0 if wpad is None else wpad.data_ptr(),
+                                0 if bpad is None else bpad.data_ptr(), cinp, npad,
+                                _build.stream_ptr(x.device))
     _build.check(err, "conv3x3_dense")
     launches["conv3x3_dense"] += 1
     return out

@@ -1,11 +1,15 @@
-"""DAT's rectangular-window attention with the qkv projection fused in: kernel B4 and its
-plain version.
+"""Window attention kernels and their plain versions: DAT's rectangular-window attention
+with the qkv projection fused in (B4), and HAT's fused HAB block (B8), overlapping
+cross-attention (B9) and residual + LayerNorm + MLP tail (B10).
 
-Twin of ``freqfusion_tpu/ops/pallas/wattn.py:fused_window_attention_xqkv``. On a CUDA
-tensor the wrapper launches the kernel from ``csrc/wattn.cu`` or raises; on a CPU tensor it
-runs the plain PyTorch version. There is no fallback from one to the other.
+Twins of ``freqfusion_tpu/ops/pallas/wattn.py``'s ``fused_window_attention_xqkv``,
+``fused_hab_block``, ``fused_overlap_attention`` and ``fused_residual_ln_mlp``. On a CUDA
+tensor a wrapper launches its kernels (``csrc/wattn.cu``, ``csrc/oca.cu``,
+``csrc/hat_rows.cu``) or raises; on a CPU tensor it runs the plain PyTorch version. There
+is no fallback from one to the other. Dense weights come as [in,out] matrices of x @ w, as
+in the JAX package; every LayerNorm uses eps 1e-5.
 
-Layouts (NHWC, f32): x [B,H,W,Cin]; wqkv [Cin, 3*co] and bqkv [3*co], one branch's q, k, v
+B4's layouts (NHWC, f32): x [B,H,W,Cin]; wqkv [Cin, 3*co] and bqkv [3*co], one branch's q, k, v
 columns (co = num_heads * head_dim); bias [num_heads, N, N] with N = window tokens; mask
 None, the numpy shift mask [nW, N, N] of ``ops.windows.shift_attn_mask`` or its 4 window
 types as a tensor [4, N, N] (see ``mask_types``). The result is
@@ -17,12 +21,18 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..windows import window_partition, window_reverse
+from ..common import layernorm
+from ..windows import extract_overlapping_windows, window_partition, window_reverse
 from . import _build
 
 #: Kernel launches since the last reset. Plain runs are not counted.
-launches = {"fused_window_attention_xqkv": 0}
+launches = {"fused_window_attention_xqkv": 0, "fused_hab_block": 0,
+            "fused_overlap_attention": 0, "fused_residual_ln_mlp": 0}
+
+#: What csrc/oca.cu takes: at most 576 keys (a 16-px window grown to 24 px) per window.
+MAX_OCA_KEYS = 576
 
 #: What csrc/wattn.cu takes: windows of 64, 128, 192 or 256 tokens, heads up to 32 wide.
 MAX_TOKENS = 256
@@ -145,4 +155,198 @@ def fused_window_attention_xqkv(x, wqkv, bqkv, bias, mask, window, num_heads):
                              _build.stream_ptr(x.device))
     _build.check(err, "wattn_xqkv")
     launches["fused_window_attention_xqkv"] += 1
+    return out
+
+
+def _mlp_padded_weights(c: int, w1, w2):
+    """(kp, npad, k2p, w1p [kp,k2p], w2p [k2p,npad]) for an MLP on C-wide rows: the streamed
+    products take K in steps of 16 and N in steps of 64, and the hidden, fc1's N and fc2's
+    K, passes through a buffer k2p wide; padded zeros change nothing."""
+    hid = w1.shape[1]
+    kp, npad, k2p = -(-c // 16) * 16, -(-c // 64) * 64, -(-hid // 64) * 64
+    return (kp, npad, k2p, F.pad(w1, (0, k2p - hid, 0, kp - c)),
+            F.pad(w2, (0, npad - c, 0, k2p - hid)))
+
+
+def _padded_proj(wproj, kp: int, npad: int):
+    c = wproj.shape[0]
+    return F.pad(wproj, (0, npad - c, 0, kp - c))
+
+
+def _mlp_plain(y, ln_w, ln_b, w1, b1, w2, b2):
+    return y + F.gelu(layernorm(y, ln_w, ln_b) @ w1 + b1) @ w2 + b2
+
+
+def fused_hab_block_plain(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wproj, bproj,
+                          w1, b1, w2, b2, bias, mask, window, num_heads, conv_scale,
+                          cab_scale=None, in_shift: int = 0):
+    xs = torch.roll(x, (-in_shift, -in_shift), dims=(1, 2)) if in_shift else x
+    q, k, v = (layernorm(xs, ln1_w, ln1_b) @ wqkv + bqkv).chunk(3, dim=-1)
+    att = window_attention_plain(q, k, v, bias, mask, window, num_heads)
+    cx = conv_x if cab_scale is None else conv_x * cab_scale
+    y = xs + att @ wproj + bproj + conv_scale * cx
+    return _mlp_plain(y, ln2_w, ln2_b, w1, b1, w2, b2)
+
+
+def fused_hab_block(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wproj, bproj, w1, b1,
+                    w2, b2, bias, mask, window, num_heads, conv_scale, cab_scale=None,
+                    in_shift: int = 0):
+    """Kernel B8 on CUDA, its plain version on the CPU: a whole HAB without its CAB convs,
+
+        y = x + proj(W-MSA(LN1 x)) + conv_scale * cab_scale * conv_x
+        out = y + fc2(GELU(fc1(LN2 y)))                              [B,H,W,C]
+
+    x [B,H,W,C] is the block's input and conv_x the CAB branch, both already rolled by the
+    caller in a shifted block, whose `mask` is the shift mask (numpy [nW,N,N] or its 4
+    window types [4,N,N], see ``mask_types``). With ``in_shift = s`` x comes un-rolled and
+    each window is read at (+s, +s) with wrap-around (conv_x still comes rolled): the
+    result is in rolled coordinates either way and the caller un-rolls it. cab_scale
+    [B,1,1,C] is the channel-attention gate of the CAB branch."""
+    wsh, wsw = window
+    if in_shift and (mask is None or 2 * in_shift != wsh or 2 * in_shift != wsw):
+        raise ValueError(f"fused_hab_block: in_shift={in_shift} needs a shift mask and a "
+                         f"window of twice the shift, got {wsh}x{wsw}")
+    if x.device.type == "cpu":
+        return fused_hab_block_plain(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wproj,
+                                     bproj, w1, b1, w2, b2, bias, mask, window, num_heads,
+                                     conv_scale, cab_scale, in_shift)
+    b, h, w, c = x.shape
+    n, hd, hid = wsh * wsw, c // num_heads, w1.shape[1]
+    if wsh != wsw or h % wsh or w % wsw:
+        raise ValueError(f"fused_hab_block: {h}x{w} is not a multiple of a square window, "
+                         f"got {wsh}x{wsw}")
+    if n % 64 or n > MAX_TOKENS:
+        raise ValueError(f"fused_hab_block: {n} tokens per window; the kernel takes "
+                         f"multiples of 64 up to {MAX_TOKENS}")
+    if hd * num_heads != c or hd > MAX_HEAD_DIM or c % 4:
+        raise ValueError(f"fused_hab_block: C={c} over {num_heads} heads; the kernel takes "
+                         f"whole heads up to {MAX_HEAD_DIM} wide and C a multiple of 4")
+    _build.require(x, "x")
+    _build.require(conv_x, "conv_x", x.shape)
+    for name, t, shape in (("ln1_w", ln1_w, (c,)), ("ln1_b", ln1_b, (c,)),
+                           ("ln2_w", ln2_w, (c,)), ("ln2_b", ln2_b, (c,)),
+                           ("wqkv", wqkv, (c, 3 * c)), ("bqkv", bqkv, (3 * c,)),
+                           ("wproj", wproj, (c, c)), ("bproj", bproj, (c,)),
+                           ("w1", w1, (c, hid)), ("b1", b1, (hid,)), ("w2", w2, (hid, c)),
+                           ("b2", b2, (c,)), ("bias", bias, (num_heads, n, n))):
+        _build.require(t, name, shape)
+    if cab_scale is not None:
+        _build.require(cab_scale, "cab_scale", (b, 1, 1, c))
+    types = None if mask is None else mask_types(mask, h // wsh, w // wsw, x.device)
+    kp, npad, k2p, w1p, w2p = _mlp_padded_weights(c, w1, w2)
+    wh, bh = _padded_head_weights(wqkv, bqkv, num_heads, hd, kp)
+    wpp = _padded_proj(wproj, kp, npad)
+    lib = _build.library()
+    att = torch.empty_like(x)
+    out = torch.empty_like(x)
+    hidden = torch.empty((b, h, w, k2p), device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        stream = _build.stream_ptr(x.device)
+        err = lib.hab_attention(x.data_ptr(), ln1_w.data_ptr(), ln1_b.data_ptr(),
+                                wh.data_ptr(), bh.data_ptr(), bias.data_ptr(),
+                                0 if types is None else types.data_ptr(), att.data_ptr(),
+                                b, h, w, c, kp, wsh, num_heads, hd, in_shift, stream)
+        _build.check(err, "hab_attention")
+        err = lib.hab_tail(att.data_ptr(), x.data_ptr(), conv_x.data_ptr(),
+                           0 if cab_scale is None else cab_scale.data_ptr(), wpp.data_ptr(),
+                           bproj.data_ptr(), ln2_w.data_ptr(), ln2_b.data_ptr(),
+                           w1p.data_ptr(), b1.data_ptr(), w2p.data_ptr(), b2.data_ptr(),
+                           hidden.data_ptr(), out.data_ptr(), b, h, w, c, hid, kp, npad, k2p,
+                           in_shift, float(conv_scale), stream)
+    _build.check(err, "hab_tail")
+    launches["fused_hab_block"] += 1
+    return out
+
+
+def fused_overlap_attention_plain(q, k, v, wproj, bproj, bias, window: int, overlap: int,
+                                  num_heads: int):
+    b, h, w, c = q.shape
+    hd = c // num_heads
+
+    def heads(t):  # [B*nW, n, C] -> [B*nW, heads, n, hd]
+        return t.reshape(t.shape[0], t.shape[1], num_heads, hd).permute(0, 2, 1, 3)
+
+    # k and v are zero-padded after their projection: a padded key scores its bias alone
+    kw = heads(extract_overlapping_windows(k, window, overlap))
+    vw = heads(extract_overlapping_windows(v, window, overlap))
+    attn = (heads(window_partition(q, window, window)) * hd ** -0.5) @ kw.transpose(-1, -2)
+    out = torch.softmax(attn + bias[None], dim=-1) @ vw
+    out = out.permute(0, 2, 1, 3).reshape(-1, window * window, c) @ wproj + bproj
+    return window_reverse(out, window, window, h, w)
+
+
+def fused_overlap_attention(q, k, v, wproj, bproj, bias, window: int, overlap: int,
+                            num_heads: int):
+    """Kernel B9 on CUDA, its plain version on the CPU: OCAB's attention of window x window
+    queries over the (window + overlap)^2 keys and values around them, from pre-projected
+    q, k, v [B,H,W,C], with the output projection. bias [heads, window^2,
+    (window + overlap)^2]. Returns [B,H,W,C]."""
+    if q.device.type == "cpu":
+        return fused_overlap_attention_plain(q, k, v, wproj, bproj, bias, window, overlap,
+                                             num_heads)
+    b, h, w, c = q.shape
+    ows = window + overlap
+    nq, nk, hd = window * window, ows * ows, c // num_heads
+    if h % window or w % window:
+        raise ValueError(f"fused_overlap_attention: {h}x{w} is not a multiple of the "
+                         f"{window}-px window")
+    if overlap % 2 or nq % 4 or nk > MAX_OCA_KEYS or nk < 32:
+        raise ValueError(f"fused_overlap_attention: window {window} with overlap {overlap}; "
+                         f"the kernel takes an even overlap, window^2 a multiple of 4 and "
+                         f"32 to {MAX_OCA_KEYS} keys")
+    if hd * num_heads != c or hd > MAX_HEAD_DIM or c % 4:
+        raise ValueError(f"fused_overlap_attention: C={c} over {num_heads} heads; the kernel "
+                         f"takes whole heads up to {MAX_HEAD_DIM} wide and C a multiple of 4")
+    _build.require(q, "q")
+    _build.require(k, "k", q.shape)
+    _build.require(v, "v", q.shape)
+    _build.require(wproj, "wproj", (c, c))
+    _build.require(bproj, "bproj", (c,))
+    _build.require(bias, "bias", (num_heads, nq, nk))
+    kp, npad = -(-c // 16) * 16, -(-c // 64) * 64
+    wpp = _padded_proj(wproj, kp, npad)
+    lib = _build.library()
+    att = torch.empty_like(q)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = _build.stream_ptr(q.device)
+        err = lib.oca_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                                att.data_ptr(), b, h, w, c, window, ows, num_heads, hd, stream)
+        _build.check(err, "oca_attention")
+        err = lib.rows_linear(att.data_ptr(), wpp.data_ptr(), bproj.data_ptr(), out.data_ptr(),
+                              b * h * w, c, kp, npad, stream)
+    _build.check(err, "rows_linear")
+    launches["fused_overlap_attention"] += 1
+    return out
+
+
+def fused_residual_ln_mlp_plain(a, shortcut, ln_w, ln_b, w1, b1, w2, b2):
+    return _mlp_plain(a + shortcut, ln_w, ln_b, w1, b1, w2, b2)
+
+
+def fused_residual_ln_mlp(a, shortcut, ln_w, ln_b, w1, b1, w2, b2):
+    """Kernel B10 on CUDA, its plain version on the CPU: y = a + shortcut;
+    out = y + fc2(GELU(fc1(LN y))) on [..., C] rows (any leading shape)."""
+    if a.device.type == "cpu":
+        return fused_residual_ln_mlp_plain(a, shortcut, ln_w, ln_b, w1, b1, w2, b2)
+    c, hid = a.shape[-1], w1.shape[1]
+    if c % 4:
+        raise ValueError(f"fused_residual_ln_mlp: C={c} is not a multiple of 4")
+    _build.require(a, "a")
+    _build.require(shortcut, "shortcut", a.shape)
+    for name, t, shape in (("ln_w", ln_w, (c,)), ("ln_b", ln_b, (c,)), ("w1", w1, (c, hid)),
+                           ("b1", b1, (hid,)), ("w2", w2, (hid, c)), ("b2", b2, (c,))):
+        _build.require(t, name, shape)
+    kp, npad, k2p, w1p, w2p = _mlp_padded_weights(c, w1, w2)
+    lib = _build.library()
+    out = torch.empty_like(a)
+    hidden = torch.empty((a.numel() // c, k2p), device=a.device, dtype=torch.float32)
+    with torch.cuda.device(a.device):
+        err = lib.residual_ln_mlp(a.data_ptr(), shortcut.data_ptr(), ln_w.data_ptr(),
+                                  ln_b.data_ptr(), w1p.data_ptr(), b1.data_ptr(),
+                                  w2p.data_ptr(), b2.data_ptr(), hidden.data_ptr(),
+                                  out.data_ptr(), a.numel() // c, c, hid, kp, npad, k2p,
+                                  _build.stream_ptr(a.device))
+    _build.check(err, "residual_ln_mlp")
+    launches["fused_residual_ln_mlp"] += 1
     return out

@@ -1,5 +1,5 @@
-"""Window-attention utilities for the DAT expert. Twin of ``freqfusion_tpu/ops/windows.py``
-(the helpers DAT needs; HAT's overlapping-window helpers come with the HAT slice).
+"""Window-attention utilities shared by the DAT and HAT experts. Twin of
+``freqfusion_tpu/ops/windows.py``.
 
 Tables and masks are numpy constants built once per shape (``lru_cache``) and returned
 read-only; tensors keep the JAX package's NHWC layout.
@@ -67,6 +67,41 @@ def swin_bias_from_table(table: torch.Tensor, hs: int, ws: int,
     if index is None:
         index = torch.from_numpy(relative_position_index(hs, ws).copy()).to(table.device)
     return table[index.reshape(-1)].reshape(n, n, -1).permute(2, 0, 1).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def oca_relative_position_index(ws: int, wse: int) -> np.ndarray:
+    """OCAB relative position index, [ws*ws, wse*wse] int64 into a (ws+wse-1)^2 bias table:
+    query coordinates in the ws x ws window against key coordinates in the wse x wse
+    extended window. The reference's construction lets offsets go negative and wrap around
+    the table's end; here they are already taken modulo the table's length."""
+    ori = np.stack(np.meshgrid(np.arange(ws), np.arange(ws), indexing="ij")).reshape(2, -1)
+    ext = np.stack(np.meshgrid(np.arange(wse), np.arange(wse), indexing="ij")).reshape(2, -1)
+    rel = (ext[:, None, :] - ori[:, :, None]).transpose(1, 2, 0) + (ws - wse + 1)
+    d = ws + wse - 1
+    return _frozen((rel[:, :, 0] * d + rel[:, :, 1]).astype(np.int64) % (d * d))
+
+
+def oca_bias_from_table(table: torch.Tensor, ws: int, wse: int,
+                        index: torch.Tensor | None = None) -> torch.Tensor:
+    """[(ws+wse-1)^2, nh] OCAB bias table -> [nh, ws*ws, wse*wse] bias matrix: a plain index
+    gather, which selects the entries that the JAX package's roll-and-slice construction
+    selects. `index` is oca_relative_position_index(ws, wse) already on the table's device,
+    when the caller keeps one."""
+    if index is None:
+        index = torch.from_numpy(oca_relative_position_index(ws, wse).copy()).to(table.device)
+    return table[index.reshape(-1)].reshape(ws * ws, wse * wse, -1).permute(2, 0, 1).contiguous()
+
+
+def extract_overlapping_windows(x: torch.Tensor, win: int, overlap: int) -> torch.Tensor:
+    """[B,H,W,C] -> [B*nW, (win+overlap)^2, C] overlapping windows at stride `win`, the image
+    zero-padded by overlap/2 on each side: the reference OCAB's nn.Unfold. Windows are in
+    row-major order, each laid out [owh, oww, C]."""
+    b, h, w, c = x.shape
+    ows, p = win + overlap, overlap // 2
+    xp = torch.nn.functional.pad(x, (0, 0, p, p, p, p))
+    wins = xp.unfold(1, ows, win).unfold(2, ows, win)      # [B, nh, nw, C, owh, oww]
+    return wins.permute(0, 1, 2, 4, 5, 3).reshape(-1, ows * ows, c)
 
 
 @functools.lru_cache(maxsize=8)   # O(image) * N^2 floats each: keep few

@@ -134,6 +134,78 @@ def dat_params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+# Renames of the JAX HAT's module paths back to the reference layout (own copy of the
+# tables beside the JAX package's ``hat_key_fn``): Sequential indices of CAB, of
+# ChannelAttention and of the upsample head.
+_HAT_SEQ = {
+    "patch_norm": "patch_embed.norm", "conv_before_upsample": "conv_before_upsample.0",
+    "conv_block": "conv_block.cab", "conv1": "0", "conv2": "2", "ca": "3.attention",
+}
+_HAT_CA = {"fc1": "1", "fc2": "3"}   # Sequential(GAP, Conv, ReLU, Conv, Sigmoid)
+_HAT_RAW = {"qkv_kernel": "qkv.weight", "qkv_bias": "qkv.bias",
+            "proj_kernel": "proj.weight", "proj_bias": "proj.bias"}
+
+
+def hat_key(path: Tuple[str, ...]) -> str:
+    """Unrolled JAX HAT param path -> reference torch key:
+    ('layers_0','blocks_1','conv_block','ca','fc1','kernel') ->
+    'layers.0.residual_group.blocks.1.conv_block.cab.3.attention.1.weight'."""
+    parts = [p for p in path if p != "params"]
+    toks = []
+    for i, p in enumerate(parts[:-1]):
+        m = _IDX.match(p)
+        if m and m.group(1) == "layers":
+            toks.extend(["layers", m.group(2)])
+            nxt = parts[i + 1] if i + 1 < len(parts) - 1 else ""
+            if nxt.startswith("blocks") or nxt == "overlap_attn":
+                toks.append("residual_group")
+        elif m and m.group(1) == "upsample":
+            toks.extend(["upsample", str(2 * int(m.group(2)))])
+        elif p in _HAT_CA and i and parts[i - 1] == "ca":
+            toks.append(_HAT_CA[p])
+        elif p in _HAT_SEQ:
+            toks.append(_HAT_SEQ[p])
+        elif m:
+            toks.extend([m.group(1), m.group(2)])
+        else:
+            toks.append(p)
+    leaf = _HAT_RAW.get(parts[-1]) or {"kernel": "weight", "scale": "weight"}.get(
+        parts[-1], parts[-1])
+    return ".".join(toks + [leaf])
+
+
+def hat_params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's HAT param tree, as nested dicts of arrays -> a state dict for the
+    port's ``HAT``.
+
+    Takes every JAX layout: unrolled (``layers_i/blocks_j``), group-scanned (``layers/...``,
+    whose leaves carry a leading axis over the groups), pair-scanned (``pairs/blk{0,1}``
+    inside a group, a leading axis over the (shift-0, shifted) HAB pairs) and both at once
+    (two leading axes, groups first): slice [gi, pi] of ``blk b`` is torch
+    ``layers.gi.residual_group.blocks.(2*pi+b)``. Dense kernels, the raw ``qkv_kernel`` and
+    ``proj_kernel`` included, go [in,out] -> [out,in], convs HWIO -> OIHW, LayerNorm
+    ``scale`` -> ``weight``."""
+    sd = {}
+    for path, leaf in _flatten(params):
+        path = tuple(p for p in path if p != "params")
+        group_scan = path[0] == "layers"
+        pair_pos = path.index("pairs") if "pairs" in path else None
+        a = np.asarray(leaf, dtype=np.float32)
+        naxes = int(group_scan) + int(pair_pos is not None)
+        for idx in np.ndindex(a.shape[:naxes]):
+            own = list(path)
+            if pair_pos is not None:
+                b = int(own[pair_pos + 1][3:])      # 'blk0' / 'blk1'
+                own[pair_pos:pair_pos + 2] = [f"blocks_{2 * idx[-1] + b}"]
+            if group_scan:
+                own[0] = f"layers_{idx[0]}"
+            piece = a[idx]
+            if path[-1].endswith("kernel"):
+                piece = piece.transpose(3, 2, 0, 1) if piece.ndim == 4 else piece.T
+            sd[hat_key(tuple(own))] = torch.from_numpy(np.ascontiguousarray(piece))
+    return sd
+
+
 def nafnet_params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX package's NAFNetSR (or NAFNet) param tree, as nested dicts of arrays ->
     a state dict for the port's ``NAFNet``.

@@ -94,9 +94,9 @@ def test_port_imports_without_jax():
         "import freqfusion_tpu_torch.ops.kernels.conv3x3\n"
         "import freqfusion_tpu_torch.ops.windows\n"
         "import freqfusion_tpu_torch.ops.kernels.wattn, freqfusion_tpu_torch.ops.kernels.aim\n"
-        "import freqfusion_tpu_torch.ops.kernels.sgfn\n"
+        "import freqfusion_tpu_torch.ops.kernels.sgfn, freqfusion_tpu_torch.ops.kernels.cab\n"
         "import freqfusion_tpu_torch.models.layers, freqfusion_tpu_torch.models.nafnet\n"
-        "import freqfusion_tpu_torch.models.dat\n"
+        "import freqfusion_tpu_torch.models.dat, freqfusion_tpu_torch.models.hat\n"
         "import freqfusion_tpu_torch.infer.io\n"
         "import freqfusion_tpu_torch.utils.convert, freqfusion_tpu_torch.utils.imageio\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from freqfusion_tpu_torch.ops import windows
-from freqfusion_tpu_torch.ops.kernels import aim, conv3x3, nafblock, sgfn, wattn
+from freqfusion_tpu_torch.ops.kernels import aim, cab, conv3x3, nafblock, sgfn, wattn
 
 pytestmark = pytest.mark.cuda
 
@@ -200,6 +200,164 @@ def test_dat_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         sgfn.fused_sgfn_tail(args[0], args[1].cpu(), *args[2:])
     with pytest.raises(ValueError, match="multiples of 4"):
         sgfn.fused_sgfn_tail(*_sgfn_args(gen, 1, 4, 4, 20, 36))
+
+
+@pytest.mark.parametrize("b,h,w,c,mid,shift", [(2, 37, 45, 180, 60, 0), (1, 32, 64, 180, 60, 8),
+                                               (2, 24, 40, 24, 8, 4), (1, 5, 7, 12, 4, 3)])
+def test_cab_chain_kernel_matches_plain(gen, b, h, w, c, mid, shift):
+    args = (_r(gen, b, h, w, c), _r(gen, c, std=0.1, mean=1.0), _r(gen, c, std=0.1),
+            _r(gen, 3, 3, c, mid, std=(9 * c) ** -0.5), _r(gen, mid, std=0.1),
+            _r(gen, 3, 3, mid, c, std=(9 * mid) ** -0.5), _r(gen, c, std=0.1))
+    n0 = cab.launches["cab_chain"]
+    u, sums = cab.cab_chain(*args, out_shift=shift)
+    u_ref, sums_ref = cab.cab_chain_plain(*args, out_shift=shift)
+    torch.testing.assert_close(u, u_ref, atol=1e-4, rtol=0)
+    # sums are taken in another order: bound each by 1e-5 of its sum of |u|
+    assert ((sums - sums_ref).abs() <= 1e-5 * u_ref.abs().sum((1, 2), keepdim=True)).all()
+    assert cab.launches["cab_chain"] == n0 + 1
+
+
+def _hab_args(gen, b, h, w, c, heads, window, hidden):
+    n = window * window
+    return [_r(gen, b, h, w, c), _r(gen, b, h, w, c, std=3.0),
+            _r(gen, c, std=0.1, mean=1.0), _r(gen, c, std=0.1),
+            _r(gen, c, std=0.1, mean=1.0), _r(gen, c, std=0.1),
+            _r(gen, c, 3 * c, std=c ** -0.5), _r(gen, 3 * c, std=0.1),
+            _r(gen, c, c, std=c ** -0.5), _r(gen, c, std=0.1),
+            _r(gen, c, hidden, std=c ** -0.5), _r(gen, hidden, std=0.1),
+            _r(gen, hidden, c, std=hidden ** -0.5), _r(gen, c, std=0.1),
+            _r(gen, heads, n, n, std=0.5)]
+
+
+@pytest.mark.parametrize("b,h,w,c,heads,window,mode", [
+    (2, 32, 48, 180, 6, 16, "plain"), (2, 32, 48, 180, 6, 16, "in_shift"),
+    (1, 16, 32, 180, 6, 16, "rolled"), (2, 16, 24, 24, 4, 8, "in_shift"),
+    (1, 16, 16, 64, 2, 8, "plain")])
+def test_fused_hab_block_kernel_matches_plain(gen, b, h, w, c, heads, window, mode):
+    args = _hab_args(gen, b, h, w, c, heads, window, 2 * c)
+    s = 0 if mode == "plain" else window // 2
+    mask = None
+    if mode == "in_shift":   # the 4 window types as the model hands them over
+        mask = torch.from_numpy(windows.shift_mask_types(window, window, s, s).copy()).cuda()
+    elif mode == "rolled":   # the whole image's numpy mask, reduced by the wrapper
+        mask = windows.shift_attn_mask(h, w, window, window, s, s)
+    kw = dict(cab_scale=_r(gen, b, 1, 1, c, std=0.2, mean=0.5),
+              in_shift=s if mode == "in_shift" else 0)
+    n0 = wattn.launches["fused_hab_block"]
+    got = wattn.fused_hab_block(*args, mask, (window, window), heads, 0.01, **kw)
+    want = wattn.fused_hab_block_plain(*args, mask, (window, window), heads, 0.01, **kw)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert wattn.launches["fused_hab_block"] == n0 + 1
+    kw["cab_scale"] = None
+    torch.testing.assert_close(
+        wattn.fused_hab_block(*args, mask, (window, window), heads, 0.01, **kw),
+        wattn.fused_hab_block_plain(*args, mask, (window, window), heads, 0.01, **kw),
+        atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("b,h,w,c,heads,window", [(2, 32, 48, 180, 6, 16), (1, 16, 16, 180, 6, 16),
+                                                  (2, 16, 24, 24, 4, 8), (1, 8, 12, 8, 2, 4)])
+def test_overlap_attention_kernel_matches_plain(gen, b, h, w, c, heads, window):
+    ov = window // 2
+    args = (_r(gen, b, h, w, c), _r(gen, b, h, w, c), _r(gen, b, h, w, c),
+            _r(gen, c, c, std=c ** -0.5), _r(gen, c, std=0.1),
+            _r(gen, heads, window ** 2, (window + ov) ** 2, std=0.5))
+    n0 = wattn.launches["fused_overlap_attention"]
+    torch.testing.assert_close(
+        wattn.fused_overlap_attention(*args, window, ov, heads),
+        wattn.fused_overlap_attention_plain(*args, window, ov, heads), atol=1e-4, rtol=0)
+    assert wattn.launches["fused_overlap_attention"] == n0 + 1
+
+
+@pytest.mark.parametrize("shape,hidden", [((2, 37, 45, 180), 360), ((1, 8, 32, 64), 128),
+                                          ((3, 5, 7, 20), 40), ((130, 12), 24)])
+def test_residual_ln_mlp_kernel_matches_plain(gen, shape, hidden):
+    c = shape[-1]
+    args = (_r(gen, *shape), _r(gen, *shape), _r(gen, c, std=0.1, mean=1.0),
+            _r(gen, c, std=0.1), _r(gen, c, hidden, std=c ** -0.5), _r(gen, hidden, std=0.1),
+            _r(gen, hidden, c, std=hidden ** -0.5), _r(gen, c, std=0.1))
+    n0 = wattn.launches["fused_residual_ln_mlp"]
+    torch.testing.assert_close(wattn.fused_residual_ln_mlp(*args),
+                               wattn.fused_residual_ln_mlp_plain(*args), atol=1e-4, rtol=0)
+    assert wattn.launches["fused_residual_ln_mlp"] == n0 + 1
+
+
+def test_hat_on_the_card_runs_its_kernels_and_raises_where_one_is_not_ported(gen):
+    """A small HAT on the card launches B7 and B8 in every HAB, B9 and B10 in every OCAB and
+    B3 in the seam convs; a window under 8 px would need the standalone window-attention
+    kernel: the model raises and launches nothing in its place; with kernels off the plain
+    versions run."""
+    from freqfusion_tpu_torch.models.hat import HAT
+    cfg = dict(embed_dim=48, depths=(2, 2), num_heads=(4, 4), squeeze=6, num_feat=16)
+    model = HAT(window=16, **cfg).cuda().eval()
+    x = torch.rand(2, 32, 48, 3, generator=gen, device="cuda")
+    n0 = dict(wattn.launches, **cab.launches, **conv3x3.launches)
+    with torch.inference_mode():
+        sr, deep = model(x)
+        after = dict(wattn.launches, **cab.launches, **conv3x3.launches)
+        for m in model.modules():
+            if hasattr(m, "kernels"):
+                m.kernels = False
+        sr_plain, deep_plain = model(x)
+    assert {k: after[k] - n0[k] for k in after if after[k] != n0[k]} == {
+        "cab_chain": 4, "fused_hab_block": 4, "fused_overlap_attention": 2,
+        "fused_residual_ln_mlp": 2, "conv3x3_dense": 3}
+    assert dict(wattn.launches, **cab.launches, **conv3x3.launches) == after
+    torch.testing.assert_close(sr, sr_plain, atol=1e-3 * sr_plain.abs().max().item(), rtol=0)
+    torch.testing.assert_close(deep, deep_plain, atol=1e-3 * deep_plain.abs().max().item(),
+                               rtol=0)
+    small = HAT(window=4, **cfg).cuda().eval()
+    y = torch.rand(1, 8, 12, 3, generator=gen, device="cuda")
+    with torch.inference_mode():
+        with pytest.raises(NotImplementedError, match="fused_window_attention"):
+            small(y)
+        for m in small.modules():
+            if hasattr(m, "kernels"):
+                m.kernels = False
+        sr, _ = small(y)
+    assert sr.shape == (1, 32, 48, 3) and bool(torch.isfinite(sr).all())
+    assert dict(wattn.launches, **cab.launches, **conv3x3.launches) == after
+
+
+def test_hat_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    args = _hab_args(gen, 1, 16, 16, 24, 4, 8, 48)
+    types = torch.from_numpy(windows.shift_mask_types(8, 8, 4, 4).copy()).cuda()
+    with pytest.raises(ValueError, match="needs a shift mask"):
+        wattn.fused_hab_block(*args, None, (8, 8), 4, 0.01, in_shift=4)
+    with pytest.raises(ValueError, match="square window"):
+        wattn.fused_hab_block(*args, None, (8, 16), 4, 0.01)
+    with pytest.raises(ValueError, match="tokens per window"):
+        wattn.fused_hab_block(*args[:14], _r(gen, 4, 16, 16), None, (4, 4), 4, 0.01)
+    with pytest.raises(ValueError, match="expected shape"):
+        wattn.fused_hab_block(args[0], args[1][:, :8].contiguous(), *args[2:], types, (8, 8),
+                              4, 0.01)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        wattn.fused_hab_block(args[0], args[1].cpu(), *args[2:], types, (8, 8), 4, 0.01)
+    q = _r(gen, 1, 32, 32, 24)
+    with pytest.raises(ValueError, match="keys"):   # a 32-px window grown to 48 px: 2304 keys
+        wattn.fused_overlap_attention(q, q, q, _r(gen, 24, 24), _r(gen, 24),
+                                      _r(gen, 4, 1024, 2304), 32, 16, 4)
+    with pytest.raises(ValueError, match="multiple of the"):
+        wattn.fused_overlap_attention(q[:, :30].contiguous(), q[:, :30].contiguous(),
+                                      q[:, :30].contiguous(), _r(gen, 24, 24), _r(gen, 24),
+                                      _r(gen, 4, 64, 144), 8, 4, 4)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        wattn.fused_residual_ln_mlp(_r(gen, 4, 4, 18), _r(gen, 4, 4, 18), _r(gen, 18),
+                                    _r(gen, 18), _r(gen, 18, 36), _r(gen, 36), _r(gen, 36, 18),
+                                    _r(gen, 18))
+    with pytest.raises(ValueError, match="contiguous"):
+        wattn.fused_residual_ln_mlp(_r(gen, 4, 20, 4).transpose(1, 2), _r(gen, 4, 4, 20),
+                                    _r(gen, 20), _r(gen, 20), _r(gen, 20, 40), _r(gen, 40),
+                                    _r(gen, 40, 20), _r(gen, 20))
+    x = _r(gen, 1, 8, 8, 12)
+    cargs = (_r(gen, 12), _r(gen, 12), _r(gen, 3, 3, 12, 4), _r(gen, 4), _r(gen, 3, 3, 4, 12),
+             _r(gen, 12))
+    with pytest.raises(ValueError, match="out_shift"):
+        cab.cab_chain(x, *cargs, out_shift=8)
+    with pytest.raises(ValueError, match="float32"):
+        cab.cab_chain(x.double(), *cargs)
+    with pytest.raises(ValueError, match="expected shape"):
+        cab.cab_chain(x, cargs[0], cargs[1], _r(gen, 3, 3, 12, 5), *cargs[3:])
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
