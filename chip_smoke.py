@@ -18,10 +18,16 @@ Phases, each printing JSON lines; any failure raises and the exit code is not 0:
      it also times the weight re-layout and padding that every forward repeats;
   6. HAT slice: the same for HAT-L at its full width and depth (embed 180, 12 groups of
      6 HAB + 1 OCAB, window 16), whose every HAB runs the CAB-chain and fused-block
-     kernels and every OCAB the overlapping-attention and residual-MLP kernels.
-With --profile [dat|hat], one forward of that model (DAT if none is named) is also traced
-with torch.profiler and its device time is printed by kernel. The last two lines are the
-kernels' summary and
+     kernels and every OCAB the overlapping-attention and residual-MLP kernels;
+  7. ensemble: FreqFusionSR at the shipped FusionConfig over the three full experts serves
+     the same three requests through infer.io.main, from .pth checkpoints of seeded random
+     weights that the script saved; the fusion head's band-attention and
+     LKA-gate kernels must have launched once per image and every expert kernel as often as
+     in its solo phase; the head's bands, the fused image and the output are checked against
+     the plain versions, and the forward and the head alone are timed on both paths.
+With --profile [dat|hat|ens|head], one forward of that model (DAT if none is named; `head`
+is the fusion head alone on fixed expert outputs) is also traced with torch.profiler and
+its device time is printed by kernel. The last two lines are the kernels' summary and
 {"ok": true, "device": {...}}. It exits non-zero without a CUDA card. The PNGs go to
 build/chip_smoke/ in the checkout.
 """
@@ -33,20 +39,23 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 from statistics import fmean as mean
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from freqfusion_tpu_torch.infer.io import InferencePipeline
+from freqfusion_tpu_torch.infer.io import InferencePipeline, build_pipeline
+from freqfusion_tpu_torch.infer.io import main as serve_directory
 from freqfusion_tpu_torch.models import dat as dat_model
 from freqfusion_tpu_torch.models.dat import DAT
+from freqfusion_tpu_torch.models.experts import FreqFusionSR
 from freqfusion_tpu_torch.models.hat import HAT
 from freqfusion_tpu_torch.models.nafnet import NAFNetSR
 from freqfusion_tpu_torch.ops import windows
-from freqfusion_tpu_torch.ops.kernels import (_build, aim, cab, conv3x3, nafblock, sgfn,
-                                              wattn)
+from freqfusion_tpu_torch.ops.kernels import (_build, aim, bandmha, cab, conv3x3, lka,
+                                              nafblock, sgfn, wattn)
 from freqfusion_tpu_torch.utils.imageio import list_images, load_image, save_image
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -73,6 +82,12 @@ WATTN_CASES = [("8x32", 1, 352, 512, 8, 32, False), ("8x32_shift", 1, 352, 512, 
 # 60, hidden 360): (name, B, H, W); "batch2" is a few windows, "ragged" takes any H, W
 HAT_C, HAT_HEADS, HAT_WINDOW, HAT_OVERLAP, HAT_MID, HAT_HIDDEN = 180, 6, 16, 8, 60, 360
 HAT_CASES = [("bucket", 1, 352, 512), ("batch2", 2, 32, 48), ("ragged", 2, 37, 45)]
+# the fusion head at the 512x352 bucket: 9 band tokens of 64 (4 heads) a pixel; the LKA gate
+# on the 9 bands folded into the batch, and at the collaborative branch's C = 128
+MHA_CASES = [("bucket", 1, 352, 512, 9, 64, 4), ("t3", 1, 352, 512, 3, 64, 4),
+             ("ragged", 2, 37, 45, 9, 64, 4), ("d32", 1, 16, 24, 3, 32, 2)]
+LKA_CASES = [("bucket", 9, 352, 512, 64), ("c128", 3, 352, 512, 128),
+             ("ragged", 2, 37, 45, 64), ("h10", 1, 10, 50, 64)]
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: f32 outside the tensor cores, HBM3
 
 
@@ -150,7 +165,7 @@ def set_kernels(model: torch.nn.Module, on: bool) -> None:
 
 
 LAUNCH_COUNTS = (nafblock.launches, conv3x3.launches, wattn.launches, aim.launches,
-                 sgfn.launches, cab.launches)
+                 sgfn.launches, cab.launches, bandmha.launches, lka.launches)
 
 
 def reset_launches() -> None:
@@ -514,6 +529,83 @@ def hat_kernel_cases(gen: torch.Generator, res: dict) -> None:
                       bound=times[0][2])
 
 
+def band_mha_library(x, in_proj_weight, bqkv, out_proj_weight, bproj, ln_w, ln_b, heads):
+    """B11's function through PyTorch's own attention entry point: the yardstick
+    `library_ms`, which nothing in the port calls."""
+    *_, t, d = x.shape
+    n = F.layer_norm(x, (d,), ln_w, ln_b, 1e-5).reshape(-1, t, d).transpose(0, 1)
+    a, _ = F.multi_head_attention_forward(
+        n, n, n, d, heads, in_proj_weight, bqkv, None, None, False, 0.0, out_proj_weight,
+        bproj, training=False, need_weights=False)
+    return x + a.transpose(0, 1).reshape(x.shape)
+
+
+def head_kernel_cases(gen: torch.Generator, res: dict) -> None:
+    """B11 and B12 at the fusion head's shapes, with the bound of the other kernels: outputs
+    of O(1) within KERNEL_ATOL of the plain version."""
+    def r(*shape, std=1.0, mean=0.0):
+        return mean + std * torch.randn(*shape, generator=gen, device="cuda")
+
+    for name, b, h, w, t, d, heads in MHA_CASES:
+        hd, npix = d // heads, b * h * w
+        args = (r(b, h, w, t, d, std=0.6), r(d, 3 * d, std=d ** -0.5), r(3 * d, std=0.1),
+                r(d, d, std=d ** -0.5), r(d, std=0.1), r(d, std=0.1, mean=1.0),
+                r(d, std=0.1), heads)
+        got = bandmha.fused_band_mha(*args)
+        want = bandmha.fused_band_mha_plain(*args)
+        lib_args = (args[0], args[1].t().contiguous(), args[2], args[3].t().contiguous(),
+                    *args[4:])
+        lib_err = (band_mha_library(*lib_args) - want).abs().max().item()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        del got, want
+        ms = cuda_ms(lambda: bandmha.fused_band_mha(*args), iters=5)
+        plain_ms = cuda_ms(lambda: bandmha.fused_band_mha_plain(*args), iters=5)
+        lib_ms = cuda_ms(lambda: band_mha_library(*lib_args), iters=5)
+        # LN, the qkv and out projections, q k^T and p v over T x T scores a head, softmax;
+        # reads the stacked tensor and the weights, writes the stacked tensor
+        bnd = bound_ms(npix * (t * (8 * d * d + 10 * d) + heads * t * t * (4 * hd + 8)),
+                       4 * (2 * npix * t * d + 4 * d * d + 6 * d))
+        emit("kernel", kernel="fused_band_mha", case=name, shape=[b, h, w, t, d], heads=heads,
+             max_abs_err=err, bound=KERNEL_ATOL, max_abs_plain=scale,
+             library_vs_plain_max_abs=lib_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+             bound_ms=bnd[0], bound_by=bnd[1])
+        require(err <= KERNEL_ATOL, f"B11 error {err} at {name}")
+        require(lib_err <= KERNEL_ATOL, f"B11's library call differs from it by {lib_err}")
+        res["fused_band_mha"]["err"] = max(res["fused_band_mha"]["err"], err)
+        if name == "bucket":   # the summary's times
+            res["fused_band_mha"].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                         bound=bnd)
+        del args, lib_args
+        torch.cuda.empty_cache()
+
+    for name, b, h, w, c in LKA_CASES:
+        n = b * h * w * c
+        args = (r(b, h, w, c), r(5, 5, c, std=0.2), r(21, c, std=0.2), r(21, c, std=0.2),
+                r(c, c, std=c ** -0.5), r(c, std=0.2, mean=1.0), r(c, std=0.1))
+        got = lka.lka_gate(*args)
+        want = lka.lka_gate_plain(*args)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        del got, want
+        ms = cuda_ms(lambda: lka.lka_gate(*args), iters=5)
+        plain_ms = cuda_ms(lambda: lka.lka_gate_plain(*args), iters=5)
+        # 25 + 21 + 21 depthwise taps, the 1x1 product, affine, sigmoid, gate; reads x and
+        # the weights, writes out
+        bnd = bound_ms(n * (2 * (25 + 21 + 21) + 2 * c + 8), 4 * (2 * n + c * c + 69 * c))
+        emit("kernel", kernel="lka_gate", case=name, shape=[b, h, w, c], max_abs_err=err,
+             bound=KERNEL_ATOL, max_abs_plain=scale, ms=ms, plain_ms=plain_ms,
+             bound_ms=bnd[0], bound_by=bnd[1])
+        require(err <= KERNEL_ATOL, f"B12 error {err} at {name}")
+        res["lka_gate"]["err"] = max(res["lka_gate"]["err"], err)
+        if name == "bucket":   # the summary's times
+            res["lka_gate"].update(ms=ms, plain_ms=plain_ms, bound=bnd)
+        del args
+        torch.cuda.empty_cache()
+
+
 def phase_kernels(gen: torch.Generator) -> dict:
     """Each kernel against its plain version at the slices' shapes; returns the numbers
     for the summary line."""
@@ -523,6 +615,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
     torch.cuda.empty_cache()
     hat_kernel_cases(gen, res)
     torch.cuda.empty_cache()
+    head_kernel_cases(gen, res)
     return res
 
 
@@ -708,7 +801,7 @@ def dat_slice(gen_cpu: torch.Generator, profile: bool) -> dict:
         with torch.inference_mode():
             return {"weight_prep_ms_per_image": cuda_ms(lambda: dat_weight_prep(m), iters=3)}
 
-    counts = phase_slice("dat", model, forward, DAT_KERNELS, time_buckets=3,
+    counts = phase_slice("dat", model, forward, DAT_KERNELS, time_buckets=1,
                          extra_times=weight_prep_ms)
     # per image: 7 convs (6 groups + conv_after_body), 36 of each AIM kernel and of the
     # tail (every block), 36 window attentions (18 spatial blocks x 2 branches)
@@ -718,7 +811,8 @@ def dat_slice(gen_cpu: torch.Generator, profile: bool) -> dict:
         require(counts[k] == n * len(REQUESTS),
                 f"{k}: {counts[k]} launches on the DAT path, expected {n} per image")
     if profile:
-        profile_forward("dat", model)
+        x = torch.rand(1, 352, 512, 3, device="cuda")
+        profile_forward("dat", lambda: model(x))
     return counts
 
 
@@ -760,7 +854,7 @@ def hat_slice(gen_cpu: torch.Generator, profile: bool) -> dict:
         with torch.inference_mode():
             return {"weight_prep_ms_per_image": cuda_ms(lambda: hat_weight_prep(m), iters=3)}
 
-    counts = phase_slice("hat", model, forward, HAT_KERNELS, time_buckets=3,
+    counts = phase_slice("hat", model, forward, HAT_KERNELS, time_buckets=1,
                          extra_times=weight_prep_ms)
     # per image: 72 HABs (a CAB chain and a fused block each), 12 OCABs (an overlapping
     # attention and a residual MLP each), 13 convs (12 groups + conv_after_body)
@@ -770,19 +864,177 @@ def hat_slice(gen_cpu: torch.Generator, profile: bool) -> dict:
         require(counts[k] == n * len(REQUESTS),
                 f"{k}: {counts[k]} launches on the HAT path, expected {n} per image")
     if profile:
-        profile_forward("hat", model)
+        x = torch.rand(1, 352, 512, 3, device="cuda")
+        profile_forward("hat", lambda: model(x))
     return counts
 
 
-def profile_forward(tag: str, model: torch.nn.Module) -> None:
-    """Device time of one forward at the 512x352 bucket by kernel (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-    x = torch.rand(1, 352, 512, 3, device="cuda")
+def randomize_head_(head: torch.nn.Module, gen: torch.Generator) -> None:
+    """Seeded random weights with nothing an identity, for the fusion head: convs, Linears
+    and the packed in_proj N(0, 1/fan_in), LayerNorm / BatchNorm weights N(1, 0.1), biases
+    N(0, 0.02), BN running means U(-0.2, 0.2) and variances U(0.6, 1.4); the head's own
+    scalars and vectors (residual scales, band scales, importances, the FFT mask) keep
+    their initial values plus N(0, 0.05)."""
+    with torch.no_grad():
+        for name, p in head.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if p.dim() >= 2 and leaf in ("weight", "in_proj_weight"):
+                p.copy_(p[0].numel() ** -0.5 * torch.randn(p.shape, generator=gen))
+            elif leaf == "weight":
+                p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=gen))
+            elif leaf in ("bias", "in_proj_bias"):
+                p.copy_(0.02 * torch.randn(p.shape, generator=gen))
+            else:
+                p.add_((0.05 * torch.randn(p.shape, generator=gen)).to(p.device))
+        for name, buf in head.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_(torch.rand(buf.shape, generator=gen) * 0.4 - 0.2)
+            elif name.endswith("running_var"):
+                buf.copy_(torch.rand(buf.shape, generator=gen) * 0.8 + 0.6)
+
+
+def write_checkpoints(model_dir: str, gen_cpu: torch.Generator) -> None:
+    """Seeded random weights for the whole model, nothing an identity, saved where `main`
+    looks for them: one .pth per expert under pretrained/ (NAFNetSR's with its `nafnet.`
+    prefix) and the head's beside them."""
+    model = FreqFusionSR()
+    randomize_transformer_(model.experts.hat, gen_cpu)
+    randomize_transformer_(model.experts.dat, gen_cpu)
+    randomize_(model.experts.nafnet, gen_cpu)
+    randomize_head_(model.fusion, gen_cpu)
+    for name, module in (("hat", model.experts.hat), ("dat", model.experts.dat),
+                         ("nafnet", model.experts.nafnet)):
+        os.makedirs(os.path.join(model_dir, "pretrained", name), exist_ok=True)
+        torch.save(module.state_dict(), os.path.join(model_dir, "pretrained", name, f"{name}.pth"))
+    torch.save(model.fusion.state_dict(), os.path.join(model_dir, "fusion_head.pth"))
+
+
+def ens_slice(gen_cpu: torch.Generator, profiled, solo_counts: dict) -> dict:
+    """FreqFusionSR at the shipped FusionConfig over NAFNet-64, DAT and HAT-L at full width
+    and depth serves the three requests through infer.io.main, from the checkpoints that
+    `write_checkpoints` saved. `solo_counts` holds the launches of the three solo phases on
+    the same requests: the ensemble must repeat them, plus one band attention and one LKA
+    gate an image."""
+    model_dir = os.path.join(OUT, "model_dir")
+    req_dir, sr_dir = os.path.join(OUT, "requests"), os.path.join(OUT, "sr_ens")
+    t0 = time.perf_counter()
+    write_checkpoints(model_dir, gen_cpu)
+    write_requests(req_dir)
+    files = list_images(req_dir)
+    lrs = [load_image(f) for f in files]
+    for f in list_images(sr_dir) if os.path.isdir(sr_dir) else []:
+        os.remove(f)
+    write_s = time.perf_counter() - t0
+
+    # the main path: the directory contract, on the card (its default device), every
+    # checkpoint found
+    reset_launches()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        served = serve_directory(model_dir, req_dir, sr_dir)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    counts = {k: n for k, n in read_launches().items() if n}
+    lost = [str(w.message) for w in caught if "checkpoint" in str(w.message)]
+    require(not lost, f"main did not load every checkpoint: {lost}")
+
+    # the same model once more, for the checks and the timings below
+    t0 = time.perf_counter()
+    pipe = build_pipeline(model_dir)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model, head = pipe.model, pipe.model.fusion
+    plans = [pipe._plan_or_raise(lr.shape[0], lr.shape[1]) for lr in lrs]
+    emit("ens_setup", params=sum(p.numel() for p in model.parameters()),
+         head_params=sum(p.numel() for p in head.parameters()),
+         requests=[list(lr.shape) for lr in lrs], buckets=plans,
+         write_checkpoints_seconds=write_s)
+    outs = [load_image(os.path.join(sr_dir, os.path.basename(f))) for f in files]
+    # `seconds`: the whole call of main, building the model and loading its checkpoints
+    # included; `build_seconds`: that part alone, as the second build took it
+    emit("ens_serve", images=served, seconds=main_s, build_seconds=build_s,
+         outputs=[list(a.shape) for a in outs], launches=counts)
+    require(served == len(REQUESTS), f"main served {served} images")
+    for lr, arr in zip(lrs, outs):
+        require(arr.shape == (4 * lr.shape[0], 4 * lr.shape[1], 3), f"output {arr.shape}")
+    expected = {k: n for k, n in solo_counts.items() if n}
+    expected.update(fused_band_mha=len(REQUESTS), lka_gate=len(REQUESTS))
+    require(counts == expected, f"launches on the ensemble path {counts}, expected {expected}")
+
+    # the same forward of image 0, kernels against plain versions: the head's three fused
+    # bands (what B11 and B12 feed), the fused image before any clamp, and the output
+    def forward(x):
+        outputs, _ = model.experts(x)
+        bands = head.process_frequency_bands(x)
+        fused = head.fuse_experts(x, outputs, bands)
+        sr = head.refine(fused, x)
+        return outputs, torch.cat(bands, -1), fused, head.edge_refine(sr)
+
+    lr_h, lr_w = lrs[0].shape[:2]
     with torch.inference_mode():
-        model(x)
+        x = torch.from_numpy(pipe._pad([lrs[0]], *plans[0])).cuda()
+        _, bands_k, fused_k, out_k = forward(x)
+        set_kernels(model, False)
+        outputs_p, bands_p, fused_p, out_p = forward(x)
+        set_kernels(model, True)
+        torch.cuda.synchronize()
+        u8_k = torch.round(out_k[0, :4 * lr_h, :4 * lr_w] * 255).to(torch.uint8)
+    served_u8 = torch.from_numpy(np.round(outs[0] * 255).astype(np.uint8)).cuda()
+    lsb = (u8_k.int() - served_u8.int()).abs().max().item()
+    errs = {n: ((a - b).abs().max().item(), SLICE_RTOL * b.abs().max().item())
+            for n, a, b in (("bands", bands_k, bands_p), ("fused", fused_k, fused_p),
+                            ("out", out_k, out_p))}
+    o = out_k[:, :4 * lr_h, :4 * lr_w]
+    inside = ((o > 0) & (o < 1)).float().mean().item()
+    finite = bool(torch.isfinite(out_k).all() and torch.isfinite(bands_k).all())
+    emit("ens_check", **{f"{n}_max_abs_err": e for n, (e, _) in errs.items()},
+         **{f"{n}_bound": b for n, (_, b) in errs.items()}, share_inside_0_1=inside,
+         served_vs_forward_max_lsb=lsb, finite=finite)
+    require(finite, "non-finite output")
+    for n, (e, bnd) in errs.items():
+        require(e <= bnd, f"ensemble {n} error {e} > {bnd}")
+    require(inside > 0.05, f"only {inside:.3f} of the output lies in (0,1)")
+    require(lsb <= 1, f"served image differs from its forward by {lsb} LSB")
+    del bands_k, fused_k, out_k, bands_p, fused_p, out_p
+
+    # per-image device time of the forward at each bucket, and of the head alone on fixed
+    # expert outputs at the first (512x352)
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        for lr, plan in zip(lrs, plans):
+            xb = torch.from_numpy(pipe._pad([lr], *plan)).cuda()
+            ms = {}
+            for path, on in (("kernel", True), ("plain", False)):
+                set_kernels(model, on)
+                ms[path] = cuda_ms(lambda: model(xb), iters=2)
+            set_kernels(model, True)
+            times.append(dict(lr=[lr.shape[1], lr.shape[0]], bucket=list(plan),
+                              kernel_ms=ms["kernel"], plain_ms=ms["plain"]))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        head_ms = {}
+        for path, on in (("kernel", True), ("plain", False), ("kernel_again", True)):
+            set_kernels(model, on)
+            head_ms[path] = cuda_ms(lambda: head(x, outputs_p), iters=3)
+        set_kernels(model, True)
+    emit("ens_time", per_image=times, peak_mem_gib=peak, head_bucket=list(plans[0]),
+         head_ms=head_ms)
+    if profiled == "ens":
+        profile_forward("ens", lambda: model(x))
+    if profiled == "head":
+        profile_forward("head", lambda: head(x, outputs_p))
+    return counts
+
+
+def profile_forward(tag: str, forward) -> None:
+    """Device time of one `forward()` by kernel (torch.profiler), after one warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        forward()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            model(x)
+            forward()
             torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -822,6 +1074,9 @@ KERNELS = {
                                 "freqfusion_tpu/ops/pallas/wattn.py:706"),
     "fused_residual_ln_mlp": ("freqfusion_tpu_torch/csrc/hat_rows.cu",
                               "freqfusion_tpu/ops/pallas/wattn.py:427"),
+    "fused_band_mha": ("freqfusion_tpu_torch/csrc/bandmha.cu",
+                       "freqfusion_tpu/ops/pallas/bandmha.py:99"),
+    "lka_gate": ("freqfusion_tpu_torch/csrc/lka.cu", "freqfusion_tpu/ops/pallas/lka.py:102"),
 }
 
 
@@ -833,14 +1088,17 @@ def main() -> None:
     res = phase_kernels(gen)
     args = sys.argv[1:]
     profiled = None
-    if "--profile" in args:   # --profile [dat|hat]
+    if "--profile" in args:   # --profile [dat|hat|ens|head]
         nxt = args[args.index("--profile") + 1:][:1]
-        profiled = nxt[0] if nxt and nxt[0] in ("dat", "hat") else "dat"
+        profiled = nxt[0] if nxt and nxt[0] in ("dat", "hat", "ens", "head") else "dat"
     paths = [("naf", naf_slice(torch.Generator().manual_seed(SEED)))]
     torch.cuda.empty_cache()
     paths.append(("dat", dat_slice(torch.Generator().manual_seed(SEED), profiled == "dat")))
     torch.cuda.empty_cache()
     paths.append(("hat", hat_slice(torch.Generator().manual_seed(SEED), profiled == "hat")))
+    torch.cuda.empty_cache()
+    solo = {k: sum(n.get(k, 0) for _, n in paths) for k in KERNELS}
+    paths.append(("ens", ens_slice(torch.Generator().manual_seed(SEED), profiled, solo)))
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(n.get(k, 0) for _, n in paths),
                 "launches_by_path": {tag: n[k] for tag, n in paths if k in n},

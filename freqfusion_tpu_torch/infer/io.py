@@ -1,20 +1,42 @@
 """Whole-image serving of an SR module. Twin of ``freqfusion_tpu/infer/io.py``.
 
-``InferencePipeline`` serves the ``nn.Module`` it is given (``NAFNetSR``, ``DAT`` or
-``HAT``: any module that returns ``(sr, features)`` and has ``upscale``): each image is
-reflect-padded to a 32-px bucket (a whole number of DAT's 32-px and of HAT's 16-px
-windows), run whole, cropped, and converted to uint8 on the device. The batch protocol (``dispatch_batch_u8`` / ``materialize_u8``) lets a caller
-dispatch image i+1 before it copies image i back. Images that the plan sends to the tiled
-path are not served yet: tiling and ``model_func`` come with the ensemble.
+``InferencePipeline`` serves the ``nn.Module`` it is given (``FreqFusionSR``, or one expert:
+``NAFNetSR``, ``DAT`` or ``HAT``; any module that returns an image or ``(sr, features)`` and
+has ``upscale``): each image is reflect-padded to a 32-px bucket (a whole number of DAT's
+32-px and of HAT's 16-px windows), run whole, cropped, and converted to uint8 on the device.
+The batch protocol (``dispatch_batch_u8`` / ``materialize_u8``) lets a caller dispatch image
+i+1 before it copies image i back. ``main`` (= ``model_func``) is the directory contract:
+it builds ``FreqFusionSR``, loads the ``.pth`` checkpoints it finds under ``model_dir`` and
+writes one x4 PNG per input image. Images that the plan sends to the tiled path are not
+served yet.
 """
 
 from __future__ import annotations
 
+import glob
+import os
+import time
 import warnings
+from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
+
+from ..models.experts import FreqFusionSR
+from ..models.fusion import FusionConfig
+from ..utils.convert import load_torch_checkpoint
+from ..utils.imageio import list_images, load_image, save_image
+
+
+def require_device(device) -> torch.device:
+    """`device` as a torch.device; raises if it names the card and there is none (nothing
+    here falls back to the CPU by itself)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card is available: serving runs on the card unless the "
+                           "caller asks for another device (device=\"cpu\")")
+    return device
 
 
 class InferencePipeline:
@@ -27,7 +49,7 @@ class InferencePipeline:
     WHOLE_IMAGE_MAX_SHAPES = 6
 
     def __init__(self, model: nn.Module, device="cuda", dtype: torch.dtype = torch.float32):
-        self.device = torch.device(device)
+        self.device = require_device(device)
         self.dtype = dtype
         self.model = model.to(device=self.device, dtype=dtype).eval()
         self.upscale = model.upscale
@@ -144,3 +166,122 @@ class InferencePipeline:
         s = self.upscale
         arr = host.numpy()
         return [arr[i, : h * s, : w * s] for i, (h, w) in enumerate(metas)]
+
+
+def _find(model_dir: str, patterns) -> Optional[str]:
+    for pat in patterns:
+        hits = sorted(glob.glob(os.path.join(model_dir, pat), recursive=True))
+        if hits:
+            return hits[0]
+    return None
+
+
+def _load_into(module: nn.Module, sd: dict, name: str) -> None:
+    """A tolerant load, like the reference's strict=False: keys the module lacks are
+    ignored, keys the checkpoint lacks keep their weights and are counted in a warning."""
+    result = module.load_state_dict(sd, strict=False)
+    missing = [k for k in result.missing_keys if not k.endswith("num_batches_tracked")]
+    if missing:
+        warnings.warn(f"{name}: {len(missing)} params not in checkpoint "
+                      f"(first: {missing[0]})")
+
+
+def load_checkpoints(model: FreqFusionSR, model_dir: str) -> None:
+    """Fills `model` from the reference-format torch checkpoints under `model_dir`:
+    ``pretrained/{hat,dat,nafnet}/**/*.pth`` for the experts (the ``nafnet.`` prefix of a
+    NAFNetSR checkpoint is stripped) and the first other ``*.pth`` for the head. A missing
+    file warns and keeps the module's seeded random weights. A framework-native ``.ckpt``
+    is refused: its loader is not ported (ROADMAP A7)."""
+    native = _find(model_dir, ["*.ckpt", "checkpoints/**/*.ckpt"])
+    if native:
+        raise NotImplementedError(
+            f"{native}: loading a framework-native .ckpt is not ported yet (ROADMAP A7); "
+            "convert it to a torch .pth")
+    experts = {"hat": (model.experts.hat, None), "dat": (model.experts.dat, None),
+               "nafnet": (model.experts.nafnet.nafnet, "nafnet.")}
+    for name, (module, strip) in experts.items():
+        path = _find(model_dir, [f"pretrained/{name}/*.pth", f"pretrained/{name}/**/*.pth"])
+        if path is None:
+            warnings.warn(f"{name} checkpoint not found under {model_dir}; "
+                          "using random weights")
+            continue
+        sd = load_torch_checkpoint(path)
+        if strip:
+            sd = {k[len(strip):]: v for k, v in sd.items() if k.startswith(strip)}
+        _load_into(module, sd, name)
+    path = _find(model_dir, ["*.pth", "checkpoints/**/*.pth", "checkpoints/*.pth"])
+    if path and "pretrained" in path:   # the glob may also match an expert's checkpoint
+        path = None
+    if path is None:
+        warnings.warn(f"fusion checkpoint not found under {model_dir}; using random weights")
+        return
+    _load_into(model.fusion, load_torch_checkpoint(path), "fusion")
+
+
+def build_pipeline(model_dir: str, device="cuda", fusion_config: Optional[FusionConfig] = None,
+                   expert_kwargs: Optional[dict] = None) -> InferencePipeline:
+    """``FreqFusionSR`` with seeded initial weights, filled from `model_dir`'s checkpoints,
+    behind an ``InferencePipeline`` on `device`. `expert_kwargs` may hold ``hat_kwargs``,
+    ``dat_kwargs`` and ``nafnet_kwargs`` (tests build tiny experts with them)."""
+    device = require_device(device)   # before the model is built: it takes seconds
+    torch.manual_seed(0)
+    model = FreqFusionSR(fusion_config or FusionConfig(), **(expert_kwargs or {}))
+    load_checkpoints(model, model_dir)
+    return InferencePipeline(model, device)
+
+
+def main(model_dir: str, input_path: str, output_path: str, device="cuda", *,
+         fusion_config: Optional[FusionConfig] = None, expert_kwargs: Optional[dict] = None,
+         group_max: int = 1) -> int:
+    """The challenge contract ``model_func(model_dir, input_path, output_path, device)``:
+    super-resolves every image of the directory `input_path` into `output_path` under the
+    same file name, and returns their number. The device is the card unless the caller
+    names another; without a card the default raises.
+
+    Consecutive images of one bucket are grouped, up to `group_max` a dispatch (one forward
+    of that batch), and group i+1 is dispatched before group i is copied back and written.
+    An image whose plan is the tiled path raises ``NotImplementedError``."""
+    pipe = build_pipeline(model_dir, device, fusion_config, expert_kwargs)
+    os.makedirs(output_path, exist_ok=True)
+    files = list_images(input_path)
+
+    pending = None   # (handle, [(out_path, name, (lr_w, lr_h), t0), ...])
+    group = []       # [(lr, out_path, name, t0), ...] awaiting dispatch
+    group_plan = None
+
+    def flush(p):
+        handle, items = p
+        for arr, (out, name, (lw, lh), t0) in zip(pipe.materialize_u8(handle), items):
+            save_image(arr, out)
+            print(f"  {name}: {lw}x{lh} -> {arr.shape[1]}x{arr.shape[0]} "
+                  f"in {time.time() - t0:.2f}s")
+
+    def dispatch_group():
+        nonlocal pending, group, group_plan
+        if not group:
+            return
+        handle = pipe.dispatch_batch_u8([g[0] for g in group], group_plan)
+        if pending is not None:
+            flush(pending)
+        pending = (handle, [(out, name, (lr.shape[1], lr.shape[0]), t0)
+                            for lr, out, name, t0 in group])
+        group, group_plan = [], None
+
+    for f in files:
+        t0 = time.time()
+        lr = load_image(f)
+        plan = pipe._plan_or_raise(lr.shape[0], lr.shape[1])
+        if group and plan != group_plan:
+            dispatch_group()
+        group.append((lr, os.path.join(output_path, os.path.basename(f)),
+                      os.path.basename(f), t0))
+        group_plan = plan
+        if len(group) >= group_max:
+            dispatch_group()
+    dispatch_group()
+    if pending is not None:
+        flush(pending)
+    return len(files)
+
+
+model_func = main

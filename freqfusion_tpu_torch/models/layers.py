@@ -59,3 +59,78 @@ class SeamConv(nn.Module):
         if self.kernels:
             return conv3x3_dense(x, w, self.bias)
         return conv3x3_dense_plain(x, w, self.bias)
+
+
+def conv1x1_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A 1x1 conv on an NHWC tensor as the matrix product it is, over the last axis."""
+    return F.linear(x, conv.weight.flatten(1), conv.bias)
+
+
+class TorchMHA(nn.Module):
+    """Self-attention over the second-to-last axis of [..., N, E] with
+    ``nn.MultiheadAttention``'s parameters and keys (packed ``in_proj_weight`` [3E,E],
+    ``in_proj_bias``, ``out_proj``). Twin of the JAX package's ``TorchMHA``; dropout acts
+    on the attention probabilities in training mode only."""
+
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.1):
+        super().__init__()
+        self.embed_dim, self.num_heads, self.dropout = embed_dim, num_heads, dropout
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
+        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+        nn.init.zeros_(self.out_proj.bias)
+
+    def raw(self):
+        """(wqkv [E,3E], bqkv, wproj [E,E], bproj) as ``x @ w`` matrices, for kernel B11."""
+        return (self.in_proj_weight.t().contiguous(), self.in_proj_bias,
+                linear_io(self.out_proj), self.out_proj.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        *lead, n, e = x.shape
+        h, hd = self.num_heads, e // self.num_heads
+        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        q, k, v = qkv.reshape(*lead, n, 3, h, hd).movedim(-3, 0).transpose(-2, -3)
+        attn = torch.softmax((q * hd ** -0.5) @ k.transpose(-1, -2), dim=-1)
+        attn = F.dropout(attn, self.dropout, self.training)
+        return self.out_proj((attn @ v).transpose(-2, -3).reshape(*lead, n, e))
+
+
+class SEChannelAttention(nn.Module):
+    """SE-style channel attention with avg + max pooling; keys ``mlp.0`` / ``mlp.2``."""
+
+    def __init__(self, features: int, reduction: int = 4):
+        super().__init__()
+        hidden = max(features // reduction, 8)
+        self.mlp = nn.Sequential(nn.Conv2d(features, hidden, 1, bias=False), nn.ReLU(),
+                                 nn.Conv2d(hidden, features, 1, bias=False))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        def mlp(t):
+            return conv1x1_nhwc(self.mlp[2], F.relu(conv1x1_nhwc(self.mlp[0], t)))
+
+        avg = mlp(x.mean(dim=(1, 2), keepdim=True))
+        mx = mlp(x.amax(dim=(1, 2), keepdim=True))
+        return x * torch.sigmoid(avg + mx)
+
+
+class CBAMSpatialAttention(nn.Module):
+    """CBAM spatial attention: [avg | max over C] -> k x k conv -> sigmoid gate."""
+
+    def __init__(self, kernel_size: int = 7):
+        super().__init__()
+        self.conv = nn.Conv2d(2, 1, kernel_size, padding=kernel_size // 2, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pooled = torch.cat([x.mean(dim=-1, keepdim=True), x.amax(dim=-1, keepdim=True)], -1)
+        return x * torch.sigmoid(conv_nhwc(self.conv, pooled))
+
+
+class ChannelSpatialAttention(nn.Module):
+    def __init__(self, features: int, reduction: int = 4, kernel_size: int = 7):
+        super().__init__()
+        self.channel_attention = SEChannelAttention(features, reduction)
+        self.spatial_attention = CBAMSpatialAttention(kernel_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.spatial_attention(self.channel_attention(x))

@@ -49,6 +49,8 @@ SIGNATURES = {
     "residual_ln_mlp": [_P] * 10 + [_L] + [_I] * 5 + [_P],
     "rows_linear": [_P] * 4 + [_L] + [_I] * 3 + [_P],
     "oca_attention": [_P] * 5 + [_I] * 8 + [_P],
+    "band_mha": [_P] * 10 + [_L] + [_I] * 3 + [_P],
+    "lka_gate": [_P] * 9 + [_I] * 6 + [_P],
 }
 
 
@@ -140,6 +142,14 @@ def check(err: int, name: str) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raises where autograd would record the call: these kernels have no backward, and a
+    wrapper must not drop a gradient silently. Call under ``torch.no_grad()``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward: a tensor requires grad; call it under "
+                           "torch.no_grad() or torch.inference_mode()")
 
 
 def require(t: torch.Tensor, name: str, shape=None) -> None:

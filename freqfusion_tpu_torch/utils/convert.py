@@ -8,7 +8,7 @@ state-dict keys, so a reference ``.pth`` loads with ``load_state_dict`` directly
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -221,3 +221,153 @@ def nafnet_params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             a = a.reshape(1, -1, 1, 1)
         sd[nafnet_key(path)] = torch.from_numpy(np.ascontiguousarray(a))
     return sd
+
+
+def _split_idx(name: str):
+    m = _IDX.match(name)
+    return (m.group(1), int(m.group(2))) if m else (name, None)
+
+
+_LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean", "var": "running_var"}
+_FREQ_SEQ = {"transform_fc1": "fusion_transform.0", "transform_fc2": "fusion_transform.2",
+             "gate_fc1": "fusion_gate.0", "gate_fc2": "fusion_gate.2"}
+
+
+def freq_key(path: Tuple[str, ...]) -> str:
+    """JAX frequency-stack param path -> reference torch key (own copy of the JAX package's
+    ``freq_key_fn``): ('band_fusion','band_attention_0','conv','kernel') ->
+    'band_fusion.band_attention.0.conv.0.weight'."""
+    parts = [p for p in path if p != "params"]
+    toks = []
+    for p in parts[:-1]:
+        base, idx = _split_idx(p)
+        if base == "band_attention":
+            toks.extend(["band_attention", str(idx), "conv", "0"])
+        elif p in _FREQ_SEQ:
+            toks.append(_FREQ_SEQ[p])
+        elif p == "conv" and toks and toks[-1] == "0":
+            continue   # already emitted by band_attention
+        elif idx is not None:
+            toks.extend([base, str(idx)])
+        else:
+            toks.append(p)
+    return ".".join(toks + [_LEAF.get(parts[-1], parts[-1])])
+
+
+# Sequential indices of the reference's fusion head (own copy of the JAX package's table).
+_FUSION_SEQ = {
+    "ffn_fc1": "ffn.0", "ffn_fc2": "ffn.2",
+    "to_rgb_conv1": "to_rgb.0", "to_rgb_conv2": "to_rgb.2",
+    "diff_conv1": "difficulty_estimator.0", "diff_conv2": "difficulty_estimator.2",
+    "diff_conv3": "difficulty_estimator.4",
+    "fusion_conv1": "fusion.0", "fusion_conv2": "fusion.2",
+}
+
+
+def fusion_key(path: Tuple[str, ...]) -> str:
+    """JAX fusion-head path (``params`` or ``batch_stats``) -> reference torch key (own copy
+    of the JAX package's ``fusion_key_fn``):
+    ('multi_res_fusion','stage1','gate','fc1','kernel') ->
+    'multi_res_fusion.stage1_gate.gate.0.weight';
+    ('refine_net','refine_1','kernel') -> 'refine_net.2.weight';
+    ('multiscale','conv_2x_bn','mean') -> 'multiscale.conv_2x.2.running_mean'."""
+    parts = [p for p in path if p not in ("params", "batch_stats")]
+    leaf, body = parts[-1], parts[:-1]
+    toks = []
+    for i, p in enumerate(body):
+        base, idx = _split_idx(p)
+        prev = body[i - 1] if i else ""
+        if p in _FREQ_SEQ:
+            toks.append(_FREQ_SEQ[p])
+        elif base == "band_attention" and idx is not None:
+            toks.extend(["band_attention", str(idx), "conv", "0"])
+        elif p == "conv" and prev.startswith("band_attention_"):
+            continue   # already emitted above
+        elif p.startswith("align_"):
+            toks.extend(["align_layers", p[len("align_"):]])
+        elif p.startswith("mod_") and p.endswith(("_fc1", "_fc2")):
+            toks.extend(["modulation", p.split("_")[1], "0" if p.endswith("_fc1") else "3"])
+        elif base == "mod" and idx is not None:   # standard collaborative
+            toks.extend(["modulation", str(idx), "1"])
+        elif prev in ("stage1", "stage2", "stage3"):
+            st = toks.pop()   # 'stageN' + child are flat names in the reference
+            toks.append({"conv1": f"{st}_conv.0", "conv2": f"{st}_conv.2",
+                         "gate": f"{st}_gate", "res": f"{st}_res"}[p])
+        elif prev == "gate" and p in ("fc1", "fc2"):
+            toks.append({"fc1": "gate.0", "fc2": "gate.2"}[p])
+        elif prev == "res" and p in ("conv1", "conv2"):
+            toks.append({"conv1": "block.0", "conv2": "block.2"}[p])
+        elif p.endswith("_conv") and prev == "multiscale":
+            toks.append(p[:-5] + ".0")
+        elif p.endswith("_bn") and prev == "multiscale":
+            toks.append(p[:-3] + ".2")
+        elif p in ("fc1", "fc2") and prev == "channel_attention":
+            toks.append({"fc1": "mlp.0", "fc2": "mlp.2"}[p])
+        elif p in ("fc1", "fc2") and prev == "attn":
+            toks.append({"fc1": "attn.0", "fc2": "attn.2"}[p])
+        elif p in ("fc1", "fc2") and prev == "adaptive_band_predictor":
+            toks.append({"fc1": "predictor.0", "fc2": "predictor.2"}[p])
+        elif p in ("gate_conv1", "gate_conv2"):
+            scope = "edge_gate" if "edge_refine" in body else "expert_gate"
+            toks.append(f"{scope}.{0 if p == 'gate_conv1' else 2}")
+        elif p in _FUSION_SEQ:
+            toks.append(_FUSION_SEQ[p])
+        elif base == "refine" and idx is not None and prev == "refine_net":
+            toks.append(str(2 * idx))   # refine_net is a flat Sequential
+        elif p.startswith("layer") and p.endswith(("_conv", "_bn")):
+            lnum = p.split("_")[0]   # router layers: layer1 .. layer4
+            local = (0 if lnum in ("layer1", "layer3") else 3) + (2 if p.endswith("_bn") else 0)
+            toks.extend(["conv_block1" if lnum in ("layer1", "layer2") else "conv_block2",
+                         str(local)])
+        elif idx is not None:
+            toks.extend([base, str(idx)])
+        else:
+            toks.append(p)
+    if toks and toks[0] == "refine_net" and leaf == "residual_scale":
+        toks = []   # a parameter of the head itself in the reference
+    if leaf == "scale" and body and not ("norm" in body[-1] or "bn" in body[-1]):
+        return ".".join(toks + ["scale"])   # ResBlock's learnable residual scale
+    return ".".join(toks + [_LEAF.get(leaf, leaf)])
+
+
+def fusion_params_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None
+                            ) -> Dict[str, torch.Tensor]:
+    """The JAX package's FusionHead trees, as nested dicts of arrays -> a state dict for the
+    port's ``FusionHead``.
+
+    Conv kernels go HWIO -> OIHW (the depthwise [k,k,1,C] -> [C,1,k,k]), Dense kernels
+    [in,out] -> [out,in], the packed ``in_proj_weight`` [E,3E] -> [3E,E], the FFT mask
+    logits [1,S,S,1] -> [1,1,S,S], LayerNorm / BatchNorm ``scale`` -> ``weight``. BatchNorm's
+    running statistics come from ``batch_stats`` (``mean`` / ``var``), and each BatchNorm
+    also gets the ``num_batches_tracked`` counter nn.BatchNorm2d keeps."""
+    sd = {}
+    for path, leaf in _flatten(params):
+        a = np.asarray(leaf, dtype=np.float32)
+        if path[-1] == "kernel":
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+        elif path[-1] == "in_proj_weight":
+            a = a.T
+        elif path[-1] == "freq_mask_logits":
+            a = a.transpose(0, 3, 1, 2)
+        sd[fusion_key(path)] = torch.from_numpy(np.ascontiguousarray(a))
+    for path, leaf in _flatten(batch_stats or {}):
+        key = fusion_key(path)
+        sd[key] = torch.from_numpy(np.array(leaf, dtype=np.float32))
+        if key.endswith("running_mean"):
+            sd[key[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def freqfusion_params_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's FreqFusionSR variables ({"params": {"experts": {"hat", "dat",
+    "nafnet"}, "fusion"}, "batch_stats": {"fusion"}}) -> a state dict for the port's
+    ``FreqFusionSR``: the experts under ``experts.{hat,dat,nafnet}``, the head under
+    ``fusion``."""
+    params = variables["params"]
+    experts = params["experts"]
+    stats = variables.get("batch_stats", {}).get("fusion", {})
+    parts = (("experts.hat.", hat_params_from_flax(experts["hat"])),
+             ("experts.dat.", dat_params_from_flax(experts["dat"])),
+             ("experts.nafnet.nafnet.", nafnet_params_from_flax(experts["nafnet"])),
+             ("fusion.", fusion_params_from_flax(params["fusion"], stats)))
+    return {prefix + k: v for prefix, sd in parts for k, v in sd.items()}

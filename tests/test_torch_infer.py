@@ -88,15 +88,32 @@ def test_port_imports_without_jax():
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
         "sys.modules['freqfusion_tpu'] = None\n"
-        "import freqfusion_tpu_torch\n"
-        "import freqfusion_tpu_torch.ops.common, freqfusion_tpu_torch.ops.resize\n"
-        "import freqfusion_tpu_torch.ops.kernels.nafblock\n"
-        "import freqfusion_tpu_torch.ops.kernels.conv3x3\n"
-        "import freqfusion_tpu_torch.ops.windows\n"
-        "import freqfusion_tpu_torch.ops.kernels.wattn, freqfusion_tpu_torch.ops.kernels.aim\n"
-        "import freqfusion_tpu_torch.ops.kernels.sgfn, freqfusion_tpu_torch.ops.kernels.cab\n"
-        "import freqfusion_tpu_torch.models.layers, freqfusion_tpu_torch.models.nafnet\n"
-        "import freqfusion_tpu_torch.models.dat, freqfusion_tpu_torch.models.hat\n"
-        "import freqfusion_tpu_torch.infer.io\n"
-        "import freqfusion_tpu_torch.utils.convert, freqfusion_tpu_torch.utils.imageio\n")
+        "import importlib, pkgutil\n"
+        "import freqfusion_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "need = ['ops.dct', 'ops.kernels.bandmha', 'ops.kernels.lka', 'models.layers',\n"
+        "        'models.frequency', 'models.lka', 'models.fusion_blocks',\n"
+        "        'models.hierarchical', 'models.edge', 'models.fusion', 'models.experts',\n"
+        "        'models.nafnet', 'models.dat', 'models.hat', 'ops.kernels.wattn',\n"
+        "        'ops.kernels.cab', 'infer.io', 'utils.convert', 'utils.imageio']\n"
+        "assert all(pkg.__name__ + '.' + n in names for n in need), names\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', 'freqfusion_tpu.'))\n"
+        "               for m, v in sys.modules.items() if v is not None)\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+    # no import statement of the port or of chip_smoke.py names the JAX side, wherever in a
+    # file it stands (a function body too)
+    import ast
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "freqfusion_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 25
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            mods = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                    [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            for m in mods:
+                assert m.split(".")[0] not in ("jax", "flax", "freqfusion_tpu"), (path, m)

@@ -9,7 +9,9 @@ import pytest
 import torch
 
 from freqfusion_tpu_torch.ops import windows
-from freqfusion_tpu_torch.ops.kernels import aim, cab, conv3x3, nafblock, sgfn, wattn
+from freqfusion_tpu_torch.models.fusion import FusionConfig, FusionHead
+from freqfusion_tpu_torch.ops.kernels import (aim, bandmha, cab, conv3x3, lka, nafblock, sgfn,
+                                              wattn)
 
 pytestmark = pytest.mark.cuda
 
@@ -370,3 +372,87 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     p = _block_params(16, gen)
     with pytest.raises(ValueError, match="multiple of 64"):
         nafblock.fused_naf_block(torch.zeros(1, 8, 8, 16, device="cuda"), p)
+
+
+def _mha_args(gen, b, h, w, t, d):
+    return (_r(gen, b, h, w, t, d, std=0.6), _r(gen, d, 3 * d, std=d ** -0.5),
+            _r(gen, 3 * d, std=0.1), _r(gen, d, d, std=d ** -0.5), _r(gen, d, std=0.1),
+            _r(gen, d, std=0.1, mean=1.0), _r(gen, d, std=0.1))
+
+
+@pytest.mark.parametrize("b,h,w,t,d,heads", [
+    (2, 8, 16, 9, 64, 4), (1, 4, 8, 3, 32, 2), (2, 37, 45, 9, 64, 4), (1, 5, 7, 7, 48, 6),
+    (1, 9, 9, 16, 64, 2), (1, 3, 3, 128, 16, 1)])
+def test_band_mha_kernel_matches_plain(gen, b, h, w, t, d, heads):
+    args = _mha_args(gen, b, h, w, t, d)
+    n0 = bandmha.launches["fused_band_mha"]
+    torch.testing.assert_close(bandmha.fused_band_mha(*args, heads),
+                               bandmha.fused_band_mha_plain(*args, heads), atol=1e-4, rtol=0)
+    assert bandmha.launches["fused_band_mha"] == n0 + 1
+
+
+def test_band_mha_kernel_raises_on_what_it_does_not_take(gen):
+    args = _mha_args(gen, 1, 4, 4, 3, 128)
+    with pytest.raises(ValueError, match="multiple of 16 up to 64"):
+        bandmha.fused_band_mha(*args, 8)                       # D = 128
+    args = _mha_args(gen, 1, 4, 4, 3, 64)
+    with pytest.raises(ValueError, match="D/heads"):
+        bandmha.fused_band_mha(*args, 16)                      # heads of 4
+    with pytest.raises(ValueError, match="contiguous"):
+        bandmha.fused_band_mha(args[0].transpose(1, 2), *args[1:], 4)
+    args[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        bandmha.fused_band_mha(*args, 4)
+
+
+def _lka_args(gen, b, h, w, c):
+    return (_r(gen, b, h, w, c), _r(gen, 5, 5, c, std=0.2), _r(gen, 21, c, std=0.2),
+            _r(gen, 21, c, std=0.2), _r(gen, c, c, std=c ** -0.5),
+            _r(gen, c, std=0.2, mean=1.0), _r(gen, c, std=0.1))
+
+
+@pytest.mark.parametrize("b,h,w,c", [
+    (2, 24, 32, 64), (1, 21, 16, 32), (3, 16, 24, 128), (9, 12, 16, 64), (1, 10, 40, 64),
+    (2, 37, 45, 64), (1, 33, 40, 180), (1, 1, 1, 4), (1, 70, 5, 20)])
+def test_lka_gate_kernel_matches_plain(gen, b, h, w, c):
+    args = _lka_args(gen, b, h, w, c)
+    n0 = lka.launches["lka_gate"]
+    torch.testing.assert_close(lka.lka_gate(*args), lka.lka_gate_plain(*args),
+                               atol=1e-4, rtol=0)
+    assert lka.launches["lka_gate"] == n0 + 1
+
+
+def test_lka_gate_kernel_raises_on_what_it_does_not_take(gen):
+    with pytest.raises(ValueError, match="multiple of 4"):
+        lka.lka_gate(*_lka_args(gen, 1, 8, 8, 6))
+    args = _lka_args(gen, 1, 8, 8, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        lka.lka_gate(args[0].transpose(1, 2), *args[1:])
+    with pytest.raises(ValueError, match="shape"):
+        lka.lka_gate(args[0], args[1], args[2][:20], *args[3:])
+    args[4].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        lka.lka_gate(*args)
+
+
+def test_small_fusion_head_on_the_card(gen):
+    """The shipped head on a 48x64 LR image: the kernel path against the plain path, one
+    launch of B11 and of B12."""
+    torch.manual_seed(0)
+    head = FusionHead(FusionConfig()).cuda().eval()
+    with torch.no_grad():
+        for p in head.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen, device="cuda"))
+    lr = torch.rand(1, 48, 64, 3, generator=gen, device="cuda")
+    outs = {n: torch.rand(1, 192, 256, 3, generator=gen, device="cuda")
+            for n in ("hat", "dat", "nafnet")}
+    n0 = (bandmha.launches["fused_band_mha"], lka.launches["lka_gate"])
+    with torch.inference_mode():
+        got = head(lr, outs)
+        for m in head.modules():
+            if hasattr(m, "kernels"):
+                m.kernels = False
+        want = head(lr, outs)
+    assert (bandmha.launches["fused_band_mha"], lka.launches["lka_gate"]) == (n0[0] + 1, n0[1] + 1)
+    assert got.shape == (1, 192, 256, 3)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
