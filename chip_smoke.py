@@ -24,10 +24,23 @@ Phases, each printing JSON lines; any failure raises and the exit code is not 0:
      weights that the script saved; the fusion head's band-attention and
      LKA-gate kernels must have launched once per image and every expert kernel as often as
      in its solo phase; the head's bands, the fused image and the output are checked against
-     the plain versions, and the forward and the head alone are timed on both paths.
-With --profile [dat|hat|ens|head], one forward of that model (DAT if none is named; `head`
-is the fusion head alone on fixed expert outputs) is also traced with torch.profiler and
-its device time is printed by kernel. The last two lines are the kernels' summary and
+     the plain versions, and the forward and the head alone are timed on both paths;
+  8. tiled: the same FreqFusionSR through the submission runner (cli/test.py, which times
+     infer.io.main and writes results.json) on three frames that each take another way in (640x480: over the whole-image pixel budget, 12 tiles of 192 px in 6
+     chunks of 2; 40x30: smaller than its reflect padding, one tile, the chunk padded by
+     repeat; 510x339: whole, in the same stream), then the 640x480 frame again at tile 176,
+     whose tiles are not whole 32-px windows, so that every DAT spatial block launches the
+     pre-projected window attention; launch counts are required exactly, the stitched uint8
+     image within 1 LSB of the same tiles on the plain path, one chunk's fused image and
+     output within the forward's bound; tiles, chunks, ms a chunk, s an image and peak
+     memory are printed;
+  9. hat_odd: HAT at HAT-L's width with a 15-px window on a 225x225 image (2 groups of
+     6 HAB + OCAB): every HAB fails the fused gate (odd H, W) and launches the standalone
+     window attention once, against the plain path.
+With --profile [dat|hat|ens|head|tiled], one forward of that model (DAT if none is named;
+`head` is the fusion head alone on fixed expert outputs, `tiled` one chunk of two 192-px
+tiles on the kernel path and on the plain path) is also traced with torch.profiler and its
+device time is printed by kernel. The last two lines are the kernels' summary and
 {"ok": true, "device": {...}}. It exits non-zero without a CUDA card. The PNGs go to
 build/chip_smoke/ in the checkout.
 """
@@ -46,8 +59,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from freqfusion_tpu_torch.cli import test as cli_test
 from freqfusion_tpu_torch.infer.io import InferencePipeline, build_pipeline
 from freqfusion_tpu_torch.infer.io import main as serve_directory
+from freqfusion_tpu_torch.infer.tiling import num_tiles
 from freqfusion_tpu_torch.models import dat as dat_model
 from freqfusion_tpu_torch.models.dat import DAT
 from freqfusion_tpu_torch.models.experts import FreqFusionSR
@@ -65,29 +80,44 @@ REQUESTS = [(510, 339), (450, 300), (400, 270)]   # W x H, DIV2K-class x4 LR fra
 KERNEL_ATOL = 1e-4       # max |kernel - plain| on g and on the block / conv output
 SUMS_RTOL = 1e-5         # |Δ sums_c| <= SUMS_RTOL * Σ|g_c|: the sums add in another order
 SLICE_RTOL = 1e-3        # max |Δ| <= SLICE_RTOL * max|plain| on the whole forward
-# (name, B, H, W, C): the NAF levels of the 512x352 bucket at HR, and one ragged case
+# (name, B, H, W, C): the NAF levels of the 512x352 bucket at HR, one ragged case, and the
+# first level of a chunk of two 192-px tiles. Every list below ends in such "tile" cases:
+# the shapes that the tiled path gives each kernel, at batch 2.
 BLOCK_CASES = [("enc0_hr", 1, 1408, 2048, 64), ("enc1", 1, 704, 1024, 128),
-               ("enc2", 1, 352, 512, 256), ("ragged", 2, 37, 45, 64)]
-# the last one is DAT's group-ending conv at the 512x352 bucket: the summary's B3 numbers
+               ("enc2", 1, 352, 512, 256), ("ragged", 2, 37, 45, 64),
+               ("tile_hr", 2, 768, 768, 64)]
+# "dat_180" is DAT's group-ending conv at the 512x352 bucket: the summary's B3 numbers
 CONV_CASES = [("intro", 1, 1408, 2048, 3, 64), ("ending", 1, 1408, 2048, 64, 3),
-              ("dat_180", 1, 352, 512, 180, 180)]
+              ("dat_180", 1, 352, 512, 180, 180), ("tile_180", 2, 192, 192, 180, 180)]
 # DAT at the 512x352 bucket (embed 180, 3 heads of 30 a branch, hidden 720), a ragged case
 # for the halos and a small multi-batch case for the windows
 DAT_C, DAT_HEADS, DAT_HIDDEN = 180, 3, 720
-DAT_CASES = [("bucket", 1, 352, 512), ("ragged", 2, 37, 45)]
+DAT_CASES = [("bucket", 1, 352, 512), ("ragged", 2, 37, 45), ("tile", 2, 192, 192),
+             ("tile176", 2, 176, 176)]
 WATTN_CASES = [("8x32", 1, 352, 512, 8, 32, False), ("8x32_shift", 1, 352, 512, 8, 32, True),
                ("32x8", 1, 352, 512, 32, 8, False), ("32x8_shift", 1, 352, 512, 32, 8, True),
-               ("batch2", 2, 64, 96, 8, 32, True)]
+               ("batch2", 2, 64, 96, 8, 32, True), ("tile", 2, 192, 192, 32, 8, True)]
 # HAT-L at the 512x352 bucket (embed 180, 6 heads of 30, window 16, OCAB window 24, CAB mid
 # 60, hidden 360): (name, B, H, W); "batch2" is a few windows, "ragged" takes any H, W
 HAT_C, HAT_HEADS, HAT_WINDOW, HAT_OVERLAP, HAT_MID, HAT_HIDDEN = 180, 6, 16, 8, 60, 360
-HAT_CASES = [("bucket", 1, 352, 512), ("batch2", 2, 32, 48), ("ragged", 2, 37, 45)]
+HAT_CASES = [("bucket", 1, 352, 512), ("batch2", 2, 32, 48), ("ragged", 2, 37, 45),
+             ("tile", 2, 192, 192), ("tile176", 2, 176, 176)]
 # the fusion head at the 512x352 bucket: 9 band tokens of 64 (4 heads) a pixel; the LKA gate
 # on the 9 bands folded into the batch, and at the collaborative branch's C = 128
 MHA_CASES = [("bucket", 1, 352, 512, 9, 64, 4), ("t3", 1, 352, 512, 3, 64, 4),
-             ("ragged", 2, 37, 45, 9, 64, 4), ("d32", 1, 16, 24, 3, 32, 2)]
+             ("ragged", 2, 37, 45, 9, 64, 4), ("d32", 1, 16, 24, 3, 32, 2),
+             ("tile", 2, 192, 192, 9, 64, 4)]
 LKA_CASES = [("bucket", 9, 352, 512, 64), ("c128", 3, 352, 512, 128),
-             ("ragged", 2, 37, 45, 64), ("h10", 1, 10, 50, 64)]
+             ("ragged", 2, 37, 45, 64), ("h10", 1, 10, 50, 64), ("tile", 18, 192, 192, 64)]
+# B13 at DAT's branch width (90 channels, 3 heads of 30): the table's shape and a chunk of two
+# 176-px tiles padded to 192; B14 at HAT-L's width: the 15-px window of the hat_odd path (225
+# tokens) and the table's shape. (name, B, H, W, hs, ws, shifted); "table*" feed the summary.
+QKV_CASES = [("table", 1, 352, 512, 8, 32, False), ("table_shift", 1, 352, 512, 8, 32, True),
+             ("tile", 2, 192, 192, 8, 32, False), ("tile_shift", 2, 192, 192, 32, 8, True)]
+WIN_CASES = [("table", 1, 352, 512, 16, 16, False), ("table_shift", 1, 352, 512, 16, 16, True),
+             ("odd", 1, 225, 225, 15, 15, False), ("odd_shift", 1, 225, 225, 15, 15, True)]
+TILED_REQUESTS = [(640, 480), (40, 30), (510, 339)]   # W x H: tiled, tiled (tiny), whole
+RAGGED_TILE = 176   # whole 16-px windows (HAT) but not whole 32-px ones (DAT)
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: f32 outside the tensor cores, HBM3
 
 
@@ -315,7 +345,7 @@ def dat_kernel_cases(gen: torch.Generator, res: dict) -> None:
         require(err <= KERNEL_ATOL, f"B4 error {err} at {name}")
         res["fused_window_attention_xqkv"]["err"] = max(
             res["fused_window_attention_xqkv"]["err"], err)
-        if name != "batch2":   # the main path's mix: both orientations, half shifted
+        if b == 1:   # the bucket's mix: both orientations, half shifted
             times.append((ms, plain_ms, bnd))
         del x, args
     res["fused_window_attention_xqkv"].update(
@@ -606,6 +636,110 @@ def head_kernel_cases(gen: torch.Generator, res: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def window_attention_library(q, k, v, bias, types, window, heads):
+    """B13's function through PyTorch's fused attention: the yardstick `library_ms`, which
+    nothing in the port calls. The partition of q, k, v into windows and the reverse copy
+    are inside the call, hence inside its time: SDPA takes [batch, heads, N, hd]."""
+    b, h, w, c = q.shape
+    hs, ws = window
+    n, hd = hs * ws, c // heads
+
+    def wins(t):
+        return windows.window_partition(t, hs, ws).reshape(-1, n, heads, hd).permute(0, 2, 1, 3)
+
+    mask = bias[None]
+    if types is not None:
+        per_win = types[wattn._type_index(h // hs, w // ws, q.device)]
+        mask = (bias[None, None] + per_win[None, :, None]).expand(b, -1, -1, -1, -1).reshape(
+            -1, heads, n, n)
+    out = F.scaled_dot_product_attention(wins(q), wins(k), wins(v), attn_mask=mask)
+    return windows.window_reverse(out.permute(0, 2, 1, 3).reshape(-1, n, c), hs, ws, h, w)
+
+
+def window_kernel_cases(gen: torch.Generator, res: dict) -> None:
+    """B13 and B14 at the table's shapes and at the shapes of the tiled and hat_odd paths,
+    with the bound of the other kernels: outputs of O(1) within KERNEL_ATOL of the plain
+    version. The summary's times are those of the table's shape, the mean of the unshifted
+    and the shifted call."""
+    def r(*shape, std=1.0, mean=0.0):
+        return mean + std * torch.randn(*shape, generator=gen, device="cuda")
+
+    def mask_of(hs, ws, shifted):
+        if not shifted:
+            return None
+        return torch.from_numpy(windows.shift_mask_types(hs, ws, hs // 2, ws // 2).copy()).cuda()
+
+    c, heads = DAT_C // 2, DAT_HEADS
+    hd = c // heads
+    for name, b, h, w, hs, ws, shifted in QKV_CASES:
+        n, npix, nwin = hs * ws, b * h * w, b * (h // hs) * (w // ws)
+        mask = mask_of(hs, ws, shifted)
+        args = (r(b, h, w, c), r(b, h, w, c), r(b, h, w, c), r(heads, n, n, std=0.5), mask,
+                (hs, ws), heads)
+        got = wattn.fused_window_attention_qkv(*args)
+        want = wattn.fused_window_attention_qkv_plain(*args)
+        lib_err = (window_attention_library(*args) - want).abs().max().item()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        del got, want
+        ms = cuda_ms(lambda: wattn.fused_window_attention_qkv(*args), iters=5)
+        plain_ms = cuda_ms(lambda: wattn.fused_window_attention_qkv_plain(*args), iters=5)
+        lib_ms = cuda_ms(lambda: window_attention_library(*args), iters=5)
+        # q k^T and p v, bias (+ mask) and softmax; reads q, k, v, the bias and the 4 mask
+        # types, writes the attended image
+        bnd = bound_ms(nwin * heads * n * n * (4 * hd + 8),
+                       4 * (4 * npix * c + (heads + (4 if shifted else 0)) * n * n))
+        emit("kernel", kernel="fused_window_attention_qkv", case=name, shape=[b, h, w, c],
+             window=[hs, ws], shifted=shifted, max_abs_err=err, bound=KERNEL_ATOL,
+             max_abs_plain=scale, library_vs_plain_max_abs=lib_err, ms=ms, plain_ms=plain_ms,
+             library_ms=lib_ms, library="windowing copies + F.scaled_dot_product_attention",
+             bound_ms=bnd[0], bound_by=bnd[1])
+        require(err <= KERNEL_ATOL, f"B13 error {err} at {name}")
+        require(lib_err <= KERNEL_ATOL, f"B13's library call differs from it by {lib_err}")
+        res["fused_window_attention_qkv"]["err"] = max(
+            res["fused_window_attention_qkv"]["err"], err)
+        if name.startswith("table"):
+            res["fused_window_attention_qkv"].setdefault("times", []).append(
+                (ms, plain_ms, bnd, lib_ms))
+        del args
+    c, heads = HAT_C, HAT_HEADS
+    hd = c // heads
+    for name, b, h, w, hs, ws, shifted in WIN_CASES:
+        n, npix, nwin = hs * ws, b * h * w, b * (h // hs) * (w // ws)
+        args = (r(b, h, w, c), r(c, 3 * c, std=c ** -0.5), r(3 * c, std=0.1),
+                r(c, c, std=c ** -0.5), r(c, std=0.1), r(heads, n, n, std=0.5),
+                mask_of(hs, ws, shifted), (hs, ws), heads)
+        got = wattn.fused_window_attention(*args)
+        want = wattn.fused_window_attention_plain(*args)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        del got, want
+        ms = cuda_ms(lambda: wattn.fused_window_attention(*args), iters=5)
+        plain_ms = cuda_ms(lambda: wattn.fused_window_attention_plain(*args), iters=5)
+        # the qkv and output projections, q k^T and p v, bias (+ mask) and softmax; reads x,
+        # the weights, the bias and the 4 mask types, writes the attended image
+        bnd = bound_ms(npix * 8 * c * c + nwin * heads * n * n * (4 * hd + 8),
+                       4 * (2 * npix * c + 4 * c * c + 4 * c
+                            + (heads + (4 if shifted else 0)) * n * n))
+        emit("kernel", kernel="fused_window_attention", case=name, shape=[b, h, w, c],
+             window=[hs, ws], shifted=shifted, max_abs_err=err, bound=KERNEL_ATOL,
+             max_abs_plain=scale, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1])
+        require(err <= KERNEL_ATOL, f"B14 error {err} at {name}")
+        res["fused_window_attention"]["err"] = max(res["fused_window_attention"]["err"], err)
+        if name.startswith("table"):
+            res["fused_window_attention"].setdefault("times", []).append(
+                (ms, plain_ms, bnd, None))
+        del args
+        torch.cuda.empty_cache()
+    for k in ("fused_window_attention_qkv", "fused_window_attention"):
+        times = res[k].pop("times")
+        res[k].update(ms=mean(t[0] for t in times), plain_ms=mean(t[1] for t in times),
+                      bound=(mean(t[2][0] for t in times), times[0][2][1]),
+                      library_ms=None if times[0][3] is None else mean(t[3] for t in times))
+
+
 def phase_kernels(gen: torch.Generator) -> dict:
     """Each kernel against its plain version at the slices' shapes; returns the numbers
     for the summary line."""
@@ -616,14 +750,16 @@ def phase_kernels(gen: torch.Generator) -> dict:
     hat_kernel_cases(gen, res)
     torch.cuda.empty_cache()
     head_kernel_cases(gen, res)
+    torch.cuda.empty_cache()
+    window_kernel_cases(gen, res)
     return res
 
 
-def write_requests(directory: str) -> list:
-    """Three smooth random RGB PNGs at the REQUESTS sizes, from SEED."""
+def write_requests(directory: str, sizes=REQUESTS) -> list:
+    """Smooth random RGB PNGs at `sizes` (W x H; the three REQUESTS by default), from SEED."""
     rng = np.random.default_rng(SEED)
     paths = []
-    for i, (w, h) in enumerate(REQUESTS):
+    for i, (w, h) in enumerate(sizes):
         yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
         img = np.zeros((h, w, 3))
         for _ in range(6):
@@ -647,7 +783,7 @@ def phase_slice(tag: str, model: torch.nn.Module, forward, expected: tuple,
     write_requests(req_dir)
     files = list_images(req_dir)
     lrs = [load_image(f) for f in files]
-    plans = [pipe._plan_or_raise(lr.shape[0], lr.shape[1]) for lr in lrs]
+    plans = [pipe._whole_image_plan(lr.shape[0], lr.shape[1]) for lr in lrs]
     emit(f"{tag}_setup", params=sum(p.numel() for p in model.parameters()),
          requests=[list(lr.shape) for lr in lrs], buckets=plans)
 
@@ -909,6 +1045,17 @@ def write_checkpoints(model_dir: str, gen_cpu: torch.Generator) -> None:
     torch.save(model.fusion.state_dict(), os.path.join(model_dir, "fusion_head.pth"))
 
 
+def ens_forward(model: FreqFusionSR, x: torch.Tensor) -> tuple:
+    """(expert outputs, the head's three fused bands, the fused image before any clamp, the
+    output) of one FreqFusionSR forward, stage by stage."""
+    head = model.fusion
+    outputs, _ = model.experts(x)
+    bands = head.process_frequency_bands(x)
+    fused = head.fuse_experts(x, outputs, bands)
+    sr = head.refine(fused, x)
+    return outputs, torch.cat(bands, -1), fused, head.edge_refine(sr)
+
+
 def ens_slice(gen_cpu: torch.Generator, profiled, solo_counts: dict) -> dict:
     """FreqFusionSR at the shipped FusionConfig over NAFNet-64, DAT and HAT-L at full width
     and depth serves the three requests through infer.io.main, from the checkpoints that
@@ -945,7 +1092,7 @@ def ens_slice(gen_cpu: torch.Generator, profiled, solo_counts: dict) -> dict:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     model, head = pipe.model, pipe.model.fusion
-    plans = [pipe._plan_or_raise(lr.shape[0], lr.shape[1]) for lr in lrs]
+    plans = [pipe._whole_image_plan(lr.shape[0], lr.shape[1]) for lr in lrs]
     emit("ens_setup", params=sum(p.numel() for p in model.parameters()),
          head_params=sum(p.numel() for p in head.parameters()),
          requests=[list(lr.shape) for lr in lrs], buckets=plans,
@@ -965,11 +1112,7 @@ def ens_slice(gen_cpu: torch.Generator, profiled, solo_counts: dict) -> dict:
     # the same forward of image 0, kernels against plain versions: the head's three fused
     # bands (what B11 and B12 feed), the fused image before any clamp, and the output
     def forward(x):
-        outputs, _ = model.experts(x)
-        bands = head.process_frequency_bands(x)
-        fused = head.fuse_experts(x, outputs, bands)
-        sr = head.refine(fused, x)
-        return outputs, torch.cat(bands, -1), fused, head.edge_refine(sr)
+        return ens_forward(model, x)
 
     lr_h, lr_w = lrs[0].shape[:2]
     with torch.inference_mode():
@@ -1027,6 +1170,203 @@ def ens_slice(gen_cpu: torch.Generator, profiled, solo_counts: dict) -> dict:
     return counts
 
 
+def tiled_slice(per_forward: dict, profile: bool) -> dict:
+    """Tiled serving of the full FreqFusionSR through the submission runner
+    (``freqfusion_tpu_torch.cli.test`` around infer.io.main, on its default device), from
+    the checkpoints and at the weights of the ensemble phase. `per_forward` holds the launches of one
+    whole-image forward: every forward of the tiled path, whatever its batch, must repeat
+    them, except that at a tile that is not whole 32-px windows DAT's window attention is
+    the pre-projected kernel. Returns the launches of both `main` calls together."""
+    model_dir = os.path.join(OUT, "model_dir")
+    req_dir, one_dir = os.path.join(OUT, "requests_tiled"), os.path.join(OUT, "requests_2k")
+    save_dir, save176_dir = os.path.join(OUT, "results"), os.path.join(OUT, "results_176")
+    sr_dir, sr176_dir = (os.path.join(d, cli_test.MODEL_NAME, "valid")
+                         for d in (save_dir, save176_dir))
+    for d in (req_dir, one_dir, sr_dir, sr176_dir):
+        for f in list_images(d) if os.path.isdir(d) else []:
+            os.remove(f)
+    for d in (save_dir, save176_dir):
+        if os.path.exists(os.path.join(d, "results.json")):
+            os.remove(os.path.join(d, "results.json"))
+    files = write_requests(req_dir, TILED_REQUESTS)
+    big = write_requests(one_dir, TILED_REQUESTS[:1])[0]
+    lrs = [load_image(f) for f in files]
+    os.environ["FREQFUSION_MODEL_DIR"] = model_dir
+
+    def served(directory, save_to, out_dir, n_frames, **tiling):
+        """The runner on `directory` (`tiling`: keywords for main; the runner has no flag
+        for them); returns (launches, its runtime in seconds)."""
+        reset_launches()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            runtime_ms = cli_test.main(["--input", directory, "--save_dir", save_to], **tiling)
+        counts = {k: v for k, v in read_launches().items() if v}
+        lost = [str(w.message) for w in caught if "checkpoint" in str(w.message)]
+        require(not lost, f"the runner did not load every checkpoint: {lost}")
+        with open(os.path.join(save_to, "results.json")) as f:
+            results = json.load(f)
+        require(results.get(cli_test.MODEL_NAME) == {"runtime_ms": runtime_ms, "split": "valid"},
+                f"results.json holds {results}")
+        pngs = sorted(os.path.basename(f) for f in list_images(out_dir))
+        require(pngs == sorted(os.path.basename(f) for f in list_images(directory))
+                and len(pngs) == n_frames, f"the runner wrote {pngs} for {n_frames} frames")
+        return counts, runtime_ms / 1e3
+
+    def forwards(tile, sizes, whole):
+        """(forwards `main` makes for frames of `sizes`, the plan of each): chunks of 2
+        tiles, or one forward for a frame that runs whole."""
+        plan = []
+        for (w, h), is_whole in zip(sizes, whole):
+            tiles = 0 if is_whole else num_tiles(h, w, tile, 32, 2)
+            plan.append(dict(lr=[w, h], tiles=tiles, chunks=-(-tiles // 2) if tiles else 1))
+        return sum(p["chunks"] for p in plan), plan
+
+    # the main path: three frames, three ways in, at the default 192-px tiles
+    n192, plan192 = forwards(192, TILED_REQUESTS, (False, False, True))
+    counts, secs = served(req_dir, save_dir, sr_dir, 3)
+    expected = {k: n * n192 for k, n in per_forward.items()}
+    emit("tiled_serve", tile=192, frames=plan192, forwards=n192, seconds=secs, launches=counts)
+    require(counts == expected, f"launches on the tiled path {counts}, expected {expected}")
+    # the 2K frame again in 176-px tiles: q, k, v are padded to 192 after their projection
+    n176, plan176 = forwards(RAGGED_TILE, TILED_REQUESTS[:1], (False,))
+    counts176, secs176 = served(one_dir, save176_dir, sr176_dir, 1, tile=RAGGED_TILE)
+    expected = {k: n * n176 for k, n in per_forward.items()}
+    expected["fused_window_attention_qkv"] = expected.pop("fused_window_attention_xqkv")
+    emit("tiled_serve", tile=RAGGED_TILE, frames=plan176, forwards=n176, seconds=secs176,
+         launches=counts176)
+    require(counts176 == expected,
+            f"launches on the tiled path at tile {RAGGED_TILE} {counts176}, expected {expected}")
+    require([p["tiles"] for p in plan192] == [12, 1, 0] and plan192[0]["chunks"] == 6
+            and plan176[0]["tiles"] == 20, f"tile plans {plan192} {plan176}")
+
+    # the same model once more: the same tiles on the plain path, one chunk stage by stage,
+    # and the times
+    lr_big = lrs[0]
+    times, checks = [], []
+    for tile, out_dir in ((192, sr_dir), (RAGGED_TILE, sr176_dir)):
+        pipe = build_pipeline(model_dir, tile=tile)
+        model = pipe.model
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        u8_k = pipe.run_tiled_u8(lr_big)
+        image_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        tiny_k = pipe.run_tiled_u8(lrs[1])
+        set_kernels(model, False)
+        t0 = time.perf_counter()
+        u8_p = pipe.run_tiled_u8(lr_big)
+        plain_s = time.perf_counter() - t0
+        tiny_p = pipe.run_tiled_u8(lrs[1])
+        set_kernels(model, True)
+        png = np.round(load_image(os.path.join(out_dir, os.path.basename(big))) * 255)
+        lsb = dict(stitched_vs_plain=int(np.abs(u8_k.astype(np.int32) - u8_p).max()),
+                   served_vs_stitched=int(np.abs(png.astype(np.int32) - u8_k).max()),
+                   tiny_vs_plain=int(np.abs(tiny_k.astype(np.int32) - tiny_p).max()))
+        require(u8_k.shape == (4 * 480, 4 * 640, 3) and tiny_k.shape == (120, 160, 3),
+                f"tiled outputs {u8_k.shape} {tiny_k.shape}")
+        # two tiles of the 2K frame as one chunk
+        with torch.inference_mode():
+            x = torch.from_numpy(np.stack([lr_big[:tile, :tile],
+                                           lr_big[-tile:, -tile:]])).cuda()
+            _, bands_k, fused_k, out_k = ens_forward(model, x)
+            set_kernels(model, False)
+            _, bands_p, fused_p, out_p = ens_forward(model, x)
+            set_kernels(model, True)
+            torch.cuda.synchronize()
+            errs = {n: ((a - b).abs().max().item(), SLICE_RTOL * b.abs().max().item())
+                    for n, a, b in (("bands", bands_k, bands_p), ("fused", fused_k, fused_p),
+                                    ("out", out_k, out_p))}
+            finite = bool(torch.isfinite(out_k).all() and torch.isfinite(fused_k).all())
+            inside = ((out_k > 0) & (out_k < 1)).float().mean().item()
+            del bands_k, fused_k, out_k, bands_p, fused_p, out_p
+            chunk_ms = {}
+            for path, on in (("kernel", True), ("plain", False)):
+                set_kernels(model, on)
+                chunk_ms[path] = cuda_ms(lambda: model(x), iters=2)
+            set_kernels(model, True)
+        checks.append(dict(tile=tile, **lsb, finite=finite, share_inside_0_1=inside,
+                           **{f"{n}_max_abs_err": e for n, (e, _) in errs.items()},
+                           **{f"{n}_bound": b for n, (_, b) in errs.items()}))
+        n_tiles = num_tiles(480, 640, tile, 32, 2)
+        times.append(dict(tile=tile, lr=[640, 480], tiles=n_tiles, chunks=-(-n_tiles // 2),
+                          chunk_kernel_ms=chunk_ms["kernel"], chunk_plain_ms=chunk_ms["plain"],
+                          image_kernel_s=image_s, image_plain_s=plain_s, peak_mem_gib=peak))
+        if tile == 192:
+            # one frame that both paths can serve: 510x339 whole (bucket 512x352) and tiled
+            frame = lrs[2]
+            with torch.inference_mode():
+                xw = torch.from_numpy(pipe._pad([frame], 352, 512)).cuda()
+                whole_ms = cuda_ms(lambda: model(xw), iters=2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.run_tiled(frame)
+            torch.cuda.synchronize()
+            times[-1].update(frame=[510, 339], frame_tiles=num_tiles(339, 510, 192, 32, 2),
+                             frame_whole_ms=whole_ms,
+                             frame_tiled_ms=1e3 * (time.perf_counter() - t0))
+            if profile:
+                profile_forward("tiled", lambda: model(x))
+                set_kernels(model, False)
+                profile_forward("tiled_plain", lambda: model(x))
+                set_kernels(model, True)
+        del pipe, model
+        torch.cuda.empty_cache()
+    emit("tiled_check", checks=checks)
+    emit("tiled_time", per_tile=times)
+    for c in checks:
+        require(c["finite"], "non-finite output on the tiled path")
+        require(max(c["stitched_vs_plain"], c["served_vs_stitched"], c["tiny_vs_plain"]) <= 1,
+                f"tiled images differ by more than 1 LSB: {c}")
+        for n in ("bands", "fused", "out"):
+            require(c[f"{n}_max_abs_err"] <= c[f"{n}_bound"], f"tiled chunk {n} error: {c}")
+        require(c["share_inside_0_1"] > 0.05, f"tiled chunk output saturated: {c}")
+    return {k: counts.get(k, 0) + counts176.get(k, 0) for k in {**counts, **counts176}}
+
+
+def hat_odd_slice(gen_cpu: torch.Generator) -> dict:
+    """HAT at HAT-L's width (embed 180, 6 heads of 30, compress 3, squeeze 30, mlp_ratio 2)
+    with a 15-px window on [1,225,225,3], depth cut to 2 groups of 6 HAB + OCAB. A 6-px
+    overlap (overlap_ratio 0.4) tiles 225 px into 15 key windows a side. H and W are odd, so
+    every HAB fails the fused gate and launches the standalone window attention once (half
+    of them shifted, with the mask types); the OCAB is outside its gate and runs in torch."""
+    model = HAT(depths=(6, 6), num_heads=(6, 6), window=15, overlap_ratio=0.4)
+    randomize_transformer_(model, gen_cpu)
+    model = model.cuda().eval()
+    x = torch.rand(1, 225, 225, 3, generator=gen_cpu).cuda()
+    reset_launches()
+    with torch.inference_mode():
+        sr, deep = model(x)
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in read_launches().items() if n}
+        set_kernels(model, False)
+        sr_p, deep_p = model(x)
+        torch.cuda.synchronize()
+        errs = {"sr": ((sr - sr_p).abs().max().item(), SLICE_RTOL * sr_p.abs().max().item()),
+                "deep": ((deep - deep_p).abs().max().item(),
+                         SLICE_RTOL * deep_p.abs().max().item())}
+        finite = bool(torch.isfinite(sr).all() and torch.isfinite(deep).all())
+        inside = ((sr > 0) & (sr < 1)).float().mean().item()
+        ms = {}
+        for path, on in (("kernel", True), ("plain", False)):
+            set_kernels(model, on)
+            ms[path] = cuda_ms(lambda: model(x), iters=3)
+        set_kernels(model, True)
+    emit("hat_odd", params=sum(p.numel() for p in model.parameters()), shape=list(x.shape),
+         window=15, output=list(sr.shape), launches=counts, finite=finite,
+         share_inside_0_1=inside, kernel_ms=ms["kernel"], plain_ms=ms["plain"],
+         **{f"{n}_max_abs_err": e for n, (e, _) in errs.items()},
+         **{f"{n}_bound": b for n, (_, b) in errs.items()})
+    require(sr.shape == (1, 900, 900, 3) and finite, f"hat_odd output {sr.shape}")
+    # 12 HABs, 3 convs (2 groups + conv_after_body); nothing else of the package launches
+    require(counts == {"fused_window_attention": 12, "conv3x3_dense": 3},
+            f"launches on the hat_odd path {counts}")
+    for n, (e, bnd) in errs.items():
+        require(e <= bnd, f"hat_odd {n} error {e} > {bnd}")
+    require(inside > 0.05, f"only {inside:.3f} of the output lies in (0,1)")
+    return counts
+
+
 def profile_forward(tag: str, forward) -> None:
     """Device time of one `forward()` by kernel (torch.profiler), after one warm-up."""
     from torch.profiler import ProfilerActivity, profile
@@ -1077,6 +1417,11 @@ KERNELS = {
     "fused_band_mha": ("freqfusion_tpu_torch/csrc/bandmha.cu",
                        "freqfusion_tpu/ops/pallas/bandmha.py:99"),
     "lka_gate": ("freqfusion_tpu_torch/csrc/lka.cu", "freqfusion_tpu/ops/pallas/lka.py:102"),
+    "fused_window_attention_qkv": ("freqfusion_tpu_torch/csrc/wattn.cu",
+                                   "freqfusion_tpu/ops/pallas/wattn.py:504"),
+    # B14's two projections are the row kernel of csrc/hat_rows.cu
+    "fused_window_attention": ("freqfusion_tpu_torch/csrc/wattn.cu",
+                               "freqfusion_tpu/ops/pallas/wattn.py:780"),
 }
 
 
@@ -1088,9 +1433,10 @@ def main() -> None:
     res = phase_kernels(gen)
     args = sys.argv[1:]
     profiled = None
-    if "--profile" in args:   # --profile [dat|hat|ens|head]
+    if "--profile" in args:   # --profile [dat|hat|ens|head|tiled]
         nxt = args[args.index("--profile") + 1:][:1]
-        profiled = nxt[0] if nxt and nxt[0] in ("dat", "hat", "ens", "head") else "dat"
+        profiled = (nxt[0] if nxt and nxt[0] in ("dat", "hat", "ens", "head", "tiled")
+                    else "dat")
     paths = [("naf", naf_slice(torch.Generator().manual_seed(SEED)))]
     torch.cuda.empty_cache()
     paths.append(("dat", dat_slice(torch.Generator().manual_seed(SEED), profiled == "dat")))
@@ -1099,6 +1445,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     solo = {k: sum(n.get(k, 0) for _, n in paths) for k in KERNELS}
     paths.append(("ens", ens_slice(torch.Generator().manual_seed(SEED), profiled, solo)))
+    torch.cuda.empty_cache()
+    per_forward = {k: n // len(REQUESTS) for k, n in paths[-1][1].items()}
+    paths.append(("tiled", tiled_slice(per_forward, profiled == "tiled")))
+    torch.cuda.empty_cache()
+    paths.append(("hat_odd", hat_odd_slice(torch.Generator().manual_seed(SEED))))
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(n.get(k, 0) for _, n in paths),
                 "launches_by_path": {tag: n[k] for tag, n in paths if k in n},

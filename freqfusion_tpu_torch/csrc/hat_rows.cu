@@ -5,8 +5,9 @@
 //                 hidden = GELU(LN2(y) @ w1 + b1)                                  (fc1)
 //                 out = y + hidden @ w2 + b2                                       (fc2)
 //   * residual_ln_mlp (B10):  y = a + shortcut, then fc1 and fc2 as above;
-//   * rows_linear: out = a @ wproj + bproj, the output projection of the overlapping
-//     cross-attention (B9), after csrc/oca.cu's attention.
+//   * rows_linear: out = a @ w + b on rows of any output width: the output projection of
+//     the overlapping cross-attention (B9), after csrc/oca.cu's attention, and the qkv and
+//     output projections of the standalone window attention (B14) around csrc/wattn.cu's.
 //
 // Replaces the TPU kernels freqfusion_tpu/ops/pallas/wattn.py:fused_hab_block (with
 // wattn.cu), :fused_residual_ln_mlp and the projection inside :fused_overlap_attention.
@@ -119,8 +120,9 @@ rows_kernel(const RowArgs g) {
                     g.hid[gp * g.Np + n] = n < g.nreal ? gelu_erf(u + g.bias[n]) : 0.f;
                     return;
                 }
-                if (n >= C) return;
-                float* o = g.out + gp * C + n;
+                const int wout = MODE == kLinear ? g.nreal : C;   // floats of a row of out
+                if (n >= wout) return;
+                float* o = g.out + gp * wout + n;
                 if (MODE == kLinear) {
                     o[0] = u + g.bias[n];
                 } else if (MODE == kProj) {
@@ -169,12 +171,13 @@ cudaError_t mlp(const float* a, const float* shortcut, const float* lnw, const f
 
 }  // namespace
 
+// out [npix][Cout] = a [npix][C] @ wp + bp, wp zero-padded to [Kp][Np].
 extern "C" int rows_linear(const float* a, const float* wp, const float* bp, float* out,
-                           long long npix, int C, int Kp, int Np, void* stream) {
-    if (Kp < C || Np < C) return cudaErrorInvalidValue;
+                           long long npix, int C, int Cout, int Kp, int Np, void* stream) {
+    if (Kp < C || Np < Cout || Cout < 1) return cudaErrorInvalidValue;
     RowArgs g = {};
     g.a = a; g.w = wp; g.bias = bp; g.out = out;
-    g.npix = npix; g.C = C; g.Kp = Kp; g.Np = Np; g.nreal = C;
+    g.npix = npix; g.C = C; g.Kp = Kp; g.Np = Np; g.nreal = Cout;
     return launch<kLinear>(g, static_cast<cudaStream_t>(stream));
 }
 

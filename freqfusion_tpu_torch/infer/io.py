@@ -1,14 +1,15 @@
-"""Whole-image serving of an SR module. Twin of ``freqfusion_tpu/infer/io.py``.
+"""Serving of an SR module, whole-image and tiled. Twin of ``freqfusion_tpu/infer/io.py``.
 
 ``InferencePipeline`` serves the ``nn.Module`` it is given (``FreqFusionSR``, or one expert:
 ``NAFNetSR``, ``DAT`` or ``HAT``; any module that returns an image or ``(sr, features)`` and
 has ``upscale``): each image is reflect-padded to a 32-px bucket (a whole number of DAT's
 32-px and of HAT's 16-px windows), run whole, cropped, and converted to uint8 on the device.
-The batch protocol (``dispatch_batch_u8`` / ``materialize_u8``) lets a caller dispatch image
-i+1 before it copies image i back. ``main`` (= ``model_func``) is the directory contract:
-it builds ``FreqFusionSR``, loads the ``.pth`` checkpoints it finds under ``model_dir`` and
-writes one x4 PNG per input image. Images that the plan sends to the tiled path are not
-served yet.
+An image that the plan refuses (over the pixel budget, smaller than its reflect padding, one
+bucket too many) goes through ``infer/tiling.py`` in fixed-shape tiles and is stitched on
+the device. The batch protocol (``dispatch_batch_u8`` / ``materialize_u8``) lets a caller
+dispatch image i+1 before it copies image i back. ``main`` (= ``model_func``) is the
+directory contract: it builds ``FreqFusionSR``, loads the ``.pth`` checkpoints it finds under
+``model_dir`` and writes one x4 PNG per input image, whatever its size.
 """
 
 from __future__ import annotations
@@ -27,28 +28,33 @@ from ..models.experts import FreqFusionSR
 from ..models.fusion import FusionConfig
 from ..utils.convert import load_torch_checkpoint
 from ..utils.imageio import list_images, load_image, save_image
+from .tiling import require_device, tiled_sr, whole_image_sr
 
-
-def require_device(device) -> torch.device:
-    """`device` as a torch.device; raises if it names the card and there is none (nothing
-    here falls back to the CPU by itself)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA card is available: serving runs on the card unless the "
-                           "caller asks for another device (device=\"cpu\")")
-    return device
+# the JAX twin's defaults: 192-px tiles keep the overlap recompute low on DIV2K-sized
+# images; 192 is a whole number of DAT's 32-px and HAT's 16-px windows
+TILE = 192
+OVERLAP = 32
+TILE_BATCH = 2
 
 
 class InferencePipeline:
-    """Runs an SR module on whole images at 32-px buckets on one device: the card, unless
-    the caller names another (``"cpu"``). Without a card the default raises."""
+    """Runs an SR module on one device: the card, unless the caller names another
+    (``"cpu"``); without a card the default raises. Images run whole at 32-px buckets
+    where the plan allows it, else as `tile_batch` tiles of `tile` x `tile` px a forward,
+    `overlap` px shared between neighbours. `tile` must suit the model (a multiple of 16
+    for HAT's windows; DAT pads to its 32-px windows by itself)."""
 
     # JAX twin's defaults: 280000 px covers every DIV2K x4 LR frame after 32-px padding;
     # at most 6 distinct buckets, after which images pad up to a bucket already in use
     WHOLE_IMAGE_MAX_PX = 280000
     WHOLE_IMAGE_MAX_SHAPES = 6
 
-    def __init__(self, model: nn.Module, device="cuda", dtype: torch.dtype = torch.float32):
+    def __init__(self, model: nn.Module, device="cuda", dtype: torch.dtype = torch.float32,
+                 tile: int = TILE, overlap: int = OVERLAP, tile_batch: int = TILE_BATCH):
+        if tile < 1 or not 0 <= overlap < tile or tile_batch < 1:
+            raise ValueError(f"tiling: tile={tile}, overlap={overlap}, tile_batch={tile_batch}; "
+                             "expected tile >= 1, 0 <= overlap < tile and tile_batch >= 1")
+        self.tile, self.overlap, self.tile_batch = tile, overlap, tile_batch
         self.device = require_device(device)
         self.dtype = dtype
         self.model = model.to(device=self.device, dtype=dtype).eval()
@@ -107,47 +113,63 @@ class InferencePipeline:
         cache.add((hp, wp))
         return hp, wp
 
-    def _plan_or_raise(self, h: int, w: int):
-        plan = self._whole_image_plan(h, w)
-        if plan is None:
-            raise NotImplementedError(
-                f"a {w}x{h} image takes the tiled path, which the port does not serve "
-                "yet (ROADMAP A7)")
-        return plan
+    def _forward_device(self, x: torch.Tensor) -> torch.Tensor:
+        """[B,hp,wp,3] on the device -> SR [B,s*hp,s*wp,3] on the device."""
+        with torch.inference_mode():
+            out = self.model(x.to(self.dtype))
+        return out[0] if isinstance(out, tuple) else out
 
     def _forward(self, lrp: np.ndarray) -> torch.Tensor:
         """[B,hp,wp,3] float host batch -> SR [B,s*hp,s*wp,3] on the device."""
         x = torch.from_numpy(np.ascontiguousarray(lrp, dtype=np.float32))
-        x = x.to(self.device, self.dtype, non_blocking=True)
-        with torch.inference_mode():
-            out = self.model(x)
-        return out[0] if isinstance(out, tuple) else out
+        return self._forward_device(x.to(self.device, non_blocking=True))
 
     @staticmethod
     def _pad(lrs, hp: int, wp: int) -> np.ndarray:
         return np.stack([np.pad(a, [(0, hp - a.shape[0]), (0, wp - a.shape[1]), (0, 0)],
                                 mode="reflect") for a in lrs])
 
+    @staticmethod
+    def _to_u8(sr: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return torch.round(sr.float().clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+
+    def run_tiled(self, lr: np.ndarray) -> torch.Tensor:
+        """One HWC float image of any size through the tiled path -> its SR image
+        [s*H, s*W, 3] float32 on the device."""
+        with torch.inference_mode():
+            return tiled_sr(lr, self._forward_device, self.tile, self.overlap,
+                            self.tile_batch, self.upscale, self.device)
+
+    def run_tiled_u8(self, lr: np.ndarray) -> np.ndarray:
+        """The tiled path's image as HWC uint8 on the host: round(clip(sr,0,1)*255) is
+        taken on the device, like the whole-image path's."""
+        return self._to_u8(self.run_tiled(lr)).cpu().numpy()
+
     def run_image(self, lr: np.ndarray) -> np.ndarray:
-        """One HWC float image -> its SR image (float HWC, on the host)."""
+        """One HWC float image -> its SR image (float HWC, on the host): whole where the
+        plan allows it, else tiled."""
         h, w, _ = lr.shape
-        hp, wp = self._plan_or_raise(h, w)
-        sr = self._forward(self._pad([lr], hp, wp))[0]
-        s = self.upscale
-        return sr[: h * s, : w * s].float().cpu().numpy()
+        plan = self._whole_image_plan(h, w)
+        if plan is None:
+            return self.run_tiled(lr).cpu().numpy()
+        sr = whole_image_sr(lr, self._forward_device, self.upscale, device=self.device,
+                            bucket=plan)
+        return sr.float().cpu().numpy()
 
     def dispatch_batch_u8(self, lrs, plan=None):
         """Dispatches a same-bucket batch of HWC float images without waiting for it.
 
         Returns a handle for ``materialize_u8``: round(clip(sr,0,1)*255) as uint8 is
         computed on the device and its copy to (pinned) host memory is queued on the
-        current stream."""
+        current stream. Returns None when the images must take the tiled path
+        (``run_tiled_u8``)."""
         if plan is None:
-            plan = self._plan_or_raise(lrs[0].shape[0], lrs[0].shape[1])
+            plan = self._whole_image_plan(lrs[0].shape[0], lrs[0].shape[1])
+            if plan is None:
+                return None
         hp, wp = plan
-        sr = self._forward(self._pad(lrs, hp, wp))
-        with torch.inference_mode():
-            u8 = torch.round(sr.float().clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+        u8 = self._to_u8(self._forward(self._pad(lrs, hp, wp)))
         done = None
         if u8.device.type == "cuda":
             host = torch.empty(u8.shape, dtype=torch.uint8, pin_memory=True)
@@ -191,11 +213,11 @@ def load_checkpoints(model: FreqFusionSR, model_dir: str) -> None:
     ``pretrained/{hat,dat,nafnet}/**/*.pth`` for the experts (the ``nafnet.`` prefix of a
     NAFNetSR checkpoint is stripped) and the first other ``*.pth`` for the head. A missing
     file warns and keeps the module's seeded random weights. A framework-native ``.ckpt``
-    is refused: its loader is not ported (ROADMAP A7)."""
+    is refused: its loader is not ported (ROADMAP A8)."""
     native = _find(model_dir, ["*.ckpt", "checkpoints/**/*.ckpt"])
     if native:
         raise NotImplementedError(
-            f"{native}: loading a framework-native .ckpt is not ported yet (ROADMAP A7); "
+            f"{native}: loading a framework-native .ckpt is not ported yet (ROADMAP A8); "
             "convert it to a torch .pth")
     experts = {"hat": (model.experts.hat, None), "dat": (model.experts.dat, None),
                "nafnet": (model.experts.nafnet.nafnet, "nafnet.")}
@@ -219,7 +241,8 @@ def load_checkpoints(model: FreqFusionSR, model_dir: str) -> None:
 
 
 def build_pipeline(model_dir: str, device="cuda", fusion_config: Optional[FusionConfig] = None,
-                   expert_kwargs: Optional[dict] = None) -> InferencePipeline:
+                   expert_kwargs: Optional[dict] = None, tile: int = TILE,
+                   overlap: int = OVERLAP, tile_batch: int = TILE_BATCH) -> InferencePipeline:
     """``FreqFusionSR`` with seeded initial weights, filled from `model_dir`'s checkpoints,
     behind an ``InferencePipeline`` on `device`. `expert_kwargs` may hold ``hat_kwargs``,
     ``dat_kwargs`` and ``nafnet_kwargs`` (tests build tiny experts with them)."""
@@ -227,12 +250,13 @@ def build_pipeline(model_dir: str, device="cuda", fusion_config: Optional[Fusion
     torch.manual_seed(0)
     model = FreqFusionSR(fusion_config or FusionConfig(), **(expert_kwargs or {}))
     load_checkpoints(model, model_dir)
-    return InferencePipeline(model, device)
+    return InferencePipeline(model, device, tile=tile, overlap=overlap, tile_batch=tile_batch)
 
 
 def main(model_dir: str, input_path: str, output_path: str, device="cuda", *,
          fusion_config: Optional[FusionConfig] = None, expert_kwargs: Optional[dict] = None,
-         group_max: int = 1) -> int:
+         group_max: int = 1, tile: int = TILE, overlap: int = OVERLAP,
+         tile_batch: int = TILE_BATCH) -> int:
     """The challenge contract ``model_func(model_dir, input_path, output_path, device)``:
     super-resolves every image of the directory `input_path` into `output_path` under the
     same file name, and returns their number. The device is the card unless the caller
@@ -240,8 +264,10 @@ def main(model_dir: str, input_path: str, output_path: str, device="cuda", *,
 
     Consecutive images of one bucket are grouped, up to `group_max` a dispatch (one forward
     of that batch), and group i+1 is dispatched before group i is copied back and written.
-    An image whose plan is the tiled path raises ``NotImplementedError``."""
-    pipe = build_pipeline(model_dir, device, fusion_config, expert_kwargs)
+    An image whose plan is the tiled path waits for what is pending, then runs as
+    `tile_batch` tiles of `tile` px a forward (`overlap` px shared) and is written."""
+    pipe = build_pipeline(model_dir, device, fusion_config, expert_kwargs, tile, overlap,
+                          tile_batch)
     os.makedirs(output_path, exist_ok=True)
     files = list_images(input_path)
 
@@ -270,11 +296,21 @@ def main(model_dir: str, input_path: str, output_path: str, device="cuda", *,
     for f in files:
         t0 = time.time()
         lr = load_image(f)
-        plan = pipe._plan_or_raise(lr.shape[0], lr.shape[1])
+        out, name = os.path.join(output_path, os.path.basename(f)), os.path.basename(f)
+        plan = pipe._whole_image_plan(lr.shape[0], lr.shape[1])
+        if plan is None:   # the tiled path, synchronous
+            dispatch_group()
+            if pending is not None:
+                flush(pending)
+                pending = None
+            arr = pipe.run_tiled_u8(lr)
+            save_image(arr, out)
+            print(f"  {name}: {lr.shape[1]}x{lr.shape[0]} -> {arr.shape[1]}x{arr.shape[0]} "
+                  f"in {time.time() - t0:.2f}s (tiled)")
+            continue
         if group and plan != group_plan:
             dispatch_group()
-        group.append((lr, os.path.join(output_path, os.path.basename(f)),
-                      os.path.basename(f), t0))
+        group.append((lr, out, name, t0))
         group_plan = plan
         if len(group) >= group_max:
             dispatch_group()

@@ -14,13 +14,12 @@ Where the JAX package runs its Pallas kernels, a CUDA tensor runs the hand-writt
 the AIM kernels (B5a, B5b) and the fused tail (B6) in every block, kernel B3 in the
 group-ending convs and ``conv_after_body``, and the in-kernel-qkv window attention (B4)
 when the image is a whole number of windows of at least 64 tokens, as every 32-px serving
-bucket is. Other images take the JAX package's pre-projected kernel
-(``fused_window_attention_qkv``), which has no CUDA twin yet: the plain version (CPU
-tensors, ``kernels = False``) projects q, k, v first, zero-pads them and attends in torch,
-and a CUDA tensor with ``kernels = True`` raises. The channel attention's products,
-the v projection that feeds AIM, the pooled C-Map MLP, the position-bias MLP and the
-LR/HR convs around the trunk stay torch, as the JAX package leaves them to XLA. Each
-module's ``kernels = False`` runs the plain versions on any device, to compare the two.
+bucket is. Any other shape (a 176-px tile, a ragged direct call, windows of fewer than 64
+tokens) projects q, k, v first, zero-pads them to whole windows and takes the
+pre-projected kernel (B13), which has no lower limit. The channel attention's products, the v projection that feeds AIM, the pooled C-Map
+MLP, the position-bias MLP and the LR/HR convs around the trunk stay torch, as in the JAX
+package. Each module's ``kernels = False`` runs the plain versions on any device, to
+compare the two.
 """
 
 from __future__ import annotations
@@ -37,14 +36,16 @@ from ..ops.common import layernorm, pixel_shuffle
 from ..ops.kernels.aim import (aim_conv_branch, aim_conv_branch_plain, aim_gates_proj,
                                aim_gates_proj_plain)
 from ..ops.kernels.sgfn import fused_sgfn_tail, fused_sgfn_tail_plain
-from ..ops.kernels.wattn import (fused_window_attention_xqkv,
-                                 fused_window_attention_xqkv_plain, window_attention_plain)
+from ..ops.kernels.wattn import (fused_window_attention_qkv,
+                                 fused_window_attention_qkv_plain,
+                                 fused_window_attention_xqkv,
+                                 fused_window_attention_xqkv_plain)
 from .layers import (BatchNorm2d, SeamConv, conv_nhwc as _conv_nhwc, gelu, hwio as _hwio,
                      linear_io as _io)
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
 
-#: Fewest tokens per window for the in-kernel-qkv attention (the JAX package's gate).
+#: Fewest tokens per window for the window-attention kernels (the JAX package's gate).
 MIN_FUSED_TOKENS = 64
 
 
@@ -182,14 +183,9 @@ class AdaptiveSpatialAttention(_AIM):
         # The in-kernel projection needs whole windows: zero-padding q, k, v AFTER the
         # projection (as the reference does) differs from projecting a zero-padded image,
         # where the bias lands in the pad region. Serving pads to 32-px buckets, so this
-        # is the served path; ragged shapes project first.
+        # is the served path; ragged shapes and windows below that kernel's size project
+        # first and take the pre-projected kernel, which has no lower limit.
         fused_x = ph == 0 and pw == 0 and s0 * s1 >= MIN_FUSED_TOKENS
-        if not fused_x and self.kernels and x.is_cuda:
-            raise NotImplementedError(
-                f"AdaptiveSpatialAttention: a {h}x{w} image in {s0}x{s1} windows needs the "
-                "pre-projected window-attention kernel (fused_window_attention_qkv), which "
-                "is not ported to CUDA yet; pad the image to whole windows of at least "
-                f"{MIN_FUSED_TOKENS} tokens, as InferencePipeline's buckets do")
         if fused_x:
             v = x @ wqkv[:, 2 * c:] + bqkv[2 * c:]   # AIM's conv branch needs the v image
         else:
@@ -214,7 +210,10 @@ class AdaptiveSpatialAttention(_AIM):
                 if self.shift:
                     qb, kb, vb = (torch.roll(t, (-sh, -sw), dims=(1, 2))
                                   for t in (qb, kb, vb))
-                o = window_attention_plain(qb, kb, vb, bias, mask, (hs, ws), heads)
+                fn = (fused_window_attention_qkv if self.kernels
+                      else fused_window_attention_qkv_plain)
+                o = fn(qb.contiguous(), kb.contiguous(), vb.contiguous(), bias, mask,
+                       (hs, ws), heads)
             if self.shift:
                 o = torch.roll(o, (sh, sw), dims=(1, 2))
             outs.append(o[:, :h, :w])

@@ -14,14 +14,13 @@ Where the JAX package runs its Pallas kernels, a CUDA tensor runs the hand-writt
 every HAB is the CAB chain (B7) and the fused block (B8) when its window is at least 8 px
 and H, W are even; every OCAB is the overlapping attention (B9) and the residual MLP tail
 (B10) when its window is a multiple of 16 with an overlap of half of it; the group-ending
-convs and ``conv_after_body`` are kernel B3. A HAB whose shape fails the gate would take
-the JAX package's standalone window attention (``fused_window_attention``), which has no
-CUDA twin yet: a CUDA tensor with ``kernels = True`` raises there, while CPU tensors and
-``kernels = False`` run the block in plain torch. The LR/HR convs around the trunk, the
+convs and ``conv_after_body`` are kernel B3. A HAB outside that gate (odd H or W, hence an
+odd window, since H and W are whole windows; or a window under 8 px) runs its block in
+torch around the standalone window attention (B14), which takes any window; an OCAB outside
+its gate runs in plain torch on any device, as the JAX package leaves it to XLA. The LR/HR convs around the trunk, the
 channel attention's MLP on the pooled vector, OCAB's ``norm1`` and ``qkv``, the bias gathers
-and the un-roll of a shifted block's output stay torch, as the JAX package leaves them to
-XLA. Each module's ``kernels = False`` runs the plain versions on any device, to compare
-the two.
+and the un-roll of a shifted block's output stay torch, as in the JAX package. Each
+module's ``kernels = False`` runs the plain versions on any device, to compare the two.
 """
 
 from __future__ import annotations
@@ -39,13 +38,13 @@ from ..ops.kernels.cab import cab_chain, cab_chain_plain
 from ..ops.kernels.wattn import (fused_hab_block, fused_hab_block_plain,
                                  fused_overlap_attention, fused_overlap_attention_plain,
                                  fused_residual_ln_mlp, fused_residual_ln_mlp_plain,
-                                 window_attention_plain)
+                                 fused_window_attention, fused_window_attention_plain)
 from .layers import (SeamConv, conv_nhwc as _conv_nhwc, gelu, hwio as _hwio,
                      linear_io as _io)
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
 
-#: Smallest window of the fused HAB path (the JAX package's gate).
+#: Smallest window of HAB's kernels (the JAX package's gate).
 MIN_FUSED_WINDOW = 8
 
 
@@ -57,16 +56,6 @@ def hab_is_fused(window: int, h: int, w: int) -> bool:
 def ocab_is_fused(window: int, overlap: int) -> bool:
     """Whether an OCAB takes the overlapping-attention and residual-MLP kernels."""
     return window % 16 == 0 and overlap == window // 2
-
-
-def check_hab_on_card(window: int, h: int, w: int) -> None:
-    """Raises for a HAB shape that a CUDA tensor cannot run with kernels on."""
-    if not hab_is_fused(window, h, w):
-        raise NotImplementedError(
-            f"HAB: a {h}x{w} image in {window}-px windows needs the standalone "
-            "window-attention kernel (fused_window_attention, B14), which is not ported to "
-            f"CUDA yet; use a window of at least {MIN_FUSED_WINDOW} px and even H and W, as "
-            "InferencePipeline's buckets are")
 
 
 class Mlp(nn.Module):
@@ -185,14 +174,14 @@ class HAB(nn.Module):
                         cab_scale=gate, in_shift=in_shift)
             return torch.roll(out, (s, s), dims=(1, 2)) if s > 0 else out
 
-        if self.kernels and x.is_cuda:
-            check_hab_on_card(ws, h, w)
+        # outside the fused gate (odd H or W, a window under MIN_FUSED_WINDOW) the block runs
+        # in torch around the standalone window-attention kernel, which takes any window
         x_ln = layernorm(x, self.norm1.weight, self.norm1.bias)
         conv_x = self.conv_block(x_ln)
         shifted = torch.roll(x_ln, (-s, -s), dims=(1, 2)) if s > 0 else x_ln
-        q, k, v = (shifted @ wqkv + bqkv).chunk(3, dim=-1)
-        att = window_attention_plain(q, k, v, bias, self.mask_types, (ws, ws),
-                                     self.num_heads) @ wproj + bproj
+        attend = fused_window_attention if self.kernels else fused_window_attention_plain
+        att = attend(shifted.contiguous(), wqkv, bqkv, wproj, bproj, bias, self.mask_types,
+                     (ws, ws), self.num_heads)
         if s > 0:
             att = torch.roll(att, (s, s), dims=(1, 2))
         y = x + att + conv_x * self.conv_scale

@@ -47,7 +47,8 @@ SIGNATURES = {
     "hab_attention": [_P] * 8 + [_I] * 9 + [_P],
     "hab_tail": [_P] * 14 + [_I] * 9 + [_F, _P],
     "residual_ln_mlp": [_P] * 10 + [_L] + [_I] * 5 + [_P],
-    "rows_linear": [_P] * 4 + [_L] + [_I] * 3 + [_P],
+    "rows_linear": [_P] * 4 + [_L] + [_I] * 4 + [_P],
+    "wattn_qkv": [_P] * 6 + [_I] * 8 + [_P],
     "oca_attention": [_P] * 5 + [_I] * 8 + [_P],
     "band_mha": [_P] * 10 + [_L] + [_I] * 3 + [_P],
     "lka_gate": [_P] * 9 + [_I] * 6 + [_P],

@@ -1,20 +1,24 @@
 """Window attention kernels and their plain versions: DAT's rectangular-window attention
-with the qkv projection fused in (B4), and HAT's fused HAB block (B8), overlapping
-cross-attention (B9) and residual + LayerNorm + MLP tail (B10).
+with the qkv projection fused in (B4) and from pre-projected images (B13), and HAT's fused
+HAB block (B8), overlapping cross-attention (B9), residual + LayerNorm + MLP tail (B10) and
+standalone window attention with both projections (B14).
 
 Twins of ``freqfusion_tpu/ops/pallas/wattn.py``'s ``fused_window_attention_xqkv``,
-``fused_hab_block``, ``fused_overlap_attention`` and ``fused_residual_ln_mlp``. On a CUDA
-tensor a wrapper launches its kernels (``csrc/wattn.cu``, ``csrc/oca.cu``,
-``csrc/hat_rows.cu``) or raises; on a CPU tensor it runs the plain PyTorch version. There
-is no fallback from one to the other. Dense weights come as [in,out] matrices of x @ w, as
-in the JAX package; every LayerNorm uses eps 1e-5.
+``fused_window_attention_qkv``, ``fused_hab_block``, ``fused_overlap_attention``,
+``fused_residual_ln_mlp`` and ``fused_window_attention``. On a CUDA tensor a wrapper
+launches its kernels (``csrc/wattn.cu``, ``csrc/oca.cu``, ``csrc/hat_rows.cu``) or raises; on
+a CPU tensor it runs the plain PyTorch version. There is no fallback from one to the other.
+Dense weights come as [in,out] matrices of x @ w, as in the JAX package; every LayerNorm
+uses eps 1e-5.
 
 B4's layouts (NHWC, f32): x [B,H,W,Cin]; wqkv [Cin, 3*co] and bqkv [3*co], one branch's q, k, v
 columns (co = num_heads * head_dim); bias [num_heads, N, N] with N = window tokens; mask
 None, the numpy shift mask [nW, N, N] of ``ops.windows.shift_attn_mask`` or its 4 window
 types as a tensor [4, N, N] (see ``mask_types``). The result is
 the co-wide attended image [B,H,W,co], before any output projection. The caller rolls x
-before and the result after a shifted block; nothing here shifts.
+before and the result after a shifted block; nothing here shifts. B13 takes the same bias
+and mask with q, k, v [B,H,W,C] projected (and zero-padded to whole windows) by the caller;
+B14 takes x [B,H,W,C] with the whole [C,3C] projection and the [C,C] output projection.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ from . import _build
 
 #: Kernel launches since the last reset. Plain runs are not counted.
 launches = {"fused_window_attention_xqkv": 0, "fused_hab_block": 0,
-            "fused_overlap_attention": 0, "fused_residual_ln_mlp": 0}
+            "fused_overlap_attention": 0, "fused_residual_ln_mlp": 0,
+            "fused_window_attention_qkv": 0, "fused_window_attention": 0}
 
 #: What csrc/oca.cu takes: at most 576 keys (a 16-px window grown to 24 px) per window.
 MAX_OCA_KEYS = 576
@@ -37,6 +42,8 @@ MAX_OCA_KEYS = 576
 #: What csrc/wattn.cu takes: windows of 64, 128, 192 or 256 tokens, heads up to 32 wide.
 MAX_TOKENS = 256
 MAX_HEAD_DIM = 32
+#: What csrc/wattn.cu's pre-projected kernel takes: windows of any size up to 576 tokens.
+MAX_QKV_TOKENS = 576
 _SLOT = 32               # columns of one head's q, k or v in the padded weight
 _WCOLS = 4 * _SLOT       # q | k | v | zeros: a multiple of the 64-column weight pass
 
@@ -78,7 +85,7 @@ def _type_index(n_wr: int, n_wc: int, device) -> torch.Tensor:
     return (2 * r[:, None] + c[None, :]).reshape(-1)
 
 
-def window_attention_plain(q, k, v, bias, mask, window, num_heads):
+def fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads):
     """Multi-head attention inside (hs, ws) windows of pre-projected images [B,H,W,C]:
     softmax(q k^T / sqrt(head_dim) + bias (+ mask)) v. Returns [B,H,W,C]."""
     b, h, w, c = q.shape
@@ -98,10 +105,109 @@ def window_attention_plain(q, k, v, bias, mask, window, num_heads):
     return window_reverse(out.permute(0, 2, 1, 3).reshape(-1, n, c), hs, ws, h, w)
 
 
-def fused_window_attention_xqkv_plain(x, wqkv, bqkv, bias, mask, window, num_heads):
-    """Project this branch's q, k, v from x, then window_attention_plain."""
+def _launch_qkv(lib, q_ptr, k_ptr, v_ptr, ld, bias, types, out, window, num_heads, name):
+    """csrc/wattn.cu's pre-projected attention into `out` [B,H,W,C]; q, k, v are device
+    addresses of images with `ld` floats a pixel."""
+    b, h, w, c = out.shape
+    with torch.cuda.device(out.device):
+        err = lib.wattn_qkv(q_ptr, k_ptr, v_ptr, bias.data_ptr(),
+                            0 if types is None else types.data_ptr(), out.data_ptr(), b, h, w,
+                            ld, window[0], window[1], num_heads, c // num_heads,
+                            _build.stream_ptr(out.device))
+    _build.check(err, name)
+
+
+def _check_qkv_shape(name, h, w, c, window, num_heads):
+    hs, ws = window
+    if h % hs or w % ws:
+        raise ValueError(f"{name}: {h}x{w} is not a multiple of the {hs}x{ws} window")
+    if hs * ws > MAX_QKV_TOKENS:
+        raise ValueError(f"{name}: {hs * ws} tokens per window; the kernel takes up to "
+                         f"{MAX_QKV_TOKENS}")
+    if c % num_heads or c // num_heads > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: C={c} over {num_heads} heads; the kernel takes whole "
+                         f"heads up to {MAX_HEAD_DIM} wide")
+
+
+def fused_window_attention_qkv(q, k, v, bias, mask, window, num_heads):
+    """Kernel B13 on CUDA, its plain version on the CPU: multi-head attention inside
+    (hs, ws) windows of pre-projected q, k, v [B,H,W,C], already zero-padded to whole
+    windows and already rolled in a shifted block. A zero-padded key is not masked: it
+    scores its bias and takes part in the softmax. Returns [B,H,W,C]."""
+    if q.device.type == "cpu":
+        return fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads)
+    name = "fused_window_attention_qkv"
+    _build.require_no_grad(name, q, k, v, bias)
+    b, h, w, c = q.shape
+    hs, ws = window
+    n = hs * ws
+    _check_qkv_shape(name, h, w, c, window, num_heads)
+    _build.require(q, "q")
+    _build.require(k, "k", q.shape)
+    _build.require(v, "v", q.shape)
+    _build.require(bias, "bias", (num_heads, n, n))
+    types = None if mask is None else mask_types(mask, h // hs, w // ws, q.device)
+    out = torch.empty_like(q)
+    _launch_qkv(_build.library(), q.data_ptr(), k.data_ptr(), v.data_ptr(), c, bias, types,
+                out, window, num_heads, "wattn_qkv")
+    launches[name] += 1
+    return out
+
+
+def fused_window_attention_plain(x, wqkv, bqkv, wproj, bproj, bias, mask, window, num_heads):
     q, k, v = (x @ wqkv + bqkv).chunk(3, dim=-1)
-    return window_attention_plain(q, k, v, bias, mask, window, num_heads)
+    att = fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads)
+    return att @ wproj + bproj
+
+
+def fused_window_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, window, num_heads):
+    """Kernel B14 on CUDA, its plain version on the CPU: one (S)W-MSA pass over an already
+    rolled image x [B,H,W,C] of any parity, qkv projection [C,3C] -> attention in
+    (hs, ws) windows with bias [heads,N,N] (+ the shift mask) -> output projection [C,C].
+    Returns [B,H,W,C]. Three launches: the row product of csrc/hat_rows.cu on either side
+    of csrc/wattn.cu's pre-projected attention; q, k, v pass through device memory once."""
+    if x.device.type == "cpu":
+        return fused_window_attention_plain(x, wqkv, bqkv, wproj, bproj, bias, mask, window,
+                                            num_heads)
+    name = "fused_window_attention"
+    _build.require_no_grad(name, x, wqkv, bqkv, wproj, bproj, bias)
+    b, h, w, c = x.shape
+    hs, ws = window
+    n = hs * ws
+    _check_qkv_shape(name, h, w, c, window, num_heads)
+    if c % 4:
+        raise ValueError(f"{name}: C={c} is not a multiple of 4")
+    _build.require(x, "x")
+    for nm, t, shape in (("wqkv", wqkv, (c, 3 * c)), ("bqkv", bqkv, (3 * c,)),
+                         ("wproj", wproj, (c, c)), ("bproj", bproj, (c,)),
+                         ("bias", bias, (num_heads, n, n))):
+        _build.require(t, nm, shape)
+    types = None if mask is None else mask_types(mask, h // hs, w // ws, x.device)
+    kp, npad, np3 = -(-c // 16) * 16, -(-c // 64) * 64, -(-3 * c // 64) * 64
+    wq, wpp = _padded_proj(wqkv, kp, np3), _padded_proj(wproj, kp, npad)
+    lib = _build.library()
+    qkv = torch.empty((b, h, w, 3 * c), device=x.device, dtype=torch.float32)
+    att = torch.empty_like(x)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = _build.stream_ptr(x.device)
+        err = lib.rows_linear(x.data_ptr(), wq.data_ptr(), bqkv.data_ptr(), qkv.data_ptr(),
+                              b * h * w, c, 3 * c, kp, np3, stream)
+        _build.check(err, "rows_linear")
+        p = qkv.data_ptr()
+        _launch_qkv(lib, p, p + 4 * c, p + 8 * c, 3 * c, bias, types, att, window, num_heads,
+                    "wattn_qkv")
+        err = lib.rows_linear(att.data_ptr(), wpp.data_ptr(), bproj.data_ptr(),
+                              out.data_ptr(), b * h * w, c, c, kp, npad, stream)
+    _build.check(err, "rows_linear")
+    launches[name] += 1
+    return out
+
+
+def fused_window_attention_xqkv_plain(x, wqkv, bqkv, bias, mask, window, num_heads):
+    """Project this branch's q, k, v from x, then fused_window_attention_qkv_plain."""
+    q, k, v = (x @ wqkv + bqkv).chunk(3, dim=-1)
+    return fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads)
 
 
 def _padded_head_weights(wqkv, bqkv, num_heads: int, hd: int, kp: int):
@@ -168,9 +274,9 @@ def _mlp_padded_weights(c: int, w1, w2):
             F.pad(w2, (0, npad - c, 0, k2p - hid)))
 
 
-def _padded_proj(wproj, kp: int, npad: int):
-    c = wproj.shape[0]
-    return F.pad(wproj, (0, npad - c, 0, kp - c))
+def _padded_proj(w, kp: int, npad: int):
+    """w [K,N] zero-padded to [kp,npad], the K % 16 and N % 64 of the streamed products."""
+    return F.pad(w, (0, npad - w.shape[1], 0, kp - w.shape[0]))
 
 
 def _mlp_plain(y, ln_w, ln_b, w1, b1, w2, b2):
@@ -182,7 +288,7 @@ def fused_hab_block_plain(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wpr
                           cab_scale=None, in_shift: int = 0):
     xs = torch.roll(x, (-in_shift, -in_shift), dims=(1, 2)) if in_shift else x
     q, k, v = (layernorm(xs, ln1_w, ln1_b) @ wqkv + bqkv).chunk(3, dim=-1)
-    att = window_attention_plain(q, k, v, bias, mask, window, num_heads)
+    att = fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads)
     cx = conv_x if cab_scale is None else conv_x * cab_scale
     y = xs + att @ wproj + bproj + conv_scale * cx
     return _mlp_plain(y, ln2_w, ln2_b, w1, b1, w2, b2)
@@ -314,7 +420,7 @@ def fused_overlap_attention(q, k, v, wproj, bproj, bias, window: int, overlap: i
                                 att.data_ptr(), b, h, w, c, window, ows, num_heads, hd, stream)
         _build.check(err, "oca_attention")
         err = lib.rows_linear(att.data_ptr(), wpp.data_ptr(), bproj.data_ptr(), out.data_ptr(),
-                              b * h * w, c, kp, npad, stream)
+                              b * h * w, c, c, kp, npad, stream)
     _build.check(err, "rows_linear")
     launches["fused_overlap_attention"] += 1
     return out

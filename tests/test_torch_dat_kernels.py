@@ -1,5 +1,6 @@
-"""Port parity: the plain versions of DAT's four kernels (window attention with fused qkv,
-the two AIM kernels, the SGFN tail) against the JAX package on the same numpy inputs: the
+"""Port parity: the plain versions of DAT's five kernels (window attention with fused qkv
+and from pre-projected q, k, v, the two AIM kernels, the SGFN tail) against the JAX package
+on the same numpy inputs, and a small DAT at the shapes that choose between them: the
 Pallas kernels in interpret mode, and for AIM also the XLA branches of models/dat.py.
 Tolerance atol 5e-5 rtol 1e-4 (f32; the Pallas bodies use an erf approximation good to
 1.5e-7 and other summation orders)."""
@@ -14,6 +15,7 @@ from freqfusion_tpu.models.layers import apply_ln
 from freqfusion_tpu.ops import windows as JW
 from freqfusion_tpu.ops.pallas import aim as jaim
 from freqfusion_tpu.ops.pallas.sgfn import fused_sgfn_tail as j_sgfn_tail
+from freqfusion_tpu.ops.pallas.wattn import fused_window_attention_qkv as j_wattn_qkv
 from freqfusion_tpu.ops.pallas.wattn import fused_window_attention_xqkv as j_wattn_xqkv
 from freqfusion_tpu_torch.ops import windows as TW
 from freqfusion_tpu_torch.ops.kernels import aim, sgfn, wattn
@@ -50,8 +52,72 @@ def test_window_attention_xqkv_plain_matches_pallas(hs, ws, with_mask):
     assert wattn.launches["fused_window_attention_xqkv"] == 0
     q, k, v = (torch.from_numpy(x) @ torch.from_numpy(wqkv) + torch.from_numpy(bqkv)).chunk(3, -1)
     np.testing.assert_allclose(
-        wattn.window_attention_plain(q, k, v, torch.from_numpy(bias), tmask, (hs, ws),
+        wattn.fused_window_attention_qkv_plain(q, k, v, torch.from_numpy(bias), tmask, (hs, ws),
                                      nh).numpy(), got.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("hs,ws,with_mask", [(2, 8, True), (8, 2, True), (8, 2, False),
+                                             (4, 16, True), (3, 5, True)])
+def test_window_attention_qkv_plain_matches_pallas(hs, ws, with_mask):
+    """Pre-projected q, k, v in rectangular windows; (3, 5) is a token count no kernel tile
+    divides. The mask goes in as the whole image's numpy mask or as its 4 window types."""
+    b, c, nh = 2, 12, 2
+    h, w, n = 2 * hs * (2 if hs < 4 else 1), 2 * ws, hs * ws
+    rng = np.random.default_rng(hs * 10 + ws + with_mask)
+    q, k, v = ((0.3 * rng.standard_normal((b, h, w, c))).astype(np.float32) for _ in range(3))
+    bias = (0.1 * rng.standard_normal((nh, n, n))).astype(np.float32)
+    jmask = tmask = None
+    if with_mask:
+        jmask = JW.shift_attn_mask(h, w, hs, ws, hs // 2, ws // 2)
+        tmask = (torch.from_numpy(np.array(TW.shift_mask_types(hs, ws, hs // 2, ws // 2)))
+                 if hs == 4 else TW.shift_attn_mask(h, w, hs, ws, hs // 2, ws // 2))
+    want = j_wattn_qkv(*_j(q, k, v, bias), jmask, (hs, ws), nh, interpret=True)
+    got = wattn.fused_window_attention_qkv(*_t(q, k, v, bias), tmask, (hs, ws), nh)
+    assert got.shape == (b, h, w, c)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert wattn.launches["fused_window_attention_qkv"] == 0
+
+
+def test_zero_padded_keys_take_part_in_the_softmax():
+    """q, k, v padded with zeros after their projection: a padded key is not masked, it
+    scores its bias and draws weight from the real keys, as in the JAX kernel."""
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 4, 8, 4)).astype(np.float32))
+               for _ in range(3))
+    k[:, :, 6:], v[:, :, 6:] = 0.0, 0.0   # the last two columns are padding
+    bias = torch.zeros(1, 32, 32)
+    base = wattn.fused_window_attention_qkv_plain(q, k, v, bias, None, (4, 8), 1)
+    bias[:, :, [6, 7, 14, 15, 22, 23, 30, 31]] = 20.0   # the padded keys
+    got = wattn.fused_window_attention_qkv_plain(q, k, v, bias, None, (4, 8), 1)
+    assert got.abs().max() < 1e-6 and base.abs().max() > 0.01
+
+
+@pytest.mark.parametrize("case", ["ragged", "small_windows"])
+def test_small_dat_takes_the_attention_its_shape_asks_for(case, monkeypatch):
+    """A ragged image in 64-token windows projects q, k, v, pads them and goes through the
+    pre-projected wrapper (two branches of two spatial blocks, one shifted), and so do
+    windows of 8 tokens, under the in-kernel projection's size, whatever the shape. Both
+    equal the JAX DAT, which attends in plain XLA at such windows."""
+    from freqfusion_tpu_torch.models import dat as tdat
+    from test_torch_dat import small_pair
+    jm, params, tm = small_pair(True, fused=case == "ragged")
+    h, w = (20, 24) if case == "ragged" else (8, 8)
+    lr = np.random.default_rng(11).uniform(size=(2, h, w, 3)).astype(np.float32)
+    want_sr, want_deep = jax.jit(jm.apply)({"params": params}, jnp.asarray(lr))
+    calls = []
+    for name in ("fused_window_attention_qkv", "fused_window_attention_xqkv"):
+        monkeypatch.setattr(tdat, name, lambda *a, _n=name, _f=getattr(tdat, name): (
+            calls.append((_n, tuple(a[0].shape[1:3]), a[4] is not None)), _f(*a))[1])
+    with torch.inference_mode():
+        sr, deep = tm(torch.from_numpy(lr))
+    if case == "ragged":   # q, k, v padded to whole 16-px windows: 32 x 32
+        assert sorted(calls) == [("fused_window_attention_qkv", (32, 32), m)
+                                 for m in (False, False, True, True)]
+    else:   # four spatial blocks of two branches, half of them shifted
+        assert sorted(calls) == [("fused_window_attention_qkv", (8, 8), m)
+                                 for m in (False,) * 4 + (True,) * 4]
+    np.testing.assert_allclose(sr.numpy(), np.asarray(want_sr), atol=5e-5, rtol=1e-4)
+    np.testing.assert_allclose(deep.numpy(), np.asarray(want_deep), atol=5e-5, rtol=1e-4)
 
 
 def test_mask_types_are_checked_to_be_exhaustive():
@@ -88,8 +154,8 @@ def test_shift_mask_types_are_those_of_any_image(h, w, hs, ws):
                for _ in range(3))
     bias = torch.from_numpy(rng.standard_normal((2, hs * ws, hs * ws)).astype(np.float32))
     np.testing.assert_array_equal(
-        wattn.window_attention_plain(q, k, v, bias, types, (hs, ws), 2).numpy(),
-        wattn.window_attention_plain(q, k, v, bias, full, (hs, ws), 2).numpy())
+        wattn.fused_window_attention_qkv_plain(q, k, v, bias, types, (hs, ws), 2).numpy(),
+        wattn.fused_window_attention_qkv_plain(q, k, v, bias, full, (hs, ws), 2).numpy())
     with pytest.raises(TypeError, match="numpy"):
         wattn.mask_types(torch.zeros(2, hs * ws, hs * ws), h // hs, w // ws, "cpu")
 

@@ -2,7 +2,8 @@
 the JAX ``FreqFusionSR`` from ``freqfusion_params_from_flax`` (final output within 2e-4,
 uint8 serving within 1 LSB), and the directory contract ``main`` / ``model_func`` on the
 CPU: checkpoints found and loaded, a missing one warned about, a native ``.ckpt`` refused,
-and the default device refused where there is no card.
+a frame below the whole-image plan served in tiles, and the default device refused where
+there is no card.
 """
 
 import os
@@ -196,17 +197,26 @@ def test_main_serves_a_directory_from_pth_checkpoints(tmp_path):
     # a framework-native checkpoint is refused, not skipped
     (model_dir / "checkpoints").mkdir()
     (model_dir / "checkpoints" / "latest.ckpt").write_bytes(b"\x00")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         main(str(model_dir), str(src), str(tmp_path / "sr3"), "cpu", expert_kwargs=EXPERTS)
 
 
 def test_main_refuses_the_tiled_path_and_a_missing_card(tmp_path):
+    """What `main` still refuses: a tiling that cannot cover an image (no frame is refused
+    for its size any more: a 40x30 frame, smaller than its reflect padding, is served in
+    tiles), and the default device where there is no card."""
     src = tmp_path / "lr"
-    save_image(np.zeros((30, 40, 3), np.uint8), str(src / "small.png"))
+    save_image(np.random.default_rng(0).integers(0, 256, (30, 40, 3), dtype=np.uint8),
+               str(src / "small.png"))
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            main(str(tmp_path), str(src), str(tmp_path / "sr"), "cpu", expert_kwargs=EXPERTS)
+        for bad in (dict(tile=32, overlap=32), dict(tile=0), dict(tile_batch=0)):
+            with pytest.raises(ValueError, match="tiling"):
+                main(str(tmp_path), str(src), str(tmp_path / "sr"), "cpu",
+                     expert_kwargs=EXPERTS, **bad)
+        assert main(str(tmp_path), str(src), str(tmp_path / "sr"), "cpu",
+                    expert_kwargs=EXPERTS, tile=32, overlap=8) == 1
+    assert np.asarray(Image.open(tmp_path / "sr" / "small.png")).shape == (120, 160, 3)
     if not torch.cuda.is_available():   # the default device is the card: no fallback
         with pytest.raises(RuntimeError, match="no CUDA card"):
             main(str(tmp_path), str(src), str(tmp_path / "sr"), expert_kwargs=EXPERTS)

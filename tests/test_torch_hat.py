@@ -51,13 +51,13 @@ class _scan:
 
 
 @functools.lru_cache(maxsize=None)
-def small_pair(layout: str, win8: bool = False, seed: int = 0):
+def small_pair(layout: str, win8: bool = False, seed: int = 0, **override):
     """A small JAX HAT in one of the three parameter layouts with every parameter random
     (bias tables, LN affines and biases included, so nothing is an identity), and the
     port's HAT holding the same weights. The parameters are drawn with numpy over the
-    shapes of `init` (tracing only)."""
+    shapes of `init` (tracing only). `override` replaces entries of the small config."""
     depths, scan, naxes = LAYOUTS[layout]
-    cfg = dict(WIN8 if win8 else SMALL, depths=depths)
+    cfg = dict(WIN8 if win8 else SMALL, depths=depths, **override)
     jm = JHAT(**cfg)
     side = 2 * cfg["window"]
     with _scan(scan):
@@ -126,6 +126,27 @@ def test_small_hat_through_the_fused_wrappers_matches_jax(layout, monkeypatch):
     per_group = [c for j in range(depth) for c in (("cab", 4 * (j % 2)),
                                                    ("hab", 4 * (j % 2), True))]
     assert calls == per_group * 2
+    np.testing.assert_allclose(sr.numpy(), np.asarray(want_sr), **TOL)
+    np.testing.assert_allclose(deep.numpy(), np.asarray(want_deep), **TOL)
+
+
+@pytest.mark.parametrize("window,ratio,hw", [(9, 0.5, (27, 27)), (15, 0.4, (30, 45))])
+def test_small_hat_with_an_odd_window_matches_jax(window, ratio, hw, monkeypatch):
+    """An odd window makes H and W odd: every HAB fails the fused gate and runs in torch
+    around the standalone window attention (its wrapper, shifted blocks with the mask
+    types), the OCAB outside its gate in torch. Window 15 with overlap_ratio 0.4 (a 6-px
+    overlap) is the topology that the chip check runs at HAT-L's width."""
+    jm, params, tm, scan = small_pair("group_scanned", window=window, overlap_ratio=ratio)
+    calls = []
+    real = that.fused_window_attention
+    monkeypatch.setattr(that, "fused_window_attention", lambda *a: calls.append(
+        (a[6] is not None, a[7])) or real(*a))
+    h, w = hw
+    lr = np.random.default_rng(window).uniform(size=(2, h, w, 3)).astype(np.float32)
+    want_sr, want_deep = _jax_forward(jm, params, scan, lr)
+    with torch.inference_mode():
+        sr, deep = tm(torch.from_numpy(lr))
+    assert calls == [(j % 2 == 1, (window, window)) for j in range(3)] * 2
     np.testing.assert_allclose(sr.numpy(), np.asarray(want_sr), **TOL)
     np.testing.assert_allclose(deep.numpy(), np.asarray(want_deep), **TOL)
 
@@ -219,15 +240,28 @@ def test_u8_serving_matches_jax():
 @pytest.mark.parametrize("window,h,w,fused", [(16, 352, 512, True), (8, 16, 24, True),
                                               (4, 8, 8, False), (7, 21, 14, False),
                                               (9, 27, 18, False)])
-def test_hab_gate_and_the_raise_for_what_is_not_ported(window, h, w, fused):
-    """The fused HAB path needs a window of 8 px or more and even H, W; any other shape
-    would need the standalone window-attention kernel, which a CUDA tensor raises for."""
+def test_hab_gate_and_the_raise_for_what_is_not_ported(window, h, w, fused, monkeypatch):
+    """The fused HAB path needs a window of 8 px or more and even H, W. Any other shape
+    runs the block in torch around the standalone window attention's wrapper, which takes
+    any window (nothing raises for a shape any more); either way `kernels = False` takes
+    the plain version."""
     assert that.hab_is_fused(window, h, w) == fused
-    if fused:
-        that.check_hab_on_card(window, h, w)
-    else:
-        with pytest.raises(NotImplementedError, match="fused_window_attention"):
-            that.check_hab_on_card(window, h, w)
+    hs, ws = 2 * window, window   # a small image of the same gate: parity follows the window
+    assert that.hab_is_fused(window, hs, ws) == fused
+    calls = []
+    for name in ("fused_hab_block", "fused_window_attention", "fused_window_attention_plain"):
+        monkeypatch.setattr(that, name, lambda *a, _n=name, _f=getattr(that, name), **k: (
+            calls.append(_n), _f(*a, **k))[1])
+    blk = that.HAB(8, 2, window, window // 2, 2, 2, 0.01, 2.0).eval()
+    x = torch.from_numpy(np.random.default_rng(window).standard_normal(
+        (1, hs, ws, 8)).astype(np.float32))
+    with torch.inference_mode():
+        out = blk(x)
+        assert calls == ["fused_hab_block" if fused else "fused_window_attention"]
+        blk.kernels = False
+        plain = blk(x)
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+    np.testing.assert_array_equal(out.numpy(), plain.numpy())   # CPU: the plain versions
 
 
 def test_ocab_gate_and_bucket_shapes():

@@ -1,5 +1,6 @@
-"""Port parity: the plain versions of HAT's four kernels (CAB chain, fused HAB block,
-overlapping cross-attention, residual + LayerNorm + MLP) against the JAX package's Pallas
+"""Port parity: the plain versions of HAT's five kernels (CAB chain, fused HAB block,
+overlapping cross-attention, residual + LayerNorm + MLP, standalone window attention)
+against the JAX package's Pallas
 kernels in interpret mode on the same numpy inputs. Tolerance atol 5e-5 rtol 1e-4 (f32; the
 Pallas bodies use an erf approximation good to 1.5e-7 and other summation orders); the
 channel sums add a whole image, atol 2e-3 as in the JAX package's own test."""
@@ -14,6 +15,7 @@ from freqfusion_tpu.ops.pallas.cab import cab_chain as j_cab_chain
 from freqfusion_tpu.ops.pallas.wattn import fused_hab_block as j_hab_block
 from freqfusion_tpu.ops.pallas.wattn import fused_overlap_attention as j_overlap_attention
 from freqfusion_tpu.ops.pallas.wattn import fused_residual_ln_mlp as j_residual_ln_mlp
+from freqfusion_tpu.ops.pallas.wattn import fused_window_attention as j_window_attention
 from freqfusion_tpu_torch.ops import windows as TW
 from freqfusion_tpu_torch.ops.kernels import cab, wattn
 
@@ -153,6 +155,30 @@ def test_fused_residual_ln_mlp_plain_matches_pallas(shape, hidden):
     want = j_residual_ln_mlp(*_j(*args), interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     assert wattn.launches["fused_residual_ln_mlp"] == 0
+
+
+@pytest.mark.parametrize("b,h,w,c,nh,window,with_mask", [
+    (2, 16, 24, 36, 6, 8, False),    # no mask
+    (1, 32, 16, 24, 4, 8, True),     # the shift mask, as the whole image's numpy mask
+    (1, 32, 8, 16, 2, 8, False),     # 4 rows of windows: the Pallas kernel stacks them (gh)
+    (2, 27, 18, 24, 4, 9, True),     # odd H, 81 tokens, the mask as its 4 window types
+])
+def test_window_attention_plain_matches_pallas(b, h, w, c, nh, window, with_mask):
+    n = window * window
+    rng = np.random.default_rng(h + w + c)
+    args = (_r(rng, b, h, w, c, std=0.3), _r(rng, c, 3 * c, std=0.05), _r(rng, 3 * c, std=0.02),
+            _r(rng, c, c, std=0.05), _r(rng, c, std=0.02), _r(rng, nh, n, n, std=0.1))
+    jmask = tmask = None
+    if with_mask:
+        s = window // 2
+        jmask = JW.shift_attn_mask(h, w, window, window, s, s)
+        tmask = (torch.from_numpy(np.array(TW.shift_mask_types(window, window, s, s)))
+                 if window == 9 else TW.shift_attn_mask(h, w, window, window, s, s))
+    want = j_window_attention(*_j(*args), jmask, (window, window), nh, interpret=True)
+    got = wattn.fused_window_attention(*_t(*args), tmask, (window, window), nh)
+    assert got.shape == (b, h, w, c)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert wattn.launches["fused_window_attention"] == 0
 
 
 def test_padded_weights_keep_the_products():

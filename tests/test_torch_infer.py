@@ -1,6 +1,7 @@
 """Port parity: whole-image uint8 serving through freqfusion_tpu_torch's
-InferencePipeline against the JAX NAFNetSR, the bucket plan against the JAX one, and the
-guard that the port imports without JAX."""
+InferencePipeline against the JAX NAFNetSR, the bucket plan against the JAX one, the tiled
+path's refusals, the submission CLI on the CPU, and the guard that the port imports without
+JAX."""
 
 import os
 import subprocess
@@ -57,14 +58,59 @@ def test_u8_serving_matches_jax(tmp_path):
 
 
 def test_tiled_path_raises():
+    """What the tiled path still raises for: a tiling that cannot cover an image. No image
+    is refused for its size: one smaller than its reflect padding and one over the pixel
+    budget both come back at x4 (parity with the JAX package: tests/test_torch_tiling.py)."""
     _, _, tm = small_pair()
-    pipe = InferencePipeline(tm, "cpu")
+    for bad in (dict(tile=64, overlap=64), dict(tile=64, overlap=-1), dict(tile=0),
+                dict(tile_batch=0)):
+        with pytest.raises(ValueError, match="tiling"):
+            InferencePipeline(tm, "cpu", **bad)
+    pipe = InferencePipeline(tm, "cpu", tile=64, overlap=16, tile_batch=2)
+    pipe.WHOLE_IMAGE_MAX_PX = 96 * 96
+    rng = np.random.default_rng(3)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            pipe.dispatch_batch_u8([np.zeros((30, 40, 3), np.float32)])
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            pipe.run_image(np.zeros((700, 700, 3), np.float32))
+        small = rng.uniform(size=(30, 40, 3)).astype(np.float32)
+        assert pipe.dispatch_batch_u8([small]) is None
+        assert pipe.run_image(small).shape == (120, 160, 3)
+        large = rng.uniform(size=(100, 130, 3)).astype(np.float32)
+        u8 = pipe.run_tiled_u8(large)
+        assert u8.shape == (400, 520, 3) and u8.dtype == np.uint8
+        np.testing.assert_allclose(pipe.run_image(large), u8 / 255.0, atol=0.5 / 255 + 1e-6)
+
+
+def test_cli_writes_pngs_and_results(tmp_path, monkeypatch, capsys):
+    """`python -m freqfusion_tpu_torch.cli.test` on the CPU with a tiny model through the
+    keywords: PNGs under <save_dir>/29_FreqFusion_torch/<split>, the runtime line and
+    results.json, which keeps what other runners wrote."""
+    from freqfusion_tpu_torch.cli import test as cli
+    from test_torch_ensemble import EXPERTS
+    src, save = tmp_path / "lr", tmp_path / "results"
+    rng = np.random.default_rng(1)
+    sizes = {"a.png": (64, 70), "tiny.png": (20, 30)}   # one whole, one tiled
+    for name, (h, w) in sizes.items():
+        save_image(rng.integers(0, 256, (h, w, 3), dtype=np.uint8), str(src / name))
+    save.mkdir()
+    (save / "results.json").write_text('{"29_FreqFusion_tpu": {"runtime_ms": 1.0}}')
+    monkeypatch.setenv("FREQFUSION_MODEL_DIR", str(tmp_path / "no_checkpoints"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # no checkpoint: random weights, and the tiled path
+        ms = cli.main(["--input", str(src), "--save_dir", str(save), "--split", "test",
+                       "--device", "cpu"], expert_kwargs=EXPERTS, tile=32, overlap=8)
+    for name, (h, w) in sizes.items():
+        got = np.asarray(Image.open(save / "29_FreqFusion_torch" / "test" / name))
+        assert got.shape == (4 * h, 4 * w, 3) and got.dtype == np.uint8
+    import json
+    results = json.loads((save / "results.json").read_text())
+    assert results["29_FreqFusion_torch"] == {"runtime_ms": ms, "split": "test"}
+    assert results["29_FreqFusion_tpu"] == {"runtime_ms": 1.0}
+    assert "------> Runtime (including IO) of 2 images" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="unknown model id"):
+        cli.select_model(3)
+    if not torch.cuda.is_available():   # the default device is the card
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            cli.main(["--input", str(src), "--save_dir", str(save)], expert_kwargs=EXPERTS)
 
 
 def test_whole_image_plan_matches_jax():
@@ -97,7 +143,8 @@ def test_port_imports_without_jax():
         "        'models.frequency', 'models.lka', 'models.fusion_blocks',\n"
         "        'models.hierarchical', 'models.edge', 'models.fusion', 'models.experts',\n"
         "        'models.nafnet', 'models.dat', 'models.hat', 'ops.kernels.wattn',\n"
-        "        'ops.kernels.cab', 'infer.io', 'utils.convert', 'utils.imageio']\n"
+        "        'ops.kernels.cab', 'infer.io', 'infer.tiling', 'cli.test', 'utils.convert',\n"
+        "        'utils.imageio']\n"
         "assert all(pkg.__name__ + '.' + n in names for n in need), names\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', 'freqfusion_tpu.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n")

@@ -92,27 +92,104 @@ def test_window_attention_xqkv_kernel_matches_plain(gen, b, h, w, hs, ws, cin, h
         torch.testing.assert_close(again, got, atol=0, rtol=0)
 
 
-def test_dat_on_the_card_raises_where_the_window_kernel_is_not_ported(gen):
-    """A CUDA image that is not whole windows of 64 tokens or more would need the
-    pre-projected window-attention kernel: the model raises and launches nothing in its
-    place; with kernels off the plain versions run."""
-    from freqfusion_tpu_torch.models.dat import DAT
-    model = DAT(embed_dim=64, depths=(2,), num_heads=(4,), split_size=(8, 8),
-                expansion=2.0).cuda().eval()
-    ragged = torch.rand(1, 20, 24, 3, generator=gen, device="cuda")
+@pytest.mark.parametrize("b,h,w,hs,ws,c,heads,with_mask", [
+    (2, 192, 192, 8, 32, 90, 3, True), (1, 64, 96, 32, 8, 90, 3, False),
+    (2, 30, 45, 15, 15, 180, 6, True), (1, 27, 18, 9, 9, 24, 4, True),
+    (2, 48, 24, 24, 24, 64, 2, True), (1, 16, 16, 8, 8, 32, 1, False),
+    (2, 14, 21, 7, 7, 8, 2, True), (2, 8, 16, 4, 8, 32, 2, True),
+    (1, 8, 12, 4, 4, 48, 4, True), (2, 3, 5, 1, 1, 8, 2, False)])
+def test_window_attention_qkv_kernel_matches_plain(gen, b, h, w, hs, ws, c, heads, with_mask):
+    """B13 at DAT's tile shape, at windows whose token count is no multiple of 32 (225, 81,
+    49), above 256 tokens (576), under 64 (32, 16 and a single token) and at batch 2, with
+    the mask types taken from each window's place."""
+    n = hs * ws
+    q, k, v = (_r(gen, b, h, w, c) for _ in range(3))
+    bias = _r(gen, heads, n, n, std=0.5)
+    mask = windows.shift_attn_mask(h, w, hs, ws, hs // 2, ws // 2) if with_mask else None
+    n0 = wattn.launches["fused_window_attention_qkv"]
+    got = wattn.fused_window_attention_qkv(q, k, v, bias, mask, (hs, ws), heads)
+    want = wattn.fused_window_attention_qkv_plain(q, k, v, bias, mask, (hs, ws), heads)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert wattn.launches["fused_window_attention_qkv"] == n0 + 1
+
+
+@pytest.mark.parametrize("b,h,w,ws,c,heads,with_mask", [
+    (1, 45, 45, 15, 180, 6, True), (2, 30, 45, 15, 180, 6, False), (2, 27, 9, 9, 24, 4, True),
+    (1, 32, 48, 16, 180, 6, True), (1, 48, 24, 24, 48, 2, False), (3, 8, 16, 8, 20, 2, True),
+    (1, 8, 12, 4, 48, 4, True), (2, 6, 4, 2, 8, 2, False)])
+def test_window_attention_kernel_matches_plain(gen, b, h, w, ws, c, heads, with_mask):
+    """B14 at HAT-L's width with an odd window (odd H and W, 225 tokens), at window 9, at
+    the served window 16, at 576 tokens, at windows under 8 px (4 and 2) and at batch 2 and
+    3."""
+    n = ws * ws
+    args = (_r(gen, b, h, w, c), _r(gen, c, 3 * c, std=c ** -0.5), _r(gen, 3 * c, std=0.1),
+            _r(gen, c, c, std=c ** -0.5), _r(gen, c, std=0.1), _r(gen, heads, n, n, std=0.5),
+            windows.shift_attn_mask(h, w, ws, ws, ws // 2, ws // 2) if with_mask else None)
     n0 = dict(wattn.launches)
-    with torch.inference_mode():
-        sr, _ = model(torch.rand(1, 16, 24, 3, generator=gen, device="cuda"))
-        assert sr.shape == (1, 64, 96, 3)
-        assert wattn.launches["fused_window_attention_xqkv"] == n0["fused_window_attention_xqkv"] + 2
-        with pytest.raises(NotImplementedError, match="fused_window_attention_qkv"):
-            model(ragged)
-        for m in model.modules():
-            if hasattr(m, "kernels"):
-                m.kernels = False
-        sr, _ = model(ragged)
-    assert sr.shape == (1, 80, 96, 3) and bool(torch.isfinite(sr).all())
-    assert wattn.launches["fused_window_attention_xqkv"] == n0["fused_window_attention_xqkv"] + 2
+    got = wattn.fused_window_attention(*args, (ws, ws), heads)
+    want = wattn.fused_window_attention_plain(*args, (ws, ws), heads)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    # one launch of B14, none counted for the kernels it is made of
+    assert {k: wattn.launches[k] - n0[k] for k in n0 if wattn.launches[k] != n0[k]} == {
+        "fused_window_attention": 1}
+
+
+def test_window_attention_wrappers_raise_on_what_the_kernel_does_not_take(gen):
+    q = _r(gen, 1, 32, 32, 24)
+    with pytest.raises(ValueError, match="tokens per window"):   # 1024 tokens
+        wattn.fused_window_attention_qkv(q, q, q, _r(gen, 4, 1024, 1024), None, (32, 32), 4)
+    with pytest.raises(ValueError, match="multiple of the 8x32 window"):
+        wattn.fused_window_attention_qkv(q[:, :30].contiguous(), q[:, :30].contiguous(),
+                                         q[:, :30].contiguous(), _r(gen, 4, 256, 256), None,
+                                         (8, 32), 4)
+    with pytest.raises(ValueError, match="whole heads"):
+        wattn.fused_window_attention_qkv(q, q, q, _r(gen, 5, 64, 64), None, (8, 8), 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        wattn.fused_window_attention_qkv(q.transpose(1, 2), q, q, _r(gen, 4, 64, 64), None,
+                                         (8, 8), 4)
+    with pytest.raises(ValueError, match="expected shape"):
+        wattn.fused_window_attention(q, _r(gen, 24, 70), _r(gen, 72), _r(gen, 24, 24),
+                                     _r(gen, 24), _r(gen, 4, 64, 64), None, (8, 8), 4)
+    # no backward: a tensor that autograd would follow is refused, not served without it
+    bias = _r(gen, 4, 64, 64)
+    with pytest.raises(RuntimeError, match="no backward"):
+        wattn.fused_window_attention_qkv(q.clone().requires_grad_(), q, q, bias, None, (8, 8), 4)
+    proj = (_r(gen, 24, 72).requires_grad_(), _r(gen, 72), _r(gen, 24, 24), _r(gen, 24))
+    with pytest.raises(RuntimeError, match="no backward"):
+        wattn.fused_window_attention(q, *proj, bias, None, (8, 8), 4)
+    with torch.no_grad():
+        assert wattn.fused_window_attention(q, *proj, bias, None, (8, 8), 4).shape == q.shape
+
+
+def test_dat_on_the_card_takes_the_kernel_its_shape_asks_for(gen):
+    """A CUDA image of whole windows launches the in-kernel-qkv attention twice a spatial
+    block; one that is not, or whose windows hold fewer than 64 tokens, projects first, pads
+    and launches the pre-projected kernel. Each agrees with the plain path."""
+    from freqfusion_tpu_torch.models.dat import DAT
+    cfg = dict(embed_dim=64, depths=(2,), num_heads=(4,), expansion=2.0)
+    model = DAT(split_size=(8, 8), **cfg).cuda().eval()
+    names = ("fused_window_attention_xqkv", "fused_window_attention_qkv")
+
+    def run(m, x):
+        n0 = [wattn.launches[k] for k in names]
+        with torch.inference_mode():
+            sr, _ = m(x)
+            for mod in m.modules():
+                if hasattr(mod, "kernels"):
+                    mod.kernels = False
+            plain, _ = m(x)
+            for mod in m.modules():
+                if hasattr(mod, "kernels"):
+                    mod.kernels = True
+        torch.testing.assert_close(sr, plain, atol=1e-3 * plain.abs().max().item(), rtol=0)
+        return sr.shape, tuple(wattn.launches[k] - n for k, n in zip(names, n0))
+
+    whole = torch.rand(2, 16, 24, 3, generator=gen, device="cuda")
+    ragged = torch.rand(2, 20, 27, 3, generator=gen, device="cuda")
+    assert run(model, whole) == ((2, 64, 96, 3), (2, 0))
+    assert run(model, ragged) == ((2, 80, 108, 3), (0, 2))
+    small = DAT(split_size=(4, 8), **cfg).cuda().eval()   # 32 tokens a window
+    assert run(small, whole) == ((2, 64, 96, 3), (0, 2))
 
 
 def _aim_params(gen, c):
@@ -284,41 +361,42 @@ def test_residual_ln_mlp_kernel_matches_plain(gen, shape, hidden):
     assert wattn.launches["fused_residual_ln_mlp"] == n0 + 1
 
 
-def test_hat_on_the_card_runs_its_kernels_and_raises_where_one_is_not_ported(gen):
+def test_hat_on_the_card_takes_the_kernels_its_shape_asks_for(gen):
     """A small HAT on the card launches B7 and B8 in every HAB, B9 and B10 in every OCAB and
-    B3 in the seam convs; a window under 8 px would need the standalone window-attention
-    kernel: the model raises and launches nothing in its place; with kernels off the plain
-    versions run."""
+    B3 in the seam convs; with an odd window (odd H and W) every HAB launches the standalone
+    window attention instead, and so does a window under 8 px. Each agrees with the plain
+    path."""
     from freqfusion_tpu_torch.models.hat import HAT
     cfg = dict(embed_dim=48, depths=(2, 2), num_heads=(4, 4), squeeze=6, num_feat=16)
-    model = HAT(window=16, **cfg).cuda().eval()
+
+    def run(model, x):
+        n0 = dict(wattn.launches, **cab.launches, **conv3x3.launches)
+        with torch.inference_mode():
+            sr, deep = model(x)
+            after = dict(wattn.launches, **cab.launches, **conv3x3.launches)
+            for m in model.modules():
+                if hasattr(m, "kernels"):
+                    m.kernels = False
+            sr_plain, deep_plain = model(x)
+        assert dict(wattn.launches, **cab.launches, **conv3x3.launches) == after
+        torch.testing.assert_close(sr, sr_plain, atol=1e-3 * sr_plain.abs().max().item(),
+                                   rtol=0)
+        torch.testing.assert_close(deep, deep_plain,
+                                   atol=1e-3 * deep_plain.abs().max().item(), rtol=0)
+        return {k: after[k] - n0[k] for k in after if after[k] != n0[k]}
+
     x = torch.rand(2, 32, 48, 3, generator=gen, device="cuda")
-    n0 = dict(wattn.launches, **cab.launches, **conv3x3.launches)
-    with torch.inference_mode():
-        sr, deep = model(x)
-        after = dict(wattn.launches, **cab.launches, **conv3x3.launches)
-        for m in model.modules():
-            if hasattr(m, "kernels"):
-                m.kernels = False
-        sr_plain, deep_plain = model(x)
-    assert {k: after[k] - n0[k] for k in after if after[k] != n0[k]} == {
+    assert run(HAT(window=16, **cfg).cuda().eval(), x) == {
         "cab_chain": 4, "fused_hab_block": 4, "fused_overlap_attention": 2,
         "fused_residual_ln_mlp": 2, "conv3x3_dense": 3}
-    assert dict(wattn.launches, **cab.launches, **conv3x3.launches) == after
-    torch.testing.assert_close(sr, sr_plain, atol=1e-3 * sr_plain.abs().max().item(), rtol=0)
-    torch.testing.assert_close(deep, deep_plain, atol=1e-3 * deep_plain.abs().max().item(),
-                               rtol=0)
+    # window 9 on 27x18: every HAB fails the even-sides gate; the OCAB (window 9) is outside
+    # its own gate and runs in torch with the plain tail
+    odd = HAT(window=9, overlap_ratio=0.45, **cfg).cuda().eval()
+    y = torch.rand(2, 27, 18, 3, generator=gen, device="cuda")
+    assert run(odd, y) == {"fused_window_attention": 4, "conv3x3_dense": 3}
     small = HAT(window=4, **cfg).cuda().eval()
-    y = torch.rand(1, 8, 12, 3, generator=gen, device="cuda")
-    with torch.inference_mode():
-        with pytest.raises(NotImplementedError, match="fused_window_attention"):
-            small(y)
-        for m in small.modules():
-            if hasattr(m, "kernels"):
-                m.kernels = False
-        sr, _ = small(y)
-    assert sr.shape == (1, 32, 48, 3) and bool(torch.isfinite(sr).all())
-    assert dict(wattn.launches, **cab.launches, **conv3x3.launches) == after
+    assert run(small, torch.rand(1, 8, 12, 3, generator=gen, device="cuda")) == {
+        "fused_window_attention": 4, "conv3x3_dense": 3}
 
 
 def test_hat_wrappers_raise_on_what_the_kernels_do_not_take(gen):
