@@ -37,10 +37,10 @@ Phases, each printing JSON lines; any failure raises and the exit code is not 0:
   9. hat_odd: HAT at HAT-L's width with a 15-px window on a 225x225 image (2 groups of
      6 HAB + OCAB): every HAB fails the fused gate (odd H, W) and launches the standalone
      window attention once, against the plain path.
-With --profile [dat|hat|ens|head|tiled], one forward of that model (DAT if none is named;
-`head` is the fusion head alone on fixed expert outputs, `tiled` one chunk of two 192-px
-tiles on the kernel path and on the plain path) is also traced with torch.profiler and its
-device time is printed by kernel. The last two lines are the kernels' summary and
+With --profile [dat|hat|ens|head|tiled] (or several, comma-separated: --profile hat,ens),
+one forward of each model named (DAT if none is named; `head` is the fusion head alone on
+fixed expert outputs, `tiled` one chunk of two 192-px tiles on the kernel path and on the
+plain path) is also traced with torch.profiler and its device time is printed by kernel. The last two lines are the kernels' summary and
 {"ok": true, "device": {...}}. It exits non-zero without a CUDA card. The PNGs go to
 build/chip_smoke/ in the checkout.
 """
@@ -118,7 +118,9 @@ WIN_CASES = [("table", 1, 352, 512, 16, 16, False), ("table_shift", 1, 352, 512,
              ("odd", 1, 225, 225, 15, 15, False), ("odd_shift", 1, 225, 225, 15, 15, True)]
 TILED_REQUESTS = [(640, 480), (40, 30), (510, 339)]   # W x H: tiled, tiled (tiny), whole
 RAGGED_TILE = 176   # whole 16-px windows (HAT) but not whole 32-px ones (DAT)
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: f32 outside the tensor cores, HBM3
+# H100 SXM: f32 outside the tensor cores, f32-exact products on them (3xTF32: three TF32
+# products at 495 TFLOP/s each), HBM3
+PEAK_FLOPS, PEAK_TC, PEAK_BYTES = 67e12, 495e12 / 3, 3.35e12
 
 
 def emit(phase: str, **kw) -> None:
@@ -144,12 +146,20 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple:
-    """(least milliseconds the card could take, what sets it): the larger of the
-    operations over the f32 peak and the bytes (each input read once, each output
-    written once) over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, tc_flops: float = 0.0) -> tuple:
+    """(least milliseconds the card could take, what sets it): the largest of the
+    operations on the CUDA cores over the f32 peak, the f32-exact products on the tensor
+    cores (`tc_flops`, 3xTF32) over their peak, and the bytes (each input read once, each
+    output written once) over the memory rate."""
+    t_ops = max(flops / PEAK_FLOPS, tc_flops / PEAK_TC)
+    t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def bounds(flops: float, tc_flops: float, nbytes: float) -> tuple:
+    """(bound of a kernel whose products (`tc_flops`) run f32-exact on the tensor cores and
+    the rest (`flops`) on the CUDA cores, bound of the same work all on the CUDA cores)."""
+    return bound_ms(flops, nbytes, tc_flops), bound_ms(flops + tc_flops, nbytes)
 
 
 def block_params(c: int, gen: torch.Generator) -> dict:
@@ -287,16 +297,20 @@ def naf_kernel_cases(gen: torch.Generator, res: dict) -> None:
         # the library call alone: cuDNN on the same tensors, f32 (TF32 off), NCHW views
         xv, wv = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)
         lib_ms = cuda_ms(lambda: F.conv2d(xv, wv, bias, padding=1))
-        bnd = bound_ms(b * h * w * 18 * cin * cout,
-                       4 * (b * h * w * (cin + cout) + 9 * cin * cout + cout))
+        # the wide case's products run on the tensor cores, the narrow kernel's on CUDA cores
+        prod = b * h * w * 18 * cin * cout
+        wide = min(cin, cout) >= 32
+        bnd, bnd_f32 = bounds(0.0 if wide else prod, prod if wide else 0.0,
+                              4 * (b * h * w * (cin + cout) + 9 * cin * cout + cout))
         emit("kernel", kernel="conv3x3_dense", case=name, shape=[b, h, w, cin, cout],
              max_abs_err=err, bound=KERNEL_ATOL, ms=ms, plain_ms=plain_ms,
-             library_cudnn_ms=lib_ms, bound_ms=bnd[0], bound_by=bnd[1])
+             library_cudnn_ms=lib_ms, bound_ms=bnd[0], bound_by=bnd[1],
+             bound_f32_ms=bnd_f32[0])
         require(err <= KERNEL_ATOL, f"B3 error {err} at {name}")
         r = res["conv3x3_dense"]
         r["err"] = max(r["err"], err)
         if name == "dat_180":   # the heaviest use: the summary's times
-            r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound=bnd)
+            r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound=bnd, bound_f32=bnd_f32)
         del x
 
 
@@ -439,11 +453,11 @@ def hat_kernel_cases(gen: torch.Generator, res: dict) -> None:
     def r(*shape, std=1.0, mean=0.0):
         return mean + std * torch.randn(*shape, generator=gen, device="cuda")
 
-    def record(name, case, err, ms, plain_ms, bnd, summary):
+    def record(name, case, err, ms, plain_ms, bnd, summary, bnd_f32):
         require(err <= KERNEL_ATOL, f"{name} error {err} at {case}")
         res[name]["err"] = max(res[name]["err"], err)
         if summary:
-            res[name].setdefault("times", []).append((ms, plain_ms, bnd))
+            res[name].setdefault("times", []).append((ms, plain_ms, bnd, bnd_f32))
 
     for name, b, h, w in HAT_CASES:
         npix, whole = b * h * w, h % ws == 0 and w % ws == 0
@@ -451,8 +465,8 @@ def hat_kernel_cases(gen: torch.Generator, res: dict) -> None:
         c_args = (r(b, h, w, c), r(c, std=0.1, mean=1.0), r(c, std=0.1),
                   r(3, 3, c, mid, std=(9 * c) ** -0.5), r(mid, std=0.1),
                   r(3, 3, mid, c, std=(9 * mid) ** -0.5), r(c, std=0.1))
-        c_bnd = bound_ms(npix * (36 * c * mid + 10 * c + 10 * mid),
-                         4 * (2 * npix * c + 18 * c * mid + 3 * c + mid + b * c))
+        c_bnd, c_bnd32 = bounds(npix * (10 * c + 10 * mid), npix * 36 * c * mid,
+                                4 * (2 * npix * c + 18 * c * mid + 3 * c + mid + b * c))
         for shift in (0, s if whole else 3):
             u, sums = cab.cab_chain(*c_args, out_shift=shift)
             u_ref, sums_ref = cab.cab_chain_plain(*c_args, out_shift=shift)
@@ -465,9 +479,9 @@ def hat_kernel_cases(gen: torch.Generator, res: dict) -> None:
             emit("kernel", kernel="cab_chain", case=name, shape=[b, h, w, c], out_shift=shift,
                  max_abs_err=err, bound=KERNEL_ATOL, sums_max_rel_err=ratio,
                  sums_bound=SUMS_RTOL, ms=ms, plain_ms=plain_ms, bound_ms=c_bnd[0],
-                 bound_by=c_bnd[1])
+                 bound_by=c_bnd[1], bound_f32_ms=c_bnd32[0])
             require(ratio <= SUMS_RTOL, f"B7 sums error {ratio} at {name}")
-            record("cab_chain", name, err, ms, plain_ms, c_bnd, name == "bucket")
+            record("cab_chain", name, err, ms, plain_ms, c_bnd, name == "bucket", c_bnd32)
         del c_args
 
         # B10: residual, LN, fc1, GELU, fc2, residual; reads a and shortcut, writes out
@@ -481,12 +495,13 @@ def hat_kernel_cases(gen: torch.Generator, res: dict) -> None:
         del got, want
         ms = cuda_ms(lambda: wattn.fused_residual_ln_mlp(*m_args), iters=5)
         plain_ms = cuda_ms(lambda: wattn.fused_residual_ln_mlp_plain(*m_args), iters=5)
-        m_bnd = bound_ms(npix * (4 * c * hid + 12 * c + 10 * hid),
-                         4 * (3 * npix * c + 2 * c * hid + hid + 3 * c))
+        m_bnd, m_bnd32 = bounds(npix * (12 * c + 10 * hid), npix * 4 * c * hid,
+                                4 * (3 * npix * c + 2 * c * hid + hid + 3 * c))
         emit("kernel", kernel="fused_residual_ln_mlp", case=name, shape=[b, h, w, c],
              hidden=hid, max_abs_err=err, bound=KERNEL_ATOL, ms=ms, plain_ms=plain_ms,
-             bound_ms=m_bnd[0], bound_by=m_bnd[1])
-        record("fused_residual_ln_mlp", name, err, ms, plain_ms, m_bnd, name == "bucket")
+             bound_ms=m_bnd[0], bound_by=m_bnd[1], bound_f32_ms=m_bnd32[0])
+        record("fused_residual_ln_mlp", name, err, ms, plain_ms, m_bnd, name == "bucket",
+               m_bnd32)
         del m_args
         if not whole:
             continue
@@ -519,17 +534,26 @@ def hat_kernel_cases(gen: torch.Generator, res: dict) -> None:
                                                        **kw), iters=5)
             plain_ms = cuda_ms(lambda: wattn.fused_hab_block_plain(
                 *h_args, mask, (ws, ws), heads, 0.01, **kw), iters=5)
-            h_bnd = bound_ms(
-                npix * (8 * c * c + 4 * c * hid + 24 * c + 10 * hid)
-                + nwin * heads * n * n * (4 * hd + 8),
+            # the two halves apart: the attention (one launch) and the tail (three)
+            attention, tail, _ = wattn._hab_block_launchers(*h_args, mask, (ws, ws), heads,
+                                                            0.01, **kw)
+            attention_ms, tail_ms = cuda_ms(attention, iters=5), cuda_ms(tail, iters=5)
+            # products: qkv and proj (8 C^2), the MLP (4 C hid), q k^T and p v (4 N hd a row);
+            # the rest: LNs, residuals, GELU, bias (+ mask) and softmax
+            h_bnd, h_bnd32 = bounds(
+                npix * (24 * c + 10 * hid) + nwin * heads * n * n * 8,
+                npix * (8 * c * c + 4 * c * hid) + nwin * heads * n * n * 4 * hd,
                 4 * (3 * npix * c + 4 * c * c + 2 * c * hid + 8 * c + hid + b * c
                      + (heads + (4 if in_shift else 0)) * n * n))
             emit("kernel", kernel="fused_hab_block", case=f"{name}_{case}", shape=[b, h, w, c],
                  window=ws, in_shift=in_shift, cab_scale=cab_scale is not None,
                  max_abs_err=err, bound=KERNEL_ATOL, max_abs_plain=scale, ms=ms,
-                 plain_ms=plain_ms, bound_ms=h_bnd[0], bound_by=h_bnd[1])
+                 plain_ms=plain_ms, attention_ms=attention_ms, tail_ms=tail_ms,
+                 bound_ms=h_bnd[0], bound_by=h_bnd[1], bound_f32_ms=h_bnd32[0])
             record("fused_hab_block", f"{name}_{case}", err, ms, plain_ms, h_bnd,
-                   name == "bucket" and case != "no_cab_scale")
+                   name == "bucket" and case != "no_cab_scale", h_bnd32)
+            if name == "bucket" and case != "no_cab_scale":
+                res["fused_hab_block"].setdefault("parts", []).append((attention_ms, tail_ms))
         del h_args
 
         # B9: q k^T and p v over the 24 x 24 keys of each 16 x 16 window, bias, softmax,
@@ -544,19 +568,25 @@ def hat_kernel_cases(gen: torch.Generator, res: dict) -> None:
         ms = cuda_ms(lambda: wattn.fused_overlap_attention(*o_args, ws, ov, heads), iters=5)
         plain_ms = cuda_ms(lambda: wattn.fused_overlap_attention_plain(*o_args, ws, ov, heads),
                            iters=5)
-        o_bnd = bound_ms(npix * 2 * c * c + nwin * heads * n * nk * (4 * hd + 8),
-                         4 * (4 * npix * c + c * c + c + heads * n * nk))
+        # the projection on the tensor cores, the attention on the CUDA cores
+        o_bnd, o_bnd32 = bounds(nwin * heads * n * nk * (4 * hd + 8), npix * 2 * c * c,
+                                4 * (4 * npix * c + c * c + c + heads * n * nk))
         emit("kernel", kernel="fused_overlap_attention", case=name, shape=[b, h, w, c],
              window=ws, overlap=ov, max_abs_err=err, bound=KERNEL_ATOL, ms=ms,
-             plain_ms=plain_ms, bound_ms=o_bnd[0], bound_by=o_bnd[1])
-        record("fused_overlap_attention", name, err, ms, plain_ms, o_bnd, name == "bucket")
+             plain_ms=plain_ms, bound_ms=o_bnd[0], bound_by=o_bnd[1],
+             bound_f32_ms=o_bnd32[0])
+        record("fused_overlap_attention", name, err, ms, plain_ms, o_bnd, name == "bucket",
+               o_bnd32)
         del o_args
         torch.cuda.empty_cache()
+    parts = res["fused_hab_block"].pop("parts")
+    res["fused_hab_block"]["extra"] = dict(attention_ms=mean(p[0] for p in parts),
+                                           tail_ms=mean(p[1] for p in parts))
     for k in ("cab_chain", "fused_hab_block", "fused_overlap_attention",
               "fused_residual_ln_mlp"):
         times = res[k].pop("times")
         res[k].update(ms=mean(t[0] for t in times), plain_ms=mean(t[1] for t in times),
-                      bound=times[0][2])
+                      bound=times[0][2], bound_f32=times[0][3])
 
 
 def band_mha_library(x, in_proj_weight, bqkv, out_proj_weight, bproj, ln_w, ln_b, heads):
@@ -701,7 +731,7 @@ def window_kernel_cases(gen: torch.Generator, res: dict) -> None:
             res["fused_window_attention_qkv"]["err"], err)
         if name.startswith("table"):
             res["fused_window_attention_qkv"].setdefault("times", []).append(
-                (ms, plain_ms, bnd, lib_ms))
+                (ms, plain_ms, bnd, lib_ms, bnd))
         del args
     c, heads = HAT_C, HAT_HEADS
     hd = c // heads
@@ -720,23 +750,26 @@ def window_kernel_cases(gen: torch.Generator, res: dict) -> None:
         plain_ms = cuda_ms(lambda: wattn.fused_window_attention_plain(*args), iters=5)
         # the qkv and output projections, q k^T and p v, bias (+ mask) and softmax; reads x,
         # the weights, the bias and the 4 mask types, writes the attended image
-        bnd = bound_ms(npix * 8 * c * c + nwin * heads * n * n * (4 * hd + 8),
-                       4 * (2 * npix * c + 4 * c * c + 4 * c
-                            + (heads + (4 if shifted else 0)) * n * n))
+        # the projections on the tensor cores, the attention on the CUDA cores
+        bnd, bnd32 = bounds(nwin * heads * n * n * (4 * hd + 8), npix * 8 * c * c,
+                            4 * (2 * npix * c + 4 * c * c + 4 * c
+                                 + (heads + (4 if shifted else 0)) * n * n))
         emit("kernel", kernel="fused_window_attention", case=name, shape=[b, h, w, c],
              window=[hs, ws], shifted=shifted, max_abs_err=err, bound=KERNEL_ATOL,
-             max_abs_plain=scale, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1])
+             max_abs_plain=scale, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+             bound_f32_ms=bnd32[0])
         require(err <= KERNEL_ATOL, f"B14 error {err} at {name}")
         res["fused_window_attention"]["err"] = max(res["fused_window_attention"]["err"], err)
         if name.startswith("table"):
             res["fused_window_attention"].setdefault("times", []).append(
-                (ms, plain_ms, bnd, None))
+                (ms, plain_ms, bnd, None, bnd32))
         del args
         torch.cuda.empty_cache()
     for k in ("fused_window_attention_qkv", "fused_window_attention"):
         times = res[k].pop("times")
         res[k].update(ms=mean(t[0] for t in times), plain_ms=mean(t[1] for t in times),
                       bound=(mean(t[2][0] for t in times), times[0][2][1]),
+                      bound_f32=(mean(t[4][0] for t in times), times[0][4][1]),
                       library_ms=None if times[0][3] is None else mean(t[3] for t in times))
 
 
@@ -957,12 +990,13 @@ def hat_weight_prep(model: HAT) -> None:
     modules keep torch's layouts, so each call re-lays its weights out for the kernels
     (transposes, the bias gathers) and the wrappers zero-pad them."""
     c = model.conv_first.out_channels
-    kp, npad = -(-c // 16) * 16, -(-c // 64) * 64
+    kp = npad = -(-c // 8) * 8
     for group in model.layers:
         for blk in group.residual_group.blocks:
             cab._padded_weights(*blk.conv_block.raw())
             wqkv, bqkv, wproj, _, _ = blk.attn.raw()
-            wattn._padded_head_weights(wqkv, bqkv, blk.num_heads, c // blk.num_heads, kp)
+            wattn._padded_head_weights(wqkv, bqkv, blk.num_heads, c // blk.num_heads, kp,
+                                       slots=3)
             wattn._padded_proj(wproj, kp, npad)
             w1, _, w2, _ = blk.mlp.raw()
             wattn._mlp_padded_weights(c, w1, w2)
@@ -1163,9 +1197,9 @@ def ens_slice(gen_cpu: torch.Generator, profiled, solo_counts: dict) -> dict:
         set_kernels(model, True)
     emit("ens_time", per_image=times, peak_mem_gib=peak, head_bucket=list(plans[0]),
          head_ms=head_ms)
-    if profiled == "ens":
+    if "ens" in profiled:
         profile_forward("ens", lambda: model(x))
-    if profiled == "head":
+    if "head" in profiled:
         profile_forward("head", lambda: head(x, outputs_p))
     return counts
 
@@ -1432,22 +1466,22 @@ def main() -> None:
     gen = torch.Generator("cuda").manual_seed(SEED)
     res = phase_kernels(gen)
     args = sys.argv[1:]
-    profiled = None
-    if "--profile" in args:   # --profile [dat|hat|ens|head|tiled]
+    profiled = set()
+    if "--profile" in args:   # --profile [dat|hat|ens|head|tiled], or several: hat,ens
         nxt = args[args.index("--profile") + 1:][:1]
-        profiled = (nxt[0] if nxt and nxt[0] in ("dat", "hat", "ens", "head", "tiled")
-                    else "dat")
+        names = set(nxt[0].split(",")) if nxt else set()
+        profiled = names & {"dat", "hat", "ens", "head", "tiled"} or {"dat"}
     paths = [("naf", naf_slice(torch.Generator().manual_seed(SEED)))]
     torch.cuda.empty_cache()
-    paths.append(("dat", dat_slice(torch.Generator().manual_seed(SEED), profiled == "dat")))
+    paths.append(("dat", dat_slice(torch.Generator().manual_seed(SEED), "dat" in profiled)))
     torch.cuda.empty_cache()
-    paths.append(("hat", hat_slice(torch.Generator().manual_seed(SEED), profiled == "hat")))
+    paths.append(("hat", hat_slice(torch.Generator().manual_seed(SEED), "hat" in profiled)))
     torch.cuda.empty_cache()
     solo = {k: sum(n.get(k, 0) for _, n in paths) for k in KERNELS}
     paths.append(("ens", ens_slice(torch.Generator().manual_seed(SEED), profiled, solo)))
     torch.cuda.empty_cache()
     per_forward = {k: n // len(REQUESTS) for k, n in paths[-1][1].items()}
-    paths.append(("tiled", tiled_slice(per_forward, profiled == "tiled")))
+    paths.append(("tiled", tiled_slice(per_forward, "tiled" in profiled)))
     torch.cuda.empty_cache()
     paths.append(("hat_odd", hat_odd_slice(torch.Generator().manual_seed(SEED))))
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
@@ -1455,7 +1489,9 @@ def main() -> None:
                 "launches_by_path": {tag: n[k] for tag, n in paths if k in n},
                 "max_abs_err": res[k]["err"], "ms": res[k]["ms"],
                 "plain_ms": res[k]["plain_ms"], "bound_ms": res[k]["bound"][0],
-                "bound_by": res[k]["bound"][1], "library_ms": res[k]["library_ms"]}
+                "bound_by": res[k]["bound"][1],
+                "bound_f32_ms": res[k].get("bound_f32", res[k]["bound"])[0],
+                "library_ms": res[k]["library_ms"], **res[k].get("extra", {})}
                for k, (src, rep) in KERNELS.items()]
     emit("done", seconds=time.perf_counter() - t0)
     print(smi, flush=True)

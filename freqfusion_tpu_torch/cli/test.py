@@ -1,7 +1,7 @@
 """NTIRE-style submission runner of the port. Twin of the repository's root ``test.py``.
 
     python -m freqfusion_tpu_torch.cli.test --input <LR PNG directory> [--save_dir results]
-        [--split valid|test] [--model_id 29] [--device cuda]
+        [--split valid|test] [--model_id 29] [--device cuda] [--precision highest|high]
 
 Selects the team model, times the whole ``model_func`` call (model build, checkpoint
 loading, PNG decode and encode included) on the host clock after the device has finished,
@@ -55,11 +55,14 @@ def main(argv: Optional[Sequence[str]] = None, **model_kwargs) -> float:
     ap.add_argument("--split", type=str, default="valid", choices=["valid", "test"])
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device; the default raises without a card")
+    ap.add_argument("--precision", type=str, default="highest", choices=["highest", "high"],
+                    help="f32 products and convolutions: highest = f32, high = TF32 allowed")
     args = ap.parse_args(argv)
 
     model_func, model_dir, name = select_model(args.model_id)
     out_dir = os.path.join(args.save_dir, name, args.split)
-    elapsed = run(model_func, model_dir, args.input, out_dir, args.device, **model_kwargs)
+    elapsed = run(model_func, model_dir, args.input, out_dir, args.device,
+                  precision=args.precision, **model_kwargs)
 
     results_path = os.path.join(args.save_dir, "results.json")
     results = {}

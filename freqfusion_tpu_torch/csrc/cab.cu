@@ -16,20 +16,24 @@
 // intermediate in VMEM. Here a 12 x 36 halo tile of LN1(x) at 180 channels is 311 KB, more
 // than a block may use, and a fused tile would compute its ring of the intermediate twice.
 // This version splits at the intermediate instead: it is only mid (60 -> 64) channels
-// wide, so writing and reading it once costs 2 * 256 bytes a pixel, under 2% of the time
+// wide, so writing and reading it once costs 2 * 256 bytes a pixel, a few % of the time
 // the products take. Both convolutions are the implicit-GEMM kernel of conv_gemm.cuh (a
-// 4 x 32 pixel tile and 64 output channels a pass, the input's halo tile staged 16 channels
-// at a time, the weights streamed with cp.async):
+// 4 x 32 pixel tile and 64 output channels a pass, f32-exact 3xTF32 products on the tensor
+// cores, the halo and the weights in 8-channel chunks through a 3-stage cp.async ring):
 //   * conv1 normalises on load: each halo pixel's mean and 1/std are taken once per block
-//     by a warp, and the staging applies them with the affine. Pixels outside the image are
-//     zeros of LN1(x), not of x; conv2 reads zeros outside the image, not GELU(b1), because
-//     conv1 never writes there and the staging zero-fills;
-//   * conv2's epilogue adds each thread's pixels per channel, the block adds its 16 thread
-//     groups in a fixed order and sum_partials adds the blocks in a fixed order: no
-//     atomics, the same sums from run to run. out_shift is a modular index at the store.
-// Neither C = 180 nor mid = 60 fits K % 16 or N % 64: the wrapper zero-pads the weights
-// to [9][Cinp][Np] and the biases to [Np]; the intermediate is stored Mp = 64 wide, its
-// padded channels GELU(0) = 0.
+//     by a warp, and each thread applies them with the affine to the elements it copied,
+//     in place, before the ring's barrier. Pixels outside the image are zeros of LN1(x),
+//     not of x; conv2 reads zeros outside the image, not GELU(b1), because conv1 never
+//     writes there and the staging zero-fills;
+//   * conv2's epilogue adds each thread's pixels per channel, the warp's lanes and then the
+//     block's 4 tile rows add in a fixed order and sum_partials adds the blocks in a fixed
+//     order: no atomics, the same sums from run to run. out_shift is a modular index at
+//     the store.
+// The bound it now works against: 36 * C * mid FLOPs a pixel of products at 165 TFLOP/s
+// (3 x TF32 at 495), 1.05 ms at [1,352,512,180] on the CUDA cores' 67, 0.43 ms on the
+// tensor cores. Neither C = 180 nor mid = 60 is a multiple of 8, the MMA's k and n: the
+// wrapper zero-pads the weights to [9][Cinp][Np] and the biases to [Np]; the intermediate
+// is stored Mp = 64 wide, its padded channels GELU(0) = 0.
 //
 // Layout: NHWC, f32, contiguous; C % 4 == 0.
 
@@ -45,7 +49,7 @@ extern "C" int cab_chain(const float* x, const float* lnw, const float* lnb, con
                          float* part, float* sums, int B, int H, int W, int C, int Cinp,
                          int Np1, int Mp, int Np2, int shift, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (C % 4 || Cinp % kKC || Cinp < C || Np1 % kNT || Mp % kKC || Mp > Np1 || Np2 % kNT ||
+    if (C % 4 || Cinp % kCC || Cinp < C || Np1 % 8 || Mp % kCC || Mp > Np1 || Np2 % 8 ||
         Np2 < C || shift < 0 || shift >= H || shift >= W)
         return cudaErrorInvalidValue;
     const int smem = (int)conv_gemm_smem_bytes();

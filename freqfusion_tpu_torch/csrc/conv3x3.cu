@@ -1,4 +1,4 @@
-// Dense 3x3 SAME convolution + bias, hand-written f32 kernel for Hopper (sm_90a).
+// Dense 3x3 SAME convolution + bias, hand-written f32 kernels for Hopper (sm_90a).
 //
 // Replaces the TPU kernel freqfusion_tpu/ops/pallas/cab.py:conv3x3_dense (B3). On the TPU it
 // existed to keep layout relayouts off the seams between kernels; on the H100 the question
@@ -16,12 +16,14 @@
 // (4, 8 or 16), so the 64->3 ending does not compute 13 dead channels. It takes any Cin
 // and Cout.
 //
-// The wide case. HAT and DAT use the conv at 180 -> 180 (330 k FLOPs a pixel for 1.4 KB:
+// The wide case. HAT and DAT use the conv at 180 -> 180 (583 k FLOPs a pixel for 1.4 KB:
 // bound by operations), where the kernel above makes 12 passes of 16 output channels over
 // the input and reads shared memory once per 1.3 FMAs. With both widths at 32 or more (and
 // multiples of 4) the conv goes through the implicit-GEMM kernel of conv_gemm.cuh instead,
-// which the CAB chain uses too: 64 output channels a pass, 8 + 4 float4s read for 128 FMAs.
-// The wrapper then hands over the weights zero-padded to [9][Cinp][Np] and the bias [Np].
+// which the CAB chain uses too: f32-exact 3xTF32 products on the tensor cores, whose bound
+// at [1,352,512,180] -> 180 is 0.64 ms (105 GFLOP at 165 TFLOP/s) where the CUDA cores'
+// was 1.57 ms. The wrapper then hands over the weights zero-padded to [9][Cinp][Np] and the
+// bias [Np], both widths to multiples of 8 (180 -> 184).
 //
 // Layout: x [B,H,W,Cin], w [3][3][Cin][Cout] (HWIO), bias [Cout], out [B,H,W,Cout]; f32.
 
@@ -150,7 +152,7 @@ extern "C" int conv3x3_dense(const float* x, const float* w, const float* bias, 
                              const float* bpad, int Cinp, int Np, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (conv3x3_dense_is_wide(Cin, Cout)) {
-        if (!wpad || !bpad || Cinp % kKC || Cinp < Cin || Np % kNT || Np < Cout)
+        if (!wpad || !bpad || Cinp % kCC || Cinp < Cin || Np % 8 || Np < Cout)
             return cudaErrorInvalidValue;
         const int smem = (int)conv_gemm_smem_bytes();
         cudaError_t err = cudaFuncSetAttribute(

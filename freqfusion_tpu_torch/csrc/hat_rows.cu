@@ -1,6 +1,6 @@
 // HAT's per-pixel row work, projection + residuals + LayerNorm + MLP, as one hand-written
-// f32 product kernel for Hopper (sm_90a) in four modes, launched in sequence:
-//   * hab_tail, the second half of the fused HAB block (B8), after csrc/wattn.cu's
+// f32-exact product kernel for Hopper (sm_90a) in four modes, launched in sequence:
+//   * hab_tail, the second half of the fused HAB block (B8), after csrc/hab_attention.cu's
 //     attention:  y = x + att @ wproj + bproj + conv_scale * cab_scale * conv_x   (proj)
 //                 hidden = GELU(LN2(y) @ w1 + b1)                                  (fc1)
 //                 out = y + hidden @ w2 + b2                                       (fc2)
@@ -10,37 +10,40 @@
 //     output projections of the standalone window attention (B14) around csrc/wattn.cu's.
 //
 // Replaces the TPU kernels freqfusion_tpu/ops/pallas/wattn.py:fused_hab_block (with
-// wattn.cu), :fused_residual_ln_mlp and the projection inside :fused_overlap_attention.
-// The plain PyTorch versions sit beside the wrappers in
+// hab_attention.cu), :fused_residual_ln_mlp and the projection inside
+// :fused_overlap_attention. The plain PyTorch versions sit beside the wrappers in
 // freqfusion_tpu_torch/ops/kernels/wattn.py.
 //
 // What bounds it on the H100. Per pixel 2*C*C + 4*C*hid FLOPs (324 k at C = 180, hid = 360)
 // for 16*C bytes of att, x, conv_x and out (2.9 KB): 112 FLOP per byte, above the f32
-// CUDA-core ridge (20): bound by operations, the three products.
+// CUDA-core ridge (20) and under the 3xTF32 one (49): the products bound it at 0.35 ms at
+// [1,352,512,180] on the tensor cores' 165 TFLOP/s of f32-exact products (0.87 ms on the
+// CUDA cores' 67), the bytes at 0.16 ms.
 //
 // Design. The TPU kernel keeps a window's rows, y and the hidden in VMEM through all three
 // products. One block that does the same here needs 204 KB for 64 pixels (rows, y, hidden),
-// so one block of 8 warps an SM with 4 rows a thread: it ran at 17 TFLOP/s. This version
-// gives each product its own launch of one kernel: a block owns 128 pixels, stages their
-// rows [128][K + 4] in shared memory (100 KB at K = 192, so two blocks an SM) and runs
-// tile_matmul with 8 interleaved rows a thread (common.cuh): per four k it reads 8 + 4
-// float4s for 128 FMAs. What the TPU kernel keeps in VMEM between the products goes
-// through device memory instead: y is parked in the output buffer (written by proj, read by
-// fc1, read and overwritten by fc2's epilogue, each element by the thread that wrote it),
-// the hidden in a scratch buffer [pixels][K2p]; about 7 KB a pixel of extra traffic. fc2's
-// K = 384 is taken in two halves of the same tile, the second half's epilogue adding to the
-// first's. LN2 is one warp per row on the staged tile. With in_shift the shortcut x is read
-// at (y + s, x + s), wrapping, like the attention read it; conv_x and out are in rolled
-// coordinates. HAT's widths (180, 360) fit neither K % 16 nor N % 64: the wrapper zero-pads
-// the weights, the kernel zero-fills the padded columns of its tile.
+// so one block of 8 warps an SM. This version gives each product its own launch of one
+// kernel: a block owns 128 pixels, stages their rows [128][K + 4] in shared memory (94 KB
+// at K = 184, 109 KB with tile_mma's ring: two blocks an SM) and runs tile_mma
+// (mma_f32x3.cuh): 3xTF32 MMAs, the weights streamed in 16-row chunks through a 3-stage
+// cp.async ring. What the TPU kernel keeps in VMEM between the products goes through
+// device memory instead: y is parked in the output buffer (written by proj, read by fc1,
+// read and overwritten by fc2's epilogue, each element by the thread that wrote it), the
+// hidden in a scratch buffer [pixels][K2p]; about 5.5 KB a pixel of extra traffic. fc2's
+// K = 360 is taken in two halves of the same tile (184 + 176), the second half's epilogue
+// adding to the first's. LN2 is one warp per row on the staged tile. With in_shift the
+// shortcut x is read at (y + s, x + s), wrapping, like the attention read it; conv_x and
+// out are in rolled coordinates. HAT's widths are padded to multiples of 8, the MMA's k and
+// n (180 -> 184; 360 stays): the wrapper zero-pads the weights, the kernel zero-fills the
+// padded columns of its tile.
 //
 // Layout: NHWC, f32, contiguous; C % 4 == 0. cab_scale [B][C] or null.
 
-#include "common.cuh"
+#include "mma_f32x3.cuh"
 
 namespace {
 
-constexpr int kP = 128, kTM = kP / 16;   // pixels per block, rows per thread
+constexpr int kP = kMmaRows;   // pixels per block
 constexpr float kEps = 1e-5f;
 enum Mode { kLinear = 0, kProj = 1, kFc1 = 2, kFc2 = 3 };
 
@@ -64,12 +67,12 @@ __global__ void __launch_bounds__(kThreads, 2)
 rows_kernel(const RowArgs g) {
     extern __shared__ float4 smem4[];
     const int C = g.C;
-    const int Kt = MODE == kFc2 ? first_half(g.Kp) : g.Kp, lda = Kt + 4;
+    const int Kt = MODE == kFc2 ? first_half(g.Kp, 8) : g.Kp, lda = Kt + 4;
     float* A = reinterpret_cast<float*>(smem4);  // [kP][lda]
-    float* ws = A + kP * lda;                     // tile_matmul's weight stage
-    long long* src = reinterpret_cast<long long*>(ws + tile_matmul_ws(false));  // [kP]
-    int* img = reinterpret_cast<int*>(src + kP);                                // [kP]
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    float* ws = A + kP * lda;                     // tile_mma's weight stages
+    long long* src = reinterpret_cast<long long*>(ws + tile_mma_ws());  // [kP]
+    int* img = reinterpret_cast<int*>(src + kP);                         // [kP]
+    const int tid = threadIdx.x, warp = tid >> 5;
     const long long p0 = (long long)blockIdx.x * kP;
 
     if (MODE == kProj) {   // where each row's shortcut pixel lies, and its image
@@ -87,7 +90,7 @@ rows_kernel(const RowArgs g) {
         const int kh = min(Kt, g.Kp - k0), k4 = kh / 4;
         const int width = MODE == kFc2 ? g.Kp : C;   // floats of a row of `a`
         // the tile's rows, zero in the padded columns and past the last pixel; the previous
-        // half's readers are past tile_matmul's last barrier
+        // half's readers are past tile_mma's last barrier
         for (int e = tid; e < kP * k4; e += kThreads) {
             const int p = e / k4, c = (e % k4) * 4;
             const long long gp = p0 + p;
@@ -108,12 +111,11 @@ rows_kernel(const RowArgs g) {
                 if (p0 + p < g.npix)
                     warp_layernorm(A + p * lda, A + p * lda, g.lnw, g.lnb, C, kEps);
         }
-        if (MODE == kProj) __syncthreads();  // src and img visible
         const bool first = k0 == 0;
-        // tile_matmul synchronises before it reads A
-        tile_matmul_interleaved<kTM>(
+        // tile_mma synchronises before it reads A, src and img
+        tile_mma(
             A, lda, kh, g.w + (size_t)k0 * g.Np, g.Np, g.Np, ws,
-            [&](int p, int n, float u, float) {
+            [&](int p, int n, float u) {
                 const long long gp = p0 + p;
                 if (gp >= g.npix) return;
                 if (MODE == kFc1) {   // the hidden, zero in its padded columns
@@ -138,10 +140,9 @@ rows_kernel(const RowArgs g) {
 
 template <int MODE>
 cudaError_t launch(const RowArgs& g, cudaStream_t st) {
-    if (g.C % 4 || g.Kp % kKC || g.Np % 64 || g.npix < 1) return cudaErrorInvalidValue;
-    const int Kt = MODE == kFc2 ? first_half(g.Kp) : g.Kp;
-    const size_t smem =
-        (size_t)(kP * (Kt + 4) + tile_matmul_ws(false) + 3 * kP) * sizeof(float);
+    if (g.C % 4 || g.Kp % 8 || g.Np % 8 || g.npix < 1) return cudaErrorInvalidValue;
+    const int Kt = MODE == kFc2 ? first_half(g.Kp, 8) : g.Kp;
+    const size_t smem = (size_t)(kP * (Kt + 4) + tile_mma_ws() + 3 * kP) * sizeof(float);
     if (smem > 227 * 1024) return cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
         rows_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -157,7 +158,7 @@ cudaError_t mlp(const float* a, const float* shortcut, const float* lnw, const f
                 const float* w1, const float* b1, const float* w2, const float* b2, float* hid,
                 float* out, long long npix, int C, int nhid, int Kp, int Np, int K2p,
                 cudaStream_t st) {
-    if (Kp < C || Np < C || K2p < nhid || K2p % 64) return cudaErrorInvalidValue;
+    if (Kp < C || Np < C || K2p < nhid || K2p % 8) return cudaErrorInvalidValue;
     RowArgs g = {};
     g.a = a; g.x = shortcut; g.lnw = lnw; g.lnb = lnb; g.w = w1; g.bias = b1;
     g.out = out; g.hid = hid; g.npix = npix; g.C = C; g.Kp = Kp; g.Np = K2p; g.nreal = nhid;

@@ -1,13 +1,11 @@
 // Window attention, hand-written f32 kernels for Hopper (sm_90a). First the kernel with the
-// qkv projection fused in, in two instantiations: DAT's rectangular-window attention, and
-// the attention half of HAT's fused HAB block (LayerNorm in front, the shifted window read
-// in place). Then, further down with its own notes, the kernel that attends from
-// pre-projected q, k, v images.
+// qkv projection fused in, DAT's rectangular-window attention. Then, further down with its
+// own notes, the kernel that attends from pre-projected q, k, v images. (The attention half
+// of HAT's fused HAB block, which began as a second instantiation of the first kernel, is
+// csrc/hab_attention.cu, on the tensor cores.)
 //
 // Replaces the TPU kernel freqfusion_tpu/ops/pallas/wattn.py:fused_window_attention_xqkv
-// (B4), and computes the first half of wattn.py:fused_hab_block (B8; its second half, the
-// projection, the residuals and the MLP, is csrc/hat_rows.cu). Per window of N = hs*ws
-// tokens and per head (dim hd):
+// (B4). Per window of N = hs*ws tokens and per head (dim hd):
 //     [q, k, v] = x_window @ W_head + b_head
 //     out = softmax(q k^T / sqrt(hd) + bias[head] (+ mask type of the window)) v
 // and `out` is the attended image [B,H,W,heads*hd] before any output projection. The plain
@@ -43,15 +41,6 @@
 // The heads of a window are neighbouring blocks, so x is read from device memory once and
 // again from L2.
 //
-// The HAB instantiation (template flag) differs in its loads only. The projection's input
-// is LN1(x): a warp takes each row's mean and 1/std once per 64-row pass, the staging
-// applies them with the affine, so every head repeats the LayerNorm (10 FLOPs an element
-// against the projection's 256) instead of a normalised copy going through device memory.
-// With in_shift = s the image is not rolled by the caller: token (r, c) of window (i, j)
-// reads x[(i*hs + r + s) % H][(j*ws + c + s) % W], and the attended image is written at
-// (i*hs + r, j*ws + c), in rolled coordinates. The six heads' outputs go to device memory
-// (720 bytes a pixel written, then read by the row kernel that needs them together).
-//
 // Layout: x [B,H,W,Cin] NHWC f32; wh [heads][Kp][128]; bh [heads][128]; bias [heads][N][N];
 // types [4][N][N] or null; out [B,H,W,heads*hd]. N % 64 == 0, N <= 256, hd <= 32,
 // Cin % 4 == 0, Kp % 16 == 0.
@@ -68,23 +57,17 @@ constexpr int kLd = kSlot + 1;               // row stride of q, k, v in shared 
 constexpr int kMaxN = 256, kKJ = kMaxN / 32; // keys per lane at most
 constexpr int kR = 4;                        // query rows a warp handles at a time
 
-// HAB: x is normalised (lnw, lnb, eps 1e-5) on load and read at (+shift, +shift), wrapping.
-template <bool HAB>
 __global__ void __launch_bounds__(kThreads, 2)
 wattn_xqkv_kernel(const float* __restrict__ x, const float* __restrict__ wh,
                   const float* __restrict__ bh, const float* __restrict__ bias,
-                  const float* __restrict__ types, float* __restrict__ out,
-                  const float* __restrict__ lnw, const float* __restrict__ lnb, int H, int W,
-                  int Cin, int Kp, int hs, int ws_, int heads, int hd, float scale,
-                  int shift) {
+                  const float* __restrict__ types, float* __restrict__ out, int H, int W,
+                  int Cin, int Kp, int hs, int ws_, int heads, int hd, float scale) {
     extern __shared__ float4 smem4[];
     const int N = hs * ws_, K1 = first_half(Kp), lda = K1 + 4;
     float* ks = reinterpret_cast<float*>(smem4);  // [N][kLd]
     float* vs = ks + N * kLd;
     float* stage = vs + N * kLd;                   // tile_matmul's weight stage
     float* xa = stage + tile_matmul_ws(false);     // [kRows][lda] x rows; then probabilities
-    // HAB: [kRows][2] mean and 1/std of the pass's rows, after the larger use of xa
-    float* lnst = xa + max(kRows * lda, (kThreads / 32) * kMaxN * kR);
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int head = blockIdx.x % heads;
@@ -103,28 +86,9 @@ wattn_xqkv_kernel(const float* __restrict__ x, const float* __restrict__ wh,
         return ((size_t)(wy * hs + t / ws_) * W + wx * ws_ + t % ws_) * co;
     };
     auto src_row = [&](int t) {  // token t of the window -> its pixel's row of x
-        int y = wy * hs + t / ws_, xx = wx * ws_ + t % ws_;
-        if (HAB) {
-            y += shift;
-            xx += shift;
-            if (y >= H) y -= H;
-            if (xx >= W) xx -= W;
-        }
-        return xb + ((size_t)y * W + xx) * Cin;
+        return xb + ((size_t)(wy * hs + t / ws_) * W + wx * ws_ + t % ws_) * Cin;
     };
     for (int r0 = 0; r0 < N; r0 += kRows) {
-        if (HAB) {
-            // the previous pass's readers of lnst are past tile_matmul's last barrier
-            for (int r = warp; r < kRows; r += kThreads / 32) {
-                float u, inv;
-                warp_ln_stats(src_row(r0 + r), Cin, 1e-5f, u, inv);
-                if (lane == 0) {
-                    lnst[2 * r] = u;
-                    lnst[2 * r + 1] = inv;
-                }
-            }
-            __syncthreads();
-        }
         for (int k0 = 0; k0 < Kp; k0 += K1) {
             const int kh = min(K1, Kp - k0), k4 = kh / 4;
             const bool first = k0 == 0, last = k0 + kh == Kp;
@@ -132,18 +96,8 @@ wattn_xqkv_kernel(const float* __restrict__ x, const float* __restrict__ wh,
             for (int e = tid; e < kRows * k4; e += kThreads) {
                 const int r = e / k4, c = (e % k4) * 4;
                 float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-                if (k0 + c < Cin) {
+                if (k0 + c < Cin)
                     v = *reinterpret_cast<const float4*>(src_row(r0 + r) + k0 + c);
-                    if (HAB) {
-                        const float u = lnst[2 * r], inv = lnst[2 * r + 1];
-                        const float4 lw = *reinterpret_cast<const float4*>(lnw + k0 + c);
-                        const float4 lb = *reinterpret_cast<const float4*>(lnb + k0 + c);
-                        v.x = (v.x - u) * inv * lw.x + lb.x;
-                        v.y = (v.y - u) * inv * lw.y + lb.y;
-                        v.z = (v.z - u) * inv * lw.z + lb.z;
-                        v.w = (v.w - u) * inv * lw.w + lb.w;
-                    }
-                }
                 *reinterpret_cast<float4*>(xa + r * lda + c) = v;
             }
             tile_matmul<kTM, false>(
@@ -240,27 +194,24 @@ wattn_xqkv_kernel(const float* __restrict__ x, const float* __restrict__ wh,
     }
 }
 
-template <bool HAB>
 cudaError_t launch(const float* x, const float* wh, const float* bh, const float* bias,
-                   const float* types, float* out, const float* lnw, const float* lnb, int B,
-                   int H, int W, int Cin, int Kp, int hs, int ws, int heads, int hd, int shift,
-                   cudaStream_t st) {
+                   const float* types, float* out, int B, int H, int W, int Cin, int Kp, int hs,
+                   int ws, int heads, int hd, cudaStream_t st) {
     const int N = hs * ws;
     if (N % 64 || N > kMaxN || hd > kSlot || hd < 1 || Cin % 4 || Kp % kKC || Kp < Cin ||
-        H % hs || W % ws || shift < 0 || shift >= H || shift >= W)
+        H % hs || W % ws)
         return cudaErrorInvalidValue;
     static_assert(kR == 4, "the probabilities are stored as one float4 per key");
     const int xa = kRows * (first_half(Kp) + 4), pw = (kThreads / 32) * kMaxN * kR;
-    const size_t smem = (size_t)(2 * N * kLd + tile_matmul_ws(false) + (xa > pw ? xa : pw) +
-                                 (HAB ? 2 * kRows : 0)) * sizeof(float);
+    const size_t smem =
+        (size_t)(2 * N * kLd + tile_matmul_ws(false) + (xa > pw ? xa : pw)) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
-        wattn_xqkv_kernel<HAB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        wattn_xqkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const long long nblocks = (long long)B * (H / hs) * (W / ws) * heads;
     if (nblocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-    wattn_xqkv_kernel<HAB><<<(unsigned)nblocks, kThreads, smem, st>>>(
-        x, wh, bh, bias, types, out, lnw, lnb, H, W, Cin, Kp, hs, ws, heads, hd,
-        1.f / sqrtf((float)hd), shift);
+    wattn_xqkv_kernel<<<(unsigned)nblocks, kThreads, smem, st>>>(
+        x, wh, bh, bias, types, out, H, W, Cin, Kp, hs, ws, heads, hd, 1.f / sqrtf((float)hd));
     return cudaGetLastError();
 }
 
@@ -444,18 +395,8 @@ cudaError_t launch_qkv(const float* q, const float* k, const float* v, const flo
 extern "C" int wattn_xqkv(const float* x, const float* wh, const float* bh, const float* bias,
                           const float* types, float* out, int B, int H, int W, int Cin, int Kp,
                           int hs, int ws, int heads, int hd, void* stream) {
-    return launch<false>(x, wh, bh, bias, types, out, nullptr, nullptr, B, H, W, Cin, Kp, hs,
-                         ws, heads, hd, 0, static_cast<cudaStream_t>(stream));
-}
-
-// The attention half of the fused HAB block: att = W-MSA(LN1(x)) before the projection.
-extern "C" int hab_attention(const float* x, const float* lnw, const float* lnb,
-                             const float* wh, const float* bh, const float* bias,
-                             const float* types, float* att, int B, int H, int W, int C,
-                             int Kp, int ws, int heads, int hd, int shift, void* stream) {
-    if (heads * hd != C) return cudaErrorInvalidValue;
-    return launch<true>(x, wh, bh, bias, types, att, lnw, lnb, B, H, W, C, Kp, ws, ws, heads,
-                        hd, shift, static_cast<cudaStream_t>(stream));
+    return launch(x, wh, bh, bias, types, out, B, H, W, Cin, Kp, hs, ws, heads, hd,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // Attention from pre-projected images: q, k, v at a pixel stride of `ld` floats (their

@@ -4,16 +4,17 @@
 ``NAFNetSR``, ``DAT`` or ``HAT``; any module that returns an image or ``(sr, features)`` and
 has ``upscale``): each image is reflect-padded to a 32-px bucket (a whole number of DAT's
 32-px and of HAT's 16-px windows), run whole, cropped, and converted to uint8 on the device.
-An image that the plan refuses (over the pixel budget, smaller than its reflect padding, one
-bucket too many) goes through ``infer/tiling.py`` in fixed-shape tiles and is stitched on
-the device. The batch protocol (``dispatch_batch_u8`` / ``materialize_u8``) lets a caller
-dispatch image i+1 before it copies image i back. ``main`` (= ``model_func``) is the
-directory contract: it builds ``FreqFusionSR``, loads the ``.pth`` checkpoints it finds under
-``model_dir`` and writes one x4 PNG per input image, whatever its size.
+An image that the plan refuses (over the pixel budget, smaller than its reflect padding)
+goes through ``infer/tiling.py`` in fixed-shape tiles and is stitched on the device. The
+batch protocol (``dispatch_batch_u8`` / ``materialize_u8``) lets a caller dispatch image
+i+1 before it copies image i back. ``main`` (= ``model_func``) is the directory contract: it
+builds ``FreqFusionSR``, loads the ``.pth`` checkpoints it finds under ``model_dir`` and
+writes one x4 PNG per input image, whatever its size.
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import os
 import time
@@ -35,6 +36,9 @@ from .tiling import require_device, tiled_sr, whole_image_sr
 TILE = 192
 OVERLAP = 32
 TILE_BATCH = 2
+#: precision -> whether f32 products and convolutions may take TF32: "highest" keeps f32
+#: (the JAX twin's "highest"), "high" allows TF32 (PyTorch's own default for cuDNN convs)
+PRECISIONS = {"highest": False, "high": True}
 
 
 class InferencePipeline:
@@ -42,19 +46,27 @@ class InferencePipeline:
     (``"cpu"``); without a card the default raises. Images run whole at 32-px buckets
     where the plan allows it, else as `tile_batch` tiles of `tile` x `tile` px a forward,
     `overlap` px shared between neighbours. `tile` must suit the model (a multiple of 16
-    for HAT's windows; DAT pads to its 32-px windows by itself)."""
+    for HAT's windows; DAT pads to its 32-px windows by itself). `precision` is pinned
+    around every forward, whole or tiled, and the caller's setting restored after it:
+    "highest" runs f32 products and convolutions in f32, "high" lets them take TF32."""
 
-    # JAX twin's defaults: 280000 px covers every DIV2K x4 LR frame after 32-px padding;
-    # at most 6 distinct buckets, after which images pad up to a bucket already in use
+    # JAX twin's default: 280000 px covers every DIV2K x4 LR frame after 32-px padding.
+    # No cap on distinct buckets: the JAX twin's (6) bounds its compile cache, and eager
+    # PyTorch compiles nothing per shape. A number here brings the cap back: past it an
+    # image pads up to a bucket already in use, or takes the tiled path.
     WHOLE_IMAGE_MAX_PX = 280000
-    WHOLE_IMAGE_MAX_SHAPES = 6
+    WHOLE_IMAGE_MAX_SHAPES: Optional[int] = None
 
     def __init__(self, model: nn.Module, device="cuda", dtype: torch.dtype = torch.float32,
-                 tile: int = TILE, overlap: int = OVERLAP, tile_batch: int = TILE_BATCH):
+                 tile: int = TILE, overlap: int = OVERLAP, tile_batch: int = TILE_BATCH,
+                 precision: str = "highest"):
         if tile < 1 or not 0 <= overlap < tile or tile_batch < 1:
             raise ValueError(f"tiling: tile={tile}, overlap={overlap}, tile_batch={tile_batch}; "
                              "expected tile >= 1, 0 <= overlap < tile and tile_batch >= 1")
+        if precision not in PRECISIONS:
+            raise ValueError(f"precision={precision!r}; expected one of {sorted(PRECISIONS)}")
         self.tile, self.overlap, self.tile_batch = tile, overlap, tile_batch
+        self.precision = precision
         self.device = require_device(device)
         self.dtype = dtype
         self.model = model.to(device=self.device, dtype=dtype).eval()
@@ -69,9 +81,9 @@ class InferencePipeline:
             warnings.warn(msg)
 
     def _whole_image_plan(self, h: int, w: int):
-        """(padded_h, padded_w) bucket for a whole-image dispatch (commits a shape-cache
-        entry), or None when the image must take the tiled path (pixel budget,
-        reflect-pad limit, or shape-cache cap)."""
+        """(padded_h, padded_w) bucket for a whole-image dispatch (records the bucket), or
+        None when the image must take the tiled path (pixel budget, reflect-pad limit, or
+        the bucket cap where one is set)."""
         if self.WHOLE_IMAGE_MAX_PX <= 0:
             return None
         hp = -(-max(h, 64) // 32) * 32
@@ -91,7 +103,8 @@ class InferencePipeline:
         cache = getattr(self, "_whole_shapes", None)
         if cache is None:
             cache = self._whole_shapes = set()
-        if (hp, wp) not in cache and len(cache) >= self.WHOLE_IMAGE_MAX_SHAPES:
+        cap = self.WHOLE_IMAGE_MAX_SHAPES
+        if cap is not None and (hp, wp) not in cache and len(cache) >= cap:
             # cache full: pad up to a bucket in use when that costs at most 30% more
             cand = [(ch * cw, ch, cw) for ch, cw in cache
                     if ch >= hp and cw >= wp
@@ -113,9 +126,20 @@ class InferencePipeline:
         cache.add((hp, wp))
         return hp, wp
 
+    @contextlib.contextmanager
+    def _pinned_precision(self):
+        """Sets both TF32 flags for `precision`, and restores the caller's on the way out."""
+        tf32 = PRECISIONS[self.precision]
+        old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+
     def _forward_device(self, x: torch.Tensor) -> torch.Tensor:
         """[B,hp,wp,3] on the device -> SR [B,s*hp,s*wp,3] on the device."""
-        with torch.inference_mode():
+        with torch.inference_mode(), self._pinned_precision():
             out = self.model(x.to(self.dtype))
         return out[0] if isinstance(out, tuple) else out
 
@@ -199,13 +223,27 @@ def _find(model_dir: str, patterns) -> Optional[str]:
 
 
 def _load_into(module: nn.Module, sd: dict, name: str) -> None:
-    """A tolerant load, like the reference's strict=False: keys the module lacks are
-    ignored, keys the checkpoint lacks keep their weights and are counted in a warning."""
-    result = module.load_state_dict(sd, strict=False)
-    missing = [k for k in result.missing_keys if not k.endswith("num_batches_tracked")]
-    if missing:
-        warnings.warn(f"{name}: {len(missing)} params not in checkpoint "
-                      f"(first: {missing[0]})")
+    """A tolerant load, like the reference's strict=False and the JAX package's loader
+    (``freqfusion_tpu/utils/convert.py:_adapt``): keys the module lacks are ignored; a
+    tensor with the parameter's element count but another shape is reshaped to it; keys the
+    checkpoint lacks, and tensors of another size, keep the module's weights and are
+    counted in one warning."""
+    own = module.state_dict()
+    fitted, wrong = {}, {}
+    for k, v in sd.items():
+        if k not in own or v.shape == own[k].shape:
+            fitted[k] = v
+        elif v.numel() == own[k].numel():
+            fitted[k] = v.reshape(own[k].shape)
+        else:
+            wrong[k] = f"{k} {tuple(v.shape)} for {tuple(own[k].shape)}"
+    result = module.load_state_dict(fitted, strict=False)
+    missing = [k for k in result.missing_keys
+               if not k.endswith("num_batches_tracked") and k not in wrong]
+    if missing or wrong:
+        first = missing[0] if missing else next(iter(wrong.values()))
+        warnings.warn(f"{name}: {len(missing) + len(wrong)} params not in checkpoint "
+                      f"({len(wrong)} of another size; first: {first})")
 
 
 def load_checkpoints(model: FreqFusionSR, model_dir: str) -> None:
@@ -242,21 +280,24 @@ def load_checkpoints(model: FreqFusionSR, model_dir: str) -> None:
 
 def build_pipeline(model_dir: str, device="cuda", fusion_config: Optional[FusionConfig] = None,
                    expert_kwargs: Optional[dict] = None, tile: int = TILE,
-                   overlap: int = OVERLAP, tile_batch: int = TILE_BATCH) -> InferencePipeline:
+                   overlap: int = OVERLAP, tile_batch: int = TILE_BATCH,
+                   precision: str = "highest") -> InferencePipeline:
     """``FreqFusionSR`` with seeded initial weights, filled from `model_dir`'s checkpoints,
-    behind an ``InferencePipeline`` on `device`. `expert_kwargs` may hold ``hat_kwargs``,
-    ``dat_kwargs`` and ``nafnet_kwargs`` (tests build tiny experts with them)."""
+    behind an ``InferencePipeline`` on `device` at `precision`. `expert_kwargs` may hold
+    ``hat_kwargs``, ``dat_kwargs`` and ``nafnet_kwargs`` (tests build tiny experts with
+    them)."""
     device = require_device(device)   # before the model is built: it takes seconds
     torch.manual_seed(0)
     model = FreqFusionSR(fusion_config or FusionConfig(), **(expert_kwargs or {}))
     load_checkpoints(model, model_dir)
-    return InferencePipeline(model, device, tile=tile, overlap=overlap, tile_batch=tile_batch)
+    return InferencePipeline(model, device, tile=tile, overlap=overlap, tile_batch=tile_batch,
+                             precision=precision)
 
 
 def main(model_dir: str, input_path: str, output_path: str, device="cuda", *,
          fusion_config: Optional[FusionConfig] = None, expert_kwargs: Optional[dict] = None,
          group_max: int = 1, tile: int = TILE, overlap: int = OVERLAP,
-         tile_batch: int = TILE_BATCH) -> int:
+         tile_batch: int = TILE_BATCH, precision: str = "highest") -> int:
     """The challenge contract ``model_func(model_dir, input_path, output_path, device)``:
     super-resolves every image of the directory `input_path` into `output_path` under the
     same file name, and returns their number. The device is the card unless the caller
@@ -265,9 +306,11 @@ def main(model_dir: str, input_path: str, output_path: str, device="cuda", *,
     Consecutive images of one bucket are grouped, up to `group_max` a dispatch (one forward
     of that batch), and group i+1 is dispatched before group i is copied back and written.
     An image whose plan is the tiled path waits for what is pending, then runs as
-    `tile_batch` tiles of `tile` px a forward (`overlap` px shared) and is written."""
+    `tile_batch` tiles of `tile` px a forward (`overlap` px shared) and is written.
+    `precision` ("highest": f32, the default; "high": TF32 allowed) holds inside every
+    forward."""
     pipe = build_pipeline(model_dir, device, fusion_config, expert_kwargs, tile, overlap,
-                          tile_batch)
+                          tile_batch, precision)
     os.makedirs(output_path, exist_ok=True)
     files = list_images(input_path)
 

@@ -1,8 +1,8 @@
 """Tiled full-resolution inference. Twin of ``freqfusion_tpu/infer/tiling.py``.
 
 An image that the whole-image plan refuses (too many pixels, smaller than its reflect
-padding, one bucket too many) streams through the model as fixed-shape tiles: every forward
-sees [batch, tile, tile, 3]. The plans (``tile_grid``, ``plan_grid``, ``num_tiles``) and the
+padding) streams through the model as fixed-shape tiles: every forward sees
+[batch, tile, tile, 3]. The plans (``tile_grid``, ``plan_grid``, ``num_tiles``) and the
 seam ramp (``_ramp_profile``) are the JAX package's, kept here as the port's own copy: each
 tile is weighted by a ramp that falls from 1 to ~0 across the `overlap` border (only on
 sides that have a neighbour), accumulated, and normalised.

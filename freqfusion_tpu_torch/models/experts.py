@@ -60,8 +60,8 @@ class FreqFusionSR(nn.Module):
         self.fusion = FusionHead(cfg)
 
     def forward(self, lr: torch.Tensor, with_features: bool = False) -> torch.Tensor:
-        outputs, features = self.experts(lr)
-        # the experts are frozen: no gradient flows back into them
-        outputs = {k: v.detach() for k, v in outputs.items()}
-        feats = {k: v.detach() for k, v in features.items()} if with_features else None
-        return self.fusion(lr, outputs, feats)
+        # the experts are frozen: they run without autograd, so no gradient flows back into
+        # them, and their kernels (which have no backward) run with grad enabled too
+        with torch.no_grad():
+            outputs, features = self.experts(lr)
+        return self.fusion(lr, outputs, features if with_features else None)

@@ -72,6 +72,7 @@ def _padded_proj(proj_w):
 
 def aim_conv_branch(v, wdw, bdw, bn_scale, bn_shift):
     """Kernel B5a on CUDA, its plain version on the CPU. Returns (conv_x, sums [B,1,1,C])."""
+    _build.require_no_grad("aim_conv_branch", v, wdw, bdw, bn_scale, bn_shift)
     if v.device.type == "cpu":
         return aim_conv_branch_plain(v, wdw, bdw, bn_scale, bn_shift)
     b, h, w, c = v.shape
@@ -99,6 +100,8 @@ def aim_conv_branch(v, wdw, bdw, bn_scale, bn_shift):
 def aim_gates_proj(attened, conv_x, chmap_vec, si_w1, si_b1, si_bn_scale, si_bn_shift,
                    si_w2, si_b2, proj_w, proj_b, swap: bool = False):
     """Kernel B5b on CUDA, its plain version on the CPU. Returns [B,H,W,C]."""
+    _build.require_no_grad("aim_gates_proj", attened, conv_x, chmap_vec, si_w1, si_b1,
+                           si_bn_scale, si_bn_shift, si_w2, si_b2, proj_w, proj_b)
     if attened.device.type == "cpu":
         return aim_gates_proj_plain(attened, conv_x, chmap_vec, si_w1, si_b1, si_bn_scale,
                                     si_bn_shift, si_w2, si_b2, proj_w, proj_b, swap)

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from ..common import layernorm
 from . import _build
-from .conv3x3 import conv3x3_dense_plain
+from .conv3x3 import conv3x3_dense_plain, padded_conv_weights
 
 #: Kernel launches since the last reset. Plain runs are not counted.
 launches = {"cab_chain": 0}
@@ -38,19 +38,17 @@ def cab_chain_plain(x, ln_w, ln_b, w1, b1, w2, b2, out_shift: int = 0):
 
 def _padded_weights(w1, b1, w2, b2):
     """(cinp, np1, mp, np2, w1p [9,cinp,np1], b1p [np1], w2p [9,mp,np2], b2p [np2]): the
-    streamed products take input channels in steps of 16 and output channels in steps of
-    64, so the weights and biases are zero-padded; the intermediate is mp channels wide."""
-    c, mid = w1.shape[2], w1.shape[3]
-    cinp, np1 = -(-c // 16) * 16, -(-mid // 64) * 64
-    mp, np2 = -(-mid // 16) * 16, -(-c // 64) * 64
-    w1p = F.pad(w1.reshape(9, c, mid), (0, np1 - mid, 0, cinp - c))
-    w2p = F.pad(w2.reshape(9, mid, c), (0, np2 - c, 0, mp - mid))
-    return cinp, np1, mp, np2, w1p, F.pad(b1, (0, np1 - mid)), w2p, F.pad(b2, (0, np2 - c))
+    implicit-GEMM kernel takes channels in and out in multiples of 8, so the weights and
+    biases are zero-padded; the intermediate is mp = np1 channels wide."""
+    cinp, np1, w1p, b1p = padded_conv_weights(w1, b1)
+    mp, np2, w2p, b2p = padded_conv_weights(w2, b2)
+    return cinp, np1, mp, np2, w1p, b1p, w2p, b2p
 
 
 def cab_chain(x, ln_w, ln_b, w1, b1, w2, b2, out_shift: int = 0):
     """Kernel B7 on CUDA, its plain version on the CPU. Returns (u [B,H,W,C] rolled by
     (-out_shift, -out_shift), sums [B,1,1,C])."""
+    _build.require_no_grad("cab_chain", x, ln_w, ln_b, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return cab_chain_plain(x, ln_w, ln_b, w1, b1, w2, b2, out_shift)
     b, h, w, c = x.shape

@@ -3,8 +3,9 @@
 Twin of ``freqfusion_tpu/ops/pallas/cab.py:conv3x3_dense``. On a CUDA tensor the wrapper
 launches the kernel from ``csrc/conv3x3.cu`` or raises; on a CPU tensor it runs the plain
 version (``F.conv2d``). x [B,H,W,Cin] NHWC, w [3,3,Cin,Cout] HWIO, b [Cout]; f32. With both
-widths at 32 or more the source's implicit-GEMM kernel runs (HAT's and DAT's 180 -> 180),
-on weights that the wrapper zero-pads for its 16-channel chunks and 64-channel passes.
+widths at 32 or more the source's implicit-GEMM kernel runs (HAT's and DAT's 180 -> 180,
+f32-exact 3xTF32 on the tensor cores), on weights that the wrapper zero-pads to multiples
+of 8 channels in and out, the MMA's k and n (``padded_conv_weights``).
 """
 
 from __future__ import annotations
@@ -23,8 +24,19 @@ def conv3x3_dense_plain(x, w, b):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def padded_conv_weights(w, b):
+    """(cinp, npad, w [9,cinp,npad], b [npad]): HWIO weights [3,3,Cin,Cout] and their bias
+    zero-padded to multiples of 8 in and out for the implicit-GEMM kernel; padded zeros
+    change nothing."""
+    cin, cout = w.shape[2], w.shape[3]
+    cinp, npad = -(-cin // 8) * 8, -(-cout // 8) * 8
+    return (cinp, npad, F.pad(w.reshape(9, cin, cout), (0, npad - cout, 0, cinp - cin)),
+            F.pad(b, (0, npad - cout)))
+
+
 def conv3x3_dense(x, w, b):
     """Kernel B3 on CUDA, its plain version on the CPU."""
+    _build.require_no_grad("conv3x3_dense", x, w, b)
     if x.device.type == "cpu":
         return conv3x3_dense_plain(x, w, b)
     bsz, h, wd, cin = x.shape
@@ -35,9 +47,7 @@ def conv3x3_dense(x, w, b):
     lib = _build.library()
     wpad, bpad, cinp, npad = None, None, 0, 0
     if lib.conv3x3_dense_is_wide(cin, cout):
-        cinp, npad = -(-cin // 16) * 16, -(-cout // 64) * 64
-        wpad = F.pad(w.reshape(9, cin, cout), (0, npad - cout, 0, cinp - cin))
-        bpad = F.pad(b, (0, npad - cout))
+        cinp, npad, wpad, bpad = padded_conv_weights(w, b)
     out = torch.empty((bsz, h, wd, cout), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         err = lib.conv3x3_dense(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),

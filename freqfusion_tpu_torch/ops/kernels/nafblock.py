@@ -46,6 +46,7 @@ def naf_block_stage_b_plain(g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4, w5, b
 
 def naf_block_stage_a(x, ln_w, ln_b, w1, b1, wdw, bdw):
     """Kernel B1 on CUDA, its plain version on the CPU. Returns (g, sums [B,C])."""
+    _build.require_no_grad("naf_block_stage_a", x, ln_w, ln_b, w1, b1, wdw, bdw)
     if x.device.type == "cpu":
         return naf_block_stage_a_plain(x, ln_w, ln_b, w1, b1, wdw, bdw)
     b, h, w, c = x.shape
@@ -74,6 +75,8 @@ def naf_block_stage_a(x, ln_w, ln_b, w1, b1, wdw, bdw):
 
 def naf_block_stage_b(g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4, w5, b5, gamma):
     """Kernel B2 on CUDA, its plain version on the CPU."""
+    _build.require_no_grad("naf_block_stage_b", g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4,
+                           w5, b5, gamma)
     if g.device.type == "cpu":
         return naf_block_stage_b_plain(g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4,
                                        w5, b5, gamma)

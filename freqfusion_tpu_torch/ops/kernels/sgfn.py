@@ -49,6 +49,8 @@ def _padded_weights(w1, b1, w2):
 
 def fused_sgfn_tail(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw, w2, b2):
     """Kernel B6 on CUDA, its plain version on the CPU. Returns [B,H,W,C]."""
+    _build.require_no_grad("fused_sgfn_tail", a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw,
+                           bdw, w2, b2)
     if a.device.type == "cpu":
         return fused_sgfn_tail_plain(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw,
                                      w2, b2)

@@ -6,8 +6,11 @@ standalone window attention with both projections (B14).
 Twins of ``freqfusion_tpu/ops/pallas/wattn.py``'s ``fused_window_attention_xqkv``,
 ``fused_window_attention_qkv``, ``fused_hab_block``, ``fused_overlap_attention``,
 ``fused_residual_ln_mlp`` and ``fused_window_attention``. On a CUDA tensor a wrapper
-launches its kernels (``csrc/wattn.cu``, ``csrc/oca.cu``, ``csrc/hat_rows.cu``) or raises; on
-a CPU tensor it runs the plain PyTorch version. There is no fallback from one to the other.
+launches its kernels (``csrc/wattn.cu``, ``csrc/hab_attention.cu``, ``csrc/oca.cu``,
+``csrc/hat_rows.cu``) or raises; on a CPU tensor it runs the plain PyTorch version. There is
+no fallback from one to the other. B8's attention and every row product (B8's tail, B9's
+projection, B10, B14's projections) run f32-exact on the tensor cores (3xTF32); their
+weights are zero-padded to multiples of 8, the MMA's k and n.
 Dense weights come as [in,out] matrices of x @ w, as in the JAX package; every LayerNorm
 uses eps 1e-5.
 
@@ -45,7 +48,6 @@ MAX_HEAD_DIM = 32
 #: What csrc/wattn.cu's pre-projected kernel takes: windows of any size up to 576 tokens.
 MAX_QKV_TOKENS = 576
 _SLOT = 32               # columns of one head's q, k or v in the padded weight
-_WCOLS = 4 * _SLOT       # q | k | v | zeros: a multiple of the 64-column weight pass
 
 
 def mask_types(mask, n_wr: int, n_wc: int, device) -> torch.Tensor:
@@ -134,10 +136,10 @@ def fused_window_attention_qkv(q, k, v, bias, mask, window, num_heads):
     (hs, ws) windows of pre-projected q, k, v [B,H,W,C], already zero-padded to whole
     windows and already rolled in a shifted block. A zero-padded key is not masked: it
     scores its bias and takes part in the softmax. Returns [B,H,W,C]."""
-    if q.device.type == "cpu":
-        return fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads)
     name = "fused_window_attention_qkv"
     _build.require_no_grad(name, q, k, v, bias)
+    if q.device.type == "cpu":
+        return fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads)
     b, h, w, c = q.shape
     hs, ws = window
     n = hs * ws
@@ -166,11 +168,11 @@ def fused_window_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, window, num_
     (hs, ws) windows with bias [heads,N,N] (+ the shift mask) -> output projection [C,C].
     Returns [B,H,W,C]. Three launches: the row product of csrc/hat_rows.cu on either side
     of csrc/wattn.cu's pre-projected attention; q, k, v pass through device memory once."""
+    name = "fused_window_attention"
+    _build.require_no_grad(name, x, wqkv, bqkv, wproj, bproj, bias)
     if x.device.type == "cpu":
         return fused_window_attention_plain(x, wqkv, bqkv, wproj, bproj, bias, mask, window,
                                             num_heads)
-    name = "fused_window_attention"
-    _build.require_no_grad(name, x, wqkv, bqkv, wproj, bproj, bias)
     b, h, w, c = x.shape
     hs, ws = window
     n = hs * ws
@@ -183,8 +185,8 @@ def fused_window_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, window, num_
                          ("bias", bias, (num_heads, n, n))):
         _build.require(t, nm, shape)
     types = None if mask is None else mask_types(mask, h // hs, w // ws, x.device)
-    kp, npad, np3 = -(-c // 16) * 16, -(-c // 64) * 64, -(-3 * c // 64) * 64
-    wq, wpp = _padded_proj(wqkv, kp, np3), _padded_proj(wproj, kp, npad)
+    kp, np3 = _ceil8(c), _ceil8(3 * c)
+    wq, wpp = _padded_proj(wqkv, kp, np3), _padded_proj(wproj, kp, kp)
     lib = _build.library()
     qkv = torch.empty((b, h, w, 3 * c), device=x.device, dtype=torch.float32)
     att = torch.empty_like(x)
@@ -198,7 +200,7 @@ def fused_window_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, window, num_
         _launch_qkv(lib, p, p + 4 * c, p + 8 * c, 3 * c, bias, types, att, window, num_heads,
                     "wattn_qkv")
         err = lib.rows_linear(att.data_ptr(), wpp.data_ptr(), bproj.data_ptr(),
-                              out.data_ptr(), b * h * w, c, c, kp, npad, stream)
+                              out.data_ptr(), b * h * w, c, c, kp, kp, stream)
     _build.check(err, "rows_linear")
     launches[name] += 1
     return out
@@ -210,21 +212,23 @@ def fused_window_attention_xqkv_plain(x, wqkv, bqkv, bias, mask, window, num_hea
     return fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads)
 
 
-def _padded_head_weights(wqkv, bqkv, num_heads: int, hd: int, kp: int):
-    """wqkv [Cin,3*co] -> [heads, kp, 128] with head h's q, k, v in columns 0.., 32..,
-    64.. (zeros elsewhere, rows Cin..kp zero too), and bqkv -> [heads, 128] likewise: the
-    kernel's streamed product takes K in steps of 16 and N in steps of 64, and padded
-    zeros change nothing."""
+def _padded_head_weights(wqkv, bqkv, num_heads: int, hd: int, kp: int, slots: int = 4):
+    """wqkv [Cin,3*co] -> [heads, kp, 32 * slots] with head h's q, k, v in columns 0..,
+    32.., 64.. (zeros elsewhere, rows Cin..kp zero too), and bqkv -> [heads, 32 * slots]
+    likewise; padded zeros change nothing. B4's streamed product takes N in steps of 64,
+    hence 4 slots (q | k | v | zeros) and kp a multiple of 16; B8's attention takes the
+    3 slots q | k | v and kp a multiple of 8."""
     cin = wqkv.shape[0]
-    wh = wqkv.new_zeros(num_heads, kp, 4, _SLOT)
+    wh = wqkv.new_zeros(num_heads, kp, slots, _SLOT)
     wh[:, :cin, :3, :hd] = wqkv.reshape(cin, 3, num_heads, hd).permute(2, 0, 1, 3)
-    bh = bqkv.new_zeros(num_heads, 4, _SLOT)
+    bh = bqkv.new_zeros(num_heads, slots, _SLOT)
     bh[:, :3, :hd] = bqkv.reshape(3, num_heads, hd).permute(1, 0, 2)
-    return wh.reshape(num_heads, kp, _WCOLS), bh.reshape(num_heads, _WCOLS)
+    return wh.reshape(num_heads, kp, slots * _SLOT), bh.reshape(num_heads, slots * _SLOT)
 
 
 def fused_window_attention_xqkv(x, wqkv, bqkv, bias, mask, window, num_heads):
     """Kernel B4 on CUDA, its plain version on the CPU. Returns [B,H,W,co]."""
+    _build.require_no_grad("fused_window_attention_xqkv", x, wqkv, bqkv, bias)
     if x.device.type == "cpu":
         return fused_window_attention_xqkv_plain(x, wqkv, bqkv, bias, mask, window,
                                                  num_heads)
@@ -264,18 +268,22 @@ def fused_window_attention_xqkv(x, wqkv, bqkv, bias, mask, window, num_heads):
     return out
 
 
+def _ceil8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
 def _mlp_padded_weights(c: int, w1, w2):
-    """(kp, npad, k2p, w1p [kp,k2p], w2p [k2p,npad]) for an MLP on C-wide rows: the streamed
-    products take K in steps of 16 and N in steps of 64, and the hidden, fc1's N and fc2's
-    K, passes through a buffer k2p wide; padded zeros change nothing."""
+    """(kp, npad, k2p, w1p [kp,k2p], w2p [k2p,npad]) for an MLP on C-wide rows: the row
+    products take K and N in multiples of 8, and the hidden, fc1's N and fc2's K, passes
+    through a buffer k2p wide; padded zeros change nothing."""
     hid = w1.shape[1]
-    kp, npad, k2p = -(-c // 16) * 16, -(-c // 64) * 64, -(-hid // 64) * 64
-    return (kp, npad, k2p, F.pad(w1, (0, k2p - hid, 0, kp - c)),
-            F.pad(w2, (0, npad - c, 0, k2p - hid)))
+    kp, k2p = _ceil8(c), _ceil8(hid)
+    return (kp, kp, k2p, F.pad(w1, (0, k2p - hid, 0, kp - c)),
+            F.pad(w2, (0, kp - c, 0, k2p - hid)))
 
 
 def _padded_proj(w, kp: int, npad: int):
-    """w [K,N] zero-padded to [kp,npad], the K % 16 and N % 64 of the streamed products."""
+    """w [K,N] zero-padded to [kp,npad], multiples of 8 for the row products."""
     return F.pad(w, (0, npad - w.shape[1], 0, kp - w.shape[0]))
 
 
@@ -308,6 +316,9 @@ def fused_hab_block(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wproj, bp
     each window is read at (+s, +s) with wrap-around (conv_x still comes rolled): the
     result is in rolled coordinates either way and the caller un-rolls it. cab_scale
     [B,1,1,C] is the channel-attention gate of the CAB branch."""
+    _build.require_no_grad("fused_hab_block", x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv,
+                           wproj, bproj, w1, b1, w2, b2, bias,
+                           *([] if cab_scale is None else [cab_scale]))
     wsh, wsw = window
     if in_shift and (mask is None or 2 * in_shift != wsh or 2 * in_shift != wsw):
         raise ValueError(f"fused_hab_block: in_shift={in_shift} needs a shift mask and a "
@@ -316,6 +327,23 @@ def fused_hab_block(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wproj, bp
         return fused_hab_block_plain(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wproj,
                                      bproj, w1, b1, w2, b2, bias, mask, window, num_heads,
                                      conv_scale, cab_scale, in_shift)
+    attention, tail, out = _hab_block_launchers(
+        x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wproj, bproj, w1, b1, w2, b2, bias,
+        mask, window, num_heads, conv_scale, cab_scale, in_shift)
+    attention()
+    tail()
+    launches["fused_hab_block"] += 1
+    return out
+
+
+def _hab_block_launchers(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wproj, bproj, w1,
+                         b1, w2, b2, bias, mask, window, num_heads, conv_scale, cab_scale,
+                         in_shift):
+    """Checks B8's CUDA arguments and lays out its weights; returns (attention, tail, out):
+    two functions that each launch one half of the block on the current stream (the tail
+    reads what the attention wrote) and the output they fill. ``fused_hab_block`` calls
+    both; a caller may time them apart."""
+    wsh, wsw = window
     b, h, w, c = x.shape
     n, hd, hid = wsh * wsw, c // num_heads, w1.shape[1]
     if wsh != wsw or h % wsh or w % wsw:
@@ -340,28 +368,34 @@ def fused_hab_block(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wproj, bp
         _build.require(cab_scale, "cab_scale", (b, 1, 1, c))
     types = None if mask is None else mask_types(mask, h // wsh, w // wsw, x.device)
     kp, npad, k2p, w1p, w2p = _mlp_padded_weights(c, w1, w2)
-    wh, bh = _padded_head_weights(wqkv, bqkv, num_heads, hd, kp)
+    wh, bh = _padded_head_weights(wqkv, bqkv, num_heads, hd, kp, slots=3)
     wpp = _padded_proj(wproj, kp, npad)
     lib = _build.library()
     att = torch.empty_like(x)
     out = torch.empty_like(x)
     hidden = torch.empty((b, h, w, k2p), device=x.device, dtype=torch.float32)
-    with torch.cuda.device(x.device):
-        stream = _build.stream_ptr(x.device)
-        err = lib.hab_attention(x.data_ptr(), ln1_w.data_ptr(), ln1_b.data_ptr(),
-                                wh.data_ptr(), bh.data_ptr(), bias.data_ptr(),
-                                0 if types is None else types.data_ptr(), att.data_ptr(),
-                                b, h, w, c, kp, wsh, num_heads, hd, in_shift, stream)
+
+    def attention():
+        with torch.cuda.device(x.device):
+            err = lib.hab_attention(x.data_ptr(), ln1_w.data_ptr(), ln1_b.data_ptr(),
+                                    wh.data_ptr(), bh.data_ptr(), bias.data_ptr(),
+                                    0 if types is None else types.data_ptr(), att.data_ptr(),
+                                    b, h, w, c, kp, wsh, num_heads, hd, in_shift,
+                                    _build.stream_ptr(x.device))
         _build.check(err, "hab_attention")
-        err = lib.hab_tail(att.data_ptr(), x.data_ptr(), conv_x.data_ptr(),
-                           0 if cab_scale is None else cab_scale.data_ptr(), wpp.data_ptr(),
-                           bproj.data_ptr(), ln2_w.data_ptr(), ln2_b.data_ptr(),
-                           w1p.data_ptr(), b1.data_ptr(), w2p.data_ptr(), b2.data_ptr(),
-                           hidden.data_ptr(), out.data_ptr(), b, h, w, c, hid, kp, npad, k2p,
-                           in_shift, float(conv_scale), stream)
-    _build.check(err, "hab_tail")
-    launches["fused_hab_block"] += 1
-    return out
+
+    def tail():
+        with torch.cuda.device(x.device):
+            err = lib.hab_tail(att.data_ptr(), x.data_ptr(), conv_x.data_ptr(),
+                               0 if cab_scale is None else cab_scale.data_ptr(),
+                               wpp.data_ptr(), bproj.data_ptr(), ln2_w.data_ptr(),
+                               ln2_b.data_ptr(), w1p.data_ptr(), b1.data_ptr(), w2p.data_ptr(),
+                               b2.data_ptr(), hidden.data_ptr(), out.data_ptr(), b, h, w, c,
+                               hid, kp, npad, k2p, in_shift, float(conv_scale),
+                               _build.stream_ptr(x.device))
+        _build.check(err, "hab_tail")
+
+    return attention, tail, out
 
 
 def fused_overlap_attention_plain(q, k, v, wproj, bproj, bias, window: int, overlap: int,
@@ -387,6 +421,7 @@ def fused_overlap_attention(q, k, v, wproj, bproj, bias, window: int, overlap: i
     queries over the (window + overlap)^2 keys and values around them, from pre-projected
     q, k, v [B,H,W,C], with the output projection. bias [heads, window^2,
     (window + overlap)^2]. Returns [B,H,W,C]."""
+    _build.require_no_grad("fused_overlap_attention", q, k, v, wproj, bproj, bias)
     if q.device.type == "cpu":
         return fused_overlap_attention_plain(q, k, v, wproj, bproj, bias, window, overlap,
                                              num_heads)
@@ -409,8 +444,8 @@ def fused_overlap_attention(q, k, v, wproj, bproj, bias, window: int, overlap: i
     _build.require(wproj, "wproj", (c, c))
     _build.require(bproj, "bproj", (c,))
     _build.require(bias, "bias", (num_heads, nq, nk))
-    kp, npad = -(-c // 16) * 16, -(-c // 64) * 64
-    wpp = _padded_proj(wproj, kp, npad)
+    kp = _ceil8(c)
+    wpp = _padded_proj(wproj, kp, kp)
     lib = _build.library()
     att = torch.empty_like(q)
     out = torch.empty_like(q)
@@ -420,7 +455,7 @@ def fused_overlap_attention(q, k, v, wproj, bproj, bias, window: int, overlap: i
                                 att.data_ptr(), b, h, w, c, window, ows, num_heads, hd, stream)
         _build.check(err, "oca_attention")
         err = lib.rows_linear(att.data_ptr(), wpp.data_ptr(), bproj.data_ptr(), out.data_ptr(),
-                              b * h * w, c, c, kp, npad, stream)
+                              b * h * w, c, c, kp, kp, stream)
     _build.check(err, "rows_linear")
     launches["fused_overlap_attention"] += 1
     return out
@@ -433,6 +468,7 @@ def fused_residual_ln_mlp_plain(a, shortcut, ln_w, ln_b, w1, b1, w2, b2):
 def fused_residual_ln_mlp(a, shortcut, ln_w, ln_b, w1, b1, w2, b2):
     """Kernel B10 on CUDA, its plain version on the CPU: y = a + shortcut;
     out = y + fc2(GELU(fc1(LN y))) on [..., C] rows (any leading shape)."""
+    _build.require_no_grad("fused_residual_ln_mlp", a, shortcut, ln_w, ln_b, w1, b1, w2, b2)
     if a.device.type == "cpu":
         return fused_residual_ln_mlp_plain(a, shortcut, ln_w, ln_b, w1, b1, w2, b2)
     c, hid = a.shape[-1], w1.shape[1]

@@ -35,6 +35,30 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def layout_rule(torch_shape, flax_shape, leaf: str = "kernel") -> str:
+    """Which rule of the JAX package's loader (``_adapt`` in its ``utils/convert.py``; own
+    copy) carries a reference torch tensor of `torch_shape` onto a flax leaf of `flax_shape`
+    named `leaf`: "OIHW->HWIO", "OI11->IO", "OI->IO" or "equal"; "unit axes" where its
+    reshape only adds or drops axes of length 1 (NAF's beta [1,C,1,1] for [C], the FFT mask
+    [1,1,S,S] for [1,S,S,1]: no element moves); "reshape" where only a blind reshape of the
+    same element count would fit, "mismatch" where nothing does. A port parameter whose
+    rule is "reshape" would load here and mean something else there."""
+    t, f = tuple(torch_shape), tuple(flax_shape)
+    transposable = leaf in ("kernel", "in_proj_weight") or leaf.endswith("_kernel")
+    if len(t) == 4 and len(f) == 4 and transposable:
+        if (t[2], t[3], t[1], t[0]) == f:
+            return "OIHW->HWIO"
+    elif len(t) == 4 and t[2:] == (1, 1) and len(f) == 2 and transposable and t[:2] == f[::-1]:
+        return "OI11->IO"
+    elif len(t) == 2 and len(f) == 2 and transposable and t == f[::-1]:
+        return "OI->IO"
+    elif t == f:
+        return "equal"
+    if [d for d in t if d != 1] == [d for d in f if d != 1]:
+        return "unit axes"
+    return "reshape" if int(np.prod(t)) == int(np.prod(f)) else "mismatch"
+
+
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
     for k, v in tree.items():
         if isinstance(v, Mapping):

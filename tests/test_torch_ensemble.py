@@ -201,7 +201,7 @@ def test_main_serves_a_directory_from_pth_checkpoints(tmp_path):
         main(str(model_dir), str(src), str(tmp_path / "sr3"), "cpu", expert_kwargs=EXPERTS)
 
 
-def test_main_refuses_the_tiled_path_and_a_missing_card(tmp_path):
+def test_main_tiles_a_tiny_frame_and_refuses_a_bad_tiling_or_a_missing_card(tmp_path):
     """What `main` still refuses: a tiling that cannot cover an image (no frame is refused
     for its size any more: a 40x30 frame, smaller than its reflect padding, is served in
     tiles), and the default device where there is no card."""

@@ -240,7 +240,7 @@ def test_u8_serving_matches_jax():
 @pytest.mark.parametrize("window,h,w,fused", [(16, 352, 512, True), (8, 16, 24, True),
                                               (4, 8, 8, False), (7, 21, 14, False),
                                               (9, 27, 18, False)])
-def test_hab_gate_and_the_raise_for_what_is_not_ported(window, h, w, fused, monkeypatch):
+def test_hab_gate_picks_the_fused_block_or_the_standalone_attention(window, h, w, fused, monkeypatch):
     """The fused HAB path needs a window of 8 px or more and even H, W. Any other shape
     runs the block in torch around the standalone window attention's wrapper, which takes
     any window (nothing raises for a shape any more); either way `kernels = False` takes

@@ -182,13 +182,13 @@ def test_window_attention_plain_matches_pallas(b, h, w, c, nh, window, with_mask
 
 
 def test_padded_weights_keep_the_products():
-    """The zero-padding the kernels' wrappers apply (K to 16s, N to 64s, heads to 32-wide
-    slots) leaves every product as it was."""
+    """The zero-padding the kernels' wrappers apply (K and N to 8s for the tensor-core
+    products, heads to 32-wide slots) leaves every product as it was."""
     rng = np.random.default_rng(4)
     c, hid, mid, nh = 180, 360, 60, 6
     w1, b1, w2 = _t(_r(rng, c, hid), _r(rng, hid), _r(rng, hid, c))
     kp, npad, k2p, w1p, w2p = wattn._mlp_padded_weights(c, w1, w2)
-    assert (kp, npad, k2p) == (192, 192, 384)
+    assert (kp, npad, k2p) == (184, 184, 360)
     assert w1p.shape == (kp, k2p) and w2p.shape == (k2p, npad)
     x = torch.from_numpy(_r(rng, 5, c))
     xp = torch.nn.functional.pad(x, (0, kp - c))
@@ -199,20 +199,21 @@ def test_padded_weights_keep_the_products():
     cw1, cb1, cw2, cb2 = _t(_r(rng, 3, 3, c, mid), _r(rng, mid), _r(rng, 3, 3, mid, c),
                             _r(rng, c))
     cinp, np1, mp, np2, w1c, b1c, w2c, b2c = cab._padded_weights(cw1, cb1, cw2, cb2)
-    assert (cinp, np1, mp, np2) == (192, 64, 64, 192)
-    assert w1c.shape == (9, 192, 64) and w2c.shape == (9, 64, 192)
+    assert (cinp, np1, mp, np2) == (184, 64, 64, 184)
+    assert w1c.shape == (9, 184, 64) and w2c.shape == (9, 64, 184)
     np.testing.assert_array_equal(w1c[:, :c, :mid].numpy(), cw1.reshape(9, c, mid).numpy())
     np.testing.assert_array_equal(w2c[:, :mid, :c].numpy(), cw2.reshape(9, mid, c).numpy())
     assert not w1c[:, c:].any() and not w1c[:, :, mid:].any() and not b1c[mid:].any()
     assert not w2c[:, mid:].any() and not w2c[:, :, c:].any() and not b2c[c:].any()
     wqkv, bqkv = _t(_r(rng, c, 3 * c), _r(rng, 3 * c))
-    wh, bh = wattn._padded_head_weights(wqkv, bqkv, nh, c // nh, kp)
-    assert wh.shape == (nh, kp, 128) and bh.shape == (nh, 128)
     hd = c // nh
-    for head in (0, 5):
-        for sec in range(3):
-            cols = slice(sec * c + head * hd, sec * c + (head + 1) * hd)
-            np.testing.assert_array_equal(wh[head, :c, 32 * sec:32 * sec + hd].numpy(),
-                                          wqkv[:, cols].numpy())
-            np.testing.assert_array_equal(bh[head, 32 * sec:32 * sec + hd].numpy(),
-                                          bqkv[cols].numpy())
+    for slots in (4, 3):   # B4's q | k | v | zeros, B8's q | k | v
+        wh, bh = wattn._padded_head_weights(wqkv, bqkv, nh, hd, kp, slots=slots)
+        assert wh.shape == (nh, kp, 32 * slots) and bh.shape == (nh, 32 * slots)
+        for head in (0, 5):
+            for sec in range(3):
+                cols = slice(sec * c + head * hd, sec * c + (head + 1) * hd)
+                np.testing.assert_array_equal(wh[head, :c, 32 * sec:32 * sec + hd].numpy(),
+                                              wqkv[:, cols].numpy())
+                np.testing.assert_array_equal(bh[head, 32 * sec:32 * sec + hd].numpy(),
+                                              bqkv[cols].numpy())

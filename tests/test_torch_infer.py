@@ -57,7 +57,7 @@ def test_u8_serving_matches_jax(tmp_path):
         atol=5e-5)
 
 
-def test_tiled_path_raises():
+def test_bad_tiling_raises_and_any_size_is_served():
     """What the tiled path still raises for: a tiling that cannot cover an image. No image
     is refused for its size: one smaller than its reflect padding and one over the pixel
     budget both come back at x4 (parity with the JAX package: tests/test_torch_tiling.py)."""
@@ -119,6 +119,7 @@ def test_whole_image_plan_matches_jax():
               (90, 90), (339, 510)]
     jpipe = object.__new__(JInferencePipeline)   # no JAX ensemble is built
     port = object.__new__(InferencePipeline)
+    port.WHOLE_IMAGE_MAX_SHAPES = 6   # the JAX twin's compile-cache cap; the port has none
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         want = [JInferencePipeline._whole_image_plan(jpipe, h, w) for h, w in shapes]

@@ -70,6 +70,73 @@ def _r(gen, *shape, std=1.0, mean=0.0):
     return mean + std * torch.randn(*shape, generator=gen, device="cuda")
 
 
+@pytest.mark.parametrize("cin,cout", [(180, 180), (60, 180), (180, 60), (32, 48)])
+def test_conv3x3_wide_case_matches_plain(gen, cin, cout):
+    """The implicit-GEMM kernel (3xTF32 on the tensor cores) at widths that are and are not
+    multiples of 8 and 64, on a ragged image at batch 2."""
+    x = _r(gen, 2, 37, 45, cin)
+    w, b = _r(gen, 3, 3, cin, cout, std=(9 * cin) ** -0.5), _r(gen, cout, std=0.1)
+    n0 = conv3x3.launches["conv3x3_dense"]
+    torch.testing.assert_close(conv3x3.conv3x3_dense(x, w, b),
+                               conv3x3.conv3x3_dense_plain(x, w, b), atol=1e-4, rtol=0)
+    assert conv3x3.launches["conv3x3_dense"] == n0 + 1
+
+
+def _exactness(kernel, plain, ref64, tf32_plain):
+    """f32-exactness of a 3xTF32 kernel: its max |Δ| against a float64 reference is within
+    8x the plain f32 version's own, and the plain version in TF32 (what dropping the low
+    terms would give) is not, so the check can tell the two apart."""
+    err = (kernel.double() - ref64).abs().max().item()
+    err_plain = (plain.double() - ref64).abs().max().item()
+    err_tf32 = (tf32_plain.double() - ref64).abs().max().item()
+    assert err <= 8 * err_plain, (err, err_plain)
+    assert err_tf32 > 8 * err_plain, (err_tf32, err_plain)
+
+
+def _tf32(fn, *args, **kw):
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        return fn(*args, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+
+def test_conv3x3_wide_case_is_f32_exact(gen):
+    """B3 at 180 -> 180 (K = 9 * 180 = 1620), inputs scaled x100."""
+    x = 100 * _r(gen, 1, 48, 64, 180)
+    w, b = _r(gen, 3, 3, 180, 180, std=1620 ** -0.5), _r(gen, 180, std=0.1)
+    ref = conv3x3.conv3x3_dense_plain(x.double(), w.double(), b.double())
+    _exactness(conv3x3.conv3x3_dense(x, w, b), conv3x3.conv3x3_dense_plain(x, w, b), ref,
+               _tf32(conv3x3.conv3x3_dense_plain, x, w, b))
+
+
+def test_cab_chain_is_f32_exact(gen):
+    """B7 at C = 180, mid 60 (conv1's K = 1620), out_shift 8, inputs scaled x100."""
+    args = (100 * _r(gen, 1, 48, 64, 180), _r(gen, 180, std=0.1, mean=1.0),
+            _r(gen, 180, std=0.1), _r(gen, 3, 3, 180, 60, std=1620 ** -0.5),
+            _r(gen, 60, std=0.1), 100 * _r(gen, 3, 3, 60, 180, std=540 ** -0.5),
+            _r(gen, 180, std=0.1))
+    ref, _ = cab.cab_chain_plain(*[a.double() for a in args], out_shift=8)
+    _exactness(cab.cab_chain(*args, out_shift=8)[0], cab.cab_chain_plain(*args, out_shift=8)[0],
+               ref, _tf32(cab.cab_chain_plain, *args, out_shift=8)[0])
+
+
+def test_fused_hab_block_is_f32_exact(gen):
+    """B8 at HAT-L's width with a shifted window and hidden 720 (fc2's K; the tail stages
+    a pixel's whole K in shared memory, so 1620 is out of its reach), the output projection
+    and fc2 scaled x100."""
+    args = _hab_args(gen, 1, 32, 48, 180, 6, 16, 720)
+    args[8], args[12] = 100 * args[8], 100 * args[12]
+    types = torch.from_numpy(windows.shift_mask_types(16, 16, 8, 8).copy()).cuda()
+    rest = (types, (16, 16), 6, 0.01)
+    kw = dict(cab_scale=_r(gen, 1, 1, 1, 180, std=0.2, mean=0.5), in_shift=8)
+    ref = wattn.fused_hab_block_plain(*[a.double() for a in args], types, *rest[1:],
+                                      cab_scale=kw["cab_scale"].double(), in_shift=8)
+    _exactness(wattn.fused_hab_block(*args, *rest, **kw),
+               wattn.fused_hab_block_plain(*args, *rest, **kw), ref,
+               _tf32(wattn.fused_hab_block_plain, *args, *rest, **kw))
+
+
 @pytest.mark.parametrize("b,h,w,hs,ws,cin,heads,hd,with_mask", [
     (2, 16, 64, 8, 32, 180, 3, 30, True), (1, 64, 32, 32, 8, 180, 3, 30, False),
     (2, 16, 32, 8, 8, 24, 2, 6, True), (1, 8, 32, 8, 16, 64, 4, 32, True)])
@@ -311,7 +378,8 @@ def _hab_args(gen, b, h, w, c, heads, window, hidden):
 @pytest.mark.parametrize("b,h,w,c,heads,window,mode", [
     (2, 32, 48, 180, 6, 16, "plain"), (2, 32, 48, 180, 6, 16, "in_shift"),
     (1, 16, 32, 180, 6, 16, "rolled"), (2, 16, 24, 24, 4, 8, "in_shift"),
-    (1, 16, 16, 64, 2, 8, "plain")])
+    (1, 16, 16, 64, 2, 8, "plain"), (2, 192, 192, 180, 6, 16, "plain"),
+    (2, 192, 192, 180, 6, 16, "in_shift")])
 def test_fused_hab_block_kernel_matches_plain(gen, b, h, w, c, heads, window, mode):
     args = _hab_args(gen, b, h, w, c, heads, window, 2 * c)
     s = 0 if mode == "plain" else window // 2
