@@ -69,7 +69,7 @@ from freqfusion_tpu_torch.models.experts import FreqFusionSR
 from freqfusion_tpu_torch.models.hat import HAT
 from freqfusion_tpu_torch.models.nafnet import NAFNetSR
 from freqfusion_tpu_torch.ops import windows
-from freqfusion_tpu_torch.ops.kernels import (_build, aim, bandmha, cab, conv3x3, lka,
+from freqfusion_tpu_torch.ops.kernels import (_build, _mma, aim, bandmha, cab, conv3x3, lka,
                                               nafblock, sgfn, wattn)
 from freqfusion_tpu_torch.utils.imageio import list_images, load_image, save_image
 
@@ -425,13 +425,18 @@ def dat_kernel_cases(gen: torch.Generator, res: dict) -> None:
         del got, want
         t_ms = cuda_ms(lambda: sgfn.fused_sgfn_tail(*t_args), iters=5)
         t_plain = cuda_ms(lambda: sgfn.fused_sgfn_tail_plain(*t_args), iters=5)
-        # fc1 C->hid, fc2 hid/2->C, two LNs, GELU on hid, depthwise 3x3 and gate on hid/2;
-        # reads a and shortcut, writes out
-        t_bnd = bound_ms(npix * (2 * c * hid + 2 * half * c + 8 * c + 10 * hid + 28 * half),
-                         4 * (3 * npix * c + c * hid + half * c + hid + 13 * half + 3 * c))
+        # the two launches apart: fc1 with both LNs, then the gate and fc2
+        fc1, gate_fc2, _ = sgfn._sgfn_launchers(*t_args)
+        fc1_ms, gate_fc2_ms = cuda_ms(fc1, iters=5), cuda_ms(gate_fc2, iters=5)
+        # products on the tensor cores: fc1 C->hid, fc2 hid/2->C; the rest: two LNs, GELU on
+        # hid, depthwise 3x3 and gate on hid/2; reads a and shortcut, writes out
+        t_bnd, t_bnd32 = bounds(npix * (8 * c + 10 * hid + 28 * half),
+                                npix * (2 * c * hid + 2 * half * c),
+                                4 * (3 * npix * c + c * hid + half * c + hid + 13 * half + 3 * c))
         emit("kernel", kernel="fused_sgfn_tail", case=name, shape=[b, h, w, c],
              hidden=hid, max_abs_err=t_err, bound=KERNEL_ATOL, max_abs_plain=t_scale,
-             ms=t_ms, plain_ms=t_plain, bound_ms=t_bnd[0], bound_by=t_bnd[1])
+             ms=t_ms, plain_ms=t_plain, fc1_ms=fc1_ms, gate_fc2_ms=gate_fc2_ms,
+             bound_ms=t_bnd[0], bound_by=t_bnd[1], bound_f32_ms=t_bnd32[0])
         require(t_err <= KERNEL_ATOL, f"B6 error {t_err} at {name}")
         res["fused_sgfn_tail"]["err"] = max(res["fused_sgfn_tail"]["err"], t_err)
         del t_args
@@ -439,7 +444,9 @@ def dat_kernel_cases(gen: torch.Generator, res: dict) -> None:
             res["aim_conv_branch"].update(ms=a_ms, plain_ms=a_plain, bound=a_bnd)
             res["aim_gates_proj"].update(ms=mean(t[0] for t in b_times),
                                          plain_ms=mean(t[1] for t in b_times), bound=b_bnd)
-            res["fused_sgfn_tail"].update(ms=t_ms, plain_ms=t_plain, bound=t_bnd)
+            res["fused_sgfn_tail"].update(ms=t_ms, plain_ms=t_plain, bound=t_bnd,
+                                          bound_f32=t_bnd32,
+                                          extra=dict(fc1_ms=fc1_ms, gate_fc2_ms=gate_fc2_ms))
 
 
 def hat_kernel_cases(gen: torch.Generator, res: dict) -> None:
@@ -568,15 +575,23 @@ def hat_kernel_cases(gen: torch.Generator, res: dict) -> None:
         ms = cuda_ms(lambda: wattn.fused_overlap_attention(*o_args, ws, ov, heads), iters=5)
         plain_ms = cuda_ms(lambda: wattn.fused_overlap_attention_plain(*o_args, ws, ov, heads),
                            iters=5)
-        # the projection on the tensor cores, the attention on the CUDA cores
-        o_bnd, o_bnd32 = bounds(nwin * heads * n * nk * (4 * hd + 8), npix * 2 * c * c,
+        # the two launches apart: the attention, then the projection
+        attention, proj, _ = wattn._overlap_launchers(*o_args, ws, ov, heads)
+        attention_ms, proj_ms = cuda_ms(attention, iters=5), cuda_ms(proj, iters=5)
+        # products on the tensor cores: q k^T and p v, the projection; the rest: bias and
+        # softmax
+        o_bnd, o_bnd32 = bounds(nwin * heads * n * nk * 8,
+                                nwin * heads * n * nk * 4 * hd + npix * 2 * c * c,
                                 4 * (4 * npix * c + c * c + c + heads * n * nk))
         emit("kernel", kernel="fused_overlap_attention", case=name, shape=[b, h, w, c],
              window=ws, overlap=ov, max_abs_err=err, bound=KERNEL_ATOL, ms=ms,
-             plain_ms=plain_ms, bound_ms=o_bnd[0], bound_by=o_bnd[1],
-             bound_f32_ms=o_bnd32[0])
+             plain_ms=plain_ms, attention_ms=attention_ms, proj_ms=proj_ms,
+             bound_ms=o_bnd[0], bound_by=o_bnd[1], bound_f32_ms=o_bnd32[0])
         record("fused_overlap_attention", name, err, ms, plain_ms, o_bnd, name == "bucket",
                o_bnd32)
+        if name == "bucket":
+            res["fused_overlap_attention"]["extra"] = dict(attention_ms=attention_ms,
+                                                           proj_ms=proj_ms)
         del o_args
         torch.cuda.empty_cache()
     parts = res["fused_hab_block"].pop("parts")
@@ -937,14 +952,16 @@ def randomize_transformer_(model: torch.nn.Module, gen: torch.Generator) -> None
 def dat_weight_prep(model: DAT) -> None:
     """The weight work that one DAT forward repeats in every block and nothing else: the
     modules keep torch's layouts, so each call re-lays its weights out for the kernels
-    (transposes, the branches' qkv columns) and the wrappers zero-pad them."""
+    (transposes, the branches' qkv columns) and the wrappers zero-pad them; the row
+    products' planes are made once and only looked up (_mma.planes)."""
     for group in model.layers:
         for blk in group.blocks:
             a = blk.attn
             a.conv_weights()
             aim._padded_proj(a.gates_weights()[6])
-            w1, b1, _, _, _, _, w2, _ = blk.ffn.raw()
-            sgfn._padded_weights(w1, b1, w2)
+            w1, _, _, _, _, _, w2, _ = blk.ffn.raw()
+            kp, k2p, npad = sgfn._widths(*w1.shape)
+            _mma.planes(w1, kp, w1.shape[1]), _mma.planes(w2, k2p, npad)
             wqkv = dat_model._io(a.qkv)
             if isinstance(a, dat_model.AdaptiveSpatialAttention):
                 c, heads = wqkv.shape[0], a.num_heads // 2
@@ -988,7 +1005,8 @@ def dat_slice(gen_cpu: torch.Generator, profile: bool) -> dict:
 def hat_weight_prep(model: HAT) -> None:
     """The weight work that one HAT forward repeats in every block and nothing else: the
     modules keep torch's layouts, so each call re-lays its weights out for the kernels
-    (transposes, the bias gathers) and the wrappers zero-pad them."""
+    (transposes, the bias gathers) and the wrappers zero-pad them; the row products'
+    planes are made once and only looked up (_mma.planes)."""
     c = model.conv_first.out_channels
     kp = npad = -(-c // 8) * 8
     for group in model.layers:
@@ -997,15 +1015,13 @@ def hat_weight_prep(model: HAT) -> None:
             wqkv, bqkv, wproj, _, _ = blk.attn.raw()
             wattn._padded_head_weights(wqkv, bqkv, blk.num_heads, c // blk.num_heads, kp,
                                        slots=3)
-            wattn._padded_proj(wproj, kp, npad)
-            w1, _, w2, _ = blk.mlp.raw()
-            wattn._mlp_padded_weights(c, w1, w2)
+            _mma.planes(wproj, kp, npad)
+            wattn._mlp_planes(c, *blk.mlp.raw()[::2])
         oc = group.residual_group.overlap_attn
         windows.oca_bias_from_table(oc.relative_position_bias_table, oc.window,
                                     oc.overlap_window, oc.relative_position_index)
-        wattn._padded_proj(dat_model._io(oc.proj), kp, npad)
-        w1, _, w2, _ = oc.mlp.raw()
-        wattn._mlp_padded_weights(c, w1, w2)
+        _mma.planes(oc.proj.weight.t(), kp, npad)
+        wattn._mlp_planes(c, *oc.mlp.raw()[::2])
 
 
 HAT_KERNELS = ("conv3x3_dense", "cab_chain", "fused_hab_block", "fused_overlap_attention",
@@ -1438,11 +1454,12 @@ KERNELS = {
                         "freqfusion_tpu/ops/pallas/aim.py:77"),
     "aim_gates_proj": ("freqfusion_tpu_torch/csrc/aim.cu",
                        "freqfusion_tpu/ops/pallas/aim.py:161"),
+    # B6 starts with the fc1 row kernel of csrc/hat_rows.cu
     "fused_sgfn_tail": ("freqfusion_tpu_torch/csrc/sgfn.cu",
                         "freqfusion_tpu/ops/pallas/sgfn.py:82"),
     "cab_chain": ("freqfusion_tpu_torch/csrc/cab.cu", "freqfusion_tpu/ops/pallas/cab.py:145"),
     # B8 and B9 end in the row kernels of csrc/hat_rows.cu
-    "fused_hab_block": ("freqfusion_tpu_torch/csrc/wattn.cu",
+    "fused_hab_block": ("freqfusion_tpu_torch/csrc/hab_attention.cu",
                         "freqfusion_tpu/ops/pallas/wattn.py:273"),
     "fused_overlap_attention": ("freqfusion_tpu_torch/csrc/oca.cu",
                                 "freqfusion_tpu/ops/pallas/wattn.py:706"),

@@ -195,7 +195,5 @@ __device__ __forceinline__ void warp_layernorm(const float* src, float* dst,
 }
 
 // Rows of K a tile holds at a time when a product takes its K in two halves: the larger
-// half of Kp in steps of `step` rows (tile_matmul's weight chunks, or an MMA's k-steps).
-__host__ __device__ constexpr int first_half(int Kp, int step = kKC) {
-    return (Kp / step + 1) / 2 * step;
-}
+// half of Kp in tile_matmul's weight chunks.
+__host__ __device__ constexpr int first_half(int Kp) { return (Kp / kKC + 1) / 2 * kKC; }

@@ -1,41 +1,45 @@
-// HAT's per-pixel row work, projection + residuals + LayerNorm + MLP, as one hand-written
-// f32-exact product kernel for Hopper (sm_90a) in four modes, launched in sequence:
+// Per-pixel row work, projection + residuals + LayerNorm + MLP, as one hand-written f32-exact
+// product kernel for Hopper (sm_90a) in four modes, launched in sequence:
 //   * hab_tail, the second half of the fused HAB block (B8), after csrc/hab_attention.cu's
 //     attention:  y = x + att @ wproj + bproj + conv_scale * cab_scale * conv_x   (proj)
 //                 hidden = GELU(LN2(y) @ w1 + b1)                                  (fc1)
 //                 out = y + hidden @ w2 + b2                                       (fc2)
 //   * residual_ln_mlp (B10):  y = a + shortcut, then fc1 and fc2 as above;
+//   * rows_ln_fc1, fc1 alone with y = a + shortcut parked in out, and optionally LN_sg over
+//     the second half of each hidden row: the first launch of the SGFN tail (B6; its second,
+//     the gate and fc2, is csrc/sgfn.cu);
 //   * rows_linear: out = a @ w + b on rows of any output width: the output projection of
 //     the overlapping cross-attention (B9), after csrc/oca.cu's attention, and the qkv and
 //     output projections of the standalone window attention (B14) around csrc/wattn.cu's.
 //
 // Replaces the TPU kernels freqfusion_tpu/ops/pallas/wattn.py:fused_hab_block (with
-// hab_attention.cu), :fused_residual_ln_mlp and the projection inside
-// :fused_overlap_attention. The plain PyTorch versions sit beside the wrappers in
-// freqfusion_tpu_torch/ops/kernels/wattn.py.
+// hab_attention.cu), :fused_residual_ln_mlp, the projection inside
+// :fused_overlap_attention and the fc1 half of freqfusion_tpu/ops/pallas/sgfn.py:
+// fused_sgfn_tail. The plain PyTorch versions sit beside the wrappers in
+// freqfusion_tpu_torch/ops/kernels/wattn.py and sgfn.py.
 //
-// What bounds it on the H100. Per pixel 2*C*C + 4*C*hid FLOPs (324 k at C = 180, hid = 360)
-// for 16*C bytes of att, x, conv_x and out (2.9 KB): 112 FLOP per byte, above the f32
-// CUDA-core ridge (20) and under the 3xTF32 one (49): the products bound it at 0.35 ms at
-// [1,352,512,180] on the tensor cores' 165 TFLOP/s of f32-exact products (0.87 ms on the
-// CUDA cores' 67), the bytes at 0.16 ms.
+// What bounds it on the H100. B10: per pixel 4*C*hid FLOPs of products (259 k at C = 180,
+// hid = 360) for 12*C bytes of a, shortcut and out plus the hidden's round trip (2.9 KB):
+// about 90 FLOP per byte, above the 3xTF32 tensor-core ridge (49): the products bound it at
+// 0.28 ms at [1,352,512,180] on the tensor cores' 165 TFLOP/s of f32-exact products (0.70
+// ms on the CUDA cores' 67), the bytes at 0.16 ms. B6's fc1 (C -> 720) alone is 47 GFLOP
+// at the same shape: 0.28 ms.
 //
 // Design. The TPU kernel keeps a window's rows, y and the hidden in VMEM through all three
-// products. One block that does the same here needs 204 KB for 64 pixels (rows, y, hidden),
-// so one block of 8 warps an SM. This version gives each product its own launch of one
-// kernel: a block owns 128 pixels, stages their rows [128][K + 4] in shared memory (94 KB
-// at K = 184, 109 KB with tile_mma's ring: two blocks an SM) and runs tile_mma
-// (mma_f32x3.cuh): 3xTF32 MMAs, the weights streamed in 16-row chunks through a 3-stage
-// cp.async ring. What the TPU kernel keeps in VMEM between the products goes through
-// device memory instead: y is parked in the output buffer (written by proj, read by fc1,
-// read and overwritten by fc2's epilogue, each element by the thread that wrote it), the
-// hidden in a scratch buffer [pixels][K2p]; about 5.5 KB a pixel of extra traffic. fc2's
-// K = 360 is taken in two halves of the same tile (184 + 176), the second half's epilogue
-// adding to the first's. LN2 is one warp per row on the staged tile. With in_shift the
-// shortcut x is read at (y + s, x + s), wrapping, like the attention read it; conv_x and
-// out are in rolled coordinates. HAT's widths are padded to multiples of 8, the MMA's k and
-// n (180 -> 184; 360 stays): the wrapper zero-pads the weights, the kernel zero-fills the
-// padded columns of its tile.
+// products. Here each product has its own launch of one kernel: a block of 16 warps owns
+// 128 pixels, stages their rows (184 wide at C = 180) in shared memory in the A-fragment order
+// of tile_mma (mma_f32x3.cuh; 94 KB) and runs tile_mma: 3xTF32 MMAs on weights split into
+// hi and lo on the host, streamed in 64-row chunks through a 2-stage cp.async ring (128 KB):
+// one block of 16 warps an SM. What the TPU kernel keeps in VMEM between the products goes
+// through device memory instead: y is parked in the output buffer (written by proj or by
+// fc1's staging, read and overwritten by fc2's epilogue, each element by the thread that
+// wrote it), the hidden in a scratch buffer [pixels][K2p]. fc2 and the linear product take
+// K in pieces (tile_mma_piece: 184 + 176 at 360), each piece's epilogue adding to the last's;
+// proj and fc1 stage a row's whole K (C <= 192).
+// LN2 (and LN_sg) is one warp per row. With in_shift the shortcut x is read at
+// (y + s, x + s), wrapping, like the attention read it; conv_x and out are in rolled
+// coordinates. Widths are padded to multiples of 8, the MMA's k and n (180 -> 184; 360 and
+// 720 stay): the wrapper zero-pads the weights, the kernel zero-fills its tile's padding.
 //
 // Layout: NHWC, f32, contiguous; C % 4 == 0. cab_scale [B][C] or null.
 
@@ -44,17 +48,23 @@
 namespace {
 
 constexpr int kP = kMmaRows;   // pixels per block
+constexpr int kWarps = kMmaThreads / 32;
 constexpr float kEps = 1e-5f;
 enum Mode { kLinear = 0, kProj = 1, kFc1 = 2, kFc2 = 3 };
+// fc2 and the linear product take K in pieces (tile_mma_piece), each piece's epilogue adding
+// to the last; proj and fc1 need a row's whole K (C <= kMmaMaxK = 192) for their epilogue
+// and LN, and the wrappers refuse a wider C (ops/kernels/_mma.py: MAX_ROW_K).
+__host__ __device__ constexpr bool pieces(int mode) { return mode == kFc2 || mode == kLinear; }
 
 struct RowArgs {
     const float* a;      // att (kLinear, kProj), a or y (kFc1), the hidden (kFc2)
     const float* x;      // the block's input x (kProj); shortcut or null (kFc1)
     const float* cx;     // conv_x (kProj)
     const float* cabs;   // cab_scale [B][C] or null (kProj)
-    const float* w;      // the product's weights, zero-padded [Kp][Np]
+    const float4* w;     // the product's weights, mma_planes of [Kp][Np]
     const float* bias;   // its bias
     const float *lnw, *lnb;   // LayerNorm affine (kFc1)
+    const float *sgw, *sgb;   // LN_sg affine over the hidden's second half, or null (kFc1)
     float* out;          // out; it holds y after kProj, or after kFc1 with a shortcut
     float* hid;          // the hidden [pixels][Np] (kFc1)
     long long npix;      // B * H * W
@@ -62,17 +72,61 @@ struct RowArgs {
     float conv_scale;
 };
 
+// v into A at row p, columns c .. c + 3 (c % 4 == 0), A of `ksteps` k-steps
+__device__ __forceinline__ void put4(float* A, int p, int c, int ksteps, float4 v) {
+    const int i = a_frag_index(p, c, ksteps);   // c + 1 .. c + 3 sit 4 floats apart
+    A[i] = v.x;
+    A[i + 4] = v.y;
+    A[i + 8] = v.z;
+    A[i + 12] = v.w;
+}
+
+// LayerNorm (eps 1e-5) of a row of n <= 384 floats in device memory, in place, by one warp:
+// the row is held in registers, so it costs one round of loads.
+__device__ __forceinline__ void ln_row_inplace(float* row, const float* __restrict__ w,
+                                               const float* __restrict__ b, int n) {
+    const int lane = threadIdx.x & 31;
+    float4 v[3];
+    float sum = 0.f;
+#pragma unroll
+    for (int h = 0; h < 3; ++h) {
+        const int c = 4 * lane + 128 * h;
+        v[h] = c < n ? *reinterpret_cast<const float4*>(row + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+        sum += (v[h].x + v[h].y) + (v[h].z + v[h].w);
+    }
+    const float u = warp_sum(sum) / n;
+    float q = 0.f;
+#pragma unroll
+    for (int h = 0; h < 3; ++h)
+        if (4 * lane + 128 * h < n) {
+            const float4 d = make_float4(v[h].x - u, v[h].y - u, v[h].z - u, v[h].w - u);
+            q = fmaf(d.x, d.x, fmaf(d.y, d.y, fmaf(d.z, d.z, fmaf(d.w, d.w, q))));
+        }
+    const float inv = 1.f / sqrtf(warp_sum(q) / n + kEps);
+#pragma unroll
+    for (int h = 0; h < 3; ++h) {
+        const int c = 4 * lane + 128 * h;
+        if (c < n) {
+            const float4 ww = *reinterpret_cast<const float4*>(w + c);
+            const float4 bb = *reinterpret_cast<const float4*>(b + c);
+            *reinterpret_cast<float4*>(row + c) = make_float4(
+                (v[h].x - u) * inv * ww.x + bb.x, (v[h].y - u) * inv * ww.y + bb.y,
+                (v[h].z - u) * inv * ww.z + bb.z, (v[h].w - u) * inv * ww.w + bb.w);
+        }
+    }
+}
+
 template <int MODE>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kMmaThreads, 1)
 rows_kernel(const RowArgs g) {
     extern __shared__ float4 smem4[];
     const int C = g.C;
-    const int Kt = MODE == kFc2 ? first_half(g.Kp, 8) : g.Kp, lda = Kt + 4;
-    float* A = reinterpret_cast<float*>(smem4);  // [kP][lda]
-    float* ws = A + kP * lda;                     // tile_mma's weight stages
+    const int Kt = pieces(MODE) ? tile_mma_piece(g.Kp) : g.Kp;
+    float* A = reinterpret_cast<float*>(smem4);  // [kP x Kt] in A-fragment order
+    float* ws = A + kP * Kt;                      // tile_mma's weight ring
     long long* src = reinterpret_cast<long long*>(ws + tile_mma_ws());  // [kP]
     int* img = reinterpret_cast<int*>(src + kP);                         // [kP]
-    const int tid = threadIdx.x, warp = tid >> 5;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const long long p0 = (long long)blockIdx.x * kP;
 
     if (MODE == kProj) {   // where each row's shortcut pixel lies, and its image
@@ -87,70 +141,149 @@ rows_kernel(const RowArgs g) {
         }
     }
     for (int k0 = 0; k0 < g.Kp; k0 += Kt) {
-        const int kh = min(Kt, g.Kp - k0), k4 = kh / 4;
-        const int width = MODE == kFc2 ? g.Kp : C;   // floats of a row of `a`
-        // the tile's rows, zero in the padded columns and past the last pixel; the previous
-        // half's readers are past tile_mma's last barrier
-        for (int e = tid; e < kP * k4; e += kThreads) {
-            const int p = e / k4, c = (e % k4) * 4;
-            const long long gp = p0 + p;
-            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (gp < g.npix && k0 + c < width) {
-                v = *reinterpret_cast<const float4*>(g.a + gp * width + k0 + c);
-                if (MODE == kFc1 && g.x) {   // y = a + shortcut, parked in out
-                    const float4 s = *reinterpret_cast<const float4*>(g.x + gp * C + c);
-                    v = make_float4(v.x + s.x, v.y + s.y, v.z + s.z, v.w + s.w);
-                    *reinterpret_cast<float4*>(g.out + gp * C + c) = v;
+        const int kh = min(Kt, g.Kp - k0), ks = kh / 8;
+        // A's rows, written once every thread is past the previous piece's reads of A
+        auto stage_a = [&] {
+            if (MODE == kFc1) {
+                // LN(y), a warp a row, the row in registers (C <= 192: two float4 a lane), so
+                // that a row costs one round of loads; y = a + shortcut is parked in out
+#pragma unroll 2
+                for (int p = warp; p < kP; p += kWarps) {
+                    const long long gp = p0 + p;
+                    float4 v[2];
+                    float sum = 0.f;
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const int c = 4 * lane + 128 * h;
+                        v[h] = make_float4(0.f, 0.f, 0.f, 0.f);
+                        if (gp < g.npix && c < C) {
+                            v[h] = *reinterpret_cast<const float4*>(g.a + gp * C + c);
+                            if (g.x) {
+                                const float4 u = *reinterpret_cast<const float4*>(g.x + gp * C + c);
+                                v[h] = make_float4(v[h].x + u.x, v[h].y + u.y, v[h].z + u.z,
+                                                   v[h].w + u.w);
+                                *reinterpret_cast<float4*>(g.out + gp * C + c) = v[h];
+                            }
+                        }
+                        sum += (v[h].x + v[h].y) + (v[h].z + v[h].w);
+                    }
+                    const float u = warp_sum(sum) / C;
+                    float q = 0.f;
+#pragma unroll
+                    for (int h = 0; h < 2; ++h)
+                        if (4 * lane + 128 * h < C) {
+                            const float4 d = make_float4(v[h].x - u, v[h].y - u, v[h].z - u,
+                                                         v[h].w - u);
+                            q = fmaf(d.x, d.x, fmaf(d.y, d.y, fmaf(d.z, d.z, fmaf(d.w, d.w, q))));
+                        }
+                    const float inv = 1.f / sqrtf(warp_sum(q) / C + kEps);
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const int c = 4 * lane + 128 * h;
+                        if (c >= kh) continue;
+                        float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+                        if (gp < g.npix && c < C) {
+                            const float4 w = *reinterpret_cast<const float4*>(g.lnw + c);
+                            const float4 b = *reinterpret_cast<const float4*>(g.lnb + c);
+                            o = make_float4((v[h].x - u) * inv * w.x + b.x,
+                                            (v[h].y - u) * inv * w.y + b.y,
+                                            (v[h].z - u) * inv * w.z + b.z,
+                                            (v[h].w - u) * inv * w.w + b.w);
+                        }
+                        put4(A, p, c, ks, o);
+                    }
+                }
+            } else {   // the tile's rows, zero in the padded columns and past the last pixel
+                const int k4 = kh / 4;
+                const int width = MODE == kFc2 ? g.Kp : C;   // floats of a row of `a`
+#pragma unroll 4
+                for (int e = tid; e < kP * k4; e += kMmaThreads) {
+                    const int p = e / k4, c = (e % k4) * 4;
+                    const long long gp = p0 + p;
+                    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+                    if (gp < g.npix && k0 + c < width)
+                        v = *reinterpret_cast<const float4*>(g.a + gp * width + k0 + c);
+                    put4(A, p, c, ks, v);
                 }
             }
-            *reinterpret_cast<float4*>(A + p * lda + c) = v;
-        }
-        if (MODE == kFc1) {
-            __syncthreads();
-            for (int p = warp; p < kP; p += kThreads / 32)
-                if (p0 + p < g.npix)
-                    warp_layernorm(A + p * lda, A + p * lda, g.lnw, g.lnb, C, kEps);
-        }
+        };
         const bool first = k0 == 0;
-        // tile_mma synchronises before it reads A, src and img
+        // tile_mma synchronises before it reads A; src and img are written before the call
         tile_mma(
-            A, lda, kh, g.w + (size_t)k0 * g.Np, g.Np, g.Np, ws,
-            [&](int p, int n, float u) {
+            A, kh, g.w + (size_t)(k0 / 8) * (g.Np / 8) * 32, g.Np / 8, g.Np, ws, stage_a,
+            [&](int p, int n, float u0, float u1) {   // columns n, n + 1 (n even)
                 const long long gp = p0 + p;
                 if (gp >= g.npix) return;
                 if (MODE == kFc1) {   // the hidden, zero in its padded columns
-                    g.hid[gp * g.Np + n] = n < g.nreal ? gelu_erf(u + g.bias[n]) : 0.f;
+                    *reinterpret_cast<float2*>(g.hid + gp * g.Np + n) = make_float2(
+                        n < g.nreal ? gelu_erf(u0 + g.bias[n]) : 0.f,
+                        n + 1 < g.nreal ? gelu_erf(u1 + g.bias[n + 1]) : 0.f);
                     return;
                 }
-                const int wout = MODE == kLinear ? g.nreal : C;   // floats of a row of out
+                // floats of a row of out, even: n < wout holds n + 1 < wout too
+                const int wout = MODE == kLinear ? g.nreal : C;
                 if (n >= wout) return;
-                float* o = g.out + gp * wout + n;
+                float2* o = reinterpret_cast<float2*>(g.out + gp * wout + n);
+                const float2 b = *reinterpret_cast<const float2*>(g.bias + n);
                 if (MODE == kLinear) {
-                    o[0] = u + g.bias[n];
+                    const float2 y = first ? b : *o;
+                    *o = make_float2(y.x + u0, y.y + u1);
                 } else if (MODE == kProj) {
-                    const float cs =
-                        g.cabs ? g.conv_scale * g.cabs[img[p] * C + n] : g.conv_scale;
-                    o[0] = g.x[src[p] * C + n] + u + g.bias[n] + cs * g.cx[gp * C + n];
-                } else {   // kFc2: out holds y, then y + the first half's sum
-                    o[0] += first ? u + g.bias[n] : u;
+                    // element by element, src and img found again from the kernel's
+                    // arguments: fewer registers live through tile_mma's loop
+                    const long long* sp = reinterpret_cast<const long long*>(
+                        reinterpret_cast<const float*>(smem4) + kP * g.Kp + tile_mma_ws());
+                    const int* ip = reinterpret_cast<const int*>(sp + kP);
+                    const float* xs = g.x + sp[p] * C + n;
+                    const float* cx = g.cx + gp * C + n;
+                    const float* cb = g.cabs ? g.cabs + ip[p] * C + n : nullptr;
+                    float* oe = g.out + gp * C + n;
+                    oe[0] = xs[0] + u0 + b.x + (cb ? g.conv_scale * cb[0] : g.conv_scale) * cx[0];
+                    oe[1] = xs[1] + u1 + b.y + (cb ? g.conv_scale * cb[1] : g.conv_scale) * cx[1];
+                } else {   // kFc2: out holds y, then y + the earlier pieces' sums
+                    const float2 y = *o;
+                    *o = first ? make_float2(y.x + (u0 + b.x), y.y + (u1 + b.y))
+                               : make_float2(y.x + u0, y.y + u1);
                 }
             });
+    }
+    if (MODE == kFc1 && g.sgw) {   // LN_sg over the second half of each hidden row, in place
+        __syncthreads();   // the block's hidden rows are in device memory
+        const int half = g.nreal / 2;
+#pragma unroll 2
+        for (int p = warp; p < kP; p += kWarps)
+            if (p0 + p < g.npix)
+                ln_row_inplace(g.hid + (p0 + p) * g.Np + half, g.sgw, g.sgb, half);
     }
 }
 
 template <int MODE>
 cudaError_t launch(const RowArgs& g, cudaStream_t st) {
     if (g.C % 4 || g.Kp % 8 || g.Np % 8 || g.npix < 1) return cudaErrorInvalidValue;
-    const int Kt = MODE == kFc2 ? first_half(g.Kp, 8) : g.Kp;
-    const size_t smem = (size_t)(kP * (Kt + 4) + tile_mma_ws() + 3 * kP) * sizeof(float);
+    if (MODE == kFc1 && (g.C > kMmaMaxK || (g.sgw && g.nreal / 2 > 384)))
+        return cudaErrorInvalidValue;
+    const int Kt = pieces(MODE) ? tile_mma_piece(g.Kp) : g.Kp;
+    const size_t smem = (size_t)(kP * Kt + tile_mma_ws() + 3 * kP) * sizeof(float);
     if (smem > 227 * 1024) return cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
         rows_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const long long nblocks = (g.npix + kP - 1) / kP;
     if (nblocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-    rows_kernel<MODE><<<(unsigned)nblocks, kThreads, smem, st>>>(g);
+    rows_kernel<MODE><<<(unsigned)nblocks, kMmaThreads, smem, st>>>(g);
     return cudaGetLastError();
+}
+
+cudaError_t fc1(const float* a, const float* shortcut, const float* lnw, const float* lnb,
+                const float* w1, const float* b1, const float* sgw, const float* sgb,
+                float* hid, float* out, long long npix, int C, int nhid, int Kp, int K2p,
+                cudaStream_t st) {
+    if (Kp < C || K2p < nhid) return cudaErrorInvalidValue;
+    RowArgs g = {};
+    g.a = a; g.x = shortcut; g.lnw = lnw; g.lnb = lnb; g.sgw = sgw; g.sgb = sgb;
+    g.w = reinterpret_cast<const float4*>(w1); g.bias = b1;
+    g.out = out; g.hid = hid; g.npix = npix; g.C = C; g.Kp = Kp; g.Np = K2p; g.nreal = nhid;
+    return launch<kFc1>(g, st);
 }
 
 // fc1 and fc2 on y: from `a` (+ `shortcut`, then y is written to out) or from y in out.
@@ -158,28 +291,37 @@ cudaError_t mlp(const float* a, const float* shortcut, const float* lnw, const f
                 const float* w1, const float* b1, const float* w2, const float* b2, float* hid,
                 float* out, long long npix, int C, int nhid, int Kp, int Np, int K2p,
                 cudaStream_t st) {
-    if (Kp < C || Np < C || K2p < nhid || K2p % 8) return cudaErrorInvalidValue;
-    RowArgs g = {};
-    g.a = a; g.x = shortcut; g.lnw = lnw; g.lnb = lnb; g.w = w1; g.bias = b1;
-    g.out = out; g.hid = hid; g.npix = npix; g.C = C; g.Kp = Kp; g.Np = K2p; g.nreal = nhid;
-    cudaError_t err = launch<kFc1>(g, st);
+    if (Np < C) return cudaErrorInvalidValue;
+    cudaError_t err = fc1(a, shortcut, lnw, lnb, w1, b1, nullptr, nullptr, hid, out, npix, C,
+                          nhid, Kp, K2p, st);
     if (err != cudaSuccess) return err;
     RowArgs f = {};
-    f.a = hid; f.w = w2; f.bias = b2; f.out = out;
+    f.a = hid; f.w = reinterpret_cast<const float4*>(w2); f.bias = b2; f.out = out;
     f.npix = npix; f.C = C; f.Kp = K2p; f.Np = Np; f.nreal = C;
     return launch<kFc2>(f, st);
 }
 
 }  // namespace
 
-// out [npix][Cout] = a [npix][C] @ wp + bp, wp zero-padded to [Kp][Np].
+// out [npix][Cout] = a [npix][C] @ w + bp, Cout even; wp = mma_planes of w [Kp][Np].
 extern "C" int rows_linear(const float* a, const float* wp, const float* bp, float* out,
                            long long npix, int C, int Cout, int Kp, int Np, void* stream) {
-    if (Kp < C || Np < Cout || Cout < 1) return cudaErrorInvalidValue;
+    if (Kp < C || Np < Cout || Cout < 2 || Cout % 2) return cudaErrorInvalidValue;
     RowArgs g = {};
-    g.a = a; g.w = wp; g.bias = bp; g.out = out;
+    g.a = a; g.w = reinterpret_cast<const float4*>(wp); g.bias = bp; g.out = out;
     g.npix = npix; g.C = C; g.Kp = Kp; g.Np = Np; g.nreal = Cout;
     return launch<kLinear>(g, static_cast<cudaStream_t>(stream));
+}
+
+// y = a + shortcut into out, hid [npix][K2p] = GELU(LN(y) @ w1 + b1), w1 = mma_planes of
+// [Kp][K2p]; with sgw, LN_sg (sgw, sgb) over columns nhid/2 .. nhid - 1 of each hidden row.
+extern "C" int rows_ln_fc1(const float* a, const float* shortcut, const float* lnw,
+                           const float* lnb, const float* w1, const float* b1,
+                           const float* sgw, const float* sgb, float* hid, float* out,
+                           long long npix, int C, int nhid, int Kp, int K2p, void* stream) {
+    if (sgw && (nhid % 2 || nhid / 2 % 4)) return cudaErrorInvalidValue;
+    return fc1(a, shortcut, lnw, lnb, w1, b1, sgw, sgb, hid, out, npix, C, nhid, Kp, K2p,
+               static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int hab_tail(const float* att, const float* x, const float* cx, const float* cabs,
@@ -191,7 +333,8 @@ extern "C" int hab_tail(const float* att, const float* x, const float* cx, const
     if (shift < 0 || shift >= H || shift >= W || Kp < C || Np < C)
         return cudaErrorInvalidValue;
     RowArgs g = {};
-    g.a = att; g.x = x; g.cx = cx; g.cabs = cabs; g.w = wp; g.bias = bp; g.out = out;
+    g.a = att; g.x = x; g.cx = cx; g.cabs = cabs; g.w = reinterpret_cast<const float4*>(wp);
+    g.bias = bp; g.out = out;
     g.npix = (long long)B * H * W; g.H = H; g.W = W; g.C = C; g.Kp = Kp; g.Np = Np;
     g.nreal = C; g.shift = shift; g.conv_scale = conv_scale;
     cudaError_t err = launch<kProj>(g, st);

@@ -1,7 +1,7 @@
 // f32-exact products on Hopper's tensor cores: 3xTF32 with mma.sync (sm_80+, built for
 // sm_90a), the building block of the implicit-GEMM 3x3 conv (conv_gemm.cuh: B3, B7), the
-// HAB attention (hab_attention.cu: B8) and the row products (tile_mma below: B8's tail,
-// B9's projection, B10, B14's projections).
+// HAB and overlapping attentions (hab_attention.cu: B8; oca.cu: B9) and the row products
+// (tile_mma below: B6's two products, B8's tail, B9's projection, B10, B14's projections).
 //
 // Why 3xTF32. A TF32 product keeps 10 mantissa bits of each operand: alone it would change
 // the precision class of every result (about 1e-3 relative). Splitting each f32 operand
@@ -92,111 +92,176 @@ __device__ __forceinline__ void load_b_nk(FragB& b, const float* s, int ld, int 
     b.set(1, p[4]);
 }
 
-// Rows of A a tile_mma block owns, the weight-chunk rows it streams and their smem stride.
-constexpr int kMmaRows = 128, kMmaKC = 16, kMmaNT = 64, kMmaLdw = kMmaNT + 8;
 
-// Floats of shared memory that tile_mma needs for its weight stages (a ring of three).
-__host__ __device__ constexpr int tile_mma_ws() { return 3 * kMmaKC * kMmaLdw; }
+// ---- tile_mma: the row product of csrc/hat_rows.cu (B6's fc1, B8's tail, B9's projection,
+// B10, B14's projections) and csrc/sgfn.cu (B6's gate + fc2).
+//
+// What bounds it: per block 128 rows x K x N of f32-exact products (3 TF32 MMAs a product)
+// against the weights' 8 bytes an element (hi and lo) read from L2 once a block, so the
+// products, at the tensor cores' 165 TFLOP/s (107 measured for mma.sync, tools/mma_peak.py).
+// Design, and what timing variants of it on the H100 showed (PERF.md):
+//   * the weights come split on the host (ops/kernels/_mma.py) in B-fragment order, hi and
+//     lo of a lane's fragment in one 16-byte load: nothing of B is split here;
+//   * a warp owns 1 m-tile x 8 n-tiles of a 128-column pass and splits its A fragment once
+//     a k-step for all of them; A sits in fragment order (one 16-byte load a fragment, no
+//     padded stride). Neither lever moved the product alone: the inner loop ran as fast as
+//     a version that loaded and split every operand in every warp, and 2 m-tiles x 4
+//     n-tiles a warp was no faster;
+//   * what did: one barrier every kMmaKC = 64 weight rows (8 k-steps) instead of every 16,
+//     and the passes following one another in one ring, so that it never drains between
+//     them, and A's staging running while the first weight chunks are in flight. With one
+//     block of 16 warps an SM (94 KB of A, 128 KB of ring), A's staging, each pass's
+//     epilogue and each chunk's barrier still stop every MMA of the SM: that, not the
+//     operand split, is what holds the product at a third of the mma.sync ceiling.
+// The tensor core's adds round toward zero, so each chunk of kMmaKC rows goes into a fresh
+// register tile that is added to the running sum in f32: a chain of 3 kMmaKC / 8 MMAs
+// (24), short enough for the f32-exactness tests of B6, B8 and B10.
 
-// Row-tile product on the tensor cores in f32-exact 3xTF32, for a block of kThreads threads:
-//   acc(p, n) = sum_k A[p*lda + k] * W[k*ldw + n]          p < 128, n < N
-// and epi(p, n, acc) is called once for every (p, n), by the thread that owns (p, n): the
-// same thread for the same (p, n) in every call.
-//   A   shared memory, 128 rows of K floats at a stride lda (lda % 8 == 4 keeps the A
-//       fragments on 32 banks). The caller may write A right before the call, and again
-//       right after it: the call synchronises before it reads A and after its last read.
-//   W   device memory, streamed through `ws` (shared, tile_mma_ws() floats) in 16-row
-//       chunks of a 64-column pass, a ring of three cp.async stages with one barrier a
-//       chunk, so two chunks are in flight while the third is multiplied; stored at a row
-//       stride of 72 floats (8 mod 32: the B fragments hit 32 banks).
-//   K % 8 == 0 (a last chunk of 8 rows is one k-step), N % 8 == 0 (a last pass of fewer
-//   than 64 columns skips its missing n-tiles), ldw % 4 == 0, W 16-byte aligned.
-// Warp w owns rows 32 (w % 4) .. +31 (two m-tiles) and columns 32 (w / 4) .. +31 of a pass
-// (four n-tiles): per k-step 8 + 8 floats read from shared memory, split, for 24 MMAs; each
-// chunk's MMAs go into a fresh tile, added to the running sum in f32.
-template <typename Epi>
-__device__ __forceinline__ void tile_mma(const float* A, int lda, int K,
-                                         const float* __restrict__ W, int ldw, int N, float* ws,
-                                         Epi epi) {
-    constexpr int STAGE = kMmaKC * kMmaLdw;
-    const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
-    const int wm = warp & 3, wn = warp >> 2;
-    const int nk = (K + kMmaKC - 1) / kMmaKC;
-    for (int n0 = 0; n0 < N; n0 += kMmaNT) {
-        const int ncols = min(kMmaNT, N - n0);
-        auto stage = [&](int c) {  // chunk c into stage c % 3; an empty group past the end
-            if (c < nk) {
-                const int k0 = c * kMmaKC, rows = min(kMmaKC, K - k0), c4 = ncols / 4;
-                float* dst = ws + (c % 3) * STAGE;
-                for (int e = tid; e < rows * c4; e += kThreads) {
-                    const int kk = e / c4, col = (e % c4) * 4;
-                    cp_async16(dst + kk * kMmaLdw + col, W + (size_t)(k0 + kk) * ldw + n0 + col);
-                }
+// Rows of A a block owns, its threads (16 warps), the weight rows of a ring stage (a chunk:
+// 8 k-steps), the ring's two stages, and the n-tiles of a pass (128 columns).
+constexpr int kMmaRows = 128, kMmaThreads = 512;
+constexpr int kMmaKC = 64, kMmaStages = 2, kMmaKS = kMmaKC / 8, kMmaNT = 16;
+constexpr int kMmaStage4 = kMmaKS * kMmaNT * 32;   // float4s of a stage
+
+// Floats of shared memory that tile_mma needs for its weight ring.
+__host__ __device__ constexpr int tile_mma_ws() { return kMmaStages * kMmaStage4 * 4; }
+
+// Rows of K a block stages at a time when its product takes K in pieces: the fewest pieces
+// of at most kMmaMaxK rows, as even as multiples of 8 fall (184 + 176 at 360, 4 x 184 at
+// 720): kMmaMaxK is what 128 rows of A beside the ring and 2 KB of the caller's leave of a
+// block's 227 KB of shared memory (192).
+constexpr int kMmaMaxK = (232448 - 4 * tile_mma_ws() - 2048) / (4 * kMmaRows) / 8 * 8;
+static_assert(kMmaMaxK >= 184, "a row of HAT's and DAT's 180 channels in one piece");
+__host__ __device__ constexpr int tile_mma_piece(int K) {
+    return ((K + (K + kMmaMaxK - 1) / kMmaMaxK - 1) / ((K + kMmaMaxK - 1) / kMmaMaxK) + 7) / 8 * 8;
+}
+
+// Where element (p, k) of A sits in the fragment-major layout that tile_mma reads, for A
+// of `ksteps` k-steps: [m-tile][k-step][lane][4], the 4 being a0..a3 of the lane's A
+// fragment (lane 4 g + t: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)).
+__device__ __forceinline__ int a_frag_index(int p, int k, int ksteps) {
+    const int r = p & 15, kk = k & 7;
+    const int lane = 4 * (r & 7) + (kk & 3), slot = (r >> 3) + 2 * (kk >> 2);
+    return ((((p >> 4) * ksteps + (k >> 3)) * 32 + lane) << 2) + slot;
+}
+
+// Row-tile product on the tensor cores in f32-exact 3xTF32, for a block of kMmaThreads:
+//   acc(p, n) = sum_{k < K} A(p, k) * W(k, n)          p < 128, n < N
+// and epi(p, n, acc(p, n), acc(p, n + 1)) is called once for every p and even n, by the
+// thread that owns (p, n) and (p, n + 1): the same thread for the same (p, n) in every call.
+//   A   shared memory, 128 rows x K in the fragment-major layout of a_frag_index (K / 8
+//       k-steps), written by stage_a(), which the call runs once every thread is past the
+//       previous call's reads of A and while the first weight chunks are in flight. The
+//       caller may write A again right after the call: it synchronises after its last read.
+//   W   device memory, ops/kernels/_mma.py's mma_planes: [kp/8][ntw][32][4] float4s with
+//       hi and lo of each B fragment, where ntw = npad / 8 n-tiles a k-step; W points at
+//       the first k-step of this product. It is streamed through `ws` (shared,
+//       tile_mma_ws() floats) in chunks of kMmaKC rows of a 128-column pass, a ring of
+//       kMmaStages cp.async stages with one barrier a chunk; the passes follow one another
+//       in the same ring, so it does not drain between them and a pass's epilogue overlaps
+//       the next pass's copies.
+//   K % 8 == 0, N % 8 == 0, N <= 8 ntw.
+// Warp w owns m-tile w % 8 (rows 16 (w % 8) ..) and up to 8 n-tiles of a pass: 8 register
+// tiles, 24 MMAs a k-step. The n-tiles of a pass are shared between the two column groups
+// of warps (w / 8) as evenly as they fall, so a ragged N costs little.
+template <typename StageA, typename Epi>
+__device__ __forceinline__ void tile_mma(const float* A, int K, const float4* __restrict__ W,
+                                         int ntw, int N, float* ws, StageA stage_a, Epi epi) {
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int mg = warp & 7, ng = warp >> 3;
+    const int ksteps = K >> 3, nchunks = (ksteps + kMmaKS - 1) / kMmaKS, ntiles = N >> 3;
+    const int total = (ntiles + kMmaNT - 1) / kMmaNT * nchunks;   // (pass, chunk) steps
+    const float4* a4 = reinterpret_cast<const float4*>(A) + mg * ksteps * 32 + lane;
+    float4* ring = reinterpret_cast<float4*>(ws);
+    auto stage = [&](int i) {  // step i's chunk into stage i % kMmaStages; empty past the end
+        if (i < total) {
+            const int nt0 = i / nchunks * kMmaNT, ks0 = i % nchunks * kMmaKS;
+            const int nks = min(kMmaKS, ksteps - ks0), per = min(kMmaNT, ntiles - nt0) * 32;
+            float4* dst = ring + (i % kMmaStages) * kMmaStage4;
+            for (int e = tid; e < nks * per; e += kMmaThreads) {
+                const int s = e / per, r = e - s * per;
+                cp_async16(reinterpret_cast<float*>(dst + s * kMmaNT * 32 + r),
+                           reinterpret_cast<const float*>(
+                               W + ((size_t)(ks0 + s) * ntw + nt0) * 32 + r));
             }
-            cp_async_commit();
-        };
-        float acc[2][4][4];
+        }
+        cp_async_commit();
+    };
+    __syncthreads();  // nobody still reads ws or A (an earlier call)
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < kMmaStages - 1; ++i) stage(i);
+    stage_a();
+    float acc[8][4];
+    for (int i = 0; i < total; ++i) {
+        const int c = i % nchunks, nt0 = i / nchunks * kMmaNT;
+        // the pass's n-tiles over the two column groups, as evenly as they fall
+        const int nnt = min(kMmaNT, ntiles - nt0), base = nnt / 2, rem = nnt % 2;
+        const int my0 = ng * base + min(ng, rem), mine = base + (ng < rem ? 1 : 0);
+        cp_async_wait<kMmaStages - 2>();  // this thread's copies of step i have landed
+        // step i's chunk (and A) visible to every thread, and every thread is past step
+        // i - 1: its stage may be refilled
+        __syncthreads();
+        stage(i + kMmaStages - 1);
+        const float4* wc = ring + (i % kMmaStages) * kMmaStage4 + my0 * 32 + lane;
+        const int nks = min(kMmaKS, ksteps - c * kMmaKS);
+        if (c == 0) {
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
+            for (int j = 0; j < 8; ++j)
 #pragma unroll
-                for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-        __syncthreads();  // nobody still reads ws (an earlier pass or call); A is written
-        stage(0);
-        stage(1);
-        for (int c = 0; c < nk; ++c) {
-            cp_async_wait<1>();  // this thread's copies of chunk c have landed
-            // chunk c visible to every thread, and every thread is past chunk c - 1: its
-            // stage, (c + 2) % 3, may be refilled
-            __syncthreads();
-            stage(c + 2);
-            const float* wc = ws + (c % 3) * STAGE;
-            const int ksteps = min(kMmaKC, K - c * kMmaKC) / 8;
-            float part[2][4][4];
+                for (int r = 0; r < 4; ++r) acc[j][r] = 0.f;
+        }
+        float part[8][4];
 #pragma unroll
-            for (int i = 0; i < 2; ++i)
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-                for (int j = 0; j < 4; ++j)
+            for (int r = 0; r < 4; ++r) part[j][r] = 0.f;
 #pragma unroll
-                    for (int r = 0; r < 4; ++r) part[i][j][r] = 0.f;
-            for (int ks = 0; ks < ksteps; ++ks) {
-                FragA a[2];
+        for (int s = 0; s < kMmaKS; ++s) {
+            if (s >= nks) break;
+            FragA a;
+            const float4 v = a4[(c * kMmaKS + s) * 32];
+            a.set(0, v.x);
+            a.set(1, v.y);
+            a.set(2, v.z);
+            a.set(3, v.w);
+            // four n-tiles at a time: the three terms of every tile interleaved, the small
+            // ones first
 #pragma unroll
-                for (int i = 0; i < 2; ++i)
-                    load_a(a[i], A, lda, 32 * wm + 16 * i, c * kMmaKC + 8 * ks);
+            for (int j0 = 0; j0 < 8; j0 += 4) {
+                uint32_t bh[4][2], bl[4][2];
 #pragma unroll
                 for (int j = 0; j < 4; ++j) {
-                    const int nb = 32 * wn + 8 * j;
-                    if (nb < ncols) {
-                        FragB b;
-                        load_b_kn(b, wc, kMmaLdw, 8 * ks, nb);
-                        mma_f32x3(part[0][j], a[0], b);
-                        mma_f32x3(part[1][j], a[1], b);
-                    }
+                    const float4 b = j0 + j < mine ? wc[(s * kMmaNT + j0 + j) * 32]
+                                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+                    bh[j][0] = __float_as_uint(b.x);
+                    bh[j][1] = __float_as_uint(b.y);
+                    bl[j][0] = __float_as_uint(b.z);
+                    bl[j][1] = __float_as_uint(b.w);
                 }
-            }
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
 #pragma unroll
                 for (int j = 0; j < 4; ++j)
+                    if (j0 + j < mine) mma_tf32(part[j0 + j], a.lo, bh[j]);
 #pragma unroll
-                    for (int r = 0; r < 4; ++r) acc[i][j][r] += part[i][j][r];
+                for (int j = 0; j < 4; ++j)
+                    if (j0 + j < mine) mma_tf32(part[j0 + j], a.hi, bl[j]);
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    if (j0 + j < mine) mma_tf32(part[j0 + j], a.hi, bh[j]);
+            }
         }
-        cp_async_wait<0>();
-        __syncthreads();  // every thread is past its last read of A and of ws
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int nb = 32 * wn + 8 * j;
-                if (nb < ncols) {
-                    const int p = 32 * wm + 16 * i + g, n = n0 + nb + 2 * t;
-                    epi(p, n, acc[i][j][0]);
-                    epi(p, n + 1, acc[i][j][1]);
-                    epi(p + 8, n, acc[i][j][2]);
-                    epi(p + 8, n + 1, acc[i][j][3]);
-                }
+            for (int r = 0; r < 4; ++r) acc[j][r] += part[j][r];
+        if (c + 1 < nchunks) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+            if (j < mine) {
+                const int p = 16 * mg + g, n = 8 * (nt0 + my0 + j) + 2 * t;
+                epi(p, n, acc[j][0], acc[j][1]);
+                epi(p + 8, n, acc[j][2], acc[j][3]);
             }
     }
+    cp_async_wait<0>();
+    __syncthreads();  // every thread is past its last read of A and of ws
 }

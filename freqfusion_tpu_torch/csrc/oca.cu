@@ -1,4 +1,5 @@
-// HAT's overlapping cross-attention (OCAB), a hand-written f32 kernel for Hopper (sm_90a).
+// HAT's overlapping cross-attention (OCAB), f32-exact on Hopper's tensor cores (3xTF32,
+// mma_f32x3.cuh), hand-written for Hopper (sm_90a).
 //
 // Replaces the attention inside the TPU kernel
 // freqfusion_tpu/ops/pallas/wattn.py:fused_overlap_attention (B9); its output projection
@@ -9,35 +10,47 @@
 // and adds nothing to the sum, as zero-padding after the projection gives it. The plain
 // PyTorch version sits beside the wrapper in freqfusion_tpu_torch/ops/kernels/wattn.py.
 //
-// What bounds it on the H100. Per window and head 4 * nq * nk * hd FLOPs (17.7 M at
-// ws = 16, 576 keys, hd = 30) plus the softmax, for about 2 * nq * hd + 2 * nk * hd floats
-// (200 KB): far above the f32 ridge, bound by operations.
+// What bounds it on the H100. Per window and head 4 * nq * nk * hd FLOPs of products
+// (17.7 M at ws = 16, 576 keys, hd = 30; 74.7 GFLOP at [1,352,512,180], 4224 (window,
+// head) pairs) and nq * nk exponentials, for about 2 * nq * hd + 2 * nk * hd floats and the
+// bias row: bound by the products, 0.45 ms on the tensor cores' 165 TFLOP/s of f32-exact
+// products (1.1 ms all on the CUDA cores' 67). The bias [heads][nq][nk] (3.5 MB at HAT-L)
+// stays in L2; each block reads its head's 590 KB of it once.
 //
-// Design. The TPU kernel assembles each key window from nine half-window views in VMEM, for
-// all heads at once. Here one block of 16 warps owns one (window, head): the head's keys
-// [nk][33] and values [nk][32] are loaded into shared memory once (zeros outside the image;
-// 76 + 74 KB at 576 keys, so one block an SM, and 16 warps to keep it busy). A warp owns 4
-// query rows at a time, their scaled q in one register a row (lane d holds q[d]) broadcast
-// by shuffles. A lane scores keys lane, lane + 32, .. (18 of them at 576 keys), adds the
-// bias row from L2, and the warp takes the softmax over all keys at once. The probabilities
-// of the 4 rows then go through shared memory 192 keys at a time as [key][4] (3 KB a warp)
-// and lane d adds p * v[key][d] over them. 199 KB in all. The six heads of a window are
-// neighbouring blocks, so their keys come from L2.
+// Design: hab_attention.cu's loop (B8) with all of a window's keys.
+//   * One block of 16 warps owns one (window, head). The head's keys and values, zero-padded
+//     to 32 dims (and to a multiple of 32 keys), are staged in shared memory at a row stride
+//     of 36 floats (4 mod 8: the K fragments of QK^T and the V fragments of PV hit 32 banks):
+//     166 KB at 576 keys, so one block an SM, and 16 warps to fill it. A warp stages a key
+//     a step (lane d its dim d), so a head's odd start (head * 120 bytes) needs no alignment.
+//   * A warp owns 16 query rows (an m-tile) at a time. Its q fragments (4 k-steps over the
+//     32 padded dims), scaled by 1/sqrt(hd) as the plain version scales q, are read straight
+//     from device memory and split into TF32 hi and lo once, then kept in registers.
+//   * QK^T in 3xTF32 `mma.sync` over key chunks of 32 (four n-tiles, four k-steps), with an
+//     online softmax across the chunks (FlashAttention-2's loop): the chunk's bias, read in
+//     f32 from L2, is added before the max, keys past the last are -inf, exp is the exact
+//     expf. A thread holds 16 scores.
+//   * PV straight from the score registers, with no shuffle: the accumulator's c0/c1 hold
+//     keys 2t and 2t+1 of an n-tile where the A operand's a0/a2 hold k-positions t and t+4,
+//     so PV takes k-position t as key 2t and t+4 as key 2t+1, for P and for V's rows alike
+//     (a sum over keys does not care about their order). Each chunk's PV goes into a fresh
+//     register tile, added to the rescaled running sum in f32 (the tensor core's adds round
+//     toward zero; a short chain keeps that at f32 level).
+// The six heads of a window are neighbouring blocks, so their keys come from L2.
 //
 // Layout: q, k, v, out [B,H,W,C] NHWC f32 with C = heads * hd; bias [heads][nq][nk].
-// nq % 4 == 0, nk <= 576, hd <= 32, overlap even.
+// nq % 4 == 0, 32 <= nk <= 576, hd <= 32, overlap even.
 
 #include <cmath>
 
-#include "common.cuh"
+#include "mma_f32x3.cuh"
 
 namespace {
 
 constexpr int kOcaThreads = 512, kWarps = kOcaThreads / 32;
-constexpr int kMaxNK = 576, kKJ = kMaxNK / 32;  // keys per lane at most
-constexpr int kR = 4;                           // query rows a warp handles at a time
-constexpr int kLdK = 33, kLdV = 32;             // row strides of k and v in shared memory
-constexpr int kCJ = 6, kChunk = 32 * kCJ;       // keys whose probabilities are staged at once
+constexpr int kMaxNK = 576;
+constexpr int kSlot = 32, kLd = kSlot + 4;   // a key's padded dims, its row stride: 4 mod 8
+constexpr int kKeys = 32;                    // keys an online-softmax step
 
 __global__ void __launch_bounds__(kOcaThreads, 1)
 oca_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -45,11 +58,12 @@ oca_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 float* __restrict__ out, int H, int W, int C, int ws, int ows, int heads,
                 int hd, float scale) {
     extern __shared__ float4 smem4[];
-    const int nq = ws * ws, nk = ows * ows, pad = (ows - ws) / 2;
-    float* ks = reinterpret_cast<float*>(smem4);  // [nk][kLdK]
-    float* vs = ks + nk * kLdK;                    // [nk][kLdV]
-    float* pws = vs + nk * kLdV;                   // [warps][kChunk][kR] probabilities
+    const int nq = ws * ws, nk = ows * ows, nkp = (nk + kKeys - 1) / kKeys * kKeys;
+    const int pad = (ows - ws) / 2;
+    float* ks = reinterpret_cast<float*>(smem4);  // [nkp][kLd]
+    float* vs = ks + nkp * kLd;                    // [nkp][kLd]
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t = lane & 3;
     const int head = blockIdx.x % heads;
     int win = blockIdx.x / heads;
     const int n_wc = W / ws, n_wr = H / ws;
@@ -57,104 +71,145 @@ oca_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     win -= bi * n_wr * n_wc;
     const int wy = win / n_wc, wx = win % n_wc;
     const size_t img = (size_t)bi * H * W;
-    const int col = head * hd + lane;
+    const int col = head * hd;
 
-    for (int key = warp; key < nk; key += kWarps) {
+    for (int key = warp; key < nkp; key += kWarps) {
         const int yy = wy * ws - pad + key / ows, xx = wx * ws - pad + key % ows;
         float kv = 0.f, vv = 0.f;
-        if (lane < hd && yy >= 0 && yy < H && xx >= 0 && xx < W) {
-            const size_t o = (img + (size_t)yy * W + xx) * C + col;
+        if (key < nk && lane < hd && yy >= 0 && yy < H && xx >= 0 && xx < W) {
+            const size_t o = (img + (size_t)yy * W + xx) * C + col + lane;
             kv = k[o];
             vv = v[o];
         }
-        ks[key * kLdK + lane] = kv;
-        vs[key * kLdV + lane] = vv;
+        ks[key * kLd + lane] = kv;
+        vs[key * kLd + lane] = vv;
     }
     __syncthreads();
 
-    auto pixel = [&](int t) {  // query t of the window -> its pixel's offset in q and out
-        return (img + (size_t)(wy * ws + t / ws) * W + wx * ws + t % ws) * C;
+    auto pixel = [&](int r) {  // query r of the window -> its pixel's offset in q and out
+        return (img + (size_t)(wy * ws + r / ws) * W + wx * ws + r % ws) * C + col;
     };
-    const int nkj = (nk + 31) / 32;
     const float* bias_h = bias + (size_t)head * nq * nk;
-    float* pw = pws + warp * (kChunk * kR);
-    for (int i0 = warp * kR; i0 < nq; i0 += kWarps * kR) {
-        float s[kR][kKJ];
+    for (int i0 = 16 * warp; i0 < nq; i0 += 16 * kWarps) {
+        const int ra = i0 + g, rb = ra + 8;
+        const bool va = ra < nq, vb = rb < nq;
+        const size_t pa = pixel(va ? ra : 0), pb = pixel(vb ? rb : 0);
+        FragA qa[4];   // q of rows ra, rb over dims 8 kq + t, + 4; zero past hd and nq
 #pragma unroll
-        for (int r = 0; r < kR; ++r)
-#pragma unroll
-            for (int j = 0; j < kKJ; ++j) s[r][j] = 0.f;
-        float qreg[kR];  // lane d holds the scaled q[row][d]
-#pragma unroll
-        for (int r = 0; r < kR; ++r)
-            qreg[r] = lane < hd ? q[pixel(i0 + r) + col] * scale : 0.f;
-        for (int d = 0; d < hd; ++d) {
-            float qv[kR];
-#pragma unroll
-            for (int r = 0; r < kR; ++r) qv[r] = __shfl_sync(0xffffffffu, qreg[r], d);
-#pragma unroll
-            for (int j = 0; j < kKJ; ++j)
-                if (j < nkj) {
-                    // past the last key: any key's value, dropped below
-                    const float kv = ks[min(lane + 32 * j, nk - 1) * kLdK + d];
-#pragma unroll
-                    for (int r = 0; r < kR; ++r) s[r][j] = fmaf(qv[r], kv, s[r][j]);
-                }
+        for (int kq = 0; kq < 4; ++kq) {
+            const int d0 = 8 * kq + t, d1 = d0 + 4;
+            qa[kq].set(0, va && d0 < hd ? q[pa + d0] * scale : 0.f);
+            qa[kq].set(1, vb && d0 < hd ? q[pb + d0] * scale : 0.f);
+            qa[kq].set(2, va && d1 < hd ? q[pa + d1] * scale : 0.f);
+            qa[kq].set(3, vb && d1 < hd ? q[pb + d1] * scale : 0.f);
         }
-        float inv[kR];
+        // bias rows of ra and rb (a row past nq reads row 0's; its result is dropped)
+        const float* ba_row = bias_h + (size_t)(va ? ra : 0) * nk;
+        const float* bb_row = bias_h + (size_t)(vb ? rb : 0) * nk;
+        float o[4][4];
 #pragma unroll
-        for (int r = 0; r < kR; ++r) {
-            const size_t row = (size_t)(i0 + r) * nk;
-            float m = -INFINITY;
+        for (int n = 0; n < 4; ++n)
 #pragma unroll
-            for (int j = 0; j < kKJ; ++j)
-                if (j < nkj) {
-                    const int key = lane + 32 * j;
-                    const float t = key < nk ? s[r][j] + bias_h[row + key] : -INFINITY;
-                    s[r][j] = t;
-                    m = fmaxf(m, t);
+            for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+        float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+        for (int kc0 = 0; kc0 < nk; kc0 += kKeys) {
+            float s[kKeys / 8][4];
+#pragma unroll
+            for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+            for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+                for (int j = 0; j < kKeys / 8; ++j) {
+                    FragB b;
+                    load_b_nk(b, ks, kLd, 8 * kq, kc0 + 8 * j);
+                    mma_f32x3(s[j], qa[kq], b);
                 }
+            float c0 = -INFINITY, c1 = -INFINITY;
 #pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-                m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-            float sum = 0.f;
-#pragma unroll
-            for (int j = 0; j < kKJ; ++j)
-                if (j < nkj) {
-                    const float e = expf(s[r][j] - m);  // exp(-inf) = 0 past the last key
-                    s[r][j] = e;
-                    sum += e;
+            for (int j = 0; j < kKeys / 8; ++j) {
+                const int key = kc0 + 8 * j + 2 * t;   // even, and nk is even
+                if (key < nk) {
+                    const float2 ba = *reinterpret_cast<const float2*>(ba_row + key);
+                    const float2 bb = *reinterpret_cast<const float2*>(bb_row + key);
+                    s[j][0] += ba.x;
+                    s[j][1] += ba.y;
+                    s[j][2] += bb.x;
+                    s[j][3] += bb.y;
+                } else {
+                    s[j][0] = s[j][1] = s[j][2] = s[j][3] = -INFINITY;
                 }
-            inv[r] = 1.f / warp_sum(sum);
-        }
-        float o[kR] = {0.f, 0.f, 0.f, 0.f};
+                c0 = fmaxf(c0, fmaxf(s[j][0], s[j][1]));
+                c1 = fmaxf(c1, fmaxf(s[j][2], s[j][3]));
+            }
 #pragma unroll
-        for (int c = 0; c < kKJ / kCJ; ++c) {
-            const int key0 = c * kChunk;
-            if (key0 < nk) {
-                __syncwarp();  // the previous chunk's readers of pw are done
+            for (int off = 1; off < 4; off <<= 1) {  // the 4 lanes of a row
+                c0 = fmaxf(c0, __shfl_xor_sync(0xffffffffu, c0, off));
+                c1 = fmaxf(c1, __shfl_xor_sync(0xffffffffu, c1, off));
+            }
+            const float n0 = fmaxf(m0, c0), n1 = fmaxf(m1, c1);
+            const float al0 = expf(m0 - n0), al1 = expf(m1 - n1);  // 0 at the first chunk
+            m0 = n0;
+            m1 = n1;
+            l0 *= al0;
+            l1 *= al1;
 #pragma unroll
-                for (int j = 0; j < kCJ; ++j)
-                    *reinterpret_cast<float4*>(pw + (lane + 32 * j) * kR) = make_float4(
-                        s[0][c * kCJ + j], s[1][c * kCJ + j], s[2][c * kCJ + j],
-                        s[3][c * kCJ + j]);   // zeros past the last key
-                __syncwarp();
-                const int nkey = min(kChunk, nk - key0);
-                const float* vc = vs + key0 * kLdV + lane;
-                for (int key = 0; key < nkey; ++key) {
-                    const float4 p = *reinterpret_cast<const float4*>(pw + key * kR);
-                    const float vv = vc[key * kLdV];
-                    o[0] = fmaf(p.x, vv, o[0]);
-                    o[1] = fmaf(p.y, vv, o[1]);
-                    o[2] = fmaf(p.z, vv, o[2]);
-                    o[3] = fmaf(p.w, vv, o[3]);
+            for (int j = 0; j < kKeys / 8; ++j) {
+                s[j][0] = expf(s[j][0] - n0);   // 0 past the last key
+                s[j][1] = expf(s[j][1] - n0);
+                s[j][2] = expf(s[j][2] - n1);
+                s[j][3] = expf(s[j][3] - n1);
+                l0 += s[j][0] + s[j][1];
+                l1 += s[j][2] + s[j][3];
+            }
+            // P V, k-step j over keys kc0 + 8 j ..: k-position t is key 2t, t + 4 is 2t + 1;
+            // the chunk's sum in a fresh tile, added to the rescaled running one in f32
+            float pv[4][4];
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+            for (int j = 0; j < kKeys / 8; ++j) {
+                FragA p;
+                p.set(0, s[j][0]);
+                p.set(1, s[j][2]);
+                p.set(2, s[j][1]);
+                p.set(3, s[j][3]);
+                const float* v0 = vs + (size_t)(kc0 + 8 * j + 2 * t) * kLd + g;
+#pragma unroll
+                for (int n = 0; n < 4; ++n) {
+                    FragB b;
+                    b.set(0, v0[8 * n]);
+                    b.set(1, v0[kLd + 8 * n]);
+                    mma_f32x3(pv[n], p, b);
                 }
             }
-        }
-        if (lane < hd) {
 #pragma unroll
-            for (int r = 0; r < kR; ++r) out[pixel(i0 + r) + col] = o[r] * inv[r];
+            for (int n = 0; n < 4; ++n) {
+                o[n][0] = fmaf(o[n][0], al0, pv[n][0]);
+                o[n][1] = fmaf(o[n][1], al0, pv[n][1]);
+                o[n][2] = fmaf(o[n][2], al1, pv[n][2]);
+                o[n][3] = fmaf(o[n][3], al1, pv[n][3]);
+            }
         }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+            l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+            l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+        }
+        const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int d = 8 * n + 2 * t + e;
+                if (d < hd) {
+                    if (va) out[pa + d] = o[n][e] * inv0;
+                    if (vb) out[pb + d] = o[n][2 + e] * inv1;
+                }
+            }
     }
 }
 
@@ -165,13 +220,11 @@ extern "C" int oca_attention(const float* q, const float* k, const float* v,
                              int ows, int heads, int hd, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int nq = ws * ws, nk = ows * ows;
-    if (ws < 1 || ows < ws || (ows - ws) % 2 || nq % kR || nk > kMaxNK || nk < 32 || hd < 1 ||
-        hd > 32 || heads * hd != C || H % ws || W % ws)
+    if (ws < 1 || ows < ws || (ows - ws) % 2 || nq % 4 || nk % 2 || nk > kMaxNK || nk < 32 ||
+        hd < 1 || hd > kSlot || heads * hd != C || H % ws || W % ws)
         return cudaErrorInvalidValue;
-    static_assert(kR == 4, "the probabilities are stored as one float4 per key");
-    static_assert(kKJ % kCJ == 0, "whole chunks of probabilities");
-    const size_t smem =
-        (size_t)(nk * (kLdK + kLdV) + kWarps * kChunk * kR) * sizeof(float);
+    const int nkp = (nk + kKeys - 1) / kKeys * kKeys;
+    const size_t smem = (size_t)(2 * nkp * kLd) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
         oca_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;

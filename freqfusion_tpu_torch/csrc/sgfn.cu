@@ -1,5 +1,5 @@
-// The fused DAT block tail (residual + LayerNorm + Spatial-Gate FFN) as two hand-written
-// f32 kernels for Hopper (sm_90a).
+// The fused DAT block tail (residual + LayerNorm + Spatial-Gate FFN), f32-exact on Hopper's
+// tensor cores (3xTF32, mma_f32x3.cuh; sm_90a), in two launches.
 //
 // Replaces the TPU kernel freqfusion_tpu/ops/pallas/sgfn.py:fused_sgfn_tail (B6):
 //     y = a + shortcut
@@ -8,162 +8,136 @@
 // The plain PyTorch version sits beside the wrapper in
 // freqfusion_tpu_torch/ops/kernels/sgfn.py.
 //
-// What bounds it on the H100. Per pixel 2*(C*hid + hid/2*C) FLOPs (389 k at C = 180,
-// hid = 720) for 12*C bytes of a, shortcut and out (2.2 KB): 180 FLOP per byte, far above
-// the f32 CUDA-core ridge (20), so it is bound by operations, the two products.
+// What bounds it on the H100. Per pixel 2*(C*hid + hid/2*C) FLOPs of products (389 k at
+// C = 180, hid = 720: 70.1 GFLOP at [1,352,512,180]) and about 19 k of the rest (LNs, GELU,
+// the depthwise conv and the gate) for 12*C bytes of a, shortcut and out: the products bound
+// it, at 0.43 ms on the tensor cores' 165 TFLOP/s of f32-exact products (1.10 ms all on the
+// CUDA cores' 67); the bytes take 0.12 ms, and the hidden's round trip through device memory
+// (below) about 0.3 ms more.
 //
-// Why two kernels. The TPU kernel keeps a whole row strip with its halo in VMEM. Here the
-// sg LayerNorm needs all hid/2 channels of a halo pixel before the depthwise conv can
-// start: a 4 x 16 tile with its 6 x 18 halo would hold 108 x 360 floats of x2 (155 KB) and
-// 64 x 360 of x1 (92 KB), more than the 227 KB a block may use. This first version splits
-// at the only spatial step instead:
-//   1. sgfn_fc1_kernel, pointwise, 64 pixels a block: LN(a + shortcut) in shared memory,
-//      fc1 through tile_matmul's paired pass (x1 and x2 columns of one channel land in
-//      one thread), GELU, x1 to device memory; GELU(x2) to device memory, and after a
-//      barrier each warp normalises its pixels' rows there in place (LN_sg).
-//   2. sgfn_gate_fc2_kernel, a 4 x 16 tile a block: gate = x1 * (dw3x3(LN_sg(x2)) + bdw)
-//      into shared memory, zeros outside the image as the conv's SAME padding (of
-//      LN_sg(x2), not of x2 or y: LN(0) * w + b != 0), fc2 through tile_matmul, and the
-//      residual y = a + shortcut recomputed in the epilogue.
-// No halo of fc1 is recomputed; the price is device-memory traffic: x1 and LN_sg(x2) are
-// written and read once each, 4 * hid/2 * 4 bytes a pixel (5.8 KB at hid = 720) on top of
-// the 2.2 KB + 1.4 KB (a and shortcut read twice) the function itself needs.
+// Design. The TPU kernel keeps a whole row strip with its halo in VMEM. Here the sg
+// LayerNorm needs all hid/2 channels of a halo pixel before the depthwise conv can start,
+// more than a block's shared memory holds for a tile with its halo, so the function is
+// split at its only spatial step:
+//   1. fc1 is the row product of csrc/hat_rows.cu (rows_ln_fc1, the fc1 mode that B8's tail
+//      and B10 use): y = a + shortcut parked in out, LN(y) staged in shared memory,
+//      GELU(LN(y) @ w1 + b1) on tile_mma into the hidden [pixels][hid], then each warp
+//      normalises its rows' second half in place (LN_sg).
+//   2. sgfn_gate_fc2_kernel (this file): a block of 16 warps owns an 8 x 16 tile of
+//      pixels; it computes gate = x1 * (dw3x3(LN_sg(x2)) + bdw) into tile_mma's A rows in
+//      shared memory, reading the 3x3 halo of LN_sg(x2) from device memory (L2: the
+//      neighbouring tiles read the same rows), zeros outside the image as the conv's SAME
+//      padding (of LN_sg(x2), not of x2 or y: LN(0) * w + b != 0); then fc2 on tile_mma
+//      with K = hid/2 taken in pieces (tile_mma_piece: 184 + 176 at 360, 94 KB of A with
+//      128 KB of weight ring, one block an SM), the epilogue adding b2 to the parked y.
+// Both products run on tile_mma: the weights are split into TF32 hi and lo parts on the host
+// (ops/kernels/_mma.py), so only the activations are split in the kernel. The price of the
+// split at the conv is device-memory traffic: the hidden is written and read once (plus
+// LN_sg's pass over its second half), about 5.8 KB a pixel at hid = 720.
 //
-// DAT's widths (180, 360) fit neither K % 16 nor N % 64 of tile_matmul: the wrapper
-// zero-pads w1 to [Kp][2*Hp] (each half on its own) and w2 to [K2p][Np] once, the kernels
-// zero-fill the padded columns of their tiles and store only real columns.
+// Widths are padded to multiples of 8, the MMA's k and n (C = 180 -> 184; hid/2 = 360
+// stays): the wrapper zero-pads the weights, the kernel zero-fills the padded columns of its
+// tile and stores only real columns.
 //
-// Layout: NHWC, f32, contiguous; C % 4 == 0, hid/2 % 4 == 0. wdw [9][hid/2].
+// Layout: NHWC, f32, contiguous; C % 4 == 0, hid/2 % 4 == 0; hid [B,H,W,hid] = x1 | x2n;
+// wdw [9][hid/2].
 
-#include "common.cuh"
+#include "mma_f32x3.cuh"
 
 namespace {
 
-constexpr int kP = 64, kTM = kP / 16;   // pixels per block in both kernels
-constexpr int kTH = 4, kTW = 16;        // the second kernel's tile
-constexpr float kEps = 1e-5f;
+constexpr int kTH = 8, kTW = 16;   // a block's tile: kMmaRows pixels
+static_assert(kTH * kTW == kMmaRows, "one tile_mma row a pixel");
 
-__global__ void __launch_bounds__(kThreads)
-sgfn_fc1_kernel(const float* __restrict__ a, const float* __restrict__ sc,
-                const float* __restrict__ lnw, const float* __restrict__ lnb,
-                const float* __restrict__ w1, const float* __restrict__ b1,
-                const float* __restrict__ sgw, const float* __restrict__ sgb,
-                float* __restrict__ x1, float* x2n, long long npix, int C, int half, int Kp,
-                int Hp) {
+__global__ void __launch_bounds__(kMmaThreads, 1)
+sgfn_gate_fc2_kernel(const float* __restrict__ hid, const float* __restrict__ wdw,
+                     const float* __restrict__ bdw, const float4* __restrict__ w2,
+                     const float* __restrict__ b2, float* __restrict__ out, int H, int W, int C,
+                     int half, int K2p, int Np) {
     extern __shared__ float4 smem4[];
-    const int lda = Kp + 4;
-    float* A = reinterpret_cast<float*>(smem4);  // [kP][lda] LN(a + shortcut)
-    float* ws = A + kP * lda;                     // tile_matmul's weight stage
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const long long p0 = (long long)blockIdx.x * kP;
-
-    for (int p = warp; p < kP; p += kThreads / 32) {
-        const long long gp = p0 + p;
-        float* row = A + p * lda;
-        if (gp < npix) {
-            for (int c = lane; c < C; c += 32) row[c] = a[gp * C + c] + sc[gp * C + c];
-            // each lane normalises the entries it wrote itself
-            warp_layernorm(row, row, lnw, lnb, C, kEps);
-            for (int c = C + lane; c < Kp; c += 32) row[c] = 0.f;
-        } else {
-            for (int c = lane; c < Kp; c += 32) row[c] = 0.f;
-        }
-    }
-    // tile_matmul synchronises before it reads A
-    tile_matmul<kTM, true>(A, lda, Kp, w1, 2 * Hp, Hp, Hp, ws,
-                           [&](int p, int n, float u, float v) {
-                               const long long gp = p0 + p;
-                               if (gp < npix && n < half) {
-                                   x1[gp * half + n] = gelu_erf(u + b1[n]);
-                                   x2n[gp * half + n] = gelu_erf(v + b1[Hp + n]);
-                               }
-                           });
-    __syncthreads();  // the block's GELU(x2) rows are in device memory
-    for (int p = warp; p < kP; p += kThreads / 32)
-        if (p0 + p < npix)
-            warp_layernorm(x2n + (p0 + p) * half, x2n + (p0 + p) * half, sgw, sgb, half, kEps);
-}
-
-__global__ void __launch_bounds__(kThreads)
-sgfn_gate_fc2_kernel(const float* __restrict__ a, const float* __restrict__ sc,
-                     const float* __restrict__ x1, const float* __restrict__ x2n,
-                     const float* __restrict__ wdw, const float* __restrict__ bdw,
-                     const float* __restrict__ w2, const float* __restrict__ b2,
-                     float* __restrict__ out, int H, int W, int C, int half, int K2p, int Np) {
-    extern __shared__ float4 smem4[];
-    const int lda = K2p + 4;
-    float* G = reinterpret_cast<float*>(smem4);  // [kP][lda] the gated hidden
-    float* ws = G + kP * lda;
+    const int Kt = tile_mma_piece(K2p);
+    float* G = reinterpret_cast<float*>(smem4);  // [kMmaRows x Kt] the gate, A-fragment order
+    float* ws = G + kMmaRows * Kt;                // tile_mma's weight ring
     const int tid = threadIdx.x;
     const int bi = blockIdx.z, ty0 = blockIdx.y * kTH, tx0 = blockIdx.x * kTW;
     const size_t img = (size_t)bi * H * W;
-    const int q4 = K2p / 4;
-    for (int e = tid; e < kP * q4; e += kThreads) {
-        const int p = e / q4, c = (e % q4) * 4;
-        const int y = ty0 + p / kTW, x = tx0 + p % kTW;
-        float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (y < H && x < W && c < half) {
-            float4 acc = *reinterpret_cast<const float4*>(bdw + c);
+    const int hw = 2 * half;   // floats of a hidden row
+    const float* x2n = hid + half;
+    for (int k0 = 0; k0 < K2p; k0 += Kt) {
+        const int kh = min(Kt, K2p - k0), ks = kh / 8, q4 = kh / 4;
+        // the gate, written once every thread is past the previous piece's reads of G
+        auto stage_g = [&] {
+#pragma unroll 2
+            for (int e = tid; e < kMmaRows * q4; e += kMmaThreads) {
+                const int p = e / q4, c = k0 + (e % q4) * 4;
+                const int y = ty0 + p / kTW, x = tx0 + p % kTW;
+                float4 gt = make_float4(0.f, 0.f, 0.f, 0.f);
+                if (y < H && x < W && c < half) {
+                    float4 acc = *reinterpret_cast<const float4*>(bdw + c);
 #pragma unroll
-            for (int dy = 0; dy < 3; ++dy) {
-                const int yy = y + dy - 1;
-                if (yy < 0 || yy >= H) continue;
+                    for (int dy = 0; dy < 3; ++dy) {
+                        const int yy = y + dy - 1;
+                        if (yy < 0 || yy >= H) continue;
 #pragma unroll
-                for (int dx = 0; dx < 3; ++dx) {
-                    const int xx = x + dx - 1;
-                    if (xx < 0 || xx >= W) continue;
-                    const float4 t = *reinterpret_cast<const float4*>(
-                        x2n + (img + (size_t)yy * W + xx) * half + c);
-                    const float4 w =
-                        *reinterpret_cast<const float4*>(wdw + (dy * 3 + dx) * half + c);
-                    acc.x = fmaf(t.x, w.x, acc.x);
-                    acc.y = fmaf(t.y, w.y, acc.y);
-                    acc.z = fmaf(t.z, w.z, acc.z);
-                    acc.w = fmaf(t.w, w.w, acc.w);
+                        for (int dx = 0; dx < 3; ++dx) {
+                            const int xx = x + dx - 1;
+                            if (xx < 0 || xx >= W) continue;
+                            const float4 t = *reinterpret_cast<const float4*>(
+                                x2n + (img + (size_t)yy * W + xx) * hw + c);
+                            const float4 w = *reinterpret_cast<const float4*>(
+                                wdw + (dy * 3 + dx) * half + c);
+                            acc.x = fmaf(t.x, w.x, acc.x);
+                            acc.y = fmaf(t.y, w.y, acc.y);
+                            acc.z = fmaf(t.z, w.z, acc.z);
+                            acc.w = fmaf(t.w, w.w, acc.w);
+                        }
+                    }
+                    const float4 u = *reinterpret_cast<const float4*>(
+                        hid + (img + (size_t)y * W + x) * hw + c);
+                    gt = make_float4(u.x * acc.x, u.y * acc.y, u.z * acc.z, u.w * acc.w);
                 }
+                // c + 1 .. c + 3 sit 4 floats apart
+                const int i = a_frag_index(p, c - k0, ks);
+                G[i] = gt.x;
+                G[i + 4] = gt.y;
+                G[i + 8] = gt.z;
+                G[i + 12] = gt.w;
             }
-            const float4 u =
-                *reinterpret_cast<const float4*>(x1 + (img + (size_t)y * W + x) * half + c);
-            g = make_float4(u.x * acc.x, u.y * acc.y, u.z * acc.z, u.w * acc.w);
-        }
-        *reinterpret_cast<float4*>(G + p * lda + c) = g;
+        };
+        const bool first = k0 == 0;
+        tile_mma(G, kh, w2 + (size_t)(k0 / 8) * (Np / 8) * 32, Np / 8, Np, ws, stage_g,
+                 [&](int p, int n, float u0, float u1) {   // columns n, n + 1 (n even)
+                     const int y = ty0 + p / kTW, x = tx0 + p % kTW;
+                     // out holds y, then y + the earlier pieces
+                     if (y < H && x < W && n < C) {
+                         float2* o = reinterpret_cast<float2*>(
+                             out + (img + (size_t)y * W + x) * C + n);
+                         const float2 v = *o;
+                         *o = first ? make_float2(v.x + (u0 + b2[n]), v.y + (u1 + b2[n + 1]))
+                                    : make_float2(v.x + u0, v.y + u1);
+                     }
+                 });
     }
-    // tile_matmul synchronises before it reads G
-    tile_matmul<kTM, false>(G, lda, K2p, w2, Np, Np, 0, ws, [&](int p, int n, float u, float) {
-        const int y = ty0 + p / kTW, x = tx0 + p % kTW;
-        if (y < H && x < W && n < C) {
-            const size_t o = (img + (size_t)y * W + x) * C + n;
-            out[o] = a[o] + sc[o] + u + b2[n];
-        }
-    });
 }
 
 }  // namespace
 
-extern "C" int sgfn_tail(const float* a, const float* sc, const float* lnw, const float* lnb,
-                         const float* w1, const float* b1, const float* sgw, const float* sgb,
-                         const float* wdw, const float* bdw, const float* w2, const float* b2,
-                         float* x1, float* x2n, float* out, int B, int H, int W, int C,
-                         int half, int Kp, int Hp, int K2p, int Np, void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (C % 4 || half % 4 || Kp % kKC || Hp % 64 || K2p % kKC || Np % 64 || Kp < C ||
-        Hp < half || K2p < half || Np < C)
+// out = y + (x1 * (dw3x3(x2n) + bdw)) @ w2 + b2, with y in out (rows_ln_fc1 parked it
+// there), x1 | x2n = hid [B,H,W,2*half] and w2 = mma_planes of [K2p][Np].
+extern "C" int sgfn_gate_fc2(const float* hid, const float* wdw, const float* bdw,
+                             const float* w2, const float* b2, float* out, int B, int H, int W,
+                             int C, int half, int K2p, int Np, void* stream) {
+    if (C % 4 || half % 4 || K2p % 8 || Np % 8 || K2p < half || Np < C || B < 1 || H < 1 ||
+        W < 1)
         return cudaErrorInvalidValue;
-    const size_t smem1 = (size_t)(kP * (Kp + 4) + tile_matmul_ws(true)) * sizeof(float);
+    const size_t smem =
+        (size_t)(kMmaRows * tile_mma_piece(K2p) + tile_mma_ws()) * sizeof(float);
+    if (smem > 227 * 1024) return cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
-        sgfn_fc1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
-    if (err != cudaSuccess) return err;
-    const long long npix = (long long)B * H * W;
-    sgfn_fc1_kernel<<<(unsigned)((npix + kP - 1) / kP), kThreads, smem1, st>>>(
-        a, sc, lnw, lnb, w1, b1, sgw, sgb, x1, x2n, npix, C, half, Kp, Hp);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    const size_t smem2 = (size_t)(kP * (K2p + 4) + tile_matmul_ws(false)) * sizeof(float);
-    err = cudaFuncSetAttribute(sgfn_gate_fc2_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
+        sgfn_gate_fc2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B);
-    sgfn_gate_fc2_kernel<<<grid, kThreads, smem2, st>>>(a, sc, x1, x2n, wdw, bdw, w2, b2, out,
-                                                        H, W, C, half, K2p, Np);
+    sgfn_gate_fc2_kernel<<<grid, kMmaThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        hid, wdw, bdw, reinterpret_cast<const float4*>(w2), b2, out, H, W, C, half, K2p, Np);
     return cudaGetLastError();
 }

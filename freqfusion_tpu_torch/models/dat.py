@@ -41,7 +41,7 @@ from ..ops.kernels.wattn import (fused_window_attention_qkv,
                                  fused_window_attention_xqkv,
                                  fused_window_attention_xqkv_plain)
 from .layers import (BatchNorm2d, SeamConv, conv_nhwc as _conv_nhwc, gelu, hwio as _hwio,
-                     linear_io as _io)
+                     linear_io as _io, linear_io_view)
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
 
@@ -274,8 +274,9 @@ class SGFN(nn.Module):
 
     def raw(self):
         """(w1, b1, sg_w, sg_b, wdw, bdw, w2, b2) in the layouts of ops/kernels/sgfn.py."""
-        return (_io(self.fc1), self.fc1.bias, self.sg.norm.weight, self.sg.norm.bias,
-                _hwio(self.sg.conv), self.sg.conv.bias, _io(self.fc2), self.fc2.bias)
+        return (linear_io_view(self.fc1), self.fc1.bias, self.sg.norm.weight,
+                self.sg.norm.bias, _hwio(self.sg.conv), self.sg.conv.bias,
+                linear_io_view(self.fc2), self.fc2.bias)
 
 
 class DATB(nn.Module):

@@ -40,7 +40,7 @@ from ..ops.kernels.wattn import (fused_hab_block, fused_hab_block_plain,
                                  fused_residual_ln_mlp, fused_residual_ln_mlp_plain,
                                  fused_window_attention, fused_window_attention_plain)
 from .layers import (SeamConv, conv_nhwc as _conv_nhwc, gelu, hwio as _hwio,
-                     linear_io as _io)
+                     linear_io_view as _io)
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
 

@@ -29,6 +29,12 @@ def linear_io(lin: nn.Linear) -> torch.Tensor:
     return lin.weight.t().contiguous()
 
 
+def linear_io_view(lin: nn.Linear) -> torch.Tensor:
+    """``linear_io`` as a view of the weight, for the wrappers that lay a weight out once and
+    keep it beside the parameter (the row products: ops/kernels/_mma.py's ``planes``)."""
+    return lin.weight.t()
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d (the reference's state-dict keys, `num_batches_tracked` included)
     that the port only ever uses in eval mode, as a fixed per-channel affine of its

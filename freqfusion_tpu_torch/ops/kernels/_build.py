@@ -41,7 +41,8 @@ SIGNATURES = {
     "aim_conv_branch": [_P] * 8 + [_I] * 4 + [_P],
     "aim_conv_branch_blocks": [_I, _I],
     "aim_gates_proj": [_P] * 12 + [_I] * 8 + [_P],
-    "sgfn_tail": [_P] * 15 + [_I] * 9 + [_P],
+    "rows_ln_fc1": [_P] * 10 + [_L] + [_I] * 4 + [_P],
+    "sgfn_gate_fc2": [_P] * 6 + [_I] * 7 + [_P],
     "cab_chain": [_P] * 11 + [_I] * 9 + [_P],
     "cab_chain_blocks": [_I, _I],
     "hab_attention": [_P] * 8 + [_I] * 9 + [_P],
@@ -153,15 +154,16 @@ def require_no_grad(name: str, *tensors: torch.Tensor) -> None:
                            "torch.no_grad() or torch.inference_mode()")
 
 
-def require(t: torch.Tensor, name: str, shape=None) -> None:
-    """Checks what every kernel takes: a contiguous float32 CUDA tensor of `shape`."""
+def require(t: torch.Tensor, name: str, shape=None, contiguous: bool = True) -> None:
+    """Checks what every kernel takes: a contiguous float32 CUDA tensor of `shape`.
+    ``contiguous=False`` for a weight that the wrapper lays out anew, which may be a view."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != torch.float32:
         raise ValueError(f"{name}: expected float32, got {t.dtype}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
-    if t.data_ptr() % 16:
+    if contiguous and t.data_ptr() % 16:
         raise ValueError(f"{name}: expected a 16-byte aligned tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")

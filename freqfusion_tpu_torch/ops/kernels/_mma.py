@@ -1,0 +1,97 @@
+"""Weights for the f32-exact tensor-core row product (``csrc/mma_f32x3.cuh``: ``tile_mma``),
+split and laid out once on the host.
+
+``tile_mma`` multiplies in 3xTF32: each f32 operand x is taken as hi + lo, hi its TF32
+rounding (to nearest, ties away from zero) and lo the remainder, and three TF32 products
+(lo*hi, hi*lo, hi*hi) are added. The activations are split in the kernel; the weights come
+split from here, so that the kernel loads their two parts and splits nothing:
+
+* ``split_tf32(w)`` gives ``(w_hi, w_lo)`` with ``w_hi + w_lo == w`` bit for bit, by integer
+  ops on the f32 bits as the kernel's ``split_tf32`` does: ``(bits + 0x1000) & 0xffffe000``;
+* ``mma_planes(wp)`` takes the weight matrix [kp,npad], already zero-padded to multiples of
+  8 (the MMA's k and n), and lays both parts out in the order of ``mma.sync.m16n8k8``'s B
+  fragments: [kp/8 k-steps][npad/8 n-tiles][32 lanes][4], lane 4g + t holding
+  (hi[t][g], hi[t+4][g], lo[t][g], lo[t+4][g]) of its 8x8 tile, so that a lane reads its
+  whole fragment as one 16-byte load. lo is stored with half a TF32 ulp added to its bits,
+  as the kernel's split stores it: the MMA reads an operand's top 19 bits, so it then takes
+  lo rounded to nearest;
+* ``planes(w, kp, npad)`` is what the wrappers call: ``mma_planes`` of w [K,N] zero-padded
+  to [kp,npad] (``padded``), made once for each weight and kept beside it (see its
+  docstring), so that a forward does not split and re-lay its constant weights on every
+  call.
+
+``MAX_ROW_K`` is the widest row that the LayerNorm and projection modes of
+``csrc/hat_rows.cu`` stage whole: ``kMmaMaxK`` of ``csrc/mma_f32x3.cuh``, what 128 rows of A
+leave of a block's shared memory beside the weight ring. The wrappers of B6, B8 and B10
+refuse a wider C.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.utils.weak import WeakTensorKeyDictionary
+
+_HALF_ULP = 0x1000
+_TF32_MASK = -0x2000   # 0xffffe000 as an int32
+MAX_ROW_K = 192
+
+
+def split_tf32(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(w_hi, w_lo) of a float32 tensor: w_hi = TF32(w), rounded to nearest with ties away
+    from zero, w_lo = w - w_hi (exact)."""
+    if w.dtype != torch.float32:
+        raise ValueError(f"split_tf32: expected float32, got {w.dtype}")
+    hi = ((w.contiguous().view(torch.int32) + _HALF_ULP) & _TF32_MASK).view(torch.float32)
+    return hi, w - hi
+
+
+def padded(w: torch.Tensor, kp: int, npad: int) -> torch.Tensor:
+    """w [K,N] zero-padded to [kp,npad]: the row products take K and N in multiples of 8
+    (180 -> 184), and padded zeros change no product."""
+    return F.pad(w, (0, npad - w.shape[1], 0, kp - w.shape[0]))
+
+
+def mma_planes(wp: torch.Tensor) -> torch.Tensor:
+    """wp [kp,npad] (multiples of 8) split into the B fragments of tile_mma:
+    [kp/8, npad/8, 32, 4] float32 (see the module's docstring)."""
+    kp, npad = wp.shape
+    if kp % 8 or npad % 8:
+        raise ValueError(f"mma_planes: [{kp},{npad}] is not padded to multiples of 8")
+    hi, lo = split_tf32(wp)
+    lo = (lo.view(torch.int32) + _HALF_ULP).view(torch.float32)
+
+    def frag(t):  # [kp,npad] -> [kp/8, npad/8, 32 = 4 g + t, 2 = rows t, t + 4]
+        return t.reshape(kp // 8, 2, 4, npad // 8, 8).permute(0, 3, 4, 2, 1).reshape(
+            kp // 8, npad // 8, 32, 2)
+
+    return torch.cat([frag(hi), frag(lo)], dim=-1).contiguous()
+
+
+
+#: The planes made so far, on the tensor that owns each weight's memory.
+_PLANES = WeakTensorKeyDictionary()
+
+
+def planes(w: torch.Tensor, kp: int, npad: int) -> torch.Tensor:
+    """``mma_planes`` of w [K,N] zero-padded to [kp,npad], made once for each weight.
+
+    The planes are kept on the tensor that owns w's memory (w itself, or the base of the
+    view that w is, such as ``linear.weight.t()``) and go when it goes. They are made anew
+    when that tensor changes in place (its version counter), when w views it another way,
+    or when its memory moves (``module.to``). An inference tensor counts no versions: its
+    planes are made on every call."""
+    def make():
+        return mma_planes(padded(w, kp, npad))
+
+    if w.is_inference():
+        return make()
+    root = w if w._base is None else w._base
+    key = (tuple(w.shape), w.stride(), w.data_ptr(), w.device, kp, npad)
+    kept = _PLANES.get(root)
+    if kept is None:
+        kept = _PLANES[root] = {}
+    hit = kept.get(key)
+    if hit is None or hit[0] != w._version:
+        hit = kept[key] = (w._version, make())
+    return hit[1]

@@ -7,8 +7,9 @@ Twin of ``freqfusion_tpu/ops/pallas/sgfn.py:fused_sgfn_tail``:
     [x1, x2] = split(GELU(LN(y) @ w1 + b1))          hidden -> two halves
     out = y + (x1 * dwconv3x3(LN_sg(x2))) @ w2 + b2
 
-On a CUDA tensor the wrapper launches the kernels from ``csrc/sgfn.cu`` or raises; on a CPU
-tensor it runs the plain PyTorch version. Parameters come in the JAX package's layouts:
+On a CUDA tensor the wrapper launches its kernels (``csrc/hat_rows.cu``'s fc1 and
+``csrc/sgfn.cu``'s gate + fc2, both f32-exact on the tensor cores in 3xTF32) or raises; on a
+CPU tensor it runs the plain PyTorch version. Parameters come in the JAX package's layouts:
 w1 [C,hidden], w2 [hidden/2,C] as [in,out]; wdw (3,3,1,hidden/2) HWIO. Both LayerNorms
 use eps 1e-5.
 """
@@ -19,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..common import layernorm
-from . import _build
+from . import _build, _mma
 from .aim import depthwise3x3_plain
 
 #: Kernel launches since the last reset. Plain runs are not counted.
@@ -34,52 +35,73 @@ def fused_sgfn_tail_plain(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw,
     return y + (x1 * x2) @ w2 + b2
 
 
-def _padded_weights(w1, b1, w2):
-    """(kp, hp, k2p, npad, w1p [kp,2*hp], b1p [2*hp], w2p [k2p,npad]): the streamed
-    products take K in steps of 16 and N in steps of 64, so the weights are zero-padded,
-    each half of fc1 on its own so that x1 and x2 start on a 64-column pass."""
-    c, hid = w1.shape
-    half = hid // 2
-    kp, hp = -(-c // 16) * 16, -(-half // 64) * 64
-    k2p, npad = -(-half // 16) * 16, -(-c // 64) * 64
-    w1p = F.pad(w1.reshape(c, 2, half), (0, hp - half, 0, 0, 0, kp - c)).reshape(kp, 2 * hp)
-    b1p = F.pad(b1.reshape(2, half), (0, hp - half)).reshape(2 * hp)
-    return kp, hp, k2p, npad, w1p, b1p, F.pad(w2, (0, npad - c, 0, k2p - half))
+def _widths(c: int, hid: int) -> tuple[int, int, int]:
+    """(kp, k2p, npad): fc1's K, fc2's K and N. The tensor-core products take K and N in
+    multiples of 8, so the weights are zero-padded (C = 180 -> 184; hid/2 = 360 stays)."""
+    return -(-c // 8) * 8, -(-(hid // 2) // 8) * 8, -(-c // 8) * 8
 
 
 def fused_sgfn_tail(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw, w2, b2):
-    """Kernel B6 on CUDA, its plain version on the CPU. Returns [B,H,W,C]."""
+    """Kernel B6 on CUDA, its plain version on the CPU. Returns [B,H,W,C]. Two launches:
+    fc1 with both LayerNorms (csrc/hat_rows.cu's row product), then the gate and fc2
+    (csrc/sgfn.cu); the hidden passes through device memory once."""
     _build.require_no_grad("fused_sgfn_tail", a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw,
                            bdw, w2, b2)
     if a.device.type == "cpu":
         return fused_sgfn_tail_plain(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw,
                                      w2, b2)
+    fc1, gate_fc2, out = _sgfn_launchers(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw,
+                                         bdw, w2, b2)
+    fc1()
+    gate_fc2()
+    launches["fused_sgfn_tail"] += 1
+    return out
+
+
+def _sgfn_launchers(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw, w2, b2):
+    """Checks B6's CUDA arguments and lays out its weights; returns (fc1, gate_fc2, out): two
+    functions that each launch one half on the current stream (the second reads the hidden
+    and the parked y that the first wrote) and the output they fill. ``fused_sgfn_tail``
+    calls both; a caller may time them apart."""
     b, h, w, c = a.shape
     hid = w1.shape[-1]
     half = hid // 2
     if c % 4 or half % 4 or 2 * half != hid:
         raise ValueError(f"fused_sgfn_tail: C={c} and hidden/2={hid / 2} must be multiples "
                          "of 4")
+    if c > _mma.MAX_ROW_K or half > 384:
+        raise ValueError(f"fused_sgfn_tail: C={c}, hidden/2={half}; the kernel takes C up "
+                         f"to {_mma.MAX_ROW_K} and hidden/2 up to 384")
     _build.require(a, "a")
     _build.require(shortcut, "shortcut", a.shape)
     for name, t, shape in (("ln_w", ln_w, (c,)), ("ln_b", ln_b, (c,)),
-                           ("w1", w1, (c, hid)), ("b1", b1, (hid,)),
-                           ("sg_w", sg_w, (half,)), ("sg_b", sg_b, (half,)),
+                           ("b1", b1, (hid,)), ("sg_w", sg_w, (half,)), ("sg_b", sg_b, (half,)),
                            ("wdw", wdw, (3, 3, 1, half)), ("bdw", bdw, (half,)),
-                           ("w2", w2, (half, c)), ("b2", b2, (c,))):
+                           ("b2", b2, (c,))):
         _build.require(t, name, shape)
-    kp, hp, k2p, npad, w1p, b1p, w2p = _padded_weights(w1, b1, w2)
+    # w1 and w2 are re-laid out once (_mma.planes): a view will do
+    _build.require(w1, "w1", (c, hid), contiguous=False)
+    _build.require(w2, "w2", (half, c), contiguous=False)
+    kp, k2p, npad = _widths(c, hid)
+    w1p, w2p = _mma.planes(w1, kp, hid), _mma.planes(w2, k2p, npad)
     lib = _build.library()
-    x1 = torch.empty((b, h, w, half), device=a.device, dtype=torch.float32)
-    x2n = torch.empty_like(x1)
+    hidden = torch.empty((b, h, w, hid), device=a.device, dtype=torch.float32)
     out = torch.empty_like(a)
-    with torch.cuda.device(a.device):
-        err = lib.sgfn_tail(a.data_ptr(), shortcut.data_ptr(), ln_w.data_ptr(),
-                            ln_b.data_ptr(), w1p.data_ptr(), b1p.data_ptr(), sg_w.data_ptr(),
-                            sg_b.data_ptr(), wdw.data_ptr(), bdw.data_ptr(), w2p.data_ptr(),
-                            b2.data_ptr(), x1.data_ptr(), x2n.data_ptr(), out.data_ptr(),
-                            b, h, w, c, half, kp, hp, k2p, npad,
-                            _build.stream_ptr(a.device))
-    _build.check(err, "sgfn_tail")
-    launches["fused_sgfn_tail"] += 1
-    return out
+
+    def fc1():
+        with torch.cuda.device(a.device):
+            err = lib.rows_ln_fc1(a.data_ptr(), shortcut.data_ptr(), ln_w.data_ptr(),
+                                  ln_b.data_ptr(), w1p.data_ptr(), b1.data_ptr(),
+                                  sg_w.data_ptr(), sg_b.data_ptr(), hidden.data_ptr(),
+                                  out.data_ptr(), b * h * w, c, hid, kp, hid,
+                                  _build.stream_ptr(a.device))
+        _build.check(err, "rows_ln_fc1")
+
+    def gate_fc2():
+        with torch.cuda.device(a.device):
+            err = lib.sgfn_gate_fc2(hidden.data_ptr(), wdw.data_ptr(), bdw.data_ptr(),
+                                    w2p.data_ptr(), b2.data_ptr(), out.data_ptr(), b, h, w, c,
+                                    half, k2p, npad, _build.stream_ptr(a.device))
+        _build.check(err, "sgfn_gate_fc2")
+
+    return fc1, gate_fc2, out

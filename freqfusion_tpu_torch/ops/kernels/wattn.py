@@ -8,9 +8,10 @@ Twins of ``freqfusion_tpu/ops/pallas/wattn.py``'s ``fused_window_attention_xqkv`
 ``fused_residual_ln_mlp`` and ``fused_window_attention``. On a CUDA tensor a wrapper
 launches its kernels (``csrc/wattn.cu``, ``csrc/hab_attention.cu``, ``csrc/oca.cu``,
 ``csrc/hat_rows.cu``) or raises; on a CPU tensor it runs the plain PyTorch version. There is
-no fallback from one to the other. B8's attention and every row product (B8's tail, B9's
-projection, B10, B14's projections) run f32-exact on the tensor cores (3xTF32); their
-weights are zero-padded to multiples of 8, the MMA's k and n.
+no fallback from one to the other. B8's and B9's attention and every row product (B8's
+tail, B9's projection, B10, B14's projections) run f32-exact on the tensor cores (3xTF32);
+the row products' weights are zero-padded to multiples of 8, the MMA's k and n, and split
+into TF32 hi and lo parts on the host once for each weight (``_mma.planes``).
 Dense weights come as [in,out] matrices of x @ w, as in the JAX package; every LayerNorm
 uses eps 1e-5.
 
@@ -32,7 +33,7 @@ import torch.nn.functional as F
 
 from ..common import layernorm
 from ..windows import extract_overlapping_windows, window_partition, window_reverse
-from . import _build
+from . import _build, _mma
 
 #: Kernel launches since the last reset. Plain runs are not counted.
 launches = {"fused_window_attention_xqkv": 0, "fused_hab_block": 0,
@@ -180,13 +181,15 @@ def fused_window_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, window, num_
     if c % 4:
         raise ValueError(f"{name}: C={c} is not a multiple of 4")
     _build.require(x, "x")
-    for nm, t, shape in (("wqkv", wqkv, (c, 3 * c)), ("bqkv", bqkv, (3 * c,)),
-                         ("wproj", wproj, (c, c)), ("bproj", bproj, (c,)),
+    for nm, t, shape in (("bqkv", bqkv, (3 * c,)), ("bproj", bproj, (c,)),
                          ("bias", bias, (num_heads, n, n))):
         _build.require(t, nm, shape)
+    # the weights are laid out anew (_mma.planes): a view will do
+    _build.require(wqkv, "wqkv", (c, 3 * c), contiguous=False)
+    _build.require(wproj, "wproj", (c, c), contiguous=False)
     types = None if mask is None else mask_types(mask, h // hs, w // ws, x.device)
     kp, np3 = _ceil8(c), _ceil8(3 * c)
-    wq, wpp = _padded_proj(wqkv, kp, np3), _padded_proj(wproj, kp, kp)
+    wq, wpp = _mma.planes(wqkv, kp, np3), _mma.planes(wproj, kp, kp)
     lib = _build.library()
     qkv = torch.empty((b, h, w, 3 * c), device=x.device, dtype=torch.float32)
     att = torch.empty_like(x)
@@ -272,19 +275,13 @@ def _ceil8(n: int) -> int:
     return -(-n // 8) * 8
 
 
-def _mlp_padded_weights(c: int, w1, w2):
-    """(kp, npad, k2p, w1p [kp,k2p], w2p [k2p,npad]) for an MLP on C-wide rows: the row
-    products take K and N in multiples of 8, and the hidden, fc1's N and fc2's K, passes
-    through a buffer k2p wide; padded zeros change nothing."""
-    hid = w1.shape[1]
-    kp, k2p = _ceil8(c), _ceil8(hid)
-    return (kp, kp, k2p, F.pad(w1, (0, k2p - hid, 0, kp - c)),
-            F.pad(w2, (0, kp - c, 0, k2p - hid)))
-
-
-def _padded_proj(w, kp: int, npad: int):
-    """w [K,N] zero-padded to [kp,npad], multiples of 8 for the row products."""
-    return F.pad(w, (0, npad - w.shape[1], 0, kp - w.shape[0]))
+def _mlp_planes(c: int, w1, w2):
+    """(kp, k2p, w1p, w2p) for an MLP on C-wide rows: fc1's weights [kp,k2p] and fc2's
+    [k2p,kp] as tile_mma's planes (_mma.planes, made once a weight). The row products take K
+    and N in multiples of 8, and the hidden, fc1's N and fc2's K, passes through a buffer
+    k2p wide; padded zeros change nothing."""
+    kp, k2p = _ceil8(c), _ceil8(w1.shape[1])
+    return kp, k2p, _mma.planes(w1, kp, k2p), _mma.planes(w2, k2p, kp)
 
 
 def _mlp_plain(y, ln_w, ln_b, w1, b1, w2, b2):
@@ -352,24 +349,27 @@ def _hab_block_launchers(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wpro
     if n % 64 or n > MAX_TOKENS:
         raise ValueError(f"fused_hab_block: {n} tokens per window; the kernel takes "
                          f"multiples of 64 up to {MAX_TOKENS}")
-    if hd * num_heads != c or hd > MAX_HEAD_DIM or c % 4:
+    if hd * num_heads != c or hd > MAX_HEAD_DIM or c % 4 or c > _mma.MAX_ROW_K:
         raise ValueError(f"fused_hab_block: C={c} over {num_heads} heads; the kernel takes "
-                         f"whole heads up to {MAX_HEAD_DIM} wide and C a multiple of 4")
+                         f"whole heads up to {MAX_HEAD_DIM} wide and C a multiple of 4 up to "
+                         f"{_mma.MAX_ROW_K}")
     _build.require(x, "x")
     _build.require(conv_x, "conv_x", x.shape)
     for name, t, shape in (("ln1_w", ln1_w, (c,)), ("ln1_b", ln1_b, (c,)),
                            ("ln2_w", ln2_w, (c,)), ("ln2_b", ln2_b, (c,)),
-                           ("wqkv", wqkv, (c, 3 * c)), ("bqkv", bqkv, (3 * c,)),
-                           ("wproj", wproj, (c, c)), ("bproj", bproj, (c,)),
-                           ("w1", w1, (c, hid)), ("b1", b1, (hid,)), ("w2", w2, (hid, c)),
+                           ("bqkv", bqkv, (3 * c,)), ("bproj", bproj, (c,)), ("b1", b1, (hid,)),
                            ("b2", b2, (c,)), ("bias", bias, (num_heads, n, n))):
         _build.require(t, name, shape)
+    # the weights are laid out anew (_mma.planes, _padded_head_weights): a view will do
+    for name, t, shape in (("wqkv", wqkv, (c, 3 * c)), ("wproj", wproj, (c, c)),
+                           ("w1", w1, (c, hid)), ("w2", w2, (hid, c))):
+        _build.require(t, name, shape, contiguous=False)
     if cab_scale is not None:
         _build.require(cab_scale, "cab_scale", (b, 1, 1, c))
     types = None if mask is None else mask_types(mask, h // wsh, w // wsw, x.device)
-    kp, npad, k2p, w1p, w2p = _mlp_padded_weights(c, w1, w2)
+    kp, k2p, w1p, w2p = _mlp_planes(c, w1, w2)
     wh, bh = _padded_head_weights(wqkv, bqkv, num_heads, hd, kp, slots=3)
-    wpp = _padded_proj(wproj, kp, npad)
+    wpp = _mma.planes(wproj, kp, kp)
     lib = _build.library()
     att = torch.empty_like(x)
     out = torch.empty_like(x)
@@ -391,7 +391,7 @@ def _hab_block_launchers(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wpro
                                wpp.data_ptr(), bproj.data_ptr(), ln2_w.data_ptr(),
                                ln2_b.data_ptr(), w1p.data_ptr(), b1.data_ptr(), w2p.data_ptr(),
                                b2.data_ptr(), hidden.data_ptr(), out.data_ptr(), b, h, w, c,
-                               hid, kp, npad, k2p, in_shift, float(conv_scale),
+                               hid, kp, kp, k2p, in_shift, float(conv_scale),
                                _build.stream_ptr(x.device))
         _build.check(err, "hab_tail")
 
@@ -425,6 +425,19 @@ def fused_overlap_attention(q, k, v, wproj, bproj, bias, window: int, overlap: i
     if q.device.type == "cpu":
         return fused_overlap_attention_plain(q, k, v, wproj, bproj, bias, window, overlap,
                                              num_heads)
+    attention, proj, out = _overlap_launchers(q, k, v, wproj, bproj, bias, window, overlap,
+                                              num_heads)
+    attention()
+    proj()
+    launches["fused_overlap_attention"] += 1
+    return out
+
+
+def _overlap_launchers(q, k, v, wproj, bproj, bias, window, overlap, num_heads):
+    """Checks B9's CUDA arguments and lays out its projection; returns (attention, proj,
+    out): two functions that each launch one half on the current stream (the projection
+    reads what the attention wrote) and the output they fill. ``fused_overlap_attention``
+    calls both; a caller may time them apart."""
     b, h, w, c = q.shape
     ows = window + overlap
     nq, nk, hd = window * window, ows * ows, c // num_heads
@@ -441,24 +454,30 @@ def fused_overlap_attention(q, k, v, wproj, bproj, bias, window: int, overlap: i
     _build.require(q, "q")
     _build.require(k, "k", q.shape)
     _build.require(v, "v", q.shape)
-    _build.require(wproj, "wproj", (c, c))
+    _build.require(wproj, "wproj", (c, c), contiguous=False)   # laid out anew: a view will do
     _build.require(bproj, "bproj", (c,))
     _build.require(bias, "bias", (num_heads, nq, nk))
     kp = _ceil8(c)
-    wpp = _padded_proj(wproj, kp, kp)
+    wpp = _mma.planes(wproj, kp, kp)
     lib = _build.library()
     att = torch.empty_like(q)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = _build.stream_ptr(q.device)
-        err = lib.oca_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                                att.data_ptr(), b, h, w, c, window, ows, num_heads, hd, stream)
+
+    def attention():
+        with torch.cuda.device(q.device):
+            err = lib.oca_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                                    att.data_ptr(), b, h, w, c, window, ows, num_heads, hd,
+                                    _build.stream_ptr(q.device))
         _build.check(err, "oca_attention")
-        err = lib.rows_linear(att.data_ptr(), wpp.data_ptr(), bproj.data_ptr(), out.data_ptr(),
-                              b * h * w, c, c, kp, kp, stream)
-    _build.check(err, "rows_linear")
-    launches["fused_overlap_attention"] += 1
-    return out
+
+    def proj():
+        with torch.cuda.device(q.device):
+            err = lib.rows_linear(att.data_ptr(), wpp.data_ptr(), bproj.data_ptr(),
+                                  out.data_ptr(), b * h * w, c, c, kp, kp,
+                                  _build.stream_ptr(q.device))
+        _build.check(err, "rows_linear")
+
+    return attention, proj, out
 
 
 def fused_residual_ln_mlp_plain(a, shortcut, ln_w, ln_b, w1, b1, w2, b2):
@@ -472,14 +491,18 @@ def fused_residual_ln_mlp(a, shortcut, ln_w, ln_b, w1, b1, w2, b2):
     if a.device.type == "cpu":
         return fused_residual_ln_mlp_plain(a, shortcut, ln_w, ln_b, w1, b1, w2, b2)
     c, hid = a.shape[-1], w1.shape[1]
-    if c % 4:
-        raise ValueError(f"fused_residual_ln_mlp: C={c} is not a multiple of 4")
+    if c % 4 or c > _mma.MAX_ROW_K:
+        raise ValueError(f"fused_residual_ln_mlp: C={c}; the kernel takes C a multiple of 4 "
+                         f"up to {_mma.MAX_ROW_K}")
     _build.require(a, "a")
     _build.require(shortcut, "shortcut", a.shape)
-    for name, t, shape in (("ln_w", ln_w, (c,)), ("ln_b", ln_b, (c,)), ("w1", w1, (c, hid)),
-                           ("b1", b1, (hid,)), ("w2", w2, (hid, c)), ("b2", b2, (c,))):
+    for name, t, shape in (("ln_w", ln_w, (c,)), ("ln_b", ln_b, (c,)), ("b1", b1, (hid,)),
+                           ("b2", b2, (c,))):
         _build.require(t, name, shape)
-    kp, npad, k2p, w1p, w2p = _mlp_padded_weights(c, w1, w2)
+    # w1 and w2 are laid out anew (_mma.planes): a view will do
+    _build.require(w1, "w1", (c, hid), contiguous=False)
+    _build.require(w2, "w2", (hid, c), contiguous=False)
+    kp, k2p, w1p, w2p = _mlp_planes(c, w1, w2)
     lib = _build.library()
     out = torch.empty_like(a)
     hidden = torch.empty((a.numel() // c, k2p), device=a.device, dtype=torch.float32)
@@ -487,7 +510,7 @@ def fused_residual_ln_mlp(a, shortcut, ln_w, ln_b, w1, b1, w2, b2):
         err = lib.residual_ln_mlp(a.data_ptr(), shortcut.data_ptr(), ln_w.data_ptr(),
                                   ln_b.data_ptr(), w1p.data_ptr(), b1.data_ptr(),
                                   w2p.data_ptr(), b2.data_ptr(), hidden.data_ptr(),
-                                  out.data_ptr(), a.numel() // c, c, hid, kp, npad, k2p,
+                                  out.data_ptr(), a.numel() // c, c, hid, kp, kp, k2p,
                                   _build.stream_ptr(a.device))
     _build.check(err, "residual_ln_mlp")
     launches["fused_residual_ln_mlp"] += 1

@@ -17,7 +17,7 @@ from freqfusion_tpu.ops.pallas.wattn import fused_overlap_attention as j_overlap
 from freqfusion_tpu.ops.pallas.wattn import fused_residual_ln_mlp as j_residual_ln_mlp
 from freqfusion_tpu.ops.pallas.wattn import fused_window_attention as j_window_attention
 from freqfusion_tpu_torch.ops import windows as TW
-from freqfusion_tpu_torch.ops.kernels import cab, wattn
+from freqfusion_tpu_torch.ops.kernels import _mma, cab, wattn
 
 torch.set_num_threads(2)
 TOL = dict(atol=5e-5, rtol=1e-4)
@@ -187,9 +187,10 @@ def test_padded_weights_keep_the_products():
     rng = np.random.default_rng(4)
     c, hid, mid, nh = 180, 360, 60, 6
     w1, b1, w2 = _t(_r(rng, c, hid), _r(rng, hid), _r(rng, hid, c))
-    kp, npad, k2p, w1p, w2p = wattn._mlp_padded_weights(c, w1, w2)
-    assert (kp, npad, k2p) == (184, 184, 360)
-    assert w1p.shape == (kp, k2p) and w2p.shape == (k2p, npad)
+    kp, k2p = wattn._ceil8(c), wattn._ceil8(hid)
+    assert (kp, k2p) == (184, 360)
+    w1p, w2p = _mma.padded(w1, kp, k2p), _mma.padded(w2, k2p, kp)
+    assert w1p.shape == (kp, k2p) and w2p.shape == (k2p, kp)
     x = torch.from_numpy(_r(rng, 5, c))
     xp = torch.nn.functional.pad(x, (0, kp - c))
     np.testing.assert_allclose((xp @ w1p)[:, :hid].numpy(), (x @ w1).numpy(), atol=1e-5)

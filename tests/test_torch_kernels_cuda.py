@@ -137,6 +137,40 @@ def test_fused_hab_block_is_f32_exact(gen):
                _tf32(wattn.fused_hab_block_plain, *args, *rest, **kw))
 
 
+def test_sgfn_tail_is_f32_exact(gen):
+    """B6 at DAT's width, hidden 720 (fc1 C -> 720, fc2's K = 360), fc1's and fc2's weights
+    scaled x100."""
+    args = list(_sgfn_args(gen, 1, 24, 40, 180, 720))
+    args[4], args[10] = 100 * args[4], 100 * args[10]
+    ref = sgfn.fused_sgfn_tail_plain(*[a.double() for a in args])
+    _exactness(sgfn.fused_sgfn_tail(*args), sgfn.fused_sgfn_tail_plain(*args), ref,
+               _tf32(sgfn.fused_sgfn_tail_plain, *args))
+
+
+def test_overlap_attention_is_f32_exact(gen):
+    """B9 at HAT-L's width over all 576 keys of each 16 x 16 window, q and k scaled x2 (peaked
+    scores), v and the projection x100."""
+    args = (2 * _r(gen, 1, 32, 48, 180), 2 * _r(gen, 1, 32, 48, 180), 100 * _r(gen, 1, 32, 48, 180),
+            100 * _r(gen, 180, 180, std=180 ** -0.5), _r(gen, 180, std=0.1),
+            _r(gen, 6, 256, 576, std=0.5))
+    ref = wattn.fused_overlap_attention_plain(*[a.double() for a in args], 16, 8, 6)
+    _exactness(wattn.fused_overlap_attention(*args, 16, 8, 6),
+               wattn.fused_overlap_attention_plain(*args, 16, 8, 6), ref,
+               _tf32(wattn.fused_overlap_attention_plain, *args, 16, 8, 6))
+
+
+def test_residual_ln_mlp_is_f32_exact(gen):
+    """B10 at HAT-L's width with hidden 720 (fc2's K in three pieces), fc1's and fc2's
+    weights scaled x100."""
+    c, hid = 180, 720
+    args = (_r(gen, 1, 24, 40, c), _r(gen, 1, 24, 40, c), _r(gen, c, std=0.1, mean=1.0),
+            _r(gen, c, std=0.1), 100 * _r(gen, c, hid, std=c ** -0.5), _r(gen, hid, std=0.1),
+            100 * _r(gen, hid, c, std=hid ** -0.5), _r(gen, c, std=0.1))
+    ref = wattn.fused_residual_ln_mlp_plain(*[a.double() for a in args])
+    _exactness(wattn.fused_residual_ln_mlp(*args), wattn.fused_residual_ln_mlp_plain(*args),
+               ref, _tf32(wattn.fused_residual_ln_mlp_plain, *args))
+
+
 @pytest.mark.parametrize("b,h,w,hs,ws,cin,heads,hd,with_mask", [
     (2, 16, 64, 8, 32, 180, 3, 30, True), (1, 64, 32, 32, 8, 180, 3, 30, False),
     (2, 16, 32, 8, 8, 24, 2, 6, True), (1, 8, 32, 8, 16, 64, 4, 32, True)])
@@ -300,7 +334,7 @@ def _sgfn_args(gen, b, h, w, c, hidden):
 
 
 @pytest.mark.parametrize("b,h,w,c,hidden", [(2, 37, 45, 180, 720), (1, 8, 32, 64, 128),
-                                            (3, 5, 7, 20, 40)])
+                                            (3, 5, 7, 20, 40), (2, 192, 192, 180, 720)])
 def test_sgfn_tail_kernel_matches_plain(gen, b, h, w, c, hidden):
     args = _sgfn_args(gen, b, h, w, c, hidden)
     n0 = sgfn.launches["fused_sgfn_tail"]
@@ -403,7 +437,8 @@ def test_fused_hab_block_kernel_matches_plain(gen, b, h, w, c, heads, window, mo
 
 
 @pytest.mark.parametrize("b,h,w,c,heads,window", [(2, 32, 48, 180, 6, 16), (1, 16, 16, 180, 6, 16),
-                                                  (2, 16, 24, 24, 4, 8), (1, 8, 12, 8, 2, 4)])
+                                                  (2, 16, 24, 24, 4, 8), (1, 8, 12, 8, 2, 4),
+                                                  (2, 192, 192, 180, 6, 16)])
 def test_overlap_attention_kernel_matches_plain(gen, b, h, w, c, heads, window):
     ov = window // 2
     args = (_r(gen, b, h, w, c), _r(gen, b, h, w, c), _r(gen, b, h, w, c),
@@ -506,6 +541,46 @@ def test_hat_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         cab.cab_chain(x.double(), *cargs)
     with pytest.raises(ValueError, match="expected shape"):
         cab.cab_chain(x, cargs[0], cargs[1], _r(gen, 3, 3, 12, 5), *cargs[3:])
+
+
+@pytest.mark.parametrize("kernel", ["fused_sgfn_tail", "fused_hab_block",
+                                    "fused_residual_ln_mlp"])
+def test_row_kernels_raise_above_the_widest_row(gen, kernel):
+    """B6, B8 and B10 stage a row's whole C for their LayerNorm and projection: up to
+    _mma.MAX_ROW_K (192) channels. A wider C raises a ValueError before any launch."""
+    c = 196
+    with pytest.raises(ValueError, match="up to 192"):
+        if kernel == "fused_sgfn_tail":
+            sgfn.fused_sgfn_tail(*_sgfn_args(gen, 1, 4, 4, c, 2 * c))
+        elif kernel == "fused_hab_block":
+            wattn.fused_hab_block(*_hab_args(gen, 1, 8, 8, c, 7, 8, 2 * c), None, (8, 8), 7,
+                                  0.01)
+        else:
+            wattn.fused_residual_ln_mlp(_r(gen, 4, 4, c), _r(gen, 4, 4, c), _r(gen, c),
+                                        _r(gen, c), _r(gen, c, 2 * c), _r(gen, 2 * c),
+                                        _r(gen, 2 * c, c), _r(gen, c))
+
+
+@pytest.mark.parametrize("kernel", ["fused_sgfn_tail", "fused_residual_ln_mlp"])
+def test_row_kernels_take_weight_views(gen, kernel):
+    """The models pass their Linear weights as views (linear.weight.t()): the wrappers lay
+    them out once (_mma.planes) and match the plain version on them, again after the weight
+    changes in place."""
+    c, hid = 64, 128
+    if kernel == "fused_sgfn_tail":
+        args = list(_sgfn_args(gen, 1, 8, 16, c, hid))
+        slots, fn, plain = (4, 10), sgfn.fused_sgfn_tail, sgfn.fused_sgfn_tail_plain
+    else:
+        args = [_r(gen, 1, 8, 16, c), _r(gen, 1, 8, 16, c), _r(gen, c), _r(gen, c),
+                _r(gen, c, hid, std=c ** -0.5), _r(gen, hid, std=0.1),
+                _r(gen, hid, c, std=hid ** -0.5), _r(gen, c, std=0.1)]
+        slots, fn, plain = (4, 6), wattn.fused_residual_ln_mlp, wattn.fused_residual_ln_mlp_plain
+    for i in slots:
+        args[i] = args[i].t().contiguous().t()
+        assert not args[i].is_contiguous()
+    for _ in range(2):
+        torch.testing.assert_close(fn(*args), plain(*args), atol=1e-4, rtol=0)
+        args[slots[0]].mul_(0.5)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):

@@ -1,0 +1,157 @@
+"""The host side of the tensor-core row product: weights split into TF32 hi and lo parts and
+laid out as mma.sync B fragments (``ops/kernels/_mma.py``), for every wrapper that feeds
+``tile_mma`` (B6, B8's tail, B9's projection, B10, B14). CPU only: the layout and the split
+are plain tensor code, and what the kernel reads of them is checked here against numpy."""
+
+import numpy as np
+import pytest
+import torch
+
+from freqfusion_tpu_torch.ops.kernels import _mma, sgfn, wattn
+
+
+_TF32_MASK = -0x2000   # 0xffffe000 as an int32
+
+
+def _unpack(packed):
+    """The padded (hi, lo) [kp,npad] that ``_mma.mma_planes`` laid out, lo's top 19 bits
+    only, as the MMA reads it: the layout's inverse, written out on its own here."""
+    ks, nt = packed.shape[:2]
+
+    def plane(t):  # [ks, nt, 32 = 4 g + t, 2 = rows t, t + 4] -> [kp, npad]
+        return t.reshape(ks, nt, 8, 4, 2).permute(0, 4, 3, 1, 2).reshape(8 * ks, 8 * nt)
+
+    lo = (packed[..., 2:].contiguous().view(torch.int32) & _TF32_MASK).view(torch.float32)
+    return plane(packed[..., :2]), plane(lo)
+
+
+def _r(rng, *shape, std=1.0):
+    return torch.from_numpy((std * rng.standard_normal(shape)).astype(np.float32))
+
+
+def _tf32_nearest(x: np.ndarray) -> np.ndarray:
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero, by
+    comparing the two neighbours in float64: an independent check of the bit trick."""
+    bits = x.view(np.uint32)
+    down = (bits & np.uint32(0xFFFFE000)).view(np.float32).astype(np.float64)
+    up = ((bits & np.uint32(0xFFFFE000)) + np.uint32(0x2000)).view(np.float32).astype(np.float64)
+    xd = x.astype(np.float64)
+    d_down, d_up = np.abs(xd - down), np.abs(up - xd)
+    return np.where(d_up <= d_down, up, down).astype(np.float32)   # a tie goes up: away
+
+
+def test_split_tf32_rounds_to_nearest_and_keeps_the_sum():
+    rng = np.random.default_rng(0)
+    x = np.concatenate([(rng.standard_normal(4000) * 10.0 ** rng.integers(-6, 6, 4000)).astype(
+        np.float32), np.float32([0.0, -0.0, 1.0, -1.0, 3.0e-39, -2.5e-38])])
+    # exact ties: the low 13 bits are half a TF32 ulp
+    ties = ((rng.integers(0x3F800000, 0x40800000, 64).astype(np.uint32) & np.uint32(0xFFFFE000))
+            | np.uint32(0x1000)).view(np.float32)
+    x = np.concatenate([x, ties, -ties])
+    hi, lo = _mma.split_tf32(torch.from_numpy(x))
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert torch.equal(hi + lo, torch.from_numpy(x))   # bit for bit
+    np.testing.assert_array_equal(hi.numpy(), _tf32_nearest(x))
+    t = torch.from_numpy(ties)
+    assert (_mma.split_tf32(t)[0] > t).all() and (_mma.split_tf32(-t)[0] < -t).all()
+
+
+def test_mma_planes_lay_out_the_b_fragments():
+    """Lane 4 g + t of k-step s and n-tile j holds (hi[t][g], hi[t+4][g], lo[t][g],
+    lo[t+4][g]) of that 8 x 8 tile; lo carries the half ulp the MMA's truncation needs."""
+    rng = np.random.default_rng(1)
+    w = _r(rng, 24, 40)
+    packed = _mma.mma_planes(w)
+    assert packed.shape == (3, 5, 32, 4)
+    hi, lo = _mma.split_tf32(w)
+    for s, j, g, t in ((0, 0, 0, 0), (2, 4, 7, 3), (1, 2, 5, 1)):
+        lane = packed[s, j, 4 * g + t]
+        r, n = 8 * s + t, 8 * j + g
+        assert lane[0] == hi[r, n] and lane[1] == hi[r + 4, n]
+        for e, rr in ((2, r), (3, r + 4)):
+            assert lane[e:e + 1].view(torch.int32) == lo[rr:rr + 1, n].view(torch.int32) + 0x1000
+    uhi, ulo = _unpack(packed)
+    assert torch.equal(uhi, hi)
+    assert (ulo - lo).abs().max() <= 2.0 ** -11 * lo.abs().max()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        _mma.mma_planes(w[:20])
+
+
+def _assert_keeps_product(packed, w, rng):
+    """x @ (hi + lo), lo as the MMA reads it, against x @ w in float64: within 1e-6 of the
+    sum of |x| |w| (3xTF32 drops the lo*lo term, about 2^-22 of each product)."""
+    k, n = w.shape
+    hi, lo = _unpack(packed)
+    assert not hi[k:].any() and not hi[:, n:].any() and not lo[k:].any() and not lo[:, n:].any()
+    x = _r(rng, 7, hi.shape[0]).double()
+    x[:, k:] = 0.0
+    got = (x @ (hi.double() + lo.double()))[:, :n]
+    want = x[:, :k] @ w.double()
+    scale = x[:, :k].abs() @ w.double().abs()
+    assert ((got - want).abs() <= 1e-6 * scale).all()
+
+
+@pytest.mark.parametrize("c,hid", [(180, 720), (64, 128), (20, 40)])
+def test_sgfn_weight_planes_keep_the_products(c, hid):
+    rng = np.random.default_rng(hid)
+    w1, w2 = _r(rng, c, hid, std=c ** -0.5), _r(rng, hid // 2, c, std=(hid // 2) ** -0.5)
+    kp, k2p, npad = sgfn._widths(c, hid)
+    assert (kp, k2p, npad) == (-(-c // 8) * 8, -(-hid // 16) * 8, -(-c // 8) * 8)
+    w1p, w2p = _mma.planes(w1, kp, hid), _mma.planes(w2, k2p, npad)
+    assert w1p.shape == (kp // 8, hid // 8, 32, 4) and w2p.shape == (k2p // 8, npad // 8, 32, 4)
+    _assert_keeps_product(w1p, w1, rng)
+    _assert_keeps_product(w2p, w2, rng)
+
+
+def test_row_product_weight_planes_keep_the_products():
+    """B9's projection (the same layout serves B8's tail, B10 and B14)."""
+    rng = np.random.default_rng(5)
+    c, hid = 180, 360
+    wp = _r(rng, c, c, std=c ** -0.5)
+    _assert_keeps_product(_mma.planes(wp, 184, 184), wp, rng)
+    w1, w2 = _r(rng, c, hid, std=c ** -0.5), _r(rng, hid, c, std=hid ** -0.5)
+    kp, k2p, w1p, w2p = wattn._mlp_planes(c, w1, w2)
+    assert (kp, k2p) == (184, 360)
+    _assert_keeps_product(w1p, w1, rng)
+    _assert_keeps_product(w2p, w2, rng)
+
+
+def test_planes_are_made_once_for_each_weight():
+    """A weight's planes are kept beside it: the same tensor for every view of it that the
+    models pass (``linear.weight.t()``) until the weight changes in place."""
+    lin = torch.nn.Linear(20, 12)
+    with torch.no_grad():
+        first = _mma.planes(lin.weight.t(), 24, 16)
+        assert _mma.planes(lin.weight.t(), 24, 16) is first
+        assert _mma.planes(lin.weight.t(), 24, 24) is not first   # another padding
+        assert torch.equal(_mma.planes(lin.weight.t(), 24, 24)[:, :2], first)
+        lin.weight.mul_(2.0)
+        again = _mma.planes(lin.weight.t(), 24, 16)
+    assert again is not first
+    assert torch.equal(again, _mma.mma_planes(_mma.padded(lin.weight.detach().t(), 24, 16)))
+
+
+@pytest.mark.parametrize("how", ["load_state_dict", "data", "inference"])
+def test_planes_follow_a_weight_that_is_replaced(how):
+    """Loading a checkpoint (an in-place copy), swapping the weight's memory as
+    ``module.to`` does, or an inference tensor, which counts no versions: the planes are
+    those of the weight as it is now."""
+    rng = np.random.default_rng(6)
+    lin = torch.nn.Linear(16, 8)
+    with torch.no_grad():
+        _mma.planes(lin.weight.t(), 16, 8)
+        new = _r(rng, 8, 16)
+        if how == "load_state_dict":
+            lin.load_state_dict({"weight": new, "bias": lin.bias.detach().clone()})
+        elif how == "data":
+            lin.weight.data = new.clone()
+    with torch.no_grad():
+        if how == "inference":
+            with torch.inference_mode():
+                w = new.clone()
+            got, again = _mma.planes(w.t(), 16, 8), _mma.planes(w.t(), 16, 8)
+            assert got is not again
+        else:
+            got = _mma.planes(lin.weight.t(), 16, 8)
+            assert _mma.planes(lin.weight.t(), 16, 8) is got
+    assert torch.equal(got, _mma.mma_planes(new.t().contiguous()))

@@ -20,8 +20,8 @@ from freqfusion_tpu_torch.infer import io as tio
 from freqfusion_tpu_torch.infer.io import InferencePipeline
 from freqfusion_tpu_torch.models.experts import FreqFusionSR
 from freqfusion_tpu_torch.models.fusion import FusionConfig
-from freqfusion_tpu_torch.ops.kernels import (aim, bandmha, cab, conv3x3, lka, nafblock, sgfn,
-                                              wattn)
+from freqfusion_tpu_torch.ops.kernels import (_mma, aim, bandmha, cab, conv3x3, lka, nafblock,
+                                              sgfn, wattn)
 from freqfusion_tpu_torch.utils.convert import layout_rule
 from freqfusion_tpu_torch.utils.imageio import save_image
 
@@ -314,12 +314,13 @@ def test_row_product_weights_pad_to_multiples_of_8(c, hid):
     and the projections' padded weights unpack to the originals, padded entries zero."""
     rng = np.random.default_rng(hid)
     w1, w2, wp = _r(rng, c, hid), _r(rng, hid, c), _r(rng, c, 3 * c)
-    kp, npad, k2p, w1p, w2p = wattn._mlp_padded_weights(c, w1, w2)
-    assert (kp, npad, k2p) == (-(-c // 8) * 8, -(-c // 8) * 8, -(-hid // 8) * 8)
+    kp, k2p = wattn._ceil8(c), wattn._ceil8(hid)
+    assert (kp, k2p) == (-(-c // 8) * 8, -(-hid // 8) * 8)
+    w1p, w2p = _mma.padded(w1, kp, k2p), _mma.padded(w2, k2p, kp)
     assert torch.equal(w1p[:c, :hid], w1) and torch.equal(w2p[:hid, :c], w2)
     assert not w1p[c:].any() and not w1p[:, hid:].any()
     assert not w2p[hid:].any() and not w2p[:, c:].any()
     np3 = -(-3 * c // 8) * 8
-    pp = wattn._padded_proj(wp, kp, np3)
+    pp = _mma.padded(wp, kp, np3)
     assert pp.shape == (kp, np3) and torch.equal(pp[:c, :3 * c], wp)
     assert not pp[c:].any() and not pp[:, 3 * c:].any()
