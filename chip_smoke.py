@@ -5,17 +5,19 @@
 
 Phases, each printing JSON lines; any failure raises and the exit code is not 0:
   1. device: the card (nvidia-smi name and power limit), TF32 off for every comparison;
-  2. build: nvcc builds freqfusion_tpu_torch/csrc into a library (seconds printed);
+  2. build: nvcc builds freqfusion_tpu_torch/csrc into a library (seconds printed), and
+     ptxas -v must show every tensor-core kernel at <= 128 registers with no spill;
   3. kernels: each CUDA kernel against its plain PyTorch version at the slices' shapes,
      with its time, the plain version's, the card's bound for the same work and, where one
-     PyTorch call computes the same function, that call's time;
+     PyTorch call computes the same function, that call's time; B6, B8 and B10 also at
+     C = 256 and 384, above the 192 channels a row product stages at once;
   4. NAF slice: NAFNetSR at its published width (random weights from a seed) serves three
      PNG requests through InferencePipeline's uint8 protocol; the forward is checked
      against the plain versions, every kernel must have been launched, and per-image
      times are taken for both paths;
   5. DAT slice: the same for DAT at its shipped width and depth (embed 180, 6 x 6 blocks,
      split (8, 32)), whose every block runs the window-attention, AIM and SGFN kernels;
-     it also times the weight re-layout and padding that every forward repeats;
+     it also times the weight work that every forward repeats (host and device);
   6. HAT slice: the same for HAT-L at its full width and depth (embed 180, 12 groups of
      6 HAB + 1 OCAB, window 16), whose every HAB runs the CAB-chain and fused-block
      kernels and every OCAB the overlapping-attention and residual-MLP kernels;
@@ -49,6 +51,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -116,6 +119,8 @@ QKV_CASES = [("table", 1, 352, 512, 8, 32, False), ("table_shift", 1, 352, 512, 
              ("tile", 2, 192, 192, 8, 32, False), ("tile_shift", 2, 192, 192, 32, 8, True)]
 WIN_CASES = [("table", 1, 352, 512, 16, 16, False), ("table_shift", 1, 352, 512, 16, 16, True),
              ("odd", 1, 225, 225, 15, 15, False), ("odd_shift", 1, 225, 225, 15, 15, True)]
+# B6, B8 and B10 above the 192 channels that a row product stages at once (ROADMAP C7)
+WIDE_ROWS = (256, 384)
 TILED_REQUESTS = [(640, 480), (40, 30), (510, 339)]   # W x H: tiled, tiled (tiny), whole
 RAGGED_TILE = 176   # whole 16-px windows (HAT) but not whole 32-px ones (DAT)
 # H100 SXM: f32 outside the tensor cores, f32-exact products on them (3xTF32: three TF32
@@ -234,11 +239,40 @@ def phase_device() -> tuple:
     return name, smi
 
 
+# the tensor-core kernels (every instantiation): at most 128 registers a thread (16 warps an
+# SM, or two blocks of 8) and no spill
+TC_KERNELS = ("conv3x3_gemm_kernel", "xqkv_attention_kernel", "oca_attn_kernel",
+              "sgfn_gate_fc2_kernel", "rows_kernel", "naf_stage_a_kernel")
+
+
+def ptxas_report(log: str) -> list:
+    """[(mangled kernel name, registers, spill bytes stored + loaded)] from ptxas -v."""
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
+
+
 def phase_build() -> None:
     path, secs, log = _build.build()
-    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+    report = ptxas_report(log)
     _build.library()
-    emit("build", seconds=secs, library=os.path.relpath(path, ROOT), ptxas=regs)
+    emit("build", seconds=secs, library=os.path.relpath(path, ROOT),
+         ptxas=[dict(kernel=k[:96], registers=r, spill_bytes=sp) for k, r, sp in report])
+    tc = [(k, r, sp) for k, r, sp in report if any(t in k for t in TC_KERNELS)]
+    for t in TC_KERNELS:
+        require(any(t in k for k, _, _ in tc), f"ptxas -v reports no {t}")
+    for k, r, sp in tc:
+        require(r <= 128 and sp == 0, f"{k}: {r} registers, {sp} bytes of spill")
 
 
 def naf_kernel_cases(gen: torch.Generator, res: dict) -> None:
@@ -264,9 +298,10 @@ def naf_kernel_cases(gen: torch.Generator, res: dict) -> None:
                  b_ms=cuda_ms(lambda: nafblock.naf_block_stage_b(*b_args)),
                  b_plain_ms=cuda_ms(lambda: nafblock.naf_block_stage_b_plain(*b_args)))
         npix = b * h * w
-        # stage A: LN, 1x1 C->2C, depthwise 3x3 on 2C, gate; reads x, writes g and the sums
-        a_bound = bound_ms(npix * (4 * c * c + 36 * c + 9 * c),
-                           4 * (2 * npix * c + 2 * c * c + 24 * c + b * c))
+        # stage A: the 1x1 product C->2C on the tensor cores; LN, depthwise 3x3 on 2C and the
+        # gate on CUDA cores; reads x, writes g and the sums
+        a_bound, a_bound32 = bounds(npix * (36 * c + 9 * c), npix * 4 * c * c,
+                                    4 * (2 * npix * c + 2 * c * c + 24 * c + b * c))
         # stage B: three 1x1 products (C->C, C->2C, C->C), LN, gates; reads g, x, writes out
         b_bound = bound_ms(npix * (8 * c * c + 16 * c),
                            4 * (3 * npix * c + 4 * c * c + 9 * c + b * c))
@@ -274,7 +309,7 @@ def naf_kernel_cases(gen: torch.Generator, res: dict) -> None:
              g_max_abs_err=g_err, g_bound=KERNEL_ATOL,
              sums_max_rel_err=sums_ratio, sums_bound=SUMS_RTOL,
              out_max_abs_err=y_err, out_bound=KERNEL_ATOL, a_bound_ms=a_bound[0],
-             b_bound_ms=b_bound[0], **t)
+             a_bound_by=a_bound[1], a_bound_f32_ms=a_bound32[0], b_bound_ms=b_bound[0], **t)
         require(g_err <= KERNEL_ATOL, f"B1 g error {g_err} at {name}")
         require(sums_ratio <= SUMS_RTOL, f"B1 sums error {sums_ratio} at {name}")
         require(y_err <= KERNEL_ATOL, f"B2 output error {y_err} at {name}")
@@ -282,7 +317,7 @@ def naf_kernel_cases(gen: torch.Generator, res: dict) -> None:
         res["naf_block_stage_b"]["err"] = max(res["naf_block_stage_b"]["err"], y_err)
         if name == "enc0_hr":   # the heaviest level: the summary's times
             res["naf_block_stage_a"].update(ms=t["a_ms"], plain_ms=t["a_plain_ms"],
-                                            bound=a_bound)
+                                            bound=a_bound, bound_f32=a_bound32)
             res["naf_block_stage_b"].update(ms=t["b_ms"], plain_ms=t["b_plain_ms"],
                                             bound=b_bound)
         del x, g, g_ref, y, y_ref, full, full_ref
@@ -347,24 +382,27 @@ def dat_kernel_cases(gen: torch.Generator, res: dict) -> None:
         ms = cuda_ms(lambda: wattn.fused_window_attention_xqkv(*args), iters=5)
         plain_ms = cuda_ms(lambda: wattn.fused_window_attention_xqkv_plain(*args), iters=5)
         npix, nwin = b * h * w, b * (h // hs) * (w // ws)
-        # projection, q k^T and p v, bias (+ mask) and softmax; reads x, the weights, the
-        # bias and the 4 mask types, writes the co-wide image
-        bnd = bound_ms(npix * 2 * c * 3 * co + nwin * heads * n * n * (4 * hd + 8),
-                       4 * (npix * (c + co) + c * 3 * co + 3 * co
-                            + (heads + (4 if shifted else 0)) * n * n))
+        # products on the tensor cores: the projection, q k^T and p v; the rest: bias
+        # (+ mask) and softmax; reads x, the weights, the bias and the 4 mask types, writes
+        # the co-wide image
+        bnd, bnd32 = bounds(nwin * heads * n * n * 8,
+                            npix * 2 * c * 3 * co + nwin * heads * n * n * 4 * hd,
+                            4 * (npix * (c + co) + c * 3 * co + 3 * co
+                                 + (heads + (4 if shifted else 0)) * n * n))
         emit("kernel", kernel="fused_window_attention_xqkv", case=name,
              shape=[b, h, w, c], window=[hs, ws], shifted=shifted, max_abs_err=err,
              bound=KERNEL_ATOL, max_abs_plain=scale, ms=ms, plain_ms=plain_ms,
-             bound_ms=bnd[0], bound_by=bnd[1])
+             bound_ms=bnd[0], bound_by=bnd[1], bound_f32_ms=bnd32[0])
         require(err <= KERNEL_ATOL, f"B4 error {err} at {name}")
         res["fused_window_attention_xqkv"]["err"] = max(
             res["fused_window_attention_xqkv"]["err"], err)
         if b == 1:   # the bucket's mix: both orientations, half shifted
-            times.append((ms, plain_ms, bnd))
+            times.append((ms, plain_ms, bnd, bnd32))
         del x, args
     res["fused_window_attention_xqkv"].update(
         ms=mean(t[0] for t in times), plain_ms=mean(t[1] for t in times),
-        bound=(mean(t[2][0] for t in times), times[0][2][1]))
+        bound=(mean(t[2][0] for t in times), times[0][2][1]),
+        bound_f32=(mean(t[3][0] for t in times), times[0][3][1]))
 
     for name, b, h, w in DAT_CASES:
         npix = b * h * w
@@ -604,6 +642,55 @@ def hat_kernel_cases(gen: torch.Generator, res: dict) -> None:
                       bound=times[0][2], bound_f32=times[0][3])
 
 
+def wide_row_cases(gen: torch.Generator, res: dict) -> None:
+    """B6, B8 and B10 above the 192 rows of K that a row product stages at a time (the row
+    kernel takes C in pieces there), at C = 256 and 384 on [1,128,256,C]: B8 with heads of
+    32 and the shift mask, B6 and B10 at hidden 2C. Outputs within KERNEL_ATOL of the plain
+    version; timed, but not the summary's times."""
+    def r(*shape, std=1.0, mean=0.0):
+        return mean + std * torch.randn(*shape, generator=gen, device="cuda")
+
+    b, h, w, ws = 1, 128, 256, HAT_WINDOW
+    types = torch.from_numpy(windows.shift_mask_types(ws, ws, ws // 2, ws // 2).copy()).cuda()
+    for c in WIDE_ROWS:
+        hid, heads = 2 * c, c // 32
+        ln = (r(c, std=0.1, mean=1.0), r(c, std=0.1))
+        cases = {
+            "fused_sgfn_tail": (sgfn.fused_sgfn_tail, sgfn.fused_sgfn_tail_plain,
+                                (r(b, h, w, c), r(b, h, w, c), *ln, r(c, hid, std=c ** -0.5),
+                                 r(hid, std=0.1), r(c, std=0.1, mean=1.0), r(c, std=0.1),
+                                 r(3, 3, 1, c, std=1 / 3), r(c, std=0.1),
+                                 r(c, c, std=c ** -0.5), r(c, std=0.1)), {}),
+            "fused_residual_ln_mlp": (wattn.fused_residual_ln_mlp,
+                                      wattn.fused_residual_ln_mlp_plain,
+                                      (r(b, h, w, c), r(b, h, w, c), *ln,
+                                       r(c, hid, std=c ** -0.5), r(hid, std=0.1),
+                                       r(hid, c, std=hid ** -0.5), r(c, std=0.1)), {}),
+            "fused_hab_block": (wattn.fused_hab_block, wattn.fused_hab_block_plain,
+                                (r(b, h, w, c), r(b, h, w, c, std=3.0), *ln, *ln,
+                                 r(c, 3 * c, std=c ** -0.5), r(3 * c, std=0.1),
+                                 r(c, c, std=c ** -0.5), r(c, std=0.1), r(c, hid, std=c ** -0.5),
+                                 r(hid, std=0.1), r(hid, c, std=hid ** -0.5), r(c, std=0.1),
+                                 r(heads, ws * ws, ws * ws, std=0.5), types, (ws, ws), heads,
+                                 0.01),
+                                dict(cab_scale=r(b, 1, 1, c, std=0.2, mean=0.5),
+                                     in_shift=ws // 2)),
+        }
+        for name, (fn, plain, args, kw) in cases.items():
+            got, want = fn(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            del got, want
+            ms = cuda_ms(lambda: fn(*args, **kw), iters=3)
+            emit("kernel", kernel=name, case=f"c{c}", shape=[b, h, w, c], hidden=hid,
+                 pieces=_mma.piece_sizes(-(-c // 8) * 8), max_abs_err=err, bound=KERNEL_ATOL,
+                 ms=ms)
+            require(err <= KERNEL_ATOL, f"{name} error {err} at C = {c}")
+            res[name]["err"] = max(res[name]["err"], err)
+        del cases
+        torch.cuda.empty_cache()
+
+
 def band_mha_library(x, in_proj_weight, bqkv, out_proj_weight, bproj, ln_w, ln_b, heads):
     """B11's function through PyTorch's own attention entry point: the yardstick
     `library_ms`, which nothing in the port calls."""
@@ -797,6 +884,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
     torch.cuda.empty_cache()
     hat_kernel_cases(gen, res)
     torch.cuda.empty_cache()
+    wide_row_cases(gen, res)
     head_kernel_cases(gen, res)
     torch.cuda.empty_cache()
     window_kernel_cases(gen, res)
@@ -951,9 +1039,9 @@ def randomize_transformer_(model: torch.nn.Module, gen: torch.Generator) -> None
 
 def dat_weight_prep(model: DAT) -> None:
     """The weight work that one DAT forward repeats in every block and nothing else: the
-    modules keep torch's layouts, so each call re-lays its weights out for the kernels
-    (transposes, the branches' qkv columns) and the wrappers zero-pad them; the row
-    products' planes are made once and only looked up (_mma.planes)."""
+    modules keep torch's layouts, so each call re-lays some weights out for the kernels
+    (transposes, AIM's padded projection); the row products' planes and the attention's
+    head slabs are made once and only looked up (_mma.kept)."""
     for group in model.layers:
         for blk in group.blocks:
             a = blk.attn
@@ -962,13 +1050,12 @@ def dat_weight_prep(model: DAT) -> None:
             w1, _, _, _, _, _, w2, _ = blk.ffn.raw()
             kp, k2p, npad = sgfn._widths(*w1.shape)
             _mma.planes(w1, kp, w1.shape[1]), _mma.planes(w2, k2p, npad)
-            wqkv = dat_model._io(a.qkv)
             if isinstance(a, dat_model.AdaptiveSpatialAttention):
+                wqkv = dat_model.linear_io_view(a.qkv)
                 c, heads = wqkv.shape[0], a.num_heads // 2
                 for br in range(2):
-                    wb, bb = dat_model._branch_qkv_slices(wqkv, a.qkv.bias, c, c // 2, br)
-                    wattn._padded_head_weights(wb, bb, heads, c // 2 // heads,
-                                               -(-c // 16) * 16)
+                    wattn.head_slabs(wqkv, a.qkv.bias, heads, c // 2 // heads, -(-c // 8) * 8,
+                                     (br * c // 2, c // 2))
 
 
 DAT_KERNELS = ("conv3x3_dense", "fused_window_attention_xqkv", "aim_conv_branch",
@@ -1004,17 +1091,16 @@ def dat_slice(gen_cpu: torch.Generator, profile: bool) -> dict:
 
 def hat_weight_prep(model: HAT) -> None:
     """The weight work that one HAT forward repeats in every block and nothing else: the
-    modules keep torch's layouts, so each call re-lays its weights out for the kernels
-    (transposes, the bias gathers) and the wrappers zero-pad them; the row products'
-    planes are made once and only looked up (_mma.planes)."""
+    modules keep torch's layouts, so each call re-lays some weights out for the kernels
+    (transposes, the bias gathers, the CAB convs' padding); the row products' planes and
+    the attention's head slabs are made once and only looked up (_mma.kept)."""
     c = model.conv_first.out_channels
     kp = npad = -(-c // 8) * 8
     for group in model.layers:
         for blk in group.residual_group.blocks:
             cab._padded_weights(*blk.conv_block.raw())
             wqkv, bqkv, wproj, _, _ = blk.attn.raw()
-            wattn._padded_head_weights(wqkv, bqkv, blk.num_heads, c // blk.num_heads, kp,
-                                       slots=3)
+            wattn.head_slabs(wqkv, bqkv, blk.num_heads, c // blk.num_heads, kp)
             _mma.planes(wproj, kp, npad)
             wattn._mlp_planes(c, *blk.mlp.raw()[::2])
         oc = group.residual_group.overlap_attn
@@ -1448,7 +1534,8 @@ KERNELS = {
                           "freqfusion_tpu/ops/pallas/nafblock.py:229"),
     "conv3x3_dense": ("freqfusion_tpu_torch/csrc/conv3x3.cu",
                       "freqfusion_tpu/ops/pallas/cab.py:267"),
-    "fused_window_attention_xqkv": ("freqfusion_tpu_torch/csrc/wattn.cu",
+    # B4 and B8's attention are one kernel, csrc/hab_attention.cu
+    "fused_window_attention_xqkv": ("freqfusion_tpu_torch/csrc/hab_attention.cu",
                                     "freqfusion_tpu/ops/pallas/wattn.py:599"),
     "aim_conv_branch": ("freqfusion_tpu_torch/csrc/aim.cu",
                         "freqfusion_tpu/ops/pallas/aim.py:77"),

@@ -193,7 +193,3 @@ __device__ __forceinline__ void warp_layernorm(const float* src, float* dst,
     warp_ln_stats(src, C, eps, u, inv);
     for (int c = lane; c < C; c += 32) dst[c] = (src[c] - u) * inv * w[c] + b[c];
 }
-
-// Rows of K a tile holds at a time when a product takes its K in two halves: the larger
-// half of Kp in tile_matmul's weight chunks.
-__host__ __device__ constexpr int first_half(int Kp) { return (Kp / kKC + 1) / 2 * kKC; }

@@ -1,35 +1,39 @@
-// The attention half of HAT's fused HAB block, f32-exact on the tensor cores (3xTF32,
-// mma_f32x3.cuh), hand-written for Hopper (sm_90a).
+// Window attention with the qkv projection in front, f32-exact on the tensor cores (3xTF32,
+// mma_f32x3.cuh), hand-written for Hopper (sm_90a): one kernel for two TPU kernels.
 //
-// Computes the first half of the TPU kernel freqfusion_tpu/ops/pallas/wattn.py:
-// fused_hab_block (B8; its second half, the projection, the residuals and the MLP, is
-// csrc/hat_rows.cu). Per window of N = ws*ws tokens and per head (dim hd):
-//     [q, k, v] = LN1(x_window) @ W_head + b_head
+// Replaces freqfusion_tpu/ops/pallas/wattn.py:fused_window_attention_xqkv (B4, DAT's
+// rectangular windows, no LayerNorm) and computes the first half of :fused_hab_block (B8,
+// HAT's square windows after LN1; its second half, the projection, the residuals and the
+// MLP, is csrc/hat_rows.cu). Per (hs x ws) window of N tokens and per head (dim hd):
+//     [q, k, v] = LN1?(x_window) @ W_head + b_head
 //     att = softmax(q k^T / sqrt(hd) + bias[head] (+ mask type of the window)) v
-// and `att` is the attended image [B,H,W,heads*hd] before the output projection. With
-// in_shift = s the image is not rolled by the caller: token (r, c) of window (i, j) reads
-// x[(i*ws + r + s) % H][(j*ws + c + s) % W], and att is written at (i*ws + r, j*ws + c), in
-// rolled coordinates. The plain PyTorch version sits beside the wrapper in
-// freqfusion_tpu_torch/ops/kernels/wattn.py.
+// and `att` is the attended image [B,H,W,heads*hd] before the output projection; co =
+// heads*hd need not be Cin (B4: a DAT branch's 3 heads of 30 from 180 channels). With
+// shift = s the image is not rolled by the caller: token (r, c) of window (i, j) reads
+// x[(i*hs + r + s) % H][(j*ws + c + s) % W], and att is written at (i*hs + r, j*ws + c), in
+// rolled coordinates (B8's in_shift; B4 passes 0, DAT rolls x itself). The plain PyTorch
+// versions sit beside the wrappers in freqfusion_tpu_torch/ops/kernels/wattn.py.
 //
-// What bounds it on the H100. Per window and head 2*N*C*3*hd FLOPs of projection and
-// 4*N*N*hd of attention (9.0 + 7.9 MFLOP at N = 256, C = 180, hd = 30), all products; the
-// softmax's N*N exponentials and the bias (and mask) rows are the rest. At HAT-L's
-// [1,352,512,180] (704 windows x 6 heads) the products take 0.43 ms at 165 TFLOP/s of
-// f32-exact products (3 x TF32 at 495; 1.06 ms at the CUDA cores' 67), the bias 1.1 GB of
-// L2 reads. What must stay out of device memory is q, k, v and the N x N scores.
+// What bounds it on the H100. Per window and head 2*N*Cin*3*hd FLOPs of projection and
+// 4*N*N*hd of attention, all products; the softmax's N*N exponentials and the bias (and
+// mask) rows are the rest. B4 at DAT's [1,352,512,180] (704 windows x 3 heads of 30, N =
+// 256): 8.8 + 7.9 MFLOP a (window, head), 35 GFLOP, 0.21 ms at 165 TFLOP/s of f32-exact
+// products (3 x TF32 at 495; 0.53 ms at the CUDA cores' 67), x and att 0.2 GB (0.06 ms).
+// B8 at HAT-L's (704 windows x 6 heads): 9.0 + 7.9 MFLOP a pair, 0.43 ms (1.06 on CUDA
+// cores). The bias (and mask) rows come from L2, 1.1 GB a B8 launch. What must stay out of
+// device memory is q, k, v and the N x N scores.
 //
 // Design. One block owns one (window, head), 8 warps, 104 KB of shared memory at N = 256:
 // two blocks an SM.
 //   * Projection: the window's x rows [N][Cin -> Kp] times the head's slab [Kp][96] =
 //     q | k | v, each hd wide in a 32-column slot (no zero slot: 96 columns for 90 real
-//     ones). 128 rows a pass, K in chunks of 32: the chunk of x is normalised on load (a
-//     warp takes each row's mean and 1/std once a pass; the modular in_shift gather is the
-//     row's address), the slab's chunk comes by cp.async, and a warp owns 2 m-tiles x 6
-//     n-tiles of the pass's 128 x 96 product. k and v of the head stay in shared memory,
-//     [N][36] each (a row stride of 4 mod 8); the scaled q rows are parked in the output
-//     buffer, each token's own hd floats of this head: the warp that later overwrites them
-//     with the result reads them back first.
+//     ones). 128 rows a pass, K in chunks of 32: the chunk of x is normalised on load where
+//     there is a LayerNorm (a warp takes each row's mean and 1/std once a pass; the modular
+//     shift gather is the row's address), the slab's chunk comes by cp.async, and a warp
+//     owns 2 m-tiles x 6 n-tiles of the pass's 128 x 96 product. k and v of the head stay in
+//     shared memory, [N][36] each (a row stride of 4 mod 8); the scaled q rows are parked in
+//     the output buffer, each token's own hd floats of this head: the warp that later
+//     overwrites them with the result reads them back first.
 //   * Scores and PV: a warp owns 16 query rows (an m-tile) at a time; their q rows go from
 //     the parked copy into the warp's slice of the (then idle) staging area, read as A
 //     fragments. QK^T runs over key chunks of 32 (four n-tiles, k = 32 in four k-steps)
@@ -46,12 +50,13 @@
 //     still hit 32 banks.
 //   * The shift mask comes as its 4 window types (interior, last column, last row, corner)
 //     [4][N][N]; the block picks its type from the window's position.
+//   * Two instantiations, with and without the LayerNorm on load; nothing else differs.
 // The heads of a window are neighbouring blocks, so x is read from device memory once and
 // again from L2.
 //
 // Layout: x [B,H,W,Cin] NHWC f32; wh [heads][Kp][96]; bh [heads][96]; bias [heads][N][N];
-// types [4][N][N] or null; att [B,H,W,heads*hd]. N % 64 == 0, N <= 256, hd <= 32,
-// Cin % 4 == 0, Kp % 8 == 0.
+// types [4][N][N] or null; att [B,H,W,heads*hd]; lnw, lnb [Cin] or both null. N % 32 == 0,
+// N <= 256, hd <= 32, Cin % 4 == 0, Kp % 8 == 0.
 
 #include <cmath>
 
@@ -72,14 +77,16 @@ size_t smem_bytes(int N) {
     return (size_t)(2 * N * kLdKV + kPass * kLdX + kKChunk * kLdW + 3 * kPass) * sizeof(float);
 }
 
+template <bool LN>
 __global__ void __launch_bounds__(kThreads, 2)
-hab_attention_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
-                     const float* __restrict__ lnb, const float* __restrict__ wh,
-                     const float* __restrict__ bh, const float* __restrict__ bias,
-                     const float* __restrict__ types, float* __restrict__ out, int H, int W,
-                     int Cin, int Kp, int ws_, int heads, int hd, float scale, int shift) {
+xqkv_attention_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
+                      const float* __restrict__ lnb, const float* __restrict__ wh,
+                      const float* __restrict__ bh, const float* __restrict__ bias,
+                      const float* __restrict__ types, float* __restrict__ out, int H, int W,
+                      int Cin, int Kp, int hs, int ws_, int heads, int hd, float scale,
+                      int shift) {
     extern __shared__ float4 smem4[];
-    const int N = ws_ * ws_;
+    const int N = hs * ws_;
     float* ks = reinterpret_cast<float*>(smem4);  // [N][kLdKV]
     float* vs = ks + N * kLdKV;                    // [N][kLdKV]
     float* xsm = vs + N * kLdKV;                   // [kPass][kLdX]
@@ -91,7 +98,7 @@ hab_attention_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
     const int g = lane >> 2, t = lane & 3;
     const int head = blockIdx.x % heads;
     int win = blockIdx.x / heads;
-    const int n_wc = W / ws_, n_wr = H / ws_;
+    const int n_wc = W / ws_, n_wr = H / hs;
     const int bi = win / (n_wr * n_wc);
     win -= bi * n_wr * n_wc;
     const int wy = win / n_wc, wx = win % n_wc;
@@ -102,10 +109,10 @@ hab_attention_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
     const int co = heads * hd;
     float* oh = out + (size_t)bi * H * W * co + head * hd;  // this head's columns
     auto pixel = [&](int tok) {  // token of the window -> its pixel's offset in `out`
-        return ((size_t)(wy * ws_ + tok / ws_) * W + wx * ws_ + tok % ws_) * co;
+        return ((size_t)(wy * hs + tok / ws_) * W + wx * ws_ + tok % ws_) * co;
     };
     auto src_off = [&](int tok) {  // token of the window -> its pixel's row of x, from xb
-        int y = wy * ws_ + tok / ws_ + shift, xx = wx * ws_ + tok % ws_ + shift;
+        int y = wy * hs + tok / ws_ + shift, xx = wx * ws_ + tok % ws_ + shift;
         if (y >= H) y -= H;
         if (xx >= W) xx -= W;
         return (y * W + xx) * Cin;
@@ -118,7 +125,7 @@ hab_attention_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
         for (int r = warp; r < kPass; r += kThreads / 32) {
             float u = 0.f, inv = 0.f;
             const int off = r0 + r < N ? src_off(r0 + r) : 0;
-            if (r0 + r < N) warp_ln_stats(xb + off, Cin, 1e-5f, u, inv);
+            if (LN && r0 + r < N) warp_ln_stats(xb + off, Cin, 1e-5f, u, inv);
             if (lane == 0) {
                 lnst[2 * r] = u;
                 lnst[2 * r + 1] = inv;
@@ -145,6 +152,8 @@ hab_attention_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
                 float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
                 if (r0 + r < N && ch < Cin) {
                     v = *reinterpret_cast<const float4*>(xb + rowoff[r] + ch);
+                }
+                if (LN && r0 + r < N && ch < Cin) {   // LN1 on load
                     const float u = lnst[2 * r], inv = lnst[2 * r + 1];
                     const float4 lw = *reinterpret_cast<const float4*>(lnw + ch);
                     const float4 lb = *reinterpret_cast<const float4*>(lnb + ch);
@@ -331,24 +340,29 @@ hab_attention_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
 
 }  // namespace
 
-// att = W-MSA(LN1(x)) before the output projection, the attention half of the fused HAB
-// block; wh [heads][Kp][96] and bh [heads][96] are the per-head slabs q | k | v.
-extern "C" int hab_attention(const float* x, const float* lnw, const float* lnb,
-                             const float* wh, const float* bh, const float* bias,
-                             const float* types, float* att, int B, int H, int W, int C,
-                             int Kp, int ws, int heads, int hd, int shift, void* stream) {
-    const int N = ws * ws;
-    if (heads * hd != C || N % kKeys || N > kMaxN || hd > kSlot || hd < 1 || C % 4 ||
-        Kp % 8 || Kp < C || H % ws || W % ws || shift < 0 || shift >= H || shift >= W)
+// att = window attention of x's (hs x ws) windows after the qkv projection, before the output
+// projection: B4 (lnw = lnb = null, shift 0) and the attention half of the fused HAB block
+// (B8, LN1 = (lnw, lnb)); wh [heads][Kp][96] and bh [heads][96] are the per-head slabs
+// q | k | v.
+extern "C" int xqkv_attention(const float* x, const float* lnw, const float* lnb,
+                              const float* wh, const float* bh, const float* bias,
+                              const float* types, float* att, int B, int H, int W, int Cin,
+                              int Kp, int hs, int ws, int heads, int hd, int shift,
+                              void* stream) {
+    const int N = hs * ws;
+    if (N % kKeys || N > kMaxN || hd > kSlot || hd < 1 || heads < 1 || Cin % 4 || Kp % 8 ||
+        Kp < Cin || H % hs || W % ws || shift < 0 || shift >= H || shift >= W ||
+        (lnw == nullptr) != (lnb == nullptr))
         return cudaErrorInvalidValue;
     const size_t smem = smem_bytes(N);
-    cudaError_t err = cudaFuncSetAttribute(
-        hab_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    auto kernel = lnw ? xqkv_attention_kernel<true> : xqkv_attention_kernel<false>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const long long nblocks = (long long)B * (H / ws) * (W / ws) * heads;
+    const long long nblocks = (long long)B * (H / hs) * (W / ws) * heads;
     if (nblocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-    hab_attention_kernel<<<(unsigned)nblocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        x, lnw, lnb, wh, bh, bias, types, att, H, W, C, Kp, ws, heads, hd,
+    kernel<<<(unsigned)nblocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        x, lnw, lnb, wh, bh, bias, types, att, H, W, Cin, Kp, hs, ws, heads, hd,
         1.f / sqrtf((float)hd), shift);
     return cudaGetLastError();
 }

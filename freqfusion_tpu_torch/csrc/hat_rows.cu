@@ -33,9 +33,9 @@
 // one block of 16 warps an SM. What the TPU kernel keeps in VMEM between the products goes
 // through device memory instead: y is parked in the output buffer (written by proj or by
 // fc1's staging, read and overwritten by fc2's epilogue, each element by the thread that
-// wrote it), the hidden in a scratch buffer [pixels][K2p]. fc2 and the linear product take
-// K in pieces (tile_mma_piece: 184 + 176 at 360), each piece's epilogue adding to the last's;
-// proj and fc1 stage a row's whole K (C <= 192).
+// wrote it), the hidden in a scratch buffer [pixels][K2p]. Every product takes K in pieces
+// of at most 192 rows (tile_mma_piece: 184 + 176 at 360), each piece's epilogue adding to
+// the last's; at C <= 192, proj and fc1 are one piece (see Mode below).
 // LN2 (and LN_sg) is one warp per row. With in_shift the shortcut x is read at
 // (y + s, x + s), wrapping, like the attention read it; conv_x and out are in rolled
 // coordinates. Widths are padded to multiples of 8, the MMA's k and n (180 -> 184; 360 and
@@ -51,11 +51,15 @@ constexpr int kP = kMmaRows;   // pixels per block
 constexpr int kWarps = kMmaThreads / 32;
 constexpr float kEps = 1e-5f;
 enum Mode { kLinear = 0, kProj = 1, kFc1 = 2, kFc2 = 3 };
-// fc2 and the linear product take K in pieces (tile_mma_piece), each piece's epilogue adding
-// to the last; proj and fc1 need a row's whole K (C <= kMmaMaxK = 192) for their epilogue
-// and LN, and the wrappers refuse a wider C (ops/kernels/_mma.py: MAX_ROW_K).
+// Every product takes K in pieces of at most kMmaMaxK = 192 rows (tile_mma_piece), each
+// piece's epilogue adding to the last's. At C <= 192 proj and fc1 are one piece, and do what
+// they did before pieces: fc1 holds a row in registers for its LN, proj adds the residuals
+// in its epilogue. Above 192, fc1 (SPLIT) takes each row's mean and 1/std in a first pass
+// over device memory (y = a + shortcut parked in out on the way) and normalises each piece
+// as it stages it, and the hidden's partial sums over the pieces are added in f32 before
+// bias and GELU; the projection is the linear mode, whose pieces sum in out, and
+// residual_kernel adds the residuals after it (a split proj epilogue spilled).
 __host__ __device__ constexpr bool pieces(int mode) { return mode == kFc2 || mode == kLinear; }
-
 struct RowArgs {
     const float* a;      // att (kLinear, kProj), a or y (kFc1), the hidden (kFc2)
     const float* x;      // the block's input x (kProj); shortcut or null (kFc1)
@@ -71,15 +75,6 @@ struct RowArgs {
     int H, W, C, Kp, Np, nreal, shift;   // nreal: real columns of the product
     float conv_scale;
 };
-
-// v into A at row p, columns c .. c + 3 (c % 4 == 0), A of `ksteps` k-steps
-__device__ __forceinline__ void put4(float* A, int p, int c, int ksteps, float4 v) {
-    const int i = a_frag_index(p, c, ksteps);   // c + 1 .. c + 3 sit 4 floats apart
-    A[i] = v.x;
-    A[i + 4] = v.y;
-    A[i + 8] = v.z;
-    A[i + 12] = v.w;
-}
 
 // LayerNorm (eps 1e-5) of a row of n <= 384 floats in device memory, in place, by one warp:
 // the row is held in registers, so it costs one round of loads.
@@ -116,16 +111,19 @@ __device__ __forceinline__ void ln_row_inplace(float* row, const float* __restri
     }
 }
 
-template <int MODE>
+template <int MODE, bool SPLIT>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 rows_kernel(const RowArgs g) {
     extern __shared__ float4 smem4[];
     const int C = g.C;
-    const int Kt = pieces(MODE) ? tile_mma_piece(g.Kp) : g.Kp;
+    // SPLIT: fc1 with K in more than one piece (fc2 and linear always take pieces; proj
+    // at C > 192 is hab_tail's linear product and residual_kernel)
+    const int Kt = SPLIT || pieces(MODE) ? tile_mma_piece(g.Kp) : g.Kp;
     float* A = reinterpret_cast<float*>(smem4);  // [kP x Kt] in A-fragment order
     float* ws = A + kP * Kt;                      // tile_mma's weight ring
-    long long* src = reinterpret_cast<long long*>(ws + tile_mma_ws());  // [kP]
-    int* img = reinterpret_cast<int*>(src + kP);                         // [kP]
+    long long* src = reinterpret_cast<long long*>(ws + tile_mma_ws());  // [kP] (proj)
+    int* img = reinterpret_cast<int*>(src + kP);                         // [kP] (proj)
+    float* lnst = reinterpret_cast<float*>(src);   // [kP][2] mean, 1/std (fc1 in pieces)
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const long long p0 = (long long)blockIdx.x * kP;
 
@@ -140,11 +138,56 @@ rows_kernel(const RowArgs g) {
             img[tid] = bi;
         }
     }
+    if constexpr (MODE == kFc1 && SPLIT) {
+        // a first pass over each whole row, a warp a row: y = a + shortcut parked in out,
+        // then y's mean and 1/std (tile_mma synchronises before the first piece reads them)
+        for (int p = warp; p < kP; p += kWarps) {
+            const long long gp = p0 + p;
+            float u = 0.f, inv = 0.f;
+            if (gp < g.npix) {
+                const float* y = g.a + gp * C;
+                if (g.x) {
+                    for (int c = 4 * lane; c < C; c += 128) {
+                        const float4 v = *reinterpret_cast<const float4*>(y + c);
+                        const float4 s = *reinterpret_cast<const float4*>(g.x + gp * C + c);
+                        *reinterpret_cast<float4*>(g.out + gp * C + c) =
+                            make_float4(v.x + s.x, v.y + s.y, v.z + s.z, v.w + s.w);
+                    }
+                    __syncwarp();
+                    y = g.out + gp * C;
+                }
+                warp_ln_stats(y, C, kEps, u, inv);
+            }
+            if (lane == 0) {
+                lnst[2 * p] = u;
+                lnst[2 * p + 1] = inv;
+            }
+        }
+    }
     for (int k0 = 0; k0 < g.Kp; k0 += Kt) {
         const int kh = min(Kt, g.Kp - k0), ks = kh / 8;
         // A's rows, written once every thread is past the previous piece's reads of A
         auto stage_a = [&] {
-            if (MODE == kFc1) {
+            if constexpr (MODE == kFc1 && SPLIT) {
+                // LN(y) of the piece's columns from the first pass's mean and 1/std
+                const float* y = g.x ? g.out : g.a;
+                const int k4 = kh / 4;
+#pragma unroll 4
+                for (int e = tid; e < kP * k4; e += kMmaThreads) {
+                    const int p = e / k4, c = (e % k4) * 4, ch = k0 + c;
+                    const long long gp = p0 + p;
+                    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+                    if (gp < g.npix && ch < C) {
+                        const float4 v = *reinterpret_cast<const float4*>(y + gp * C + ch);
+                        const float4 w = *reinterpret_cast<const float4*>(g.lnw + ch);
+                        const float4 b = *reinterpret_cast<const float4*>(g.lnb + ch);
+                        const float u = lnst[2 * p], inv = lnst[2 * p + 1];
+                        o = make_float4((v.x - u) * inv * w.x + b.x, (v.y - u) * inv * w.y + b.y,
+                                        (v.z - u) * inv * w.z + b.z, (v.w - u) * inv * w.w + b.w);
+                    }
+                    put4(A, p, c, ks, o);
+                }
+            } else if constexpr (MODE == kFc1) {
                 // LN(y), a warp a row, the row in registers (C <= 192: two float4 a lane), so
                 // that a row costs one round of loads; y = a + shortcut is parked in out
 #pragma unroll 2
@@ -207,7 +250,7 @@ rows_kernel(const RowArgs g) {
                 }
             }
         };
-        const bool first = k0 == 0;
+        const bool first = k0 == 0, last = k0 + kh == g.Kp;   // `last`: fc1 in pieces
         // tile_mma synchronises before it reads A; src and img are written before the call
         tile_mma(
             A, kh, g.w + (size_t)(k0 / 8) * (g.Np / 8) * 32, g.Np / 8, g.Np, ws, stage_a,
@@ -215,9 +258,20 @@ rows_kernel(const RowArgs g) {
                 const long long gp = p0 + p;
                 if (gp >= g.npix) return;
                 if (MODE == kFc1) {   // the hidden, zero in its padded columns
-                    *reinterpret_cast<float2*>(g.hid + gp * g.Np + n) = make_float2(
-                        n < g.nreal ? gelu_erf(u0 + g.bias[n]) : 0.f,
-                        n + 1 < g.nreal ? gelu_erf(u1 + g.bias[n + 1]) : 0.f);
+                    float2* hp = reinterpret_cast<float2*>(g.hid + gp * g.Np + n);
+                    if constexpr (SPLIT) {   // the pieces' sums, in f32, before bias and GELU
+                        if (!first) {
+                            const float2 s = *hp;
+                            u0 += s.x;
+                            u1 += s.y;
+                        }
+                        if (!last) {
+                            *hp = make_float2(u0, u1);
+                            return;
+                        }
+                    }
+                    *hp = make_float2(n < g.nreal ? gelu_erf(u0 + g.bias[n]) : 0.f,
+                                      n + 1 < g.nreal ? gelu_erf(u1 + g.bias[n + 1]) : 0.f);
                     return;
                 }
                 // floats of a row of out, even: n < wout holds n + 1 < wout too
@@ -257,21 +311,54 @@ rows_kernel(const RowArgs g) {
     }
 }
 
-template <int MODE>
-cudaError_t launch(const RowArgs& g, cudaStream_t st) {
-    if (g.C % 4 || g.Kp % 8 || g.Np % 8 || g.npix < 1) return cudaErrorInvalidValue;
-    if (MODE == kFc1 && (g.C > kMmaMaxK || (g.sgw && g.nreal / 2 > 384)))
-        return cudaErrorInvalidValue;
-    const int Kt = pieces(MODE) ? tile_mma_piece(g.Kp) : g.Kp;
+// out += x[(y + s) % H][(x + s) % W] + conv_scale * cab_scale * conv_x, pixel by pixel: the
+// projection's residuals where C > kMmaMaxK (rows_linear wrote out = att @ wproj + bproj)
+__global__ void residual_kernel(const RowArgs g) {
+    const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;   // a float2
+    const int c2 = g.C / 2;
+    if (e >= g.npix * c2) return;
+    const long long gp = e / c2, hw = (long long)g.H * g.W;
+    const int n = 2 * (int)(e - gp * c2);
+    const int bi = (int)(gp / hw), rem = (int)(gp - bi * hw);
+    int y = rem / g.W + g.shift, xx = rem % g.W + g.shift;
+    if (y >= g.H) y -= g.H;
+    if (xx >= g.W) xx -= g.W;
+    float2* o = reinterpret_cast<float2*>(g.out + gp * g.C + n);
+    const float2 u = *o;
+    const float2 xs = *reinterpret_cast<const float2*>(
+        g.x + (bi * hw + (long long)y * g.W + xx) * g.C + n);
+    const float2 cx = *reinterpret_cast<const float2*>(g.cx + gp * g.C + n);
+    float2 s = make_float2(g.conv_scale, g.conv_scale);
+    if (g.cabs) {
+        const float2 cb = *reinterpret_cast<const float2*>(g.cabs + (size_t)bi * g.C + n);
+        s = make_float2(g.conv_scale * cb.x, g.conv_scale * cb.y);
+    }
+    *o = make_float2(xs.x + u.x + s.x * cx.x, xs.y + u.y + s.y * cx.y);
+}
+
+template <int MODE, bool SPLIT>
+cudaError_t launch_split(const RowArgs& g, int Kt, cudaStream_t st) {
     const size_t smem = (size_t)(kP * Kt + tile_mma_ws() + 3 * kP) * sizeof(float);
     if (smem > 227 * 1024) return cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
-        rows_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        rows_kernel<MODE, SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const long long nblocks = (g.npix + kP - 1) / kP;
     if (nblocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-    rows_kernel<MODE><<<(unsigned)nblocks, kMmaThreads, smem, st>>>(g);
+    rows_kernel<MODE, SPLIT><<<(unsigned)nblocks, kMmaThreads, smem, st>>>(g);
     return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch(const RowArgs& g, cudaStream_t st) {
+    if (g.C % 4 || g.Kp % 8 || g.Np % 8 || g.npix < 1) return cudaErrorInvalidValue;
+    if (MODE == kFc1 && g.sgw && g.nreal / 2 > 384) return cudaErrorInvalidValue;
+    const int Kt = tile_mma_piece(g.Kp);
+    if constexpr (MODE == kFc1) {
+        if (Kt != g.Kp) return launch_split<kFc1, true>(g, Kt, st);
+    }
+    if (MODE == kProj && Kt != g.Kp) return cudaErrorInvalidValue;   // hab_tail splits it
+    return launch_split<MODE, false>(g, Kt, st);
 }
 
 cudaError_t fc1(const float* a, const float* shortcut, const float* lnw, const float* lnb,
@@ -337,7 +424,17 @@ extern "C" int hab_tail(const float* att, const float* x, const float* cx, const
     g.bias = bp; g.out = out;
     g.npix = (long long)B * H * W; g.H = H; g.W = W; g.C = C; g.Kp = Kp; g.Np = Np;
     g.nreal = C; g.shift = shift; g.conv_scale = conv_scale;
-    cudaError_t err = launch<kProj>(g, st);
+    cudaError_t err;
+    if (tile_mma_piece(Kp) == Kp) {
+        err = launch<kProj>(g, st);
+    } else {   // K in pieces: the linear product, then the residuals
+        err = launch<kLinear>(g, st);
+        if (err != cudaSuccess) return err;
+        const long long n2 = g.npix * (C / 2);
+        if ((n2 + 255) / 256 > 0x7fffffffLL) return cudaErrorInvalidValue;
+        residual_kernel<<<(unsigned)((n2 + 255) / 256), 256, 0, st>>>(g);
+        err = cudaGetLastError();
+    }
     if (err != cudaSuccess) return err;
     return mlp(out, nullptr, lnw, lnb, w1, b1, w2, b2, hid, out, g.npix, C, nhid, Kp, Np, K2p,
                st);

@@ -145,6 +145,16 @@ __device__ __forceinline__ int a_frag_index(int p, int k, int ksteps) {
     return ((((p >> 4) * ksteps + (k >> 3)) * 32 + lane) << 2) + slot;
 }
 
+// v into A at row p, columns c .. c + 3 (c % 4 == 0), A of `ksteps` k-steps in the layout of
+// a_frag_index
+__device__ __forceinline__ void put4(float* A, int p, int c, int ksteps, float4 v) {
+    const int i = a_frag_index(p, c, ksteps);   // c + 1 .. c + 3 sit 4 floats apart
+    A[i] = v.x;
+    A[i + 4] = v.y;
+    A[i + 8] = v.z;
+    A[i + 12] = v.w;
+}
+
 // Row-tile product on the tensor cores in f32-exact 3xTF32, for a block of kMmaThreads:
 //   acc(p, n) = sum_{k < K} A(p, k) * W(k, n)          p < 128, n < N
 // and epi(p, n, acc(p, n), acc(p, n + 1)) is called once for every p and even n, by the

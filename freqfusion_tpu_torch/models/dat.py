@@ -36,7 +36,7 @@ from ..ops.common import layernorm, pixel_shuffle
 from ..ops.kernels.aim import (aim_conv_branch, aim_conv_branch_plain, aim_gates_proj,
                                aim_gates_proj_plain)
 from ..ops.kernels.sgfn import fused_sgfn_tail, fused_sgfn_tail_plain
-from ..ops.kernels.wattn import (fused_window_attention_qkv,
+from ..ops.kernels.wattn import (branch_qkv, fused_window_attention_qkv,
                                  fused_window_attention_qkv_plain,
                                  fused_window_attention_xqkv,
                                  fused_window_attention_xqkv_plain)
@@ -139,15 +139,6 @@ class _AIM(nn.Module):
         return fn(attened, conv_x, chmap, *self.gates_weights(), swap=swap)
 
 
-def _branch_qkv_slices(wqkv, bqkv, c: int, half: int, br: int):
-    """Branch `br`'s q, k, v columns of the full [C,3C] projection: channels
-    [br*half, br*half+half) of each of the three sections."""
-    off = br * half
-    cols = [slice(s * c + off, s * c + off + half) for s in range(3)]
-    return (torch.cat([wqkv[:, s] for s in cols], dim=1).contiguous(),
-            torch.cat([bqkv[s] for s in cols]))
-
-
 def _should_shift(rg_idx: int, b_idx: int) -> bool:
     return ((rg_idx % 2 == 0 and b_idx > 0 and (b_idx - 2) % 4 == 0)
             or (rg_idx % 2 != 0 and b_idx % 4 == 0))
@@ -174,7 +165,7 @@ class AdaptiveSpatialAttention(_AIM):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B,H,W,C]
         b, h, w, c = x.shape
-        wqkv, bqkv = _io(self.qkv), self.qkv.bias
+        wqkv, bqkv = linear_io_view(self.qkv), self.qkv.bias
         s0, s1 = self.split_size
         sh0, sh1 = self.shift_size
         mx = max(s0, s1)
@@ -199,11 +190,15 @@ class AdaptiveSpatialAttention(_AIM):
             bias = self.attns[br].bias()
             heads = self.num_heads // 2
             if fused_x:
-                wb, bb = _branch_qkv_slices(wqkv, bqkv, c, half, br)
                 xb = torch.roll(x, (-sh, -sw), dims=(1, 2)) if self.shift else x
-                fn = (fused_window_attention_xqkv if self.kernels
-                      else fused_window_attention_xqkv_plain)
-                o = fn(xb.contiguous(), wb, bb, bias, mask, (hs, ws), heads)
+                if self.kernels:   # the parameter itself, and the branch's columns (`cols`):
+                    # the kernel's head slabs are kept on the parameter
+                    o = fused_window_attention_xqkv(xb.contiguous(), wqkv, bqkv, bias, mask,
+                                                    (hs, ws), heads, (br * half, half))
+                else:
+                    wb, bb = branch_qkv(wqkv, bqkv, br * half, half)
+                    o = fused_window_attention_xqkv_plain(xb, wb, bb, bias, mask, (hs, ws),
+                                                          heads)
             else:
                 sl = slice(br * half, br * half + half)
                 qb, kb, vb = qp[..., sl], kp[..., sl], vp[..., sl]

@@ -73,7 +73,8 @@ class NAFBlock(nn.Module):
 
         return dict(
             ln1_w=self.norm1.weight, ln1_b=self.norm1.bias,
-            w1=mat(self.conv1, c), b1=self.conv1.bias,
+            # a view of the weight: stage A's kernel keeps its planes on it
+            w1=self.conv1.weight.reshape(-1, c).t(), b1=self.conv1.bias,
             wdw=self.conv2.weight.reshape(2 * c, 9).t().contiguous(), bdw=self.conv2.bias,
             sca_w=mat(self.sca[1], c), sca_b=self.sca[1].bias,
             w3=mat(self.conv3, c), b3=self.conv3.bias, beta=self.beta.reshape(c),

@@ -16,14 +16,14 @@ split from here, so that the kernel loads their two parts and splits nothing:
   as the kernel's split stores it: the MMA reads an operand's top 19 bits, so it then takes
   lo rounded to nearest;
 * ``planes(w, kp, npad)`` is what the wrappers call: ``mma_planes`` of w [K,N] zero-padded
-  to [kp,npad] (``padded``), made once for each weight and kept beside it (see its
-  docstring), so that a forward does not split and re-lay its constant weights on every
-  call.
+  to [kp,npad] (``padded``), made once for each weight and kept beside it (``kept``, which
+  the attention's head slabs and B1's planes use too), so that a forward does not split
+  and re-lay its constant weights on every call.
 
-``MAX_ROW_K`` is the widest row that the LayerNorm and projection modes of
-``csrc/hat_rows.cu`` stage whole: ``kMmaMaxK`` of ``csrc/mma_f32x3.cuh``, what 128 rows of A
-leave of a block's shared memory beside the weight ring. The wrappers of B6, B8 and B10
-refuse a wider C.
+``MAX_ROW_K`` is the most rows of K that a row product stages at a time: ``kMmaMaxK`` of
+``csrc/mma_f32x3.cuh``, what 128 rows of A leave of a block's shared memory beside the
+weight ring. A wider K goes in the pieces that ``piece_sizes`` lists, as the kernels take it
+(``tile_mma_piece``).
 """
 
 from __future__ import annotations
@@ -35,6 +35,15 @@ from torch.utils.weak import WeakTensorKeyDictionary
 _HALF_ULP = 0x1000
 _TF32_MASK = -0x2000   # 0xffffe000 as an int32
 MAX_ROW_K = 192
+
+
+def piece_sizes(k: int) -> list[int]:
+    """The rows of K (a multiple of 8) that the row products stage at a time: the fewest
+    pieces of at most MAX_ROW_K, as even as multiples of 8 fall, the last taking the rest
+    (``tile_mma_piece`` of ``csrc/mma_f32x3.cuh``)."""
+    n = -(-k // MAX_ROW_K)
+    piece = (-(-k // n) + 7) // 8 * 8
+    return [min(piece, k - i) for i in range(0, k, piece)]
 
 
 def split_tf32(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -69,29 +78,34 @@ def mma_planes(wp: torch.Tensor) -> torch.Tensor:
 
 
 
-#: The planes made so far, on the tensor that owns each weight's memory.
-_PLANES = WeakTensorKeyDictionary()
+#: What ``kept`` made so far, on the tensor that owns each first argument's memory.
+_KEPT = WeakTensorKeyDictionary()
+
+
+def kept(spec: tuple, make, *ts: torch.Tensor):
+    """make() for the tensors ts (a weight and, where it goes with one, its bias) and a
+    hashable `spec` of what is made, once: the result is kept on the tensor that owns
+    ts[0]'s memory (ts[0] itself, or the base of the view that it is, such as
+    ``linear.weight.t()``) and goes when it goes. It is made anew when any of ts changes
+    in place (its version counter), is viewed another way, or moves (``module.to``). An
+    inference tensor counts no versions: for one, make() runs on every call."""
+    for t in ts:
+        if t.is_inference():
+            return make()
+    w = ts[0]
+    root = w if w._base is None else w._base
+    key = (spec, *[(t.shape, t.stride(), t.data_ptr(), t.device) for t in ts])
+    versions = [t._version for t in ts]
+    table = _KEPT.get(root)
+    if table is None:
+        table = _KEPT[root] = {}
+    hit = table.get(key)
+    if hit is None or hit[0] != versions:
+        hit = table[key] = (versions, make())
+    return hit[1]
 
 
 def planes(w: torch.Tensor, kp: int, npad: int) -> torch.Tensor:
-    """``mma_planes`` of w [K,N] zero-padded to [kp,npad], made once for each weight.
-
-    The planes are kept on the tensor that owns w's memory (w itself, or the base of the
-    view that w is, such as ``linear.weight.t()``) and go when it goes. They are made anew
-    when that tensor changes in place (its version counter), when w views it another way,
-    or when its memory moves (``module.to``). An inference tensor counts no versions: its
-    planes are made on every call."""
-    def make():
-        return mma_planes(padded(w, kp, npad))
-
-    if w.is_inference():
-        return make()
-    root = w if w._base is None else w._base
-    key = (tuple(w.shape), w.stride(), w.data_ptr(), w.device, kp, npad)
-    kept = _PLANES.get(root)
-    if kept is None:
-        kept = _PLANES[root] = {}
-    hit = kept.get(key)
-    if hit is None or hit[0] != w._version:
-        hit = kept[key] = (w._version, make())
-    return hit[1]
+    """``mma_planes`` of w [K,N] zero-padded to [kp,npad], made once for each weight
+    (``kept``)."""
+    return kept(("planes", kp, npad), lambda: mma_planes(padded(w, kp, npad)), w)

@@ -2,10 +2,13 @@
 
 Twin of ``freqfusion_tpu/ops/pallas/nafblock.py``. On a CUDA tensor each wrapper launches
 its kernel from ``csrc/nafblock.cu`` or raises; on a CPU tensor it runs the plain PyTorch
-version, which computes the same math. There is no fallback from one to the other.
+version, which computes the same math. There is no fallback from one to the other. Stage A's
+1x1 product runs f32-exact on the tensor cores (3xTF32): w1 is split into TF32 hi and lo
+parts and laid out for it once for each weight (``stage_a_planes``).
 
 Layouts (NHWC, f32): x, g [B,H,W,C]; w1, w4 [C,2C]; w3, w5 [C,C]; wdw [9,2C] (the 3x3
-depthwise taps, row dy*3+dx); every other parameter a vector.
+depthwise taps, row dy*3+dx); every other parameter a vector. w1 may be a view (a model
+passes its conv's weight as one, so that its planes are kept on it).
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..common import channel_layernorm
-from . import _build
+from . import _build, _mma
 
 #: Kernel launches since the last reset, by kernel. Plain runs are not counted.
 launches = {"naf_block_stage_a": 0, "naf_block_stage_b": 0}
@@ -44,6 +47,26 @@ def naf_block_stage_b_plain(g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4, w5, b
     return y + (h @ w5 + b5) * gamma
 
 
+#: Gate channels of one pass of stage A's product; the pass's 64 columns are those channels
+#: and their partners (csrc/nafblock.cu: kPassC).
+STAGE_A_PASS = 32
+#: Widest C that stage A's kernel takes: the halo's LN(x) is staged whole.
+STAGE_A_MAX_C = 256
+
+
+def stage_a_planes(w1: torch.Tensor) -> torch.Tensor:
+    """w1 [C,2C] with its columns pass by pass (gate channels 32p.. 32p+31, then their
+    partners C+32p..) as tile_mma's B fragments, hi and lo (``_mma.mma_planes``):
+    [C/8, C/4, 32, 4], made once for each weight (``_mma.kept``)."""
+    c = w1.shape[0]
+
+    def make():
+        cols = w1.reshape(c, 2, c // STAGE_A_PASS, STAGE_A_PASS).permute(0, 2, 1, 3)
+        return _mma.mma_planes(cols.reshape(c, 2 * c))
+
+    return _mma.kept(("naf_stage_a",), make, w1)
+
+
 def naf_block_stage_a(x, ln_w, ln_b, w1, b1, wdw, bdw):
     """Kernel B1 on CUDA, its plain version on the CPU. Returns (g, sums [B,C])."""
     _build.require_no_grad("naf_block_stage_a", x, ln_w, ln_b, w1, b1, wdw, bdw)
@@ -52,19 +75,26 @@ def naf_block_stage_a(x, ln_w, ln_b, w1, b1, wdw, bdw):
     b, h, w, c = x.shape
     if c % 64:
         raise ValueError(f"naf_block_stage_a: C={c} is not a multiple of 64")
+    if c > STAGE_A_MAX_C:
+        raise ValueError(f"naf_block_stage_a: C={c}; the kernel takes C up to {STAGE_A_MAX_C} "
+                         "(it stages the halo's LN(x) whole)")
     _build.require(x, "x")
-    for name, t, shape in (("ln_w", ln_w, (c,)), ("ln_b", ln_b, (c,)),
-                           ("w1", w1, (c, 2 * c)), ("b1", b1, (2 * c,)),
+    for name, t, shape in (("ln_w", ln_w, (c,)), ("ln_b", ln_b, (c,)), ("b1", b1, (2 * c,)),
                            ("wdw", wdw, (9, 2 * c)), ("bdw", bdw, (2 * c,))):
         _build.require(t, name, shape)
+    _build.require(w1, "w1", (c, 2 * c), contiguous=False)   # laid out anew: a view will do
+    w1p = stage_a_planes(w1)
     lib = _build.library()
     g = torch.empty_like(x)
-    part = torch.empty((b, lib.naf_stage_a_blocks(h, w), c), device=x.device,
-                       dtype=torch.float32)
-    sums = torch.empty((b, c), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
+        # the tile, hence the blocks, follows the image and the card (csrc: stage_a_rows)
+        nblk = lib.naf_stage_a_blocks(b, h, w, c)
+        if nblk < 0:
+            raise RuntimeError("naf_stage_a: the CUDA device cannot be queried")
+        part = torch.empty((b, nblk, c), device=x.device, dtype=torch.float32)
+        sums = torch.empty((b, c), device=x.device, dtype=torch.float32)
         err = lib.naf_stage_a(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
-                              w1.data_ptr(), b1.data_ptr(), wdw.data_ptr(),
+                              w1p.data_ptr(), b1.data_ptr(), wdw.data_ptr(),
                               bdw.data_ptr(), g.data_ptr(), part.data_ptr(),
                               sums.data_ptr(), b, h, w, c,
                               _build.stream_ptr(x.device))

@@ -8,18 +8,20 @@ Twins of ``freqfusion_tpu/ops/pallas/wattn.py``'s ``fused_window_attention_xqkv`
 ``fused_residual_ln_mlp`` and ``fused_window_attention``. On a CUDA tensor a wrapper
 launches its kernels (``csrc/wattn.cu``, ``csrc/hab_attention.cu``, ``csrc/oca.cu``,
 ``csrc/hat_rows.cu``) or raises; on a CPU tensor it runs the plain PyTorch version. There is
-no fallback from one to the other. B8's and B9's attention and every row product (B8's
-tail, B9's projection, B10, B14's projections) run f32-exact on the tensor cores (3xTF32);
-the row products' weights are zero-padded to multiples of 8, the MMA's k and n, and split
-into TF32 hi and lo parts on the host once for each weight (``_mma.planes``).
+no fallback from one to the other. B4's and B8's attention (one kernel), B9's attention and
+every row product (B8's tail, B9's projection, B10, B14's projections) run f32-exact on the
+tensor cores (3xTF32); the row products' weights are zero-padded to multiples of 8, the
+MMA's k and n, and split into TF32 hi and lo parts on the host once for each weight
+(``_mma.planes``), and the attention's per-head slabs are made once too (``head_slabs``).
 Dense weights come as [in,out] matrices of x @ w, as in the JAX package; every LayerNorm
 uses eps 1e-5.
 
-B4's layouts (NHWC, f32): x [B,H,W,Cin]; wqkv [Cin, 3*co] and bqkv [3*co], one branch's q, k, v
-columns (co = num_heads * head_dim); bias [num_heads, N, N] with N = window tokens; mask
-None, the numpy shift mask [nW, N, N] of ``ops.windows.shift_attn_mask`` or its 4 window
-types as a tensor [4, N, N] (see ``mask_types``). The result is
-the co-wide attended image [B,H,W,co], before any output projection. The caller rolls x
+B4's layouts (NHWC, f32): x [B,H,W,Cin]; wqkv [Cin, 3*co] and bqkv [3*co], one branch's
+q, k, v columns (co = num_heads * head_dim), or the whole projection with the branch's
+``cols``; bias [num_heads, N, N] with N = window tokens; mask None, the numpy shift mask
+[nW, N, N] of ``ops.windows.shift_attn_mask`` or its 4 window types as a tensor [4, N, N]
+(see ``mask_types``). The result is the co-wide attended image [B,H,W,co], before any
+output projection. The caller rolls x
 before and the result after a shifted block; nothing here shifts. B13 takes the same bias
 and mask with q, k, v [B,H,W,C] projected (and zero-padded to whole windows) by the caller;
 B14 takes x [B,H,W,C] with the whole [C,3C] projection and the [C,C] output projection.
@@ -215,60 +217,98 @@ def fused_window_attention_xqkv_plain(x, wqkv, bqkv, bias, mask, window, num_hea
     return fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads)
 
 
-def _padded_head_weights(wqkv, bqkv, num_heads: int, hd: int, kp: int, slots: int = 4):
-    """wqkv [Cin,3*co] -> [heads, kp, 32 * slots] with head h's q, k, v in columns 0..,
-    32.., 64.. (zeros elsewhere, rows Cin..kp zero too), and bqkv -> [heads, 32 * slots]
-    likewise; padded zeros change nothing. B4's streamed product takes N in steps of 64,
-    hence 4 slots (q | k | v | zeros) and kp a multiple of 16; B8's attention takes the
-    3 slots q | k | v and kp a multiple of 8."""
+def branch_qkv(wqkv, bqkv, off: int, width: int):
+    """One branch's [Cin,3*width] projection and its bias: columns off .. off+width of each
+    of the q, k and v thirds of a whole [Cin,3C] projection (DAT's two branches)."""
+    c = wqkv.shape[1] // 3
+    cols = [slice(s * c + off, s * c + off + width) for s in range(3)]
+    return (torch.cat([wqkv[:, sl] for sl in cols], dim=1).contiguous(),
+            torch.cat([bqkv[sl] for sl in cols]))
+
+
+def _padded_head_weights(wqkv, bqkv, num_heads: int, hd: int, kp: int):
+    """wqkv [Cin,3*co] -> [heads, kp, 96] with head h's q, k, v in columns 0.., 32.., 64..
+    (zeros elsewhere, rows Cin..kp zero too), and bqkv -> [heads, 96] likewise: the slabs of
+    csrc/hab_attention.cu, kp a multiple of 8; padded zeros change nothing."""
     cin = wqkv.shape[0]
-    wh = wqkv.new_zeros(num_heads, kp, slots, _SLOT)
-    wh[:, :cin, :3, :hd] = wqkv.reshape(cin, 3, num_heads, hd).permute(2, 0, 1, 3)
-    bh = bqkv.new_zeros(num_heads, slots, _SLOT)
-    bh[:, :3, :hd] = bqkv.reshape(3, num_heads, hd).permute(1, 0, 2)
-    return wh.reshape(num_heads, kp, slots * _SLOT), bh.reshape(num_heads, slots * _SLOT)
+    wh = wqkv.new_zeros(num_heads, kp, 3, _SLOT)
+    wh[:, :cin, :, :hd] = wqkv.reshape(cin, 3, num_heads, hd).permute(2, 0, 1, 3)
+    bh = bqkv.new_zeros(num_heads, 3, _SLOT)
+    bh[:, :, :hd] = bqkv.reshape(3, num_heads, hd).permute(1, 0, 2)
+    return wh.reshape(num_heads, kp, 3 * _SLOT), bh.reshape(num_heads, 3 * _SLOT)
 
 
-def fused_window_attention_xqkv(x, wqkv, bqkv, bias, mask, window, num_heads):
-    """Kernel B4 on CUDA, its plain version on the CPU. Returns [B,H,W,co]."""
-    _build.require_no_grad("fused_window_attention_xqkv", x, wqkv, bqkv, bias)
+def head_slabs(wqkv, bqkv, num_heads: int, hd: int, kp: int, cols=None):
+    """``_padded_head_weights`` of wqkv and bqkv, or with ``cols = (off, width)`` of the
+    branch ``branch_qkv(wqkv, bqkv, off, width)``, made once for each weight and kept beside
+    it (``_mma.kept``): a model passes its own parameter (a view such as
+    ``qkv.weight.t()``), and the slabs follow it when it changes in place or moves."""
+    def make():
+        w, b = (wqkv, bqkv) if cols is None else branch_qkv(wqkv, bqkv, *cols)
+        return _padded_head_weights(w, b, num_heads, hd, kp)
+
+    return _mma.kept(("head_slabs", num_heads, hd, kp, cols), make, wqkv, bqkv)
+
+
+def fused_window_attention_xqkv(x, wqkv, bqkv, bias, mask, window, num_heads, cols=None):
+    """Kernel B4 on CUDA, its plain version on the CPU. Returns [B,H,W,co].
+
+    With ``cols = (off, width)`` wqkv [Cin,3C] and bqkv [3C] are a whole projection and the
+    attention takes the branch ``branch_qkv(wqkv, bqkv, off, width)``: DAT passes its own
+    qkv parameter so that the kernel's head slabs are made once for each weight and branch
+    (``head_slabs``), where the branch's columns, cut on every call, would be new tensors."""
+    name = "fused_window_attention_xqkv"
+    _build.require_no_grad(name, x, wqkv, bqkv, bias)
     if x.device.type == "cpu":
+        if cols is not None:
+            wqkv, bqkv = branch_qkv(wqkv, bqkv, *cols)
         return fused_window_attention_xqkv_plain(x, wqkv, bqkv, bias, mask, window,
                                                  num_heads)
     b, h, w, cin = x.shape
     hs, ws = window
     n = hs * ws
-    co = wqkv.shape[1] // 3
+    co = wqkv.shape[1] // 3 if cols is None else cols[1]
     hd = co // num_heads
     if h % hs or w % ws:
-        raise ValueError(f"fused_window_attention_xqkv: {h}x{w} is not a multiple of the "
-                         f"{hs}x{ws} window")
+        raise ValueError(f"{name}: {h}x{w} is not a multiple of the {hs}x{ws} window")
     if n % 64 or n > MAX_TOKENS:
-        raise ValueError(f"fused_window_attention_xqkv: {n} tokens per window; the kernel "
-                         f"takes multiples of 64 up to {MAX_TOKENS}")
+        raise ValueError(f"{name}: {n} tokens per window; the kernel takes multiples of 64 up "
+                         f"to {MAX_TOKENS}")
     if hd * num_heads != co or hd > MAX_HEAD_DIM:
-        raise ValueError(f"fused_window_attention_xqkv: {co} columns over {num_heads} heads; "
-                         f"the kernel takes whole heads up to {MAX_HEAD_DIM} wide")
+        raise ValueError(f"{name}: {co} columns over {num_heads} heads; the kernel takes "
+                         f"whole heads up to {MAX_HEAD_DIM} wide")
     if cin % 4:
-        raise ValueError(f"fused_window_attention_xqkv: Cin={cin} is not a multiple of 4")
+        raise ValueError(f"{name}: Cin={cin} is not a multiple of 4")
     _build.require(x, "x")
-    _build.require(wqkv, "wqkv", (cin, 3 * co))
-    _build.require(bqkv, "bqkv", (3 * co,))
+    # the weights are laid out anew (head_slabs): a view will do
+    _build.require(wqkv, "wqkv", (cin, wqkv.shape[1] if cols else 3 * co), contiguous=False)
+    _build.require(bqkv, "bqkv", (wqkv.shape[1],))
+    if cols is not None and (wqkv.shape[1] % 3 or cols[0] < 0 or
+                             cols[0] + cols[1] > wqkv.shape[1] // 3):
+        raise ValueError(f"{name}: columns {cols} are not inside each third of a "
+                         f"[{cin},{wqkv.shape[1]}] projection")
     _build.require(bias, "bias", (num_heads, n, n))
-    n_wr, n_wc = h // hs, w // ws
-    types = None if mask is None else mask_types(mask, n_wr, n_wc, x.device)
-    kp = -(-cin // 16) * 16
-    wh, bh = _padded_head_weights(wqkv, bqkv, num_heads, hd, kp)
-    lib = _build.library()
+    types = None if mask is None else mask_types(mask, h // hs, w // ws, x.device)
+    wh, bh = head_slabs(wqkv, bqkv, num_heads, hd, _ceil8(cin), cols)
     out = torch.empty((b, h, w, co), device=x.device, dtype=torch.float32)
-    with torch.cuda.device(x.device):
-        err = lib.wattn_xqkv(x.data_ptr(), wh.data_ptr(), bh.data_ptr(), bias.data_ptr(),
-                             0 if types is None else types.data_ptr(), out.data_ptr(),
-                             b, h, w, cin, kp, hs, ws, num_heads, hd,
-                             _build.stream_ptr(x.device))
-    _build.check(err, "wattn_xqkv")
-    launches["fused_window_attention_xqkv"] += 1
+    _launch_xqkv(_build.library(), x, None, None, wh, bh, bias, types, out, window, num_heads,
+                 hd, 0)
+    launches[name] += 1
     return out
+
+
+def _launch_xqkv(lib, x, ln_w, ln_b, wh, bh, bias, types, out, window, num_heads, hd, shift):
+    """csrc/hab_attention.cu's attention of x's windows into `out` [B,H,W,heads*hd], with
+    the LayerNorm (ln_w, ln_b) on load where they are given."""
+    b, h, w, cin = x.shape
+    with torch.cuda.device(x.device):
+        err = lib.xqkv_attention(x.data_ptr(), 0 if ln_w is None else ln_w.data_ptr(),
+                                 0 if ln_b is None else ln_b.data_ptr(), wh.data_ptr(),
+                                 bh.data_ptr(), bias.data_ptr(),
+                                 0 if types is None else types.data_ptr(), out.data_ptr(),
+                                 b, h, w, cin, wh.shape[1], window[0], window[1], num_heads,
+                                 hd, shift, _build.stream_ptr(x.device))
+    _build.check(err, "xqkv_attention")
 
 
 def _ceil8(n: int) -> int:
@@ -349,10 +389,9 @@ def _hab_block_launchers(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wpro
     if n % 64 or n > MAX_TOKENS:
         raise ValueError(f"fused_hab_block: {n} tokens per window; the kernel takes "
                          f"multiples of 64 up to {MAX_TOKENS}")
-    if hd * num_heads != c or hd > MAX_HEAD_DIM or c % 4 or c > _mma.MAX_ROW_K:
+    if hd * num_heads != c or hd > MAX_HEAD_DIM or c % 4:
         raise ValueError(f"fused_hab_block: C={c} over {num_heads} heads; the kernel takes "
-                         f"whole heads up to {MAX_HEAD_DIM} wide and C a multiple of 4 up to "
-                         f"{_mma.MAX_ROW_K}")
+                         f"whole heads up to {MAX_HEAD_DIM} wide and C a multiple of 4")
     _build.require(x, "x")
     _build.require(conv_x, "conv_x", x.shape)
     for name, t, shape in (("ln1_w", ln1_w, (c,)), ("ln1_b", ln1_b, (c,)),
@@ -360,7 +399,7 @@ def _hab_block_launchers(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wpro
                            ("bqkv", bqkv, (3 * c,)), ("bproj", bproj, (c,)), ("b1", b1, (hid,)),
                            ("b2", b2, (c,)), ("bias", bias, (num_heads, n, n))):
         _build.require(t, name, shape)
-    # the weights are laid out anew (_mma.planes, _padded_head_weights): a view will do
+    # the weights are laid out anew (_mma.planes, head_slabs): a view will do
     for name, t, shape in (("wqkv", wqkv, (c, 3 * c)), ("wproj", wproj, (c, c)),
                            ("w1", w1, (c, hid)), ("w2", w2, (hid, c))):
         _build.require(t, name, shape, contiguous=False)
@@ -368,7 +407,7 @@ def _hab_block_launchers(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wpro
         _build.require(cab_scale, "cab_scale", (b, 1, 1, c))
     types = None if mask is None else mask_types(mask, h // wsh, w // wsw, x.device)
     kp, k2p, w1p, w2p = _mlp_planes(c, w1, w2)
-    wh, bh = _padded_head_weights(wqkv, bqkv, num_heads, hd, kp, slots=3)
+    wh, bh = head_slabs(wqkv, bqkv, num_heads, hd, kp)
     wpp = _mma.planes(wproj, kp, kp)
     lib = _build.library()
     att = torch.empty_like(x)
@@ -376,13 +415,8 @@ def _hab_block_launchers(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wpro
     hidden = torch.empty((b, h, w, k2p), device=x.device, dtype=torch.float32)
 
     def attention():
-        with torch.cuda.device(x.device):
-            err = lib.hab_attention(x.data_ptr(), ln1_w.data_ptr(), ln1_b.data_ptr(),
-                                    wh.data_ptr(), bh.data_ptr(), bias.data_ptr(),
-                                    0 if types is None else types.data_ptr(), att.data_ptr(),
-                                    b, h, w, c, kp, wsh, num_heads, hd, in_shift,
-                                    _build.stream_ptr(x.device))
-        _build.check(err, "hab_attention")
+        _launch_xqkv(lib, x, ln1_w, ln1_b, wh, bh, bias, types, att, window, num_heads, hd,
+                     in_shift)
 
     def tail():
         with torch.cuda.device(x.device):
@@ -491,9 +525,8 @@ def fused_residual_ln_mlp(a, shortcut, ln_w, ln_b, w1, b1, w2, b2):
     if a.device.type == "cpu":
         return fused_residual_ln_mlp_plain(a, shortcut, ln_w, ln_b, w1, b1, w2, b2)
     c, hid = a.shape[-1], w1.shape[1]
-    if c % 4 or c > _mma.MAX_ROW_K:
-        raise ValueError(f"fused_residual_ln_mlp: C={c}; the kernel takes C a multiple of 4 "
-                         f"up to {_mma.MAX_ROW_K}")
+    if c % 4:
+        raise ValueError(f"fused_residual_ln_mlp: C={c}; the kernel takes C a multiple of 4")
     _build.require(a, "a")
     _build.require(shortcut, "shortcut", a.shape)
     for name, t, shape in (("ln_w", ln_w, (c,)), ("ln_b", ln_b, (c,)), ("b1", b1, (hid,)),

@@ -208,13 +208,12 @@ def test_padded_weights_keep_the_products():
     assert not w2c[:, mid:].any() and not w2c[:, :, c:].any() and not b2c[c:].any()
     wqkv, bqkv = _t(_r(rng, c, 3 * c), _r(rng, 3 * c))
     hd = c // nh
-    for slots in (4, 3):   # B4's q | k | v | zeros, B8's q | k | v
-        wh, bh = wattn._padded_head_weights(wqkv, bqkv, nh, hd, kp, slots=slots)
-        assert wh.shape == (nh, kp, 32 * slots) and bh.shape == (nh, 32 * slots)
-        for head in (0, 5):
-            for sec in range(3):
-                cols = slice(sec * c + head * hd, sec * c + (head + 1) * hd)
-                np.testing.assert_array_equal(wh[head, :c, 32 * sec:32 * sec + hd].numpy(),
-                                              wqkv[:, cols].numpy())
-                np.testing.assert_array_equal(bh[head, 32 * sec:32 * sec + hd].numpy(),
-                                              bqkv[cols].numpy())
+    wh, bh = wattn._padded_head_weights(wqkv, bqkv, nh, hd, kp)   # q | k | v slots
+    assert wh.shape == (nh, kp, 96) and bh.shape == (nh, 96)
+    for head in (0, 5):
+        for sec in range(3):
+            cols = slice(sec * c + head * hd, sec * c + (head + 1) * hd)
+            np.testing.assert_array_equal(wh[head, :c, 32 * sec:32 * sec + hd].numpy(),
+                                          wqkv[:, cols].numpy())
+            np.testing.assert_array_equal(bh[head, 32 * sec:32 * sec + hd].numpy(),
+                                          bqkv[cols].numpy())

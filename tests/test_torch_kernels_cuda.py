@@ -39,8 +39,13 @@ def _block_params(c, gen):
     return p
 
 
-@pytest.mark.parametrize("b,h,w,c", [(2, 37, 45, 64), (1, 24, 32, 128), (1, 12, 20, 256)])
+@pytest.mark.parametrize("b,h,w,c", [(2, 37, 45, 64), (1, 24, 32, 128), (1, 12, 20, 256),
+                                     (2, 33, 29, 128), (1, 37, 45, 256), (1, 16, 14, 64),
+                                     (1, 190, 200, 64), (2, 131, 139, 128)])
 def test_fused_naf_block_kernel_matches_plain(gen, b, h, w, c):
+    """B1 (stage A on the tensor cores) and B2 at NAF's three fused widths: ragged images whose
+    tiles end inside and at the image's edge, with 6 x 14 outputs a block (C = 256, or an
+    image too small to give every SM a larger tile) and 14 x 14 (the last two cases)."""
     x = torch.randn(b, h, w, c, generator=gen, device="cuda")
     p = _block_params(c, gen)
     n0 = dict(nafblock.launches)
@@ -171,11 +176,42 @@ def test_residual_ln_mlp_is_f32_exact(gen):
                ref, _tf32(wattn.fused_residual_ln_mlp_plain, *args))
 
 
+def test_window_attention_xqkv_is_f32_exact(gen):
+    """B4 at DAT's branch (Cin 180, 3 heads of 30, 8 x 32 windows, shifted), x scaled x2
+    (peaked scores) and the v columns of the projection x100."""
+    x = 2 * _r(gen, 1, 16, 64, 180)
+    wqkv, bqkv = _r(gen, 180, 270, std=180 ** -0.5), _r(gen, 270, std=0.1)
+    wqkv[:, 180:] *= 100
+    types = torch.from_numpy(windows.shift_mask_types(8, 32, 4, 16).copy()).cuda()
+    args = (x, wqkv, bqkv, _r(gen, 3, 256, 256, std=0.5), types, (8, 32), 3)
+    ref = wattn.fused_window_attention_xqkv_plain(*[a.double() for a in args[:4]], *args[4:])
+    _exactness(wattn.fused_window_attention_xqkv(*args),
+               wattn.fused_window_attention_xqkv_plain(*args), ref,
+               _tf32(wattn.fused_window_attention_xqkv_plain, *args))
+
+
+@pytest.mark.parametrize("c,hw", [(64, (20, 30)), (64, (190, 200)), (256, (20, 30))])
+def test_naf_stage_a_is_f32_exact(gen, c, hw):
+    """B1's g on its 6 x 14 tile (K in 2 and 8 chunks) and on the 14 x 14 tile of an image
+    that fills the card (K in one chunk a pass), w1 scaled x100."""
+    p = _block_params(c, gen)
+    args = (_r(gen, 1, *hw, c), p["ln1_w"], p["ln1_b"], 100 * p["w1"], p["b1"], p["wdw"],
+            p["bdw"])
+    ref, _ = nafblock.naf_block_stage_a_plain(*[a.double() for a in args])
+    _exactness(nafblock.naf_block_stage_a(*args)[0], nafblock.naf_block_stage_a_plain(*args)[0],
+               ref, _tf32(nafblock.naf_block_stage_a_plain, *args)[0])
+
+
 @pytest.mark.parametrize("b,h,w,hs,ws,cin,heads,hd,with_mask", [
     (2, 16, 64, 8, 32, 180, 3, 30, True), (1, 64, 32, 32, 8, 180, 3, 30, False),
-    (2, 16, 32, 8, 8, 24, 2, 6, True), (1, 8, 32, 8, 16, 64, 4, 32, True)])
+    (2, 16, 32, 8, 8, 24, 2, 6, True), (1, 8, 32, 8, 16, 64, 4, 32, True),
+    (1, 32, 64, 8, 32, 180, 3, 30, False), (2, 64, 32, 32, 8, 180, 3, 30, True),
+    (2, 192, 192, 8, 32, 180, 3, 30, True), (2, 192, 192, 32, 8, 180, 3, 30, False)])
 def test_window_attention_xqkv_kernel_matches_plain(gen, b, h, w, hs, ws, cin, heads, hd,
                                                     with_mask):
+    """B4 on the shared tensor-core attention kernel (no LayerNorm): DAT's 8 x 32 and 32 x 8
+    windows unshifted and shifted, at batch 2 and at a tile's shape, co = heads * hd unlike
+    Cin, and windows of 64 and 128 tokens."""
     n, co = hs * ws, heads * hd
     x = _r(gen, b, h, w, cin)
     wqkv, bqkv = _r(gen, cin, 3 * co, std=cin ** -0.5), _r(gen, 3 * co, std=0.1)
@@ -191,6 +227,26 @@ def test_window_attention_xqkv_kernel_matches_plain(gen, b, h, w, hs, ws, cin, h
             windows.shift_mask_types(hs, ws, hs // 2, ws // 2).copy()).cuda()
         again = wattn.fused_window_attention_xqkv(x, wqkv, bqkv, bias, types, (hs, ws), heads)
         torch.testing.assert_close(again, got, atol=0, rtol=0)
+
+
+def test_window_attention_xqkv_takes_a_branch_of_the_whole_projection(gen):
+    """DAT hands B4 its whole qkv parameter (a view) and the branch's columns: the result is
+    that of the branch's own [Cin, 3 co] projection, and the kept slabs follow the weight
+    when it changes in place."""
+    lin = torch.nn.Linear(180, 540).cuda()
+    x, bias = _r(gen, 1, 16, 64, 180), _r(gen, 3, 256, 256, std=0.5)
+    with torch.no_grad():
+        for _ in range(2):
+            for br in range(2):
+                w, bq = lin.weight.t(), lin.bias
+                got = wattn.fused_window_attention_xqkv(x, w, bq, bias, None, (8, 32), 3,
+                                                        (90 * br, 90))
+                wb, bb = wattn.branch_qkv(w, bq, 90 * br, 90)
+                torch.testing.assert_close(
+                    got, wattn.fused_window_attention_xqkv_plain(x, wb, bb, bias, None, (8, 32),
+                                                                 3), atol=1e-4, rtol=0)
+            lin.weight.mul_(0.5)
+            lin.bias.add_(0.1)
 
 
 @pytest.mark.parametrize("b,h,w,hs,ws,c,heads,with_mask", [
@@ -545,20 +601,38 @@ def test_hat_wrappers_raise_on_what_the_kernels_do_not_take(gen):
 
 @pytest.mark.parametrize("kernel", ["fused_sgfn_tail", "fused_hab_block",
                                     "fused_residual_ln_mlp"])
-def test_row_kernels_raise_above_the_widest_row(gen, kernel):
-    """B6, B8 and B10 stage a row's whole C for their LayerNorm and projection: up to
-    _mma.MAX_ROW_K (192) channels. A wider C raises a ValueError before any launch."""
-    c = 196
-    with pytest.raises(ValueError, match="up to 192"):
-        if kernel == "fused_sgfn_tail":
-            sgfn.fused_sgfn_tail(*_sgfn_args(gen, 1, 4, 4, c, 2 * c))
-        elif kernel == "fused_hab_block":
-            wattn.fused_hab_block(*_hab_args(gen, 1, 8, 8, c, 7, 8, 2 * c), None, (8, 8), 7,
-                                  0.01)
-        else:
-            wattn.fused_residual_ln_mlp(_r(gen, 4, 4, c), _r(gen, 4, 4, c), _r(gen, c),
-                                        _r(gen, c), _r(gen, c, 2 * c), _r(gen, 2 * c),
-                                        _r(gen, 2 * c, c), _r(gen, c))
+@pytest.mark.parametrize("c", [256, 384])
+def test_row_kernels_compute_above_192_channels(gen, kernel, c):
+    """B6, B8 and B10 above the 192 rows that a row product stages at a time: the LayerNorm
+    (fc1) and the projection (proj) take C in pieces (128 + 128 at 256, 192 + 192 at 384).
+    B8 at 8 and 12 heads of 32, shifted; B6 at hidden 2C (hidden/2 = C, up to its 384)."""
+    if kernel == "fused_sgfn_tail":
+        args = _sgfn_args(gen, 2, 13, 21, c, 2 * c)
+        got, want = sgfn.fused_sgfn_tail(*args), sgfn.fused_sgfn_tail_plain(*args)
+    elif kernel == "fused_hab_block":
+        heads = c // 32
+        args = _hab_args(gen, 2, 16, 16, c, heads, 8, 2 * c)
+        types = torch.from_numpy(windows.shift_mask_types(8, 8, 4, 4).copy()).cuda()
+        kw = dict(cab_scale=_r(gen, 2, 1, 1, c, std=0.2, mean=0.5), in_shift=4)
+        got = wattn.fused_hab_block(*args, types, (8, 8), heads, 0.01, **kw)
+        want = wattn.fused_hab_block_plain(*args, types, (8, 8), heads, 0.01, **kw)
+    else:
+        args = (_r(gen, 3, 7, 11, c), _r(gen, 3, 7, 11, c), _r(gen, c, std=0.1, mean=1.0),
+                _r(gen, c, std=0.1), _r(gen, c, 2 * c, std=c ** -0.5), _r(gen, 2 * c, std=0.1),
+                _r(gen, 2 * c, c, std=(2 * c) ** -0.5), _r(gen, c, std=0.1))
+        got = wattn.fused_residual_ln_mlp(*args)
+        want = wattn.fused_residual_ln_mlp_plain(*args)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def test_row_kernels_raise_above_their_limits(gen):
+    """What the row kernels still refuse, with a ValueError before any launch: B6's LN_sg
+    holds a hidden row of at most 384 in a warp's registers, B8's attention heads of at
+    most 32."""
+    with pytest.raises(ValueError, match="hidden/2 up to 384"):
+        sgfn.fused_sgfn_tail(*_sgfn_args(gen, 1, 4, 4, 256, 776))
+    with pytest.raises(ValueError, match="whole heads up to 32"):
+        wattn.fused_hab_block(*_hab_args(gen, 1, 8, 8, 256, 4, 8, 512), None, (8, 8), 4, 0.01)
 
 
 @pytest.mark.parametrize("kernel", ["fused_sgfn_tail", "fused_residual_ln_mlp"])

@@ -155,3 +155,98 @@ def test_planes_follow_a_weight_that_is_replaced(how):
             got = _mma.planes(lin.weight.t(), 16, 8)
             assert _mma.planes(lin.weight.t(), 16, 8) is got
     assert torch.equal(got, _mma.mma_planes(new.t().contiguous()))
+
+
+@pytest.mark.parametrize("c,want", [(180, [184]), (256, [128, 128]), (384, [192, 192]),
+                                    (420, [144, 144, 136])])
+def test_row_products_take_k_in_pieces_of_at_most_192(c, want):
+    """The rows of K that the row kernels (B6's fc1, B8's tail, B10) stage at a time: one
+    piece up to 192, else the fewest pieces of at most 192, multiples of 8 as even as they
+    fall (``tile_mma_piece`` of csrc/mma_f32x3.cuh)."""
+    kp = -(-c // 8) * 8
+    got = _mma.piece_sizes(kp)
+    assert got == want and sum(got) == kp
+    assert all(p % 8 == 0 and p <= _mma.MAX_ROW_K for p in got)
+    n = -(-kp // _mma.MAX_ROW_K)
+    assert len(got) == n and got[0] == ((kp + n - 1) // n + 7) // 8 * 8
+
+
+def _hand_slab(wqkv, bqkv, heads, hd, kp):
+    """The [heads, kp, 96] slabs of the shared attention kernel, written out by hand: head
+    h's q, k, v columns of wqkv in the 32-column slots 0, 1, 2, zero elsewhere."""
+    cin = wqkv.shape[0]
+    wh, bh = torch.zeros(heads, kp, 96), torch.zeros(heads, 96)
+    for h in range(heads):
+        for sec in range(3):
+            cols = slice(sec * heads * hd + h * hd, sec * heads * hd + (h + 1) * hd)
+            wh[h, :cin, 32 * sec:32 * sec + hd] = wqkv[:, cols]
+            bh[h, 32 * sec:32 * sec + hd] = bqkv[cols]
+    return wh, bh
+
+
+@pytest.mark.parametrize("cin,heads,hd,br", [(180, 3, 30, 0), (180, 3, 30, 1), (64, 4, 8, 1)])
+def test_b4_slab_is_the_branch_q_k_v_in_three_slots(cin, heads, hd, br):
+    """B4 takes DAT's whole [Cin,3C] projection and a branch's columns: its slabs are that
+    branch's q | k | v, three 32-column slots a head (no zero slot, rows Cin.. zero), K
+    padded to a multiple of 8."""
+    rng = np.random.default_rng(cin + br)
+    co = heads * hd
+    wqkv, bqkv = _r(rng, cin, 6 * co), _r(rng, 6 * co)
+    kp = -(-cin // 8) * 8
+    wh, bh = wattn.head_slabs(wqkv, bqkv, heads, hd, kp, (br * co, co))
+    c = 2 * co
+    sel = torch.cat([torch.arange(s * c + br * co, s * c + br * co + co) for s in range(3)])
+    want_w, want_b = _hand_slab(wqkv[:, sel], bqkv[sel], heads, hd, kp)
+    assert wh.shape == (heads, kp, 96) and bh.shape == (heads, 96)
+    assert torch.equal(wh, want_w) and torch.equal(bh, want_b)
+    wb, bb = wattn.branch_qkv(wqkv, bqkv, br * co, co)
+    assert torch.equal(wb, wqkv[:, sel]) and torch.equal(bb, bqkv[sel])
+
+
+def test_head_slabs_are_made_once_for_each_weight_and_branch():
+    """The slabs are kept on the module's own parameter (the view ``qkv.weight.t()`` that
+    the models pass): a second call hits, another branch or head count does not, and an
+    in-place change of the weight or of the bias, or ``module.to``, makes them anew."""
+    lin = torch.nn.Linear(24, 72)
+    with torch.no_grad():
+        def slabs(cols=(0, 12), heads=2):
+            return wattn.head_slabs(lin.weight.t(), lin.bias, heads, 12 // heads, 24, cols)
+
+        first = slabs()
+        assert slabs() is first
+        assert slabs((12, 12)) is not first and slabs(heads=3) is not first
+        lin.weight.mul_(2.0)
+        after_w = slabs()
+        assert after_w is not first and torch.equal(after_w[0], 2 * first[0])
+        lin.bias.add_(1.0)
+        after_b = slabs()
+        assert after_b is not after_w and torch.equal(after_b[1][:, :6], first[1][:, :6] + 1)
+        lin.double().float()   # new memory, as module.to() gives
+        moved = slabs()
+        assert moved is not after_b and torch.equal(moved[0], after_b[0])
+        assert slabs() is moved
+
+
+def test_naf_stage_a_planes_lay_w1_out_pass_by_pass():
+    """B1's 1x1 product takes w1 [C,2C] in passes of 32 gate channels and their 32 partners:
+    the planes unpack to those columns, keep the product, and are made once for the conv's
+    weight (the view NAFBlock passes) until it changes in place."""
+    from freqfusion_tpu_torch.ops.kernels import nafblock
+    rng = np.random.default_rng(9)
+    c = 64
+    w1 = _r(rng, c, 2 * c, std=c ** -0.5)
+    packed = nafblock.stage_a_planes(w1)
+    assert packed.shape == (c // 8, c // 4, 32, 4)
+    hi, lo = _unpack(packed)
+    order = torch.cat([torch.cat([torch.arange(32 * p, 32 * p + 32),
+                                  torch.arange(c + 32 * p, c + 32 * p + 32)])
+                       for p in range(c // 32)])
+    assert torch.equal(hi, _mma.split_tf32(w1[:, order])[0])
+    _assert_keeps_product(packed, w1[:, order], rng)
+    conv = torch.nn.Conv2d(c, 2 * c, 1)
+    with torch.no_grad():
+        view = lambda: conv.weight.reshape(-1, c).t()   # noqa: E731
+        first = nafblock.stage_a_planes(view())
+        assert nafblock.stage_a_planes(view()) is first
+        conv.weight.mul_(0.5)
+        assert nafblock.stage_a_planes(view()) is not first

@@ -293,12 +293,12 @@ def test_conv_weights_pad_to_multiples_of_8(cin, cout):
 
 @pytest.mark.parametrize("c,heads", [(180, 6), (24, 4), (64, 2)])
 def test_hab_head_slab_is_q_k_v_without_a_zero_slot(c, heads):
-    """B8's attention takes each head's q | k | v in three 32-column slots (96 columns; B4
-    keeps a fourth, zero slot): the slabs unpack to wqkv and bqkv, the rest is zero."""
+    """B4's and B8's attention take each head's q | k | v in three 32-column slots (96
+    columns, no zero slot): the slabs unpack to wqkv and bqkv, the rest is zero."""
     rng = np.random.default_rng(c)
     hd, kp = c // heads, -(-c // 8) * 8
     wqkv, bqkv = _r(rng, c, 3 * c), _r(rng, 3 * c)
-    wh, bh = wattn._padded_head_weights(wqkv, bqkv, heads, hd, kp, slots=3)
+    wh, bh = wattn._padded_head_weights(wqkv, bqkv, heads, hd, kp)
     assert wh.shape == (heads, kp, 96) and bh.shape == (heads, 96)
     got = wh[:, :c].reshape(heads, c, 3, 32)[..., :hd].permute(1, 2, 0, 3).reshape(c, 3 * c)
     assert torch.equal(got, wqkv)
