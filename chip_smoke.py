@@ -242,7 +242,8 @@ def phase_device() -> tuple:
 # the tensor-core kernels (every instantiation): at most 128 registers a thread (16 warps an
 # SM, or two blocks of 8) and no spill
 TC_KERNELS = ("conv3x3_gemm_kernel", "xqkv_attention_kernel", "oca_attn_kernel",
-              "sgfn_gate_fc2_kernel", "rows_kernel", "naf_stage_a_kernel")
+              "sgfn_gate_fc2_kernel", "rows_kernel", "naf_stage_a_kernel",
+              "naf_stage_b_onchip_kernel", "naf_stage_b_rows_kernel", "aim_gates_proj_kernel")
 
 
 def ptxas_report(log: str) -> list:
@@ -302,14 +303,16 @@ def naf_kernel_cases(gen: torch.Generator, res: dict) -> None:
         # gate on CUDA cores; reads x, writes g and the sums
         a_bound, a_bound32 = bounds(npix * (36 * c + 9 * c), npix * 4 * c * c,
                                     4 * (2 * npix * c + 2 * c * c + 24 * c + b * c))
-        # stage B: three 1x1 products (C->C, C->2C, C->C), LN, gates; reads g, x, writes out
-        b_bound = bound_ms(npix * (8 * c * c + 16 * c),
-                           4 * (3 * npix * c + 4 * c * c + 9 * c + b * c))
+        # stage B: three 1x1 products (C->C, C->2C, C->C) on the tensor cores; LN, gate and
+        # residuals on CUDA cores; reads g, x, writes out
+        b_bound, b_bound32 = bounds(npix * 16 * c, npix * 8 * c * c,
+                                    4 * (3 * npix * c + 4 * c * c + 9 * c + b * c))
         emit("kernel", kernel="naf_block", case=name, shape=[b, h, w, c],
              g_max_abs_err=g_err, g_bound=KERNEL_ATOL,
              sums_max_rel_err=sums_ratio, sums_bound=SUMS_RTOL,
              out_max_abs_err=y_err, out_bound=KERNEL_ATOL, a_bound_ms=a_bound[0],
-             a_bound_by=a_bound[1], a_bound_f32_ms=a_bound32[0], b_bound_ms=b_bound[0], **t)
+             a_bound_by=a_bound[1], a_bound_f32_ms=a_bound32[0], b_bound_ms=b_bound[0],
+             b_bound_by=b_bound[1], b_bound_f32_ms=b_bound32[0], **t)
         require(g_err <= KERNEL_ATOL, f"B1 g error {g_err} at {name}")
         require(sums_ratio <= SUMS_RTOL, f"B1 sums error {sums_ratio} at {name}")
         require(y_err <= KERNEL_ATOL, f"B2 output error {y_err} at {name}")
@@ -319,7 +322,7 @@ def naf_kernel_cases(gen: torch.Generator, res: dict) -> None:
             res["naf_block_stage_a"].update(ms=t["a_ms"], plain_ms=t["a_plain_ms"],
                                             bound=a_bound, bound_f32=a_bound32)
             res["naf_block_stage_b"].update(ms=t["b_ms"], plain_ms=t["b_plain_ms"],
-                                            bound=b_bound)
+                                            bound=b_bound, bound_f32=b_bound32)
         del x, g, g_ref, y, y_ref, full, full_ref
     for name, b, h, w, cin, cout in CONV_CASES:
         x = torch.randn(b, h, w, cin, generator=gen, device="cuda")
@@ -431,9 +434,10 @@ def dat_kernel_cases(gen: torch.Generator, res: dict) -> None:
         b_args = (att, cx_ref, chmap, r(1, 1, c, mid, std=c ** -0.5), r(mid, std=0.1),
                   r(mid, std=0.2, mean=1.0), r(mid, std=0.1), r(1, 1, mid, 1, std=mid ** -0.5),
                   r(1, std=0.1), r(c, c, std=c ** -0.5), r(c, std=0.1))
-        # S-Map C->mid->1, two gates, the sum, proj C->C; reads attened, conv_x, writes out
-        b_bnd = bound_ms(npix * (2 * c * mid + 2 * mid + 2 * c * c + 8 * c),
-                         4 * (3 * npix * c + b * c + c * mid + c * c + 3 * mid + c + 2))
+        # proj (C->C) on the tensor cores; the S-Map (C->mid->1), the two gates and the sum
+        # on CUDA cores; reads attened, conv_x, writes out
+        b_bnd, b_bnd32 = bounds(npix * (2 * c * mid + 2 * mid + 8 * c), npix * 2 * c * c,
+                                4 * (3 * npix * c + b * c + c * mid + c * c + 3 * mid + c + 2))
         b_times = []
         for swap in (False, True):
             got = aim.aim_gates_proj(*b_args, swap=swap)
@@ -445,7 +449,8 @@ def dat_kernel_cases(gen: torch.Generator, res: dict) -> None:
             b_plain = cuda_ms(lambda: aim.aim_gates_proj_plain(*b_args, swap=swap))
             emit("kernel", kernel="aim_gates_proj", case=name, swap=swap,
                  shape=[b, h, w, c], max_abs_err=b_err, bound=KERNEL_ATOL, ms=b_ms,
-                 plain_ms=b_plain, bound_ms=b_bnd[0], bound_by=b_bnd[1])
+                 plain_ms=b_plain, bound_ms=b_bnd[0], bound_by=b_bnd[1],
+                 bound_f32_ms=b_bnd32[0])
             require(b_err <= KERNEL_ATOL, f"B5b error {b_err} at {name}, swap={swap}")
             res["aim_gates_proj"]["err"] = max(res["aim_gates_proj"]["err"], b_err)
             b_times.append((b_ms, b_plain))
@@ -481,7 +486,8 @@ def dat_kernel_cases(gen: torch.Generator, res: dict) -> None:
         if name == "bucket":   # the summary's times
             res["aim_conv_branch"].update(ms=a_ms, plain_ms=a_plain, bound=a_bnd)
             res["aim_gates_proj"].update(ms=mean(t[0] for t in b_times),
-                                         plain_ms=mean(t[1] for t in b_times), bound=b_bnd)
+                                         plain_ms=mean(t[1] for t in b_times), bound=b_bnd,
+                                         bound_f32=b_bnd32)
             res["fused_sgfn_tail"].update(ms=t_ms, plain_ms=t_plain, bound=t_bnd,
                                           bound_f32=t_bnd32,
                                           extra=dict(fc1_ms=fc1_ms, gate_fc2_ms=gate_fc2_ms))
@@ -907,13 +913,32 @@ def write_requests(directory: str, sizes=REQUESTS) -> list:
     return paths
 
 
+class count_planes:
+    """Counts the weight planes made (``_mma.mma_planes``) inside the ``with`` block: a
+    forward after the first makes none where every product keeps its planes."""
+
+    def __enter__(self):
+        self.made, self._make = 0, _mma.mma_planes
+
+        def counted(wp):
+            self.made += 1
+            return self._make(wp)
+
+        _mma.mma_planes = counted
+        return self
+
+    def __exit__(self, *exc):
+        _mma.mma_planes = self._make
+
+
 def phase_slice(tag: str, model: torch.nn.Module, forward, expected: tuple,
                 time_buckets: int, extra_times=None) -> dict:
     """Serves the three requests through InferencePipeline with `model`, checks the
     forward of image 0 (kernels against plain versions, `forward(x)` -> (pre-clamp sr,
     features, (h, w) to crop to)), requires every kernel in `expected` to have launched on
     the served path, and times the first `time_buckets` buckets (`extra_times(model)`,
-    where given, adds its own entries to that line). Returns the launches."""
+    where given, adds its own entries to that line). A timed forward must make no weight
+    planes: the first forwards made them all. Returns the launches."""
     pipe = InferencePipeline(model)   # the card is the default device
     req_dir, sr_dir = os.path.join(OUT, "requests"), os.path.join(OUT, f"sr_{tag}")
     write_requests(req_dir)
@@ -984,11 +1009,16 @@ def phase_slice(tag: str, model: torch.nn.Module, forward, expected: tuple,
             ms = {}
             for path, on in (("kernel", True), ("plain", False), ("kernel2", True)):
                 set_kernels(model, on)
-                ms[path] = cuda_ms(lambda: model(xb), iters=3)
+                with count_planes() as planes:
+                    ms[path] = cuda_ms(lambda: model(xb), iters=3)
+                if on:
+                    made = planes.made
             set_kernels(model, True)
         times.append(dict(lr=[lr.shape[1], lr.shape[0]], bucket=list(plan),
                           kernel_ms=ms["kernel"], kernel_ms_again=ms["kernel2"],
-                          plain_ms=ms["plain"]))
+                          plain_ms=ms["plain"], planes_made_again=made))
+        require(made == 0,
+                f"{tag}: a forward at {list(plan)} made {made} weight planes again")
     torch.cuda.synchronize()
     emit(f"{tag}_time", per_image=times,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -1040,13 +1070,14 @@ def randomize_transformer_(model: torch.nn.Module, gen: torch.Generator) -> None
 def dat_weight_prep(model: DAT) -> None:
     """The weight work that one DAT forward repeats in every block and nothing else: the
     modules keep torch's layouts, so each call re-lays some weights out for the kernels
-    (transposes, AIM's padded projection); the row products' planes and the attention's
+    (transposes, the BN affines); the row products' and AIM's planes and the attention's
     head slabs are made once and only looked up (_mma.kept)."""
     for group in model.layers:
         for blk in group.blocks:
             a = blk.attn
             a.conv_weights()
-            aim._padded_proj(a.gates_weights()[6])
+            g = a.gates_weights()
+            aim.gates_planes(g[0], g[6])
             w1, _, _, _, _, _, w2, _ = blk.ffn.raw()
             kp, k2p, npad = sgfn._widths(*w1.shape)
             _mma.planes(w1, kp, w1.shape[1]), _mma.planes(w2, k2p, npad)

@@ -1,4 +1,6 @@
-// DAT's Adaptive Interaction Module as two hand-written f32 kernels for Hopper (sm_90a).
+// DAT's Adaptive Interaction Module as two hand-written kernels for Hopper (sm_90a): B5a in
+// f32 on CUDA cores, B5b with its projection f32-exact on the tensor cores (3xTF32 mma.sync,
+// mma_f32x3.cuh).
 //
 // Replaces the TPU kernels freqfusion_tpu/ops/pallas/aim.py:aim_conv_branch (B5a) and
 // :aim_gates_proj (B5b). The plain PyTorch versions sit beside the wrappers in
@@ -15,29 +17,38 @@
 //     the block adds its thread groups in a fixed order and writes part[B][nblk][C], and
 //     sum_partials (common.cuh) adds the blocks in a fixed order. No atomics.
 // B5b, pointwise: the S-Map chain C -> mid -> 1 (BN, GELU), both sigmoid gates, their sum,
-// and the C x C projection. 2*C*(C + mid) FLOPs per pixel for 12*C bytes: at C = 180 that
-// is 32 FLOP per byte, above the f32 CUDA-core ridge (20), so it is bound by operations,
-// and nearly all of them are the projection.
-//   * One warp per pixel computes the S-Map: the source row in registers (C <= 256), the
-//     C x mid weights in shared memory, mid warp reductions. `swap` picks the wiring:
-//     spatial blocks gate attened by s(C-Map) and conv_x by s(S-Map(attened)); channel
-//     blocks gate attened by s(S-Map(conv_x)) and conv_x by s(C-Map).
-//   * The gated sum of a 64-pixel block goes to shared memory and through tile_matmul
-//     (common.cuh), which streams the projection weights. DAT's C = 180 fits neither
-//     K % 16 nor N % 64, so the wrapper zero-pads the weights to [Kp][Np] once and the
-//     kernel zero-fills columns C..Kp of its tile and stores only columns < C.
+// and the C x C projection: 2*C*(C + mid) FLOPs of products per pixel. At C = 180, mid = 11
+// and [1,352,512,180] that is 12.4 GFLOP (0.075 ms at 165 TFLOP/s of f32-exact products)
+// against 389 MB of attened, conv_x and out (0.116 ms): bytes bound it, at 0.116 ms.
+//   * A block of 16 warps owns 128 pixels. It stages the S-Map's source rows (attened, or
+//     conv_x with swap) in A, in the A-fragment order of tile_mma, K padded to a multiple of
+//     8 (180 -> 184) with zeros.
+//   * The S-Map (fc1 C -> mid, 180 -> 11: 6% of the products) runs on CUDA cores while the
+//     rows are staged, 4 lanes a pixel, each with its quarter of the channels and 12 sums in
+//     registers, fc1's weights in the ring's memory before the projection starts; 2 shuffles
+//     a sum add the lanes. As a 16-column 3xTF32 product (tile_mma, BN, GELU and fc2 in its
+//     epilogue, shuffles over an n-tile's 4 threads) it ran 0.70 against 0.66 ms at
+//     [1,352,512,180] on the H100 (PERF.md): a second product's barriers and weight chunks
+//     cost more than the 12 FMAs a channel.
+//   * Either wiring is y = src * s(C-Map) + oth * s(S-Map(src)): spatial blocks take src =
+//     attened, channel blocks (swap) src = conv_x. The gated sum is made in place in A,
+//     reading the other input once; so each input is read once from device memory. A thread
+//     owns a column quad there and takes the C-Map's sigmoids once an image, not once a
+//     pixel. The staging loops are unrolled by four, so that a thread has several loads in
+//     flight.
+//   * The projection runs through tile_mma on its weights split on the host and kept
+//     (ops/kernels/_mma.py), made once for each weight: no per-call padding. The kernel
+//     stores only the columns below C. The sigmoids are f32 with expf.
 //
-// Layout: NHWC, f32, contiguous; C % 4 == 0. wdw [9][C]; si_w1 [C][mid]; si_w2 [mid];
-// proj [Kp][Np] zero-padded; chvec [B][C], the C-Map before its sigmoid.
+// Layout: NHWC, f32, contiguous; C % 4 == 0. wdw [9][C]; si_w2 [mid]; chvec [B][C], the
+// C-Map before its sigmoid; B5b's fc1 and proj as GatesArgs says.
 
-#include "common.cuh"
+#include "mma_f32x3.cuh"
 
 namespace {
 
 constexpr int kATH = 8, kATW = 32;   // B5a tile
-constexpr int kBP = 64;              // B5b pixels per block (16 * TM)
-constexpr int kBTM = kBP / 16;
-constexpr int kMaxC = 256;           // B5b keeps a pixel's C floats in 8 registers per lane
+constexpr int kMid = 12;             // B5b: the S-Map's widest hidden layer (a lane's sums)
 
 __global__ void __launch_bounds__(kThreads)
 aim_conv_branch_kernel(const float* __restrict__ v, const float* __restrict__ wdw,
@@ -101,69 +112,111 @@ aim_conv_branch_kernel(const float* __restrict__ v, const float* __restrict__ wd
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
-aim_gates_proj_kernel(const float* __restrict__ att, const float* __restrict__ cx,
-                      const float* __restrict__ chvec, const float* __restrict__ w1,
-                      const float* __restrict__ b1, const float* __restrict__ bns,
-                      const float* __restrict__ bnb, const float* __restrict__ w2,
-                      const float* __restrict__ b2, const float* __restrict__ proj,
-                      const float* __restrict__ pb, float* __restrict__ out, long long npix,
-                      int hw, int C, int mid, int Kp, int Np, int swap) {
+// B5b's arguments.
+struct GatesArgs {
+    const float *att, *cx, *chvec;   // attened, conv_x [npix][C]; the C-Map [B][C]
+    const float* w1;      // the S-Map's fc1 [C][kMid], zero past mid
+    const float *b1, *bns, *bnb, *w2, *b2;   // fc1's bias, BN's affine, fc2 [mid], its bias
+    const float4* projp;  // mma_planes of proj [Kp][Kp]
+    const float* pb;
+    float* out;
+    long long npix;
+    int hw, C, mid, Kp, swap;
+};
+
+__global__ void __launch_bounds__(kMmaThreads, 1)
+aim_gates_proj_kernel(const GatesArgs a) {
     extern __shared__ float4 smem4[];
-    const int lda = Kp + 4;
-    float* ya = reinterpret_cast<float*>(smem4);  // [kBP][lda] the gated sum
-    float* ws = ya + kBP * lda;                    // tile_matmul's weight stage
-    float* w1s = ws + tile_matmul_ws(false);       // [kMaxC][mid], rows >= C zero
+    const int C = a.C, Kp = a.Kp, ks = Kp / 8, c4 = C / 4;
+    float* A = reinterpret_cast<float*>(smem4);   // [128 x Kp] A-fragment order
+    float* ws = A + kMmaRows * Kp;                 // tile_mma's ring
+    float* smap = ws + tile_mma_ws();              // [128] the S-Map before its sigmoid
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const long long p0 = (long long)blockIdx.x * kBP;
+    const long long p0 = (long long)blockIdx.x * kMmaRows;
+    // the S-Map's input, gated by the C-Map; the other input, gated by the S-Map: either
+    // wiring is y = src * s(C-Map) + oth * s(S-Map(src))
+    const float* src = a.swap ? a.cx : a.att;
+    const float* oth = a.swap ? a.att : a.cx;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 
-    for (int e = tid; e < kMaxC * mid; e += kThreads) w1s[e] = e < C * mid ? w1[e] : 0.f;
+    // the S-Map while src is staged: 4 lanes a pixel, 8 pixels a warp, each lane a quarter
+    // of the channels and all kMid dot products in registers, fc1's weights in the ring's
+    // memory (tile_mma has not started); then a butterfly over the 4 lanes
+    float* w1s = ws;
+    for (int e = tid; e < C * kMid; e += kMmaThreads) w1s[e] = a.w1[e];
     __syncthreads();
-
-    for (int p = warp; p < kBP; p += kThreads / 32) {
+    {
+        const int p = 8 * warp + (lane >> 2), q = lane & 3;
         const long long gp = p0 + p;
-        float* yr = ya + p * lda;
-        if (gp >= npix) {
-            for (int c = lane; c < Kp; c += 32) yr[c] = 0.f;
-            continue;
-        }
-        const float* ar = att + gp * C;
-        const float* cr = cx + gp * C;
-        const float* chr = chvec + (gp / hw) * C;
-        float av[kMaxC / 32], cv[kMaxC / 32];
+        float d[kMid];
 #pragma unroll
-        for (int i = 0; i < kMaxC / 32; ++i) {
-            const int c = lane + 32 * i;
-            av[i] = c < C ? ar[c] : 0.f;
-            cv[i] = c < C ? cr[c] : 0.f;
-        }
-        // S-Map: fc2(GELU(BN(fc1(src)))) on this pixel, every lane ends with the sum
-        float s = 0.f;
-        for (int m = 0; m < mid; ++m) {
-            float d = 0.f;
+        for (int m = 0; m < kMid; ++m) d[m] = 0.f;
+#pragma unroll 4
+        for (int c = 4 * q; c < Kp; c += 16) {
+            const float4 v = gp < a.npix && c < C ? ld4(src + gp * C + c) : zero;
+            put4(A, p, c, ks, v);
+            if (c >= C) continue;
 #pragma unroll
-            for (int i = 0; i < kMaxC / 32; ++i)
-                d = fmaf(swap ? cv[i] : av[i], w1s[(lane + 32 * i) * mid + m], d);
-            d = warp_sum(d) + b1[m];
-            s = fmaf(gelu_erf(fmaf(d, bns[m], bnb[m])), w2[m], s);
-        }
-        const float smap = sigmoid_f32(s + b2[0]);
+            for (int i = 0; i < 4; ++i) {
+                const float x = lane4(v, i);
+                const float4* wr = reinterpret_cast<const float4*>(w1s + (c + i) * kMid);
 #pragma unroll
-        for (int i = 0; i < kMaxC / 32; ++i) {
-            const int c = lane + 32 * i;
-            if (c < C) {
-                const float cg = sigmoid_f32(chr[c]);
-                yr[c] = swap ? av[i] * smap + cv[i] * cg : av[i] * cg + cv[i] * smap;
-            } else if (c < Kp) {
-                yr[c] = 0.f;
+                for (int m4 = 0; m4 < kMid / 4; ++m4) {
+                    const float4 w = wr[m4];
+                    d[4 * m4] = fmaf(x, w.x, d[4 * m4]);
+                    d[4 * m4 + 1] = fmaf(x, w.y, d[4 * m4 + 1]);
+                    d[4 * m4 + 2] = fmaf(x, w.z, d[4 * m4 + 2]);
+                    d[4 * m4 + 3] = fmaf(x, w.w, d[4 * m4 + 3]);
+                }
             }
         }
+        float s = 0.f;
+#pragma unroll
+        for (int m = 0; m < kMid; ++m) {
+            float t = d[m];
+            t += __shfl_xor_sync(0xffffffffu, t, 1);
+            t += __shfl_xor_sync(0xffffffffu, t, 2);
+            if (m < a.mid) s = fmaf(gelu_erf(fmaf(t + a.b1[m], a.bns[m], a.bnb[m])), a.w2[m], s);
+        }
+        if (q == 0) smap[p] = s;
     }
-    // tile_matmul synchronises before it reads ya
-    tile_matmul<kBTM, false>(ya, lda, Kp, proj, Np, Np, 0, ws, [&](int p, int n, float a, float) {
-        const long long gp = p0 + p;
-        if (gp < npix && n < C) out[gp * C + n] = a + pb[n];
-    });
+    // the projection of the gated sum, made in place over src (tile_mma synchronises first)
+    tile_mma(
+        A, Kp, a.projp, Kp / 8, Kp, ws,
+        [&] {
+            if (tid < kMmaRows) smap[tid] = sigmoid_f32(smap[tid] + a.b2[0]);
+            __syncthreads();
+            // a thread owns a column quad and every R-th row, so that it takes the C-Map's
+            // sigmoids once an image
+            const int R = kMmaThreads / c4, rg = tid / c4, c = (tid % c4) * 4;
+            if (rg >= R) return;
+            long long img = -1;
+            float4 cg = zero;
+#pragma unroll 4
+            for (int p = rg; p < kMmaRows; p += R) {
+                const long long gp = p0 + p;
+                if (gp >= a.npix) break;   // A holds zeros there
+                const float4 o = ld4(oth + gp * C + c);
+                if (gp / a.hw != img) {
+                    img = gp / a.hw;
+                    const float4 ch = ld4(a.chvec + img * C + c);
+                    cg = make_float4(sigmoid_f32(ch.x), sigmoid_f32(ch.y), sigmoid_f32(ch.z),
+                                     sigmoid_f32(ch.w));
+                }
+                const int i = a_frag_index(p, c, ks);   // c + 1 .. c + 3 sit 4 floats apart
+                const float sm = smap[p];
+                A[i] = A[i] * cg.x + o.x * sm;
+                A[i + 4] = A[i + 4] * cg.y + o.y * sm;
+                A[i + 8] = A[i + 8] * cg.z + o.z * sm;
+                A[i + 12] = A[i + 12] * cg.w + o.w * sm;
+            }
+        },
+        [&](int p, int n, float u0, float u1) {
+            const long long gp = p0 + p;
+            if (gp >= a.npix || n >= C) return;   // C is even: n + 1 < C too
+            *reinterpret_cast<float2*>(a.out + gp * C + n) =
+                make_float2(u0 + a.pb[n], u1 + a.pb[n + 1]);
+        });
 }
 
 }  // namespace
@@ -192,22 +245,29 @@ int aim_conv_branch(const float* v, const float* wdw, const float* bdw, const fl
     return sum_partials(part, sums, B, aim_conv_branch_blocks(H, W), C, st);
 }
 
+// out = proj(gated sum) + pb; w1 the S-Map's fc1 [C][kMid] zero past mid, projp the
+// mma_planes of proj [Kp][Kp] (ops/kernels/aim.py: gates_planes).
 int aim_gates_proj(const float* att, const float* cx, const float* chvec, const float* w1,
                    const float* b1, const float* bns, const float* bnb, const float* w2,
-                   const float* b2, const float* proj, const float* pb, float* out, int B,
-                   int H, int W, int C, int mid, int Kp, int Np, int swap, void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (C > kMaxC || Kp % kKC || Np % 64 || Kp < C || Np < C) return cudaErrorInvalidValue;
-    const size_t smem =
-        (size_t)(kBP * (Kp + 4) + tile_matmul_ws(false) + kMaxC * mid) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        aim_gates_proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                   const float* b2, const float* projp, const float* pb, float* out, int B,
+                   int H, int W, int C, int mid, int Kp, int swap, void* stream) {
+    if (C % 4 || Kp % 8 || Kp < C || Kp > kMmaMaxK || mid < 1 || mid > kMid || B < 1 ||
+        H < 1 || W < 1)
+        return cudaErrorInvalidValue;
+    GatesArgs a = {};
+    a.att = att; a.cx = cx; a.chvec = chvec; a.w1 = w1;
+    a.b1 = b1; a.bns = bns; a.bnb = bnb; a.w2 = w2; a.b2 = b2;
+    a.projp = reinterpret_cast<const float4*>(projp); a.pb = pb; a.out = out;
+    a.npix = (long long)B * H * W; a.hw = H * W; a.C = C; a.mid = mid; a.Kp = Kp;
+    a.swap = swap;
+    const size_t smem = (size_t)(kMmaRows * Kp + tile_mma_ws() + kMmaRows) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(aim_gates_proj_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const long long npix = (long long)B * H * W;
-    const unsigned nblocks = (unsigned)((npix + kBP - 1) / kBP);
-    aim_gates_proj_kernel<<<nblocks, kThreads, smem, st>>>(att, cx, chvec, w1, b1, bns, bnb, w2,
-                                                           b2, proj, pb, out, npix, H * W, C,
-                                                           mid, Kp, Np, swap);
+    const long long nblocks = (a.npix + kMmaRows - 1) / kMmaRows;
+    if (nblocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    aim_gates_proj_kernel<<<(unsigned)nblocks, kMmaThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(a);
     return cudaGetLastError();
 }
 

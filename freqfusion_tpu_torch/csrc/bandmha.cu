@@ -16,8 +16,8 @@
 // Here the token rows are what the products tile: a block owns 128 / T whole pixels (14 at
 // T = 9: 126 of its 128 rows), so that every token of a pixel lies in the block.
 //   1. one warp per row: LN statistics in f32, the normalised row into A [128][68];
-//   2. k and v: A x wkv through tile_matmul (common.cuh, 8 interleaved rows a thread) into
-//      KV [128][132], k in columns 0..D, v in columns 64..64+D;
+//   2. k and v: A x wkv through tile_matmul_interleaved (common.cuh, 8 interleaved rows a
+//      thread) into KV [128][132], k in columns 0..D, v in columns 64..64+D;
 //   3. q: A x wq, scaled, written over A in place: a one-pass product has read all of A
 //      when its epilogue runs;
 //   4. attention: one thread per (pixel, query, head) keeps its q in registers, takes the T
@@ -49,7 +49,7 @@ band_mha_kernel(const float* __restrict__ x, const float* __restrict__ wq,
     extern __shared__ float4 smem4[];
     float* A = reinterpret_cast<float*>(smem4);   // [kRows][kLdA]: LN(x), then q, then heads
     float* KV = A + kRows * kLdA;                  // [kRows][kLdKV]
-    float* ws = KV + kRows * kLdKV;                // tile_matmul's weight stage
+    float* ws = KV + kRows * kLdKV;                // tile_matmul_interleaved's weight stage
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int P = kRows / T;                       // whole pixels per block
     const long long pix0 = (long long)blockIdx.x * P;
@@ -65,13 +65,13 @@ band_mha_kernel(const float* __restrict__ x, const float* __restrict__ wq,
             for (int c = lane; c < kDP; c += 32) ar[c] = 0.f;
         }
     }
-    // tile_matmul synchronises before it reads A
+    // tile_matmul_interleaved synchronises before it reads A
     tile_matmul_interleaved<kTM>(A, kLdA, D, wkv, 2 * kDP, 2 * kDP, ws,
-                                 [&](int p, int n, float u, float) {
+                                 [&](int p, int n, float u) {
                                      KV[p * kLdKV + n] = u + bkv[n];
                                  });
     tile_matmul_interleaved<kTM>(A, kLdA, D, wq, kDP, kDP, ws,
-                                 [&](int p, int n, float u, float) {
+                                 [&](int p, int n, float u) {
                                      A[p * kLdA + n] = (u + bq[n]) * scale;
                                  });
     __syncthreads();
@@ -118,9 +118,9 @@ band_mha_kernel(const float* __restrict__ x, const float* __restrict__ wq,
             *reinterpret_cast<float4*>(qp + d) = make_float4(
                 acc[d] * inv, acc[d + 1] * inv, acc[d + 2] * inv, acc[d + 3] * inv);
     }
-    // tile_matmul synchronises before it reads A
+    // tile_matmul_interleaved synchronises before it reads A
     tile_matmul_interleaved<kTM>(A, kLdA, D, wproj, kDP, kDP, ws,
-                                 [&](int p, int n, float u, float) {
+                                 [&](int p, int n, float u) {
                                      if (p >= nrows || n >= D) return;
                                      const long long i = (row0 + p) * D + n;
                                      out[i] = u + bproj[n] + x[i];
@@ -133,7 +133,7 @@ cudaError_t launch(const float* x, const float* wq, const float* bq, const float
                    const float* lnb, float* out, long long npix, int T, int D,
                    cudaStream_t st) {
     const size_t smem =
-        (size_t)(kRows * kLdA + kRows * kLdKV + tile_matmul_ws(false)) * sizeof(float);
+        (size_t)(kRows * kLdA + kRows * kLdKV + tile_matmul_ws()) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
         band_mha_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;

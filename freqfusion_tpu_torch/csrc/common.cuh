@@ -4,13 +4,18 @@
 #include <cuda_runtime.h>
 
 constexpr int kThreads = 256;  // every block of these kernels: 16 x 16 thread groups
-constexpr int kKC = 16;        // rows of W staged per chunk by tile_matmul
+constexpr int kKC = 16;        // rows of W staged per chunk by tile_matmul_interleaved
 
 // Sum over the 32 lanes of a warp; every lane receives the result.
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
     return v;
+}
+
+// The 16 bytes at p (16-byte aligned).
+__device__ __forceinline__ float4 ld4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
 }
 
 __device__ __forceinline__ float lane4(const float4& v, int i) {
@@ -28,51 +33,46 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Floats of shared memory that tile_matmul needs for its weight stage.
-__host__ __device__ constexpr int tile_matmul_ws(bool pair) {
-    return 2 * kKC * (pair ? 128 : 64);
-}
+// Floats of shared memory that tile_matmul_interleaved needs for its weight stage.
+__host__ __device__ constexpr int tile_matmul_ws() { return 2 * kKC * 64; }
 
-// Row-tile product on CUDA cores in f32, for a block of kThreads threads:
+// Row-tile product on CUDA cores in f32, for a block of kThreads threads (B11's and B12's
+// products; the others run on the tensor cores, mma_f32x3.cuh):
 //   a(p, n) = sum_k A[p*lda + k] * W[k*ldw + n]                 p < 16*TM, n < N
-//   b(p, n) = sum_k A[p*lda + k] * W[k*ldw + off_b + n]         only with PAIR
-// and epi(p, n, a, b) is called once for every (p, n), by the thread that owns (p, n):
-// the same thread for the same (TM, p, n) in every call.
+// and epi(p, n, a) is called once for every (p, n), by the thread that owns (p, n): the
+// same thread for the same (TM, p, n) in every call.
 //   A   shared memory, rows of K floats at a stride lda (lda % 4 == 0; lda % 32 == 4
 //       keeps the two rows a warp reads on different banks). The caller may write A
 //       right before the call: the call synchronises before it reads A.
-//   W   device memory (up to 1 MB of weights, more than shared memory holds). It is
-//       streamed through `ws` (shared, tile_matmul_ws(PAIR) floats) in kKC-row chunks of
-//       a 64-column pass, double-buffered with cp.async so that the copy of chunk c+1
-//       overlaps the FMAs on chunk c; each weight is read from L2 once per block.
-//   K % kKC == 0, N % 64 == 0, W and off_b 16-byte aligned.
-// Thread t owns rows (t/16)*TM .. +TM-1 and columns 4*(t%16) .. +3 of each pass: per four
-// k it reads TM + 4 (or TM + 8) float4s from shared memory for 16*TM (32*TM) FMAs.
-// With ILV (tile_matmul_interleaved) it owns rows t/16, t/16 + 16, .. instead: the two
-// half-warps then read neighbouring rows, lda floats apart, which at TM = 8 keeps their
-// broadcasts on different banks where 8 * lda floats apart would not (lda % 32 == 4).
-template <int TM, bool PAIR, bool ILV, typename Epi>
-__device__ __forceinline__ void tile_matmul_impl(const float* A, int lda, int K,
-                                                 const float* __restrict__ W, int ldw, int N,
-                                                 int off_b, float* ws, Epi epi) {
-    constexpr int KC = kKC, NT = 64, WS = PAIR ? 2 * NT : NT, STAGE = KC * WS;
+//   W   device memory, streamed through `ws` (shared, tile_matmul_ws() floats) in kKC-row
+//       chunks of a 64-column pass, double-buffered with cp.async so that the copy of chunk
+//       c+1 overlaps the FMAs on chunk c; each weight is read from L2 once per block.
+//   K % kKC == 0, N % 64 == 0, W 16-byte aligned.
+// Thread t owns rows t/16, t/16 + 16, .. and columns 4*(t%16) .. +3 of each pass: per four k
+// it reads TM + 4 float4s from shared memory for 16*TM FMAs. The two half-warps read
+// neighbouring rows, lda floats apart, which at TM = 8 keeps their broadcasts on different
+// banks where 8 * lda floats apart would not (lda % 32 == 4).
+template <int TM, typename Epi>
+__device__ __forceinline__ void tile_matmul_interleaved(const float* A, int lda, int K,
+                                                        const float* __restrict__ W, int ldw,
+                                                        int N, float* ws, Epi epi) {
+    constexpr int KC = kKC, NT = 64, STAGE = KC * NT;
     const int tid = threadIdx.x, cg = tid & 15;
-    auto row = [&](int i) { return ILV ? (tid >> 4) + 16 * i : (tid >> 4) * TM + i; };
+    auto row = [&](int i) { return (tid >> 4) + 16 * i; };
     const int nk = K / KC;
     auto stage = [&](int buf, int n0, int k0) {
-        for (int e = tid; e < KC * WS / 4; e += kThreads) {
-            const int kk = e / (WS / 4), col = (e % (WS / 4)) * 4;
-            const int src = col < NT ? n0 + col : off_b + n0 + col - NT;
-            cp_async16(ws + buf * STAGE + kk * WS + col, W + (size_t)(k0 + kk) * ldw + src);
+        for (int e = tid; e < KC * NT / 4; e += kThreads) {
+            const int kk = e / (NT / 4), col = (e % (NT / 4)) * 4;
+            cp_async16(ws + buf * STAGE + kk * NT + col, W + (size_t)(k0 + kk) * ldw + n0 + col);
         }
         cp_async_commit();
     };
     for (int n0 = 0; n0 < N; n0 += NT) {
-        float a[TM][4], b[TM][4];
+        float a[TM][4];
 #pragma unroll
         for (int i = 0; i < TM; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) { a[i][j] = 0.f; b[i][j] = 0.f; }
+            for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
         __syncthreads();  // nobody still reads ws (an earlier pass or call)
         stage(0, n0, 0);
         for (int c = 0; c < nk; ++c) {
@@ -93,10 +93,7 @@ __device__ __forceinline__ void tile_matmul_impl(const float* A, int lda, int K,
                     av[i] = *reinterpret_cast<const float4*>(ac + row(i) * lda + k);
 #pragma unroll
                 for (int kk = 0; kk < 4; ++kk) {
-                    const float4 w = *reinterpret_cast<const float4*>(wc + (k + kk) * WS + cg * 4);
-                    float4 u = w;
-                    if (PAIR)
-                        u = *reinterpret_cast<const float4*>(wc + (k + kk) * WS + NT + cg * 4);
+                    const float4 w = *reinterpret_cast<const float4*>(wc + (k + kk) * NT + cg * 4);
 #pragma unroll
                     for (int i = 0; i < TM; ++i) {
                         const float s = lane4(av[i], kk);
@@ -104,12 +101,6 @@ __device__ __forceinline__ void tile_matmul_impl(const float* A, int lda, int K,
                         a[i][1] = fmaf(s, w.y, a[i][1]);
                         a[i][2] = fmaf(s, w.z, a[i][2]);
                         a[i][3] = fmaf(s, w.w, a[i][3]);
-                        if (PAIR) {
-                            b[i][0] = fmaf(s, u.x, b[i][0]);
-                            b[i][1] = fmaf(s, u.y, b[i][1]);
-                            b[i][2] = fmaf(s, u.z, b[i][2]);
-                            b[i][3] = fmaf(s, u.w, b[i][3]);
-                        }
                     }
                 }
             }
@@ -118,22 +109,8 @@ __device__ __forceinline__ void tile_matmul_impl(const float* A, int lda, int K,
 #pragma unroll
         for (int i = 0; i < TM; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) epi(row(i), n0 + cg * 4 + j, a[i][j], b[i][j]);
+            for (int j = 0; j < 4; ++j) epi(row(i), n0 + cg * 4 + j, a[i][j]);
     }
-}
-
-template <int TM, bool PAIR, typename Epi>
-__device__ __forceinline__ void tile_matmul(const float* A, int lda, int K,
-                                            const float* __restrict__ W, int ldw, int N,
-                                            int off_b, float* ws, Epi epi) {
-    tile_matmul_impl<TM, PAIR, false>(A, lda, K, W, ldw, N, off_b, ws, epi);
-}
-
-template <int TM, typename Epi>
-__device__ __forceinline__ void tile_matmul_interleaved(const float* A, int lda, int K,
-                                                        const float* __restrict__ W, int ldw,
-                                                        int N, float* ws, Epi epi) {
-    tile_matmul_impl<TM, false, true>(A, lda, K, W, ldw, N, 0, ws, epi);
 }
 
 // sums[b][c] = sum over blocks of part[b][blk][c], in a fixed order: the second pass of a

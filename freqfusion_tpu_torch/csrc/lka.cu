@@ -24,8 +24,8 @@
 //   2. lka_dwh: t2 = dw1x21(t1), the same with 24 loads for 84 FMAs.
 //   3. lka_tail: the 21x1 down the columns of a 16 x 8 pixel tile (4 outputs along H at a
 //      time, 24 loads for 84 FMAs) into shared memory [128][C + 4], then the 1x1 through
-//      tile_matmul (common.cuh), whose epilogue applies the folded BatchNorm affine, the
-//      sigmoid and the product with x.
+//      tile_matmul_interleaved (common.cuh), whose epilogue applies the folded BatchNorm
+//      affine, the sigmoid and the product with x.
 // The padding trap: every stage pads its own input with zeros, so the 5x5's output must be
 // zero outside the image before the 1x21 runs (not the 5x5 of a zero-padded x continued
 // outward), and the same for the 1x21's before the 21x1. Here t1 and t2 exist only inside
@@ -168,7 +168,7 @@ lka_tail_kernel(const float* __restrict__ t2, const float* __restrict__ x,
     extern __shared__ float4 smem4[];
     const int lda = Kp + 4;
     float* A = reinterpret_cast<float*>(smem4);   // [kCH * kCW][lda]: the chain's output
-    float* ws = A + kCH * kCW * lda;               // tile_matmul's weight stage
+    float* ws = A + kCH * kCW * lda;               // tile_matmul_interleaved's weight stage
     const int tid = threadIdx.x;
     const int ty0 = blockIdx.y * kCH, tx0 = blockIdx.x * kCW;
     const size_t img = (size_t)blockIdx.z * H * W * C;
@@ -204,8 +204,8 @@ lka_tail_kernel(const float* __restrict__ t2, const float* __restrict__ x,
                     *reinterpret_cast<float4*>(A + ((yl + o) * kCW + tx) * lda + c) = acc[o];
         }
     }
-    // tile_matmul synchronises before it reads A
-    tile_matmul_interleaved<kTM>(A, lda, Kp, wp, Np, Np, ws, [&](int p, int n, float u, float) {
+    // tile_matmul_interleaved synchronises before it reads A
+    tile_matmul_interleaved<kTM>(A, lda, Kp, wp, Np, Np, ws, [&](int p, int n, float u) {
         const int y = ty0 + p / kCW, xx = tx0 + p % kCW;
         if (y >= H || xx >= W || n >= C) return;
         const size_t i = img + ((size_t)y * W + xx) * C + n;
@@ -222,7 +222,7 @@ extern "C" int lka_gate(const float* x, const float* w5, const float* wh, const 
     if (B < 1 || H < 1 || W < 1 || B > 65535 || C < 4 || C % 4 || C / 4 > kThreads ||
         Kp < C || Np < C || Kp % kKC || Np % 64)
         return cudaErrorInvalidValue;
-    const size_t smem = (size_t)(kCH * kCW * (Kp + 4) + tile_matmul_ws(false)) * sizeof(float);
+    const size_t smem = (size_t)(kCH * kCW * (Kp + 4) + tile_matmul_ws()) * sizeof(float);
     if (smem > 227 * 1024) return cudaErrorInvalidValue;
     dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B);
     if (grid.y > 65535) return cudaErrorInvalidValue;

@@ -1,5 +1,6 @@
-// NAFBlock as two hand-written kernels for Hopper (sm_90a): stage A with its 1x1 product
-// f32-exact on the tensor cores (3xTF32, mma_f32x3.cuh), stage B in f32 on CUDA cores.
+// NAFBlock as two hand-written kernels for Hopper (sm_90a), their 1x1 products f32-exact
+// on the tensor cores (3xTF32 mma.sync, mma_f32x3.cuh) on weights split into TF32 hi and lo
+// on the host and kept (ops/kernels/_mma.py).
 //
 // Replaces the TPU kernels freqfusion_tpu/ops/pallas/nafblock.py:naf_block_stage_a (B1) and
 // :naf_block_stage_b (B2). The plain PyTorch versions sit beside the wrappers in
@@ -12,8 +13,9 @@
 // 4C^2 in stage B. Stage A's product is 47.2 GFLOP at every level of the 512x352 bucket
 // (C^2 x pixels is the same at 1408x2048x64, 704x1024x128 and 352x512x256): 0.29 ms at 165
 // TFLOP/s of f32-exact products, while x and g are 1.47 GB at C = 64 (0.44 ms): bytes bound
-// it there, the products at C = 256. Stage B's 4C^2 MACs run in f32 on CUDA cores (67
-// TFLOP/s): FLOPs bound it.
+// it there, the products at C = 256. Stage B's products are 94.5 GFLOP at every level
+// (0.573 ms); it reads g and x and writes out, 2.21, 1.11 and 0.55 GB (0.661, 0.330, 0.165
+// ms): bytes bound it at C = 64 (0.661 ms), the products at 128 and 256 (0.573 ms).
 //
 // Stage A (B1): x -> LN -> 1x1 C->2C (+b1) -> 3x3 depthwise SAME (+bdw) -> SimpleGate -> g,
 // plus per-image sums of g for the channel attention's global mean.
@@ -44,17 +46,39 @@
 //   * The TPU kernel carried the sum of g across its sequential grid. Hopper blocks run in
 //     no order, so each block writes its partial sums [B, nblk, C] and a second small pass
 //     adds them in a fixed order: the sums are the same from run to run (no atomics).
-// Stage B (B2), pointwise: g*att -> 1x1 (+b3) -> y = x + beta*(.) -> LN2 -> 1x1 C->2C (+b4)
-// -> SimpleGate -> 1x1 (+b5) -> y + gamma*(.). A block owns 64 pixels (32 at C = 256, so
-// that two blocks fit an SM) and keeps two P x C intermediates in shared memory; y goes
-// to the output buffer and is read back from L1/L2 by LN2 and the final residual. The
-// weights (about 1 MB at C = 256) stream through tile_matmul's stage (common.cuh), so each
-// is read from L2 once per block. att = mean(g) @ W_sca + b_sca is a [B,C]x[C,C] product
-// computed by the caller between the two stages.
+// Stage B (B2), pointwise: g*att -> 1x1 (+b3) -> y = x + beta*(.) -> LN2 (eps 1e-6) -> 1x1
+// C->2C (+b4) -> SimpleGate -> 1x1 (+b5) -> y + gamma*(.). att = mean(g) @ W_sca + b_sca is
+// a [B,C]x[C,C] product computed by the caller between the two stages, multiplied into g
+// where A is staged. A block of 16 warps owns 128 pixels and runs the three products through
+// tile_mma (mma_f32x3.cuh), the weights streamed through its 128 KB ring. w4's columns come
+// gate-interleaved from the host (gate channel j in column 2j, its partner C + j in 2j + 1),
+// so that SimpleGate is one epilogue thread's pair of accumulators.
+//   * C = 64 (4 of NAF's 14 launches, and every launch of a tile chunk): on chip. A (32 KB:
+//     g * att, then LN2(y)), y (32 KB, in the first product's epilogue) and the gated hidden
+//     (32 KB, in the second's, in A-fragment order: the third product's A) stay in shared
+//     memory beside the ring: 224 KB. The block reads g and x once and writes out once: a
+//     C-wide f32 pass over [1,1408,2048,64] costs 0.22 ms, and three more would take a third
+//     of the budget. The three products' epilogues never write the A that their own product
+//     reads (tile_mma runs an epilogue while other warps still read A).
+//   * C = 128 and 256: A is 128 rows x 128 columns (64 KB) beside the ring, and y and the
+//     hidden do not fit too. y is parked in out (written by the first epilogue, read by LN2's
+//     statistics, the second product's staging and the last epilogue), the hidden goes
+//     through hid, and at C = 256, whose K comes in two pieces (tile_mma_piece), each
+//     product's partial sums go through part [pixels][2C], added in f32 in a fixed order.
+//     Every product parks its sums at part's row stride of 2C, so a block touches only its
+//     own 128 rows of it: blocks run in no order, and a narrower stride for one product
+//     would lay a block's rows over another's. Per
+//     pixel that is 2C floats of writes (y, the hidden) and 4C of reads beyond g, x and out,
+//     6C of each more at 256 (the partial sums), mostly L2 hits: each block reads back what
+//     it wrote. The products bound it there. Moving x's read out of the first epilogue and
+//     the last epilogue's read of y into streaming passes (rows in registers) timed no
+//     faster on the H100 and spilled: the product itself (tile_mma) is what holds it.
+//   * LN2's statistics are in f32 and every sum has a fixed order: no atomics.
 //
 // Layout: NHWC, f32, contiguous. Weights: w1p the mma_planes of w1 [C][2C] with its columns
-// pass by pass; w4 [C][2C]; w3, w5 [C][C]; wdw [9][2C]. Stage A takes C % 32 == 0 up to 256,
-// stage B C % 64 == 0 (the wrapper checks).
+// pass by pass; w3p, w4p, w5p the mma_planes of w3 [C][C], of w4 [C][2C] gate-interleaved and
+// of w5 [C][C]; wdw [9][2C]. Stage A takes C % 32 == 0 up to 256, stage B C % 64 == 0 (the
+// wrapper checks).
 
 #include "mma_f32x3.cuh"
 
@@ -322,71 +346,218 @@ cudaError_t launch_stage_a(const float* x, const float* lnw, const float* lnb,
     return cudaGetLastError();
 }
 
-// Stage B for blocks of 16 * TM pixels.
-template <int TM>
-__global__ void __launch_bounds__(kThreads)
-naf_stage_b_kernel(const float* __restrict__ g, const float* __restrict__ x,
-                   const float* __restrict__ att, const float* __restrict__ w3,
-                   const float* __restrict__ b3, const float* __restrict__ beta,
-                   const float* __restrict__ ln2w, const float* __restrict__ ln2b,
-                   const float* __restrict__ w4, const float* __restrict__ b4,
-                   const float* __restrict__ w5, const float* __restrict__ b5,
-                   const float* __restrict__ gamma, float* __restrict__ out,
-                   long long npix, int hw, int C) {
-    constexpr int P = 16 * TM;
-    extern __shared__ float4 smem4[];
-    const int lda = C + 4;
-    float* s0 = reinterpret_cast<float*>(smem4);  // [P][lda] g*att, then LN2(y)
-    float* sh = s0 + P * lda;                      // [P][lda] gated FFN hidden
-    float* ws = sh + P * lda;                      // tile_matmul's weight stage
-    const long long p0 = (long long)blockIdx.x * P;
+// ---- Stage B
+struct StageB {
+    const float *g, *x, *att;     // [npix][C], [npix][C], [B][C]
+    const float4 *w3, *w4, *w5;   // mma_planes: w3, w5 [C][C]; w4 [C][2C], gate-interleaved
+    const float *b3, *beta, *ln2w, *ln2b, *b4, *b5, *gamma;
+    float* out;    // [npix][C]; y between the products in the device-memory design
+    float* hid;    // [npix][C] the gated hidden (device-memory design)
+    float* part;   // [npix][2C] sums over K pieces (device-memory design, C > kMmaMaxK)
+    long long npix;
+    int hw, C;
+};
 
-    const int c4n = C / 4;
-    for (int e = threadIdx.x; e < P * c4n; e += kThreads) {
-        const int p = e / c4n, c4 = (e % c4n) * 4;
-        const long long gp = p0 + p;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (gp < npix) {
-            const float4 gv = *reinterpret_cast<const float4*>(g + gp * C + c4);
-            const float4 av = *reinterpret_cast<const float4*>(att + (gp / hw) * C + c4);
-            v = make_float4(gv.x * av.x, gv.y * av.y, gv.z * av.z, gv.w * av.w);
-        }
-        *reinterpret_cast<float4*>(s0 + p * lda + c4) = v;
-    }
-    // y goes to `out` (device memory, the block's own rows): it is read back by LN2 after
-    // a barrier and by the last epilogue, whose thread for (p, n) is the one that wrote it
-    tile_matmul<TM, false>(s0, lda, C, w3, C, C, 0, ws, [&](int p, int n, float a, float) {
-        const long long gp = p0 + p;
-        if (gp < npix) out[gp * C + n] = x[gp * C + n] + (a + b3[n]) * beta[n];
-    });
-    __syncthreads();
-    for (int p = threadIdx.x >> 5; p < P; p += kThreads / 32)
-        if (p0 + p < npix) warp_layernorm(out + (p0 + p) * C, s0 + p * lda, ln2w, ln2b, C, kEps);
-    tile_matmul<TM, true>(s0, lda, C, w4, 2 * C, C, C, ws,
-                          [&](int p, int n, float a, float b) {
-                              sh[p * lda + n] = (a + b4[n]) * (b + b4[C + n]);
-                          });
-    tile_matmul<TM, false>(sh, lda, C, w5, C, C, 0, ws, [&](int p, int n, float a, float) {
-        const long long gp = p0 + p;
-        if (gp < npix) out[gp * C + n] += (a + b5[n]) * gamma[n];
-    });
+// Where column c of row p of y sits in the on-chip design's [128][64] buffer: its 8-column
+// group XOR-ed with p % 4, so that the epilogue's float2 accesses (8 rows, 4 threads a row)
+// fall on the 32 banks twice, the least for 8 bytes a thread; c's 4-aligned groups stay whole
+__device__ __forceinline__ int y_col(int p, int c) { return c ^ ((p & 3) << 3); }
+
+// C = 64: everything on chip. A (g * att, then LN2(y)), y and the gated hidden sit in
+// shared memory beside the ring (3 x 32 KB + 128 KB): the block reads g and x once and
+// writes out once.
+__global__ void __launch_bounds__(kMmaThreads, 1)
+naf_stage_b_onchip_kernel(const StageB a) {
+    constexpr int C = 64, KS = C / 8, C4 = C / 4;
+    extern __shared__ float4 smem4[];
+    float* A = reinterpret_cast<float*>(smem4);   // [128 x C] A-fragment order
+    float* Hs = A + kMmaRows * C;                  // [128 x C] the hidden, A-fragment order
+    float* Y = Hs + kMmaRows * C;                  // [128][C] y, swizzled (y_col)
+    float* ws = Y + kMmaRows * C;                  // tile_mma's ring
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const long long p0 = (long long)blockIdx.x * kMmaRows;
+
+    // y = x + ((g * att) @ w3 + b3) * beta: x staged in Y, g * att in A
+    tile_mma(
+        A, C, a.w3, C / 8, C, ws,
+        [&] {
+            for (int e = tid; e < kMmaRows * C4; e += kMmaThreads) {
+                const int p = e / C4, c = (e % C4) * 4;
+                const long long gp = p0 + p;
+                float4 u = make_float4(0.f, 0.f, 0.f, 0.f), v = u;
+                if (gp < a.npix) {
+                    const float4 gv = ld4(a.g + gp * C + c);
+                    const float4 av = ld4(a.att + (gp / a.hw) * C + c);
+                    u = make_float4(gv.x * av.x, gv.y * av.y, gv.z * av.z, gv.w * av.w);
+                    v = ld4(a.x + gp * C + c);
+                }
+                put4(A, p, c, KS, u);
+                *reinterpret_cast<float4*>(Y + p * C + y_col(p, c)) = v;
+            }
+        },
+        [&](int p, int n, float u0, float u1) {
+            float2* yp = reinterpret_cast<float2*>(Y + p * C + y_col(p, n));
+            const float2 xv = *yp;
+            *yp = make_float2(xv.x + (u0 + a.b3[n]) * a.beta[n],
+                              xv.y + (u1 + a.b3[n + 1]) * a.beta[n + 1]);
+        });
+    // h = SimpleGate(LN2(y) @ w4 + b4): LN2 a warp a row (two floats a lane) into A; gate
+    // channel j and its partner are columns 2j, 2j + 1, so the gate is one thread's pair
+    tile_mma(
+        A, C, a.w4, 2 * C / 8, 2 * C, ws,
+        [&] {
+            for (int p = warp; p < kMmaRows; p += kMmaThreads / 32) {
+                const int c = 2 * lane;
+                const float2 v = *reinterpret_cast<const float2*>(Y + p * C + y_col(p, c));
+                const float u = warp_sum(v.x + v.y) / C;
+                const float dx = v.x - u, dy = v.y - u;
+                const float inv = 1.f / sqrtf(warp_sum(fmaf(dx, dx, dy * dy)) / C + kEps);
+                const int i = a_frag_index(p, c, KS);   // column c + 1 sits 4 floats on
+                A[i] = dx * inv * a.ln2w[c] + a.ln2b[c];
+                A[i + 4] = dy * inv * a.ln2w[c + 1] + a.ln2b[c + 1];
+            }
+        },
+        [&](int p, int n, float u0, float u1) {
+            const int j = n >> 1;
+            Hs[a_frag_index(p, j, KS)] = (u0 + a.b4[j]) * (u1 + a.b4[C + j]);
+        });
+    // out = y + (h @ w5 + b5) * gamma
+    tile_mma(
+        Hs, C, a.w5, C / 8, C, ws, [] {},
+        [&](int p, int n, float u0, float u1) {
+            const long long gp = p0 + p;
+            if (gp >= a.npix) return;
+            const float2 y = *reinterpret_cast<const float2*>(Y + p * C + y_col(p, n));
+            *reinterpret_cast<float2*>(a.out + gp * C + n) =
+                make_float2(y.x + (u0 + a.b5[n]) * a.gamma[n],
+                            y.y + (u1 + a.b5[n + 1]) * a.gamma[n + 1]);
+        });
 }
 
-template <int TM>
-cudaError_t launch_stage_b(const float* g, const float* x, const float* att, const float* w3,
-                           const float* b3, const float* beta, const float* ln2w,
-                           const float* ln2b, const float* w4, const float* b4,
-                           const float* w5, const float* b5, const float* gamma, float* out,
-                           int B, int H, int W, int C, cudaStream_t st) {
-    constexpr int P = 16 * TM;
-    const size_t smem = (size_t)(2 * P * (C + 4) + tile_matmul_ws(true)) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        naf_stage_b_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// C > 64 (and C = 64 when the caller gives hid): A (128 rows of one K piece: 64 KB at
+// C = 128 and 256) and the ring fill the block. y is parked in out, the gated hidden goes
+// through hid and, where K comes in pieces (C > kMmaMaxK), the products' partial sums through
+// part, whose rows are 2C floats for every product: each element is read back by the thread
+// that wrote it, mostly from L2, and no block touches another's rows.
+__global__ void __launch_bounds__(kMmaThreads, 1)
+naf_stage_b_rows_kernel(const StageB a) {
+    extern __shared__ float4 smem4[];
+    const int C = a.C, Kt = tile_mma_piece(C);
+    float* A = reinterpret_cast<float*>(smem4);   // [128 x Kt] A-fragment order
+    float* ws = A + kMmaRows * Kt;                 // tile_mma's ring
+    float* lnst = ws + tile_mma_ws();              // [128][2] LN2's mean and 1/std
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const long long p0 = (long long)blockIdx.x * kMmaRows;
+
+    // A = columns k0 .. k0 + kh of f(p, gp, c) (float4s), zero past the last pixel
+    auto stage = [&](int k0, int kh, auto f) {
+        const int k4 = kh / 4, ks = kh / 8;
+#pragma unroll 4
+        for (int e = tid; e < kMmaRows * k4; e += kMmaThreads) {
+            const int p = e / k4, c = (e % k4) * 4;
+            const long long gp = p0 + p;
+            put4(A, p, c, ks, gp < a.npix ? f(p, gp, k0 + c) : make_float4(0.f, 0.f, 0.f, 0.f));
+        }
+    };
+    // (u0, u1) at (gp, n) plus the earlier K pieces' sums, added in f32 in a fixed order:
+    // true at the last piece; before it the sum is parked in part (rows of 2C floats)
+    auto summed = [&](long long gp, int n, int k0, int kh, float& u0, float& u1) {
+        if (kh == C) return true;
+        float2* pp = reinterpret_cast<float2*>(a.part + gp * 2 * C + n);
+        if (k0 > 0) {
+            const float2 s = *pp;
+            u0 += s.x;
+            u1 += s.y;
+        }
+        if (k0 + kh == C) return true;
+        *pp = make_float2(u0, u1);
+        return false;
+    };
+
+    // y = x + ((g * att) @ w3 + b3) * beta, into out
+    for (int k0 = 0; k0 < C; k0 += Kt) {
+        const int kh = min(Kt, C - k0);
+        tile_mma(
+            A, kh, a.w3 + (size_t)(k0 / 8) * (C / 8) * 32, C / 8, C, ws,
+            [&] {
+                stage(k0, kh, [&](int, long long gp, int c) {
+                    const float4 gv = ld4(a.g + gp * C + c);
+                    const float4 av = ld4(a.att + (gp / a.hw) * C + c);
+                    return make_float4(gv.x * av.x, gv.y * av.y, gv.z * av.z, gv.w * av.w);
+                });
+            },
+            [&](int p, int n, float u0, float u1) {
+                const long long gp = p0 + p;
+                if (gp >= a.npix || !summed(gp, n, k0, kh, u0, u1)) return;
+                const float2 xv = *reinterpret_cast<const float2*>(a.x + gp * C + n);
+                *reinterpret_cast<float2*>(a.out + gp * C + n) =
+                    make_float2(xv.x + (u0 + a.b3[n]) * a.beta[n],
+                                xv.y + (u1 + a.b3[n + 1]) * a.beta[n + 1]);
+            });
+    }
+    // LN2's statistics, a warp a row (tile_mma synchronised: out holds the block's y)
+    for (int p = warp; p < kMmaRows; p += kMmaThreads / 32) {
+        const long long gp = p0 + p;
+        float u = 0.f, inv = 0.f;
+        if (gp < a.npix) warp_ln_stats(a.out + gp * C, C, kEps, u, inv);
+        if (lane == 0) {
+            lnst[2 * p] = u;
+            lnst[2 * p + 1] = inv;
+        }
+    }
+    // h = SimpleGate(LN2(y) @ w4 + b4), into hid: gate channel j and its partner are
+    // columns 2j, 2j + 1 of the product, one thread's pair
+    for (int k0 = 0; k0 < C; k0 += Kt) {
+        const int kh = min(Kt, C - k0);
+        tile_mma(
+            A, kh, a.w4 + (size_t)(k0 / 8) * (2 * C / 8) * 32, 2 * C / 8, 2 * C, ws,
+            [&] {
+                stage(k0, kh, [&](int p, long long gp, int c) {
+                    const float4 v = ld4(a.out + gp * C + c);
+                    const float4 w = ld4(a.ln2w + c), b = ld4(a.ln2b + c);
+                    const float u = lnst[2 * p], inv = lnst[2 * p + 1];
+                    return make_float4((v.x - u) * inv * w.x + b.x, (v.y - u) * inv * w.y + b.y,
+                                       (v.z - u) * inv * w.z + b.z, (v.w - u) * inv * w.w + b.w);
+                });
+            },
+            [&](int p, int n, float u0, float u1) {
+                const long long gp = p0 + p;
+                if (gp >= a.npix || !summed(gp, n, k0, kh, u0, u1)) return;
+                const int j = n >> 1;
+                a.hid[gp * C + j] = (u0 + a.b4[j]) * (u1 + a.b4[C + j]);
+            });
+    }
+    // out = y + (h @ w5 + b5) * gamma
+    for (int k0 = 0; k0 < C; k0 += Kt) {
+        const int kh = min(Kt, C - k0);
+        tile_mma(
+            A, kh, a.w5 + (size_t)(k0 / 8) * (C / 8) * 32, C / 8, C, ws,
+            [&] {
+                stage(k0, kh, [&](int, long long gp, int c) { return ld4(a.hid + gp * C + c); });
+            },
+            [&](int p, int n, float u0, float u1) {
+                const long long gp = p0 + p;
+                if (gp >= a.npix || !summed(gp, n, k0, kh, u0, u1)) return;
+                float2* o = reinterpret_cast<float2*>(a.out + gp * C + n);
+                const float2 y = *o;
+                *o = make_float2(y.x + (u0 + a.b5[n]) * a.gamma[n],
+                                 y.y + (u1 + a.b5[n + 1]) * a.gamma[n + 1]);
+            });
+    }
+}
+
+cudaError_t launch_stage_b(const StageB& a, cudaStream_t st) {
+    const bool onchip = a.C == 64 && !a.hid;
+    const size_t smem = (size_t)(onchip ? 3 * kMmaRows * 64 + tile_mma_ws()
+                                        : kMmaRows * tile_mma_piece(a.C) + tile_mma_ws() +
+                                              2 * kMmaRows) * sizeof(float);
+    const auto kernel = onchip ? naf_stage_b_onchip_kernel : naf_stage_b_rows_kernel;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const long long npix = (long long)B * H * W;
-    const unsigned nblocks = (unsigned)((npix + P - 1) / P);
-    naf_stage_b_kernel<TM><<<nblocks, kThreads, smem, st>>>(
-        g, x, att, w3, b3, beta, ln2w, ln2b, w4, b4, w5, b5, gamma, out, npix, H * W, C);
+    const long long nblocks = (a.npix + kMmaRows - 1) / kMmaRows;
+    if (nblocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    kernel<<<(unsigned)nblocks, kMmaThreads, smem, st>>>(a);
     return cudaGetLastError();
 }
 
@@ -423,17 +594,28 @@ int naf_stage_a(const float* x, const float* lnw, const float* lnb, const float*
     return sum_partials(part, sums, B, naf_stage_a_blocks(B, H, W, C), C, st);
 }
 
-int naf_stage_b(const float* g, const float* x, const float* att, const float* w3,
+// out = stage B of g and x; w3p, w4p, w5p the mma_planes of w3, of w4 with gate channel j in
+// column 2j and its partner C + j in 2j + 1, and of w5 (ops/kernels/nafblock.py:
+// stage_b_planes); hid [B*H*W][C] scratch where C > 64, part [B*H*W][2C] where C > 192.
+// At C = 64 the block keeps y and the hidden on chip unless hid is given: then it takes the
+// device-memory design of the wider levels (so that the two can be timed and tested).
+int naf_stage_b(const float* g, const float* x, const float* att, const float* w3p,
                 const float* b3, const float* beta, const float* ln2w, const float* ln2b,
-                const float* w4, const float* b4, const float* w5, const float* b5,
-                const float* gamma, float* out, int B, int H, int W, int C, void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    // 64-pixel blocks up to C = 128; 32 at C = 256 keeps two blocks in an SM's smem
-    if (C <= 128)
-        return launch_stage_b<4>(g, x, att, w3, b3, beta, ln2w, ln2b, w4, b4, w5, b5, gamma,
-                                 out, B, H, W, C, st);
-    return launch_stage_b<2>(g, x, att, w3, b3, beta, ln2w, ln2b, w4, b4, w5, b5, gamma, out,
-                             B, H, W, C, st);
+                const float* w4p, const float* b4, const float* w5p, const float* b5,
+                const float* gamma, float* out, float* hid, float* part, int B, int H, int W,
+                int C, void* stream) {
+    if (C % 64 || C < 64 || B < 1 || H < 1 || W < 1 || (C > 64 && !hid) ||
+        (C > kMmaMaxK && !part))
+        return cudaErrorInvalidValue;
+    StageB a = {};
+    a.g = g; a.x = x; a.att = att;
+    a.w3 = reinterpret_cast<const float4*>(w3p);
+    a.w4 = reinterpret_cast<const float4*>(w4p);
+    a.w5 = reinterpret_cast<const float4*>(w5p);
+    a.b3 = b3; a.beta = beta; a.ln2w = ln2w; a.ln2b = ln2b; a.b4 = b4; a.b5 = b5;
+    a.gamma = gamma; a.out = out; a.hid = hid; a.part = part;
+    a.npix = (long long)B * H * W; a.hw = H * W; a.C = C;
+    return launch_stage_b(a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -41,7 +41,7 @@ from ..ops.kernels.wattn import (branch_qkv, fused_window_attention_qkv,
                                  fused_window_attention_xqkv,
                                  fused_window_attention_xqkv_plain)
 from .layers import (BatchNorm2d, SeamConv, conv_nhwc as _conv_nhwc, gelu, hwio as _hwio,
-                     linear_io as _io, linear_io_view)
+                     linear_io_view)
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
 
@@ -115,10 +115,11 @@ class _AIM(nn.Module):
 
     def gates_weights(self):
         """The S-Map's and the projection's parameters in the layouts of
-        ops/kernels/aim.py, in the order of aim_gates_proj's arguments."""
+        ops/kernels/aim.py, in the order of aim_gates_proj's arguments. fc1's and the
+        projection's weights are views: the kernel keeps their split planes on them."""
         fc1, bn, fc2 = (self.spatial_interaction[i] for i in (0, 1, 3))
-        return (_hwio(fc1), fc1.bias, *bn.affine_eval(), _hwio(fc2), fc2.bias,
-                _io(self.proj), self.proj.bias)
+        return (fc1.weight.permute(2, 3, 1, 0), fc1.bias, *bn.affine_eval(), _hwio(fc2),
+                fc2.bias, linear_io_view(self.proj), self.proj.bias)
 
     def conv_branch(self, v: torch.Tensor):
         """v -> (conv_x, sums of conv_x [B,1,1,C]): kernel B5a."""

@@ -65,22 +65,22 @@ class NAFBlock(nn.Module):
         self.kernels = True
 
     def fused_params(self) -> dict:
-        """The parameters in the layouts of ops/kernels/nafblock.py."""
+        """The parameters in the layouts of ops/kernels/nafblock.py. The 1x1 convs' weights
+        are views (OI11 -> [I, O]): the kernels keep their split planes on the weights."""
         c = self.c
 
-        def mat(conv, n_in):  # 1x1 conv OI11 -> [I, O]
-            return conv.weight.reshape(-1, n_in).t().contiguous()
+        def mat(conv):  # 1x1 conv OI11 -> [I, O], a view of the weight
+            return conv.weight.reshape(-1, c).t()
 
         return dict(
             ln1_w=self.norm1.weight, ln1_b=self.norm1.bias,
-            # a view of the weight: stage A's kernel keeps its planes on it
-            w1=self.conv1.weight.reshape(-1, c).t(), b1=self.conv1.bias,
+            w1=mat(self.conv1), b1=self.conv1.bias,
             wdw=self.conv2.weight.reshape(2 * c, 9).t().contiguous(), bdw=self.conv2.bias,
-            sca_w=mat(self.sca[1], c), sca_b=self.sca[1].bias,
-            w3=mat(self.conv3, c), b3=self.conv3.bias, beta=self.beta.reshape(c),
+            sca_w=mat(self.sca[1]), sca_b=self.sca[1].bias,
+            w3=mat(self.conv3), b3=self.conv3.bias, beta=self.beta.reshape(c),
             ln2_w=self.norm2.weight, ln2_b=self.norm2.bias,
-            w4=mat(self.conv4, c), b4=self.conv4.bias,
-            w5=mat(self.conv5, c), b5=self.conv5.bias, gamma=self.gamma.reshape(c))
+            w4=mat(self.conv4), b4=self.conv4.bias,
+            w5=mat(self.conv5), b5=self.conv5.bias, gamma=self.gamma.reshape(c))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kernels and self.c <= MAX_FUSED_WIDTH:

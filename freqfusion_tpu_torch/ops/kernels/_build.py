@@ -33,13 +33,13 @@ _F = ctypes.c_float
 # C entry point -> argument types; every entry returns its cudaError_t as an int.
 SIGNATURES = {
     "naf_stage_a": [_P] * 10 + [_I] * 4 + [_P],
-    "naf_stage_b": [_P] * 14 + [_I] * 4 + [_P],
+    "naf_stage_b": [_P] * 16 + [_I] * 4 + [_P],
     "conv3x3_dense": [_P] * 4 + [_I] * 5 + [_P, _P, _I, _I, _P],
     "conv3x3_dense_is_wide": [_I, _I],
     "naf_stage_a_blocks": [_I] * 4,
     "aim_conv_branch": [_P] * 8 + [_I] * 4 + [_P],
     "aim_conv_branch_blocks": [_I, _I],
-    "aim_gates_proj": [_P] * 12 + [_I] * 8 + [_P],
+    "aim_gates_proj": [_P] * 12 + [_I] * 7 + [_P],
     "rows_ln_fc1": [_P] * 10 + [_L] + [_I] * 4 + [_P],
     "sgfn_gate_fc2": [_P] * 6 + [_I] * 7 + [_P],
     "cab_chain": [_P] * 11 + [_I] * 9 + [_P],

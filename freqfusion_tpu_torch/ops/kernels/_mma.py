@@ -87,22 +87,29 @@ def kept(spec: tuple, make, *ts: torch.Tensor):
     hashable `spec` of what is made, once: the result is kept on the tensor that owns
     ts[0]'s memory (ts[0] itself, or the base of the view that it is, such as
     ``linear.weight.t()``) and goes when it goes. It is made anew when any of ts changes
-    in place (its version counter), is viewed another way, or moves (``module.to``). An
-    inference tensor counts no versions: for one, make() runs on every call."""
+    in place (its version counter), is viewed another way, or has its memory replaced
+    (``module.to``, ``param.data = ...``): the entry holds the storage that each of ts had
+    when it was made, and a hit needs the same storage, so that an address the allocator
+    hands out again cannot pass for the old memory. There is one entry for each spec and
+    view: a replaced entry goes, with the storage it held. An inference tensor counts no
+    versions: for one, make() runs on every call."""
     for t in ts:
         if t.is_inference():
             return make()
     w = ts[0]
     root = w if w._base is None else w._base
-    key = (spec, *[(t.shape, t.stride(), t.data_ptr(), t.device) for t in ts])
+    key = (spec, *[(t.shape, t.stride(), t.storage_offset(), t.device) for t in ts])
+    storages = [t.untyped_storage() for t in ts]
     versions = [t._version for t in ts]
     table = _KEPT.get(root)
     if table is None:
         table = _KEPT[root] = {}
     hit = table.get(key)
-    if hit is None or hit[0] != versions:
-        hit = table[key] = (versions, make())
-    return hit[1]
+    if (hit is None or hit[1] != versions
+            or any(a._cdata != b._cdata for a, b in zip(hit[0], storages))):
+        table.pop(key, None)   # the old entry and the memory it holds go first
+        hit = table[key] = (storages, versions, make())
+    return hit[2]
 
 
 def planes(w: torch.Tensor, kp: int, npad: int) -> torch.Tensor:

@@ -11,7 +11,10 @@ to a depthwise-conv branch through two sigmoid gates and an output projection:
 
 On a CUDA tensor each wrapper launches its kernel from ``csrc/aim.cu`` or raises; on a CPU
 tensor it runs the plain PyTorch version. Parameters come in the JAX package's layouts:
-the depthwise kernel (3,3,1,C) HWIO, 1x1 convs (1,1,I,O), proj [C,C] as [in,out].
+the depthwise kernel (3,3,1,C) HWIO, 1x1 convs (1,1,I,O), proj [C,C] as [in,out]. B5b's
+projection runs f32-exact on the tensor cores (3xTF32) on its weight split into TF32 hi and
+lo parts, and both it and the S-Map's padded fc1 are made once for each weight
+(``gates_planes``): the S-Map's fc1 and proj may be views (DAT passes its parameters' own).
 """
 
 from __future__ import annotations
@@ -19,15 +22,17 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _mma
 
 #: Kernel launches since the last reset, by kernel. Plain runs are not counted.
 launches = {"aim_conv_branch": 0, "aim_gates_proj": 0}
 
-#: What csrc/aim.cu takes: the S-Map's hidden layer (DAT: 180 // 16 = 11) and the width of
-#: a pixel that B5b holds in a warp's registers.
-MAX_MID = 32
-MAX_C = 256
+#: What csrc/aim.cu takes: B5a's channels (a thread a channel quad), B5b's S-Map width
+#: (DAT: 180 // 16 = 11; its sums sit in a lane's registers) and B5b's channels (a row of
+#: 128 pixels staged whole beside tile_mma's ring: _mma.MAX_ROW_K).
+MAX_CONV_C = 1024
+MAX_MID = 12
+MAX_C = _mma.MAX_ROW_K
 
 
 def depthwise3x3_plain(x, wdw, bdw):
@@ -62,12 +67,16 @@ def aim_gates_proj_plain(attened, conv_x, chmap_vec, si_w1, si_b1, si_bn_scale,
     return y @ proj_w + proj_b
 
 
-def _padded_proj(proj_w):
-    """proj [C,C] zero-padded to (kp, npad, the [kp,npad] matrix): the streamed product
-    takes K in steps of 16 and N in steps of 64, and padded zeros change nothing."""
-    c = proj_w.shape[0]
-    kp, npad = -(-c // 16) * 16, -(-c // 64) * 64
-    return kp, npad, F.pad(proj_w, (0, npad - c, 0, kp - c))
+def gates_planes(si_w1: torch.Tensor, proj_w: torch.Tensor):
+    """(kp, the S-Map's fc1 [C,MAX_MID] zero-padded, the projection's planes): proj [C,C] as
+    tile_mma's B fragments, hi and lo, of [kp,kp] (kp = C padded to a multiple of 8). Both
+    are made once for each weight (``_mma.kept``), so the views that the model passes
+    will do."""
+    c, mid = si_w1.shape[-2:]
+    kp = -(-c // 8) * 8
+    w1 = si_w1.reshape(c, mid)
+    fc1 = _mma.kept(("aim_smap",), lambda: F.pad(w1, (0, MAX_MID - mid)).contiguous(), w1)
+    return kp, fc1, _mma.planes(proj_w, kp, kp)
 
 
 def aim_conv_branch(v, wdw, bdw, bn_scale, bn_shift):
@@ -76,8 +85,8 @@ def aim_conv_branch(v, wdw, bdw, bn_scale, bn_shift):
     if v.device.type == "cpu":
         return aim_conv_branch_plain(v, wdw, bdw, bn_scale, bn_shift)
     b, h, w, c = v.shape
-    if c % 4 or c > 4 * MAX_C:
-        raise ValueError(f"aim_conv_branch: C={c} is not a multiple of 4 up to {4 * MAX_C}")
+    if c % 4 or c > MAX_CONV_C:
+        raise ValueError(f"aim_conv_branch: C={c} is not a multiple of 4 up to {MAX_CONV_C}")
     _build.require(v, "v")
     _build.require(wdw, "wdw", (3, 3, 1, c))
     for name, t in (("bdw", bdw), ("bn_scale", bn_scale), ("bn_shift", bn_shift)):
@@ -114,23 +123,24 @@ def aim_gates_proj(attened, conv_x, chmap_vec, si_w1, si_b1, si_bn_scale, si_bn_
     _build.require(attened, "attened")
     _build.require(conv_x, "conv_x", attened.shape)
     _build.require(chmap_vec, "chmap_vec", (b, 1, 1, c))
-    _build.require(si_w1, "si_w1", (1, 1, c, mid))
+    # fc1 and proj are laid out anew (gates_planes): views will do
+    _build.require(si_w1, "si_w1", (1, 1, c, mid), contiguous=False)
+    _build.require(proj_w, "proj_w", (c, c), contiguous=False)
     _build.require(si_w2, "si_w2", (1, 1, mid, 1))
     _build.require(si_b2, "si_b2", (1,))
     for name, t in (("si_b1", si_b1), ("si_bn_scale", si_bn_scale),
                     ("si_bn_shift", si_bn_shift)):
         _build.require(t, name, (mid,))
-    _build.require(proj_w, "proj_w", (c, c))
     _build.require(proj_b, "proj_b", (c,))
-    kp, npad, projp = _padded_proj(proj_w)
+    kp, fc1, projp = gates_planes(si_w1, proj_w)
     lib = _build.library()
     out = torch.empty_like(attened)
     with torch.cuda.device(attened.device):
         err = lib.aim_gates_proj(attened.data_ptr(), conv_x.data_ptr(), chmap_vec.data_ptr(),
-                                 si_w1.data_ptr(), si_b1.data_ptr(), si_bn_scale.data_ptr(),
+                                 fc1.data_ptr(), si_b1.data_ptr(), si_bn_scale.data_ptr(),
                                  si_bn_shift.data_ptr(), si_w2.data_ptr(), si_b2.data_ptr(),
                                  projp.data_ptr(), proj_b.data_ptr(), out.data_ptr(),
-                                 b, h, w, c, mid, kp, npad, int(bool(swap)),
+                                 b, h, w, c, mid, kp, int(bool(swap)),
                                  _build.stream_ptr(attened.device))
     _build.check(err, "aim_gates_proj")
     launches["aim_gates_proj"] += 1

@@ -2,13 +2,14 @@
 
 Twin of ``freqfusion_tpu/ops/pallas/nafblock.py``. On a CUDA tensor each wrapper launches
 its kernel from ``csrc/nafblock.cu`` or raises; on a CPU tensor it runs the plain PyTorch
-version, which computes the same math. There is no fallback from one to the other. Stage A's
-1x1 product runs f32-exact on the tensor cores (3xTF32): w1 is split into TF32 hi and lo
-parts and laid out for it once for each weight (``stage_a_planes``).
+version, which computes the same math. There is no fallback from one to the other. Both
+stages run their 1x1 products f32-exact on the tensor cores (3xTF32): w1, w3, w4 and w5 are
+split into TF32 hi and lo parts and laid out for them once for each weight
+(``stage_a_planes``, ``stage_b_planes``).
 
 Layouts (NHWC, f32): x, g [B,H,W,C]; w1, w4 [C,2C]; w3, w5 [C,C]; wdw [9,2C] (the 3x3
-depthwise taps, row dy*3+dx); every other parameter a vector. w1 may be a view (a model
-passes its conv's weight as one, so that its planes are kept on it).
+depthwise taps, row dy*3+dx); every other parameter a vector. w1, w3, w4 and w5 may be views
+(a model passes its convs' weights as views, so that their planes are kept on them).
 """
 
 from __future__ import annotations
@@ -67,6 +68,20 @@ def stage_a_planes(w1: torch.Tensor) -> torch.Tensor:
     return _mma.kept(("naf_stage_a",), make, w1)
 
 
+def stage_b_planes(w3: torch.Tensor, w4: torch.Tensor, w5: torch.Tensor) -> tuple:
+    """Stage B's weights as tile_mma's B fragments, hi and lo (``_mma.mma_planes``), each
+    made once for each weight (``_mma.kept``): w3 and w5 [C,C] as they are; w4 [C,2C] with
+    gate channel j in column 2j and its partner C+j in column 2j+1, so that the kernel's
+    epilogue holds both halves of a gate in one thread."""
+    c = w3.shape[0]
+
+    def w4_make():
+        return _mma.mma_planes(w4.reshape(c, 2, c).permute(0, 2, 1).reshape(c, 2 * c))
+
+    return (_mma.planes(w3, c, c), _mma.kept(("naf_stage_b_w4",), w4_make, w4),
+            _mma.planes(w5, c, c))
+
+
 def naf_block_stage_a(x, ln_w, ln_b, w1, b1, wdw, bdw):
     """Kernel B1 on CUDA, its plain version on the CPU. Returns (g, sums [B,C])."""
     _build.require_no_grad("naf_block_stage_a", x, ln_w, ln_b, w1, b1, wdw, bdw)
@@ -103,8 +118,11 @@ def naf_block_stage_a(x, ln_w, ln_b, w1, b1, wdw, bdw):
     return g, sums
 
 
-def naf_block_stage_b(g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4, w5, b5, gamma):
-    """Kernel B2 on CUDA, its plain version on the CPU."""
+def naf_block_stage_b(g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4, w5, b5, gamma, *,
+                      on_chip: bool = True):
+    """Kernel B2 on CUDA, its plain version on the CPU. At C = 64 the kernel keeps y and the
+    hidden in shared memory; on_chip=False sends them through device memory there too, as
+    the wider levels always do (to time and test the two designs against each other)."""
     _build.require_no_grad("naf_block_stage_b", g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4,
                            w5, b5, gamma)
     if g.device.type == "cpu":
@@ -116,20 +134,29 @@ def naf_block_stage_b(g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4, w5, b5, gam
     _build.require(g, "g")
     _build.require(x, "x", g.shape)
     _build.require(att, "att", (b, c))
-    for name, t, shape in (("w3", w3, (c, c)), ("b3", b3, (c,)), ("beta", beta, (c,)),
-                           ("ln2_w", ln2_w, (c,)), ("ln2_b", ln2_b, (c,)),
-                           ("w4", w4, (c, 2 * c)), ("b4", b4, (2 * c,)),
-                           ("w5", w5, (c, c)), ("b5", b5, (c,)),
+    for name, t, shape in (("b3", b3, (c,)), ("beta", beta, (c,)), ("ln2_w", ln2_w, (c,)),
+                           ("ln2_b", ln2_b, (c,)), ("b4", b4, (2 * c,)), ("b5", b5, (c,)),
                            ("gamma", gamma, (c,))):
         _build.require(t, name, shape)
+    # laid out anew (stage_b_planes): views will do
+    for name, t, shape in (("w3", w3, (c, c)), ("w4", w4, (c, 2 * c)), ("w5", w5, (c, c))):
+        _build.require(t, name, shape, contiguous=False)
+    w3p, w4p, w5p = stage_b_planes(w3, w4, w5)
     lib = _build.library()
     out = torch.empty_like(g)
+    # scratch: the hidden where it does not stay on chip (C > 64, or not on_chip), the
+    # products' partial sums where K comes in pieces (C > MAX_ROW_K)
+    hid = torch.empty_like(g) if c > 64 or not on_chip else None
+    part = (torch.empty((b, h, w, 2 * c), device=g.device, dtype=torch.float32)
+            if c > _mma.MAX_ROW_K else None)
     with torch.cuda.device(g.device):
-        err = lib.naf_stage_b(g.data_ptr(), x.data_ptr(), att.data_ptr(), w3.data_ptr(),
+        err = lib.naf_stage_b(g.data_ptr(), x.data_ptr(), att.data_ptr(), w3p.data_ptr(),
                               b3.data_ptr(), beta.data_ptr(), ln2_w.data_ptr(),
-                              ln2_b.data_ptr(), w4.data_ptr(), b4.data_ptr(),
-                              w5.data_ptr(), b5.data_ptr(), gamma.data_ptr(),
-                              out.data_ptr(), b, h, w, c, _build.stream_ptr(g.device))
+                              ln2_b.data_ptr(), w4p.data_ptr(), b4.data_ptr(),
+                              w5p.data_ptr(), b5.data_ptr(), gamma.data_ptr(),
+                              out.data_ptr(), None if hid is None else hid.data_ptr(),
+                              None if part is None else part.data_ptr(), b, h, w, c,
+                              _build.stream_ptr(g.device))
     _build.check(err, "naf_stage_b")
     launches["naf_block_stage_b"] += 1
     return out

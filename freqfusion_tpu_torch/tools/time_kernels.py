@@ -1,31 +1,35 @@
-"""Times the wrappers of B1, B4, B6, B8 (and B8's attention alone) and B10 at the shapes the
-serving path gives them, so that two checkouts can be compared on one card in one call.
+"""Times the wrappers of B1, B2, B4, B5b, B6, B8 (and B8's attention alone) and B10 at the
+shapes the serving path gives them, so that two checkouts can be compared on one card in one
+call.
 
     python -m freqfusion_tpu_torch.tools.time_kernels      # from a checkout's root; a card
 
 Only the public wrappers (and B8's two launchers) are called, so the script runs unchanged
 from an older checkout's root: copy it there and run it from each tree in turn (parent,
 change, change, parent). Inputs come from seed 0 on the card; each time is the mean of 10
-launches after a warm-up, CUDA events, f32 with TF32 off. B1 is also timed by its device
-time alone (torch.profiler, the kernels of 10 calls), which a small image's launch, bound by
-the host, hides from the events. Prints one JSON line with the times in ms and the card's
-name and power limit.
+launches after a warm-up, CUDA events, f32 with TF32 off. B2 at C = 64 is also timed in the
+device-memory design of its wider levels (``on_chip=False``), where the tree has it. B1 is
+also timed by its device time alone (torch.profiler, the kernels of 10 calls), which a small
+image's launch, bound by the host, hides from the events. Prints one JSON line with the
+times in ms and the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import subprocess
 
 import torch
 
 from ..ops import windows
-from ..ops.kernels import nafblock, sgfn, wattn
+from ..ops.kernels import aim, nafblock, sgfn, wattn
 
 # NAF's three fused levels at the 512x352 bucket, a ragged image and a chunk of two tiles
 B1_SHAPES = {"c64": (1, 1408, 2048, 64), "c128": (1, 704, 1024, 128),
              "c256": (1, 352, 512, 256), "ragged": (2, 37, 45, 64),
              "tile": (2, 768, 768, 64)}
+B2_SHAPES = {k: B1_SHAPES[k] for k in ("c64", "c128", "c256", "tile")}
 
 
 def cuda_ms(fn, iters: int = 10) -> float:
@@ -70,8 +74,28 @@ def main() -> None:
             out[f"b1_{name}"] = cuda_ms(lambda: nafblock.naf_block_stage_a(*args))
             dev[f"b1_{name}"] = device_ms(lambda: nafblock.naf_block_stage_a(*args))
             del args
-        # DAT at the bucket: 180 channels, a branch's 3 heads of 30 in 8x32 / 32x8 windows
+        for name, (b, h, w, c) in B2_SHAPES.items():
+            args = (r(b, h, w, c), r(b, h, w, c), r(b, c, std=0.5, mean=1.0),
+                    r(c, c, std=c ** -0.5), r(c, std=0.1), r(c, std=0.5),
+                    r(c, std=0.1, mean=1.0), r(c, std=0.1), r(c, 2 * c, std=c ** -0.5),
+                    r(2 * c, std=0.1), r(c, c, std=c ** -0.5), r(c, std=0.1), r(c, std=0.5))
+            out[f"b2_{name}"] = cuda_ms(lambda: nafblock.naf_block_stage_b(*args))
+            if c == 64 and "on_chip" in inspect.signature(nafblock.naf_block_stage_b).parameters:
+                # the device-memory design of the wider levels, at C = 64
+                out[f"b2_{name}_via_memory"] = cuda_ms(
+                    lambda: nafblock.naf_block_stage_b(*args, on_chip=False))
+            del args
+        # DAT at the bucket: 180 channels, a branch's 3 heads of 30 in 8x32 / 32x8 windows;
+        # AIM's S-Map 11 wide
         x = r(1, 352, 512, 180)
+        g_args = (x, r(1, 352, 512, 180), r(1, 1, 1, 180), r(1, 1, 180, 11, std=180 ** -0.5),
+                  r(11, std=0.1), r(11, std=0.2, mean=1.0), r(11, std=0.1),
+                  r(1, 1, 11, 1, std=11 ** -0.5), r(1, std=0.1), r(180, 180, std=180 ** -0.5),
+                  r(180, std=0.1))
+        for swap in (False, True):
+            out[f"b5b{'_swap' if swap else ''}"] = cuda_ms(
+                lambda: aim.aim_gates_proj(*g_args, swap=swap))
+        del g_args
         for hs, ws in ((8, 32), (32, 8)):
             for shifted in (False, True):
                 mask = (torch.from_numpy(windows.shift_mask_types(hs, ws, hs // 2, ws // 2)

@@ -202,6 +202,66 @@ def test_naf_stage_a_is_f32_exact(gen, c, hw):
                ref, _tf32(nafblock.naf_block_stage_a_plain, *args)[0])
 
 
+@pytest.mark.parametrize("c,hw", [(64, (37, 45)), (128, (19, 23)), (256, (13, 17))])
+def test_naf_stage_b_is_f32_exact(gen, c, hw):
+    """B2 on chip (C = 64) and through device memory (128; 256 with K in two pieces), on
+    pixel counts that end inside a 128-row tile, w3 and w5 scaled x100."""
+    p = _block_params(c, gen)
+    g = _r(gen, 1, *hw, c)
+    att = _r(gen, 1, c, std=0.5, mean=1.0)
+    args = [g, _r(gen, 1, *hw, c), att, 100 * p["w3"], p["b3"], p["beta"], p["ln2_w"],
+            p["ln2_b"], p["w4"], p["b4"], 100 * p["w5"], p["b5"], p["gamma"]]
+    ref = nafblock.naf_block_stage_b_plain(*[a.double() for a in args])
+    _exactness(nafblock.naf_block_stage_b(*args), nafblock.naf_block_stage_b_plain(*args), ref,
+               _tf32(nafblock.naf_block_stage_b_plain, *args))
+
+
+@pytest.mark.parametrize("hw", [(37, 45), (19, 23)])
+def test_naf_stage_b_via_memory_is_f32_exact(gen, hw):
+    """B2 at C = 64 in the device-memory design of the wider levels (on_chip=False), ragged,
+    w3 and w5 scaled x100."""
+    c = 64
+    p = _block_params(c, gen)
+    args = [_r(gen, 2, *hw, c), _r(gen, 2, *hw, c), _r(gen, 2, c, std=0.5, mean=1.0),
+            100 * p["w3"], p["b3"], p["beta"], p["ln2_w"], p["ln2_b"], p["w4"], p["b4"],
+            100 * p["w5"], p["b5"], p["gamma"]]
+    ref = nafblock.naf_block_stage_b_plain(*[a.double() for a in args])
+    _exactness(nafblock.naf_block_stage_b(*args, on_chip=False),
+               nafblock.naf_block_stage_b_plain(*args), ref,
+               _tf32(nafblock.naf_block_stage_b_plain, *args))
+
+
+@pytest.mark.parametrize("h,w,c,on_chip", [(352, 512, 256, True), (704, 1024, 128, True),
+                                           (1408, 2048, 64, True), (1408, 2048, 64, False)])
+def test_naf_stage_b_matches_plain_over_many_waves(gen, h, w, c, on_chip):
+    """B2 at NAF's served shapes, several waves of blocks a launch, launched five times: blocks
+    run in no order, so a block that touched another's scratch rows (C = 256 parks its K
+    pieces' partial sums) would show here as a result that differs from plain or from run to
+    run."""
+    p = _block_params(c, gen)
+    args = [_r(gen, 1, h, w, c), _r(gen, 1, h, w, c), _r(gen, 1, c, std=0.5, mean=1.0),
+            p["w3"], p["b3"], p["beta"], p["ln2_w"], p["ln2_b"], p["w4"], p["b4"], p["w5"],
+            p["b5"], p["gamma"]]
+    ref = nafblock.naf_block_stage_b_plain(*args)
+    first = nafblock.naf_block_stage_b(*args, on_chip=on_chip)
+    torch.testing.assert_close(first, ref, atol=1e-4, rtol=0)
+    for _ in range(4):
+        assert torch.equal(nafblock.naf_block_stage_b(*args, on_chip=on_chip), first)
+
+
+@pytest.mark.parametrize("swap", [False, True])
+def test_aim_gates_proj_is_f32_exact(gen, swap):
+    """B5b at DAT's width (C = 180, the S-Map 11 wide) on a ragged batch of two, both
+    wirings, the projection scaled x100."""
+    p = _aim_params(gen, 180)
+    args = [_r(gen, 2, 19, 23, 180), _r(gen, 2, 19, 23, 180), _r(gen, 2, 1, 1, 180),
+            p["si_w1"], p["si_b1"], p["si_s"], p["si_b"], p["si_w2"], p["si_b2"],
+            100 * p["proj_w"], p["proj_b"]]
+    ref = aim.aim_gates_proj_plain(*[a.double() for a in args], swap=swap)
+    _exactness(aim.aim_gates_proj(*args, swap=swap), aim.aim_gates_proj_plain(*args, swap=swap),
+               ref, _tf32(aim.aim_gates_proj_plain, *args, swap=swap))
+
+
 @pytest.mark.parametrize("b,h,w,hs,ws,cin,heads,hd,with_mask", [
     (2, 16, 64, 8, 32, 180, 3, 30, True), (1, 64, 32, 32, 8, 180, 3, 30, False),
     (2, 16, 32, 8, 8, 24, 2, 6, True), (1, 8, 32, 8, 16, 64, 4, 32, True),

@@ -250,3 +250,97 @@ def test_naf_stage_a_planes_lay_w1_out_pass_by_pass():
         assert nafblock.stage_a_planes(view()) is first
         conv.weight.mul_(0.5)
         assert nafblock.stage_a_planes(view()) is not first
+
+
+@pytest.mark.parametrize("move", ["double_float", "half_float"])
+def test_kept_entries_follow_a_weight_that_moves(move):
+    """Moving a module's weights (``double().float()`` keeps the values, ``half().float()``
+    changes them) gives each parameter new memory, which the allocator may place at the
+    address it has just freed: every move makes the planes anew, equal to those of the new
+    values, and the weight keeps one entry for its view however often it moves."""
+    rng = np.random.default_rng(10)
+    lin = torch.nn.Linear(20, 12)
+    with torch.no_grad():
+        lin.weight.copy_(_r(rng, 12, 20))
+        before = first = _mma.planes(lin.weight.t(), 24, 16)
+        for _ in range(4):
+            if move == "double_float":
+                lin.double().float()
+            else:
+                lin.half().float()
+            got = _mma.planes(lin.weight.t(), 24, 16)
+            assert got is not before
+            assert torch.equal(got, _mma.mma_planes(_mma.padded(lin.weight.detach().t(), 24, 16)))
+            assert _mma.planes(lin.weight.t(), 24, 16) is got
+            assert len(_mma._KEPT[lin.weight]) == 1
+            before = got
+    # half() rounds the values away, and the planes follow them
+    assert torch.equal(before, first) == (move == "double_float")
+
+
+def test_naf_stage_b_planes_interleave_w4s_gate_columns():
+    """B2's three products: w3 and w5 as they are, w4 [C,2C] with gate channel j in column
+    2j and its partner C+j in 2j+1. The planes unpack to those columns, keep the products,
+    and are made once for the views that NAFBlock passes until a weight changes in place."""
+    from freqfusion_tpu_torch.models.nafnet import NAFBlock
+    from freqfusion_tpu_torch.ops.kernels import nafblock
+    rng = np.random.default_rng(11)
+    c = 64
+    w3, w4, w5 = (_r(rng, c, n, std=c ** -0.5) for n in (c, 2 * c, c))
+    p3, p4, p5 = nafblock.stage_b_planes(w3, w4, w5)
+    assert p3.shape == p5.shape == (c // 8, c // 8, 32, 4) and p4.shape == (c // 8, c // 4, 32, 4)
+    order = torch.stack([torch.arange(c), torch.arange(c, 2 * c)], dim=1).reshape(-1)
+    assert order[:4].tolist() == [0, c, 1, c + 1]
+    hi, _ = _unpack(p4)
+    assert torch.equal(hi, _mma.split_tf32(w4[:, order])[0])
+    for packed, w in ((p3, w3), (p4, w4[:, order]), (p5, w5)):
+        _assert_keeps_product(packed, w, rng)
+    block = NAFBlock(c)
+    with torch.no_grad():
+        def planes():
+            prm = block.fused_params()
+            return nafblock.stage_b_planes(prm["w3"], prm["w4"], prm["w5"])
+
+        first = planes()
+        again = planes()
+        assert all(a is b for a, b in zip(first, again))
+        block.conv4.weight.mul_(0.5)
+        after = planes()
+        assert after[0] is first[0] and after[2] is first[2] and after[1] is not first[1]
+        w4_now = block.conv4.weight.detach().reshape(2 * c, c).t()
+        assert torch.equal(after[1], _mma.mma_planes(w4_now[:, order].contiguous()))
+
+
+def test_aim_gates_planes_pad_fc1_and_the_projection():
+    """B5b's S-Map fc1 [C,mid] zero-padded to [C,MAX_MID] (its CUDA-core sums) and its
+    projection [C,C] as planes of [Kp,Kp] (DAT: 180 -> 184): the projection keeps its
+    product, and both are made once for the views that DAT's AIM passes, and anew after an
+    in-place change."""
+    import torch.nn.functional as F
+    from freqfusion_tpu_torch.models import dat as dat_model
+    from freqfusion_tpu_torch.ops.kernels import aim
+    rng = np.random.default_rng(12)
+    c, mid = 180, 11
+    w1, wp = _r(rng, 1, 1, c, mid, std=c ** -0.5), _r(rng, c, c, std=c ** -0.5)
+    kp, fc1, projp = aim.gates_planes(w1, wp)
+    assert kp == 184 and projp.shape == (23, 23, 32, 4)
+    assert torch.equal(fc1, F.pad(w1.reshape(c, mid), (0, aim.MAX_MID - mid)))
+    _assert_keeps_product(projp, wp, rng)
+    m = dat_model._AIM(c)
+    with torch.no_grad():
+        def planes():
+            g = m.gates_weights()
+            return aim.gates_planes(g[0], g[6])[1:]
+
+        first = planes()
+        assert all(a is b for a, b in zip(first, planes()))
+        m.proj.weight.mul_(2.0)
+        after = planes()
+        assert after[0] is first[0] and after[1] is not first[1]
+        assert torch.equal(after[1], _mma.mma_planes(_mma.padded(m.proj.weight.detach().t(),
+                                                                 kp, kp)))
+        m.spatial_interaction[0].weight.add_(1.0)
+        again = planes()
+        assert again[0] is not first[0] and again[1] is after[1]
+        w_now = m.spatial_interaction[0].weight.detach().reshape(mid, c).t()
+        assert torch.equal(again[0], F.pad(w_now, (0, aim.MAX_MID - mid)))
