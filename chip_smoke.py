@@ -10,7 +10,8 @@ Phases, each printing JSON lines; any failure raises and the exit code is not 0:
   3. kernels: each CUDA kernel against its plain PyTorch version at the slices' shapes,
      with its time, the plain version's, the card's bound for the same work and, where one
      PyTorch call computes the same function, that call's time; B6, B8 and B10 also at
-     C = 256 and 384, above the 192 channels a row product stages at once;
+     C = 256 and 384, above the 192 channels a row product stages at once, B5b at C = 256
+     with a 16- and a 32-wide S-Map, B11 at D = 96 and 128;
   4. NAF slice: NAFNetSR at its published width (random weights from a seed) serves three
      PNG requests through InferencePipeline's uint8 protocol; the forward is checked
      against the plain versions, every kernel must have been launched, and per-image
@@ -109,7 +110,8 @@ HAT_CASES = [("bucket", 1, 352, 512), ("batch2", 2, 32, 48), ("ragged", 2, 37, 4
 # on the 9 bands folded into the batch, and at the collaborative branch's C = 128
 MHA_CASES = [("bucket", 1, 352, 512, 9, 64, 4), ("t3", 1, 352, 512, 3, 64, 4),
              ("ragged", 2, 37, 45, 9, 64, 4), ("d32", 1, 16, 24, 3, 32, 2),
-             ("tile", 2, 192, 192, 9, 64, 4)]
+             ("tile", 2, 192, 192, 9, 64, 4), ("d96", 1, 176, 256, 9, 96, 4),
+             ("d128", 1, 176, 256, 9, 128, 2)]
 LKA_CASES = [("bucket", 9, 352, 512, 64), ("c128", 3, 352, 512, 128),
              ("ragged", 2, 37, 45, 64), ("h10", 1, 10, 50, 64), ("tile", 18, 192, 192, 64)]
 # B13 at DAT's branch width (90 channels, 3 heads of 30): the table's shape and a chunk of two
@@ -243,7 +245,8 @@ def phase_device() -> tuple:
 # SM, or two blocks of 8) and no spill
 TC_KERNELS = ("conv3x3_gemm_kernel", "xqkv_attention_kernel", "oca_attn_kernel",
               "sgfn_gate_fc2_kernel", "rows_kernel", "naf_stage_a_kernel",
-              "naf_stage_b_onchip_kernel", "naf_stage_b_rows_kernel", "aim_gates_proj_kernel")
+              "naf_stage_b_onchip_kernel", "naf_stage_b_rows_kernel", "aim_gates_proj_kernel",
+              "band_mha_kernel")
 
 
 def ptxas_report(log: str) -> list:
@@ -456,6 +459,10 @@ def dat_kernel_cases(gen: torch.Generator, res: dict) -> None:
             b_times.append((b_ms, b_plain))
         del att, cx_ref, b_args
 
+        if name == "bucket":   # above the 192 channels a row is staged at once (ROADMAP C9)
+            res["aim_gates_proj"]["err"] = max(res["aim_gates_proj"]["err"],
+                                               aim_wide_cases(r, b, h // 2, w // 2))
+
         t_args = (r(b, h, w, c), r(b, h, w, c), r(c, std=0.1, mean=1.0), r(c, std=0.1),
                   r(c, hid, std=c ** -0.5), r(hid, std=0.1), r(half, std=0.1, mean=1.0),
                   r(half, std=0.1), r(3, 3, 1, half, std=1 / 3), r(half, std=0.1),
@@ -491,6 +498,30 @@ def dat_kernel_cases(gen: torch.Generator, res: dict) -> None:
             res["fused_sgfn_tail"].update(ms=t_ms, plain_ms=t_plain, bound=t_bnd,
                                           bound_f32=t_bnd32,
                                           extra=dict(fc1_ms=fc1_ms, gate_fc2_ms=gate_fc2_ms))
+
+
+def aim_wide_cases(r, b: int, h: int, w: int) -> float:
+    """B5b at C = 256 with the S-Map 16 and 32 wide (the projection's K in two pieces, the
+    S-Map in groups of 12), both wirings: within KERNEL_ATOL of plain; timed, not the
+    summary's times. Returns the largest error."""
+    c, worst = 256, 0.0
+    for mid in (16, 32):
+        args = (r(b, h, w, c), r(b, h, w, c), r(b, 1, 1, c), r(1, 1, c, mid, std=c ** -0.5),
+                r(mid, std=0.1), r(mid, std=0.2, mean=1.0), r(mid, std=0.1),
+                r(1, 1, mid, 1, std=mid ** -0.5), r(1, std=0.1), r(c, c, std=c ** -0.5),
+                r(c, std=0.1))
+        for swap in (False, True):
+            got = aim.aim_gates_proj(*args, swap=swap)
+            want = aim.aim_gates_proj_plain(*args, swap=swap)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            del got, want
+            emit("kernel", kernel="aim_gates_proj", case=f"c256_mid{mid}", swap=swap,
+                 shape=[b, h, w, c], pieces=_mma.piece_sizes(c), max_abs_err=err,
+                 bound=KERNEL_ATOL, ms=cuda_ms(lambda: aim.aim_gates_proj(*args, swap=swap)))
+            require(err <= KERNEL_ATOL, f"B5b error {err} at C = 256, mid {mid}, swap={swap}")
+            worst = max(worst, err)
+    return worst
 
 
 def hat_kernel_cases(gen: torch.Generator, res: dict) -> None:
@@ -731,20 +762,23 @@ def head_kernel_cases(gen: torch.Generator, res: dict) -> None:
         ms = cuda_ms(lambda: bandmha.fused_band_mha(*args), iters=5)
         plain_ms = cuda_ms(lambda: bandmha.fused_band_mha_plain(*args), iters=5)
         lib_ms = cuda_ms(lambda: band_mha_library(*lib_args), iters=5)
-        # LN, the qkv and out projections, q k^T and p v over T x T scores a head, softmax;
-        # reads the stacked tensor and the weights, writes the stacked tensor
-        bnd = bound_ms(npix * (t * (8 * d * d + 10 * d) + heads * t * t * (4 * hd + 8)),
-                       4 * (2 * npix * t * d + 4 * d * d + 6 * d))
+        # products on the tensor cores: the qkv and out projections; on CUDA cores: LN, q k^T
+        # and p v over T x T scores a head, softmax; reads the stacked tensor and the weights,
+        # writes the stacked tensor
+        tc_flops = npix * t * 8 * d * d
+        bnd, bnd32 = bounds(npix * (t * 10 * d + heads * t * t * (4 * hd + 8)), tc_flops,
+                            4 * (2 * npix * t * d + 4 * d * d + 6 * d))
         emit("kernel", kernel="fused_band_mha", case=name, shape=[b, h, w, t, d], heads=heads,
              max_abs_err=err, bound=KERNEL_ATOL, max_abs_plain=scale,
              library_vs_plain_max_abs=lib_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-             bound_ms=bnd[0], bound_by=bnd[1])
+             bound_ms=bnd[0], bound_by=bnd[1], bound_f32_ms=bnd32[0],
+             tc_tflops=tc_flops / ms / 1e9)
         require(err <= KERNEL_ATOL, f"B11 error {err} at {name}")
         require(lib_err <= KERNEL_ATOL, f"B11's library call differs from it by {lib_err}")
         res["fused_band_mha"]["err"] = max(res["fused_band_mha"]["err"], err)
         if name == "bucket":   # the summary's times
             res["fused_band_mha"].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                         bound=bnd)
+                                         bound=bnd, bound_f32=bnd32)
         del args, lib_args
         torch.cuda.empty_cache()
 

@@ -36,7 +36,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // Floats of shared memory that tile_matmul_interleaved needs for its weight stage.
 __host__ __device__ constexpr int tile_matmul_ws() { return 2 * kKC * 64; }
 
-// Row-tile product on CUDA cores in f32, for a block of kThreads threads (B11's and B12's
+// Row-tile product on CUDA cores in f32, for a block of kThreads threads (B12's
 // products; the others run on the tensor cores, mma_f32x3.cuh):
 //   a(p, n) = sum_k A[p*lda + k] * W[k*ldw + n]                 p < 16*TM, n < N
 // and epi(p, n, a) is called once for every (p, n), by the thread that owns (p, n): the

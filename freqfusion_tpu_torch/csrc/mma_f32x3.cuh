@@ -1,7 +1,8 @@
 // f32-exact products on Hopper's tensor cores: 3xTF32 with mma.sync (sm_80+, built for
 // sm_90a), the building block of the implicit-GEMM 3x3 conv (conv_gemm.cuh: B3, B7), the
-// HAB and overlapping attentions (hab_attention.cu: B8; oca.cu: B9) and the row products
-// (tile_mma below: B6's two products, B8's tail, B9's projection, B10, B14's projections).
+// HAB and overlapping attentions (hab_attention.cu: B8; oca.cu: B9), the band attention's
+// projections (bandmha.cu: B11) and the row products (tile_mma below: B6's two products,
+// B8's tail, B9's projection, B10, B14's projections).
 //
 // Why 3xTF32. A TF32 product keeps 10 mantissa bits of each operand: alone it would change
 // the precision class of every result (about 1e-3 relative). Splitting each f32 operand

@@ -24,14 +24,10 @@ def hwio(conv: nn.Conv2d) -> torch.Tensor:
     return conv.weight.permute(2, 3, 1, 0).contiguous()
 
 
-def linear_io(lin: nn.Linear) -> torch.Tensor:
-    """A Linear's [out,in] weight as the [in,out] matrix of x @ w."""
-    return lin.weight.t().contiguous()
-
-
 def linear_io_view(lin: nn.Linear) -> torch.Tensor:
-    """``linear_io`` as a view of the weight, for the wrappers that lay a weight out once and
-    keep it beside the parameter (the row products: ops/kernels/_mma.py's ``planes``)."""
+    """A Linear's [out,in] weight as the [in,out] matrix of x @ w: a view of the weight, for
+    the wrappers that lay a weight out once and keep it beside the parameter
+    (ops/kernels/_mma.py's ``planes`` and ``fragments``)."""
     return lin.weight.t()
 
 
@@ -88,9 +84,10 @@ class TorchMHA(nn.Module):
         nn.init.zeros_(self.out_proj.bias)
 
     def raw(self):
-        """(wqkv [E,3E], bqkv, wproj [E,E], bproj) as ``x @ w`` matrices, for kernel B11."""
-        return (self.in_proj_weight.t().contiguous(), self.in_proj_bias,
-                linear_io(self.out_proj), self.out_proj.bias)
+        """(wqkv [E,3E], bqkv, wproj [E,E], bproj) as ``x @ w`` matrices, for kernel B11: views
+        of the parameters, which the kernel's wrapper lays out once for each weight."""
+        return (self.in_proj_weight.t(), self.in_proj_bias, linear_io_view(self.out_proj),
+                self.out_proj.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         *lead, n, e = x.shape

@@ -38,7 +38,7 @@ SIGNATURES = {
     "conv3x3_dense_is_wide": [_I, _I],
     "naf_stage_a_blocks": [_I] * 4,
     "aim_conv_branch": [_P] * 8 + [_I] * 4 + [_P],
-    "aim_conv_branch_blocks": [_I, _I],
+    "aim_conv_branch_blocks": [_I] * 3,
     "aim_gates_proj": [_P] * 12 + [_I] * 7 + [_P],
     "rows_ln_fc1": [_P] * 10 + [_L] + [_I] * 4 + [_P],
     "sgfn_gate_fc2": [_P] * 6 + [_I] * 7 + [_P],
@@ -50,7 +50,7 @@ SIGNATURES = {
     "rows_linear": [_P] * 4 + [_L] + [_I] * 4 + [_P],
     "wattn_qkv": [_P] * 6 + [_I] * 8 + [_P],
     "oca_attention": [_P] * 5 + [_I] * 8 + [_P],
-    "band_mha": [_P] * 10 + [_L] + [_I] * 3 + [_P],
+    "band_mha": [_P] * 8 + [_L] + [_I] * 3 + [_P],
     "lka_gate": [_P] * 9 + [_I] * 6 + [_P],
 }
 

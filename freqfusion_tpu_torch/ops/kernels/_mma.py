@@ -18,7 +18,10 @@ split from here, so that the kernel loads their two parts and splits nothing:
 * ``planes(w, kp, npad)`` is what the wrappers call: ``mma_planes`` of w [K,N] zero-padded
   to [kp,npad] (``padded``), made once for each weight and kept beside it (``kept``, which
   the attention's head slabs and B1's planes use too), so that a forward does not split
-  and re-lay its constant weights on every call.
+  and re-lay its constant weights on every call;
+* ``fragments(w)`` is the same B-fragment order without the split, [K/8][N/8][32][2], made
+  once for each weight: for a kernel that keeps a weight resident in shared memory, where
+  the planes would take twice the room, and splits each fragment as it loads it (B11).
 
 ``MAX_ROW_K`` is the most rows of K that a row product stages at a time: ``kMmaMaxK`` of
 ``csrc/mma_f32x3.cuh``, what 128 rows of A leave of a block's shared memory beside the
@@ -69,13 +72,17 @@ def mma_planes(wp: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"mma_planes: [{kp},{npad}] is not padded to multiples of 8")
     hi, lo = split_tf32(wp)
     lo = (lo.view(torch.int32) + _HALF_ULP).view(torch.float32)
+    return torch.cat([b_fragments(hi), b_fragments(lo)], dim=-1)
 
-    def frag(t):  # [kp,npad] -> [kp/8, npad/8, 32 = 4 g + t, 2 = rows t, t + 4]
-        return t.reshape(kp // 8, 2, 4, npad // 8, 8).permute(0, 3, 4, 2, 1).reshape(
-            kp // 8, npad // 8, 32, 2)
 
-    return torch.cat([frag(hi), frag(lo)], dim=-1).contiguous()
-
+def b_fragments(wp: torch.Tensor) -> torch.Tensor:
+    """wp [kp,npad] (multiples of 8) in the order of mma.sync.m16n8k8's B fragments, unsplit:
+    [kp/8, npad/8, 32 = lane 4g + t, 2 = (wp[t][g], wp[t+4][g]) of its 8x8 tile]."""
+    kp, npad = wp.shape
+    if kp % 8 or npad % 8:
+        raise ValueError(f"b_fragments: [{kp},{npad}] is not padded to multiples of 8")
+    return wp.reshape(kp // 8, 2, 4, npad // 8, 8).permute(0, 3, 4, 2, 1).reshape(
+        kp // 8, npad // 8, 32, 2).contiguous()
 
 
 #: What ``kept`` made so far, on the tensor that owns each first argument's memory.
@@ -116,3 +123,8 @@ def planes(w: torch.Tensor, kp: int, npad: int) -> torch.Tensor:
     """``mma_planes`` of w [K,N] zero-padded to [kp,npad], made once for each weight
     (``kept``)."""
     return kept(("planes", kp, npad), lambda: mma_planes(padded(w, kp, npad)), w)
+
+
+def fragments(w: torch.Tensor) -> torch.Tensor:
+    """``b_fragments`` of w [K,N] (multiples of 8), made once for each weight (``kept``)."""
+    return kept(("fragments",), lambda: b_fragments(w), w)

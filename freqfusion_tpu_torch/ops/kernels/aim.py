@@ -27,12 +27,13 @@ from . import _build, _mma
 #: Kernel launches since the last reset, by kernel. Plain runs are not counted.
 launches = {"aim_conv_branch": 0, "aim_gates_proj": 0}
 
-#: What csrc/aim.cu takes: B5a's channels (a thread a channel quad), B5b's S-Map width
-#: (DAT: 180 // 16 = 11; its sums sit in a lane's registers) and B5b's channels (a row of
-#: 128 pixels staged whole beside tile_mma's ring: _mma.MAX_ROW_K).
-MAX_CONV_C = 1024
-MAX_MID = 12
-MAX_C = _mma.MAX_ROW_K
+#: What csrc/aim.cu takes: both kernels' channels (B5a: slices of at most 48 channel quads a
+#: block; B5b: up to _mma.MAX_ROW_K a row of 128 pixels is staged whole beside tile_mma's
+#: ring, above it the projection takes K in pieces) and B5b's S-Map width (DAT: C // 16),
+#: whose sums a lane keeps in registers SMAP_GROUP at a time, one pass over the rows a group.
+MAX_C = 1024
+MAX_MID = 64
+SMAP_GROUP = 12
 
 
 def depthwise3x3_plain(x, wdw, bdw):
@@ -67,15 +68,25 @@ def aim_gates_proj_plain(attened, conv_x, chmap_vec, si_w1, si_b1, si_bn_scale,
     return y @ proj_w + proj_b
 
 
+def smap_groups(w1: torch.Tensor) -> torch.Tensor:
+    """The S-Map's fc1 [C,mid] in the kernel's groups of SMAP_GROUP hidden units:
+    [ceil(mid / SMAP_GROUP), C, SMAP_GROUP], zero past mid (one group, [1,C,12], at DAT's
+    mid of 11)."""
+    c, mid = w1.shape
+    ng = -(-mid // SMAP_GROUP)
+    return F.pad(w1, (0, ng * SMAP_GROUP - mid)).reshape(c, ng, SMAP_GROUP).transpose(
+        0, 1).contiguous()
+
+
 def gates_planes(si_w1: torch.Tensor, proj_w: torch.Tensor):
-    """(kp, the S-Map's fc1 [C,MAX_MID] zero-padded, the projection's planes): proj [C,C] as
-    tile_mma's B fragments, hi and lo, of [kp,kp] (kp = C padded to a multiple of 8). Both
-    are made once for each weight (``_mma.kept``), so the views that the model passes
+    """(kp, the S-Map's fc1 in groups (``smap_groups``), the projection's planes): proj [C,C]
+    as tile_mma's B fragments, hi and lo, of [kp,kp] (kp = C padded to a multiple of 8).
+    Both are made once for each weight (``_mma.kept``), so the views that the model passes
     will do."""
     c, mid = si_w1.shape[-2:]
     kp = -(-c // 8) * 8
     w1 = si_w1.reshape(c, mid)
-    fc1 = _mma.kept(("aim_smap",), lambda: F.pad(w1, (0, MAX_MID - mid)).contiguous(), w1)
+    fc1 = _mma.kept(("aim_smap",), lambda: smap_groups(w1), w1)
     return kp, fc1, _mma.planes(proj_w, kp, kp)
 
 
@@ -85,15 +96,15 @@ def aim_conv_branch(v, wdw, bdw, bn_scale, bn_shift):
     if v.device.type == "cpu":
         return aim_conv_branch_plain(v, wdw, bdw, bn_scale, bn_shift)
     b, h, w, c = v.shape
-    if c % 4 or c > MAX_CONV_C:
-        raise ValueError(f"aim_conv_branch: C={c} is not a multiple of 4 up to {MAX_CONV_C}")
+    if c % 4 or c > MAX_C:
+        raise ValueError(f"aim_conv_branch: C={c} is not a multiple of 4 up to {MAX_C}")
     _build.require(v, "v")
     _build.require(wdw, "wdw", (3, 3, 1, c))
     for name, t in (("bdw", bdw), ("bn_scale", bn_scale), ("bn_shift", bn_shift)):
         _build.require(t, name, (c,))
     lib = _build.library()
     cx = torch.empty_like(v)
-    part = torch.empty((b, lib.aim_conv_branch_blocks(h, w), c), device=v.device,
+    part = torch.empty((b, lib.aim_conv_branch_blocks(h, w, c), c), device=v.device,
                        dtype=torch.float32)
     sums = torch.empty((b, 1, 1, c), device=v.device, dtype=torch.float32)
     with torch.cuda.device(v.device):
@@ -118,8 +129,8 @@ def aim_gates_proj(attened, conv_x, chmap_vec, si_w1, si_b1, si_bn_scale, si_bn_
     mid = si_w1.shape[-1]
     if c % 4 or c > MAX_C:
         raise ValueError(f"aim_gates_proj: C={c} is not a multiple of 4 up to {MAX_C}")
-    if mid > MAX_MID:
-        raise ValueError(f"aim_gates_proj: S-Map width {mid} exceeds {MAX_MID}")
+    if not 1 <= mid <= MAX_MID:
+        raise ValueError(f"aim_gates_proj: S-Map width {mid} outside [1, {MAX_MID}]")
     _build.require(attened, "attened")
     _build.require(conv_x, "conv_x", attened.shape)
     _build.require(chmap_vec, "chmap_vec", (b, 1, 1, c))

@@ -10,21 +10,32 @@ Twin of ``freqfusion_tpu/ops/pallas/bandmha.py:fused_band_mha``. On ``stacked``
 
 On a CUDA tensor the wrapper launches the kernel from ``csrc/bandmha.cu`` or raises; on a
 CPU tensor it runs the plain PyTorch version. Weights come as ``x @ w`` matrices ([in,out]),
-as the JAX package's ``TorchMHA`` stores them.
+as the JAX package's ``TorchMHA`` stores them; they may be views (the head passes
+``in_proj_weight.t()``). The kernel's products run f32-exact on the tensor cores (3xTF32)
+on the weights laid out as B fragments once for each weight (``band_weights``).
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..common import layernorm
-from . import _build
+from . import _build, _mma
 
 #: Kernel launches since the last reset. Plain runs are not counted.
 launches = {"fused_band_mha": 0}
 
-MAX_D = 64   # the kernel's widest token; its products run in 64-column passes
+#: What csrc/bandmha.cu takes: D a multiple of 16 up to MAX_D (its weights resident in shared
+#: memory up to RESIDENT_D, 128-row groups there, 64-row groups above), a head width that is
+#: a multiple of 4 up to MAX_HEAD, and T band tokens up to the rows of a group.
+MAX_D = 128
+RESIDENT_D = 64
+MAX_HEAD = 64
+
+
+def max_tokens(d: int) -> int:
+    """The most band tokens a pixel may have at token width d: one group's rows."""
+    return 128 if d <= RESIDENT_D else 64
 
 
 def fused_band_mha_plain(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int):
@@ -38,14 +49,10 @@ def fused_band_mha_plain(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_head
     return stacked + a @ wproj + bproj
 
 
-def _padded_weights(wqkv, bqkv, wproj, d: int):
-    """(wq [D,64], bq [64], wkv [D,128], bkv [128], wproj [D,64]): q, then k in columns
-    0..D and v in columns 64..64+D, zero-padded to the kernel's 64-column passes."""
-    pad = MAX_D - d
-    wq, wk, wv = (F.pad(wqkv[:, i * d:(i + 1) * d], (0, pad)) for i in range(3))
-    bq, bk, bv = (F.pad(bqkv[i * d:(i + 1) * d], (0, pad)) for i in range(3))
-    return (wq.contiguous(), bq, torch.cat([wk, wv], 1).contiguous(), torch.cat([bk, bv]),
-            F.pad(wproj, (0, pad)).contiguous())
+def band_weights(wqkv: torch.Tensor, wproj: torch.Tensor):
+    """(wqkv [D,3D], wproj [D,D]) as the kernel's B fragments, unsplit (``_mma.fragments``),
+    made once for each weight, so that the views the head passes will do."""
+    return _mma.fragments(wqkv), _mma.fragments(wproj)
 
 
 def fused_band_mha(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int):
@@ -56,22 +63,27 @@ def fused_band_mha(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int
     if stacked.dim() != 5:
         raise ValueError(f"fused_band_mha: expected [B,H,W,T,D], got {tuple(stacked.shape)}")
     b, h, w, t, d = stacked.shape
-    if d % 16 or d > MAX_D or d % num_heads or d // num_heads not in (8, 16, 32):
-        raise ValueError(f"fused_band_mha: D={d} must be a multiple of 16 up to {MAX_D} and "
-                         f"D/heads one of 8, 16, 32 (heads={num_heads})")
-    if not 1 <= t <= 128:
-        raise ValueError(f"fused_band_mha: T={t} outside [1, 128]")
+    if d % 16 or not 16 <= d <= MAX_D:
+        raise ValueError(f"fused_band_mha: D={d} must be a multiple of 16 up to {MAX_D}")
+    if num_heads < 1 or d % num_heads or d // num_heads % 4 or d // num_heads > MAX_HEAD:
+        raise ValueError(f"fused_band_mha: D/heads = {d}/{num_heads} must be a whole multiple "
+                         f"of 4 up to {MAX_HEAD}")
+    if not 1 <= t <= max_tokens(d):
+        raise ValueError(f"fused_band_mha: T={t} outside [1, {max_tokens(d)}] at D={d}")
     _build.require(stacked, "stacked")
-    for name, p, shape in (("wqkv", wqkv, (d, 3 * d)), ("bqkv", bqkv, (3 * d,)),
-                           ("wproj", wproj, (d, d)), ("bproj", bproj, (d,)),
-                           ("ln_w", ln_w, (d,)), ("ln_b", ln_b, (d,))):
-        _build.require(p, name, shape)
-    wq, bq, wkv, bkv, wpp = _padded_weights(wqkv, bqkv, wproj, d)
+    # wqkv and wproj are laid out anew (band_weights): views will do
+    for name, p, shape, contiguous in (("wqkv", wqkv, (d, 3 * d), False),
+                                       ("bqkv", bqkv, (3 * d,), True),
+                                       ("wproj", wproj, (d, d), False),
+                                       ("bproj", bproj, (d,), True), ("ln_w", ln_w, (d,), True),
+                                       ("ln_b", ln_b, (d,), True)):
+        _build.require(p, name, shape, contiguous=contiguous)
+    wqkv_f, wproj_f = band_weights(wqkv, wproj)
     lib = _build.library()
     out = torch.empty_like(stacked)
     with torch.cuda.device(stacked.device):
-        err = lib.band_mha(stacked.data_ptr(), wq.data_ptr(), bq.data_ptr(), wkv.data_ptr(),
-                           bkv.data_ptr(), wpp.data_ptr(), bproj.data_ptr(), ln_w.data_ptr(),
+        err = lib.band_mha(stacked.data_ptr(), wqkv_f.data_ptr(), bqkv.data_ptr(),
+                           wproj_f.data_ptr(), bproj.data_ptr(), ln_w.data_ptr(),
                            ln_b.data_ptr(), out.data_ptr(), b * h * w, t, d, num_heads,
                            _build.stream_ptr(stacked.device))
     _build.check(err, "band_mha")

@@ -1,6 +1,6 @@
-"""Times the wrappers of B1, B2, B4, B5b, B6, B8 (and B8's attention alone) and B10 at the
-shapes the serving path gives them, so that two checkouts can be compared on one card in one
-call.
+"""Times the wrappers of B1, B2, B4, B5a, B5b, B6, B8 (and B8's attention alone), B10 and B11
+at the shapes the serving path gives them, so that two checkouts can be compared on one card
+in one call.
 
     python -m freqfusion_tpu_torch.tools.time_kernels      # from a checkout's root; a card
 
@@ -23,7 +23,7 @@ import subprocess
 import torch
 
 from ..ops import windows
-from ..ops.kernels import aim, nafblock, sgfn, wattn
+from ..ops.kernels import aim, bandmha, nafblock, sgfn, wattn
 
 # NAF's three fused levels at the 512x352 bucket, a ragged image and a chunk of two tiles
 B1_SHAPES = {"c64": (1, 1408, 2048, 64), "c128": (1, 704, 1024, 128),
@@ -96,6 +96,19 @@ def main() -> None:
             out[f"b5b{'_swap' if swap else ''}"] = cuda_ms(
                 lambda: aim.aim_gates_proj(*g_args, swap=swap))
         del g_args
+        # B5a at the bucket and on a chunk of two 192-px tiles
+        for name, shape in (("bucket", (1, 352, 512, 180)), ("tile", (2, 192, 192, 180))):
+            a_args = (r(*shape), r(3, 3, 1, 180, std=1 / 3), r(180, std=0.1),
+                      r(180, std=0.2, mean=1.0), r(180, std=0.1))
+            out[f"b5a_{name}"] = cuda_ms(lambda: aim.aim_conv_branch(*a_args))
+            del a_args
+        # B11 at the bucket: the head's 9 band tokens of 64 in 4 heads, and 3 tokens
+        for t in (9, 3):
+            m_args = (r(1, 352, 512, t, 64, std=0.6), r(64, 192, std=0.125), r(192, std=0.1),
+                      r(64, 64, std=0.125), r(64, std=0.1), r(64, std=0.1, mean=1.0),
+                      r(64, std=0.1), 4)
+            out[f"b11_t{t}"] = cuda_ms(lambda: bandmha.fused_band_mha(*m_args))
+            del m_args
         for hs, ws in ((8, 32), (32, 8)):
             for shifted in (False, True):
                 mask = (torch.from_numpy(windows.shift_mask_types(hs, ws, hs // 2, ws // 2)

@@ -160,9 +160,9 @@ def test_shift_mask_types_are_those_of_any_image(h, w, hs, ws):
         wattn.mask_types(torch.zeros(2, hs * ws, hs * ws), h // hs, w // ws, "cpu")
 
 
-def _aim_inputs(seed, b=2, h=9, w=14, c=32):
+def _aim_inputs(seed, b=2, h=9, w=14, c=32, mid=None):
     rng = np.random.default_rng(seed)
-    mid = c // 16
+    mid = mid or c // 16
 
     def r(*shape, std=1.0, mean=0.0):
         return (mean + std * rng.standard_normal(shape)).astype(np.float32)
@@ -197,14 +197,22 @@ def test_aim_conv_branch_plain_matches_pallas_and_xla(shape):
     assert aim.launches == {"aim_conv_branch": 0, "aim_gates_proj": 0}
 
 
-@pytest.mark.parametrize("swap", [False, True])
-def test_aim_gates_proj_plain_matches_pallas_and_xla(swap):
-    d = _aim_inputs(5 + swap)
+# (swap, C, S-Map width): DAT-like narrow, then above the 192 channels a row is staged at
+# once and above the 12 S-Map sums a lane keeps (the card's kernel takes both in passes)
+@pytest.mark.parametrize("swap,c,mid", [
+    pytest.param(False, 32, 2, id="False"), pytest.param(True, 32, 2, id="True"),
+    pytest.param(False, 256, 16, id="c256-mid16-False"),
+    pytest.param(True, 256, 16, id="c256-mid16-True"),
+    pytest.param(False, 256, 32, id="c256-mid32-False"),
+    pytest.param(True, 256, 32, id="c256-mid32-True")])
+def test_aim_gates_proj_plain_matches_pallas_and_xla(swap, c, mid):
+    d = _aim_inputs(5 + swap, c=c, mid=mid)
     c = d["att"].shape[-1]
     conv_x = np.asarray(_xla_conv_branch(*_j(d["v"], d["wdw"], d["bdw"], d["bn_s"], d["bn_b"])))
     args = (d["att"], conv_x, d["chmap"], d["si_w1"], d["si_b1"], d["si_s"], d["si_b"],
             d["si_w2"], d["si_b2"], d["proj_w"], d["proj_b"])
     got = aim.aim_gates_proj(*_t(*args), swap=swap)
+    assert got.shape == d["att"].shape
     want = jaim.aim_gates_proj(*_j(*args), swap=swap, interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 

@@ -33,8 +33,10 @@ def _mha_inputs(b, h, w, t, d, seed):
             r(d, d, std=d ** -0.5), r(d, std=0.1), r(d, std=0.1, mean=1.0), r(d, std=0.1))
 
 
-# (b, h, w, t, d, heads): the two cases of tests/test_pallas_bandmha.py
-MHA_CASES = [(2, 8, 16, 9, 64, 4), (1, 4, 8, 3, 32, 2)]
+# (b, h, w, t, d, heads): the two cases of tests/test_pallas_bandmha.py, then wider tokens
+# and heads than the shipped head's (D = 96 in heads of 24, D = 128 in heads of 32 and 64)
+MHA_CASES = [(2, 8, 16, 9, 64, 4), (1, 4, 8, 3, 32, 2), (1, 4, 4, 9, 96, 4),
+             (1, 2, 4, 9, 128, 4), (1, 2, 4, 5, 128, 2)]
 
 
 @pytest.mark.parametrize("case", MHA_CASES)

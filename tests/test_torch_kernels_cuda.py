@@ -409,8 +409,8 @@ def test_dat_on_the_card_takes_the_kernel_its_shape_asks_for(gen):
     assert run(small, whole) == ((2, 64, 96, 3), (0, 2))
 
 
-def _aim_params(gen, c):
-    mid = max(c // 16, 1)
+def _aim_params(gen, c, mid=None):
+    mid = mid or max(c // 16, 1)
     return dict(wdw=_r(gen, 3, 3, 1, c, std=1 / 3), bdw=_r(gen, c, std=0.1),
                 bn_s=_r(gen, c, std=0.2, mean=1.0), bn_b=_r(gen, c, std=0.1),
                 si_w1=_r(gen, 1, 1, c, mid, std=c ** -0.5), si_b1=_r(gen, mid, std=0.1),
@@ -438,6 +438,37 @@ def test_aim_kernels_match_plain(gen, b, h, w, c):
                                    atol=1e-4, rtol=0)
     assert aim.launches["aim_conv_branch"] == n0["aim_conv_branch"] + 1
     assert aim.launches["aim_gates_proj"] == n0["aim_gates_proj"] + 2
+
+
+@pytest.mark.parametrize("b,h,w,c", [(1, 352, 512, 180), (2, 192, 192, 180), (2, 37, 45, 180),
+                                     (1, 19, 23, 1024), (2, 9, 40, 256), (1, 5, 70, 4)])
+def test_aim_conv_branch_matches_plain_and_repeats_bit_for_bit(gen, b, h, w, c):
+    """B5a at DAT's bucket, a chunk of two tiles and a ragged image, and at widths that take
+    channel slices (256: two of 32 quads; 1024: six, the last short): within 1e-4 of plain,
+    the sums within 1e-5 of their sum of |conv_x|, and the same bits over five launches (its
+    sums add in a fixed order)."""
+    p = _aim_params(gen, c)
+    args = (_r(gen, b, h, w, c), p["wdw"], p["bdw"], p["bn_s"], p["bn_b"])
+    cx, sums = aim.aim_conv_branch(*args)
+    cx_ref, sums_ref = aim.aim_conv_branch_plain(*args)
+    torch.testing.assert_close(cx, cx_ref, atol=1e-4, rtol=0)
+    assert ((sums - sums_ref).abs() <= 1e-5 * cx_ref.abs().sum((1, 2), keepdim=True)).all()
+    for _ in range(5):
+        again, again_sums = aim.aim_conv_branch(*args)
+        assert torch.equal(again, cx) and torch.equal(again_sums, sums)
+
+
+@pytest.mark.parametrize("c,mid", [(256, 16), (256, 32), (180, 24), (200, 13), (1024, 64)])
+def test_aim_gates_proj_takes_wide_rows_and_s_maps(gen, c, mid):
+    """B5b above 192 channels (the projection's K in pieces: 128 + 128 at 256, 104 + 96 at
+    200) and above the 12 S-Map sums a lane keeps (groups of 12, a pass each), both
+    wirings, within 1e-4 of plain."""
+    p = _aim_params(gen, c, mid)
+    args = (_r(gen, 2, 19, 23, c), _r(gen, 2, 19, 23, c), _r(gen, 2, 1, 1, c), p["si_w1"],
+            p["si_b1"], p["si_s"], p["si_b"], p["si_w2"], p["si_b2"], p["proj_w"], p["proj_b"])
+    for swap in (False, True):
+        torch.testing.assert_close(aim.aim_gates_proj(*args, swap=swap),
+                                   aim.aim_gates_proj_plain(*args, swap=swap), atol=1e-4, rtol=0)
 
 
 def _sgfn_args(gen, b, h, w, c, hidden):
@@ -737,7 +768,9 @@ def _mha_args(gen, b, h, w, t, d):
 
 @pytest.mark.parametrize("b,h,w,t,d,heads", [
     (2, 8, 16, 9, 64, 4), (1, 4, 8, 3, 32, 2), (2, 37, 45, 9, 64, 4), (1, 5, 7, 7, 48, 6),
-    (1, 9, 9, 16, 64, 2), (1, 3, 3, 128, 16, 1)])
+    (1, 9, 9, 16, 64, 2), (1, 3, 3, 128, 16, 1), (1, 9, 9, 9, 96, 4), (1, 9, 9, 9, 128, 4),
+    (1, 9, 9, 5, 128, 2), (1, 6, 7, 9, 64, 16), (1, 6, 7, 9, 64, 8), (1, 4, 5, 64, 128, 8),
+    (2, 11, 13, 3, 80, 5), (1, 13, 17, 9, 112, 4), (1, 5, 5, 9, 96, 2)])
 def test_band_mha_kernel_matches_plain(gen, b, h, w, t, d, heads):
     args = _mha_args(gen, b, h, w, t, d)
     n0 = bandmha.launches["fused_band_mha"]
@@ -746,13 +779,28 @@ def test_band_mha_kernel_matches_plain(gen, b, h, w, t, d, heads):
     assert bandmha.launches["fused_band_mha"] == n0 + 1
 
 
+@pytest.mark.parametrize("b,h,w,t,d,heads", [(1, 352, 512, 9, 64, 4), (1, 32, 48, 9, 96, 4),
+                                             (1, 32, 48, 9, 128, 4), (1, 32, 48, 5, 128, 2)])
+def test_band_mha_is_f32_exact(gen, b, h, w, t, d, heads):
+    """B11 at the head's served shape and at wider tokens (weights resident in shared memory
+    up to D = 64, read from device memory above), the output projection scaled x100."""
+    args = list(_mha_args(gen, b, h, w, t, d))
+    args[3] = 100 * args[3]
+    ref = bandmha.fused_band_mha_plain(*[a.double() for a in args], heads)
+    _exactness(bandmha.fused_band_mha(*args, heads), bandmha.fused_band_mha_plain(*args, heads),
+               ref, _tf32(bandmha.fused_band_mha_plain, *args, heads))
+
+
 def test_band_mha_kernel_raises_on_what_it_does_not_take(gen):
-    args = _mha_args(gen, 1, 4, 4, 3, 128)
-    with pytest.raises(ValueError, match="multiple of 16 up to 64"):
-        bandmha.fused_band_mha(*args, 8)                       # D = 128
-    args = _mha_args(gen, 1, 4, 4, 3, 64)
+    args = _mha_args(gen, 1, 4, 4, 3, 144)
+    with pytest.raises(ValueError, match="multiple of 16 up to 128"):
+        bandmha.fused_band_mha(*args, 8)                       # D = 144
+    args = _mha_args(gen, 1, 4, 4, 3, 48)
     with pytest.raises(ValueError, match="D/heads"):
-        bandmha.fused_band_mha(*args, 16)                      # heads of 4
+        bandmha.fused_band_mha(*args, 8)                       # heads of 6
+    with pytest.raises(ValueError, match="T=65 outside"):
+        bandmha.fused_band_mha(*_mha_args(gen, 1, 2, 2, 65, 96), 4)   # 64-row groups above 64
+    args = _mha_args(gen, 1, 4, 4, 3, 64)
     with pytest.raises(ValueError, match="contiguous"):
         bandmha.fused_band_mha(args[0].transpose(1, 2), *args[1:], 4)
     args[0].requires_grad_(True)

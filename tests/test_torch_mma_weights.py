@@ -312,10 +312,10 @@ def test_naf_stage_b_planes_interleave_w4s_gate_columns():
 
 
 def test_aim_gates_planes_pad_fc1_and_the_projection():
-    """B5b's S-Map fc1 [C,mid] zero-padded to [C,MAX_MID] (its CUDA-core sums) and its
-    projection [C,C] as planes of [Kp,Kp] (DAT: 180 -> 184): the projection keeps its
-    product, and both are made once for the views that DAT's AIM passes, and anew after an
-    in-place change."""
+    """B5b's S-Map fc1 [C,mid] zero-padded to one group [1,C,SMAP_GROUP] (its CUDA-core
+    sums) and its projection [C,C] as planes of [Kp,Kp] (DAT: 180 -> 184): the projection
+    keeps its product, and both are made once for the views that DAT's AIM passes, and anew
+    after an in-place change."""
     import torch.nn.functional as F
     from freqfusion_tpu_torch.models import dat as dat_model
     from freqfusion_tpu_torch.ops.kernels import aim
@@ -324,7 +324,7 @@ def test_aim_gates_planes_pad_fc1_and_the_projection():
     w1, wp = _r(rng, 1, 1, c, mid, std=c ** -0.5), _r(rng, c, c, std=c ** -0.5)
     kp, fc1, projp = aim.gates_planes(w1, wp)
     assert kp == 184 and projp.shape == (23, 23, 32, 4)
-    assert torch.equal(fc1, F.pad(w1.reshape(c, mid), (0, aim.MAX_MID - mid)))
+    assert torch.equal(fc1, F.pad(w1.reshape(c, mid), (0, aim.SMAP_GROUP - mid))[None])
     _assert_keeps_product(projp, wp, rng)
     m = dat_model._AIM(c)
     with torch.no_grad():
@@ -343,4 +343,57 @@ def test_aim_gates_planes_pad_fc1_and_the_projection():
         again = planes()
         assert again[0] is not first[0] and again[1] is after[1]
         w_now = m.spatial_interaction[0].weight.detach().reshape(mid, c).t()
-        assert torch.equal(again[0], F.pad(w_now, (0, aim.MAX_MID - mid)))
+        assert torch.equal(again[0], F.pad(w_now, (0, aim.SMAP_GROUP - mid))[None])
+
+
+@pytest.mark.parametrize("c,mid", [(256, 16), (256, 32), (64, 12)])
+def test_aim_smap_groups_take_mid_in_groups_of_12(c, mid):
+    """B5b's S-Map above 12 hidden units: fc1 [C,mid] as [ceil(mid/12), C, 12], group g
+    holding hidden units 12g .. 12g + 11 and zeros past mid, so that the groups' dot products
+    are fc1's."""
+    from freqfusion_tpu_torch.ops.kernels import aim
+    rng = np.random.default_rng(mid)
+    w1 = _r(rng, c, mid, std=c ** -0.5)
+    groups = aim.smap_groups(w1)
+    ng = -(-mid // aim.SMAP_GROUP)
+    assert groups.shape == (ng, c, aim.SMAP_GROUP) and groups.is_contiguous()
+    for g in range(ng):
+        m0, m1 = g * aim.SMAP_GROUP, min(mid, (g + 1) * aim.SMAP_GROUP)
+        assert torch.equal(groups[g, :, :m1 - m0], w1[:, m0:m1])
+        assert not groups[g, :, m1 - m0:].any()
+    x = _r(rng, 5, c)
+    got = torch.cat([x @ groups[g] for g in range(ng)], dim=1)[:, :mid]
+    torch.testing.assert_close(got, x @ w1, atol=0, rtol=0)
+
+
+def _unpack_fragments(frags):
+    """[ks, nt, 32 = 4 g + t, 2 = rows t, t + 4] -> the [8 ks, 8 nt] matrix they hold."""
+    ks, nt = frags.shape[:2]
+    return frags.reshape(ks, nt, 8, 4, 2).permute(0, 4, 3, 1, 2).reshape(8 * ks, 8 * nt)
+
+
+@pytest.mark.parametrize("d,heads", [(64, 4), (96, 4), (128, 2)])
+def test_band_weights_are_unsplit_fragments_made_once_for_each_weight(d, heads):
+    """B11's weights, resident in its blocks' shared memory unsplit: wqkv [D,3D] and wproj
+    [D,D] as mma.sync's B fragments, [D/8, N/8, 32, 2] with lane 4g + t holding (w[t][g],
+    w[t+4][g]) of its 8 x 8 tile, bit for bit; made once for the views that the head's
+    TorchMHA passes (``raw``), and anew after an in-place change."""
+    from freqfusion_tpu_torch.models.layers import TorchMHA
+    from freqfusion_tpu_torch.ops.kernels import bandmha
+    torch.manual_seed(d)
+    mha = TorchMHA(d, heads)
+    with torch.no_grad():
+        wqkv, _, wproj, _ = mha.raw()
+        assert wqkv._base is mha.in_proj_weight and wproj._base is mha.out_proj.weight
+        fq, fp = bandmha.band_weights(wqkv, wproj)
+        assert fq.shape == (d // 8, 3 * d // 8, 32, 2) and fp.shape == (d // 8, d // 8, 32, 2)
+        assert fq.is_contiguous() and fp.is_contiguous()
+        assert torch.equal(_unpack_fragments(fq), wqkv) and torch.equal(_unpack_fragments(fp), wproj)
+        lane = fq[1, 2, 4 * 5 + 3]   # k-step 1, n-tile 2, g = 5, t = 3
+        assert lane[0] == wqkv[8 + 3, 16 + 5] and lane[1] == wqkv[8 + 7, 16 + 5]
+        again = bandmha.band_weights(*mha.raw()[::2])
+        assert again[0] is fq and again[1] is fp
+        mha.out_proj.weight.mul_(0.5)
+        after = bandmha.band_weights(*mha.raw()[::2])
+        assert after[0] is fq and after[1] is not fp
+        assert torch.equal(_unpack_fragments(after[1]), mha.out_proj.weight.t())
