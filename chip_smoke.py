@@ -11,7 +11,12 @@ Phases, each printing JSON lines; any failure raises and the exit code is not 0:
      with its time, the plain version's, the card's bound for the same work and, where one
      PyTorch call computes the same function, that call's time; B6, B8 and B10 also at
      C = 256 and 384, above the 192 channels a row product stages at once, B5b at C = 256
-     with a 16- and a 32-wide S-Map, B11 at D = 96 and 128;
+     with a 16- and a 32-wide S-Map, B11 at D = 96 and 128; then every width and window
+     that the JAX kernels take and the card once refused (`repair` lines: B1 and B2 at
+     C = 32 and 48, B6 at hidden/2 = 400, B9 at window 32, B11 at D = 144 and 256, heads of
+     96 and 65 tokens, B12 at C = 6, 130 and 400, B13 at 144 and 576 tokens and heads of 48
+     and 96, B14 at window 12 with heads of 48), each one launch of its kernel within the
+     kernel bound of its plain version;
   4. NAF slice: NAFNetSR at its published width (random weights from a seed) serves three
      PNG requests through InferencePipeline's uint8 protocol; the forward is checked
      against the plain versions, every kernel must have been launched, and per-image
@@ -244,9 +249,9 @@ def phase_device() -> tuple:
 # the tensor-core kernels (every instantiation): at most 128 registers a thread (16 warps an
 # SM, or two blocks of 8) and no spill
 TC_KERNELS = ("conv3x3_gemm_kernel", "xqkv_attention_kernel", "oca_attn_kernel",
-              "sgfn_gate_fc2_kernel", "rows_kernel", "naf_stage_a_kernel",
+              "wattn_qkv_kernel", "sgfn_gate_fc2_kernel", "rows_kernel", "naf_stage_a_kernel",
               "naf_stage_b_onchip_kernel", "naf_stage_b_rows_kernel", "aim_gates_proj_kernel",
-              "band_mha_kernel")
+              "band_mha_kernel", "lka_mix_kernel")
 
 
 def ptxas_report(log: str) -> list:
@@ -794,16 +799,17 @@ def head_kernel_cases(gen: torch.Generator, res: dict) -> None:
         del got, want
         ms = cuda_ms(lambda: lka.lka_gate(*args), iters=5)
         plain_ms = cuda_ms(lambda: lka.lka_gate_plain(*args), iters=5)
-        # 25 + 21 + 21 depthwise taps, the 1x1 product, affine, sigmoid, gate; reads x and
-        # the weights, writes out
-        bnd = bound_ms(n * (2 * (25 + 21 + 21) + 2 * c + 8), 4 * (2 * n + c * c + 69 * c))
+        # 25 + 21 + 21 depthwise taps, affine, sigmoid and gate on the CUDA cores, the 1x1
+        # product on the tensor cores; reads x and the weights, writes out
+        bnd, bnd32 = bounds(n * (2 * (25 + 21 + 21) + 8), n * 2 * c,
+                            4 * (2 * n + c * c + 69 * c))
         emit("kernel", kernel="lka_gate", case=name, shape=[b, h, w, c], max_abs_err=err,
              bound=KERNEL_ATOL, max_abs_plain=scale, ms=ms, plain_ms=plain_ms,
-             bound_ms=bnd[0], bound_by=bnd[1])
+             bound_ms=bnd[0], bound_by=bnd[1], bound_f32_ms=bnd32[0])
         require(err <= KERNEL_ATOL, f"B12 error {err} at {name}")
         res["lka_gate"]["err"] = max(res["lka_gate"]["err"], err)
         if name == "bucket":   # the summary's times
-            res["lka_gate"].update(ms=ms, plain_ms=plain_ms, bound=bnd)
+            res["lka_gate"].update(ms=ms, plain_ms=plain_ms, bound=bnd, bound_f32=bnd32)
         del args
         torch.cuda.empty_cache()
 
@@ -858,22 +864,23 @@ def window_kernel_cases(gen: torch.Generator, res: dict) -> None:
         ms = cuda_ms(lambda: wattn.fused_window_attention_qkv(*args), iters=5)
         plain_ms = cuda_ms(lambda: wattn.fused_window_attention_qkv_plain(*args), iters=5)
         lib_ms = cuda_ms(lambda: window_attention_library(*args), iters=5)
-        # q k^T and p v, bias (+ mask) and softmax; reads q, k, v, the bias and the 4 mask
-        # types, writes the attended image
-        bnd = bound_ms(nwin * heads * n * n * (4 * hd + 8),
-                       4 * (4 * npix * c + (heads + (4 if shifted else 0)) * n * n))
+        # q k^T and p v on the tensor cores, bias (+ mask) and softmax on the CUDA cores;
+        # reads q, k, v, the bias and the 4 mask types, writes the attended image
+        bnd, bnd32 = bounds(nwin * heads * n * n * 8, nwin * heads * n * n * 4 * hd,
+                            4 * (4 * npix * c + (heads + (4 if shifted else 0)) * n * n))
         emit("kernel", kernel="fused_window_attention_qkv", case=name, shape=[b, h, w, c],
              window=[hs, ws], shifted=shifted, max_abs_err=err, bound=KERNEL_ATOL,
              max_abs_plain=scale, library_vs_plain_max_abs=lib_err, ms=ms, plain_ms=plain_ms,
              library_ms=lib_ms, library="windowing copies + F.scaled_dot_product_attention",
-             bound_ms=bnd[0], bound_by=bnd[1])
+             bound_ms=bnd[0], bound_by=bnd[1], bound_f32_ms=bnd32[0],
+             tc_tflops=nwin * heads * n * n * 4 * hd / ms / 1e9)
         require(err <= KERNEL_ATOL, f"B13 error {err} at {name}")
         require(lib_err <= KERNEL_ATOL, f"B13's library call differs from it by {lib_err}")
         res["fused_window_attention_qkv"]["err"] = max(
             res["fused_window_attention_qkv"]["err"], err)
         if name.startswith("table"):
             res["fused_window_attention_qkv"].setdefault("times", []).append(
-                (ms, plain_ms, bnd, lib_ms, bnd))
+                (ms, plain_ms, bnd, lib_ms, bnd32))
         del args
     c, heads = HAT_C, HAT_HEADS
     hd = c // heads
@@ -891,9 +898,10 @@ def window_kernel_cases(gen: torch.Generator, res: dict) -> None:
         ms = cuda_ms(lambda: wattn.fused_window_attention(*args), iters=5)
         plain_ms = cuda_ms(lambda: wattn.fused_window_attention_plain(*args), iters=5)
         # the qkv and output projections, q k^T and p v, bias (+ mask) and softmax; reads x,
-        # the weights, the bias and the 4 mask types, writes the attended image
-        # the projections on the tensor cores, the attention on the CUDA cores
-        bnd, bnd32 = bounds(nwin * heads * n * n * (4 * hd + 8), npix * 8 * c * c,
+        # the weights, the bias and the 4 mask types, writes the attended image; every
+        # product on the tensor cores, bias and softmax on the CUDA cores
+        bnd, bnd32 = bounds(nwin * heads * n * n * 8,
+                            npix * 8 * c * c + nwin * heads * n * n * 4 * hd,
                             4 * (2 * npix * c + 4 * c * c + 4 * c
                                  + (heads + (4 if shifted else 0)) * n * n))
         emit("kernel", kernel="fused_window_attention", case=name, shape=[b, h, w, c],
@@ -915,6 +923,98 @@ def window_kernel_cases(gen: torch.Generator, res: dict) -> None:
                       library_ms=None if times[0][3] is None else mean(t[3] for t in times))
 
 
+# (kernel, case, shape): what the card's kernels once refused and the JAX kernels compute
+REPAIR_CASES = [("naf_block", "c32", (1, 176, 256, 32)), ("naf_block", "c48", (1, 176, 256, 48)),
+                ("fused_sgfn_tail", "half400", (1, 64, 96, 200, 800)),
+                ("fused_overlap_attention", "win32", (1, 64, 96, 180, 6, 32)),
+                ("fused_overlap_attention", "win32_hd48", (1, 64, 96, 96, 2, 32)),
+                ("fused_band_mha", "d144", (1, 32, 48, 9, 144, 4)),
+                ("fused_band_mha", "d256", (1, 32, 48, 9, 256, 4)),
+                ("fused_band_mha", "hd96", (1, 32, 48, 9, 96, 1)),
+                ("fused_band_mha", "t65", (1, 8, 12, 65, 96, 4)),
+                ("lka_gate", "c6", (1, 64, 96, 6)), ("lka_gate", "c130", (1, 64, 96, 130)),
+                ("lka_gate", "c400", (1, 64, 96, 400)),
+                ("fused_window_attention_qkv", "n144_hd48", (1, 48, 96, 12, 12, 96, 2)),
+                ("fused_window_attention_qkv", "n576_hd96", (1, 48, 96, 24, 24, 96, 1)),
+                ("fused_window_attention_qkv", "n256_hd64", (1, 64, 96, 16, 16, 128, 2)),
+                ("fused_window_attention", "win12_hd48", (1, 48, 72, 12, 96, 2))]
+
+
+def repair_cases(gen: torch.Generator) -> None:
+    """Every REPAIR_CASES shape: one launch of its kernel (counted), within KERNEL_ATOL of
+    the plain version, and its time."""
+    def r(*shape, std=1.0, mean=0.0):
+        return mean + std * torch.randn(*shape, generator=gen, device="cuda")
+
+    def mask_of(hs, ws):
+        return torch.from_numpy(windows.shift_mask_types(hs, ws, hs // 2, ws // 2).copy()).cuda()
+
+    for kernel, case, shape in REPAIR_CASES:
+        if kernel == "naf_block":
+            b, h, w, c = shape
+            x, p = r(b, h, w, c), block_params(c, gen)
+            fn, plain = nafblock.fused_naf_block, nafblock.fused_naf_block_plain
+            args, counts, want_n = (x, p), nafblock.launches, {
+                "naf_block_stage_a": 1, "naf_block_stage_b": 1}
+        elif kernel == "fused_sgfn_tail":
+            b, h, w, c, hid = shape
+            half = hid // 2
+            args = (r(b, h, w, c), r(b, h, w, c), r(c, std=0.1, mean=1.0), r(c, std=0.1),
+                    r(c, hid, std=c ** -0.5), r(hid, std=0.1), r(half, std=0.1, mean=1.0),
+                    r(half, std=0.1), r(3, 3, 1, half, std=1 / 3), r(half, std=0.1),
+                    r(half, c, std=half ** -0.5), r(c, std=0.1))
+            fn, plain, counts = sgfn.fused_sgfn_tail, sgfn.fused_sgfn_tail_plain, sgfn.launches
+        elif kernel == "fused_overlap_attention":
+            b, h, w, c, heads, ws = shape
+            ov = ws // 2
+            args = (r(b, h, w, c), r(b, h, w, c), r(b, h, w, c), r(c, c, std=c ** -0.5),
+                    r(c, std=0.1), r(heads, ws * ws, (ws + ov) ** 2, std=0.5), ws, ov, heads)
+            fn, plain = wattn.fused_overlap_attention, wattn.fused_overlap_attention_plain
+            counts = wattn.launches
+        elif kernel == "fused_band_mha":
+            b, h, w, t, d, heads = shape
+            args = (r(b, h, w, t, d, std=0.6), r(d, 3 * d, std=d ** -0.5), r(3 * d, std=0.1),
+                    r(d, d, std=d ** -0.5), r(d, std=0.1), r(d, std=0.1, mean=1.0),
+                    r(d, std=0.1), heads)
+            fn, plain = bandmha.fused_band_mha, bandmha.fused_band_mha_plain
+            counts = bandmha.launches
+        elif kernel == "lka_gate":
+            b, h, w, c = shape
+            args = (r(b, h, w, c), r(5, 5, c, std=0.2), r(21, c, std=0.2), r(21, c, std=0.2),
+                    r(c, c, std=c ** -0.5), r(c, std=0.2, mean=1.0), r(c, std=0.1))
+            fn, plain, counts = lka.lka_gate, lka.lka_gate_plain, lka.launches
+        elif kernel == "fused_window_attention_qkv":
+            b, h, w, hs, ws, c, heads = shape
+            args = (r(b, h, w, c), r(b, h, w, c), r(b, h, w, c),
+                    r(heads, hs * ws, hs * ws, std=0.5), mask_of(hs, ws), (hs, ws), heads)
+            fn, plain = wattn.fused_window_attention_qkv, wattn.fused_window_attention_qkv_plain
+            counts = wattn.launches
+        else:   # fused_window_attention
+            b, h, w, ws, c, heads = shape
+            args = (r(b, h, w, c), r(c, 3 * c, std=c ** -0.5), r(3 * c, std=0.1),
+                    r(c, c, std=c ** -0.5), r(c, std=0.1), r(heads, ws * ws, ws * ws, std=0.5),
+                    mask_of(ws, ws), (ws, ws), heads)
+            fn, plain = wattn.fused_window_attention, wattn.fused_window_attention_plain
+            counts = wattn.launches
+        if kernel != "naf_block":
+            want_n = {kernel: 1}
+        before = dict(counts)
+        got = fn(*args)
+        launched = {k: counts[k] - before[k] for k in counts if counts[k] != before[k]}
+        want = plain(*args)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        del got, want
+        ms = cuda_ms(lambda: fn(*args), iters=3)
+        emit("repair", kernel=kernel, case=case, shape=list(shape), max_abs_err=err,
+             bound=KERNEL_ATOL, max_abs_plain=scale, launches=launched, ms=ms)
+        require(launched == want_n, f"{kernel} at {case}: launches {launched}")
+        require(err <= KERNEL_ATOL, f"{kernel} error {err} at {case}")
+        del args
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(gen: torch.Generator) -> dict:
     """Each kernel against its plain version at the slices' shapes; returns the numbers
     for the summary line."""
@@ -928,6 +1028,7 @@ def phase_kernels(gen: torch.Generator) -> dict:
     head_kernel_cases(gen, res)
     torch.cuda.empty_cache()
     window_kernel_cases(gen, res)
+    repair_cases(gen)
     return res
 
 

@@ -41,10 +41,16 @@
 //     which then take no predicated MMA), three TF32 MMAs a fragment pair (small terms
 //     first); K in chunks of 8 k-steps, each chunk in fresh registers added to the sum in
 //     f32, as every 3xTF32 user does.
-//   * Above D = 64 (to 128) a block takes 64 rows and reads the B fragments from device
-//     memory (L1 and L2 hold the 256 KB of weights), since they do not fit beside the rows.
-//     K = D then takes two chunks, k | v passes of 2 n-tiles.
-// Head widths: any multiple of 4 up to 64.
+//   * Above D = 64 a block reads the B fragments from device memory (L1 and L2 hold the
+//     weights), since they do not fit beside the rows, and takes as many rows as fit: 64 up
+//     to D = 128 (128 where a pixel has more than 64 tokens and they fit, to D = 96), 64 to
+//     D = 192 where a pixel has more than 32 tokens, else 32 up to D = 384. K = D then takes
+//     chunks of 8 k-steps, k | v passes of 2 n-tiles, q passes of 4 (one pass a warp: q is
+//     written over A). A head of any width that is a multiple of 4 is taken: above 32 its
+//     output columns go in parts of 32, each part a thread that takes the same scores.
+// The wrapper zero-pads a width that is not a multiple of 16 and a head width that is not a
+// multiple of 4 (weights laid out with zero rows and columns); LN's statistics are taken
+// over the Dt real columns and the softmax scale is the real head width's.
 //
 // Layout: f32, contiguous. wqkv and wproj as fragments of [D][3D] and [D][D] ([in][out]).
 
@@ -63,7 +69,7 @@ struct BandArgs {
     const float *bqkv, *bproj, *lnw, *lnb;
     float* out;
     long long npix;
-    int T, D, heads, hd;
+    int T, D, Dt, heads, hd;   // Dt: LN's real columns of the D
     float scale;
 };
 
@@ -184,9 +190,13 @@ __device__ __forceinline__ void band_attention(float* Q, const float* KV, int nr
                                                int D, int nh, int hd, int ldo, int ldkv) {
     constexpr bool QREG = HACC == 16;
     const int vo = kv_col(D);   // v's first column
-    const int parts = (hd + HACC - 1) / HACC, items = nrows * nh * parts;
-    for (int it0 = 0; it0 < items; it0 += kBandThreads) {   // the same rounds in every thread
-        const int it = it0 + threadIdx.x, part = it % parts, h = it / parts % nh;
+    // a round takes whole (row, head) items, so that no part of one writes over the q that
+    // a part of the same head in a later round still reads
+    const int parts = QREG ? 1 : (hd + HACC - 1) / HACC, items = nrows * nh * parts;
+    const int round = QREG ? kBandThreads : kBandThreads / parts * parts;
+    for (int it0 = 0; it0 < items; it0 += round) {   // the same rounds in every thread
+        const int it = QREG || threadIdx.x < round ? it0 + threadIdx.x : items;
+        const int part = it % parts, h = it / parts % nh;
         const int row = it / parts / nh, c0 = h * hd, d0 = part * HACC;
         float* qp = Q + row * ldo + c0;
         float acc[HACC];
@@ -259,18 +269,18 @@ __device__ __forceinline__ void band_attention(float* Q, const float* KV, int nr
     }
 }
 
-// Rows of a group: 128 with the weights resident (D <= 64), else 64.
-__host__ __device__ constexpr int band_rows(bool res) { return res ? 128 : 64; }
 // Floats of a row of KV: k and v, each with kv_col's padding, and 4 more, so that the next
 // pixel's rows (T of them apart) start on other banks.
 __host__ __device__ constexpr int band_ldkv(int D) { return 2 * (D + D / 4) + 4; }
 
-template <int HACC, bool RES>
+// R rows a group, NQ float4s of a row a lane holds in LN (8 lanes a row: D <= 32 NQ).
+template <int HACC, int R, bool RES, int NQ>
 __global__ void __launch_bounds__(kBandThreads, 1) band_mha_kernel(const BandArgs a) {
-    // resident weights: 128 rows, K = D <= 64 in one chunk, k | v in passes of 4 n-tiles;
-    // else 64 rows, K in chunks, passes of 2 (fewer registers beside the chunk's sums); q
-    // and the projection in passes of 2
-    constexpr int R = band_rows(RES), MG = R / 32, NTKV = RES ? 4 : 2;
+    // resident weights: 128 rows, K = D <= 64 in one chunk, k | v in passes of 4 n-tiles, q
+    // in passes of 2; else K in chunks, k | v in passes of 2 (fewer registers beside the
+    // chunk's sums), q in passes of 4 (one a warp up to D = 128 at R = 128, 256 at 64, 512
+    // at 32); the projection in passes of 2
+    constexpr int MG = R / 32, NTKV = RES ? 4 : 2, NTQ = RES ? 2 : 4;
     extern __shared__ float4 smem4[];
     const int D = a.D, T = a.T, ks = D / 8, ldo = D + 4, ldkv = band_ldkv(D);
     float* Xs = reinterpret_cast<float*>(smem4);   // [R][ldo] the group's x, for the residual
@@ -334,19 +344,20 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_mha_kernel(const BandArg
         // in registers (a lane's quads cl, cl + 8, ..), NS rows of 4 a warp at once; the rows
         // are copied from KV's memory, where they came, to Xs, for the residual
         {
-            constexpr int NS = R / 64;
-            const int cl = lane & 7, nq = D / 4;
-            float4 v[NS][4];   // D <= 128
+            constexpr int NS = R >= 64 ? R / 64 : 1;
+            const int cl = lane & 7, nq = D / 4, Dt = a.Dt;
+            float4 v[NS][NQ];
             float sum[NS], sq[NS];
 #pragma unroll
             for (int k = 0; k < NS; ++k) {
                 const int r = 64 * k + 4 * warp + (lane >> 3);
                 sum[k] = sq[k] = 0.f;
 #pragma unroll
-                for (int i = 0; i < 4; ++i) {
+                for (int i = 0; i < NQ; ++i) {
                     const int o = r * ldo + 4 * (8 * i + cl);
-                    v[k][i] = 8 * i + cl < nq ? ld4(KV + o) : zero;
-                    if (8 * i + cl < nq) *reinterpret_cast<float4*>(Xs + o) = v[k][i];
+                    const bool in = (R >= 64 || r < R) && 8 * i + cl < nq;
+                    v[k][i] = in ? ld4(KV + o) : zero;
+                    if (in) *reinterpret_cast<float4*>(Xs + o) = v[k][i];
                     sum[k] += (v[k][i].x + v[k][i].y) + (v[k][i].z + v[k][i].w);
                 }
             }
@@ -355,9 +366,9 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_mha_kernel(const BandArg
                 sum[k] += __shfl_xor_sync(0xffffffffu, sum[k], 1);
                 sum[k] += __shfl_xor_sync(0xffffffffu, sum[k], 2);
                 sum[k] += __shfl_xor_sync(0xffffffffu, sum[k], 4);
-                sum[k] /= D;   // the mean
+                sum[k] /= Dt;   // the mean over the real columns (the padded ones are 0)
 #pragma unroll
-                for (int i = 0; i < 4; ++i)
+                for (int i = 0; i < NQ; ++i)
                     if (8 * i + cl < nq) {
                         const float u = sum[k];
                         const float4 d = make_float4(v[k][i].x - u, v[k][i].y - u, v[k][i].z - u,
@@ -370,9 +381,11 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_mha_kernel(const BandArg
                 sq[k] += __shfl_xor_sync(0xffffffffu, sq[k], 1);
                 sq[k] += __shfl_xor_sync(0xffffffffu, sq[k], 2);
                 sq[k] += __shfl_xor_sync(0xffffffffu, sq[k], 4);
-                if (cl == 0)
-                    st[64 * k + 4 * warp + (lane >> 3)] =
-                        make_float2(sum[k], 1.f / sqrtf(sq[k] / D + kEps));
+                // each of the D - Dt padded columns (zeros) added u^2 to the squares
+                sq[k] = fmaf(-(float)(D - Dt) * sum[k], sum[k], sq[k]);
+                const int r = 64 * k + 4 * warp + (lane >> 3);
+                if (cl == 0 && (R >= 64 || r < R))
+                    st[r] = make_float2(sum[k], 1.f / sqrtf(sq[k] / Dt + kEps));
             }
         }
         __syncthreads();
@@ -399,7 +412,7 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_mha_kernel(const BandArg
                     make_float2(u0 + a.bqkv[n], u1 + a.bqkv[n + 1]);
             });
         // (3) q, scaled, over A once every warp has read A
-        band_product<MG, 2, !RES, true>(frag_ln, ks, wqkv, 3 * D / 8, 0, D / 8,
+        band_product<MG, NTQ, !RES, true>(frag_ln, ks, wqkv, 3 * D / 8, 0, D / 8,
                                [&](int p, int n, float u0, float u1) {
                                    *reinterpret_cast<float2*>(A + p * ldo + n) =
                                        make_float2((u0 + a.bqkv[n]) * a.scale,
@@ -424,16 +437,20 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_mha_kernel(const BandArg
     cp_async_wait<0>();   // the last fetch was empty; nothing is left in flight
 }
 
-template <int HACC, bool RES>
+// Floats of shared memory a group of R rows takes at width D.
+__host__ __device__ constexpr long long band_smem(int R, int D, bool res) {
+    return 2LL * R * (D + 4) + (long long)R * band_ldkv(D) + 2 * R + 2 * D +
+           (res ? 4LL * D * D : 0);
+}
+
+template <int HACC, int R, bool RES, int NQ>
 cudaError_t launch(const BandArgs& a, cudaStream_t st) {
-    constexpr int R = band_rows(RES);
     const int D = a.D;
-    const size_t smem =
-        (size_t)(2 * R * (D + 4) + R * band_ldkv(D) + 2 * R + 2 * D + (RES ? 4 * D * D : 0)) *
-        sizeof(float);
-    if (smem > 232448) return cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(band_mha_kernel<HACC, RES>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const size_t smem = (size_t)band_smem(R, D, RES) * sizeof(float);
+    if (smem > 232448 || D > 32 * NQ || a.T > R) return cudaErrorInvalidValue;
+    const auto kernel = band_mha_kernel<HACC, R, RES, NQ>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     int dev = 0, sms = 0;
     err = cudaGetDevice(&dev);
@@ -441,32 +458,47 @@ cudaError_t launch(const BandArgs& a, cudaStream_t st) {
     if (err != cudaSuccess) return err;
     const long long ngroups = (a.npix + R / a.T - 1) / (R / a.T);
     const int grid = (int)(ngroups < sms ? ngroups : sms);   // persistent: one block an SM
-    band_mha_kernel<HACC, RES><<<grid, kBandThreads, smem, st>>>(a);
+    kernel<<<grid, kBandThreads, smem, st>>>(a);
     return cudaGetLastError();
 }
 
-template <bool RES>
-cudaError_t launch_hd(const BandArgs& a, cudaStream_t st) {
-    return a.hd <= 16 ? launch<16, RES>(a, st) : launch<32, RES>(a, st);
+// Rows of a group for T tokens of width D (0: none fits): 128 with the weights resident up
+// to D = 64; above, 64 up to D = 128, or 128 where T > 64 and they fit; then 64 where T > 32
+// and they fit, else 32 up to D = 384.
+int band_mha_rows(int T, int D) {
+    if (D <= 64) return T <= 128 ? 128 : 0;
+    if (D <= 128) {
+        if (T <= 64) return 64;
+        return T <= 128 && band_smem(128, D, false) * 4 <= 232448 ? 128 : 0;
+    }
+    if (T > 32) return T <= 64 && D <= 192 && band_smem(64, D, false) * 4 <= 232448 ? 64 : 0;
+    return D <= 384 && band_smem(32, D, false) * 4 <= 232448 ? 32 : 0;
 }
 
 }  // namespace
 
 // out = x + MHA(LN(x)) on x [npix][T][D]; wqkv, wproj the B fragments of [D][3D] and [D][D]
-// (ops/kernels/_mma.py: fragments). D % 16 == 0 up to 128, D / heads % 4 == 0 up to 64,
-// T up to 128 (64 above D = 64).
+// (ops/kernels/_mma.py: fragments). D % 16 == 0 up to 384; heads of hd columns (hd % 4 == 0),
+// head h at columns h hd .. of q, k and v, heads * hd <= D (the columns past them zero); T up
+// to band_mha_rows; LN over the first Dt columns (the rest zero), scores scaled by `scale`.
 extern "C" int band_mha(const float* x, const float* wqkv, const float* bqkv, const float* wproj,
                         const float* bproj, const float* lnw, const float* lnb, float* out,
-                        long long npix, int T, int D, int heads, void* stream) {
+                        long long npix, int T, int D, int Dt, int heads, int hd, float scale,
+                        void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const bool res = D <= 64;
-    if (npix < 1 || D < 16 || D > 128 || D % 16 || heads < 1 || D % heads ||
-        (D / heads) % 4 || D / heads > 64 || T < 1 || T > band_rows(res))
+    const int R = band_mha_rows(T, D);
+    if (npix < 1 || D < 16 || D % 16 || Dt < 1 || Dt > D || heads < 1 || hd < 4 || hd % 4 ||
+        heads * hd > D || T < 1 || R == 0)
         return cudaErrorInvalidValue;
     BandArgs a = {};
     a.x = x; a.wqkv = reinterpret_cast<const float2*>(wqkv); a.bqkv = bqkv;
     a.wproj = reinterpret_cast<const float2*>(wproj); a.bproj = bproj; a.lnw = lnw; a.lnb = lnb;
-    a.out = out; a.npix = npix; a.T = T; a.D = D; a.heads = heads; a.hd = D / heads;
-    a.scale = 1.f / sqrtf((float)a.hd);
-    return res ? launch_hd<true>(a, st) : launch_hd<false>(a, st);
+    a.out = out; a.npix = npix; a.T = T; a.D = D; a.Dt = Dt; a.heads = heads; a.hd = hd;
+    a.scale = scale;
+    if (D <= 64)
+        return a.hd <= 16 ? launch<16, 128, true, 4>(a, st) : launch<32, 128, true, 4>(a, st);
+    if (R == 128) return launch<32, 128, false, 4>(a, st);
+    if (D <= 128) return launch<32, 64, false, 4>(a, st);
+    if (R == 64) return launch<32, 64, false, 6>(a, st);
+    return launch<32, 32, false, 12>(a, st);
 }

@@ -4,7 +4,6 @@
 #include <cuda_runtime.h>
 
 constexpr int kThreads = 256;  // every block of these kernels: 16 x 16 thread groups
-constexpr int kKC = 16;        // rows of W staged per chunk by tile_matmul_interleaved
 
 // Sum over the 32 lanes of a warp; every lane receives the result.
 __device__ __forceinline__ float warp_sum(float v) {
@@ -31,86 +30,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Floats of shared memory that tile_matmul_interleaved needs for its weight stage.
-__host__ __device__ constexpr int tile_matmul_ws() { return 2 * kKC * 64; }
-
-// Row-tile product on CUDA cores in f32, for a block of kThreads threads (B12's
-// products; the others run on the tensor cores, mma_f32x3.cuh):
-//   a(p, n) = sum_k A[p*lda + k] * W[k*ldw + n]                 p < 16*TM, n < N
-// and epi(p, n, a) is called once for every (p, n), by the thread that owns (p, n): the
-// same thread for the same (TM, p, n) in every call.
-//   A   shared memory, rows of K floats at a stride lda (lda % 4 == 0; lda % 32 == 4
-//       keeps the two rows a warp reads on different banks). The caller may write A
-//       right before the call: the call synchronises before it reads A.
-//   W   device memory, streamed through `ws` (shared, tile_matmul_ws() floats) in kKC-row
-//       chunks of a 64-column pass, double-buffered with cp.async so that the copy of chunk
-//       c+1 overlaps the FMAs on chunk c; each weight is read from L2 once per block.
-//   K % kKC == 0, N % 64 == 0, W 16-byte aligned.
-// Thread t owns rows t/16, t/16 + 16, .. and columns 4*(t%16) .. +3 of each pass: per four k
-// it reads TM + 4 float4s from shared memory for 16*TM FMAs. The two half-warps read
-// neighbouring rows, lda floats apart, which at TM = 8 keeps their broadcasts on different
-// banks where 8 * lda floats apart would not (lda % 32 == 4).
-template <int TM, typename Epi>
-__device__ __forceinline__ void tile_matmul_interleaved(const float* A, int lda, int K,
-                                                        const float* __restrict__ W, int ldw,
-                                                        int N, float* ws, Epi epi) {
-    constexpr int KC = kKC, NT = 64, STAGE = KC * NT;
-    const int tid = threadIdx.x, cg = tid & 15;
-    auto row = [&](int i) { return (tid >> 4) + 16 * i; };
-    const int nk = K / KC;
-    auto stage = [&](int buf, int n0, int k0) {
-        for (int e = tid; e < KC * NT / 4; e += kThreads) {
-            const int kk = e / (NT / 4), col = (e % (NT / 4)) * 4;
-            cp_async16(ws + buf * STAGE + kk * NT + col, W + (size_t)(k0 + kk) * ldw + n0 + col);
-        }
-        cp_async_commit();
-    };
-    for (int n0 = 0; n0 < N; n0 += NT) {
-        float a[TM][4];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
-        __syncthreads();  // nobody still reads ws (an earlier pass or call)
-        stage(0, n0, 0);
-        for (int c = 0; c < nk; ++c) {
-            if (c + 1 < nk) {
-                stage((c + 1) & 1, n0, (c + 1) * KC);
-                cp_async_wait<1>();
-            } else {
-                cp_async_wait<0>();
-            }
-            __syncthreads();  // chunk c (and the caller's A) visible to every thread
-            const float* wc = ws + (c & 1) * STAGE;
-            const float* ac = A + c * KC;
-#pragma unroll 2
-            for (int k = 0; k < KC; k += 4) {
-                float4 av[TM];
-#pragma unroll
-                for (int i = 0; i < TM; ++i)
-                    av[i] = *reinterpret_cast<const float4*>(ac + row(i) * lda + k);
-#pragma unroll
-                for (int kk = 0; kk < 4; ++kk) {
-                    const float4 w = *reinterpret_cast<const float4*>(wc + (k + kk) * NT + cg * 4);
-#pragma unroll
-                    for (int i = 0; i < TM; ++i) {
-                        const float s = lane4(av[i], kk);
-                        a[i][0] = fmaf(s, w.x, a[i][0]);
-                        a[i][1] = fmaf(s, w.y, a[i][1]);
-                        a[i][2] = fmaf(s, w.z, a[i][2]);
-                        a[i][3] = fmaf(s, w.w, a[i][3]);
-                    }
-                }
-            }
-            __syncthreads();  // the next chunk's copy refills buffer c & 1
-        }
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) epi(row(i), n0 + cg * 4 + j, a[i][j]);
-    }
 }
 
 // sums[b][c] = sum over blocks of part[b][blk][c], in a fixed order: the second pass of a

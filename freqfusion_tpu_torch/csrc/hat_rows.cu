@@ -305,9 +305,24 @@ rows_kernel(const RowArgs g) {
         __syncthreads();   // the block's hidden rows are in device memory
         const int half = g.nreal / 2;
 #pragma unroll 2
-        for (int p = warp; p < kP; p += kWarps)
-            if (p0 + p < g.npix)
-                ln_row_inplace(g.hid + (p0 + p) * g.Np + half, g.sgw, g.sgb, half);
+        for (int p = warp; p < kP; p += kWarps) {
+            if (p0 + p >= g.npix) continue;
+            float* row = g.hid + (p0 + p) * g.Np + half;
+            if (half <= 384) {
+                ln_row_inplace(row, g.sgw, g.sgb, half);
+            } else {   // wider than a warp's registers: statistics first, then in place
+                float u, inv;
+                warp_ln_stats(row, half, kEps, u, inv);
+                for (int c = 4 * lane; c < half; c += 128) {
+                    const float4 v = *reinterpret_cast<const float4*>(row + c);
+                    const float4 w = *reinterpret_cast<const float4*>(g.sgw + c);
+                    const float4 b = *reinterpret_cast<const float4*>(g.sgb + c);
+                    *reinterpret_cast<float4*>(row + c) = make_float4(
+                        (v.x - u) * inv * w.x + b.x, (v.y - u) * inv * w.y + b.y,
+                        (v.z - u) * inv * w.z + b.z, (v.w - u) * inv * w.w + b.w);
+                }
+            }
+        }
     }
 }
 
@@ -352,7 +367,6 @@ cudaError_t launch_split(const RowArgs& g, int Kt, cudaStream_t st) {
 template <int MODE>
 cudaError_t launch(const RowArgs& g, cudaStream_t st) {
     if (g.C % 4 || g.Kp % 8 || g.Np % 8 || g.npix < 1) return cudaErrorInvalidValue;
-    if (MODE == kFc1 && g.sgw && g.nreal / 2 > 384) return cudaErrorInvalidValue;
     const int Kt = tile_mma_piece(g.Kp);
     if constexpr (MODE == kFc1) {
         if (Kt != g.Kp) return launch_split<kFc1, true>(g, Kt, st);

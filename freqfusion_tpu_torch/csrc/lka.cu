@@ -1,243 +1,439 @@
-// The Large-Kernel-Attention gate as three hand-written f32 kernels for Hopper (sm_90a),
-// launched in sequence:
+// The Large-Kernel-Attention gate as two hand-written kernels for Hopper (sm_90a):
 //     a   = dw21x1(dw1x21(dw5x5(x)))          each depthwise stage SAME, zero padding
 //     out = x * sigmoid((a @ wp) * scale + shift)
 //
 // Replaces the TPU kernel freqfusion_tpu/ops/pallas/lka.py:lka_gate. The plain PyTorch
 // version sits beside the wrapper in freqfusion_tpu_torch/ops/kernels/lka.py.
 //
-// What bounds it on the H100. Per element (25 + 21 + 21) * 2 + 2 * C FLOPs (262 at C = 64)
-// for 8 bytes moved: 33 FLOP per byte, above the f32 CUDA-core ridge (20): bound by
-// operations, about half of them the 1x1 product.
+// What bounds it on the H100. Per element 2 * (25 + 21 + 21) FLOPs of depthwise taps on CUDA
+// cores and 2C of the 1x1 product (128 at C = 64), which runs f32-exact on the tensor cores
+// here, for 8 bytes of one read of x and one write of out. Through `a` in device memory, as
+// here, it moves 20 bytes an element: 2.08 GB at [9,352,512,64], 0.62 ms at 3.35 TB/s; the
+// taps take 0.21 ms of the CUDA cores' 67 TFLOP/s.
 //
-// Design. The TPU kernel holds a whole-width strip with a 12-row halo in VMEM through all
-// four stages. A block here that did the same would recompute the 5x5 on 4.4 times its
-// tile (a 16 x 32 tile has a 40 x 56 halo) and could not keep the tile's C-wide chain output
-// beside it, so the chain is split where each stage needs another neighbourhood, and the
-// intermediates go through device memory (4 extra passes over the tensor, 16 bytes an
-// element, written down in the wrapper's note):
-//   1. lka_dw5: t1 = dw5x5(x). A thread keeps one channel quad and its 25 weight quads in
-//      registers and takes 4 neighbouring outputs along W at a time: 5 x 8 loads for 100 FMAs
-//      on quads; the neighbours come back from L1 (tile 8 x 32 pixels). An item whose taps
-//      all lie inside the image takes a path without bounds tests, so that its loads are in
-//      flight together; only the border ring tests each tap.
-//   2. lka_dwh: t2 = dw1x21(t1), the same with 24 loads for 84 FMAs.
-//   3. lka_tail: the 21x1 down the columns of a 16 x 8 pixel tile (4 outputs along H at a
-//      time, 24 loads for 84 FMAs) into shared memory [128][C + 4], then the 1x1 through
-//      tile_matmul_interleaved (common.cuh), whose epilogue applies the folded BatchNorm
-//      affine, the sigmoid and the product with x.
-// The padding trap: every stage pads its own input with zeros, so the 5x5's output must be
-// zero outside the image before the 1x21 runs (not the 5x5 of a zero-padded x continued
-// outward), and the same for the 1x21's before the 21x1. Here t1 and t2 exist only inside
-// the image and a tap that falls outside is skipped, which is that zero.
+// Design, in two launches:
+//   1. lka_chain_kernel: the three depthwise convs in one pass, `a` written once. A block owns
+//      a strip of kTW = 44 columns and kCH = 16 channels (a thread one channel, its taps in
+//      registers) and walks down a segment of rows, 4 rows a step. Its two warp groups work
+//      on neighbouring steps at once, so that each thread holds one stage's taps:
+//        * warps 0-3, the 5x5 of step k: a thread owns 8 neighbouring columns of the 64
+//          (44 + the 1x21's 20 halo) and keeps the partial sums of the 5 output rows that
+//          the next x row touches in registers: each x row is 12 loads (from L2, the next
+//          row's in flight while this one is summed) for 200 FMAs; the 4 finished rows go
+//          to shared memory (two buffers: step k's and step k - 1's);
+//        * warps 4-7, step k - 1's 1x21 (11 columns a thread, 31 loads for 231 FMAs) into
+//          a ring of the last 24 rows in shared memory (69 KB), then its 21x1 (4 rows of two
+//          columns a thread at once, 48 loads for 168 FMAs) to `a`; a barrier of the group's
+//          128 threads between the two. Many independent sums a thread, since a group has
+//          only two warps on each of the SM's schedulers to hide its latencies.
+//      Column slots are XOR-swizzled (swz) and rows padded by 16 floats so that the two
+//      half-warps of each stage use different banks. A segment starts 12 rows early (the
+//      5x5's 2 and the 21x1's 10), which the first five steps spend filling the ring.
+//      The padding trap: every stage pads its own input with zeros, so the 5x5's output is
+//      stored 0 outside the image before the 1x21 reads it (not the 5x5 of a zero-padded x
+//      continued outward), and the 1x21's output of such a row is 0 in turn.
+//   2. lka_mix_kernel: the 1x1 product f32-exact on the tensor cores (3xTF32 mma.sync) with
+//      the folded BatchNorm, the sigmoid and the product with x in its epilogue. Persistent
+//      blocks of 8 warps take tiles of 64 rows of `a` and of x (fewer rows where C is wide),
+//      staged by cp.async one tile ahead into two buffers; a warp owns 16 rows x 32 columns
+//      at a time and reads wp's split B fragments (ops/kernels/_mma.py: planes, kept once a
+//      weight) from L1; K goes in chunks of 8 k-steps, each into a fresh tile added in f32
+//      (the tensor core's adds round toward zero). Timing variants on the H100 (PERF.md):
+//      deeper rings, smaller tiles and more blocks an SM were each slower.
 //
-// Layout: NHWC, f32, contiguous; C % 4 == 0. w5 [25][C], wh [21][C] along W, wv [21][C]
-// along H; wp [Kp][Np] as [in][out], zero-padded to the product's steps; out may be t1.
+// Layout: NHWC, f32, contiguous; any C up to 1808 (a tile of 16 rows of `a` in each of two
+// buffers). w5 [25][C], wh [21][C] along W, wv [21][C] along H;
+// wp the mma_planes of wp [C][C] ([in][out]) zero-padded to [Kp][Np], Kp % 8 == 0,
+// Np % 32 == 0.
 
-#include "common.cuh"
+#include "mma_f32x3.cuh"
 
 namespace {
 
-constexpr int kTH = 8, kTW = 32;    // tile of the two first passes
-constexpr int kNB = 4;              // outputs a thread takes at a time
-constexpr int kK = 21, kR = kK / 2;
-constexpr int kCH = 16, kCW = 8;    // tile of the tail: 128 pixels, 16 * kTM rows
-constexpr int kTM = kCH * kCW / 16;
+constexpr int kTW = 44, kCH = 16;
+constexpr int kACols = 8;                             // the 5x5's columns a thread
+constexpr int kGroupA = (kTW + 20) / kACols * kCH;    // the 5x5's threads
+constexpr int kGroup = 128;                           // the 1x21's and 21x1's threads
+constexpr int kChainThreads = kGroupA + kGroup;
+constexpr int kT1W = kTW + 20;      // the 5x5's columns: the 1x21's halo
+constexpr int kRing = 24;           // rows of the 1x21's output a step of the 21x1 reads
+constexpr int kSteps = 4;           // rows a step
+constexpr int k1Cols = 11;          // the 1x21's outputs a thread takes at once
+constexpr int kMixNT = 4;           // n-tiles of a warp's task in the 1x1 product
+constexpr int kMixThreads = 256;
+constexpr int kMixStages = 2;       // tiles of the 1x1 product in shared memory at once
+constexpr int kMixRows = 64;        // rows of a tile of the 1x1 product (fewer if wide)
+constexpr int kSegWaves = 6;        // chain blocks an SM that the row segments aim at
 
-__device__ __forceinline__ void fma4(float4& a, const float4& v, const float4& w) {
-    a.x = fmaf(v.x, w.x, a.x);
-    a.y = fmaf(v.y, w.y, a.y);
-    a.z = fmaf(v.z, w.z, a.z);
-    a.w = fmaf(v.w, w.w, a.w);
+// Row strides of the 5x5's rows and of the ring: a row of columns and 16 floats more, so that
+// the two half-warps of the 1x21, on neighbouring rows, use different banks.
+constexpr int kT1R = kT1W * kCH + kCH, kRingR = kTW * kCH + kCH;
+
+// Where column c of a row of kCH channels sits: groups of 4 columns swap their even and odd
+// columns by the parity of bits 2 and 3, so that the 5x5's two half-warps, 4 or 8 columns
+// apart, use different banks, and neighbouring columns (the 21x1's) still do.
+__device__ __forceinline__ int swz(int c) { return (c ^ (((c >> 2) ^ (c >> 3)) & 1)) * kCH; }
+
+// bar.sync on barrier `id` for the `n` threads of a warp group.
+__device__ __forceinline__ void group_sync(int id, int n) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n));
 }
 
-// acc[o] += sum over the 5x5 taps of x around output (y, x0 + o), o < kNB, for one channel
-// quad; `xq` points at that quad of the image's pixel (0, 0). With GUARD, taps outside the
-// image are skipped (they are zeros); without, the caller has checked that none is.
-template <bool GUARD>
-__device__ __forceinline__ void dw5_item(const float* __restrict__ xq, const float4 (&wk)[25],
-                                         float4 (&acc)[kNB], int y, int x0, int H, int W,
-                                         int C) {
+__global__ void __launch_bounds__(kChainThreads, 2)
+lka_chain_kernel(const float* __restrict__ x, const float* __restrict__ w5,
+                 const float* __restrict__ wh, const float* __restrict__ wv,
+                 float* __restrict__ a, int H, int W, int C, int seg, int nseg) {
+    extern __shared__ float4 smem4[];
+    float* t1 = reinterpret_cast<float*>(smem4);    // [2][kSteps] rows of kT1R floats
+    float* ring = t1 + 2 * kSteps * kT1R;           // [kRing] rows of kRingR floats
+    const int tid = threadIdx.x, ch = tid & 15;
+    const bool taps5 = tid < kGroupA;               // the first warps: the 5x5
+    const int x0 = blockIdx.x * kTW, piece = blockIdx.y / nseg;
+    const int y0 = (blockIdx.y % nseg) * seg, y1 = min(H, y0 + seg);
+    const int c = piece * kCH + ch;
+    const bool live = c < C;
+    const long long img = (long long)blockIdx.z * H * W;
+    const int nsteps = (y1 - y0 + 20 + kSteps - 1) / kSteps;
+    if (taps5) {
+        float k5[25];
 #pragma unroll
-    for (int dy = 0; dy < 5; ++dy) {
-        const int yy = y + dy - 2;
-        if (GUARD && (yy < 0 || yy >= H)) continue;
-        const float* row = xq + ((long long)yy * W + x0 - 2) * C;
+        for (int i = 0; i < 25; ++i) k5[i] = live ? w5[i * C + c] : 0.f;
+        // t1 columns kACols slot .., image columns x0 - 10 + kACols slot + o
+        const int slot = tid >> 4, tc0 = x0 - 10 + kACols * slot;
+        float acc[5][kACols];
 #pragma unroll
-        for (int i = 0; i < kNB + 4; ++i) {
-            if (GUARD && (x0 + i - 2 < 0 || x0 + i - 2 >= W)) continue;
-            const float4 v = *reinterpret_cast<const float4*>(row + (long long)i * C);
+        for (int i = 0; i < 5; ++i)
 #pragma unroll
-            for (int o = 0; o < kNB; ++o) {
-                const int dx = i - o;
-                if (dx >= 0 && dx < 5) fma4(acc[o], v, wk[dy * 5 + dx]);
+            for (int o = 0; o < kACols; ++o) acc[i][o] = 0.f;
+        float xv[kACols + 4];   // the next x row, in flight while this one is summed
+        auto load = [&](int r) {   // x row r at columns tc0 - 2 .., 0 outside
+            const bool rin = live && r >= 0 && r < H;
+#pragma unroll
+            for (int i = 0; i < kACols + 4; ++i) {
+                const int xx = tc0 - 2 + i;
+                xv[i] = rin && xx >= 0 && xx < W
+                            ? __ldg(x + (img + (long long)r * W + xx) * C + c) : 0.f;
+            }
+        };
+        // x row r (in xv) into the partial sums; t1 row r - 2 is then whole: stored to
+        // buffer row `dst`, 0 outside the image (null: a row of the warm-up)
+        auto sum_row = [&](int r, float* dst) {
+            float cur[kACols + 4];
+#pragma unroll
+            for (int i = 0; i < kACols + 4; ++i) cur[i] = xv[i];
+            load(r + 1);
+#pragma unroll
+            for (int i = 0; i < 5; ++i)
+#pragma unroll
+                for (int dx = 0; dx < 5; ++dx)
+#pragma unroll
+                    for (int o = 0; o < kACols; ++o)
+                        acc[i][o] = fmaf(k5[(4 - i) * 5 + dx], cur[o + dx], acc[i][o]);
+            if (dst) {
+                const bool jin = r - 2 >= 0 && r - 2 < H;
+#pragma unroll
+                for (int o = 0; o < kACols; ++o) {
+                    const int xx = tc0 + o;
+                    dst[swz(kACols * slot + o) + ch] = jin && xx >= 0 && xx < W ? acc[0][o] : 0.f;
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int o = 0; o < kACols; ++o) acc[i][o] = acc[i + 1][o];
+#pragma unroll
+            for (int o = 0; o < kACols; ++o) acc[4][o] = 0.f;
+        };
+        load(y0 - 12);
+#pragma unroll 1
+        for (int r = y0 - 12; r < y0 - 8; ++r) sum_row(r, nullptr);
+#pragma unroll 1
+        for (int k = 0; k <= nsteps; ++k) {
+            if (k < nsteps) {   // t1 rows y0 - 10 + 4k + rr from x rows y0 - 8 + 4k + rr
+                float* buf = t1 + (k & 1) * kSteps * kT1R;
+#pragma unroll 1
+                for (int rr = 0; rr < kSteps; ++rr)
+                    sum_row(y0 - 8 + kSteps * k + rr, buf + rr * kT1R);
+            }
+            __syncthreads();   // step k's t1 stored; step k - 1's read by the other group
+        }
+        return;
+    }
+    float kh[21], kv[21];
+#pragma unroll
+    for (int i = 0; i < 21; ++i) {
+        kh[i] = live ? wh[i * C + c] : 0.f;
+        kv[i] = live ? wv[i * C + c] : 0.f;
+    }
+    const int gt = tid - kGroupA;
+#pragma unroll 1
+    for (int k = 0; k <= nsteps; ++k) {
+        if (k > 0) {   // step k - 1 = kp
+            const int kp = k - 1;
+            const float* buf = t1 + (kp & 1) * kSteps * kT1R + ch;
+            // the 1x21 of the step's rows: items (group of k1Cols columns, row, channel), 31
+            // loads for 231 FMAs in 11 independent sums
+#pragma unroll 1
+            for (int it = gt; it < kSteps * (kTW / k1Cols) * kCH; it += kGroup) {
+                const int grp = it >> 4, rr = grp % kSteps, s = grp / kSteps;
+                const float* src = buf + rr * kT1R;
+                float tv[k1Cols + 20];   // every load in flight before the sums
+#pragma unroll
+                for (int i = 0; i < k1Cols + 20; ++i) tv[i] = src[swz(k1Cols * s + i)];
+                float o1[k1Cols];
+#pragma unroll
+                for (int o = 0; o < k1Cols; ++o) o1[o] = 0.f;
+#pragma unroll
+                for (int i = 0; i < k1Cols + 20; ++i)
+#pragma unroll
+                    for (int o = 0; o < k1Cols; ++o)
+                        if (i - o >= 0 && i - o < 21) o1[o] = fmaf(kh[i - o], tv[i], o1[o]);
+                float* dst = ring + ((kSteps * kp + rr) % kRing) * kRingR + ch;
+#pragma unroll
+                for (int o = 0; o < k1Cols; ++o) dst[swz(k1Cols * s + o)] = o1[o];
+            }
+            group_sync(1, kGroup);   // the ring holds t2 rows y0 - 30 + 4kp .. y0 - 7 + 4kp
+            if (kp >= 5) {   // outputs start at y0 once the ring is full
+                const int o0 = y0 - 20 + kSteps * kp;   // output rows o0 .. o0 + 3
+                const int base = (kSteps * kp - 20) % kRing;
+                // items (columns p and p + kTW / 2, channel): 48 loads for 168 FMAs in 8
+                // independent sums
+#pragma unroll 1
+                for (int it = gt; it < kTW / 2 * kCH; it += kGroup) {
+                    const int p = it >> 4;
+                    float o4[2][4];
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const float* src = ring + swz(p + h * (kTW / 2)) + ch;
+                        float tv[24];   // every load in flight before the sums
+#pragma unroll
+                        for (int i = 0; i < 24; ++i)
+                            tv[i] = src[(base + i < kRing ? base + i : base + i - kRing) * kRingR];
+#pragma unroll
+                        for (int o = 0; o < 4; ++o) o4[h][o] = 0.f;
+#pragma unroll
+                        for (int i = 0; i < 24; ++i)
+#pragma unroll
+                            for (int o = 0; o < 4; ++o)
+                                if (i - o >= 0 && i - o < 21)
+                                    o4[h][o] = fmaf(kv[i - o], tv[i], o4[h][o]);
+                    }
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const int xx = x0 + p + h * (kTW / 2);
+                        if (!live || xx >= W) continue;
+#pragma unroll
+                        for (int o = 0; o < 4; ++o)
+                            if (o0 + o < y1)
+                                a[(img + (long long)(o0 + o) * W + xx) * C + c] = o4[h][o];
+                    }
+                }
+            }
+        }
+        __syncthreads();   // pairs the 5x5 group's barrier; the ring's rows read
+    }
+}
+
+// out = x * sigmoid((a @ wp) * scale + shift) on P rows of C. Persistent blocks take tiles of
+// TR rows of `a` and (xs) of x into shared memory (kMixStages buffers each, cp.async one tile
+// ahead; columns C .. Kp and rows past P zero); without xs the epilogue reads x from device
+// memory (rows too wide for both tiles). A warp task is 16 rows x kMixNT n-tiles of a tile.
+template <bool VEC>
+__global__ void __launch_bounds__(kMixThreads, 2)
+lka_mix_kernel(const float* __restrict__ a, const float* __restrict__ x,
+               const float4* __restrict__ wp, const float* __restrict__ scale,
+               const float* __restrict__ shift, float* __restrict__ out, long long P, int C,
+               int Kp, int Np, int TR, bool xs) {
+    extern __shared__ float4 smem4[];
+    const int lda = Kp + 4, tid = threadIdx.x, warp = tid >> 5;
+    float* As = reinterpret_cast<float*>(smem4);   // [stages][TR][lda]
+    float* Xs = As + kMixStages * TR * lda;     // [stages][TR][lda] x
+    const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int ksteps = Kp / 8, ntw = Np / 8, ngroups = ntw / kMixNT, mts = TR / 16;
+    const long long ntiles = (P + TR - 1) / TR;
+    for (int e = tid; e < kMixStages * TR * (lda - C); e += kMixThreads) {   // A's columns C ..: 0
+        const int r = e / (lda - C);
+        As[r * lda + C + e - r * (lda - C)] = 0.f;
+    }
+    auto copy = [&](float* dst, const float* src, long long r0) {   // TR rows of src
+        if (VEC) {
+            const int q = C / 4;
+            for (int e = tid; e < TR * q; e += kMixThreads) {
+                const int r = e / q, cc = 4 * (e - r * q);
+                if (r0 + r < P)
+                    cp_async16(dst + r * lda + cc, src + (r0 + r) * C + cc);
+                else
+                    *reinterpret_cast<float4*>(dst + r * lda + cc) =
+                        make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+        } else {
+            for (int e = tid; e < TR * C; e += kMixThreads) {
+                const int r = e / C, cc = e - r * C;
+                const unsigned d =
+                    static_cast<unsigned>(__cvta_generic_to_shared(dst + r * lda + cc));
+                if (r0 + r < P)
+                    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                                 "l"(src + (r0 + r) * C + cc));
+                else
+                    dst[r * lda + cc] = 0.f;
+            }
+        }
+    };
+    auto stage = [&](long long tile) {
+        if (tile < ntiles) {
+            const int buf = tile / gridDim.x % kMixStages;
+            copy(As + buf * TR * lda, a, tile * TR);
+            if (xs) copy(Xs + buf * TR * lda, x, tile * TR);
+        }
+        cp_async_commit();
+    };
+#pragma unroll
+    for (int i = 0; i + 1 < kMixStages; ++i) stage(blockIdx.x + (long long)i * gridDim.x);
+    for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        cp_async_wait<kMixStages - 2>();
+        // the tile visible to every thread, every thread past the last tile: its buffer may
+        // be refilled
+        __syncthreads();
+        stage(tile + (long long)(kMixStages - 1) * gridDim.x);
+        const float* At = As + (tile / gridDim.x % kMixStages) * TR * lda;
+        const float* Xt = Xs + (tile / gridDim.x % kMixStages) * TR * lda;
+        for (int task = warp; task < mts * ngroups; task += kMixThreads / 32) {
+            const int mt = task / ngroups, nt0 = task % ngroups * kMixNT;
+            const long long ra = tile * TR + 16 * mt + g, rb = ra + 8;
+            const bool va = ra < P, vb = rb < P;
+            float acc[kMixNT][4];
+#pragma unroll
+            for (int j = 0; j < kMixNT; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+            for (int k0 = 0; k0 < ksteps; k0 += 8) {   // a fresh tile every 8 k-steps
+                float part[kMixNT][4];
+#pragma unroll
+                for (int j = 0; j < kMixNT; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+#pragma unroll 4
+                for (int s = k0; s < min(ksteps, k0 + 8); ++s) {
+                    FragA fa;
+                    load_a(fa, At, lda, 16 * mt, 8 * s);
+                    const float4* wk = wp + ((size_t)s * ntw + nt0) * 32 + lane;
+                    uint32_t bh[kMixNT][2], bl[kMixNT][2];
+#pragma unroll
+                    for (int j = 0; j < kMixNT; ++j) {
+                        const float4 b = __ldg(wk + j * 32);
+                        bh[j][0] = __float_as_uint(b.x);
+                        bh[j][1] = __float_as_uint(b.y);
+                        bl[j][0] = __float_as_uint(b.z);
+                        bl[j][1] = __float_as_uint(b.w);
+                    }
+                    // the three terms of every tile interleaved, the small ones first
+#pragma unroll
+                    for (int j = 0; j < kMixNT; ++j) mma_tf32(part[j], fa.lo, bh[j]);
+#pragma unroll
+                    for (int j = 0; j < kMixNT; ++j) mma_tf32(part[j], fa.hi, bl[j]);
+#pragma unroll
+                    for (int j = 0; j < kMixNT; ++j) mma_tf32(part[j], fa.hi, bh[j]);
+                }
+#pragma unroll
+                for (int j = 0; j < kMixNT; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+            }
+            const int pa = 16 * mt + g;
+#pragma unroll
+            for (int j = 0; j < kMixNT; ++j) {
+                const int n = 8 * (nt0 + j) + 2 * t;
+                if (!VEC) {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    if (n + e >= C) continue;
+                    const float sc = scale[n + e], sh = shift[n + e];
+                    if (va)
+                        out[ra * C + n + e] = (xs ? Xt[pa * lda + n + e] : x[ra * C + n + e]) *
+                                              sigmoid_f32(fmaf(acc[j][e], sc, sh));
+                    if (vb)
+                        out[rb * C + n + e] =
+                            (xs ? Xt[(pa + 8) * lda + n + e] : x[rb * C + n + e]) *
+                            sigmoid_f32(fmaf(acc[j][2 + e], sc, sh));
+                }
+                } else if (n < C) {   // C % 4 == 0: n and n + 1 are both real
+                    const float2 sc = *reinterpret_cast<const float2*>(scale + n);
+                    const float2 sh = *reinterpret_cast<const float2*>(shift + n);
+                    if (va) {
+                        const float2 xa = *reinterpret_cast<const float2*>(
+                            xs ? Xt + pa * lda + n : x + ra * C + n);
+                        *reinterpret_cast<float2*>(out + ra * C + n) =
+                            make_float2(xa.x * sigmoid_f32(fmaf(acc[j][0], sc.x, sh.x)),
+                                        xa.y * sigmoid_f32(fmaf(acc[j][1], sc.y, sh.y)));
+                    }
+                    if (vb) {
+                        const float2 xb = *reinterpret_cast<const float2*>(
+                            xs ? Xt + (pa + 8) * lda + n : x + rb * C + n);
+                        *reinterpret_cast<float2*>(out + rb * C + n) =
+                            make_float2(xb.x * sigmoid_f32(fmaf(acc[j][2], sc.x, sh.x)),
+                                        xb.y * sigmoid_f32(fmaf(acc[j][3], sc.y, sh.y)));
+                    }
+                }
             }
         }
     }
+    cp_async_wait<0>();
 }
 
-// acc[o] += sum over the 21 taps of a line through output o, o < kNB: `line` points at the
-// channel quad of the first output's pixel, `step` floats lie between neighbours on the
-// line, and the first output is element `p0` of a line of `n` elements.
-template <bool GUARD>
-__device__ __forceinline__ void dw21_item(const float* __restrict__ line, long long step,
-                                          const float4 (&wk)[kK], float4 (&acc)[kNB], int p0,
-                                          int n) {
-#pragma unroll
-    for (int i = 0; i < kNB + kK - 1; ++i) {
-        if (GUARD && (p0 + i - kR < 0 || p0 + i - kR >= n)) continue;
-        const float4 v = *reinterpret_cast<const float4*>(line + (i - kR) * step);
-#pragma unroll
-        for (int o = 0; o < kNB; ++o) {
-            const int tap = i - o;
-            if (tap >= 0 && tap < kK) fma4(acc[o], v, wk[tap]);
-        }
-    }
-}
-
-__global__ void __launch_bounds__(kThreads, 2)
-lka_dw5_kernel(const float* __restrict__ x, const float* __restrict__ w5,
-               float* __restrict__ t1, int H, int W, int C) {
-    const int nq = C / 4, groups = kThreads / nq;
-    const int tid = threadIdx.x, q = tid % nq, grp = tid / nq;
-    if (grp >= groups) return;
-    const int c = q * 4;
-    float4 wk[25];
-#pragma unroll
-    for (int k = 0; k < 25; ++k) wk[k] = *reinterpret_cast<const float4*>(w5 + k * C + c);
-    const int ty0 = blockIdx.y * kTH, tx0 = blockIdx.x * kTW;
-    const size_t img = (size_t)blockIdx.z * H * W * C;
-    const float* xq = x + img + c;
-    float* ob = t1 + img + c;
-    constexpr int XG = kTW / kNB;
-    for (int it = grp; it < kTH * XG; it += groups) {
-        const int y = ty0 + it / XG, x0 = tx0 + (it % XG) * kNB;
-        if (y >= H || x0 >= W) continue;
-        float4 acc[kNB];
-#pragma unroll
-        for (int o = 0; o < kNB; ++o) acc[o] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (y >= 2 && y + 2 < H && x0 >= 2 && x0 + kNB + 2 <= W)
-            dw5_item<false>(xq, wk, acc, y, x0, H, W, C);
-        else
-            dw5_item<true>(xq, wk, acc, y, x0, H, W, C);
-#pragma unroll
-        for (int o = 0; o < kNB; ++o)
-            if (x0 + o < W)
-                *reinterpret_cast<float4*>(ob + ((size_t)y * W + x0 + o) * C) = acc[o];
-    }
-}
-
-__global__ void __launch_bounds__(kThreads, 2)
-lka_dwh_kernel(const float* __restrict__ t1, const float* __restrict__ wh,
-               float* __restrict__ t2, int H, int W, int C) {
-    const int nq = C / 4, groups = kThreads / nq;
-    const int tid = threadIdx.x, q = tid % nq, grp = tid / nq;
-    if (grp >= groups) return;
-    const int c = q * 4;
-    float4 wk[kK];
-#pragma unroll
-    for (int k = 0; k < kK; ++k) wk[k] = *reinterpret_cast<const float4*>(wh + k * C + c);
-    const int ty0 = blockIdx.y * kTH, tx0 = blockIdx.x * kTW;
-    const size_t img = (size_t)blockIdx.z * H * W * C;
-    const float* iq = t1 + img + c;
-    float* ob = t2 + img + c;
-    constexpr int XG = kTW / kNB;
-    for (int it = grp; it < kTH * XG; it += groups) {
-        const int y = ty0 + it / XG, x0 = tx0 + (it % XG) * kNB;
-        if (y >= H || x0 >= W) continue;
-        float4 acc[kNB];
-#pragma unroll
-        for (int o = 0; o < kNB; ++o) acc[o] = make_float4(0.f, 0.f, 0.f, 0.f);
-        const float* line = iq + ((size_t)y * W + x0) * C;
-        if (x0 >= kR && x0 + kNB + kR <= W)
-            dw21_item<false>(line, C, wk, acc, x0, W);
-        else
-            dw21_item<true>(line, C, wk, acc, x0, W);
-#pragma unroll
-        for (int o = 0; o < kNB; ++o)
-            if (x0 + o < W)
-                *reinterpret_cast<float4*>(ob + ((size_t)y * W + x0 + o) * C) = acc[o];
-    }
-}
-
-__global__ void __launch_bounds__(kThreads, 2)
-lka_tail_kernel(const float* __restrict__ t2, const float* __restrict__ x,
-                const float* __restrict__ wv, const float* __restrict__ wp,
-                const float* __restrict__ scale, const float* __restrict__ shift,
-                float* __restrict__ out, int H, int W, int C, int Kp, int Np) {
-    extern __shared__ float4 smem4[];
-    const int lda = Kp + 4;
-    float* A = reinterpret_cast<float*>(smem4);   // [kCH * kCW][lda]: the chain's output
-    float* ws = A + kCH * kCW * lda;               // tile_matmul_interleaved's weight stage
-    const int tid = threadIdx.x;
-    const int ty0 = blockIdx.y * kCH, tx0 = blockIdx.x * kCW;
-    const size_t img = (size_t)blockIdx.z * H * W * C;
-
-    // zero the padded columns and the pixels outside the image
-    for (int e = tid; e < kCH * kCW * lda / 4; e += kThreads)
-        reinterpret_cast<float4*>(A)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
-    __syncthreads();
-
-    const int nq = C / 4, groups = kThreads / nq;
-    const int q = tid % nq, grp = tid / nq;
-    if (grp < groups) {
-        const int c = q * 4;
-        float4 wk[kK];
-#pragma unroll
-        for (int k = 0; k < kK; ++k) wk[k] = *reinterpret_cast<const float4*>(wv + k * C + c);
-        const float* iq = t2 + img + c;
-        for (int it = grp; it < kCW * (kCH / kNB); it += groups) {
-            const int tx = it % kCW, yl = (it / kCW) * kNB;
-            const int xx = tx0 + tx, y0 = ty0 + yl;
-            if (xx >= W || y0 >= H) continue;
-            float4 acc[kNB];
-#pragma unroll
-            for (int o = 0; o < kNB; ++o) acc[o] = make_float4(0.f, 0.f, 0.f, 0.f);
-            const float* line = iq + ((size_t)y0 * W + xx) * C;
-            if (y0 >= kR && y0 + kNB + kR <= H)
-                dw21_item<false>(line, (long long)W * C, wk, acc, y0, H);
-            else
-                dw21_item<true>(line, (long long)W * C, wk, acc, y0, H);
-#pragma unroll
-            for (int o = 0; o < kNB; ++o)
-                if (y0 + o < H)
-                    *reinterpret_cast<float4*>(A + ((yl + o) * kCW + tx) * lda + c) = acc[o];
-        }
-    }
-    // tile_matmul_interleaved synchronises before it reads A
-    tile_matmul_interleaved<kTM>(A, lda, Kp, wp, Np, Np, ws, [&](int p, int n, float u) {
-        const int y = ty0 + p / kCW, xx = tx0 + p % kCW;
-        if (y >= H || xx >= W || n >= C) return;
-        const size_t i = img + ((size_t)y * W + xx) * C + n;
-        out[i] = x[i] * sigmoid_f32(fmaf(u, scale[n], shift[n]));
-    });
+// Segments of rows a chain block walks: the fewest that give the card about kSegWaves chain
+// blocks an SM (two run at once), each at least 32 rows.
+int lka_segments(int B, int H, int W, int C) {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+        return -1;
+    const long long base = (long long)B * ((W + kTW - 1) / kTW) * ((C + kCH - 1) / kCH);
+    long long nseg = ((long long)kSegWaves * sms + base - 1) / base;
+    nseg = nseg < 1 ? 1 : nseg;
+    const long long most = (H + 31) / 32;
+    return (int)(nseg < most ? nseg : most);
 }
 
 }  // namespace
 
+// a [B][H][W][C] scratch; wp the planes of wp [Kp][Np] (ops/kernels/_mma.py).
 extern "C" int lka_gate(const float* x, const float* w5, const float* wh, const float* wv,
-                        const float* wp, const float* scale, const float* shift, float* t2,
+                        const float* wp, const float* scale, const float* shift, float* a,
                         float* out, int B, int H, int W, int C, int Kp, int Np, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (B < 1 || H < 1 || W < 1 || B > 65535 || C < 4 || C % 4 || C / 4 > kThreads ||
-        Kp < C || Np < C || Kp % kKC || Np % 64)
+    if (B < 1 || H < 1 || W < 1 || B > 65535 || C < 1 || Kp < C || Kp % 8 || Np < C ||
+        Np % (8 * kMixNT))
         return cudaErrorInvalidValue;
-    const size_t smem = (size_t)(kCH * kCW * (Kp + 4) + tile_matmul_ws()) * sizeof(float);
-    if (smem > 227 * 1024) return cudaErrorInvalidValue;
-    dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B);
-    if (grid.y > 65535) return cudaErrorInvalidValue;
-    float* t1 = out;   // dead once the 1x21 has read it
-    lka_dw5_kernel<<<grid, kThreads, 0, st>>>(x, w5, t1, H, W, C);
-    cudaError_t err = cudaGetLastError();
+    const int nseg = lka_segments(B, H, W, C);
+    if (nseg < 1) return cudaErrorInvalidDevice;
+    const int seg = (H + nseg - 1) / nseg;
+    const size_t smem = (size_t)(2 * kSteps * kT1R + kRing * kRingR) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        lka_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    lka_dwh_kernel<<<grid, kThreads, 0, st>>>(t1, wh, t2, H, W, C);
+    const long long gy = (long long)((C + kCH - 1) / kCH) * nseg;
+    if (gy > 65535) return cudaErrorInvalidValue;
+    dim3 grid((W + kTW - 1) / kTW, (unsigned)gy, B);
+    lka_chain_kernel<<<grid, kChainThreads, smem, st>>>(x, w5, wh, wv, a, H, W, C, seg, nseg);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(lka_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    int dev = 0, sms = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
-    dim3 tgrid((W + kCW - 1) / kCW, (H + kCH - 1) / kCH, B);
-    lka_tail_kernel<<<tgrid, kThreads, smem, st>>>(t2, x, wv, wp, scale, shift, out, H, W, C, Kp,
-                                                   Np);
+    // tiles of kMixRows rows, fewer where a row is wide: the buffers of a and x in at most
+    // 108 KB, two blocks an SM; rows too wide for that stage `a` alone, in up to 227 KB
+    int TR = kMixRows;
+    while (TR > 16 && 2LL * kMixStages * TR * (Kp + 4) * 4 > 110592) TR /= 2;
+    const bool xs = 2LL * kMixStages * TR * (Kp + 4) * 4 <= 110592;
+    const size_t msmem = (size_t)(xs ? 2 : 1) * kMixStages * TR * (Kp + 4) * sizeof(float);
+    if (msmem > 232448) return cudaErrorInvalidValue;
+    const auto mix = C % 4 ? lka_mix_kernel<false> : lka_mix_kernel<true>;
+    err = cudaFuncSetAttribute(mix, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)msmem);
+    if (err != cudaSuccess) return err;
+    const long long P = (long long)B * H * W, ntiles = (P + TR - 1) / TR;
+    const int grid2 = (int)(ntiles < 2LL * sms ? ntiles : 2LL * sms);
+    mix<<<grid2, kMixThreads, msmem, st>>>(a, x, reinterpret_cast<const float4*>(wp), scale,
+                                           shift, out, P, C, Kp, Np, TR, xs);
     return cudaGetLastError();
 }

@@ -60,8 +60,9 @@
 //     C-wide f32 pass over [1,1408,2048,64] costs 0.22 ms, and three more would take a third
 //     of the budget. The three products' epilogues never write the A that their own product
 //     reads (tile_mma runs an epilogue while other warps still read A).
-//   * C = 128 and 256: A is 128 rows x 128 columns (64 KB) beside the ring, and y and the
-//     hidden do not fit too. y is parked in out (written by the first epilogue, read by LN2's
+//   * Every other C (128 and 256 in NAF-64; any multiple of 8): A is 128 rows x one K piece
+//     (64 KB at C = 128 and 256) beside the ring, and y and the hidden do not fit too. y is
+//     parked in out (written by the first epilogue, read by LN2's
 //     statistics, the second product's staging and the last epilogue), the hidden goes
 //     through hid, and at C = 256, whose K comes in two pieces (tile_mma_piece), each
 //     product's partial sums go through part [pixels][2C], added in f32 in a fixed order.
@@ -77,8 +78,10 @@
 //
 // Layout: NHWC, f32, contiguous. Weights: w1p the mma_planes of w1 [C][2C] with its columns
 // pass by pass; w3p, w4p, w5p the mma_planes of w3 [C][C], of w4 [C][2C] gate-interleaved and
-// of w5 [C][C]; wdw [9][2C]. Stage A takes C % 32 == 0 up to 256, stage B C % 64 == 0 (the
-// wrapper checks).
+// of w5 [C][C]; wdw [9][2C]. Stage A takes C % 4 == 0 with Cp = C rounded up to the pass's
+// 32 channels at most 256: w1p is laid out at Cp (zero rows and columns past C), LN's
+// statistics are taken over the C real channels and the padded ones are never stored. Stage
+// B takes C % 8 == 0 (its products take K and N in steps of 8), on chip at C = 64 only.
 
 #include "mma_f32x3.cuh"
 
@@ -96,7 +99,7 @@ constexpr int kPassC = 32, kPassN = 2 * kPassC;  // gate channels, product colum
 // the blocks at half the latency each, serves a small image faster. 0 where the device
 // cannot be queried.
 int stage_a_rows(int B, int H, int W, int C) {
-    if (C > 128) return 8;
+    if ((C + kPassC - 1) / kPassC * kPassC > 128) return 8;
     int dev = 0, sms = 0;
     if (cudaGetDevice(&dev) != cudaSuccess ||
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
@@ -115,21 +118,21 @@ naf_stage_a_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
                    const float* __restrict__ lnb, const float4* __restrict__ w1p,
                    const float* __restrict__ b1, const float* __restrict__ wdw,
                    const float* __restrict__ bdw, float* __restrict__ g,
-                   float* __restrict__ part, int H, int W, int C) {
+                   float* __restrict__ part, int H, int W, int C, int Cp) {
     constexpr int M = kHaloW * HH, TH = HH - 2;    // product rows, output rows
     constexpr int NG = kAWarps / HH, NTW = 8 / NG;  // warps an m-tile, n-tiles a warp
     constexpr int KS = KC / 8, kStage4 = KS * 8 * 32;   // k-steps, float4s of a ring stage
     extern __shared__ float4 smem4[];
-    float* A = reinterpret_cast<float*>(smem4);    // [M x C] LN(x), A-fragment order
-    float* T = A + M * C;                           // [M][64] t of the pass, swizzled
+    float* A = reinterpret_cast<float*>(smem4);    // [M x Cp] LN(x), A-fragment order
+    float* T = A + M * Cp;                          // [M][64] t of the pass, swizzled
     float4* ring = reinterpret_cast<float4*>(T + M * kPassN);   // 2 stages of w1p
     float* red = reinterpret_cast<float*>(ring + 2 * kStage4);  // [16][32] partial sums
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int bi = blockIdx.z, ty0 = blockIdx.y * TH, tx0 = blockIdx.x * kOutW;
     const float* xb = x + (size_t)bi * H * W * C;
-    const int ksteps = C / 8, nchunks = (ksteps + KS - 1) / KS, ntw = C / 4;
-    const int total = C / kPassC * nchunks;         // (pass, chunk) steps
+    const int ksteps = Cp / 8, nchunks = (ksteps + KS - 1) / KS, ntw = Cp / 4;
+    const int total = Cp / kPassC * nchunks;        // (pass, chunk) steps
     auto live = [&](int p) {   // halo row p inside the image
         const int y = ty0 - 1 + p / kHaloW, xx = tx0 - 1 + p % kHaloW;
         return y >= 0 && y < H && xx >= 0 && xx < W;
@@ -150,7 +153,7 @@ naf_stage_a_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
     // LN(x) of the halo, a warp a row, the rows in registers: every load of the warp's rows
     // is issued before the first row is normalised (one round trip to memory, not one a row)
     constexpr int RPW = M / kAWarps;        // halo rows a warp normalises
-    constexpr int NH = HH == 16 ? 1 : 2;    // float4s a lane: HH = 16 takes C <= 128, 8 C <= 256
+    constexpr int NH = HH == 16 ? 1 : 2;    // float4s a lane: HH = 16 takes Cp <= 128, 8 Cp <= 256
     float4 v[RPW][NH];
 #pragma unroll
     for (int k = 0; k < RPW; ++k) {
@@ -185,9 +188,9 @@ naf_stage_a_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
             const int c = 4 * lane + 128 * h;
-            if (c >= C) continue;
-            float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (in) {
+            if (c >= Cp) continue;
+            float4 o = make_float4(0.f, 0.f, 0.f, 0.f);   // and on Cp's padded channels
+            if (in && c < C) {
                 const float4 w = *reinterpret_cast<const float4*>(lnw + c);
                 const float4 b = *reinterpret_cast<const float4*>(lnb + c);
                 o = make_float4((v[k][h].x - u) * inv * w.x + b.x,
@@ -203,7 +206,7 @@ naf_stage_a_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
     const int g8 = lane >> 2, t4 = lane & 3;
     const int mt = warp % HH, nt0 = warp / HH * NTW;
     const float4* a4 = reinterpret_cast<const float4*>(A) + mt * ksteps * 32 + lane;
-    for (int pass = 0, i = 0; pass < C / kPassC; ++pass) {
+    for (int pass = 0, i = 0; pass < Cp / kPassC; ++pass) {
         const int cb = pass * kPassC;
         for (int c = 0; c < nchunks; ++c, ++i) {
             cp_async_wait<0>();   // this thread's copies of step i have landed
@@ -254,7 +257,9 @@ naf_stage_a_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
 #pragma unroll
             for (int j = 0; j < NTW; ++j) {
                 const int n = 8 * (nt0 + j) + 2 * t4;
-                const int ch = n < kPassC ? cb + n : C + cb + n - kPassC;
+                // its channel of b1; a padded gate channel (>= C) reads a real one's bias:
+                // its t feeds only its own conv and gate, which are never stored
+                const int ch = min(n < kPassC ? cb + n : C + cb + n - kPassC, 2 * C - 2);
 #pragma unroll
                 for (int h = 0; h < 2; ++h) {
                     const int p = 16 * mt + g8 + 8 * h;
@@ -276,15 +281,15 @@ naf_stage_a_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
 
         // depthwise 3x3 + bias on both halves, then the gate: channel cb + lane, output
         // column `warp`, the window sliding down the tile
-        const int ch = cb + lane;
+        const int ch = cb + lane, cw = min(ch, C - 1);   // a padded channel: not stored
         float psum = 0.f;
         float wa[9], wb[9];
 #pragma unroll
         for (int k = 0; k < 9; ++k) {
-            wa[k] = wdw[k * 2 * C + ch];
-            wb[k] = wdw[k * 2 * C + C + ch];
+            wa[k] = wdw[k * 2 * C + cw];
+            wb[k] = wdw[k * 2 * C + C + cw];
         }
-        const float ba = bdw[ch], bb = bdw[C + ch];
+        const float ba = bdw[cw], bb = bdw[C + cw];
         if (const int ox = warp; ox < kOutW) {
             float ra[3][3] = {}, rb[3][3] = {};   // the taps of rows r - 2, r - 1, r
             // rolled: unrolled, the loads of all HH rows would be hoisted, and spill
@@ -311,7 +316,7 @@ naf_stage_a_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
                     }
                 const float gv = (a + ba) * (b + bb);
                 const int y = ty0 + r - 2, xx = tx0 + ox;
-                if (y < H && xx < W) {
+                if (y < H && xx < W && ch < C) {
                     g[(((size_t)bi * H + y) * W + xx) * C + ch] = gv;
                     psum += gv;
                 }
@@ -319,7 +324,7 @@ naf_stage_a_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
         }
         red[warp * 32 + lane] = psum;
         __syncthreads();
-        if (tid < 32) {
+        if (tid < 32 && cb + tid < C) {
             float s = 0.f;
             for (int w = 0; w < kOutW; ++w) s += red[w * 32 + tid];
             part[((size_t)bi * nblk + blk) * C + cb + tid] = s;
@@ -334,7 +339,8 @@ cudaError_t launch_stage_a(const float* x, const float* lnw, const float* lnb,
                            const float* w1p, const float* b1, const float* wdw,
                            const float* bdw, float* g, float* part, int B, int H, int W, int C,
                            cudaStream_t st) {
-    const size_t smem = (size_t)(kHaloW * HH * (C + kPassN) + 2 * KC * 128 + kAWarps * 32) *
+    const int Cp = (C + kPassC - 1) / kPassC * kPassC;
+    const size_t smem = (size_t)(kHaloW * HH * (Cp + kPassN) + 2 * KC * 128 + kAWarps * 32) *
                         sizeof(float);
     if (smem > 232448) return cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(naf_stage_a_kernel<HH, KC>,
@@ -342,7 +348,7 @@ cudaError_t launch_stage_a(const float* x, const float* lnw, const float* lnb,
     if (err != cudaSuccess) return err;
     dim3 grid((W + kOutW - 1) / kOutW, (H + HH - 3) / (HH - 2), B);
     naf_stage_a_kernel<HH, KC><<<grid, 32 * kAWarps, smem, st>>>(
-        x, lnw, lnb, reinterpret_cast<const float4*>(w1p), b1, wdw, bdw, g, part, H, W, C);
+        x, lnw, lnb, reinterpret_cast<const float4*>(w1p), b1, wdw, bdw, g, part, H, W, C, Cp);
     return cudaGetLastError();
 }
 
@@ -434,7 +440,7 @@ naf_stage_b_onchip_kernel(const StageB a) {
         });
 }
 
-// C > 64 (and C = 64 when the caller gives hid): A (128 rows of one K piece: 64 KB at
+// C != 64 (and C = 64 when the caller gives hid): A (128 rows of one K piece: 64 KB at
 // C = 128 and 256) and the ring fill the block. y is parked in out, the gated hidden goes
 // through hid and, where K comes in pieces (C > kMmaMaxK), the products' partial sums through
 // part, whose rows are 2C floats for every product: each element is read back by the thread
@@ -573,20 +579,21 @@ int naf_stage_a_blocks(int B, int H, int W, int C) {
     return ((H + hh - 3) / (hh - 2)) * ((W + kOutW - 1) / kOutW);
 }
 
-// g and sums = Σ_{H,W} g; w1p = the mma_planes of w1 [C][2C] with its columns pass by pass
-// (ops/kernels/nafblock.py), part [B][naf_stage_a_blocks][C] scratch.
+// g and sums = Σ_{H,W} g; w1p = the mma_planes of w1 [C][2C] zero-padded to [Cp][2Cp] (Cp =
+// C rounded up to 32) with its columns pass by pass (ops/kernels/nafblock.py), part
+// [B][naf_stage_a_blocks][C] scratch.
 int naf_stage_a(const float* x, const float* lnw, const float* lnb, const float* w1p,
                 const float* b1, const float* wdw, const float* bdw, float* g, float* part,
                 float* sums, int B, int H, int W, int C, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (C % kPassC || C < kPassC || C > 256 || B < 1 || B > 65535 || H < 1 || W < 1)
+    if (C % 4 || C < 4 || C > 256 || B < 1 || B > 65535 || H < 1 || W < 1)
         return cudaErrorInvalidValue;
     const int hh = stage_a_rows(B, H, W, C);
     if (hh == 0) return cudaErrorInvalidDevice;
     cudaError_t err;
     if (hh == 8)
         err = launch_stage_a<8, 32>(x, lnw, lnb, w1p, b1, wdw, bdw, g, part, B, H, W, C, st);
-    else if (C <= 64)   // the pass's whole slab a ring stage: one barrier a pass
+    else if (C <= 64)   // the pass's whole slab (Cp <= 64 rows) a ring stage: one barrier a pass
         err = launch_stage_a<16, 64>(x, lnw, lnb, w1p, b1, wdw, bdw, g, part, B, H, W, C, st);
     else
         err = launch_stage_a<16, 32>(x, lnw, lnb, w1p, b1, wdw, bdw, g, part, B, H, W, C, st);
@@ -596,7 +603,7 @@ int naf_stage_a(const float* x, const float* lnw, const float* lnb, const float*
 
 // out = stage B of g and x; w3p, w4p, w5p the mma_planes of w3, of w4 with gate channel j in
 // column 2j and its partner C + j in 2j + 1, and of w5 (ops/kernels/nafblock.py:
-// stage_b_planes); hid [B*H*W][C] scratch where C > 64, part [B*H*W][2C] where C > 192.
+// stage_b_planes); hid [B*H*W][C] scratch where C != 64, part [B*H*W][2C] where C > 192.
 // At C = 64 the block keeps y and the hidden on chip unless hid is given: then it takes the
 // device-memory design of the wider levels (so that the two can be timed and tested).
 int naf_stage_b(const float* g, const float* x, const float* att, const float* w3p,
@@ -604,7 +611,7 @@ int naf_stage_b(const float* g, const float* x, const float* att, const float* w
                 const float* w4p, const float* b4, const float* w5p, const float* b5,
                 const float* gamma, float* out, float* hid, float* part, int B, int H, int W,
                 int C, void* stream) {
-    if (C % 64 || C < 64 || B < 1 || H < 1 || W < 1 || (C > 64 && !hid) ||
+    if (C % 8 || C < 8 || B < 1 || H < 1 || W < 1 || (C != 64 && !hid) ||
         (C > kMmaMaxK && !part))
         return cudaErrorInvalidValue;
     StageB a = {};

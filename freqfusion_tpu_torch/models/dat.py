@@ -13,11 +13,13 @@ state dict of the reference loads as it is (its precomputed buffers ``rpe_biases
 Where the JAX package runs its Pallas kernels, a CUDA tensor runs the hand-written ones:
 the AIM kernels (B5a, B5b) and the fused tail (B6) in every block, kernel B3 in the
 group-ending convs and ``conv_after_body``, and the in-kernel-qkv window attention (B4)
-when the image is a whole number of windows of at least 64 tokens, as every 32-px serving
-bucket is. Any other shape (a 176-px tile, a ragged direct call, windows of fewer than 64
-tokens) projects q, k, v first, zero-pads them to whole windows and takes the
-pre-projected kernel (B13), which has no lower limit. The channel attention's products, the v projection that feeds AIM, the pooled C-Map
-MLP, the position-bias MLP and the LR/HR convs around the trunk stay torch, as in the JAX
+when the image is a whole number of windows that B4 takes (64 to 256 tokens in steps of 64,
+heads up to 32 wide: ``dat_is_fused``), as every 32-px serving bucket is. Any other shape (a
+176-px tile, a ragged direct call, windows of fewer than 64 tokens or of a count B4 does not
+take, such as split (6, 24), heads over 32) projects q, k, v first, zero-pads them to whole
+windows and takes the pre-projected kernel (B13), which takes any window and head width.
+The channel attention's products, the v projection that feeds AIM, the pooled C-Map MLP,
+the position-bias MLP and the LR/HR convs around the trunk stay torch, as in the JAX
 package. Each module's ``kernels = False`` runs the plain versions on any device, to
 compare the two.
 """
@@ -39,14 +41,18 @@ from ..ops.kernels.sgfn import fused_sgfn_tail, fused_sgfn_tail_plain
 from ..ops.kernels.wattn import (branch_qkv, fused_window_attention_qkv,
                                  fused_window_attention_qkv_plain,
                                  fused_window_attention_xqkv,
-                                 fused_window_attention_xqkv_plain)
+                                 fused_window_attention_xqkv_plain, xqkv_takes)
 from .layers import (BatchNorm2d, SeamConv, conv_nhwc as _conv_nhwc, gelu, hwio as _hwio,
                      linear_io_view)
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
 
-#: Fewest tokens per window for the window-attention kernels (the JAX package's gate).
-MIN_FUSED_TOKENS = 64
+def dat_is_fused(tokens: int, head_dim: int) -> bool:
+    """Whether a spatial branch at whole windows of `tokens` tokens and heads `head_dim` wide
+    projects its q, k, v inside kernel B4: what B4's kernel takes (``xqkv_takes``), which
+    lies inside the JAX package's gate (64 tokens or more). Any other window or head width
+    projects in torch and takes the pre-projected kernel B13, which takes any."""
+    return xqkv_takes(tokens, head_dim)
 
 
 class DynamicPosBias(nn.Module):
@@ -175,9 +181,9 @@ class AdaptiveSpatialAttention(_AIM):
         # The in-kernel projection needs whole windows: zero-padding q, k, v AFTER the
         # projection (as the reference does) differs from projecting a zero-padded image,
         # where the bias lands in the pad region. Serving pads to 32-px buckets, so this
-        # is the served path; ragged shapes and windows below that kernel's size project
-        # first and take the pre-projected kernel, which has no lower limit.
-        fused_x = ph == 0 and pw == 0 and s0 * s1 >= MIN_FUSED_TOKENS
+        # is the served path; ragged shapes and windows or heads that kernel does not take
+        # (dat_is_fused) project first and take the pre-projected kernel, which takes any.
+        fused_x = ph == 0 and pw == 0 and dat_is_fused(s0 * s1, half // (self.num_heads // 2))
         if fused_x:
             v = x @ wqkv[:, 2 * c:] + bqkv[2 * c:]   # AIM's conv branch needs the v image
         else:

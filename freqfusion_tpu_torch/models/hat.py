@@ -12,15 +12,18 @@ attention masks are rebuilt here and must be dropped).
 
 Where the JAX package runs its Pallas kernels, a CUDA tensor runs the hand-written ones:
 every HAB is the CAB chain (B7) and the fused block (B8) when its window is at least 8 px
-and H, W are even; every OCAB is the overlapping attention (B9) and the residual MLP tail
-(B10) when its window is a multiple of 16 with an overlap of half of it; the group-ending
-convs and ``conv_after_body`` are kernel B3. A HAB outside that gate (odd H or W, hence an
-odd window, since H and W are whole windows; or a window under 8 px) runs its block in
-torch around the standalone window attention (B14), which takes any window; an OCAB outside
-its gate runs in plain torch on any device, as the JAX package leaves it to XLA. The LR/HR convs around the trunk, the
-channel attention's MLP on the pooled vector, OCAB's ``norm1`` and ``qkv``, the bias gathers
-and the un-roll of a shifted block's output stay torch, as in the JAX package. Each
-module's ``kernels = False`` runs the plain versions on any device, to compare the two.
+and H, W are even (the JAX gate) and B8 takes its windows and heads (``hab_is_fused``); a
+HAB inside the JAX gate that B8 refuses (window 12 or 24, heads over 32) runs B7, the
+standalone window attention (B14) and the residual MLP tail (B10); every OCAB is the
+overlapping attention (B9) and the residual MLP tail (B10) when its window is a multiple of
+16 with an overlap of half of it; the group-ending convs and ``conv_after_body`` are kernel
+B3. A HAB outside the JAX gate (odd H or W, hence an odd window, since H and W are whole
+windows; or a window under 8 px) runs its block in torch around B14, which takes any
+window; an OCAB outside its gate runs in plain torch on any device, as the JAX package
+leaves it to XLA. The LR/HR convs around the trunk, the channel attention's MLP on the
+pooled vector, OCAB's ``norm1`` and ``qkv``, the bias gathers and the un-roll of a shifted
+block's output stay torch, as in the JAX package. Each module's ``kernels = False`` runs the
+plain versions on any device, to compare the two.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ from ..ops.kernels.cab import cab_chain, cab_chain_plain
 from ..ops.kernels.wattn import (fused_hab_block, fused_hab_block_plain,
                                  fused_overlap_attention, fused_overlap_attention_plain,
                                  fused_residual_ln_mlp, fused_residual_ln_mlp_plain,
-                                 fused_window_attention, fused_window_attention_plain)
+                                 fused_window_attention, fused_window_attention_plain,
+                                 xqkv_takes)
 from .layers import (SeamConv, conv_nhwc as _conv_nhwc, gelu, hwio as _hwio,
                      linear_io_view as _io)
 
@@ -48,8 +52,20 @@ RGB_MEAN = (0.4488, 0.4371, 0.4040)
 MIN_FUSED_WINDOW = 8
 
 
-def hab_is_fused(window: int, h: int, w: int) -> bool:
-    """Whether a HAB at this shape takes the CAB-chain and fused-block kernels."""
+def hab_is_fused(window: int, h: int, w: int, head_dim: int) -> bool:
+    """Whether a HAB at this shape takes the CAB-chain and fused-block kernels (B7 + B8): the
+    JAX package's gate (a window of 8 px or more, even H and W; ``hab_keeps_kernels``) and
+    windows and heads that B8's attention kernel takes (``xqkv_takes``: 64 to 256 tokens in
+    steps of 64, heads up to 32 wide)."""
+    return hab_keeps_kernels(window, h, w) and xqkv_takes(window * window, head_dim)
+
+
+def hab_keeps_kernels(window: int, h: int, w: int) -> bool:
+    """Whether a HAB inside the JAX package's gate runs kernels: B7 + B8 where
+    ``hab_is_fused``, else its CAB chain (B7) and residual MLP tail (B10) around the
+    standalone window attention (B14), which takes any window and head width (HAT's window
+    12 or 24, heads wider than 32). Outside the gate (odd H or W, a window under 8 px) the
+    block runs torch's CAB and MLP around B14."""
     return window >= MIN_FUSED_WINDOW and h % 2 == 0 and w % 2 == 0
 
 
@@ -155,7 +171,7 @@ class HAB(nn.Module):
         b, h, w, c = x.shape
         ws, s = self.window, self.shift
         wqkv, bqkv, wproj, bproj, bias = self.attn.raw()
-        if hab_is_fused(ws, h, w):
+        if hab_is_fused(ws, h, w, c // self.num_heads):
             chain, block = ((cab_chain, fused_hab_block) if self.kernels
                             else (cab_chain_plain, fused_hab_block_plain))
             # the CAB branch comes out rolled; the spatially constant CA gate rides the
@@ -174,7 +190,24 @@ class HAB(nn.Module):
                         cab_scale=gate, in_shift=in_shift)
             return torch.roll(out, (s, s), dims=(1, 2)) if s > 0 else out
 
-        # outside the fused gate (odd H or W, a window under MIN_FUSED_WINDOW) the block runs
+        if hab_keeps_kernels(ws, h, w):
+            # windows or heads that B8 refuses: B7, then B14 on LN1(x), then B10's tail
+            chain, attend, tail = ((cab_chain, fused_window_attention, fused_residual_ln_mlp)
+                                   if self.kernels else
+                                   (cab_chain_plain, fused_window_attention_plain,
+                                    fused_residual_ln_mlp_plain))
+            conv_x, sums = chain(x, self.norm1.weight, self.norm1.bias, *self.conv_block.raw())
+            gate = self.conv_block.cab[3].gate(sums / (h * w))
+            x_ln = layernorm(x, self.norm1.weight, self.norm1.bias)
+            shifted = torch.roll(x_ln, (-s, -s), dims=(1, 2)) if s > 0 else x_ln
+            att = attend(shifted.contiguous(), wqkv, bqkv, wproj, bproj, bias, self.mask_types,
+                         (ws, ws), self.num_heads)
+            if s > 0:
+                att = torch.roll(att, (s, s), dims=(1, 2))
+            a = (att + conv_x * gate * self.conv_scale).contiguous()
+            return tail(a, x, self.norm2.weight, self.norm2.bias, *self.mlp.raw())
+
+        # outside the JAX gate (odd H or W, a window under MIN_FUSED_WINDOW) the block runs
         # in torch around the standalone window-attention kernel, which takes any window
         x_ln = layernorm(x, self.norm1.weight, self.norm1.bias)
         conv_x = self.conv_block(x_ln)

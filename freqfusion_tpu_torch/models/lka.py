@@ -50,12 +50,13 @@ class LargeKernelAttention(nn.Module):
         self.kernels = True
 
     def raw(self):
-        """(w5 [5,5,C], wh [k,C], wv [k,C], wp [C,C] as ``a @ wp``) for kernel B12."""
+        """(w5 [5,5,C], wh [k,C], wv [k,C], wp [C,C] as ``a @ wp``) for kernel B12; wp is a
+        view of the parameter, so that the kernel's split weights are kept on it."""
         d, k = self.dim, self.kernel_size
         return (self.local_conv.weight.reshape(d, 5, 5).permute(1, 2, 0).contiguous(),
                 self.h_conv.weight.reshape(d, k).t().contiguous(),
                 self.v_conv.weight.reshape(d, k).t().contiguous(),
-                self.pw_conv.weight.reshape(d, d).t().contiguous())
+                self.pw_conv.weight.reshape(d, d).t())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training and self.kernel_size == 21:

@@ -25,17 +25,25 @@ from . import _build, _mma
 #: Kernel launches since the last reset. Plain runs are not counted.
 launches = {"fused_band_mha": 0}
 
-#: What csrc/bandmha.cu takes: D a multiple of 16 up to MAX_D (its weights resident in shared
-#: memory up to RESIDENT_D, 128-row groups there, 64-row groups above), a head width that is
-#: a multiple of 4 up to MAX_HEAD, and T band tokens up to the rows of a group.
-MAX_D = 128
-RESIDENT_D = 64
-MAX_HEAD = 64
+#: What csrc/bandmha.cu takes: D a multiple of 16 up to MAX_D, heads of any width that is a
+#: multiple of 4, and T band tokens up to the rows of a group (``max_tokens``). The wrapper
+#: zero-pads any other D or head width to those steps: LN's statistics and the softmax scale
+#: keep the real widths.
+MAX_D = 384
 
 
 def max_tokens(d: int) -> int:
-    """The most band tokens a pixel may have at token width d: one group's rows."""
-    return 128 if d <= RESIDENT_D else 64
+    """The most band tokens a pixel may have at token width d (after padding to the kernel's
+    steps): the rows of the largest group that fits (csrc/bandmha.cu: band_mha_rows)."""
+    return 128 if d <= 96 else 64 if d <= 192 else 32
+
+
+def padded_widths(d: int, num_heads: int) -> tuple[int, int]:
+    """(dk, hdp): the kernel's token width and head width for D = d over num_heads heads:
+    the head width rounded up to 4, then the whole width (and at least the heads' sum)
+    rounded up to 16. (d, d // num_heads) where no padding is needed."""
+    hdp = -(-(d // num_heads) // 4) * 4
+    return -(-max(d, num_heads * hdp) // 16) * 16, hdp
 
 
 def fused_band_mha_plain(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int):
@@ -55,6 +63,36 @@ def band_weights(wqkv: torch.Tensor, wproj: torch.Tensor):
     return _mma.fragments(wqkv), _mma.fragments(wproj)
 
 
+def _padded_params(wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int, dk: int, hdp: int):
+    """The parameters laid out for a kernel width dk and head width hdp: head h's q, k and v
+    columns at h * hdp of each third of [dk, 3 dk] (rows past D, columns past the head's
+    width zero), wproj's rows likewise [dk, dk], the biases and LN's affine zero-padded, and
+    wqkv and wproj as B fragments; made once for each weight (``_mma.kept``)."""
+    def make():
+        d = wqkv.shape[0]
+        hd = d // num_heads
+        w = wqkv.new_zeros(dk, 3, num_heads, hdp)
+        w[:d, :, :, :hd] = wqkv.reshape(d, 3, num_heads, hd)
+        b = bqkv.new_zeros(3, num_heads, hdp)
+        b[:, :, :hd] = bqkv.reshape(3, num_heads, hd)
+        p = wproj.new_zeros(num_heads, hdp, dk)
+        p[:, :hd, :d] = wproj.reshape(num_heads, hd, d)
+        # columns past the heads' sum, up to dk, stay zero in every third
+        wq = w.reshape(dk, 3, num_heads * hdp)
+        wq = torch.nn.functional.pad(wq, (0, dk - num_heads * hdp)).reshape(dk, 3 * dk)
+        bq = torch.nn.functional.pad(b.reshape(3, num_heads * hdp),
+                                     (0, dk - num_heads * hdp)).reshape(3 * dk)
+        wp = torch.nn.functional.pad(p.reshape(num_heads * hdp, dk),
+                                     (0, 0, 0, dk - num_heads * hdp))
+        pad = (0, dk - d)
+        return (_mma.b_fragments(wq.contiguous()), bq.contiguous(),
+                _mma.b_fragments(wp.contiguous()),
+                *(torch.nn.functional.pad(t, pad).contiguous() for t in (bproj, ln_w, ln_b)))
+
+    return _mma.kept(("band_padded", num_heads, dk, hdp), make, wqkv, bqkv, wproj, bproj,
+                     ln_w, ln_b)
+
+
 def fused_band_mha(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int):
     """Kernel B11 on CUDA, its plain version on the CPU. Returns [B,H,W,T,D]."""
     _build.require_no_grad("fused_band_mha", stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b)
@@ -63,29 +101,37 @@ def fused_band_mha(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int
     if stacked.dim() != 5:
         raise ValueError(f"fused_band_mha: expected [B,H,W,T,D], got {tuple(stacked.shape)}")
     b, h, w, t, d = stacked.shape
-    if d % 16 or not 16 <= d <= MAX_D:
-        raise ValueError(f"fused_band_mha: D={d} must be a multiple of 16 up to {MAX_D}")
-    if num_heads < 1 or d % num_heads or d // num_heads % 4 or d // num_heads > MAX_HEAD:
-        raise ValueError(f"fused_band_mha: D/heads = {d}/{num_heads} must be a whole multiple "
-                         f"of 4 up to {MAX_HEAD}")
-    if not 1 <= t <= max_tokens(d):
-        raise ValueError(f"fused_band_mha: T={t} outside [1, {max_tokens(d)}] at D={d}")
+    if num_heads < 1 or d % num_heads:
+        raise ValueError(f"fused_band_mha: D={d} is not a whole number of {num_heads} heads")
+    dk, hdp = padded_widths(d, num_heads)
+    if dk > MAX_D:
+        raise ValueError(f"fused_band_mha: D={d} ({dk} padded); the kernel takes up to {MAX_D}")
+    if not 1 <= t <= max_tokens(dk):
+        raise ValueError(f"fused_band_mha: T={t} outside [1, {max_tokens(dk)}] at D={d}")
     _build.require(stacked, "stacked")
-    # wqkv and wproj are laid out anew (band_weights): views will do
+    # wqkv and wproj are laid out anew (band_weights, _padded_params): views will do
     for name, p, shape, contiguous in (("wqkv", wqkv, (d, 3 * d), False),
                                        ("bqkv", bqkv, (3 * d,), True),
                                        ("wproj", wproj, (d, d), False),
                                        ("bproj", bproj, (d,), True), ("ln_w", ln_w, (d,), True),
                                        ("ln_b", ln_b, (d,), True)):
         _build.require(p, name, shape, contiguous=contiguous)
-    wqkv_f, wproj_f = band_weights(wqkv, wproj)
+    x = stacked
+    if (dk, hdp) == (d, d // num_heads):
+        (wqkv_f, wproj_f), params = band_weights(wqkv, wproj), (bqkv, bproj, ln_w, ln_b)
+    else:   # zero-padded to the kernel's steps; LN and the scale keep the real widths
+        wqkv_f, bq, wproj_f, bp, lw, lb = _padded_params(wqkv, bqkv, wproj, bproj, ln_w,
+                                                         ln_b, num_heads, dk, hdp)
+        params = (bq, bp, lw, lb)
+        x = torch.nn.functional.pad(stacked, (0, dk - d)).contiguous()
     lib = _build.library()
-    out = torch.empty_like(stacked)
+    out = torch.empty_like(x)
     with torch.cuda.device(stacked.device):
-        err = lib.band_mha(stacked.data_ptr(), wqkv_f.data_ptr(), bqkv.data_ptr(),
-                           wproj_f.data_ptr(), bproj.data_ptr(), ln_w.data_ptr(),
-                           ln_b.data_ptr(), out.data_ptr(), b * h * w, t, d, num_heads,
+        err = lib.band_mha(x.data_ptr(), wqkv_f.data_ptr(), params[0].data_ptr(),
+                           wproj_f.data_ptr(), params[1].data_ptr(), params[2].data_ptr(),
+                           params[3].data_ptr(), out.data_ptr(), b * h * w, t, dk, d,
+                           num_heads, hdp, (d // num_heads) ** -0.5,
                            _build.stream_ptr(stacked.device))
     _build.check(err, "band_mha")
     launches["fused_band_mha"] += 1
-    return out
+    return out if dk == d else out[..., :d].contiguous()

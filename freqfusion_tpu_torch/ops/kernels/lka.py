@@ -10,10 +10,11 @@ the next stage runs (three ``padding=`` convs in torch). x [B,H,W,C] NHWC f32; w
 wh [21,C] taps along W; wv [21,C] taps along H; wp [C,C] applied as ``a @ wp``; scale and
 shift [C], the eval-mode BatchNorm folded into an affine.
 
-On a CUDA tensor the wrapper launches the kernels from ``csrc/lka.cu`` or raises; on a CPU
-tensor it runs the plain PyTorch version. The kernels take any batch and any C % 4 == 0 up
-to 384. They are split at the two intermediates (after the 5x5, after the 1x21), which go
-through device memory: 16 bytes an element more than one read of x and one write of out.
+On a CUDA tensor the wrapper launches the two kernels of ``csrc/lka.cu`` or raises; on a CPU
+tensor it runs the plain PyTorch version. The first kernel runs the three depthwise convs in
+one pass and writes `a` once; the second runs the 1x1 product f32-exact on the tensor cores
+(3xTF32, wp split once for each weight by ``_mma.planes``) with the BatchNorm, the sigmoid
+and the gate in its epilogue. They take any batch and any C up to MAX_C.
 """
 
 from __future__ import annotations
@@ -21,12 +22,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _mma
 
 #: Kernel launches since the last reset. Plain runs are not counted.
 launches = {"lka_gate": 0}
 
 K = 21
+#: Widest C of csrc/lka.cu: the 1x1 product stages 16 rows of `a` in each of two buffers.
+MAX_C = 1808
 
 
 def lka_gate_plain(x, w5, wh, wv, wp, scale, shift):
@@ -47,21 +50,22 @@ def lka_gate(x, w5, wh, wv, wp, scale, shift):
     if x.dim() != 4:
         raise ValueError(f"lka_gate: expected [B,H,W,C], got {tuple(x.shape)}")
     b, h, w, c = x.shape
-    if c % 4 or c > 384:
-        raise ValueError(f"lka_gate: C={c} must be a multiple of 4 up to 384")
+    if c > MAX_C:
+        raise ValueError(f"lka_gate: C={c}; the kernel takes C up to {MAX_C}")
     _build.require(x, "x")
     for name, t, shape in (("w5", w5, (5, 5, c)), ("wh", wh, (K, c)), ("wv", wv, (K, c)),
-                           ("wp", wp, (c, c)), ("scale", scale, (c,)), ("shift", shift, (c,))):
+                           ("scale", scale, (c,)), ("shift", shift, (c,))):
         _build.require(t, name, shape)
-    # the streamed product takes K in steps of 16 and N in steps of 64
-    kp, npad = -(-c // 16) * 16, -(-c // 64) * 64
-    wpp = F.pad(wp, (0, npad - c, 0, kp - c)).contiguous()
+    _build.require(wp, "wp", (c, c), contiguous=False)   # laid out anew: a view will do
+    # the product takes K in steps of 8 and N in a warp's tasks of 32 columns
+    kp, npad = -(-c // 8) * 8, -(-c // 32) * 32
+    wpp = _mma.planes(wp, kp, npad)
     lib = _build.library()
-    t2 = torch.empty_like(x)
-    out = torch.empty_like(x)   # holds the 5x5's output until the 1x21 has read it
+    a = torch.empty_like(x)
+    out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = lib.lka_gate(x.data_ptr(), w5.data_ptr(), wh.data_ptr(), wv.data_ptr(),
-                           wpp.data_ptr(), scale.data_ptr(), shift.data_ptr(), t2.data_ptr(),
+                           wpp.data_ptr(), scale.data_ptr(), shift.data_ptr(), a.data_ptr(),
                            out.data_ptr(), b, h, w, c, kp, npad, _build.stream_ptr(x.device))
     _build.check(err, "lka_gate")
     launches["lka_gate"] += 1

@@ -56,14 +56,19 @@ STAGE_A_MAX_C = 256
 
 
 def stage_a_planes(w1: torch.Tensor) -> torch.Tensor:
-    """w1 [C,2C] with its columns pass by pass (gate channels 32p.. 32p+31, then their
-    partners C+32p..) as tile_mma's B fragments, hi and lo (``_mma.mma_planes``):
-    [C/8, C/4, 32, 4], made once for each weight (``_mma.kept``)."""
+    """w1 [C,2C] zero-padded to [Cp,2Cp] (Cp = C rounded up to a pass's 32 gate channels;
+    gate channel j in column j, its partner C+j in Cp+j) with its columns pass by pass (gate
+    channels 32p.. 32p+31, then their partners Cp+32p..) as tile_mma's B fragments, hi and
+    lo (``_mma.mma_planes``): [Cp/8, Cp/4, 32, 4], made once for each weight
+    (``_mma.kept``)."""
     c = w1.shape[0]
+    cp = -(-c // STAGE_A_PASS) * STAGE_A_PASS
 
     def make():
-        cols = w1.reshape(c, 2, c // STAGE_A_PASS, STAGE_A_PASS).permute(0, 2, 1, 3)
-        return _mma.mma_planes(cols.reshape(c, 2 * c))
+        wp = w1.new_zeros(cp, 2, cp)
+        wp[:c, :, :c] = w1.reshape(c, 2, c)
+        cols = wp.reshape(cp, 2, cp // STAGE_A_PASS, STAGE_A_PASS).permute(0, 2, 1, 3)
+        return _mma.mma_planes(cols.reshape(cp, 2 * cp))
 
     return _mma.kept(("naf_stage_a",), make, w1)
 
@@ -88,8 +93,8 @@ def naf_block_stage_a(x, ln_w, ln_b, w1, b1, wdw, bdw):
     if x.device.type == "cpu":
         return naf_block_stage_a_plain(x, ln_w, ln_b, w1, b1, wdw, bdw)
     b, h, w, c = x.shape
-    if c % 64:
-        raise ValueError(f"naf_block_stage_a: C={c} is not a multiple of 64")
+    if c % 4:
+        raise ValueError(f"naf_block_stage_a: C={c} is not a multiple of 4")
     if c > STAGE_A_MAX_C:
         raise ValueError(f"naf_block_stage_a: C={c}; the kernel takes C up to {STAGE_A_MAX_C} "
                          "(it stages the halo's LN(x) whole)")
@@ -120,17 +125,18 @@ def naf_block_stage_a(x, ln_w, ln_b, w1, b1, wdw, bdw):
 
 def naf_block_stage_b(g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4, w5, b5, gamma, *,
                       on_chip: bool = True):
-    """Kernel B2 on CUDA, its plain version on the CPU. At C = 64 the kernel keeps y and the
-    hidden in shared memory; on_chip=False sends them through device memory there too, as
-    the wider levels always do (to time and test the two designs against each other)."""
+    """Kernel B2 on CUDA, its plain version on the CPU; any C that is a multiple of 8. At
+    C = 64 the kernel keeps y and the hidden in shared memory; on_chip=False sends them
+    through device memory there too, as the other widths always do (to time and test the two
+    designs against each other)."""
     _build.require_no_grad("naf_block_stage_b", g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4,
                            w5, b5, gamma)
     if g.device.type == "cpu":
         return naf_block_stage_b_plain(g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4,
                                        w5, b5, gamma)
     b, h, w, c = g.shape
-    if c % 64:
-        raise ValueError(f"naf_block_stage_b: C={c} is not a multiple of 64")
+    if c % 8:
+        raise ValueError(f"naf_block_stage_b: C={c} is not a multiple of 8")
     _build.require(g, "g")
     _build.require(x, "x", g.shape)
     _build.require(att, "att", (b, c))
@@ -144,9 +150,9 @@ def naf_block_stage_b(g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4, w5, b5, gam
     w3p, w4p, w5p = stage_b_planes(w3, w4, w5)
     lib = _build.library()
     out = torch.empty_like(g)
-    # scratch: the hidden where it does not stay on chip (C > 64, or not on_chip), the
+    # scratch: the hidden where it does not stay on chip (C != 64, or not on_chip), the
     # products' partial sums where K comes in pieces (C > MAX_ROW_K)
-    hid = torch.empty_like(g) if c > 64 or not on_chip else None
+    hid = torch.empty_like(g) if c != 64 or not on_chip else None
     part = (torch.empty((b, h, w, 2 * c), device=g.device, dtype=torch.float32)
             if c > _mma.MAX_ROW_K else None)
     with torch.cuda.device(g.device):

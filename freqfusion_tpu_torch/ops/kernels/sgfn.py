@@ -69,9 +69,6 @@ def _sgfn_launchers(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw, w2, b
     if c % 4 or half % 4 or 2 * half != hid:
         raise ValueError(f"fused_sgfn_tail: C={c} and hidden/2={hid / 2} must be multiples "
                          "of 4")
-    if half > 384:
-        raise ValueError(f"fused_sgfn_tail: hidden/2={half}; the kernel takes hidden/2 up to "
-                         "384 (its LN_sg holds a hidden row in a warp's registers)")
     _build.require(a, "a")
     _build.require(shortcut, "shortcut", a.shape)
     for name, t, shape in (("ln_w", ln_w, (c,)), ("ln_b", ln_b, (c,)),

@@ -8,13 +8,15 @@ Twins of ``freqfusion_tpu/ops/pallas/wattn.py``'s ``fused_window_attention_xqkv`
 ``fused_residual_ln_mlp`` and ``fused_window_attention``. On a CUDA tensor a wrapper
 launches its kernels (``csrc/wattn.cu``, ``csrc/hab_attention.cu``, ``csrc/oca.cu``,
 ``csrc/hat_rows.cu``) or raises; on a CPU tensor it runs the plain PyTorch version. There is
-no fallback from one to the other. B4's and B8's attention (one kernel), B9's attention and
-every row product (B8's tail, B9's projection, B10, B14's projections) run f32-exact on the
-tensor cores (3xTF32); the row products' weights are zero-padded to multiples of 8, the
-MMA's k and n, and split into TF32 hi and lo parts on the host once for each weight
-(``_mma.planes``), and the attention's per-head slabs are made once too (``head_slabs``).
-Dense weights come as [in,out] matrices of x @ w, as in the JAX package; every LayerNorm
-uses eps 1e-5.
+no fallback from one to the other. Every product runs f32-exact on the tensor cores
+(3xTF32): B4's and B8's attention (one kernel, windows of 64 to 256 tokens with heads up to
+32 wide: ``xqkv_takes``), B13's and B9's attention (one key-streaming loop,
+``csrc/flash_f32x3.cuh``: any window, any number of keys, any head width) and every row
+product (B8's tail, B9's projection, B10, B14's projections); the row products' weights are
+zero-padded to multiples of 8, the MMA's k and n, and split into TF32 hi and lo parts on the
+host once for each weight (``_mma.planes``), and the attention's per-head slabs are made
+once too (``head_slabs``). Dense weights come as [in,out] matrices of x @ w, as in the JAX
+package; every LayerNorm uses eps 1e-5.
 
 B4's layouts (NHWC, f32): x [B,H,W,Cin]; wqkv [Cin, 3*co] and bqkv [3*co], one branch's
 q, k, v columns (co = num_heads * head_dim), or the whole projection with the branch's
@@ -42,15 +44,17 @@ launches = {"fused_window_attention_xqkv": 0, "fused_hab_block": 0,
             "fused_overlap_attention": 0, "fused_residual_ln_mlp": 0,
             "fused_window_attention_qkv": 0, "fused_window_attention": 0}
 
-#: What csrc/oca.cu takes: at most 576 keys (a 16-px window grown to 24 px) per window.
-MAX_OCA_KEYS = 576
-
-#: What csrc/wattn.cu takes: windows of 64, 128, 192 or 256 tokens, heads up to 32 wide.
+#: What csrc/hab_attention.cu (B4, B8's attention) takes: windows of 64, 128, 192 or 256
+#: tokens, heads up to 32 wide. B13, B14 and B9 (csrc/flash_f32x3.cuh) take any.
 MAX_TOKENS = 256
 MAX_HEAD_DIM = 32
-#: What csrc/wattn.cu's pre-projected kernel takes: windows of any size up to 576 tokens.
-MAX_QKV_TOKENS = 576
 _SLOT = 32               # columns of one head's q, k or v in the padded weight
+
+
+def xqkv_takes(tokens: int, head_dim: int) -> bool:
+    """Whether B4 and B8's attention kernel takes windows of `tokens` tokens with heads
+    `head_dim` wide. A model sends what it refuses to B13 (DAT) or B14 (HAT)."""
+    return tokens % 64 == 0 and 0 < tokens <= MAX_TOKENS and 0 < head_dim <= MAX_HEAD_DIM
 
 
 def mask_types(mask, n_wr: int, n_wc: int, device) -> torch.Tensor:
@@ -126,19 +130,15 @@ def _check_qkv_shape(name, h, w, c, window, num_heads):
     hs, ws = window
     if h % hs or w % ws:
         raise ValueError(f"{name}: {h}x{w} is not a multiple of the {hs}x{ws} window")
-    if hs * ws > MAX_QKV_TOKENS:
-        raise ValueError(f"{name}: {hs * ws} tokens per window; the kernel takes up to "
-                         f"{MAX_QKV_TOKENS}")
-    if c % num_heads or c // num_heads > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: C={c} over {num_heads} heads; the kernel takes whole "
-                         f"heads up to {MAX_HEAD_DIM} wide")
+    if num_heads < 1 or c % num_heads:
+        raise ValueError(f"{name}: C={c} does not split into {num_heads} whole heads")
 
 
 def fused_window_attention_qkv(q, k, v, bias, mask, window, num_heads):
     """Kernel B13 on CUDA, its plain version on the CPU: multi-head attention inside
     (hs, ws) windows of pre-projected q, k, v [B,H,W,C], already zero-padded to whole
-    windows and already rolled in a shifted block. A zero-padded key is not masked: it
-    scores its bias and takes part in the softmax. Returns [B,H,W,C]."""
+    windows and already rolled in a shifted block; any window and head width. A zero-padded
+    key is not masked: it scores its bias and takes part in the softmax. Returns [B,H,W,C]."""
     name = "fused_window_attention_qkv"
     _build.require_no_grad(name, q, k, v, bias)
     if q.device.type == "cpu":
@@ -271,12 +271,10 @@ def fused_window_attention_xqkv(x, wqkv, bqkv, bias, mask, window, num_heads, co
     hd = co // num_heads
     if h % hs or w % ws:
         raise ValueError(f"{name}: {h}x{w} is not a multiple of the {hs}x{ws} window")
-    if n % 64 or n > MAX_TOKENS:
-        raise ValueError(f"{name}: {n} tokens per window; the kernel takes multiples of 64 up "
-                         f"to {MAX_TOKENS}")
-    if hd * num_heads != co or hd > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: {co} columns over {num_heads} heads; the kernel takes "
-                         f"whole heads up to {MAX_HEAD_DIM} wide")
+    if hd * num_heads != co or not xqkv_takes(n, hd):
+        raise ValueError(f"{name}: {n} tokens per window, {co} columns over {num_heads} heads; "
+                         f"the kernel takes multiples of 64 tokens up to {MAX_TOKENS} and "
+                         f"whole heads up to {MAX_HEAD_DIM} wide (B13 takes the rest)")
     if cin % 4:
         raise ValueError(f"{name}: Cin={cin} is not a multiple of 4")
     _build.require(x, "x")
@@ -386,12 +384,11 @@ def _hab_block_launchers(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wpro
     if wsh != wsw or h % wsh or w % wsw:
         raise ValueError(f"fused_hab_block: {h}x{w} is not a multiple of a square window, "
                          f"got {wsh}x{wsw}")
-    if n % 64 or n > MAX_TOKENS:
-        raise ValueError(f"fused_hab_block: {n} tokens per window; the kernel takes "
-                         f"multiples of 64 up to {MAX_TOKENS}")
-    if hd * num_heads != c or hd > MAX_HEAD_DIM or c % 4:
-        raise ValueError(f"fused_hab_block: C={c} over {num_heads} heads; the kernel takes "
-                         f"whole heads up to {MAX_HEAD_DIM} wide and C a multiple of 4")
+    if hd * num_heads != c or not xqkv_takes(n, hd) or c % 4:
+        raise ValueError(f"fused_hab_block: {n} tokens per window, C={c} over {num_heads} "
+                         f"heads; the kernel takes multiples of 64 tokens up to {MAX_TOKENS}, "
+                         f"whole heads up to {MAX_HEAD_DIM} wide and C a multiple of 4 (B14 "
+                         "takes the rest)")
     _build.require(x, "x")
     _build.require(conv_x, "conv_x", x.shape)
     for name, t, shape in (("ln1_w", ln1_w, (c,)), ("ln1_b", ln1_b, (c,)),
@@ -478,13 +475,12 @@ def _overlap_launchers(q, k, v, wproj, bproj, bias, window, overlap, num_heads):
     if h % window or w % window:
         raise ValueError(f"fused_overlap_attention: {h}x{w} is not a multiple of the "
                          f"{window}-px window")
-    if overlap % 2 or nq % 4 or nk > MAX_OCA_KEYS or nk < 32:
+    if overlap % 2 or overlap < 0:
         raise ValueError(f"fused_overlap_attention: window {window} with overlap {overlap}; "
-                         f"the kernel takes an even overlap, window^2 a multiple of 4 and "
-                         f"32 to {MAX_OCA_KEYS} keys")
-    if hd * num_heads != c or hd > MAX_HEAD_DIM or c % 4:
+                         f"the kernel takes an even overlap")
+    if hd * num_heads != c or c % 4:
         raise ValueError(f"fused_overlap_attention: C={c} over {num_heads} heads; the kernel "
-                         f"takes whole heads up to {MAX_HEAD_DIM} wide and C a multiple of 4")
+                         f"takes whole heads and C a multiple of 4")
     _build.require(q, "q")
     _build.require(k, "k", q.shape)
     _build.require(v, "v", q.shape)

@@ -1,6 +1,7 @@
-"""Times the wrappers of B1, B2, B4, B5a, B5b, B6, B8 (and B8's attention alone), B10 and B11
-at the shapes the serving path gives them, so that two checkouts can be compared on one card
-in one call.
+"""Times the wrappers of B1, B2, B4, B5a, B5b, B6, B8 (and B8's attention alone), B9 (and its
+attention alone), B10, B11, B12, B13 and B14 at the shapes the serving path gives them (B13 and
+B14 at the shapes of PERF.md's table), so that two checkouts can be compared on one card in
+one call.
 
     python -m freqfusion_tpu_torch.tools.time_kernels      # from a checkout's root; a card
 
@@ -23,7 +24,7 @@ import subprocess
 import torch
 
 from ..ops import windows
-from ..ops.kernels import aim, bandmha, nafblock, sgfn, wattn
+from ..ops.kernels import aim, bandmha, lka, nafblock, sgfn, wattn
 
 # NAF's three fused levels at the 512x352 bucket, a ragged image and a chunk of two tiles
 B1_SHAPES = {"c64": (1, 1408, 2048, 64), "c128": (1, 704, 1024, 128),
@@ -144,6 +145,40 @@ def main() -> None:
             attention, _, _ = wattn._hab_block_launchers(*h_args, mask, (16, 16), 6, 0.01,
                                                          **kw)
             out[f"b8_attention{case}"] = cuda_ms(attention)
+        del h_args
+        # B9 at the bucket: 256 queries against 576 keys a window, 6 heads of 30
+        o_args = (x, r(1, 352, 512, c), r(1, 352, 512, c), r(c, c, std=c ** -0.5),
+                  r(c, std=0.1), r(6, 256, 576, std=0.5))
+        out["b9"] = cuda_ms(lambda: wattn.fused_overlap_attention(*o_args, 16, 8, 6))
+        attention, _, _ = wattn._overlap_launchers(*o_args, 16, 8, 6)
+        out["b9_attention"] = cuda_ms(attention)
+        del o_args
+        # B13 at DAT's branch (90 channels, 3 heads of 30) and B14 at HAT-L's width
+        for name, (b, h, w, hs, ws) in (("", (1, 352, 512, 8, 32)),
+                                        ("_chunk", (2, 192, 192, 32, 8))):
+            qkv = [r(b, h, w, 90) for _ in range(3)]
+            for shifted in (False, True):
+                mask = (torch.from_numpy(windows.shift_mask_types(hs, ws, hs // 2, ws // 2)
+                                         .copy()).cuda() if shifted else None)
+                args = (*qkv, r(3, hs * ws, hs * ws, std=0.5), mask, (hs, ws), 3)
+                out[f"b13{name}{'_shift' if shifted else ''}"] = cuda_ms(
+                    lambda: wattn.fused_window_attention_qkv(*args))
+            del qkv
+        types = torch.from_numpy(windows.shift_mask_types(16, 16, 8, 8).copy()).cuda()
+        w_args = (x, r(c, 3 * c, std=c ** -0.5), r(3 * c, std=0.1), r(c, c, std=c ** -0.5),
+                  r(c, std=0.1), r(6, 256, 256, std=0.5))
+        for case, mask in (("", None), ("_shift", types)):
+            out[f"b14{case}"] = cuda_ms(
+                lambda: wattn.fused_window_attention(*w_args, mask, (16, 16), 6))
+        del w_args, x
+        # B12 at the head's 9 bands folded into the batch, and at the collaborative C = 128
+        for name, (b, cc) in (("", (9, 64)), ("_c128", (3, 128))):
+            l_args = (r(b, 352, 512, cc), r(5, 5, cc, std=0.2), r(21, cc, std=0.2),
+                      r(21, cc, std=0.2), r(cc, cc, std=cc ** -0.5), r(cc, std=0.2, mean=1.0),
+                      r(cc, std=0.1))
+            out[f"b12{name}"] = cuda_ms(lambda: lka.lka_gate(*l_args))
+            dev[f"b12{name}"] = device_ms(lambda: lka.lka_gate(*l_args))
+            del l_args
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]

@@ -245,9 +245,9 @@ def test_hab_gate_picks_the_fused_block_or_the_standalone_attention(window, h, w
     runs the block in torch around the standalone window attention's wrapper, which takes
     any window (nothing raises for a shape any more); either way `kernels = False` takes
     the plain version."""
-    assert that.hab_is_fused(window, h, w) == fused
+    assert that.hab_is_fused(window, h, w, 4) == fused   # the block below: heads of 4
     hs, ws = 2 * window, window   # a small image of the same gate: parity follows the window
-    assert that.hab_is_fused(window, hs, ws) == fused
+    assert that.hab_is_fused(window, hs, ws, 4) == fused
     calls = []
     for name in ("fused_hab_block", "fused_window_attention", "fused_window_attention_plain"):
         monkeypatch.setattr(that, name, lambda *a, _n=name, _f=getattr(that, name), **k: (

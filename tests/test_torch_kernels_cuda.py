@@ -41,7 +41,9 @@ def _block_params(c, gen):
 
 @pytest.mark.parametrize("b,h,w,c", [(2, 37, 45, 64), (1, 24, 32, 128), (1, 12, 20, 256),
                                      (2, 33, 29, 128), (1, 37, 45, 256), (1, 16, 14, 64),
-                                     (1, 190, 200, 64), (2, 131, 139, 128)])
+                                     (1, 190, 200, 64), (2, 131, 139, 128), (2, 37, 45, 32),
+                                     (1, 64, 80, 48), (1, 190, 200, 32), (1, 24, 32, 16),
+                                     (1, 20, 22, 96), (1, 12, 20, 160)])
 def test_fused_naf_block_kernel_matches_plain(gen, b, h, w, c):
     """B1 (stage A on the tensor cores) and B2 at NAF's three fused widths: ragged images whose
     tiles end inside and at the image's edge, with 6 x 14 outputs a block (C = 256, or an
@@ -153,8 +155,9 @@ def test_sgfn_tail_is_f32_exact(gen):
 
 
 def test_overlap_attention_is_f32_exact(gen):
-    """B9 at HAT-L's width over all 576 keys of each 16 x 16 window, q and k scaled x2 (peaked
-    scores), v and the projection x100."""
+    """B9 at HAT-L's width over all 576 keys of each 16 x 16 window (18 chunks of 32 keys
+    through the online softmax), q and k scaled x2 (peaked scores), v and the projection
+    x100."""
     args = (2 * _r(gen, 1, 32, 48, 180), 2 * _r(gen, 1, 32, 48, 180), 100 * _r(gen, 1, 32, 48, 180),
             100 * _r(gen, 180, 180, std=180 ** -0.5), _r(gen, 180, std=0.1),
             _r(gen, 6, 256, 576, std=0.5))
@@ -190,7 +193,23 @@ def test_window_attention_xqkv_is_f32_exact(gen):
                _tf32(wattn.fused_window_attention_xqkv_plain, *args))
 
 
-@pytest.mark.parametrize("c,hw", [(64, (20, 30)), (64, (190, 200)), (256, (20, 30))])
+@pytest.mark.parametrize("hs,ws,c,heads", [(8, 32, 90, 3), (24, 24, 96, 1)])
+def test_window_attention_qkv_is_f32_exact(gen, hs, ws, c, heads):
+    """B13 at DAT's branch (3 heads of 30, 8 x 32 windows, shifted) and at 576 tokens with a
+    head of 96 (q from shared memory, the output in three pieces), q and k scaled x2 (peaked
+    scores) and v x100."""
+    h, w = 2 * hs, 2 * ws
+    types = torch.from_numpy(windows.shift_mask_types(hs, ws, hs // 2, ws // 2).copy()).cuda()
+    args = (2 * _r(gen, 1, h, w, c), 2 * _r(gen, 1, h, w, c), 100 * _r(gen, 1, h, w, c),
+            _r(gen, heads, hs * ws, hs * ws, std=0.5), types, (hs, ws), heads)
+    ref = wattn.fused_window_attention_qkv_plain(*[a.double() for a in args[:4]], *args[4:])
+    _exactness(wattn.fused_window_attention_qkv(*args),
+               wattn.fused_window_attention_qkv_plain(*args), ref,
+               _tf32(wattn.fused_window_attention_qkv_plain, *args))
+
+
+@pytest.mark.parametrize("c,hw", [(64, (20, 30)), (64, (190, 200)), (256, (20, 30)),
+                                  (48, (37, 45))])
 def test_naf_stage_a_is_f32_exact(gen, c, hw):
     """B1's g on its 6 x 14 tile (K in 2 and 8 chunks) and on the 14 x 14 tile of an image
     that fills the card (K in one chunk a pass), w1 scaled x100."""
@@ -202,7 +221,8 @@ def test_naf_stage_a_is_f32_exact(gen, c, hw):
                ref, _tf32(nafblock.naf_block_stage_a_plain, *args)[0])
 
 
-@pytest.mark.parametrize("c,hw", [(64, (37, 45)), (128, (19, 23)), (256, (13, 17))])
+@pytest.mark.parametrize("c,hw", [(64, (37, 45)), (128, (19, 23)), (256, (13, 17)),
+                                  (32, (37, 45))])
 def test_naf_stage_b_is_f32_exact(gen, c, hw):
     """B2 on chip (C = 64) and through device memory (128; 256 with K in two pieces), on
     pixel counts that end inside a 128-row tile, w3 and w5 scaled x100."""
@@ -314,11 +334,15 @@ def test_window_attention_xqkv_takes_a_branch_of_the_whole_projection(gen):
     (2, 30, 45, 15, 15, 180, 6, True), (1, 27, 18, 9, 9, 24, 4, True),
     (2, 48, 24, 24, 24, 64, 2, True), (1, 16, 16, 8, 8, 32, 1, False),
     (2, 14, 21, 7, 7, 8, 2, True), (2, 8, 16, 4, 8, 32, 2, True),
-    (1, 8, 12, 4, 4, 48, 4, True), (2, 3, 5, 1, 1, 8, 2, False)])
+    (1, 8, 12, 4, 4, 48, 4, True), (2, 3, 5, 1, 1, 8, 2, False),
+    (1, 32, 32, 32, 32, 24, 4, False), (1, 24, 48, 12, 12, 96, 2, True),
+    (1, 24, 48, 6, 24, 96, 2, True), (1, 16, 32, 16, 16, 128, 2, False),
+    (1, 16, 16, 8, 8, 192, 2, True), (2, 15, 10, 5, 5, 90, 2, True)])
 def test_window_attention_qkv_kernel_matches_plain(gen, b, h, w, hs, ws, c, heads, with_mask):
     """B13 at DAT's tile shape, at windows whose token count is no multiple of 32 (225, 81,
-    49), above 256 tokens (576), under 64 (32, 16 and a single token) and at batch 2, with
-    the mask types taken from each window's place."""
+    49, 25), above 256 tokens (576, 1024), at 144 (HAT's window 12, DAT's split (6, 24)),
+    under 64 (32, 16 and a single token), at heads of 45, 48, 64 and 96 and at batch 2,
+    with the mask types taken from each window's place."""
     n = hs * ws
     q, k, v = (_r(gen, b, h, w, c) for _ in range(3))
     bias = _r(gen, heads, n, n, std=0.5)
@@ -333,11 +357,12 @@ def test_window_attention_qkv_kernel_matches_plain(gen, b, h, w, hs, ws, c, head
 @pytest.mark.parametrize("b,h,w,ws,c,heads,with_mask", [
     (1, 45, 45, 15, 180, 6, True), (2, 30, 45, 15, 180, 6, False), (2, 27, 9, 9, 24, 4, True),
     (1, 32, 48, 16, 180, 6, True), (1, 48, 24, 24, 48, 2, False), (3, 8, 16, 8, 20, 2, True),
-    (1, 8, 12, 4, 48, 4, True), (2, 6, 4, 2, 8, 2, False)])
+    (1, 8, 12, 4, 48, 4, True), (2, 6, 4, 2, 8, 2, False), (1, 24, 48, 12, 96, 2, True),
+    (1, 32, 32, 16, 192, 3, True)])
 def test_window_attention_kernel_matches_plain(gen, b, h, w, ws, c, heads, with_mask):
     """B14 at HAT-L's width with an odd window (odd H and W, 225 tokens), at window 9, at
-    the served window 16, at 576 tokens, at windows under 8 px (4 and 2) and at batch 2 and
-    3."""
+    the served window 16, at 576 tokens, at windows under 8 px (4 and 2), at window 12 with
+    heads of 48 and window 16 with heads of 64 (what B8 refuses), and at batch 2 and 3."""
     n = ws * ws
     args = (_r(gen, b, h, w, c), _r(gen, c, 3 * c, std=c ** -0.5), _r(gen, 3 * c, std=0.1),
             _r(gen, c, c, std=c ** -0.5), _r(gen, c, std=0.1), _r(gen, heads, n, n, std=0.5),
@@ -353,8 +378,6 @@ def test_window_attention_kernel_matches_plain(gen, b, h, w, ws, c, heads, with_
 
 def test_window_attention_wrappers_raise_on_what_the_kernel_does_not_take(gen):
     q = _r(gen, 1, 32, 32, 24)
-    with pytest.raises(ValueError, match="tokens per window"):   # 1024 tokens
-        wattn.fused_window_attention_qkv(q, q, q, _r(gen, 4, 1024, 1024), None, (32, 32), 4)
     with pytest.raises(ValueError, match="multiple of the 8x32 window"):
         wattn.fused_window_attention_qkv(q[:, :30].contiguous(), q[:, :30].contiguous(),
                                          q[:, :30].contiguous(), _r(gen, 4, 256, 256), None,
@@ -380,8 +403,9 @@ def test_window_attention_wrappers_raise_on_what_the_kernel_does_not_take(gen):
 
 def test_dat_on_the_card_takes_the_kernel_its_shape_asks_for(gen):
     """A CUDA image of whole windows launches the in-kernel-qkv attention twice a spatial
-    block; one that is not, or whose windows hold fewer than 64 tokens, projects first, pads
-    and launches the pre-projected kernel. Each agrees with the plain path."""
+    block; one that is not, or whose windows hold fewer than 64 tokens or a count B4 does not
+    take (144), projects first, pads and launches the pre-projected kernel. Each agrees with
+    the plain path."""
     from freqfusion_tpu_torch.models.dat import DAT
     cfg = dict(embed_dim=64, depths=(2,), num_heads=(4,), expansion=2.0)
     model = DAT(split_size=(8, 8), **cfg).cuda().eval()
@@ -407,6 +431,9 @@ def test_dat_on_the_card_takes_the_kernel_its_shape_asks_for(gen):
     assert run(model, ragged) == ((2, 80, 108, 3), (0, 2))
     small = DAT(split_size=(4, 8), **cfg).cuda().eval()   # 32 tokens a window
     assert run(small, whole) == ((2, 64, 96, 3), (0, 2))
+    wide = DAT(split_size=(6, 24), **cfg).cuda().eval()  # 144 tokens: B4 refuses them
+    assert run(wide, torch.rand(1, 24, 48, 3, generator=gen, device="cuda")) == (
+        (1, 96, 192, 3), (0, 2))
 
 
 def _aim_params(gen, c, mid=None):
@@ -585,8 +612,11 @@ def test_fused_hab_block_kernel_matches_plain(gen, b, h, w, c, heads, window, mo
 
 @pytest.mark.parametrize("b,h,w,c,heads,window", [(2, 32, 48, 180, 6, 16), (1, 16, 16, 180, 6, 16),
                                                   (2, 16, 24, 24, 4, 8), (1, 8, 12, 8, 2, 4),
-                                                  (2, 192, 192, 180, 6, 16)])
+                                                  (2, 192, 192, 180, 6, 16),
+                                                  (1, 32, 32, 24, 4, 32), (1, 64, 32, 96, 2, 32),
+                                                  (1, 32, 48, 96, 2, 16)])
 def test_overlap_attention_kernel_matches_plain(gen, b, h, w, c, heads, window):
+    """B9 at HAT-L's width, small windows, HAT's window 32 (2304 keys) and heads of 48."""
     ov = window // 2
     args = (_r(gen, b, h, w, c), _r(gen, b, h, w, c), _r(gen, b, h, w, c),
             _r(gen, c, c, std=c ** -0.5), _r(gen, c, std=0.1),
@@ -647,6 +677,13 @@ def test_hat_on_the_card_takes_the_kernels_its_shape_asks_for(gen):
     small = HAT(window=4, **cfg).cuda().eval()
     assert run(small, torch.rand(1, 8, 12, 3, generator=gen, device="cuda")) == {
         "fused_window_attention": 4, "conv3x3_dense": 3}
+    # window 12 (144 tokens) and heads of 48: B8 refuses both, so every HAB runs B7, B14 and
+    # B10; the OCAB (window 12) is outside its gate
+    wide = HAT(window=12, embed_dim=96, depths=(2, 2), num_heads=(2, 2), squeeze=6,
+               num_feat=16).cuda().eval()
+    assert run(wide, torch.rand(1, 24, 36, 3, generator=gen, device="cuda")) == {
+        "cab_chain": 4, "fused_window_attention": 4, "fused_residual_ln_mlp": 4,
+        "conv3x3_dense": 3}
 
 
 def test_hat_wrappers_raise_on_what_the_kernels_do_not_take(gen):
@@ -664,9 +701,6 @@ def test_hat_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         wattn.fused_hab_block(args[0], args[1].cpu(), *args[2:], types, (8, 8), 4, 0.01)
     q = _r(gen, 1, 32, 32, 24)
-    with pytest.raises(ValueError, match="keys"):   # a 32-px window grown to 48 px: 2304 keys
-        wattn.fused_overlap_attention(q, q, q, _r(gen, 24, 24), _r(gen, 24),
-                                      _r(gen, 4, 1024, 2304), 32, 16, 4)
     with pytest.raises(ValueError, match="multiple of the"):
         wattn.fused_overlap_attention(q[:, :30].contiguous(), q[:, :30].contiguous(),
                                       q[:, :30].contiguous(), _r(gen, 24, 24), _r(gen, 24),
@@ -716,12 +750,18 @@ def test_row_kernels_compute_above_192_channels(gen, kernel, c):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("c,hidden", [(256, 776), (200, 800), (384, 1536)])
+def test_sgfn_tail_takes_hidden_rows_above_384(gen, c, hidden):
+    """B6's LN_sg above hidden/2 = 384, where a hidden row no longer fits a warp's registers:
+    its statistics first, then the row normalised in place."""
+    args = _sgfn_args(gen, 2, 9, 13, c, hidden)
+    torch.testing.assert_close(sgfn.fused_sgfn_tail(*args), sgfn.fused_sgfn_tail_plain(*args),
+                               atol=1e-4, rtol=0)
+
+
 def test_row_kernels_raise_above_their_limits(gen):
-    """What the row kernels still refuse, with a ValueError before any launch: B6's LN_sg
-    holds a hidden row of at most 384 in a warp's registers, B8's attention heads of at
-    most 32."""
-    with pytest.raises(ValueError, match="hidden/2 up to 384"):
-        sgfn.fused_sgfn_tail(*_sgfn_args(gen, 1, 4, 4, 256, 776))
+    """What the row kernels still refuse, with a ValueError before any launch: B8's
+    attention heads of at most 32 (a HAB sends wider ones to B14)."""
     with pytest.raises(ValueError, match="whole heads up to 32"):
         wattn.fused_hab_block(*_hab_args(gen, 1, 8, 8, 256, 4, 8, 512), None, (8, 8), 4, 0.01)
 
@@ -755,9 +795,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         conv3x3.conv3x3_dense(x.double(), w.double(), b.double())
     with pytest.raises(ValueError, match="contiguous"):
         conv3x3.conv3x3_dense(x.transpose(1, 2), w, b)
-    p = _block_params(16, gen)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        nafblock.fused_naf_block(torch.zeros(1, 8, 8, 16, device="cuda"), p)
+    p = _block_params(36, gen)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        nafblock.fused_naf_block(torch.zeros(1, 8, 8, 36, device="cuda"), p)
 
 
 def _mha_args(gen, b, h, w, t, d):
@@ -770,8 +810,14 @@ def _mha_args(gen, b, h, w, t, d):
     (2, 8, 16, 9, 64, 4), (1, 4, 8, 3, 32, 2), (2, 37, 45, 9, 64, 4), (1, 5, 7, 7, 48, 6),
     (1, 9, 9, 16, 64, 2), (1, 3, 3, 128, 16, 1), (1, 9, 9, 9, 96, 4), (1, 9, 9, 9, 128, 4),
     (1, 9, 9, 5, 128, 2), (1, 6, 7, 9, 64, 16), (1, 6, 7, 9, 64, 8), (1, 4, 5, 64, 128, 8),
-    (2, 11, 13, 3, 80, 5), (1, 13, 17, 9, 112, 4), (1, 5, 5, 9, 96, 2)])
+    (2, 11, 13, 3, 80, 5), (1, 13, 17, 9, 112, 4), (1, 5, 5, 9, 96, 2),
+    (1, 4, 4, 3, 144, 8), (1, 6, 7, 9, 144, 4), (1, 5, 6, 9, 256, 4), (1, 5, 6, 9, 192, 2),
+    (1, 4, 4, 3, 48, 8), (1, 5, 6, 9, 96, 1), (1, 2, 2, 65, 96, 4), (1, 3, 3, 33, 192, 4),
+    (1, 5, 6, 9, 100, 4), (1, 5, 6, 9, 6, 2), (1, 4, 5, 9, 384, 4)])
 def test_band_mha_kernel_matches_plain(gen, b, h, w, t, d, heads):
+    """B11 at the head's shape and at every width C11 listed: D above 128 (144, 192, 256,
+    384), heads of 6 (padded to 8), 96 and 192 wide, 65 tokens at D = 96, 33 at D = 192, and
+    D that is not a multiple of 16 (100 in heads of 25, 6 in heads of 3)."""
     args = _mha_args(gen, b, h, w, t, d)
     n0 = bandmha.launches["fused_band_mha"]
     torch.testing.assert_close(bandmha.fused_band_mha(*args, heads),
@@ -780,7 +826,8 @@ def test_band_mha_kernel_matches_plain(gen, b, h, w, t, d, heads):
 
 
 @pytest.mark.parametrize("b,h,w,t,d,heads", [(1, 352, 512, 9, 64, 4), (1, 32, 48, 9, 96, 4),
-                                             (1, 32, 48, 9, 128, 4), (1, 32, 48, 5, 128, 2)])
+                                             (1, 32, 48, 9, 128, 4), (1, 32, 48, 5, 128, 2),
+                                             (1, 16, 24, 9, 256, 4)])
 def test_band_mha_is_f32_exact(gen, b, h, w, t, d, heads):
     """B11 at the head's served shape and at wider tokens (weights resident in shared memory
     up to D = 64, read from device memory above), the output projection scaled x100."""
@@ -792,14 +839,12 @@ def test_band_mha_is_f32_exact(gen, b, h, w, t, d, heads):
 
 
 def test_band_mha_kernel_raises_on_what_it_does_not_take(gen):
-    args = _mha_args(gen, 1, 4, 4, 3, 144)
-    with pytest.raises(ValueError, match="multiple of 16 up to 128"):
-        bandmha.fused_band_mha(*args, 8)                       # D = 144
-    args = _mha_args(gen, 1, 4, 4, 3, 48)
-    with pytest.raises(ValueError, match="D/heads"):
-        bandmha.fused_band_mha(*args, 8)                       # heads of 6
+    with pytest.raises(ValueError, match="up to 384"):
+        bandmha.fused_band_mha(*_mha_args(gen, 1, 2, 2, 3, 400), 4)   # D = 400
     with pytest.raises(ValueError, match="T=65 outside"):
-        bandmha.fused_band_mha(*_mha_args(gen, 1, 2, 2, 65, 96), 4)   # 64-row groups above 64
+        bandmha.fused_band_mha(*_mha_args(gen, 1, 2, 2, 65, 128), 4)  # 64-row groups at 128
+    with pytest.raises(ValueError, match="whole number"):
+        bandmha.fused_band_mha(*_mha_args(gen, 1, 2, 2, 3, 48), 5)
     args = _mha_args(gen, 1, 4, 4, 3, 64)
     with pytest.raises(ValueError, match="contiguous"):
         bandmha.fused_band_mha(args[0].transpose(1, 2), *args[1:], 4)
@@ -816,8 +861,13 @@ def _lka_args(gen, b, h, w, c):
 
 @pytest.mark.parametrize("b,h,w,c", [
     (2, 24, 32, 64), (1, 21, 16, 32), (3, 16, 24, 128), (9, 12, 16, 64), (1, 10, 40, 64),
-    (2, 37, 45, 64), (1, 33, 40, 180), (1, 1, 1, 4), (1, 70, 5, 20)])
+    (2, 37, 45, 64), (1, 33, 40, 180), (1, 1, 1, 4), (1, 70, 5, 20), (1, 20, 30, 6),
+    (2, 19, 47, 130), (1, 23, 29, 400), (1, 3, 5, 7), (2, 130, 100, 64), (1, 9, 11, 1000),
+    (1, 5, 6, 1808)])
 def test_lka_gate_kernel_matches_plain(gen, b, h, w, c):
+    """B12 at the head's width, ragged and tiny images (the chain's segments and strips end
+    inside them), and at any C: 6, 7, 130, 180, 400, 1000 (tiles of 16 rows) and 1808 (x
+    read from device memory in the product's epilogue)."""
     args = _lka_args(gen, b, h, w, c)
     n0 = lka.launches["lka_gate"]
     torch.testing.assert_close(lka.lka_gate(*args), lka.lka_gate_plain(*args),
@@ -825,9 +875,19 @@ def test_lka_gate_kernel_matches_plain(gen, b, h, w, c):
     assert lka.launches["lka_gate"] == n0 + 1
 
 
+def test_lka_gate_is_f32_exact(gen):
+    """B12's 1x1 product on the tensor cores at the head's width, wp scaled x100."""
+    args = list(_lka_args(gen, 2, 40, 56, 64))
+    args[4] = 100 * args[4]
+    args[5] = 0.01 * args[5]   # keeps the gate off the sigmoid's flat ends
+    ref = lka.lka_gate_plain(*[a.double() for a in args])
+    _exactness(lka.lka_gate(*args), lka.lka_gate_plain(*args), ref,
+               _tf32(lka.lka_gate_plain, *args))
+
+
 def test_lka_gate_kernel_raises_on_what_it_does_not_take(gen):
-    with pytest.raises(ValueError, match="multiple of 4"):
-        lka.lka_gate(*_lka_args(gen, 1, 8, 8, 6))
+    with pytest.raises(ValueError, match="up to 1808"):
+        lka.lka_gate(*_lka_args(gen, 1, 2, 2, 1816))
     args = _lka_args(gen, 1, 8, 8, 16)
     with pytest.raises(ValueError, match="contiguous"):
         lka.lka_gate(args[0].transpose(1, 2), *args[1:])
