@@ -15,8 +15,9 @@ Phases, each printing JSON lines; any failure raises and the exit code is not 0:
      that the JAX kernels take and the card once refused (`repair` lines: B1 and B2 at
      C = 32 and 48, B6 at hidden/2 = 400, B9 at window 32, B11 at D = 144 and 256, heads of
      96 and 65 tokens, B12 at C = 6, 130 and 400, B13 at 144 and 576 tokens and heads of 48
-     and 96, B14 at window 12 with heads of 48), each one launch of its kernel within the
-     kernel bound of its plain version;
+     and 96, B14 at window 12 with heads of 48; then B1 and B2 at C = 36, 44 and 100, B11 at
+     D = 400 and 512, 65 tokens at D = 128 and 129 at D = 64, B12 at C = 1816 and 2048),
+     each one launch of its kernel within the kernel bound of its plain version;
   4. NAF slice: NAFNetSR at its published width (random weights from a seed) serves three
      PNG requests through InferencePipeline's uint8 protocol; the forward is checked
      against the plain versions, every kernel must have been launched, and per-image
@@ -44,7 +45,14 @@ Phases, each printing JSON lines; any failure raises and the exit code is not 0:
      memory are printed;
   9. hat_odd: HAT at HAT-L's width with a 15-px window on a 225x225 image (2 groups of
      6 HAB + OCAB): every HAB fails the fused gate (odd H, W) and launches the standalone
-     window attention once, against the plain path.
+     window attention once, against the plain path;
+ 10. train: the training path at full width (train_slice): feature extraction with the
+     full ExpertEnsemble, cached training through cli/train.py (the head's train steps
+     launch no kernel, its validation forward B11 and B12), one cached step on the card
+     against the CPU and 20 steps whose loss must fall (ms a step, images a second, peak
+     memory), live training through cli/train.py (every expert kernel in every step, no
+     expert parameter changed), and the trained checkpoint served through infer.io.main
+     within 1 LSB of the model in memory.
 With --profile [dat|hat|ens|head|tiled] (or several, comma-separated: --profile hat,ens),
 one forward of each model named (DAT if none is named; `head` is the fusion head alone on
 fixed expert outputs, `tiled` one chunk of two 192-px tiles on the kernel path and on the
@@ -67,6 +75,7 @@ from statistics import fmean as mean
 import numpy as np
 import torch
 import torch.nn.functional as F
+from PIL import Image
 
 from freqfusion_tpu_torch.cli import test as cli_test
 from freqfusion_tpu_torch.infer.io import InferencePipeline, build_pipeline
@@ -937,7 +946,14 @@ REPAIR_CASES = [("naf_block", "c32", (1, 176, 256, 32)), ("naf_block", "c48", (1
                 ("fused_window_attention_qkv", "n144_hd48", (1, 48, 96, 12, 12, 96, 2)),
                 ("fused_window_attention_qkv", "n576_hd96", (1, 48, 96, 24, 24, 96, 1)),
                 ("fused_window_attention_qkv", "n256_hd64", (1, 64, 96, 16, 16, 128, 2)),
-                ("fused_window_attention", "win12_hd48", (1, 48, 72, 12, 96, 2))]
+                ("fused_window_attention", "win12_hd48", (1, 48, 72, 12, 96, 2)),
+                ("naf_block", "c36", (1, 64, 96, 36)), ("naf_block", "c44", (1, 64, 96, 44)),
+                ("naf_block", "c100", (1, 64, 96, 100)),
+                ("fused_band_mha", "d400", (1, 16, 24, 9, 400, 4)),
+                ("fused_band_mha", "d512", (1, 16, 24, 9, 512, 4)),
+                ("fused_band_mha", "t65_d128", (1, 8, 12, 65, 128, 4)),
+                ("fused_band_mha", "t129_d64", (1, 8, 12, 129, 64, 4)),
+                ("lka_gate", "c1816", (1, 32, 48, 1816)), ("lka_gate", "c2048", (1, 32, 48, 2048))]
 
 
 def repair_cases(gen: torch.Generator) -> None:
@@ -1669,6 +1685,380 @@ def hat_odd_slice(gen_cpu: torch.Generator) -> dict:
     return counts
 
 
+HEAD_KERNELS = ("fused_band_mha", "lka_gate")
+TRAIN_LR = 96          # the synthetic training frames' LR side (HR 384)
+TRAIN_PAIRS = 4        # training pairs (4 crops each at patch 64), and as many for validation
+
+
+def require_plain(tag: str, shape: list, pairs: dict) -> None:
+    """pairs: name -> (kernel run, plain run) of one forward; each finite and within
+    SLICE_RTOL of the plain run's largest magnitude."""
+    errs = {n: ((a - b).abs().max().item(), SLICE_RTOL * b.abs().max().item())
+            for n, (a, b) in pairs.items()}
+    finite = all(bool(torch.isfinite(a).all()) for a, _ in pairs.values())
+    emit(tag, input=shape, finite=finite, **{f"{n}_max_abs_err": e for n, (e, _) in errs.items()},
+         **{f"{n}_bound": b for n, (_, b) in errs.items()})
+    require(finite, f"{tag}: non-finite output")
+    for n, (e, bnd) in errs.items():
+        require(e <= bnd, f"{tag}: {n} error {e} > {bnd}")
+
+
+def write_pairs(root: str, n: int, split: str, seed: int) -> None:
+    """n smooth random HR frames of TRAIN_LR x 4 px and their 4x box-downsampled LR frames
+    under root/{split}_HR and root/{split}_LR (the layout find_split_dirs takes first)."""
+    rng = np.random.default_rng(seed)
+    side = 4 * TRAIN_LR
+    yy, xx = np.mgrid[0:side, 0:side] / side
+    for i in range(n):
+        img = np.zeros((side, side, 3))
+        for _ in range(6):
+            fy, fx, ph = rng.uniform(1, 20, 2).tolist() + [rng.uniform(0, 6.3)]
+            img += rng.uniform(0.05, 0.15, 3) * np.sin(fy * yy + fx * xx + ph)[..., None]
+        hr = np.clip(0.5 + img + 0.02 * rng.standard_normal(img.shape), 0, 1)
+        lr = hr.reshape(TRAIN_LR, 4, TRAIN_LR, 4, 3).mean(axis=(1, 3))
+        save_image(hr.astype(np.float32), os.path.join(root, f"{split}_HR", f"{i:04d}.png"))
+        save_image(lr.astype(np.float32), os.path.join(root, f"{split}_LR", f"{i:04d}x4.png"))
+
+
+def train_slice(per_forward: dict) -> dict:
+    """The training path on the card at full width (FusionConfig(), HAT-L, DAT, NAFNet-64,
+    the yaml's 64-px LR patches), f32 with TF32 off:
+      1. extraction: extract_cached_features with the full ExpertEnsemble (the ens phase's
+         seeded weights, from its .pth files) on 4 HR/LR pairs at LR 96x96, 4 crops an image
+         at patch 64 in batches of 8 (and 1 crop an image for validation): every expert
+         kernel as often as a forward launches it, each batch; then one batch of 8 crops
+         through the experts with kernels and with plain versions, every output and
+         feature map within SLICE_RTOL;
+      2. cached training through cli/train.py's `train` (the shipped yaml, --debug, batch
+         14, 2 epochs): the head's train steps launch no kernel, the one validation forward
+         (features passed: the collaborative branch runs) B11 once and B12 twice; a finite
+         loss, latest.ckpt and a best_*.ckpt; then the validation batch (padded to 14)
+         through the EMA head with kernels and with plain versions, the fused bands, the
+         collaborative outputs and the output within SLICE_RTOL;
+      3. a cached step on the card against the same step on the CPU and on the card in
+         float64 (fixed weights, a batch of 2, lr 1e-4, dropout off): loss and grad_norm
+         within 1e-4 relative; each leaf's gradient within the larger of 1e-4 of its
+         largest float64 value and 8x the CPU's float32 error there; every updated
+         parameter within 1e-5 but where |g64| is within that bound (AdamW's first step
+         is about lr * sign(g), and float32 does not settle the sign): those are counted
+         by leaf and held to 2 lr; then 20 steps on one batch of 14 at lr 1e-3, timed,
+         whose last loss must be below the first;
+      4. live training through `train` (--no-cached --debug, batch 2): every step launches
+         each expert kernel as a forward does, and so does each validation forward (no
+         features), which adds B11 and B12 once; no expert parameter changes, the head's do;
+      5. infer.io.main serves the three requests from step 2's checkpoint within 1 LSB of
+         the in-memory model with that checkpoint's EMA weights (what main serves)."""
+    import argparse
+    import shutil
+
+    from freqfusion_tpu_torch.cli import train as cli_train
+    from freqfusion_tpu_torch.data.dataset import find_split_dirs, list_image_paths, match_pairs
+    from freqfusion_tpu_torch.data.cached import CachedFeatureDataset, batch_iterator
+    from freqfusion_tpu_torch.data.extract import extract_cached_features
+    from freqfusion_tpu_torch.infer.io import load_expert_checkpoints
+    from freqfusion_tpu_torch.losses import CombinedLoss
+    from freqfusion_tpu_torch.models import layers
+    from freqfusion_tpu_torch.models.fusion import EXPERT_ORDER, FusionHead
+    from freqfusion_tpu_torch.parallel.mesh import shard_batch
+    from freqfusion_tpu_torch.training.steps import make_optimizer, make_train_step
+
+    t_phase = time.perf_counter()
+    root = os.path.join(OUT, "train")
+    shutil.rmtree(root, ignore_errors=True)
+    data, model_dir = os.path.join(root, "data"), os.path.join(root, "model_dir")
+    os.makedirs(model_dir)
+    os.symlink(os.path.join(OUT, "model_dir", "pretrained"), os.path.join(model_dir, "pretrained"))
+    write_pairs(data, TRAIN_PAIRS, "train", SEED)
+    write_pairs(data, TRAIN_PAIRS, "val", SEED + 1)
+    expert_forward = {k: n for k, n in per_forward.items() if k not in HEAD_KERNELS}
+    ref = FreqFusionSR()
+    load_expert_checkpoints(ref, model_dir)
+    ref = ref.cuda().eval()
+
+    # 1. extraction
+    def forward_batch(arr):
+        with torch.no_grad():
+            outs, feats = ref.experts(torch.from_numpy(arr).cuda())
+        return ({k: v.cpu().numpy() for k, v in outs.items()},
+                {k: v.cpu().numpy() for k, v in feats.items()})
+
+    def load_pair(lp, hp):
+        return load_image(str(lp)), load_image(str(hp))
+
+    reset_launches()
+    t0 = time.perf_counter()
+    written = {}
+    for split, crops in (("train", 4), ("val", 1)):
+        pairs = match_pairs(*map(list_image_paths, find_split_dirs(data, split)))
+        written[split] = extract_cached_features(pairs, load_pair, forward_batch,
+                                                 os.path.join(root, f"cache_{split}"), patch=64,
+                                                 crops_per_image=crops, batch=8, seed=SEED)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    extract_counts = {k: n for k, n in read_launches().items() if n}
+    batches = -(-written["train"] // 8) + -(-written["val"] // 8)
+    emit("train_extract", samples=written, batches=batches, seconds=extract_s,
+         launches=extract_counts)
+    require(written == {"train": 4 * TRAIN_PAIRS, "val": TRAIN_PAIRS}, f"extracted {written}")
+    require(extract_counts == {k: batches * n for k, n in expert_forward.items()},
+            f"extraction launches {extract_counts}, {batches} x {expert_forward} expected")
+    # one extraction batch (8 crops of 64x64) once more, the experts' kernels against their
+    # plain versions: every output and feature map (these launches are not the path's)
+    train_ds = CachedFeatureDataset(os.path.join(root, "cache_train"), augment=False)
+    x8 = torch.from_numpy(next(batch_iterator(train_ds, 8, shuffle=False))["lr"]).cuda()
+    with torch.inference_mode():
+        outs_k, feats_k = ref.experts(x8)
+        set_kernels(ref, False)
+        outs_p, feats_p = ref.experts(x8)
+        set_kernels(ref, True)
+    require_plain("train_extract_check", list(x8.shape),
+                  {f"{kind}_{n}": (a[n], b[n]) for kind, a, b in
+                   (("out", outs_k, outs_p), ("feat", feats_k, feats_p)) for n in b})
+    del x8, outs_k, feats_k, outs_p, feats_p
+
+    # 2. cached training through the CLI
+    args = argparse.Namespace(batch_size=None, epochs=None, data_root=None, cached=None,
+                              debug=True)
+    cfg = cli_train.load_config(os.path.join(ROOT, "configs", "train_config.yaml"), args)
+    ckpt_dir = os.path.join(model_dir, "checkpoints")
+    cfg["data"].update(batch_size=14, cached_train_dir=os.path.join(root, "cache_train"),
+                       cached_val_dir=os.path.join(root, "cache_val"))
+    cfg["train"].update(checkpoint_dir=ckpt_dir, log_dir=os.path.join(root, "logs"))
+    reset_launches()
+    t0 = time.perf_counter()
+    best = cli_train.train(cfg, "cuda")
+    torch.cuda.synchronize()
+    cached_s = time.perf_counter() - t0
+    cached_counts = {k: n for k, n in read_launches().items() if n}
+    names = sorted(os.listdir(ckpt_dir))
+    record = torch.load(os.path.join(ckpt_dir, "latest.ckpt"), map_location="cuda",
+                        weights_only=True)
+    with open(os.path.join(root, "logs", "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    emit("train_cached", batch=14, epochs=2, seconds=cached_s, launches=cached_counts,
+         best_psnr=best, checkpoints=names, step=record["step"])
+    # one validation forward (4 samples in a padded batch of 14), features passed
+    require(cached_counts == {"fused_band_mha": 1, "lka_gate": 2},
+            f"cached training launches {cached_counts}")
+    require("latest.ckpt" in names and any(n.startswith("best_") for n in names),
+            f"checkpoints {names}")
+    require(best is not None and np.isfinite(best), f"validation PSNR {best}")
+    # the validation batch (padded to 14, as `train` pads it) through the head with the EMA
+    # weights it validated, B11 and B12 against their plain versions: the three fused bands
+    # (band attention and the first LKA gate), the collaborative branch's outputs (the
+    # second) and the output
+    head_val = FusionHead().cuda().eval()
+    head_val.load_state_dict(record["model"])
+    with torch.no_grad():
+        for k, p in head_val.named_parameters():
+            p.copy_(record["ema_state"][k])
+    vb = next(batch_iterator(CachedFeatureDataset(cfg["data"]["cached_val_dir"],
+                                                  augment=False), 14, shuffle=False,
+                             drop_last=False))
+    vb = shard_batch(cli_train._pad_batch(vb, 14 - vb["lr"].shape[0]), torch.device("cuda"))
+    order = EXPERT_ORDER[:head_val.cfg.num_experts]
+
+    def head_stages():
+        bands = head_val.process_frequency_bands(vb["lr"])
+        enhanced = head_val.collaborative(vb["expert_features"],
+                                          [vb["expert_outputs"][n] for n in order])
+        return (torch.cat(bands, -1), torch.cat(enhanced, -1),
+                head_val(vb["lr"], vb["expert_outputs"], vb["expert_features"]))
+
+    with torch.inference_mode():
+        staged_k = head_stages()
+        set_kernels(head_val, False)
+        staged_p = head_stages()
+        set_kernels(head_val, True)
+    require_plain("train_val_check", list(vb["lr"].shape),
+                  {n: (a, b) for n, a, b in zip(("bands", "collaborative", "out"), staged_k,
+                                                staged_p)})
+    del head_val, vb, staged_k, staged_p
+
+    # 3. the step on the card against the CPU, then 20 steps on one batch
+    ds = CachedFeatureDataset(cfg["data"]["cached_train_dir"], augment=False)
+    weights = cfg["loss"]["stages"][2]["weights"]   # every loss of the recipe
+    gen_cpu = torch.Generator().manual_seed(SEED)
+    head_cpu = FusionHead()
+    randomize_head_(head_cpu, gen_cpu)
+    batch2 = next(batch_iterator(ds, 2, shuffle=False))
+    results = {}
+    lr_check = 1e-4
+    real_dropout = layers.dropout
+    layers.dropout = lambda x, p, training: x   # masks would differ between the devices
+    try:
+        for dev, dt in (("cuda", torch.float32), ("cpu", torch.float32),
+                        ("cuda", torch.float64)):
+            head = FusionHead().to(dev, dt)
+            head.load_state_dict(head_cpu.state_dict())
+            opt = make_optimizer(head, lambda n: lr_check, cfg["optim"]["weight_decay"],
+                                 cfg["optim"]["grad_clip"], 1)
+            step = make_train_step(head, CombinedLoss(weights), opt)
+            b = shard_batch(batch2, torch.device(dev))
+            m = step({k: ({n: t.to(dt) for n, t in v.items()} if isinstance(v, dict)
+                          else v.to(dt) if isinstance(v, torch.Tensor) else v)
+                      for k, v in b.items()})
+            results[(dev, dt)] = ({k: float(v) for k, v in m.items()},
+                                  {k: p.detach().double().cpu()
+                                   for k, p in head.named_parameters()},
+                                  {k: p.grad.double().cpu() for k, p in head.named_parameters()
+                                   if p.grad is not None})
+    finally:
+        layers.dropout = real_dropout
+    (mg, sg, gg), (mc, sc, gc), (_, _, g64) = results.values()
+    rel = {k: abs(mg[k] - mc[k]) / abs(mc[k]) for k in ("total", "grad_norm")}
+    # Each leaf's gradient on the card is held to the float64 one within the larger of
+    # 1e-4 of the leaf's largest and 8x the CPU's own float32 error on that leaf. AdamW's
+    # first step is about lr * sign(g): where |g64| lies within that bound, float32 does not
+    # settle the sign, and the two devices may step +-lr apart. Those elements are counted
+    # by leaf and held to 2 lr; every other updated element to 1e-5.
+    grad_worst, param_err, left_err, left = (0.0, ""), 0.0, 0.0, {}
+    for k in sc:
+        d = (sg[k] - sc[k]).abs()
+        if k not in g64:
+            param_err = max(param_err, d.max().item())
+            continue
+        ref_g = g64[k]
+        bound = max(1e-4 * ref_g.abs().max().item(), 8 * (gc[k] - ref_g).abs().max().item())
+        err = (gg[k] - ref_g).abs().max().item()
+        ratio = err / bound if bound > 0 else (0.0 if err == 0 else float("inf"))
+        grad_worst = max(grad_worst, (ratio, k))
+        settled = ref_g.abs() > bound
+        if settled.any():
+            param_err = max(param_err, d[settled].max().item())
+        if not settled.all():
+            left[k] = int((~settled).sum())
+            left_err = max(left_err, d[~settled].max().item())
+    head = FusionHead().cuda()
+    head.load_state_dict(head_cpu.state_dict())
+    opt = make_optimizer(head, lambda n: 1e-3, cfg["optim"]["weight_decay"],
+                         cfg["optim"]["grad_clip"], 1)
+    step = make_train_step(head, CombinedLoss(weights), opt)
+    batch14 = shard_batch(next(batch_iterator(ds, 14, shuffle=False)), torch.device("cuda"))
+    gen_drop = torch.Generator("cuda").manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(20):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step(batch14, gen_drop)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(m["total"]))
+    step_ms = mean(times[1:])
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    emit("train_step_check", loss_rel_err=rel["total"], grad_norm_rel_err=rel["grad_norm"],
+         grad_err_over_bound=grad_worst[0], grad_worst_leaf=grad_worst[1],
+         max_param_err=param_err, left_out_max_param_err=left_err,
+         left_out_elements=sum(left.values()), left_out_leaves=len(left),
+         left_out_by_leaf=dict(sorted(left.items(), key=lambda kv: -kv[1])[:40]),
+         params=sum(t.numel() for t in sc.values()), bound_rel=1e-4, bound_param=1e-5,
+         bound_left_out=2 * lr_check, loss_cuda=mg["total"],
+         loss_cpu=mc["total"], losses_20=losses, cached_step_ms=step_ms, batch=14,
+         images_per_s=14e3 / step_ms, peak_gib=peak_gib, head_params=sum(
+             p.numel() for p in head.parameters()))
+    require(rel["total"] <= 1e-4 and rel["grad_norm"] <= 1e-4, f"card against CPU {rel}")
+    require(grad_worst[0] <= 1, f"gradient of {grad_worst[1]}: {grad_worst[0]} x its bound")
+    require(param_err <= 1e-5, f"updated parameters differ by {param_err}")
+    require(left_err <= 2 * lr_check * (1 + 1e-3),
+            f"parameters of unsettled gradient sign differ by {left_err}")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0], f"losses {losses}")
+    del head, opt, step, batch14
+
+    # 4. live training through the CLI
+    built = []
+
+    class Captured(FreqFusionSR):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            head = {k: t.cpu().clone() for k, t in self.fusion.state_dict().items()}
+            built.append((self, head))
+
+    live_cfg = cli_train.load_config(os.path.join(ROOT, "configs", "train_config.yaml"),
+                                     argparse.Namespace(batch_size=None, epochs=None,
+                                                        data_root=data, cached=False,
+                                                        debug=True))
+    live_cfg["model_dir"] = model_dir
+    live_cfg["train"].update(checkpoint_dir=os.path.join(root, "live_ckpt"),
+                             log_dir=os.path.join(root, "live_logs"))
+    cli_train.FreqFusionSR = Captured
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        live_best = cli_train.train(live_cfg, "cuda")
+        torch.cuda.synchronize()
+    finally:
+        cli_train.FreqFusionSR = FreqFusionSR
+    live_s = time.perf_counter() - t0
+    live_counts = {k: n for k, n in read_launches().items() if n}
+    live_model, head0 = built[0]
+    # 2 epochs of TRAIN_PAIRS samples in batches of 2; one validation (epoch 1) of as many
+    # center crops, in batches of 2
+    n_steps, n_val = 2 * (TRAIN_PAIRS // 2), TRAIN_PAIRS // 2
+    want = {k: (n_steps + n_val) * n for k, n in expert_forward.items()}
+    want.update({k: n_val for k in HEAD_KERNELS})
+    ref_experts = ref.experts.state_dict()
+    experts_same = all(torch.equal(t, ref_experts[k])
+                       for k, t in live_model.experts.state_dict().items())
+    head_moved = any(not torch.equal(t.cpu(), head0[k])
+                     for k, t in live_model.fusion.state_dict().items() if t.is_floating_point())
+    opt = make_optimizer(live_model.fusion, lambda n: 1e-4)
+    from freqfusion_tpu_torch.training.steps import make_live_train_step
+    live_step = make_live_train_step(live_model, CombinedLoss(weights), opt)
+    b_live = {k: v[:2] for k, v in batch2.items() if k in ("lr", "hr")}
+    b_live = shard_batch(b_live, torch.device("cuda"))
+    live_ms = cuda_ms(lambda: live_step(b_live), iters=2)
+    emit("train_live", batch=2, steps=n_steps, seconds=live_s, launches=live_counts,
+         best_psnr=live_best, experts_unchanged=experts_same, head_changed=head_moved,
+         live_step_ms=live_ms, images_per_s=2e3 / live_ms)
+    require(live_counts == want, f"live training launches {live_counts}, {want} expected")
+    require(experts_same and head_moved, "a frozen expert changed, or the head did not")
+    del live_model, live_step, opt, built
+    torch.cuda.empty_cache()
+
+    # 5. the trained checkpoint served through main, against the model in memory
+    req_dir = os.path.join(OUT, "requests")
+    sr_dir = os.path.join(root, "sr")
+    reset_launches()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # no fusion_head.pth: the .ckpt is the head's file
+        served = serve_directory(model_dir, req_dir, sr_dir)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_counts = {k: n for k, n in read_launches().items() if n}
+    best_path = sorted(os.path.join(ckpt_dir, n) for n in names if n.startswith("best_"))[0]
+    best_record = torch.load(best_path, map_location="cuda", weights_only=True)
+    # main serves a checkpoint's EMA weights (infer/io.py: read_native_checkpoint)
+    ref.fusion.load_state_dict(best_record["model"])
+    with torch.no_grad():
+        for k, p in ref.fusion.named_parameters():
+            p.copy_(best_record["ema_state"][k])
+    pipe = InferencePipeline(ref, "cuda")
+    lsb = 0
+    for f in list_images(req_dir):
+        lr = load_image(f)
+        handle = pipe.dispatch_batch_u8([lr], pipe._whole_image_plan(*lr.shape[:2]))
+        want_u8 = pipe.materialize_u8(handle)[0].astype(np.int32)
+        got_u8 = np.asarray(Image.open(os.path.join(sr_dir, os.path.basename(f)))).astype(
+            np.int32)
+        lsb = max(lsb, int(np.abs(got_u8 - want_u8).max()))
+    emit("train_serve", served=served, seconds=serve_s, launches=serve_counts,
+         checkpoint=os.path.basename(best_path), max_lsb_against_ema_head=lsb)
+    require(served == len(REQUESTS), f"served {served}")
+    require(lsb <= 1, f"served images differ from the EMA head in memory by {lsb} LSB")
+    phase_s = time.perf_counter() - t_phase
+    emit("train_time", seconds=phase_s, nvidia_smi=subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip())
+    total = {}
+    for c in (extract_counts, cached_counts, live_counts, serve_counts):
+        for k, n in c.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
 def profile_forward(tag: str, forward) -> None:
     """Device time of one `forward()` by kernel (torch.profiler), after one warm-up."""
     from torch.profiler import ProfilerActivity, profile
@@ -1754,6 +2144,8 @@ def main() -> None:
     paths.append(("tiled", tiled_slice(per_forward, "tiled" in profiled)))
     torch.cuda.empty_cache()
     paths.append(("hat_odd", hat_odd_slice(torch.Generator().manual_seed(SEED))))
+    torch.cuda.empty_cache()
+    paths.append(("train", train_slice(per_forward)))
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(n.get(k, 0) for _, n in paths),
                 "launches_by_path": {tag: n[k] for tag, n in paths if k in n},

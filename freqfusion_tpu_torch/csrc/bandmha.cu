@@ -52,6 +52,14 @@
 // multiple of 4 (weights laid out with zero rows and columns); LN's statistics are taken
 // over the Dt real columns and the softmax scale is the real head width's.
 //
+// The wide route (band_mha_wide): a group holds whole pixels, so a pixel with more tokens
+// than the rows that fit (band_mha_rows) or tokens wider than 384 take four steps through
+// device memory instead: LN a warp a row into a scratch n; qkv = n x wqkv + bqkv by the row
+// product rows_linear (csrc/hat_rows.cu, 3xTF32, K in pieces); the attention on CUDA cores,
+// one thread per (row, head, 32 output columns) looping over all T keys of its pixel with a
+// running max and sum (online softmax), the heads' output over n; out = n x wproj + bproj by
+// rows_linear, then + x. Any T and any D (a multiple of 16, as the wrapper pads it).
+//
 // Layout: f32, contiguous. wqkv and wproj as fragments of [D][3D] and [D][D] ([in][out]).
 
 #include <type_traits>
@@ -475,7 +483,106 @@ int band_mha_rows(int T, int D) {
     return D <= 384 && band_smem(32, D, false) * 4 <= 232448 ? 32 : 0;
 }
 
+// ---- The wide route
+
+// n[r] = LN(x[r]) over the first Dt of D columns (the rest are zero in x and in LN's affine):
+// a warp a row, f32, eps 1e-5.
+__global__ void band_ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
+                                    const float* __restrict__ lnb, float* __restrict__ n,
+                                    long long rows, int D, int Dt) {
+    const long long r = (long long)blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
+    if (r >= rows) return;
+    const int lane = threadIdx.x & 31;
+    const float* src = x + r * D;
+    float u, inv;
+    warp_ln_stats(src, Dt, kEps, u, inv);
+    for (int c = lane; c < D; c += 32) n[r * D + c] = (src[c] - u) * inv * lnw[c] + lnb[c];
+}
+
+// The attention of the wide route: one thread per (row, head, part of 32 output columns)
+// takes its head's q (row r of qkv [rows][3D], columns h hd ..) against the T keys of its
+// pixel (columns D + h hd .. and, for v, 2D + h hd ..) with a running max and sum, and writes
+// its part of the head's output to o [rows][D]. q arrives scaled by `scale` here.
+__global__ void band_attention_wide_kernel(const float* __restrict__ qkv, float* __restrict__ o,
+                                           long long rows, int T, int D, int heads, int hd,
+                                           float scale) {
+    const int parts = (hd + 31) / 32;
+    const long long it = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (it >= rows * heads * parts) return;
+    const int part = (int)(it % parts), h = (int)(it / parts % heads);
+    const long long r = it / parts / heads;
+    const int c0 = h * hd, d0 = 32 * part, nd = min(32, hd - d0);
+    const float* q = qkv + r * 3 * D + c0;
+    const float* kv = qkv + (r / T) * T * 3 * D;   // the pixel's first row
+    float acc[32];
+#pragma unroll
+    for (int d = 0; d < 32; ++d) acc[d] = 0.f;
+    float m = -3.0e38f, l = 0.f;   // the first key's corr is exp(-3e38 - s) = 0
+    for (int j = 0; j < T; ++j, kv += 3 * D) {
+        const float* k = kv + D + c0;
+        float s = 0.f;
+        for (int d = 0; d < hd; ++d) s = fmaf(q[d], k[d], s);
+        s *= scale;
+        const float mn = fmaxf(m, s);
+        const float corr = expf(m - mn), p = expf(s - mn);
+        l = fmaf(l, corr, p);
+        const float* v = kv + 2 * D + c0 + d0;
+#pragma unroll
+        for (int d = 0; d < 32; ++d)
+            if (d < nd) acc[d] = fmaf(acc[d], corr, p * v[d]);
+        m = mn;
+    }
+    const float inv = 1.f / l;
+    float* dst = o + r * D + c0 + d0;
+#pragma unroll
+    for (int d = 0; d < 32; ++d)
+        if (d < nd) dst[d] = acc[d] * inv;
+}
+
+// out += x, float4s
+__global__ void band_residual_kernel(const float4* __restrict__ x, float4* __restrict__ out,
+                                     long long n4) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n4) return;
+    const float4 a = out[i], b = x[i];
+    out[i] = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
 }  // namespace
+
+extern "C" int rows_linear(const float* a, const float* wp, const float* bp, float* out,
+                           long long npix, int C, int Cout, int Kp, int Np, void* stream);
+
+// The wide route: out = x + MHA(LN(x)) on x [npix][T][D] for any T, D % 16 == 0; wqkv, wproj
+// the mma_planes of [D][3D] and [D][D] (ops/kernels/_mma.py: planes); n [npix T][D] and qkv
+// [npix T][3D] scratch. Heads, Dt and scale as band_mha's.
+extern "C" int band_mha_wide(const float* x, const float* wqkv, const float* bqkv,
+                             const float* wproj, const float* bproj, const float* lnw,
+                             const float* lnb, float* n, float* qkv, float* out, long long npix,
+                             int T, int D, int Dt, int heads, int hd, float scale,
+                             void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (npix < 1 || T < 1 || D < 16 || D % 16 || Dt < 1 || Dt > D || heads < 1 || hd < 1 ||
+        heads * hd > D)
+        return cudaErrorInvalidValue;
+    const long long rows = npix * T;
+    band_ln_rows_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(x, lnw, lnb, n, rows, D, Dt);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = static_cast<cudaError_t>(rows_linear(n, wqkv, bqkv, qkv, rows, D, 3 * D, D, 3 * D, st));
+    if (err != cudaSuccess) return err;
+    const long long items = rows * heads * ((hd + 31) / 32);
+    band_attention_wide_kernel<<<(unsigned)((items + 255) / 256), 256, 0, st>>>(
+        qkv, n, rows, T, D, heads, hd, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = static_cast<cudaError_t>(rows_linear(n, wproj, bproj, out, rows, D, D, D, D, st));
+    if (err != cudaSuccess) return err;
+    const long long n4 = rows * D / 4;
+    band_residual_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, st>>>(
+        reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(out), n4);
+    return cudaGetLastError();
+}
 
 // out = x + MHA(LN(x)) on x [npix][T][D]; wqkv, wproj the B fragments of [D][3D] and [D][D]
 // (ops/kernels/_mma.py: fragments). D % 16 == 0 up to 384; heads of hd columns (hd % 4 == 0),

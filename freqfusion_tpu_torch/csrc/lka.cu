@@ -41,8 +41,12 @@
 //      (the tensor core's adds round toward zero). Timing variants on the H100 (PERF.md):
 //      deeper rings, smaller tiles and more blocks an SM were each slower.
 //
-// Layout: NHWC, f32, contiguous; any C up to 1808 (a tile of 16 rows of `a` in each of two
-// buffers). w5 [25][C], wh [21][C] along W, wv [21][C] along H;
+//      Above C = 1808 a tile of 16 rows of `a` no longer fits twice: lka_mix_wide_kernel then
+//      reads A's fragments straight from device memory (L1 and L2 hold the rows a warp
+//      walks) and takes K in chunks of 8 k-steps with the partial sums in registers across
+//      the chunks, the same epilogue after the last.
+//
+// Layout: NHWC, f32, contiguous; any C. w5 [25][C], wh [21][C] along W, wv [21][C] along H;
 // wp the mma_planes of wp [C][C] ([in][out]) zero-padded to [Kp][Np], Kp % 8 == 0,
 // Np % 32 == 0.
 
@@ -380,6 +384,80 @@ lka_mix_kernel(const float* __restrict__ a, const float* __restrict__ x,
     cp_async_wait<0>();
 }
 
+// out = x * sigmoid((a @ wp) * scale + shift) for rows too wide to stage (C > 1808): a warp
+// task is 16 rows x kMixNT n-tiles, A's fragments read from device memory (0 past row P and
+// column C), K in chunks of 8 k-steps, each into a fresh tile added in f32.
+__global__ void __launch_bounds__(kMixThreads)
+lka_mix_wide_kernel(const float* __restrict__ a, const float* __restrict__ x,
+                    const float4* __restrict__ wp, const float* __restrict__ scale,
+                    const float* __restrict__ shift, float* __restrict__ out, long long P, int C,
+                    int Kp, int Np) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const int ksteps = Kp / 8, ntw = Np / 8, ngroups = ntw / kMixNT;
+    const long long ntasks = (P + 15) / 16 * ngroups, nwarps = (long long)gridDim.x * kMixThreads / 32;
+    for (long long task = (long long)blockIdx.x * kMixThreads / 32 + (threadIdx.x >> 5);
+         task < ntasks; task += nwarps) {
+        const long long ra = task / ngroups * 16 + g, rb = ra + 8;
+        const int nt0 = (int)(task % ngroups) * kMixNT;
+        const bool va = ra < P, vb = rb < P;
+        auto at = [&](long long r, bool v, int k) { return v && k < C ? __ldg(a + r * C + k) : 0.f; };
+        float acc[kMixNT][4];
+#pragma unroll
+        for (int j = 0; j < kMixNT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+        for (int k0 = 0; k0 < ksteps; k0 += 8) {
+            float part[kMixNT][4];
+#pragma unroll
+            for (int j = 0; j < kMixNT; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+#pragma unroll 2
+            for (int s = k0; s < min(ksteps, k0 + 8); ++s) {
+                FragA fa;
+                const int k = 8 * s + t;
+                fa.set(0, at(ra, va, k));
+                fa.set(1, at(rb, vb, k));
+                fa.set(2, at(ra, va, k + 4));
+                fa.set(3, at(rb, vb, k + 4));
+                const float4* wk = wp + ((size_t)s * ntw + nt0) * 32 + lane;
+                uint32_t bh[kMixNT][2], bl[kMixNT][2];
+#pragma unroll
+                for (int j = 0; j < kMixNT; ++j) {
+                    const float4 b = __ldg(wk + j * 32);
+                    bh[j][0] = __float_as_uint(b.x);
+                    bh[j][1] = __float_as_uint(b.y);
+                    bl[j][0] = __float_as_uint(b.z);
+                    bl[j][1] = __float_as_uint(b.w);
+                }
+#pragma unroll
+                for (int j = 0; j < kMixNT; ++j) mma_tf32(part[j], fa.lo, bh[j]);
+#pragma unroll
+                for (int j = 0; j < kMixNT; ++j) mma_tf32(part[j], fa.hi, bl[j]);
+#pragma unroll
+                for (int j = 0; j < kMixNT; ++j) mma_tf32(part[j], fa.hi, bh[j]);
+            }
+#pragma unroll
+            for (int j = 0; j < kMixNT; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+        }
+#pragma unroll
+        for (int j = 0; j < kMixNT; ++j) {
+            const int n = 8 * (nt0 + j) + 2 * t;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                if (n + e >= C) continue;
+                const float sc = scale[n + e], sh = shift[n + e];
+                if (va) out[ra * C + n + e] = x[ra * C + n + e] * sigmoid_f32(fmaf(acc[j][e], sc, sh));
+                if (vb)
+                    out[rb * C + n + e] =
+                        x[rb * C + n + e] * sigmoid_f32(fmaf(acc[j][2 + e], sc, sh));
+            }
+        }
+    }
+}
+
 // Segments of rows a chain block walks: the fewest that give the card about kSegWaves chain
 // blocks an SM (two run at once), each at least 32 rows.
 int lka_segments(int B, int H, int W, int C) {
@@ -427,7 +505,15 @@ extern "C" int lka_gate(const float* x, const float* w5, const float* wh, const 
     while (TR > 16 && 2LL * kMixStages * TR * (Kp + 4) * 4 > 110592) TR /= 2;
     const bool xs = 2LL * kMixStages * TR * (Kp + 4) * 4 <= 110592;
     const size_t msmem = (size_t)(xs ? 2 : 1) * kMixStages * TR * (Kp + 4) * sizeof(float);
-    if (msmem > 232448) return cudaErrorInvalidValue;
+    if (msmem > 232448) {   // too wide to stage: A from device memory
+        const long long tasks = ((long long)B * H * W + 15) / 16 * (Np / (8 * kMixNT));
+        const long long blocks = (tasks + kMixThreads / 32 - 1) / (kMixThreads / 32);
+        const int grid3 = (int)(blocks < 4LL * sms ? blocks : 4LL * sms);
+        lka_mix_wide_kernel<<<grid3, kMixThreads, 0, st>>>(
+            a, x, reinterpret_cast<const float4*>(wp), scale, shift, out, (long long)B * H * W,
+            C, Kp, Np);
+        return cudaGetLastError();
+    }
     const auto mix = C % 4 ? lka_mix_kernel<false> : lka_mix_kernel<true>;
     err = cudaFuncSetAttribute(mix, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)msmem);
     if (err != cudaSuccess) return err;

@@ -361,7 +361,7 @@ struct StageB {
     float* hid;    // [npix][C] the gated hidden (device-memory design)
     float* part;   // [npix][2C] sums over K pieces (device-memory design, C > kMmaMaxK)
     long long npix;
-    int hw, C;
+    int hw, C, Cp;   // C: the channels (stride of every array); Cp: C rounded up to 8
 };
 
 // Where column c of row p of y sits in the on-chip design's [128][64] buffer: its 8-column
@@ -442,49 +442,54 @@ naf_stage_b_onchip_kernel(const StageB a) {
 
 // C != 64 (and C = 64 when the caller gives hid): A (128 rows of one K piece: 64 KB at
 // C = 128 and 256) and the ring fill the block. y is parked in out, the gated hidden goes
-// through hid and, where K comes in pieces (C > kMmaMaxK), the products' partial sums through
-// part, whose rows are 2C floats for every product: each element is read back by the thread
-// that wrote it, mostly from L2, and no block touches another's rows.
+// through hid and, where K comes in pieces (Cp > kMmaMaxK), the products' partial sums through
+// part, whose rows are 2Cp floats for every product: each element is read back by the thread
+// that wrote it, mostly from L2, and no block touches another's rows. The products take K and
+// N in steps of 8: a C that is not a multiple of 8 runs them at Cp = C rounded up, on weights
+// zero-padded to Cp (ops/kernels/nafblock.py), A's columns past C staged as zeros and no
+// column past C stored; every array keeps its stride C and LN2 its statistics over C.
 __global__ void __launch_bounds__(kMmaThreads, 1)
 naf_stage_b_rows_kernel(const StageB a) {
     extern __shared__ float4 smem4[];
-    const int C = a.C, Kt = tile_mma_piece(C);
+    const int C = a.C, Cp = a.Cp, Kt = tile_mma_piece(Cp);
     float* A = reinterpret_cast<float*>(smem4);   // [128 x Kt] A-fragment order
     float* ws = A + kMmaRows * Kt;                 // tile_mma's ring
     float* lnst = ws + tile_mma_ws();              // [128][2] LN2's mean and 1/std
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const long long p0 = (long long)blockIdx.x * kMmaRows;
 
-    // A = columns k0 .. k0 + kh of f(p, gp, c) (float4s), zero past the last pixel
+    // A = columns k0 .. k0 + kh of f(p, gp, c) (float4s), zero past the last pixel and past
+    // column C (C % 4 == 0: a float4 is all real or all padding)
     auto stage = [&](int k0, int kh, auto f) {
         const int k4 = kh / 4, ks = kh / 8;
 #pragma unroll 4
         for (int e = tid; e < kMmaRows * k4; e += kMmaThreads) {
             const int p = e / k4, c = (e % k4) * 4;
             const long long gp = p0 + p;
-            put4(A, p, c, ks, gp < a.npix ? f(p, gp, k0 + c) : make_float4(0.f, 0.f, 0.f, 0.f));
+            put4(A, p, c, ks, gp < a.npix && k0 + c < C ? f(p, gp, k0 + c)
+                                                        : make_float4(0.f, 0.f, 0.f, 0.f));
         }
     };
     // (u0, u1) at (gp, n) plus the earlier K pieces' sums, added in f32 in a fixed order:
-    // true at the last piece; before it the sum is parked in part (rows of 2C floats)
+    // true at the last piece; before it the sum is parked in part (rows of 2Cp floats)
     auto summed = [&](long long gp, int n, int k0, int kh, float& u0, float& u1) {
-        if (kh == C) return true;
-        float2* pp = reinterpret_cast<float2*>(a.part + gp * 2 * C + n);
+        if (kh == Cp) return true;
+        float2* pp = reinterpret_cast<float2*>(a.part + gp * 2 * Cp + n);
         if (k0 > 0) {
             const float2 s = *pp;
             u0 += s.x;
             u1 += s.y;
         }
-        if (k0 + kh == C) return true;
+        if (k0 + kh == Cp) return true;
         *pp = make_float2(u0, u1);
         return false;
     };
 
     // y = x + ((g * att) @ w3 + b3) * beta, into out
-    for (int k0 = 0; k0 < C; k0 += Kt) {
-        const int kh = min(Kt, C - k0);
+    for (int k0 = 0; k0 < Cp; k0 += Kt) {
+        const int kh = min(Kt, Cp - k0);
         tile_mma(
-            A, kh, a.w3 + (size_t)(k0 / 8) * (C / 8) * 32, C / 8, C, ws,
+            A, kh, a.w3 + (size_t)(k0 / 8) * (Cp / 8) * 32, Cp / 8, Cp, ws,
             [&] {
                 stage(k0, kh, [&](int, long long gp, int c) {
                     const float4 gv = ld4(a.g + gp * C + c);
@@ -494,7 +499,7 @@ naf_stage_b_rows_kernel(const StageB a) {
             },
             [&](int p, int n, float u0, float u1) {
                 const long long gp = p0 + p;
-                if (gp >= a.npix || !summed(gp, n, k0, kh, u0, u1)) return;
+                if (gp >= a.npix || n >= C || !summed(gp, n, k0, kh, u0, u1)) return;
                 const float2 xv = *reinterpret_cast<const float2*>(a.x + gp * C + n);
                 *reinterpret_cast<float2*>(a.out + gp * C + n) =
                     make_float2(xv.x + (u0 + a.b3[n]) * a.beta[n],
@@ -513,10 +518,10 @@ naf_stage_b_rows_kernel(const StageB a) {
     }
     // h = SimpleGate(LN2(y) @ w4 + b4), into hid: gate channel j and its partner are
     // columns 2j, 2j + 1 of the product, one thread's pair
-    for (int k0 = 0; k0 < C; k0 += Kt) {
-        const int kh = min(Kt, C - k0);
+    for (int k0 = 0; k0 < Cp; k0 += Kt) {
+        const int kh = min(Kt, Cp - k0);
         tile_mma(
-            A, kh, a.w4 + (size_t)(k0 / 8) * (2 * C / 8) * 32, 2 * C / 8, 2 * C, ws,
+            A, kh, a.w4 + (size_t)(k0 / 8) * (2 * Cp / 8) * 32, 2 * Cp / 8, 2 * Cp, ws,
             [&] {
                 stage(k0, kh, [&](int p, long long gp, int c) {
                     const float4 v = ld4(a.out + gp * C + c);
@@ -528,22 +533,22 @@ naf_stage_b_rows_kernel(const StageB a) {
             },
             [&](int p, int n, float u0, float u1) {
                 const long long gp = p0 + p;
-                if (gp >= a.npix || !summed(gp, n, k0, kh, u0, u1)) return;
+                if (gp >= a.npix || n >= 2 * C || !summed(gp, n, k0, kh, u0, u1)) return;
                 const int j = n >> 1;
                 a.hid[gp * C + j] = (u0 + a.b4[j]) * (u1 + a.b4[C + j]);
             });
     }
     // out = y + (h @ w5 + b5) * gamma
-    for (int k0 = 0; k0 < C; k0 += Kt) {
-        const int kh = min(Kt, C - k0);
+    for (int k0 = 0; k0 < Cp; k0 += Kt) {
+        const int kh = min(Kt, Cp - k0);
         tile_mma(
-            A, kh, a.w5 + (size_t)(k0 / 8) * (C / 8) * 32, C / 8, C, ws,
+            A, kh, a.w5 + (size_t)(k0 / 8) * (Cp / 8) * 32, Cp / 8, Cp, ws,
             [&] {
                 stage(k0, kh, [&](int, long long gp, int c) { return ld4(a.hid + gp * C + c); });
             },
             [&](int p, int n, float u0, float u1) {
                 const long long gp = p0 + p;
-                if (gp >= a.npix || !summed(gp, n, k0, kh, u0, u1)) return;
+                if (gp >= a.npix || n >= C || !summed(gp, n, k0, kh, u0, u1)) return;
                 float2* o = reinterpret_cast<float2*>(a.out + gp * C + n);
                 const float2 y = *o;
                 *o = make_float2(y.x + (u0 + a.b5[n]) * a.gamma[n],
@@ -555,7 +560,7 @@ naf_stage_b_rows_kernel(const StageB a) {
 cudaError_t launch_stage_b(const StageB& a, cudaStream_t st) {
     const bool onchip = a.C == 64 && !a.hid;
     const size_t smem = (size_t)(onchip ? 3 * kMmaRows * 64 + tile_mma_ws()
-                                        : kMmaRows * tile_mma_piece(a.C) + tile_mma_ws() +
+                                        : kMmaRows * tile_mma_piece(a.Cp) + tile_mma_ws() +
                                               2 * kMmaRows) * sizeof(float);
     const auto kernel = onchip ? naf_stage_b_onchip_kernel : naf_stage_b_rows_kernel;
     cudaError_t err =
@@ -602,17 +607,19 @@ int naf_stage_a(const float* x, const float* lnw, const float* lnb, const float*
 }
 
 // out = stage B of g and x; w3p, w4p, w5p the mma_planes of w3, of w4 with gate channel j in
-// column 2j and its partner C + j in 2j + 1, and of w5 (ops/kernels/nafblock.py:
-// stage_b_planes); hid [B*H*W][C] scratch where C != 64, part [B*H*W][2C] where C > 192.
-// At C = 64 the block keeps y and the hidden on chip unless hid is given: then it takes the
-// device-memory design of the wider levels (so that the two can be timed and tested).
+// column 2j and its partner C + j in 2j + 1, and of w5, each zero-padded to Cp = C rounded up
+// to 8 (ops/kernels/nafblock.py: stage_b_planes); hid [B*H*W][C] scratch where C != 64, part
+// [B*H*W][2Cp] where Cp > 192. C % 4 == 0. At C = 64 the block keeps y and the hidden on chip
+// unless hid is given: then it takes the device-memory design of the other widths (so that
+// the two can be timed and tested).
 int naf_stage_b(const float* g, const float* x, const float* att, const float* w3p,
                 const float* b3, const float* beta, const float* ln2w, const float* ln2b,
                 const float* w4p, const float* b4, const float* w5p, const float* b5,
                 const float* gamma, float* out, float* hid, float* part, int B, int H, int W,
                 int C, void* stream) {
-    if (C % 8 || C < 8 || B < 1 || H < 1 || W < 1 || (C != 64 && !hid) ||
-        (C > kMmaMaxK && !part))
+    const int Cp = (C + 7) / 8 * 8;
+    if (C % 4 || C < 4 || B < 1 || H < 1 || W < 1 || (C != 64 && !hid) ||
+        (Cp > kMmaMaxK && !part))
         return cudaErrorInvalidValue;
     StageB a = {};
     a.g = g; a.x = x; a.att = att;
@@ -621,7 +628,7 @@ int naf_stage_b(const float* g, const float* x, const float* att, const float* w
     a.w5 = reinterpret_cast<const float4*>(w5p);
     a.b3 = b3; a.beta = beta; a.ln2w = ln2w; a.ln2b = ln2b; a.b4 = b4; a.b5 = b5;
     a.gamma = gamma; a.out = out; a.hid = hid; a.part = part;
-    a.npix = (long long)B * H * W; a.hw = H * W; a.C = C;
+    a.npix = (long long)B * H * W; a.hw = H * W; a.C = C; a.Cp = Cp;
     return launch_stage_b(a, static_cast<cudaStream_t>(stream));
 }
 

@@ -8,8 +8,10 @@ An image that the plan refuses (over the pixel budget, smaller than its reflect 
 goes through ``infer/tiling.py`` in fixed-shape tiles and is stitched on the device. The
 batch protocol (``dispatch_batch_u8`` / ``materialize_u8``) lets a caller dispatch image
 i+1 before it copies image i back. ``main`` (= ``model_func``) is the directory contract: it
-builds ``FreqFusionSR``, loads the ``.pth`` checkpoints it finds under ``model_dir`` and
-writes one x4 PNG per input image, whatever its size.
+builds ``FreqFusionSR``, loads the checkpoints it finds under ``model_dir`` (the experts'
+``.pth``; the head from a native ``.ckpt`` that training wrote, in the port's ``torch.save``
+format or the JAX package's flax msgpack, else from a ``.pth``) and writes one x4 PNG per
+input image, whatever its size.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from torch import nn
 
 from ..models.experts import FreqFusionSR
 from ..models.fusion import FusionConfig
-from ..utils.convert import load_torch_checkpoint
+from ..utils.convert import fusion_params_from_flax, load_torch_checkpoint
 from ..utils.imageio import list_images, load_image, save_image
 from .tiling import require_device, tiled_sr, whole_image_sr
 
@@ -39,6 +41,20 @@ TILE_BATCH = 2
 #: precision -> whether f32 products and convolutions may take TF32: "highest" keeps f32
 #: (the JAX twin's "highest"), "high" allows TF32 (PyTorch's own default for cuDNN convs)
 PRECISIONS = {"highest": False, "high": True}
+
+
+@contextlib.contextmanager
+def pinned_precision(precision: str):
+    """Sets both TF32 flags for `precision` ("highest": off, "high": on), and restores the
+    caller's on the way out."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision={precision!r}; expected one of {sorted(PRECISIONS)}")
+    old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = PRECISIONS[precision]
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
 
 
 class InferencePipeline:
@@ -126,16 +142,8 @@ class InferencePipeline:
         cache.add((hp, wp))
         return hp, wp
 
-    @contextlib.contextmanager
     def _pinned_precision(self):
-        """Sets both TF32 flags for `precision`, and restores the caller's on the way out."""
-        tf32 = PRECISIONS[self.precision]
-        old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
-        try:
-            yield
-        finally:
-            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+        return pinned_precision(self.precision)
 
     def _forward_device(self, x: torch.Tensor) -> torch.Tensor:
         """[B,hp,wp,3] on the device -> SR [B,s*hp,s*wp,3] on the device."""
@@ -246,17 +254,67 @@ def _load_into(module: nn.Module, sd: dict, name: str) -> None:
                       f"({len(wrong)} of another size; first: {first})")
 
 
-def load_checkpoints(model: FreqFusionSR, model_dir: str) -> None:
-    """Fills `model` from the reference-format torch checkpoints under `model_dir`:
-    ``pretrained/{hat,dat,nafnet}/**/*.pth`` for the experts (the ``nafnet.`` prefix of a
-    NAFNetSR checkpoint is stripped) and the first other ``*.pth`` for the head. A missing
-    file warns and keeps the module's seeded random weights. A framework-native ``.ckpt``
-    is refused: its loader is not ported (ROADMAP A8)."""
-    native = _find(model_dir, ["*.ckpt", "checkpoints/**/*.ckpt"])
-    if native:
-        raise NotImplementedError(
-            f"{native}: loading a framework-native .ckpt is not ported yet (ROADMAP A8); "
-            "convert it to a torch .pth")
+#: Where a native checkpoint of the head is looked for, in order (the JAX package's order)
+NATIVE_CKPT = ["best_*.ckpt", "checkpoints/**/best_*.ckpt", "latest.ckpt",
+               "checkpoints/**/latest.ckpt", "*.ckpt", "checkpoints/**/*.ckpt"]
+
+
+def _msgpack_record(path: str) -> dict:
+    """A flax msgpack file as nested dicts of numpy arrays, decoded without flax: ext code 1
+    is an array packed as (shape, dtype name, raw bytes), 2 a complex (re, im), 3 a numpy
+    scalar packed as an array."""
+    try:
+        import msgpack
+    except ImportError as e:
+        raise ImportError(f"{path} is a checkpoint written by the JAX package (flax msgpack); "
+                          "reading it needs the msgpack package") from e
+
+    def array(data):
+        shape, dtype, buf = msgpack.unpackb(data, raw=True)
+        return np.frombuffer(buf, dtype=np.dtype(dtype.decode())).reshape(shape)
+
+    def ext_hook(code, data):
+        if code == 1:
+            return array(data)
+        if code == 2:
+            re, im = msgpack.unpackb(data)
+            return complex(re, im)
+        if code == 3:
+            return array(data)[()]
+        return msgpack.ExtType(code, data)
+
+    with open(path, "rb") as f:
+        return msgpack.unpackb(f.read(), ext_hook=ext_hook, raw=False)
+
+
+def read_native_checkpoint(path: str) -> dict:
+    """The head's state dict (the reference's torch keys) from a native ``.ckpt``: a zip
+    archive is the port's own ``torch.save`` (``training/checkpoint.py``): its ``model``
+    with the EMA weights (``ema_state``) in place of the parameters where training kept
+    them, the weights that validation measured and best-K chose; a msgpack map is the JAX
+    package's ``CheckpointManager`` file, whose ``params`` and ``batch_stats`` (under
+    ``fusion`` where live training wrote them) map through
+    ``utils/convert.py:fusion_params_from_flax``, as the JAX package serves them."""
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head == b"PK\x03\x04":
+        record = torch.load(path, map_location="cpu", weights_only=True)
+        sd = dict(record["model"])
+        sd.update({k: v for k, v in (record.get("ema_state") or {}).items() if k in sd})
+        return sd
+    if head and (0x80 <= head[0] <= 0x8F or head[0] in (0xDE, 0xDF)):
+        record = _msgpack_record(path)
+        params, stats = record.get("params", {}), record.get("batch_stats", {})
+        params = params.get("fusion", params)
+        stats = stats.get("fusion", stats)
+        return fusion_params_from_flax(params, stats)
+    raise ValueError(f"{path}: neither a torch.save archive nor a flax msgpack checkpoint")
+
+
+def load_expert_checkpoints(model: FreqFusionSR, model_dir: str) -> None:
+    """The experts of `model` from ``pretrained/{hat,dat,nafnet}/**/*.pth`` under
+    `model_dir` (the reference's torch format; the ``nafnet.`` prefix of a NAFNetSR
+    checkpoint is stripped); a missing file warns and keeps the expert's weights."""
     experts = {"hat": (model.experts.hat, None), "dat": (model.experts.dat, None),
                "nafnet": (model.experts.nafnet.nafnet, "nafnet.")}
     for name, (module, strip) in experts.items():
@@ -269,6 +327,19 @@ def load_checkpoints(model: FreqFusionSR, model_dir: str) -> None:
         if strip:
             sd = {k[len(strip):]: v for k, v in sd.items() if k.startswith(strip)}
         _load_into(module, sd, name)
+
+
+def load_checkpoints(model: FreqFusionSR, model_dir: str) -> None:
+    """Fills `model` from the checkpoints under `model_dir`: the experts from their ``.pth``
+    (``load_expert_checkpoints``); the head from a native ``.ckpt`` that training wrote
+    (``best_*``, then ``latest``, then any: the JAX package's order;
+    ``read_native_checkpoint``), else from the first other ``*.pth``. A missing file warns
+    and keeps the module's seeded random weights."""
+    load_expert_checkpoints(model, model_dir)
+    native = _find(model_dir, NATIVE_CKPT)
+    if native:
+        _load_into(model.fusion, read_native_checkpoint(native), "fusion")
+        return
     path = _find(model_dir, ["*.pth", "checkpoints/**/*.pth", "checkpoints/*.pth"])
     if path and "pretrained" in path:   # the glob may also match an expert's checkpoint
         path = None

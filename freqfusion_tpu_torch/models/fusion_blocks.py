@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import resize
+from . import layers
 from .layers import (BatchNorm2d, CBAMSpatialAttention, ChannelSpatialAttention, TorchMHA,
                      conv1x1_nhwc, conv_nhwc)
 from .lka import bn_nhwc
@@ -169,7 +170,7 @@ class CollaborativeFeatureLearning(nn.Module):
             aligned.append(a)
         stacked = torch.stack(aligned, dim=-2)   # [B,H,W,E,C]
         stacked = stacked + self.cross_attn(self.norm1(stacked))
-        h = F.dropout(F.gelu(self.ffn[0](self.norm2(stacked))), 0.1, self.training)
+        h = layers.dropout(F.gelu(self.ffn[0](self.norm2(stacked))), 0.1, self.training)
         stacked = stacked + self.ffn[2](h)
 
         h_sr, w_sr = expert_outputs[0].shape[1], expert_outputs[0].shape[2]

@@ -2,6 +2,9 @@
 
 from __future__ import annotations
 
+import contextlib
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -31,10 +34,35 @@ def linear_io_view(lin: nn.Linear) -> torch.Tensor:
     return lin.weight.t()
 
 
+_DROPOUT_GENERATOR: Optional[torch.Generator] = None
+
+
+@contextlib.contextmanager
+def dropout_generator(generator: Optional[torch.Generator]):
+    """Inside the block, ``dropout`` draws its masks from `generator` (None: the global
+    generator): the train step passes its own, so that a seed fixes the masks."""
+    global _DROPOUT_GENERATOR
+    before, _DROPOUT_GENERATOR = _DROPOUT_GENERATOR, generator
+    try:
+        yield
+    finally:
+        _DROPOUT_GENERATOR = before
+
+
+def dropout(x: torch.Tensor, p: float, training: bool) -> torch.Tensor:
+    """Inverted dropout: in training, each element kept with probability 1 - p and scaled
+    by 1 / (1 - p), the mask drawn from the generator of ``dropout_generator``; the
+    identity otherwise. The head's three dropouts (p = 0.1) all run through here."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=_DROPOUT_GENERATOR, device=x.device) >= p
+    return x * keep / (1.0 - p)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
-    """nn.BatchNorm2d (the reference's state-dict keys, `num_batches_tracked` included)
-    that the port only ever uses in eval mode, as a fixed per-channel affine of its
-    running statistics (the JAX package's ``BatchNormEval``)."""
+    """nn.BatchNorm2d (the reference's state-dict keys, `num_batches_tracked` included). In
+    eval mode the port applies it as a fixed per-channel affine of its running statistics
+    (the JAX package's ``BatchNormEval``); in training, as the module (batch statistics)."""
 
     def affine_eval(self):
         """(scale, shift) with eval-mode BN(x) = x * scale + shift."""
@@ -95,7 +123,7 @@ class TorchMHA(nn.Module):
         qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
         q, k, v = qkv.reshape(*lead, n, 3, h, hd).movedim(-3, 0).transpose(-2, -3)
         attn = torch.softmax((q * hd ** -0.5) @ k.transpose(-1, -2), dim=-1)
-        attn = F.dropout(attn, self.dropout, self.training)
+        attn = dropout(attn, self.dropout, self.training)
         return self.out_proj((attn @ v).transpose(-2, -3).reshape(*lead, n, e))
 
 

@@ -6,6 +6,7 @@ layout at its public functions.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -50,3 +51,20 @@ def pad_to_multiple(x: torch.Tensor, mult: int, mode: str = "reflect"):
             nchw = F.pad(nchw, (0, pw, 0, ph), mode=mode)
         x = nchw.permute(0, 2, 3, 1).contiguous()
     return x, (h, w)
+
+
+def gaussian_1d(size: int, sigma: float) -> np.ndarray:
+    """Normalized 1-D gaussian taps, float32: the construction every gaussian window of the
+    port derives from (the SSIM loss, the SSIM metric)."""
+    g = np.exp(-((np.arange(size) - size // 2) ** 2) / (2.0 * sigma ** 2))
+    return (g / g.sum()).astype(np.float32)
+
+
+def gaussian_blur(x: torch.Tensor, size: int, sigma: float) -> torch.Tensor:
+    """Gaussian blur of an NHWC batch: the depthwise conv of the outer-product window, zero
+    padded to the same size (border pixels lose mass, as ``F.conv2d(padding=size // 2)``)."""
+    g = torch.from_numpy(gaussian_1d(size, sigma)).to(x)
+    c = x.shape[-1]
+    win = (g[:, None] * g[None, :]).expand(c, 1, size, size)
+    y = F.conv2d(x.permute(0, 3, 1, 2), win, padding=size // 2, groups=c)
+    return y.permute(0, 2, 3, 1)

@@ -51,6 +51,7 @@ SIGNATURES = {
     "wattn_qkv": [_P] * 6 + [_I] * 8 + [_P],
     "oca_attention": [_P] * 5 + [_I] * 8 + [_P],
     "band_mha": [_P] * 8 + [_L] + [_I] * 5 + [_F, _P],
+    "band_mha_wide": [_P] * 10 + [_L] + [_I] * 5 + [_F, _P],
     "lka_gate": [_P] * 9 + [_I] * 6 + [_P],
 }
 

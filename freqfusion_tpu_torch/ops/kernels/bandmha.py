@@ -12,7 +12,10 @@ On a CUDA tensor the wrapper launches the kernel from ``csrc/bandmha.cu`` or rai
 CPU tensor it runs the plain PyTorch version. Weights come as ``x @ w`` matrices ([in,out]),
 as the JAX package's ``TorchMHA`` stores them; they may be views (the head passes
 ``in_proj_weight.t()``). The kernel's products run f32-exact on the tensor cores (3xTF32)
-on the weights laid out as B fragments once for each weight (``band_weights``).
+on the weights laid out as B fragments once for each weight (``band_weights``). A pixel's
+tokens that do not fit one group (more than ``max_tokens``, or wider than ``MAX_D``) take the
+kernel's wide route (``band_mha_wide``: LN, the row product, the attention with an online
+softmax over any number of keys, the row product, the residual, through device memory).
 """
 
 from __future__ import annotations
@@ -25,10 +28,10 @@ from . import _build, _mma
 #: Kernel launches since the last reset. Plain runs are not counted.
 launches = {"fused_band_mha": 0}
 
-#: What csrc/bandmha.cu takes: D a multiple of 16 up to MAX_D, heads of any width that is a
-#: multiple of 4, and T band tokens up to the rows of a group (``max_tokens``). The wrapper
-#: zero-pads any other D or head width to those steps: LN's statistics and the softmax scale
-#: keep the real widths.
+#: What the fused route of csrc/bandmha.cu takes: D a multiple of 16 up to MAX_D, heads of
+#: any width that is a multiple of 4, and T band tokens up to the rows of a group
+#: (``max_tokens``); wider or more tokens take the wide route. The wrapper zero-pads any other
+#: D or head width to those steps: LN's statistics and the softmax scale keep the real widths.
 MAX_D = 384
 
 
@@ -63,33 +66,49 @@ def band_weights(wqkv: torch.Tensor, wproj: torch.Tensor):
     return _mma.fragments(wqkv), _mma.fragments(wproj)
 
 
-def _padded_params(wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int, dk: int, hdp: int):
+def _padded(wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int, dk: int, hdp: int):
     """The parameters laid out for a kernel width dk and head width hdp: head h's q, k and v
-    columns at h * hdp of each third of [dk, 3 dk] (rows past D, columns past the head's
-    width zero), wproj's rows likewise [dk, dk], the biases and LN's affine zero-padded, and
-    wqkv and wproj as B fragments; made once for each weight (``_mma.kept``)."""
+    columns at h * hdp of each third of wqkv [dk, 3 dk] (rows past D, columns past the head's
+    width zero), wproj's rows likewise [dk, dk], the biases and LN's affine zero-padded."""
+    d = wqkv.shape[0]
+    hd = d // num_heads
+    w = wqkv.new_zeros(dk, 3, num_heads, hdp)
+    w[:d, :, :, :hd] = wqkv.reshape(d, 3, num_heads, hd)
+    b = bqkv.new_zeros(3, num_heads, hdp)
+    b[:, :, :hd] = bqkv.reshape(3, num_heads, hd)
+    p = wproj.new_zeros(num_heads, hdp, dk)
+    p[:, :hd, :d] = wproj.reshape(num_heads, hd, d)
+    # columns past the heads' sum, up to dk, stay zero in every third
+    wq = w.reshape(dk, 3, num_heads * hdp)
+    wq = torch.nn.functional.pad(wq, (0, dk - num_heads * hdp)).reshape(dk, 3 * dk)
+    bq = torch.nn.functional.pad(b.reshape(3, num_heads * hdp),
+                                 (0, dk - num_heads * hdp)).reshape(3 * dk)
+    wp = torch.nn.functional.pad(p.reshape(num_heads * hdp, dk),
+                                 (0, 0, 0, dk - num_heads * hdp))
+    pad = (0, dk - d)
+    return (wq.contiguous(), bq.contiguous(), wp.contiguous(),
+            *(torch.nn.functional.pad(t, pad).contiguous() for t in (bproj, ln_w, ln_b)))
+
+
+def _padded_params(wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int, dk: int, hdp: int):
+    """``_padded`` with wqkv and wproj as the fused route's B fragments, made once for each
+    weight (``_mma.kept``)."""
     def make():
-        d = wqkv.shape[0]
-        hd = d // num_heads
-        w = wqkv.new_zeros(dk, 3, num_heads, hdp)
-        w[:d, :, :, :hd] = wqkv.reshape(d, 3, num_heads, hd)
-        b = bqkv.new_zeros(3, num_heads, hdp)
-        b[:, :, :hd] = bqkv.reshape(3, num_heads, hd)
-        p = wproj.new_zeros(num_heads, hdp, dk)
-        p[:, :hd, :d] = wproj.reshape(num_heads, hd, d)
-        # columns past the heads' sum, up to dk, stay zero in every third
-        wq = w.reshape(dk, 3, num_heads * hdp)
-        wq = torch.nn.functional.pad(wq, (0, dk - num_heads * hdp)).reshape(dk, 3 * dk)
-        bq = torch.nn.functional.pad(b.reshape(3, num_heads * hdp),
-                                     (0, dk - num_heads * hdp)).reshape(3 * dk)
-        wp = torch.nn.functional.pad(p.reshape(num_heads * hdp, dk),
-                                     (0, 0, 0, dk - num_heads * hdp))
-        pad = (0, dk - d)
-        return (_mma.b_fragments(wq.contiguous()), bq.contiguous(),
-                _mma.b_fragments(wp.contiguous()),
-                *(torch.nn.functional.pad(t, pad).contiguous() for t in (bproj, ln_w, ln_b)))
+        wq, bq, wp, *rest = _padded(wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads, dk, hdp)
+        return (_mma.b_fragments(wq), bq, _mma.b_fragments(wp), *rest)
 
     return _mma.kept(("band_padded", num_heads, dk, hdp), make, wqkv, bqkv, wproj, bproj,
+                     ln_w, ln_b)
+
+
+def _wide_params(wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int, dk: int, hdp: int):
+    """``_padded`` with wqkv and wproj as the row product's split planes (``_mma.mma_planes``),
+    for the wide route; made once for each weight (``_mma.kept``)."""
+    def make():
+        wq, bq, wp, *rest = _padded(wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads, dk, hdp)
+        return (_mma.mma_planes(wq), bq, _mma.mma_planes(wp), *rest)
+
+    return _mma.kept(("band_wide", num_heads, dk, hdp), make, wqkv, bqkv, wproj, bproj,
                      ln_w, ln_b)
 
 
@@ -104,10 +123,9 @@ def fused_band_mha(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int
     if num_heads < 1 or d % num_heads:
         raise ValueError(f"fused_band_mha: D={d} is not a whole number of {num_heads} heads")
     dk, hdp = padded_widths(d, num_heads)
-    if dk > MAX_D:
-        raise ValueError(f"fused_band_mha: D={d} ({dk} padded); the kernel takes up to {MAX_D}")
-    if not 1 <= t <= max_tokens(dk):
-        raise ValueError(f"fused_band_mha: T={t} outside [1, {max_tokens(dk)}] at D={d}")
+    if t < 1:
+        raise ValueError(f"fused_band_mha: T={t}; expected at least one token")
+    wide = dk > MAX_D or t > max_tokens(dk)
     _build.require(stacked, "stacked")
     # wqkv and wproj are laid out anew (band_weights, _padded_params): views will do
     for name, p, shape, contiguous in (("wqkv", wqkv, (d, 3 * d), False),
@@ -117,21 +135,34 @@ def fused_band_mha(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int
                                        ("ln_b", ln_b, (d,), True)):
         _build.require(p, name, shape, contiguous=contiguous)
     x = stacked
-    if (dk, hdp) == (d, d // num_heads):
-        (wqkv_f, wproj_f), params = band_weights(wqkv, wproj), (bqkv, bproj, ln_w, ln_b)
-    else:   # zero-padded to the kernel's steps; LN and the scale keep the real widths
-        wqkv_f, bq, wproj_f, bp, lw, lb = _padded_params(wqkv, bqkv, wproj, bproj, ln_w,
-                                                         ln_b, num_heads, dk, hdp)
-        params = (bq, bp, lw, lb)
+    if (dk, hdp) != (d, d // num_heads):   # zero-padded to the kernel's steps
         x = torch.nn.functional.pad(stacked, (0, dk - d)).contiguous()
     lib = _build.library()
     out = torch.empty_like(x)
-    with torch.cuda.device(stacked.device):
-        err = lib.band_mha(x.data_ptr(), wqkv_f.data_ptr(), params[0].data_ptr(),
-                           wproj_f.data_ptr(), params[1].data_ptr(), params[2].data_ptr(),
-                           params[3].data_ptr(), out.data_ptr(), b * h * w, t, dk, d,
-                           num_heads, hdp, (d // num_heads) ** -0.5,
-                           _build.stream_ptr(stacked.device))
-    _build.check(err, "band_mha")
+    scale = (d // num_heads) ** -0.5   # LN and the scale keep the real widths
+    if wide:
+        wq, bq, wp, bp, lw, lb = _wide_params(wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads,
+                                              dk, hdp)
+        n = torch.empty_like(x)
+        qkv = x.new_empty((*x.shape[:-1], 3 * dk))
+        with torch.cuda.device(stacked.device):
+            err = lib.band_mha_wide(x.data_ptr(), wq.data_ptr(), bq.data_ptr(), wp.data_ptr(),
+                                    bp.data_ptr(), lw.data_ptr(), lb.data_ptr(), n.data_ptr(),
+                                    qkv.data_ptr(), out.data_ptr(), b * h * w, t, dk, d,
+                                    num_heads, hdp, scale, _build.stream_ptr(stacked.device))
+        _build.check(err, "band_mha_wide")
+    else:
+        if (dk, hdp) == (d, d // num_heads):
+            (wqkv_f, wproj_f), params = band_weights(wqkv, wproj), (bqkv, bproj, ln_w, ln_b)
+        else:
+            wqkv_f, bq, wproj_f, bp, lw, lb = _padded_params(wqkv, bqkv, wproj, bproj, ln_w,
+                                                             ln_b, num_heads, dk, hdp)
+            params = (bq, bp, lw, lb)
+        with torch.cuda.device(stacked.device):
+            err = lib.band_mha(x.data_ptr(), wqkv_f.data_ptr(), params[0].data_ptr(),
+                               wproj_f.data_ptr(), params[1].data_ptr(), params[2].data_ptr(),
+                               params[3].data_ptr(), out.data_ptr(), b * h * w, t, dk, d,
+                               num_heads, hdp, scale, _build.stream_ptr(stacked.device))
+        _build.check(err, "band_mha")
     launches["fused_band_mha"] += 1
     return out if dk == d else out[..., :d].contiguous()

@@ -14,7 +14,9 @@ On a CUDA tensor the wrapper launches the two kernels of ``csrc/lka.cu`` or rais
 tensor it runs the plain PyTorch version. The first kernel runs the three depthwise convs in
 one pass and writes `a` once; the second runs the 1x1 product f32-exact on the tensor cores
 (3xTF32, wp split once for each weight by ``_mma.planes``) with the BatchNorm, the sigmoid
-and the gate in its epilogue. They take any batch and any C up to MAX_C.
+and the gate in its epilogue. They take any batch and any C: above STAGED_MAX_C the product
+reads `a` from device memory instead of staging it, with K in chunks whose partial sums stay
+in registers.
 """
 
 from __future__ import annotations
@@ -28,8 +30,9 @@ from . import _build, _mma
 launches = {"lka_gate": 0}
 
 K = 21
-#: Widest C of csrc/lka.cu: the 1x1 product stages 16 rows of `a` in each of two buffers.
-MAX_C = 1808
+#: Widest C whose 1x1 product stages `a` in shared memory (16 rows in each of two buffers,
+#: csrc/lka.cu); wider rows take lka_mix_wide_kernel.
+STAGED_MAX_C = 1808
 
 
 def lka_gate_plain(x, w5, wh, wv, wp, scale, shift):
@@ -50,8 +53,6 @@ def lka_gate(x, w5, wh, wv, wp, scale, shift):
     if x.dim() != 4:
         raise ValueError(f"lka_gate: expected [B,H,W,C], got {tuple(x.shape)}")
     b, h, w, c = x.shape
-    if c > MAX_C:
-        raise ValueError(f"lka_gate: C={c}; the kernel takes C up to {MAX_C}")
     _build.require(x, "x")
     for name, t, shape in (("w5", w5, (5, 5, c)), ("wh", wh, (K, c)), ("wv", wv, (K, c)),
                            ("scale", scale, (c,)), ("shift", shift, (c,))):

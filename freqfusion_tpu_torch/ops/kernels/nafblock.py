@@ -75,16 +75,20 @@ def stage_a_planes(w1: torch.Tensor) -> torch.Tensor:
 
 def stage_b_planes(w3: torch.Tensor, w4: torch.Tensor, w5: torch.Tensor) -> tuple:
     """Stage B's weights as tile_mma's B fragments, hi and lo (``_mma.mma_planes``), each
-    made once for each weight (``_mma.kept``): w3 and w5 [C,C] as they are; w4 [C,2C] with
-    gate channel j in column 2j and its partner C+j in column 2j+1, so that the kernel's
-    epilogue holds both halves of a gate in one thread."""
+    zero-padded to Cp = C rounded up to the products' steps of 8 and made once for each
+    weight (``_mma.kept``): w3 and w5 [Cp,Cp]; w4 [Cp,2Cp] with gate channel j in column 2j
+    and its partner C+j in column 2j+1, so that the kernel's epilogue holds both halves of a
+    gate in one thread."""
     c = w3.shape[0]
+    cp = -(-c // 8) * 8
 
     def w4_make():
-        return _mma.mma_planes(w4.reshape(c, 2, c).permute(0, 2, 1).reshape(c, 2 * c))
+        w = w4.new_zeros(cp, cp, 2)
+        w[:c, :c] = w4.reshape(c, 2, c).permute(0, 2, 1)
+        return _mma.mma_planes(w.reshape(cp, 2 * cp))
 
-    return (_mma.planes(w3, c, c), _mma.kept(("naf_stage_b_w4",), w4_make, w4),
-            _mma.planes(w5, c, c))
+    return (_mma.planes(w3, cp, cp), _mma.kept(("naf_stage_b_w4", cp), w4_make, w4),
+            _mma.planes(w5, cp, cp))
 
 
 def naf_block_stage_a(x, ln_w, ln_b, w1, b1, wdw, bdw):
@@ -125,18 +129,19 @@ def naf_block_stage_a(x, ln_w, ln_b, w1, b1, wdw, bdw):
 
 def naf_block_stage_b(g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4, w5, b5, gamma, *,
                       on_chip: bool = True):
-    """Kernel B2 on CUDA, its plain version on the CPU; any C that is a multiple of 8. At
-    C = 64 the kernel keeps y and the hidden in shared memory; on_chip=False sends them
-    through device memory there too, as the other widths always do (to time and test the two
-    designs against each other)."""
+    """Kernel B2 on CUDA, its plain version on the CPU; any C that is a multiple of 4, as
+    stage A takes (the products run at C rounded up to 8 on zero-padded weights). At C = 64
+    the kernel keeps y and the hidden in shared memory; on_chip=False sends them through
+    device memory there too, as the other widths always do (to time and test the two designs
+    against each other)."""
     _build.require_no_grad("naf_block_stage_b", g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4,
                            w5, b5, gamma)
     if g.device.type == "cpu":
         return naf_block_stage_b_plain(g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4,
                                        w5, b5, gamma)
     b, h, w, c = g.shape
-    if c % 8:
-        raise ValueError(f"naf_block_stage_b: C={c} is not a multiple of 8")
+    if c % 4:
+        raise ValueError(f"naf_block_stage_b: C={c} is not a multiple of 4")
     _build.require(g, "g")
     _build.require(x, "x", g.shape)
     _build.require(att, "att", (b, c))
@@ -151,10 +156,11 @@ def naf_block_stage_b(g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4, w5, b5, gam
     lib = _build.library()
     out = torch.empty_like(g)
     # scratch: the hidden where it does not stay on chip (C != 64, or not on_chip), the
-    # products' partial sums where K comes in pieces (C > MAX_ROW_K)
+    # products' partial sums where K comes in pieces (Cp > MAX_ROW_K)
+    cp = -(-c // 8) * 8
     hid = torch.empty_like(g) if c != 64 or not on_chip else None
-    part = (torch.empty((b, h, w, 2 * c), device=g.device, dtype=torch.float32)
-            if c > _mma.MAX_ROW_K else None)
+    part = (torch.empty((b, h, w, 2 * cp), device=g.device, dtype=torch.float32)
+            if cp > _mma.MAX_ROW_K else None)
     with torch.cuda.device(g.device):
         err = lib.naf_stage_b(g.data_ptr(), x.data_ptr(), att.data_ptr(), w3p.data_ptr(),
                               b3.data_ptr(), beta.data_ptr(), ln2_w.data_ptr(),

@@ -1,7 +1,7 @@
 """Port parity for the whole model: a tiny ``FreqFusionSR`` of freqfusion_tpu_torch against
 the JAX ``FreqFusionSR`` from ``freqfusion_params_from_flax`` (final output within 2e-4,
 uint8 serving within 1 LSB), and the directory contract ``main`` / ``model_func`` on the
-CPU: checkpoints found and loaded, a missing one warned about, a native ``.ckpt`` refused,
+CPU: checkpoints found and loaded, a missing one warned about, an unreadable ``.ckpt`` refused,
 a frame below the whole-image plan served in tiles, and the default device refused where
 there is no card.
 """
@@ -194,10 +194,11 @@ def test_main_serves_a_directory_from_pth_checkpoints(tmp_path):
     assert not np.array_equal(np.asarray(Image.open(tmp_path / "sr2" / "a.png")),
                               np.asarray(Image.open(out / "a.png")))
 
-    # a framework-native checkpoint is refused, not skipped
+    # a native checkpoint in neither of the two formats is refused, not skipped (the
+    # formats themselves: tests/test_torch_training.py)
     (model_dir / "checkpoints").mkdir()
     (model_dir / "checkpoints" / "latest.ckpt").write_bytes(b"\x00")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(ValueError, match="neither a torch.save archive nor a flax msgpack"):
         main(str(model_dir), str(src), str(tmp_path / "sr3"), "cpu", expert_kwargs=EXPERTS)
 
 

@@ -135,6 +135,9 @@ def test_port_imports_without_jax():
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
         "sys.modules['freqfusion_tpu'] = None\n"
+        "sys.modules['optax'] = None\n"
+        "sys.modules['msgpack'] = None\n"
+        "sys.modules['torch.utils.tensorboard'] = None\n"
         "import importlib, pkgutil\n"
         "import freqfusion_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
@@ -145,9 +148,13 @@ def test_port_imports_without_jax():
         "        'models.hierarchical', 'models.edge', 'models.fusion', 'models.experts',\n"
         "        'models.nafnet', 'models.dat', 'models.hat', 'ops.kernels.wattn',\n"
         "        'ops.kernels.cab', 'infer.io', 'infer.tiling', 'cli.test', 'utils.convert',\n"
-        "        'utils.imageio']\n"
+        "        'utils.imageio', 'losses', 'training.schedule', 'training.ema',\n"
+        "        'training.steps', 'training.checkpoint', 'data.augment', 'data.dataset',\n"
+        "        'data.cached', 'data.extract', 'utils.metrics', 'utils.logger',\n"
+        "        'parallel.mesh', 'cli.train']\n"
         "assert all(pkg.__name__ + '.' + n in names for n in need), names\n"
-        "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', 'freqfusion_tpu.'))\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', 'freqfusion_tpu.', 'optax',\n"
+        "                                            'msgpack'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
     # no import statement of the port or of chip_smoke.py names the JAX side, wherever in a
@@ -164,4 +171,4 @@ def test_port_imports_without_jax():
             mods = ([a.name for a in node.names] if isinstance(node, ast.Import) else
                     [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
             for m in mods:
-                assert m.split(".")[0] not in ("jax", "flax", "freqfusion_tpu"), (path, m)
+                assert m.split(".")[0] not in ("jax", "flax", "optax", "freqfusion_tpu"), (path, m)

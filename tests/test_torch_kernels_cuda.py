@@ -43,11 +43,14 @@ def _block_params(c, gen):
                                      (2, 33, 29, 128), (1, 37, 45, 256), (1, 16, 14, 64),
                                      (1, 190, 200, 64), (2, 131, 139, 128), (2, 37, 45, 32),
                                      (1, 64, 80, 48), (1, 190, 200, 32), (1, 24, 32, 16),
-                                     (1, 20, 22, 96), (1, 12, 20, 160)])
+                                     (1, 20, 22, 96), (1, 12, 20, 160), (1, 24, 32, 36),
+                                     (2, 19, 23, 44), (1, 20, 22, 100), (1, 12, 20, 196)])
 def test_fused_naf_block_kernel_matches_plain(gen, b, h, w, c):
     """B1 (stage A on the tensor cores) and B2 at NAF's three fused widths: ragged images whose
     tiles end inside and at the image's edge, with 6 x 14 outputs a block (C = 256, or an
-    image too small to give every SM a larger tile) and 14 x 14 (the last two cases)."""
+    image too small to give every SM a larger tile) and 14 x 14 (the last two cases); and
+    at C that is not a multiple of 8 (36, 44, 100, 196: B2's products on zero-padded
+    weights, LN2 over the real C)."""
     x = torch.randn(b, h, w, c, generator=gen, device="cuda")
     p = _block_params(c, gen)
     n0 = dict(nafblock.launches)
@@ -795,9 +798,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         conv3x3.conv3x3_dense(x.double(), w.double(), b.double())
     with pytest.raises(ValueError, match="contiguous"):
         conv3x3.conv3x3_dense(x.transpose(1, 2), w, b)
-    p = _block_params(36, gen)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        nafblock.fused_naf_block(torch.zeros(1, 8, 8, 36, device="cuda"), p)
+    p = _block_params(38, gen)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        nafblock.fused_naf_block(torch.zeros(1, 8, 8, 38, device="cuda"), p)
 
 
 def _mha_args(gen, b, h, w, t, d):
@@ -813,11 +816,14 @@ def _mha_args(gen, b, h, w, t, d):
     (2, 11, 13, 3, 80, 5), (1, 13, 17, 9, 112, 4), (1, 5, 5, 9, 96, 2),
     (1, 4, 4, 3, 144, 8), (1, 6, 7, 9, 144, 4), (1, 5, 6, 9, 256, 4), (1, 5, 6, 9, 192, 2),
     (1, 4, 4, 3, 48, 8), (1, 5, 6, 9, 96, 1), (1, 2, 2, 65, 96, 4), (1, 3, 3, 33, 192, 4),
-    (1, 5, 6, 9, 100, 4), (1, 5, 6, 9, 6, 2), (1, 4, 5, 9, 384, 4)])
+    (1, 5, 6, 9, 100, 4), (1, 5, 6, 9, 6, 2), (1, 4, 5, 9, 384, 4), (1, 4, 5, 9, 400, 4),
+    (1, 3, 4, 9, 512, 4), (1, 3, 5, 65, 128, 4), (1, 3, 4, 129, 64, 4), (1, 2, 3, 3, 400, 5)])
 def test_band_mha_kernel_matches_plain(gen, b, h, w, t, d, heads):
     """B11 at the head's shape and at every width C11 listed: D above 128 (144, 192, 256,
     384), heads of 6 (padded to 8), 96 and 192 wide, 65 tokens at D = 96, 33 at D = 192, and
-    D that is not a multiple of 16 (100 in heads of 25, 6 in heads of 3)."""
+    D that is not a multiple of 16 (100 in heads of 25, 6 in heads of 3); and what C14
+    listed, on the wide route: D = 400 and 512, 65 tokens at D = 128, 129 at D = 64, heads of
+    80."""
     args = _mha_args(gen, b, h, w, t, d)
     n0 = bandmha.launches["fused_band_mha"]
     torch.testing.assert_close(bandmha.fused_band_mha(*args, heads),
@@ -839,10 +845,6 @@ def test_band_mha_is_f32_exact(gen, b, h, w, t, d, heads):
 
 
 def test_band_mha_kernel_raises_on_what_it_does_not_take(gen):
-    with pytest.raises(ValueError, match="up to 384"):
-        bandmha.fused_band_mha(*_mha_args(gen, 1, 2, 2, 3, 400), 4)   # D = 400
-    with pytest.raises(ValueError, match="T=65 outside"):
-        bandmha.fused_band_mha(*_mha_args(gen, 1, 2, 2, 65, 128), 4)  # 64-row groups at 128
     with pytest.raises(ValueError, match="whole number"):
         bandmha.fused_band_mha(*_mha_args(gen, 1, 2, 2, 3, 48), 5)
     args = _mha_args(gen, 1, 4, 4, 3, 64)
@@ -863,11 +865,12 @@ def _lka_args(gen, b, h, w, c):
     (2, 24, 32, 64), (1, 21, 16, 32), (3, 16, 24, 128), (9, 12, 16, 64), (1, 10, 40, 64),
     (2, 37, 45, 64), (1, 33, 40, 180), (1, 1, 1, 4), (1, 70, 5, 20), (1, 20, 30, 6),
     (2, 19, 47, 130), (1, 23, 29, 400), (1, 3, 5, 7), (2, 130, 100, 64), (1, 9, 11, 1000),
-    (1, 5, 6, 1808)])
+    (1, 5, 6, 1808), (1, 32, 48, 1816), (1, 32, 48, 2048), (1, 3, 5, 1810)])
 def test_lka_gate_kernel_matches_plain(gen, b, h, w, c):
     """B12 at the head's width, ragged and tiny images (the chain's segments and strips end
-    inside them), and at any C: 6, 7, 130, 180, 400, 1000 (tiles of 16 rows) and 1808 (x
-    read from device memory in the product's epilogue)."""
+    inside them), and at any C: 6, 7, 130, 180, 400, 1000 (tiles of 16 rows), 1808 (x read
+    from device memory in the product's epilogue), and 1810, 1816 and 2048 (`a` read from
+    device memory too, K in chunks with the sums in registers)."""
     args = _lka_args(gen, b, h, w, c)
     n0 = lka.launches["lka_gate"]
     torch.testing.assert_close(lka.lka_gate(*args), lka.lka_gate_plain(*args),
@@ -886,8 +889,6 @@ def test_lka_gate_is_f32_exact(gen):
 
 
 def test_lka_gate_kernel_raises_on_what_it_does_not_take(gen):
-    with pytest.raises(ValueError, match="up to 1808"):
-        lka.lka_gate(*_lka_args(gen, 1, 2, 2, 1816))
     args = _lka_args(gen, 1, 8, 8, 16)
     with pytest.raises(ValueError, match="contiguous"):
         lka.lka_gate(args[0].transpose(1, 2), *args[1:])

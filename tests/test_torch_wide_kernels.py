@@ -1,7 +1,8 @@
 """Port parity at the widths and windows that the card's kernels newly take: the plain
 versions of B13 (more than 256 tokens, heads wider than 32), B9 (HAT's window 32), B6
 (hidden/2 above 384), B1 and B2 (NAFNet widths 32 and 48), B11 (D above 128, heads of 96,
-more than 64 band tokens) and B12 (C of 6, 130 and 400) against the JAX package's Pallas
+more than 64 band tokens; D of 400 and 512, 129 tokens) and B12 (C of 6, 130, 400, 1816
+and 2048) against the JAX package's Pallas
 kernels in interpret mode on the same numpy inputs, and the predicates that send a window
 to B4 and B8 or to B13 and B14. Tolerance atol 5e-5 + rtol 1e-4 (f32; the Pallas bodies
 use an erf approximation good to 1.5e-7 and other summation orders)."""
@@ -87,9 +88,10 @@ def test_sgfn_tail_plain_matches_pallas_at_hidden_800():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("c", [32, 48])
+@pytest.mark.parametrize("c", [32, 48, 36, 44, 100])
 def test_naf_block_plain_matches_pallas_at_narrow_widths(c):
-    """NAFNet-width32 (and 48): stage A and stage B at C that is not a multiple of 64."""
+    """NAFNet-width32 (and 48): stage A and stage B at C that is not a multiple of 64; and at
+    C that is not a multiple of 8 (36, 44, 100), which B2 takes on zero-padded weights."""
     p = _jax_block_params(c, c)
     x = (0.5 * np.random.default_rng(c + 1).standard_normal((1, 12, 16, c))).astype(np.float32)
     jp = dict(ln1_w=p["norm1"]["weight"], ln1_b=p["norm1"]["bias"],
@@ -122,10 +124,13 @@ def test_stage_a_planes_pad_to_whole_passes():
 
 
 # (b, h, w, t, d, heads): D = 144 and 256, one head of 96, T = 65 at D = 96, and widths that
-# the kernel takes zero-padded (D = 100 in heads of 25, D = 6 in heads of 3)
+# the kernel takes zero-padded (D = 100 in heads of 25, D = 6 in heads of 3); then what the
+# kernel's wide route takes: D = 400 and 512, T = 65 at D = 128, T = 129 at D = 64
 @pytest.mark.parametrize("case", [(1, 2, 4, 9, 144, 4), (1, 2, 2, 9, 256, 4),
                                   (1, 2, 4, 9, 96, 1), (1, 2, 2, 65, 96, 4),
-                                  (1, 2, 4, 9, 100, 4), (1, 2, 4, 9, 6, 2)])
+                                  (1, 2, 4, 9, 100, 4), (1, 2, 4, 9, 6, 2),
+                                  (1, 2, 2, 9, 400, 4), (1, 2, 2, 9, 512, 4),
+                                  (1, 2, 2, 65, 128, 4), (1, 1, 1, 129, 64, 4)])
 def test_band_mha_plain_matches_pallas_at_new_widths(case):
     b, h, w, t, d, heads = case
     rng = np.random.default_rng(d + t)
@@ -147,7 +152,8 @@ def test_band_mha_pads_to_the_kernels_steps(d, heads, want):
     assert bandmha.max_tokens(dk) >= (65 if d == 96 else 9)
 
 
-@pytest.mark.parametrize("shape", [(1, 6, 9, 6), (1, 5, 8, 130), (1, 4, 6, 400)])
+@pytest.mark.parametrize("shape", [(1, 6, 9, 6), (1, 5, 8, 130), (1, 4, 6, 400),
+                                   (1, 32, 48, 1816), (1, 32, 48, 2048)])
 def test_lka_plain_matches_pallas_at_any_width(shape):
     b, h, w, c = shape
     rng = np.random.default_rng(c)

@@ -2,9 +2,11 @@
 with split (6, 24) (144-token windows), whose spatial blocks project q, k, v in torch and take
 B13's wrapper, and a small HAT with window 12 and heads of 48, whose HABs take B7 + B14 + B10's
 wrappers, each against the JAX module with the same weights (``utils/convert.py``). On the
-CPU every wrapper runs its plain version. Tolerance atol 5e-5 + rtol 1e-4."""
+CPU every wrapper runs its plain version. Then NAFNets of widths 36 and 44, whose NAFBlocks
+run B1 and B2 at C that is not a multiple of 8. Tolerance atol 5e-5 + rtol 1e-4."""
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 import torch
@@ -84,3 +86,27 @@ def test_hat_with_window_12_and_heads_of_48_takes_b7_b14_b10_and_matches_jax(mon
     assert calls == ["cab_chain", "fused_window_attention", "fused_residual_ln_mlp"] * 6
     np.testing.assert_allclose(sr.numpy(), np.asarray(want_sr), **TOL)
     np.testing.assert_allclose(deep.numpy(), np.asarray(want_deep), **TOL)
+
+
+@pytest.mark.parametrize("width", [36, 44])
+def test_nafnet_of_width_36_and_44_matches_jax(width):
+    """NAFNetSR at widths that are not multiples of 8 (levels of 36, 72, 144 and 44, 88,
+    176), against the JAX NAFNetSR with the same weights."""
+    from freqfusion_tpu.models.nafnet import NAFNetSR as JNAFNetSR
+    from freqfusion_tpu_torch.models.nafnet import NAFNetSR
+    from freqfusion_tpu_torch.utils.convert import nafnet_params_from_flax
+    cfg = dict(upscale=4, width=width, middle_blk_num=1, enc_blk_nums=(1, 1),
+               dec_blk_nums=(1, 1))
+    jm = JNAFNetSR(**cfg)
+    params = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3)))["params"]
+    rng = np.random.default_rng(width)
+    params = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + 0.1 * rng.standard_normal(a.shape).astype(np.float32),
+        params)
+    tm = NAFNetSR(**cfg).eval()
+    tm.nafnet.load_state_dict(nafnet_params_from_flax(params), strict=True)
+    lr = rng.uniform(size=(1, 16, 20, 3)).astype(np.float32)
+    want, _ = jm.apply({"params": params}, jnp.asarray(lr))
+    with torch.inference_mode():
+        got, _ = tm(torch.from_numpy(lr))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
