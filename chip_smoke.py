@@ -52,7 +52,21 @@ Phases, each printing JSON lines; any failure raises and the exit code is not 0:
      against the CPU and 20 steps whose loss must fall (ms a step, images a second, peak
      memory), live training through cli/train.py (every expert kernel in every step, no
      expert parameter changed), and the trained checkpoint served through infer.io.main
-     within 1 LSB of the model in memory.
+     within 1 LSB of the model in memory;
+ 11. eval: the eval path at the towers' published widths (eval_slice): cli/eval.py on the
+     ens phase's three served PNGs against seeded targets, with all five towers live from
+     seeded random checkpoints (LPIPS-alex, DISTS-VGG16, MUSIQ, MANIQA ViT-B/8, CLIP
+     ViT-B/32 with its text tower and a small BPE vocabulary): every column finite, three
+     rows and a MEAN row, a total_score, seconds by column and peak memory; each tower on a
+     384x512 crop on the card against the CPU and a float64 evaluation; the VGG19 and
+     CLIP perceptual losses with their gradients at the training batch [14,256,256,3] on
+     the card against the same; two
+     cached steps of CombinedLoss with vgg 0.1 and clip 0.05 on the card. The eval path runs
+     no kernel, and none may launch.
+The kernel phase also runs the fusion head at FusionConfig(enable_hierarchical=False) (the
+flat multi-resolution fusion of phase 5) once at the shipped width on a 352x512 frame with
+the kernels and on the plain path (`repair` line `fusion_head`, `multi_resolution`: B11 and
+B12 one launch each, within SLICE_RTOL x max|plain|).
 With --profile [dat|hat|ens|head|tiled] (or several, comma-separated: --profile hat,ens),
 one forward of each model named (DAT if none is named; `head` is the fusion head alone on
 fixed expert outputs, `tiled` one chunk of two 192-px tiles on the kernel path and on the
@@ -84,6 +98,7 @@ from freqfusion_tpu_torch.infer.tiling import num_tiles
 from freqfusion_tpu_torch.models import dat as dat_model
 from freqfusion_tpu_torch.models.dat import DAT
 from freqfusion_tpu_torch.models.experts import FreqFusionSR
+from freqfusion_tpu_torch.models.fusion import EXPERT_ORDER, FusionConfig, FusionHead
 from freqfusion_tpu_torch.models.hat import HAT
 from freqfusion_tpu_torch.models.nafnet import NAFNetSR
 from freqfusion_tpu_torch.ops import windows
@@ -1045,6 +1060,8 @@ def phase_kernels(gen: torch.Generator) -> dict:
     torch.cuda.empty_cache()
     window_kernel_cases(gen, res)
     repair_cases(gen)
+    multires_head_repair()
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2059,6 +2076,268 @@ def train_slice(per_forward: dict) -> dict:
     return total
 
 
+def multires_head_repair() -> None:
+    """C16: the head at FusionConfig(enable_hierarchical=False), whose phase 5 is the flat
+    multi-resolution fusion, once at the shipped width (fusion_dim 64) on a 352x512 frame
+    with its kernels and on the plain path: B11 and B12 one launch each, the output within
+    SLICE_RTOL x max|plain|."""
+    gen = torch.Generator().manual_seed(SEED)
+    head = FusionHead(FusionConfig(enable_hierarchical=False))
+    randomize_head_(head, gen)
+    head = head.cuda().eval()
+    h, w = 352, 512
+    lr = torch.rand(1, h, w, 3, generator=gen)
+    up = F.interpolate(lr.permute(0, 3, 1, 2), scale_factor=4, mode="bicubic",
+                       align_corners=False).permute(0, 2, 3, 1)
+    outs = {n: (up + 0.05 * torch.randn(up.shape, generator=gen)).clamp(0, 1).cuda()
+            for n in EXPERT_ORDER}
+    lr = lr.cuda()
+    before = read_launches()
+    with torch.no_grad():
+        got = head(lr, outs)
+        launched = {k: n - before[k] for k, n in read_launches().items() if n != before[k]}
+        set_kernels(head, False)
+        want = head(lr, outs)
+        plain_ms = cuda_ms(lambda: head(lr, outs), iters=3)
+        set_kernels(head, True)
+        ms = cuda_ms(lambda: head(lr, outs), iters=3)
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    emit("repair", kernel="fusion_head", case="multi_resolution", shape=[1, h, w, 3],
+         max_abs_err=err, bound=SLICE_RTOL * scale, max_abs_plain=scale, launches=launched,
+         ms=ms, plain_ms=plain_ms)
+    require(launched == {"fused_band_mha": 1, "lka_gate": 1},
+            f"multi-resolution head: launches {launched}")
+    require(bool(torch.isfinite(got).all()) and err <= SLICE_RTOL * scale,
+            f"multi-resolution head: error {err} against {SLICE_RTOL * scale}")
+    del head, got, want, outs
+
+
+EVAL_CROP = (384, 512)      # H x W of the crop every tower scores on the card and on the CPU
+# a tower's score on the card within max(EVAL_TOWER_RTOL, EVAL_OWN_ERR_FACTOR x the CPU f32
+# score's own distance) of a float64 score, relative: random weights make some scores
+# ill-conditioned in f32 (DISTS near 0 is 1 - a sum near 1; MANIQA's channel attention over
+# random ViT-B/8 features is near one-hot). The float64 reference runs on the card: IEEE
+# float64 on any device, and the CPU would take it about 30 s longer
+EVAL_RUNS = (("cuda", torch.float32), ("cpu", torch.float32), ("cuda", torch.float64))
+EVAL_TOWER_RTOL = 1e-4
+EVAL_OWN_ERR_FACTOR = 8
+EVAL_LOSS_RTOL = 1e-4       # the same for a loss's value, and for its gradient of max|g|
+EVAL_MANIQA_CHECK_CROPS = 4   # MANIQA's random crops in the card-against-CPU check (CLI: 20)
+EVAL_MERGES = ("t h", "th e</w>", "a </w>", "o n", "i n", "e r", "h i", "hi gh</w>",
+               "q u", "qu a", "qua l", "i t", "it y</w>", "p h", "ph o", "pho t", "phot o",
+               "o o", "g oo", "goo d</w>", "b a", "ba d</w>", "i m", "im a", "ima g",
+               "imag e</w>", "s h", "sh a", "sha r", "shar p</w>", "b l", "bl u", "blu r")
+
+
+def write_eval_weights(directory: str, gen: torch.Generator) -> dict:
+    """Seeded random checkpoints at the published widths, in the reference key layouts, and
+    a small BPE merges file: {variable: path}, the variables that bring every tower and both
+    perceptual losses live."""
+    from freqfusion_tpu_torch.losses.clip import CLIPVisionTransformer
+    from freqfusion_tpu_torch.losses.vgg import VGG19Features
+    from freqfusion_tpu_torch.utils.clipiqa import CLIPTextTransformer, SimpleBPETokenizer
+    from freqfusion_tpu_torch.utils.dists import DISTS
+    from freqfusion_tpu_torch.utils.lpips import AlexLPIPS
+    from freqfusion_tpu_torch.utils.maniqa import MANIQA
+    from freqfusion_tpu_torch.utils.musiq import MUSIQTransformer
+
+    os.makedirs(directory, exist_ok=True)
+    paths = {"FREQFUSION_CLIP_BPE": os.path.join(directory, "bpe_merges.txt")}
+    with open(paths["FREQFUSION_CLIP_BPE"], "w") as f:
+        f.write("#version: chip_smoke\n" + "\n".join(EVAL_MERGES) + "\n")
+    vocab = SimpleBPETokenizer(paths["FREQFUSION_CLIP_BPE"]).vocab_size
+    lpips = AlexLPIPS()
+    dists = DISTS()
+    towers = {"FREQFUSION_LPIPS_WEIGHTS": lpips, "FREQFUSION_DISTS_WEIGHTS": dists,
+              "FREQFUSION_MUSIQ_WEIGHTS": MUSIQTransformer(),
+              "FREQFUSION_MANIQA_WEIGHTS": MANIQA(),
+              "FREQFUSION_VGG19_WEIGHTS": VGG19Features()}
+    vision, text = CLIPVisionTransformer(), CLIPTextTransformer(vocab_size=vocab)
+    for m in list(towers.values()) + [vision, text]:
+        randomize_transformer_(m, gen)
+    with torch.no_grad():   # LPIPS heads and DISTS weights are non-negative in the originals
+        for k in range(5):
+            getattr(lpips, f"lin{k}").model[1].weight.abs_()
+        dists.alpha.copy_(0.01 + 0.09 * torch.rand(dists.alpha.shape, generator=gen))
+        dists.beta.copy_(0.01 + 0.09 * torch.rand(dists.beta.shape, generator=gen))
+    for env, m in towers.items():
+        paths[env] = os.path.join(directory, env.lower() + ".pth")
+        torch.save(m.state_dict(), paths[env])
+    clip_sd = {**{"visual." + k: v for k, v in vision.state_dict().items()},
+               **text.state_dict(), "logit_scale": torch.tensor(float(np.log(100.0)))}
+    for env in ("FREQFUSION_CLIPIQA_WEIGHTS", "FREQFUSION_CLIP_WEIGHTS"):
+        paths[env] = os.path.join(directory, "clip_vit_b32.pth")
+    torch.save(clip_sd, paths["FREQFUSION_CLIP_WEIGHTS"])
+    return paths
+
+
+def eval_slice(sr_dir: str) -> dict:
+    """The eval path on the card at the towers' published widths, f32 with TF32 off:
+      1. cli/eval.py (--device cuda, workers as the CLI's default) on the three PNGs in
+         `sr_dir` against targets written from SEED (each output + N(0, 3/255) noise),
+         every variable set: PSNR, SSIM, NIQE and the five tower columns finite, three rows
+         and a MEAN row, a finite total_score; seconds by column and peak memory;
+      2. each tower on a 384x512 crop of the first output on the card, on the CPU and in
+         float64: the card's score within the larger of EVAL_TOWER_RTOL and
+         EVAL_OWN_ERR_FACTOR x the CPU f32 score's own error, relative to the float64 one
+         (MANIQA on EVAL_MANIQA_CHECK_CROPS of its seeded crops);
+      3. the VGG19 and CLIP perceptual losses, each with its gradient with respect to the
+         prediction, at the training batch [14,256,256,3] on the card, on the CPU and in
+         float64 (oneDNN off: its f32 conv backward strays further than the bound):
+         the card's value and gradient within the larger of EVAL_LOSS_RTOL (of the value,
+         of max|g|) and EVAL_OWN_ERR_FACTOR x the CPU f32 error, against float64; CLIP's
+         gradient is zero everywhere, as in the JAX package;
+      4. two cached train steps of the head with CombinedLoss({vgg: 0.1, clip: 0.05}) on
+         the card: both components computed, the loss and grad_norm finite (the second
+         step timed apart from the first).
+    The eval path launches no kernel. Returns the launch counts of steps 1 and 4."""
+    import csv
+
+    from freqfusion_tpu_torch.cli import eval as cli_eval
+    from freqfusion_tpu_torch.losses import CombinedLoss
+    from freqfusion_tpu_torch.losses.clip import CLIPPerceptualLoss
+    from freqfusion_tpu_torch.losses.vgg import VGGPerceptualLoss
+    from freqfusion_tpu_torch.training.steps import make_optimizer, make_train_step
+    from freqfusion_tpu_torch.utils.clipiqa import NativeCLIPIQA
+    from freqfusion_tpu_torch.utils.dists import NativeDISTS
+    from freqfusion_tpu_torch.utils.lpips import NativeLPIPS
+    from freqfusion_tpu_torch.utils.maniqa import NativeMANIQA
+    from freqfusion_tpu_torch.utils.musiq import NativeMUSIQ
+
+    t_phase = time.perf_counter()
+    root = os.path.join(OUT, "eval")
+    gt_dir, csv_dir = os.path.join(root, "gt"), os.path.join(root, "csv")
+    os.makedirs(gt_dir, exist_ok=True)
+    os.makedirs(csv_dir, exist_ok=True)
+    gen = torch.Generator().manual_seed(SEED)
+    outputs = list_images(sr_dir)
+    require(len(outputs) == 3, f"eval: {len(outputs)} served PNGs in {sr_dir}")
+    for f in outputs:
+        img = load_image(f)
+        noise = (3 / 255) * torch.randn(img.shape, generator=gen).numpy()
+        save_image(np.clip(img + noise, 0, 1).astype(np.float32),
+                   os.path.join(gt_dir, os.path.basename(f)))
+    os.environ.update(write_eval_weights(os.path.join(root, "weights"), gen))
+    os.environ.pop("FREQFUSION_MANIQA_CROPS", None)
+    write_s = time.perf_counter() - t_phase
+
+    # 1. the CLI, the path a user runs
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = cli_eval.main(["--output", sr_dir, "--target", gt_dir, "--csv-dir", csv_dir,
+                         "--device", "cuda"])
+    cli_counts = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(res["stem"] + ".csv") as f:
+        rows = list(csv.reader(f))
+    means = res["means"]
+    columns = ("psnr", "ssim", "niqe", "lpips", "dists", "clipiqa", "musiq", "maniqa",
+               "total_score")
+    emit("eval_cli", seconds=res["seconds"], means=means, rows=len(rows) - 2,
+         header=rows[0], peak_gib=peak_gib, images=[os.path.basename(f) for f in outputs],
+         size=list(load_image(outputs[0]).shape), write_s=write_s)
+    require(rows[0] == ["image", "psnr", "ssim", "niqe", "clipiqa", "dists", "lpips", "maniqa",
+                        "musiq"], f"eval: header {rows[0]}")
+    require(len(rows) == 5 and rows[-1][0] == "MEAN", f"eval: {len(rows)} rows")
+    require(all(np.isfinite(float(v)) for r in rows[1:] for v in r[1:]), "eval: a NaN cell")
+    require(all(np.isfinite(means[k]) for k in columns), f"eval: means {means}")
+
+    # 2. each tower, card against CPU, on one crop
+    crop = (load_image(outputs[0])[:EVAL_CROP[0], :EVAL_CROP[1]] * 255).round().astype(np.uint8)
+    crop_t = (load_image(os.path.join(gt_dir, os.path.basename(outputs[0])))
+              [:EVAL_CROP[0], :EVAL_CROP[1]] * 255).round().astype(np.uint8)
+    worst = 0.0
+    makers = {"lpips": NativeLPIPS, "dists": NativeDISTS, "clipiqa": NativeCLIPIQA,
+              "musiq": NativeMUSIQ,
+              "maniqa": lambda **kw: NativeMANIQA(num_crops=EVAL_MANIQA_CHECK_CROPS, **kw)}
+    for name, make in makers.items():
+        scores, times = {}, {}
+        for dev, dt in EVAL_RUNS:
+            tower = make(device=dev, dtype=dt)
+            tower(crop, crop_t)
+            t = time.perf_counter()
+            scores[dev, dt] = tower(crop, crop_t)
+            times[dev, dt] = time.perf_counter() - t
+            del tower
+        card, cpu, ref = scores.values()
+        err_card, err_cpu = abs(card - ref) / abs(ref), abs(cpu - ref) / abs(ref)
+        bound = max(EVAL_TOWER_RTOL, EVAL_OWN_ERR_FACTOR * err_cpu)
+        worst = max(worst, err_card / bound)
+        card_s, cpu_s, f64_s = times.values()
+        emit("eval_tower_check", tower=name, crop=list(EVAL_CROP), card=card, cpu=cpu, f64=ref,
+             rel_err_card_cpu=abs(card - cpu) / abs(cpu), rel_err_card=err_card,
+             rel_err_cpu=err_cpu, bound=bound, card_s=card_s, cpu_s=cpu_s, f64_s=f64_s)
+        require(np.isfinite(card) and err_card <= bound,
+                f"eval: {name} card {card}, CPU {cpu}, float64 {ref}")
+    torch.cuda.empty_cache()
+
+    # 3. the perceptual losses with their gradients, card against CPU
+    target = torch.rand(14, 256, 256, 3, generator=gen)
+    pred = (target + 0.1 * torch.randn(target.shape, generator=gen)).clamp(-0.05, 1.05)
+    for name, maker in (("vgg", VGGPerceptualLoss), ("clip", CLIPPerceptualLoss)):
+        got = {}
+        for dev, dt in EVAL_RUNS:
+            loss = maker().to(dt)
+            p = pred.to(dev, dt).requires_grad_(True)
+            t = time.perf_counter()
+            with torch.backends.mkldnn.flags(enabled=False):
+                v = loss(p, target.to(dev, dt))
+                g = (torch.autograd.grad(v, p)[0] if v.requires_grad
+                     else torch.zeros_like(p))
+            got[dev, dt] = (float(v.detach()), g.detach().double().cpu(),
+                            time.perf_counter() - t)
+            del loss, p, v, g
+        (vc, gc, tc), (vh, gh, th), (v64, g64, t64) = got.values()
+        err_card, err_cpu = abs(vc - v64) / abs(v64), abs(vh - v64) / abs(v64)
+        bound = max(EVAL_LOSS_RTOL, EVAL_OWN_ERR_FACTOR * err_cpu)
+        g_scale = g64.abs().max().item()
+        g_err, g_err_cpu = (gc - g64).abs().max().item(), (gh - g64).abs().max().item()
+        g_bound = max(EVAL_LOSS_RTOL * g_scale, EVAL_OWN_ERR_FACTOR * g_err_cpu)
+        emit("eval_loss_check", loss=name, batch=list(pred.shape), card=vc, cpu=vh, f64=v64,
+             rel_err_card_cpu=abs(vc - vh) / abs(vh), rel_err_card=err_card,
+             rel_err_cpu=err_cpu, bound=bound, grad_max_abs_err_card=g_err,
+             grad_max_abs_err_cpu=g_err_cpu, grad_max_abs_f64=g_scale, grad_bound=g_bound,
+             card_s=tc, cpu_s=th, f64_s=t64)
+        require(np.isfinite(vc) and err_card <= bound, f"eval: {name} loss {vc} vs {v64}")
+        require(g_err <= g_bound if name == "vgg" else g_scale == g_err == 0,
+                f"eval: {name} gradient error {g_err} against {g_bound}")
+    torch.cuda.empty_cache()
+
+    # 4. one cached step with both perceptual losses live
+    head = FusionHead()
+    randomize_head_(head, gen)
+    head = head.cuda()
+    lr = torch.rand(14, 64, 64, 3, generator=gen)
+    hr = torch.rand(14, 256, 256, 3, generator=gen)
+    up = F.interpolate(lr.permute(0, 3, 1, 2), scale_factor=4, mode="bicubic",
+                       align_corners=False).permute(0, 2, 3, 1).clamp(0, 1)
+    batch = {"lr": lr.cuda(), "hr": hr.cuda(),
+             "expert_outputs": {n: (up + 0.02 * torch.randn(up.shape, generator=gen))
+                                .clamp(0, 1).cuda() for n in EXPERT_ORDER}}
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")   # nothing may move to FFT
+        criterion = CombinedLoss({"vgg": 0.1, "clip": 0.05})
+    step = make_train_step(head, criterion, make_optimizer(head, lambda n: 1e-4, 1e-4, 1.0, 1))
+    reset_launches()
+    step_s = []
+    for _ in range(2):   # the first moves the backbones to the card and warms up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = {k: float(v) for k, v in step(batch).items()}
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    step_counts = read_launches()
+    emit("eval_combined_step", metrics=m, first_step_s=step_s[0], step_s=step_s[1], batch=14,
+         weights=criterion.weights)
+    require("vgg" in m and "clip" in m, f"eval: components {sorted(m)}")
+    require(all(np.isfinite(v) for v in m.values()), f"eval: step metrics {m}")
+    counts = {k: cli_counts[k] + step_counts[k] for k in cli_counts}
+    require(not any(counts.values()), f"eval: kernels launched {counts}")
+    emit("eval_time", seconds=time.perf_counter() - t_phase, worst_tower_err_over_bound=worst)
+    return counts
+
+
 def profile_forward(tag: str, forward) -> None:
     """Device time of one `forward()` by kernel (torch.profiler), after one warm-up."""
     from torch.profiler import ProfilerActivity, profile
@@ -2146,6 +2425,8 @@ def main() -> None:
     paths.append(("hat_odd", hat_odd_slice(torch.Generator().manual_seed(SEED))))
     torch.cuda.empty_cache()
     paths.append(("train", train_slice(per_forward)))
+    torch.cuda.empty_cache()
+    paths.append(("eval", eval_slice(os.path.join(OUT, "sr_ens"))))
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(n.get(k, 0) for _, n in paths),
                 "launches_by_path": {tag: n[k] for tag, n in paths if k in n},

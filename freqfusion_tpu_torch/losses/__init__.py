@@ -7,12 +7,10 @@ depthwise convs with reflect padding, band weights a 0.5, h 1.5, v 1.5, d 2.0) /
 edge, dispatched by ``CombinedLoss``, which computes a component only when its weight is
 positive and swaps weights per training stage (``set_weights``).
 
-The VGG and CLIP perceptual losses need pretrained backbones, which the port does not have
-yet (ROADMAP A6): as in the JAX package without a backbone, a positive weight for one of
-them moves to the FFT loss with a warning. Where ``FREQFUSION_VGG19_WEIGHTS`` or
-``FREQFUSION_CLIP_WEIGHTS`` names a checkpoint, the JAX package would compute the
-perceptual loss; the port raises ``NotImplementedError`` instead of computing something
-else.
+The VGG and CLIP perceptual losses (``losses/vgg.py``, ``losses/clip.py``) go live where
+``FREQFUSION_VGG19_WEIGHTS`` / ``FREQFUSION_CLIP_WEIGHTS`` name a checkpoint; without a
+backbone, or with a checkpoint that fails to load, their weight moves to the FFT loss with a
+warning, as in the JAX package.
 
 The wavelet filters are built in numpy, as the JAX package builds them (the port keeps its
 own copy of those functions).
@@ -21,7 +19,6 @@ own copy of those functions).
 from __future__ import annotations
 
 import functools
-import os
 import re
 import warnings
 from itertools import product as _product
@@ -33,6 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.common import gaussian_blur
+from .clip import CLIPPerceptualLoss
+from .vgg import VGGPerceptualLoss
 
 # pywt wavelet decomposition filters. haar/db4 are the shipped-recipe pair
 # (pinned published constants); every other dbN is constructed on demand —
@@ -429,18 +428,20 @@ DEFAULT_WEIGHTS = {
     "fft": 0.15, "edge": 0.1, "ssim": 0.1, "clip": 0.0,
 }
 
-#: the perceptual components and the variable that would name their backbone's checkpoint
-_PERCEPTUAL = {"vgg": "FREQFUSION_VGG19_WEIGHTS", "clip": "FREQFUSION_CLIP_WEIGHTS"}
+_UNAVAILABLE = ("vgg", "clip")   # need pretrained backbones
 
 
 class CombinedLoss:
     """Weight-driven multi-loss dispatcher. Only components with a positive weight are
-    computed; a perceptual component (no backbone) moves its weight to FFT."""
+    computed. The perceptual components go live where ``FREQFUSION_VGG19_WEIGHTS`` /
+    ``FREQFUSION_CLIP_WEIGHTS`` name a checkpoint; a component without a backbone, or whose
+    checkpoint is rejected (with a warning), moves its weight to FFT."""
 
     def __init__(self, weights: Optional[Dict[str, float]] = None, swt_wavelet: str = "db4",
                  swt_level: int = 2):
         self.swt_wavelet = swt_wavelet
         self.swt_level = swt_level
+        self._perceptual = {"vgg": None, "clip": None}
         self.weights: Dict[str, float] = dict(DEFAULT_WEIGHTS)
         if weights is not None:
             self.set_weights(weights)
@@ -450,17 +451,21 @@ class CombinedLoss:
             if k not in DEFAULT_WEIGHTS:
                 raise KeyError(f"unknown loss component {k!r}")
         self.weights.update(weights)
-        for k, env in _PERCEPTUAL.items():
-            if self.weights.get(k, 0.0) <= 0:
+        makers = {"vgg": VGGPerceptualLoss, "clip": CLIPPerceptualLoss}
+        for k in _UNAVAILABLE:
+            if self.weights.get(k, 0.0) <= 0 or self._perceptual[k] is not None:
                 continue
-            if os.environ.get(env):
-                raise NotImplementedError(
-                    f"{k} perceptual loss: {env} names a checkpoint, but the port has no "
-                    f"{k} backbone yet (ROADMAP A6)")
-            warnings.warn(f"{k} perceptual loss unavailable (no pretrained backbone in this "
-                          "environment); redirecting its weight to FFT loss")
-            self.weights["fft"] = self.weights.get("fft", 0.0) + self.weights[k]
-            self.weights[k] = 0.0
+            try:   # live where the variable names a checkpoint
+                self._perceptual[k] = makers[k]()
+            except (RuntimeError, KeyError, ValueError, OSError) as e:
+                # a malformed or incomplete checkpoint degrades instead of crashing the run
+                if not isinstance(e, RuntimeError):
+                    warnings.warn(f"{k.upper()} checkpoint rejected: {e!r}")
+            if self._perceptual[k] is None:
+                warnings.warn(f"{k} perceptual loss unavailable (no pretrained backbone in "
+                              "this environment); redirecting its weight to FFT loss")
+                self.weights["fft"] = self.weights.get("fft", 0.0) + self.weights[k]
+                self.weights[k] = 0.0
 
     def __call__(self, pred: torch.Tensor,
                  target: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -473,6 +478,7 @@ class CombinedLoss:
             "edge": edge_loss,
             "swt": lambda p, t: swt_loss(p, t, self.swt_wavelet, self.swt_level),
         }
+        fns.update((k, fn) for k, fn in self._perceptual.items() if fn is not None)
         total = pred.new_zeros(())
         components = {}
         for name, fn in fns.items():

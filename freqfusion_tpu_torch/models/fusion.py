@@ -31,6 +31,7 @@ from .frequency import FrequencyDecomposition, MultiDomainFrequency
 from .fusion_blocks import (AdaptiveFrequencyBandPredictor, CollaborativeFeatureLearning,
                             CrossBandAttention, DynamicExpertSelector, FrequencyRouter,
                             MultiScaleFeatureExtractor)
+from .fusion_variants import MultiResolutionFusion
 from .hierarchical import HierarchicalFusion
 from .layers import conv_nhwc
 from .lka import EnhancedCollaborativeWithLKA, EnhancedCrossBandWithLKA
@@ -107,14 +108,13 @@ class FusionHead(nn.Module):
                                         feature_dim=cfg.fusion_dim * 2,
                                         num_heads=cfg.num_heads * 2)
 
-        # Phase 5: hierarchical -> standard multi-resolution -> flat router fusion
+        # Phase 5: hierarchical -> flat multi-resolution -> flat router fusion
         if cfg.enable_hierarchical:
             self.multi_res_fusion = HierarchicalFusion(num_experts=cfg.num_experts,
                                                        base_channels=cfg.fusion_dim)
         elif cfg.enable_multi_resolution:
-            raise NotImplementedError(
-                "MultiResolutionFusion (enable_hierarchical=False with "
-                "enable_multi_resolution=True) is not ported yet (ROADMAP A10)")
+            self.multi_res_fusion = MultiResolutionFusion(num_experts=cfg.num_experts,
+                                                          base_channels=cfg.fusion_dim)
         else:
             self.freq_router = FrequencyRouter(num_experts=cfg.num_experts,
                                                num_bands=cfg.num_bands)
@@ -176,6 +176,9 @@ class FusionHead(nn.Module):
 
         if cfg.enable_hierarchical:
             fused = self.multi_res_fusion({n: expert_outputs[n] for n in names})
+            fused = fused * 0.7 + freq_weighted * 0.3
+        elif cfg.enable_multi_resolution:   # the flat 64 / 128 / full-size baseline
+            fused = self.multi_res_fusion(lr, [expert_outputs[n] for n in names])
             fused = fused * 0.7 + freq_weighted * 0.3
         else:
             # flat router fusion, routed from the LR image the router was built for

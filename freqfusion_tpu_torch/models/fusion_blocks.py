@@ -78,7 +78,7 @@ class FrequencyRouter(nn.Module):
     """5-conv CNN + CBAM attention -> softmax routing [B,H,W,E,bands], over the experts."""
 
     def __init__(self, num_experts: int = 3, num_bands: int = 3,
-                 hidden: Sequence[int] = (32, 64, 64, 32)):
+                 hidden: Sequence[int] = (32, 64, 64, 32), in_channels: int = 3):
         super().__init__()
         self.num_experts, self.num_bands = num_experts, num_bands
 
@@ -86,7 +86,7 @@ class FrequencyRouter(nn.Module):
             return nn.Sequential(nn.Conv2d(cin, c1, 3, padding=1, bias=False), nn.ReLU(),
                                  BatchNorm2d(c1), nn.Conv2d(c1, c2, 3, padding=1, bias=False),
                                  nn.ReLU(), BatchNorm2d(c2))
-        self.conv_block1 = block(3, hidden[0], hidden[1])
+        self.conv_block1 = block(in_channels, hidden[0], hidden[1])
         self.attention1 = ChannelSpatialAttention(hidden[1])
         self.conv_block2 = block(hidden[1], hidden[2], hidden[3])
         self.attention2 = CBAMSpatialAttention(5)

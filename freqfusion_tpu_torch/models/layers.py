@@ -117,12 +117,17 @@ class TorchMHA(nn.Module):
         return (self.in_proj_weight.t(), self.in_proj_bias, linear_io_view(self.out_proj),
                 self.out_proj.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`attn_mask`: torch's additive float mask [N, N] (CLIP's text tower passes a causal
+        one, -inf above the diagonal), added to the logits before the softmax."""
         *lead, n, e = x.shape
         h, hd = self.num_heads, e // self.num_heads
         qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
         q, k, v = qkv.reshape(*lead, n, 3, h, hd).movedim(-3, 0).transpose(-2, -3)
-        attn = torch.softmax((q * hd ** -0.5) @ k.transpose(-1, -2), dim=-1)
+        logits = (q * hd ** -0.5) @ k.transpose(-1, -2)
+        if attn_mask is not None:
+            logits = logits + attn_mask
+        attn = torch.softmax(logits, dim=-1)
         attn = dropout(attn, self.dropout, self.training)
         return self.out_proj((attn @ v).transpose(-2, -3).reshape(*lead, n, e))
 

@@ -395,3 +395,230 @@ def freqfusion_params_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
              ("experts.nafnet.nafnet.", nafnet_params_from_flax(experts["nafnet"])),
              ("fusion.", fusion_params_from_flax(params["fusion"], stats)))
     return {prefix + k: v for prefix, sd in parts for k, v in sd.items()}
+
+
+# ---------------------------------------------------------------------------
+# The eval towers and the perceptual losses: own copies of the JAX package's key functions
+# (``*_key_fn`` beside each tower), flax params -> torch state dicts, and the strict loader
+# the towers share.
+# ---------------------------------------------------------------------------
+
+_TOWER_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias", "weight": "weight"}
+
+
+def lpips_key(path: Tuple[str, ...]) -> str:
+    """('conv_0','kernel') -> 'features.0.weight'; ('lin_2',) -> 'lin2.model.1.weight'."""
+    parts = [p for p in path if p != "params"]
+    if parts[0].startswith("lin_"):
+        return f"lin{parts[0].split('_')[1]}.model.1.weight"
+    return f"features.{parts[0].split('_')[1]}.{_TOWER_LEAF[parts[-1]]}"
+
+
+def vgg_key(path: Tuple[str, ...]) -> str:
+    """('conv_8','kernel') -> 'features.8.weight': torchvision's VGG16 and VGG19 layout,
+    the DISTS trunk's and the VGG loss's."""
+    parts = [p for p in path if p != "params"]
+    return f"features.{parts[0].split('_')[1]}.{_TOWER_LEAF[parts[-1]]}"
+
+
+def _clip_block_key(base: str, parts, leaf: str) -> str:
+    sub = parts[1]
+    if sub == "attn":
+        if leaf in ("in_proj_weight", "in_proj_bias"):
+            return f"{base}.attn.{leaf}"
+        return f"{base}.attn.out_proj.{_TOWER_LEAF[leaf]}"
+    if sub in ("ln_1", "ln_2"):
+        return f"{base}.{sub}.{_TOWER_LEAF[leaf]}"
+    if sub in ("c_fc", "c_proj"):
+        return f"{base}.mlp.{sub}.{_TOWER_LEAF[leaf]}"
+    raise KeyError(parts)
+
+
+def clip_vision_key(path: Tuple[str, ...]) -> str:
+    """JAX CLIP vision path -> OpenAI CLIP ``visual.*`` key."""
+    parts = [p for p in path if p != "params"]
+    if parts[0] == "conv1_kernel":
+        return "visual.conv1.weight"
+    if parts[0] in ("class_embedding", "positional_embedding", "proj"):
+        return f"visual.{parts[0]}"
+    if parts[0] in ("ln_pre", "ln_post"):
+        return f"visual.{parts[0]}.{_TOWER_LEAF[parts[-1]]}"
+    if parts[0].startswith("resblocks_"):
+        base = f"visual.transformer.resblocks.{parts[0].split('_')[1]}"
+        return _clip_block_key(base, parts, parts[-1])
+    raise KeyError(path)
+
+
+def clip_text_key(path: Tuple[str, ...]) -> str:
+    """JAX CLIP text path -> OpenAI CLIP text-side key (no ``visual.`` prefix)."""
+    parts = [p for p in path if p != "params"]
+    if parts[0] == "token_embedding":
+        return "token_embedding.weight"
+    if parts[0] in ("positional_embedding", "text_projection"):
+        return parts[0]
+    if parts[0] == "ln_final":
+        return f"ln_final.{_TOWER_LEAF[parts[-1]]}"
+    if parts[0].startswith("resblocks_"):
+        base = f"transformer.resblocks.{parts[0].split('_')[1]}"
+        return _clip_block_key(base, parts, parts[-1])
+    raise KeyError(path)
+
+
+def musiq_key(path: Tuple[str, ...]) -> str:
+    """JAX MUSIQ path -> the torch key of ``utils/musiq.py``'s documented layout."""
+    parts = [p for p in path if p != "params"]
+    leaf = _TOWER_LEAF.get(parts[-1], parts[-1])
+    top = parts[0]
+    if top in ("cls_token", "spatial_embedding", "scale_embedding"):
+        return top
+    if top in ("patch_embed", "norm", "head"):
+        return f"{top}.{leaf}"
+    if top == "patch_root":
+        sub = parts[1]
+        if sub == "conv_root":
+            return "conv_root.weight"
+        if sub in ("gn_root", "embedding"):
+            return f"{sub}.{leaf}"
+        if sub == "block1_unit01":
+            return f"block1.unit01.{parts[2]}.{leaf}"
+    if top.startswith("blocks_"):
+        return _vit_block_key(f"blocks.{top.split('_')[1]}", parts[1], leaf)
+    raise KeyError(path)
+
+
+def _vit_block_key(base: str, sub: str, leaf: str) -> str:
+    if sub in ("norm1", "norm2"):
+        return f"{base}.{sub}.{leaf}"
+    if sub in ("qkv", "proj"):
+        return f"{base}.attn.{sub}.{leaf}"
+    if sub in ("fc1", "fc2"):
+        return f"{base}.mlp.{sub}.{leaf}"
+    raise KeyError((base, sub))
+
+
+def maniqa_key(path: Tuple[str, ...]) -> str:
+    """JAX MANIQA path -> the torch key of ``utils/maniqa.py``'s documented layout."""
+    parts = [p for p in path if p != "params"]
+    leaf = _TOWER_LEAF.get(parts[-1], parts[-1])
+    top = parts[0]
+    if top == "vit":
+        sub = parts[1]
+        if sub == "patch_embed":
+            return f"vit.patch_embed.proj.{leaf}"
+        if sub in ("cls_token", "pos_embed"):
+            return f"vit.{sub}"
+        if sub.startswith("blocks_"):
+            return _vit_block_key(f"vit.blocks.{sub.split('_')[1]}", parts[2], leaf)
+    if top.startswith("tablock"):
+        stage, i = top.split("_")
+        return f"{stage}.{i}.{parts[1]}.{leaf}"
+    if top in ("conv1", "conv2"):
+        return f"{top}.{leaf}"
+    if top.startswith("swin"):
+        stage, j = top.split("_")
+        base = f"swintransformer{stage[4:]}.blocks.{j}"
+        if parts[1] == "relative_position_bias_table":
+            return f"{base}.attn.relative_position_bias_table"
+        return _vit_block_key(base, parts[1], leaf)
+    if top.startswith(("fc_score_", "fc_weight_")):
+        stem, idx = top.rsplit("_", 1)
+        return f"{stem}.{idx}.{leaf}"
+    raise KeyError(path)
+
+
+_FROM_FLAX = {
+    "OIHW->HWIO": lambda a, t: a.transpose(3, 2, 0, 1),
+    "OI11->IO": lambda a, t: a.T[:, :, None, None],
+    "OI->IO": lambda a, t: a.T,
+    "equal": lambda a, t: a,
+    "unit axes": lambda a, t: a.reshape(t),
+}
+
+
+def tower_params_from_flax(params: Mapping, key_fn, shapes: Mapping[str, Tuple[int, ...]]
+                           ) -> Dict[str, torch.Tensor]:
+    """A JAX tower's param tree -> a state dict for the port's twin, whose parameter shapes
+    `shapes` gives ({key: shape}). Each leaf goes to ``key_fn(path)`` by the inverse of the
+    ``layout_rule`` that carries the torch tensor onto it (conv kernels HWIO -> OIHW, Dense
+    kernels and the packed ``in_proj_weight`` [in,out] -> [out,in], a Dense standing for a
+    1x1 conv -> [out,in,1,1], a per-channel vector -> [1,C,1,1]); a leaf that would need a
+    blind reshape raises."""
+    sd = {}
+    for path, leaf in _flatten(params):
+        a = np.asarray(leaf, dtype=np.float32)
+        key = key_fn(path)
+        t = tuple(shapes[key])
+        rule = layout_rule(t, a.shape, path[-1])
+        if rule not in _FROM_FLAX:
+            raise ValueError(f"{key}: flax {a.shape} against torch {t} ({rule})")
+        sd[key] = torch.from_numpy(np.ascontiguousarray(_FROM_FLAX[rule](a, t)))
+    return sd
+
+
+def _shapes(module: torch.nn.Module) -> Dict[str, Tuple[int, ...]]:
+    return {k: tuple(v.shape) for k, v in module.state_dict().items()}
+
+
+def lpips_params_from_flax(params: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The JAX ``AlexLPIPS`` params -> a state dict for the port's ``AlexLPIPS``."""
+    return tower_params_from_flax(params, lpips_key, _shapes(model))
+
+
+def dists_params_from_flax(params: Mapping, alpha, beta,
+                           model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The JAX ``VGG16L2Stages`` params and the DISTS alpha / beta ([sum C] each, any
+    layout of that many elements) -> a state dict for the port's ``DISTS``."""
+    shapes = _shapes(model)
+    sd = tower_params_from_flax(params, vgg_key, shapes)
+    for name, a in (("alpha", alpha), ("beta", beta)):
+        sd[name] = torch.from_numpy(np.asarray(a, np.float32).reshape(shapes[name]).copy())
+    return sd
+
+
+def vgg19_params_from_flax(params: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The JAX ``VGG19Features`` params -> a state dict for the port's ``VGG19Features``."""
+    return tower_params_from_flax(params, vgg_key, _shapes(model))
+
+
+def clip_vision_params_from_flax(params: Mapping,
+                                 model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The JAX ``CLIPVisionTransformer`` params -> the ``visual.*`` keys of an OpenAI CLIP
+    state dict; `model` is the port's vision tower (keys without the prefix)."""
+    shapes = {"visual." + k: s for k, s in _shapes(model).items()}
+    return tower_params_from_flax(params, clip_vision_key, shapes)
+
+
+def clip_text_params_from_flax(params: Mapping,
+                               model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The JAX ``CLIPTextTransformer`` params -> the text-side keys of an OpenAI CLIP state
+    dict; `model` is the port's text tower."""
+    return tower_params_from_flax(params, clip_text_key, _shapes(model))
+
+
+def musiq_params_from_flax(params: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The JAX ``MUSIQTransformer`` params -> a state dict for the port's twin."""
+    return tower_params_from_flax(params, musiq_key, _shapes(model))
+
+
+def maniqa_params_from_flax(params: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The JAX ``MANIQA`` params -> a state dict for the port's twin."""
+    return tower_params_from_flax(params, maniqa_key, _shapes(model))
+
+
+def load_tower_state(module: torch.nn.Module, sd: Mapping[str, torch.Tensor],
+                     prefix: str = "") -> torch.nn.Module:
+    """Loads ``sd[prefix + key]`` into each of `module`'s parameters and buffers, as the
+    JAX package's ``fill_params(strict=True)``: a missing key raises KeyError, a tensor of
+    another element count ValueError; one of the same count in another shape (a [1,C,1,1]
+    head weight stored as [C]) is reshaped. Keys the module does not hold are ignored."""
+    own = module.state_dict()
+    out = {}
+    for k, v in own.items():
+        if prefix + k not in sd:
+            raise KeyError(f"torch key {prefix + k!r} not found")
+        t = torch.as_tensor(sd[prefix + k])
+        if t.numel() != v.numel():
+            raise ValueError(f"{prefix + k}: {tuple(t.shape)} for {tuple(v.shape)}")
+        out[k] = t.reshape(v.shape).to(v.dtype)
+    module.load_state_dict(out, strict=True)
+    return module

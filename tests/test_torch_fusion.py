@@ -245,5 +245,12 @@ def test_fusion_head_flag_off_branches_match_jax(name):
 
 
 def test_multi_resolution_branch_is_named_as_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        tfusion.FusionHead(tfusion.FusionConfig(enable_hierarchical=False))
+    """The multi-resolution branch is ported now (test_torch_fusion_variants.py holds it
+    against the JAX head): the head builds MultiResolutionFusion where the JAX head does,
+    and refuses nothing."""
+    from freqfusion_tpu_torch.models.fusion_variants import MultiResolutionFusion
+    head = tfusion.FusionHead(tfusion.FusionConfig(enable_hierarchical=False))
+    assert isinstance(head.multi_res_fusion, MultiResolutionFusion)
+    flat = tfusion.FusionHead(tfusion.FusionConfig(enable_hierarchical=False,
+                                                   enable_multi_resolution=False))
+    assert not hasattr(flat, "multi_res_fusion") and hasattr(flat, "freq_router")

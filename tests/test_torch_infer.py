@@ -137,6 +137,7 @@ def test_port_imports_without_jax():
         "sys.modules['freqfusion_tpu'] = None\n"
         "sys.modules['optax'] = None\n"
         "sys.modules['msgpack'] = None\n"
+        "sys.modules['regex'] = None\n"
         "sys.modules['torch.utils.tensorboard'] = None\n"
         "import importlib, pkgutil\n"
         "import freqfusion_tpu_torch as pkg\n"
@@ -151,10 +152,12 @@ def test_port_imports_without_jax():
         "        'utils.imageio', 'losses', 'training.schedule', 'training.ema',\n"
         "        'training.steps', 'training.checkpoint', 'data.augment', 'data.dataset',\n"
         "        'data.cached', 'data.extract', 'utils.metrics', 'utils.logger',\n"
-        "        'parallel.mesh', 'cli.train']\n"
+        "        'parallel.mesh', 'cli.train', 'utils.niqe', 'utils.lpips', 'utils.dists',\n"
+        "        'utils.musiq', 'utils.maniqa', 'utils.clipiqa', 'utils.perceptual_metrics',\n"
+        "        'losses.vgg', 'losses.clip', 'models.fusion_variants', 'cli.eval']\n"
         "assert all(pkg.__name__ + '.' + n in names for n in need), names\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', 'freqfusion_tpu.', 'optax',\n"
-        "                                            'msgpack'))\n"
+        "                                            'msgpack', 'regex'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
     # no import statement of the port or of chip_smoke.py names the JAX side, wherever in a

@@ -131,9 +131,22 @@ def test_perceptual_weights_move_to_fft_as_in_jax(monkeypatch):
 
 
 def test_a_named_vgg_checkpoint_is_refused_not_replaced(monkeypatch, tmp_path):
-    """Where the JAX package would load a VGG19 and compute the perceptual loss, the port
-    raises instead of computing another loss."""
+    """Where the variable names a VGG19 checkpoint, the port loads it and computes the JAX
+    package's perceptual loss (test_torch_perceptual_losses.py holds the values); where the
+    named file does not exist, the weight moves to FFT, as in the JAX package."""
+    from freqfusion_tpu_torch.losses.vgg import VGG19Features
+
     monkeypatch.setenv("FREQFUSION_VGG19_WEIGHTS", str(tmp_path / "vgg19.pth"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        TL.CombinedLoss({"vgg": 0.1})
+    with pytest.warns(UserWarning, match="redirecting"):
+        tc = TL.CombinedLoss({"vgg": 0.1})
+    with pytest.warns(UserWarning, match="redirecting"):
+        assert tc.weights == JL.CombinedLoss({"vgg": 0.1}).weights
+    torch.save(VGG19Features().state_dict(), str(tmp_path / "vgg19.pth"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        tc = TL.CombinedLoss({"vgg": 0.1})
+    assert tc.weights["vgg"] == 0.1
+    pred, target = _pair(3)
+    _, comp = tc(torch.from_numpy(pred[:, :32, :32]), torch.from_numpy(target[:, :32, :32]))
+    assert "vgg" in comp and torch.isfinite(comp["vgg"])
     TL.CombinedLoss({"vgg": 0.0, "l1": 1.0})   # a zero weight needs no backbone
