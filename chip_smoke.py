@@ -62,7 +62,22 @@ Phases, each printing JSON lines; any failure raises and the exit code is not 0:
      CLIP perceptual losses with their gradients at the training batch [14,256,256,3] on
      the card against the same; two
      cached steps of CombinedLoss with vgg 0.1 and clip 0.05 on the card. The eval path runs
-     no kernel, and none may launch.
+     no kernel, and none may launch;
+ 12. tsdsr: infer.io.main serves a 512x336 PNG (2048x1344 out) with the ensemble's
+     checkpoints, then CompleteSRPipeline(), live from FREQFUSION_TSDSR_WEIGHTS and
+     FREQFUSION_SDVAE_WEIGHTS (seeded random tsdsr_base and SD 2.1 AutoencoderKL, written
+     as .pth), refines it in student mode (an identity is a failure); the 4-step teacher
+     on a 512x512 crop; a 2040x1356 image (latent 255x169) must raise; the VAE and the DiT
+     on a 256x256 crop against a float64 evaluation on the card. The path launches exactly
+     the ensemble's kernels of one image;
+ 13. v2_head: the full ExpertEnsemble (the ensemble's checkpoints) on the 512x352 bucket,
+     then FusionHeadV2 on its outputs with and without its features, held to float64;
+     launches exactly the experts' kernels of one forward (no B11, no B12);
+ 14. mambair: MambaIR at its published size serves the three requests through
+     InferencePipeline, one forward timed, a 64x96 LR held to float64. No kernel launches.
+Each of the last three phases ends on a line named after it with its ms, peak GiB, max |Δ|
+against float64 (within max(1e-4 x max|float64|, 8x the CPU f32's error), as
+`eval_tower_check` holds a score) and launches.
 The kernel phase also runs the fusion head at FusionConfig(enable_hierarchical=False) (the
 flat multi-resolution fusion of phase 5) once at the shipped width on a 352x512 frame with
 the kernels and on the plain path (`repair` line `fusion_head`, `multi_resolution`: B11 and
@@ -77,7 +92,9 @@ build/chip_smoke/ in the checkout.
 
 from __future__ import annotations
 
+import copy
 import json
+import math
 import os
 import re
 import subprocess
@@ -2338,6 +2355,345 @@ def eval_slice(sr_dir: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The last model families at full width: TSD-SR refinement of a served image, the V2 head
+# over the three experts, MambaIR served on its own. None of them runs a TPU kernel of its
+# own; the first two go through the experts' kernels.
+# ---------------------------------------------------------------------------
+
+TSDSR_LR = (512, 336)      # W x H: HR 2048x1344, latent 256x168, a whole number of patches
+TSDSR_ODD_HR = (2040, 1356)   # W x H: latent 255x169, which the DiT cannot refine
+TSDSR_TEACHER = (512, 4)   # the teacher's crop side and steps
+F64_CROP = 256             # side of the crop the DiT and the VAE are held to float64 on
+MAMBAIR_CHECK_LR = (64, 96)   # H x W of the LR that MambaIR is held to float64 on
+
+
+def cast(tree, device, dtype):
+    """Every tensor of a nested dict / list / tuple on `device` in `dtype`."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device, dtype)
+    if isinstance(tree, dict):
+        return {k: cast(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast(v, device, dtype) for v in tree)
+    return tree
+
+
+def against_f64(module: torch.nn.Module, run, *inputs) -> dict:
+    """`run(module, *inputs)` -> {name: tensor} on the card in f32 (`module` itself), on
+    the CPU in f32 and on the card in float64 (copies). Returns {name: (card's max |Δ| to
+    float64, bound, CPU's max |Δ| to float64, max |float64|)}; the bound is the larger of
+    EVAL_TOWER_RTOL x max |float64| and EVAL_OWN_ERR_FACTOR x the CPU's error, as
+    `eval_tower_check` holds a score."""
+    outs = []
+    for i, (dev, dt) in enumerate(EVAL_RUNS):
+        m = module if i == 0 else copy.deepcopy(module).to(dev, dt)
+        with torch.inference_mode():
+            got = run(m, *cast(inputs, dev, dt))
+            outs.append({k: v.double().cpu() for k, v in got.items()})
+        del m, got
+        torch.cuda.empty_cache()
+    card, cpu, ref = outs
+    res = {}
+    for k, r in ref.items():
+        scale = r.abs().max().item()
+        err, err_cpu = (card[k] - r).abs().max().item(), (cpu[k] - r).abs().max().item()
+        res[k] = (err, max(EVAL_TOWER_RTOL * scale, EVAL_OWN_ERR_FACTOR * err_cpu), err_cpu, scale)
+        require(bool(torch.isfinite(card[k]).all()), f"{k}: non-finite on the card")
+    return res
+
+
+def report_f64(tag: str, res: dict, **kw) -> float:
+    """Emits `tag` with each output's errors and bound, requires each within its bound, and
+    returns the worst error over its bound."""
+    emit(tag, **kw, **{f"{k}_max_abs_err": e for k, (e, _, _, _) in res.items()},
+         **{f"{k}_bound": b for k, (_, b, _, _) in res.items()},
+         **{f"{k}_cpu_max_abs_err": c for k, (_, _, c, _) in res.items()},
+         **{f"{k}_max_abs_f64": s for k, (_, _, _, s) in res.items()})
+    for k, (e, b, _, _) in res.items():
+        require(e <= b, f"{tag}: {k} error {e} against float64 > {b}")
+    return max(e / b for e, b, _, _ in res.values())
+
+
+def timed_s(fn):
+    """(result, host seconds) of fn(), the card synchronised before and after."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def write_tsdsr_weights(directory: str, gen: torch.Generator) -> dict:
+    """Seeded random weights at the published widths, saved as the loaders read them: the
+    SD 2.1 AutoencoderKL (128/256/512/512, 2 resnets, GroupNorm 32) in the diffusers key
+    layout, and tsdsr_base (hidden 768, depth 12, 12 heads, patch 2) with its final layer
+    and adaLN modulations non-zero. Returns {variable: path}."""
+    from freqfusion_tpu_torch.models.tsdsr import tsdsr_base
+    from freqfusion_tpu_torch.models.vae import AutoencoderKL
+
+    os.makedirs(directory, exist_ok=True)
+    paths = {}
+    for env, model in (("FREQFUSION_SDVAE_WEIGHTS", AutoencoderKL()),
+                       ("FREQFUSION_TSDSR_WEIGHTS", tsdsr_base())):
+        randomize_transformer_(model, gen)
+        paths[env] = os.path.join(directory, env.lower() + ".pth")
+        torch.save(model.state_dict(), paths[env])
+    return paths
+
+
+def tsdsr_slice(per_forward: dict) -> dict:
+    """Serving plus TSD-SR refinement at full width, f32 with TF32 off:
+      1. infer.io.main on a 512x336 PNG with the ens phase's checkpoints writes 2048x1344;
+      2. CompleteSRPipeline(), live from FREQFUSION_TSDSR_WEIGHTS and
+         FREQFUSION_SDVAE_WEIGHTS (seeded random weights, `write_tsdsr_weights`), must be
+         available: an identity here is a failure;
+      3. the student (one step at t = 500) refines the whole served image (encode to a
+         256x168 latent, the DiT over 10752 tokens, decode), twice, timed; the output
+         finite, in [0, 1], and not the input;
+      4. the teacher at TSDSR_TEACHER's steps on a 512x512 crop;
+      5. a 2040x1356 image (latent 255x169) must raise ValueError;
+      6. the VAE's mean, the DiT's output and the decoder's output on a 256x256 crop on the
+         card against a float64 evaluation (`against_f64`).
+    The main path (steps 1 to 5) launches exactly the ens phase's kernels of one image."""
+    from freqfusion_tpu_torch.models.tsdsr import CompleteSRPipeline, TSDSRInference
+    from freqfusion_tpu_torch.models.vae import SD_SCALE_FACTOR
+
+    t_phase = time.perf_counter()
+    root = os.path.join(OUT, "tsdsr")
+    lr_dir, sr_dir = os.path.join(root, "lr"), os.path.join(root, "sr")
+    write_requests(lr_dir, [TSDSR_LR])
+    os.environ.update(write_tsdsr_weights(os.path.join(root, "weights"),
+                                          torch.Generator().manual_seed(SEED)))
+    write_s = time.perf_counter() - t_phase
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    served, serve_s = timed_s(lambda: serve_directory(os.path.join(OUT, "model_dir"), lr_dir,
+                                                      sr_dir))
+    serve_counts = {k: n for k, n in read_launches().items() if n}
+    sr = torch.from_numpy(load_image(list_images(sr_dir)[0]))[None].cuda()
+    require(served == 1 and tuple(sr.shape) == (1, 4 * TSDSR_LR[1], 4 * TSDSR_LR[0], 3),
+            f"tsdsr: main served {served}, output {tuple(sr.shape)}")
+    pipe, build_s = timed_s(CompleteSRPipeline)
+    require(pipe.tsdsr.available, "tsdsr: CompleteSRPipeline is an identity")
+    inf = pipe.tsdsr
+    emit("tsdsr_setup", lr=list(TSDSR_LR), serve_s=serve_s, write_weights_s=write_s,
+         build_s=build_s, vae_params=sum(p.numel() for p in inf.codec.model.parameters()),
+         dit_params=sum(p.numel() for p in inf.dit.parameters()), serve_launches=serve_counts)
+
+    torch.cuda.reset_peak_memory_stats()
+    out, first_s = timed_s(lambda: pipe(sr))
+    out, student_s = timed_s(lambda: pipe(sr))
+    student_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    change = (out - sr).abs().max().item()
+    require(out.shape == sr.shape and bool(torch.isfinite(out).all())
+            and 0.0 <= out.min().item() and out.max().item() <= 1.0,
+            f"tsdsr: student output {tuple(out.shape)}")
+    require(change > 1e-3, f"tsdsr: the student changed the image by {change} only")
+    with torch.inference_mode():   # the student's three stages, one at a time
+        lat, encode_s = timed_s(lambda: inf.codec.encode(sr))
+        pred, dit_s = timed_s(lambda: inf.dit(lat))
+        _, decode_s = timed_s(lambda: inf.codec.decode(pred))
+    del lat, pred
+    side, steps = TSDSR_TEACHER
+    teacher = TSDSRInference(dit=inf.dit, codec=inf.codec, mode="teacher", num_steps=steps)
+    crop = sr[:, :side, :side]
+    t_out, teacher_s = timed_s(lambda: teacher.refine(crop))
+    require(t_out.shape == crop.shape and bool(torch.isfinite(t_out).all()),
+            f"tsdsr: teacher output {tuple(t_out.shape)}")
+    odd = F.interpolate(sr.permute(0, 3, 1, 2), size=TSDSR_ODD_HR[::-1], mode="bilinear",
+                        align_corners=False).permute(0, 2, 3, 1)
+    try:
+        pipe(odd)
+        odd_error = None
+    except ValueError as e:
+        odd_error = str(e)
+    require(odd_error is not None, "tsdsr: a 2040x1356 image was refined, not refused")
+    counts = {k: n for k, n in read_launches().items() if n}
+    require(counts == per_forward,
+            f"tsdsr: launches {counts}, expected the ens path's per image {per_forward}")
+    emit("tsdsr_refine", output=list(out.shape), latent=[sr.shape[1] // 8, sr.shape[2] // 8],
+         student_first_s=first_s, student_s=student_s, student_peak_gib=student_peak,
+         encode_s=encode_s, dit_s=dit_s, decode_s=decode_s,
+         max_abs_change=change, teacher_crop=side, teacher_steps=steps, teacher_s=teacher_s,
+         odd_hr=list(TSDSR_ODD_HR), odd_error=odd_error)
+    del out, t_out, odd
+
+    # 6. the VAE and the DiT on a crop against float64
+    def run(mods, x):
+        mean, _ = mods["vae"].encode(x * 2.0 - 1.0)
+        pred = mods["dit"](mean * SD_SCALE_FACTOR)
+        return {"vae_mean": mean, "dit": pred,
+                "decoded": mods["vae"].decode(pred / SD_SCALE_FACTOR)}
+
+    mods = torch.nn.ModuleDict({"vae": inf.codec.model, "dit": inf.dit})
+    res = against_f64(mods, run, sr[:, :F64_CROP, :F64_CROP].contiguous())
+    worst = report_f64("tsdsr_check", res, crop=[F64_CROP, F64_CROP])
+    emit("tsdsr", ms=1e3 * student_s, peak_gib=student_peak, launches=counts,
+         max_abs_err=max(e for e, _, _, _ in res.values()), worst_err_over_bound=worst,
+         seconds=time.perf_counter() - t_phase)
+    for env in ("FREQFUSION_SDVAE_WEIGHTS", "FREQFUSION_TSDSR_WEIGHTS"):
+        os.environ.pop(env)
+    return counts
+
+
+def v2_slice(per_forward: dict) -> dict:
+    """The V2 fusion head over the full ExpertEnsemble (the ens phase's checkpoints) at the
+    512x352 bucket, f32 with TF32 off: the experts on their kernel path, then
+    FusionHeadV2() (seeded random weights) on their outputs with and without their
+    features. The main path launches the experts' kernels of one image and neither head
+    kernel (the V2 head has none). Each head output on the card against a float64
+    evaluation (`against_f64`)."""
+    from freqfusion_tpu_torch.infer.io import load_expert_checkpoints
+    from freqfusion_tpu_torch.models.fusion_v2 import FusionHeadV2
+
+    t_phase = time.perf_counter()
+    holder = FreqFusionSR()
+    load_expert_checkpoints(holder, os.path.join(OUT, "model_dir"))
+    experts = holder.experts.cuda().eval()
+    head = FusionHeadV2()
+    randomize_head_(head, torch.Generator().manual_seed(SEED))
+    head = head.cuda().eval()
+    lr = load_image(list_images(os.path.join(OUT, "requests"))[0])
+    x = torch.from_numpy(InferencePipeline._pad([lr], 352, 512)).cuda()
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        (outputs, feats), experts_s = timed_s(lambda: experts(x))
+        with_f, head_s = timed_s(lambda: head(x, outputs, feats))
+        without_f = head(x, outputs)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in read_launches().items() if n}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expected = {k: n for k, n in per_forward.items() if k not in HEAD_KERNELS}
+    require(counts == expected, f"v2_head: launches {counts}, expected {expected}")
+    for o in (with_f, without_f):
+        require(o.shape == (1, 1408, 2048, 3) and bool(torch.isfinite(o).all()),
+                f"v2_head: output {tuple(o.shape)}")
+    with torch.inference_mode():
+        ms = {"with_features": cuda_ms(lambda: head(x, outputs, feats), iters=3),
+              "without_features": cuda_ms(lambda: head(x, outputs), iters=3)}
+    emit("v2_head_setup", head_params=sum(p.numel() for p in head.parameters()),
+         bucket=[352, 512], experts_s=experts_s, first_head_s=head_s, head_ms=ms,
+         share_inside_0_1=((with_f > 0) & (with_f < 1)).float().mean().item())
+
+    res = against_f64(head, lambda m, a, o, f: {"with_features": m(a, o, f),
+                                                "without_features": m(a, o)},
+                      x, outputs, feats)
+    worst = report_f64("v2_head_check", res)
+    emit("v2_head", ms=ms["with_features"], ms_without_features=ms["without_features"],
+         peak_gib=peak, launches=counts, max_abs_err=max(e for e, _, _, _ in res.values()),
+         worst_err_over_bound=worst, seconds=time.perf_counter() - t_phase)
+    del holder, experts, head, outputs, feats
+    return counts
+
+
+def randomize_mambair_(model: torch.nn.Module, gen: torch.Generator) -> None:
+    """`randomize_transformer_`, then each SS2D near its published initialisation, so that
+    the scan keeps the decay rates MambaIR starts from: A_logs log(1..N) + N(0, 0.1), Ds
+    N(1, 0.1), dt_projs_bias softplus^-1 of a step log-uniform in [0.001, 0.1],
+    x_proj_weight and dt_projs_weight N(0, 1/fan_in); the skip scales N(1, 0.1)."""
+    from freqfusion_tpu_torch.models.mambair import SS2D
+
+    randomize_transformer_(model, gen)
+
+    def r(shape, std, mean=0.0):
+        return mean + std * torch.randn(shape, generator=gen)
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("skip_scale", "skip_scale2"):
+                p.copy_(r(p.shape, 0.1, 1.0))
+        for m in model.modules():
+            if isinstance(m, SS2D):
+                n = m.A_logs.shape[1]
+                m.A_logs.copy_(torch.log(torch.arange(1.0, n + 1)) + r(m.A_logs.shape, 0.1))
+                m.Ds.copy_(r(m.Ds.shape, 0.1, 1.0))
+                dt = torch.exp(math.log(1e-3) + math.log(100.0)
+                               * torch.rand(m.dt_projs_bias.shape, generator=gen))
+                m.dt_projs_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
+                m.x_proj_weight.copy_(r(m.x_proj_weight.shape, m.d_inner ** -0.5))
+                m.dt_projs_weight.copy_(r(m.dt_projs_weight.shape, m.dt_rank ** -0.5))
+
+
+def mambair_slice(gen_cpu: torch.Generator) -> dict:
+    """MambaIR at its published size (embed 180, 6 x 6 VSSBlocks, d_state 16, expand 2;
+    seeded random weights) serves the three requests through InferencePipeline's uint8
+    protocol, image i+1 dispatched before image i is copied back; one forward at the
+    512x352 bucket timed; a 64x96 LR on the card against a float64 evaluation
+    (`against_f64`). MambaIR launches no kernel."""
+    from freqfusion_tpu_torch.models.mambair import SS2D, MambaIR, selective_scan
+
+    t_phase = time.perf_counter()
+    model = MambaIR()
+    randomize_mambair_(model, gen_cpu)
+    pipe = InferencePipeline(model)
+    files = list_images(os.path.join(OUT, "requests"))
+    lrs = [load_image(f) for f in files]
+    plans = [pipe._whole_image_plan(lr.shape[0], lr.shape[1]) for lr in lrs]
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending, outs = None, []
+    for lr, plan in zip(lrs, plans):
+        handle = pipe.dispatch_batch_u8([lr], plan)
+        if pending is not None:
+            outs.append(pipe.materialize_u8(pending)[0])
+        pending = handle
+    outs.append(pipe.materialize_u8(pending)[0])
+    serve_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for lr, arr in zip(lrs, outs):
+        require(arr.shape == (4 * lr.shape[0], 4 * lr.shape[1], 3) and arr.dtype == np.uint8,
+                f"mambair: output {arr.shape} {arr.dtype}")
+    inside = float(np.mean((outs[0] > 0) & (outs[0] < 255)))
+    with torch.inference_mode():
+        xb = torch.from_numpy(pipe._pad([lrs[0]], *plans[0])).cuda()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        model(xb)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        # one block's selective scan (4 directions at once) at the bucket's shape, on
+        # random inputs in the ranges the model feeds it
+        ss = next(m for m in model.modules() if isinstance(m, SS2D))
+        gen = torch.Generator(xb.device).manual_seed(SEED)
+        l, d, n = xb.shape[1] * xb.shape[2], ss.d_inner, ss.d_state
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=xb.device)
+
+        scan_args = (rnd(4, 1, l, d), 0.001 + 0.1 * torch.rand((4, 1, l, d), generator=gen,
+                                                               device=xb.device),
+                     -torch.exp(ss.A_logs.reshape(4, 1, d, n)), rnd(4, 1, l, n), rnd(4, 1, l, n),
+                     ss.Ds.reshape(4, 1, d))
+        scan_ms = cuda_ms(lambda: selective_scan(*scan_args), iters=1)
+        blocks = sum(isinstance(m, SS2D) for m in model.modules())
+    del xb, scan_args
+    torch.cuda.empty_cache()
+    emit("mambair_serve", params=sum(p.numel() for p in model.parameters()),
+         requests=[list(lr.shape) for lr in lrs], buckets=plans, images=len(outs),
+         seconds=serve_s, forward_ms=ms, bucket=list(plans[0]), peak_gib=peak,
+         share_inside_0_255=inside, scan_ms=scan_ms, scans=blocks,
+         scan_share_of_forward=blocks * scan_ms / ms)
+
+    h, w = MAMBAIR_CHECK_LR
+    x = torch.rand(1, h, w, 3, generator=gen_cpu).cuda()
+    res = against_f64(model, lambda m, v: dict(zip(("sr", "deep"), m(v))), x)
+    worst = report_f64("mambair_check", res, lr=[h, w])
+    counts = {k: n for k, n in read_launches().items() if n}
+    require(not counts, f"mambair: kernels launched {counts}")
+    emit("mambair", ms=ms, peak_gib=peak, launches=counts,
+         max_abs_err=max(e for e, _, _, _ in res.values()), worst_err_over_bound=worst,
+         seconds=time.perf_counter() - t_phase)
+    return counts
+
+
 def profile_forward(tag: str, forward) -> None:
     """Device time of one `forward()` by kernel (torch.profiler), after one warm-up."""
     from torch.profiler import ProfilerActivity, profile
@@ -2427,6 +2783,12 @@ def main() -> None:
     paths.append(("train", train_slice(per_forward)))
     torch.cuda.empty_cache()
     paths.append(("eval", eval_slice(os.path.join(OUT, "sr_ens"))))
+    torch.cuda.empty_cache()
+    paths.append(("tsdsr", tsdsr_slice(per_forward)))
+    torch.cuda.empty_cache()
+    paths.append(("v2_head", v2_slice(per_forward)))
+    torch.cuda.empty_cache()
+    paths.append(("mambair", mambair_slice(torch.Generator().manual_seed(SEED))))
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": sum(n.get(k, 0) for _, n in paths),
                 "launches_by_path": {tag: n[k] for tag, n in paths if k in n},

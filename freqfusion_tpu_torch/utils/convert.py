@@ -397,6 +397,81 @@ def freqfusion_params_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     return {prefix + k: v for prefix, sd in parts for k, v in sd.items()}
 
 
+def v2_key(path: Tuple[str, ...]) -> str:
+    """JAX V2 fusion-head param path -> reference torch key (own copy of the JAX package's
+    ``v2_key_fn``): ('freq_decomp','thresh_fc1','kernel') ->
+    'freq_decomp.threshold_predictor.2.weight'; ('multi_res','router_64_2','bias') ->
+    'multi_res.router_64.2.bias'; ('collaborative','proj_hat','kernel') ->
+    'collaborative.feature_projectors.hat.weight'."""
+    parts = [p for p in path if p != "params"]
+    body, leaf = parts[:-1], parts[-1]
+    toks = []
+    for p in body:
+        base, idx = _split_idx(p)
+        if p == "thresh_fc1":
+            toks.append("threshold_predictor.2")
+        elif p == "thresh_fc2":
+            toks.append("threshold_predictor.4")
+        elif base == "band_proj":
+            toks.extend(["band_projectors", str(idx)])
+        elif base == "out_proj" and idx is not None:
+            toks.extend(["output_projectors", str(idx)])
+        elif p.startswith("proj_") and p[5:] in ("hat", "dat", "nafnet"):
+            toks.extend(["feature_projectors", p[5:]])
+        elif base == "feat_refine":
+            toks.extend(["feature_refine", str(idx)])
+        elif base == "mod":
+            toks.extend(["modulation_head", str(idx)])
+        elif base == "diff":
+            toks.extend(["difficulty_net", str(idx)])
+        elif base == "gate":
+            toks.extend(["gate_net", str(idx)])
+        elif p.startswith("router_"):
+            toks.extend(p.rsplit("_", 1))
+        elif idx is not None:
+            toks.extend([base, str(idx)])
+        else:
+            toks.append(p)
+    return ".".join(toks + [_LEAF.get(leaf, leaf)])
+
+
+# Sequential indices of MambaIR's CAB (conv, GELU, conv, ChannelAttention(GAP, conv, ReLU,
+# conv, Sigmoid)): own copy of the table beside the JAX package's ``mambair_key_fn``
+_MAMBA_CAB = {"conv1": "cab.0", "conv2": "cab.2", "ca_fc1": "cab.3.attention.1",
+              "ca_fc2": "cab.3.attention.3"}
+
+
+def mambair_key(path: Tuple[str, ...]) -> str:
+    """JAX MambaIR param path -> reference torch key (own copy of the JAX package's
+    ``mambair_key_fn``): ('layers_0','blocks_1','self_attention','in_proj','kernel') ->
+    'layers.0.residual_group.blocks.1.self_attention.in_proj.weight';
+    ('patch_norm','scale') -> 'patch_embed.norm.weight'; ('upsample_1','kernel') ->
+    'upsample.2.weight'. SS2D's merged parameters (x_proj_weight, dt_projs_weight,
+    dt_projs_bias, A_logs, Ds) and the skip scales keep their names and stacked shapes."""
+    parts = [p for p in path if p != "params"]
+    toks = []
+    for i, p in enumerate(parts[:-1]):
+        base, idx = _split_idx(p)
+        nxt = parts[i + 1] if i + 1 < len(parts) - 1 else ""
+        if base == "layers":
+            toks.extend(["layers", str(idx)])
+            if nxt.startswith("blocks"):
+                toks.append("residual_group")
+        elif base == "blocks":
+            toks.extend(["blocks", str(idx)])
+        elif base == "upsample":
+            toks.extend(["upsample", str(2 * idx)])
+        elif p == "patch_norm":
+            toks.extend(["patch_embed", "norm"])
+        elif p == "conv_before_upsample":
+            toks.extend(["conv_before_upsample", "0"])
+        elif p in _MAMBA_CAB:
+            toks.append(_MAMBA_CAB[p])
+        else:
+            toks.append(p)
+    return ".".join(toks + [_LEAF.get(parts[-1], parts[-1])])
+
+
 # ---------------------------------------------------------------------------
 # The eval towers and the perceptual losses: own copies of the JAX package's key functions
 # (``*_key_fn`` beside each tower), flax params -> torch state dicts, and the strict loader
@@ -603,6 +678,18 @@ def musiq_params_from_flax(params: Mapping, model: torch.nn.Module) -> Dict[str,
 def maniqa_params_from_flax(params: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """The JAX ``MANIQA`` params -> a state dict for the port's twin."""
     return tower_params_from_flax(params, maniqa_key, _shapes(model))
+
+
+def fusion_v2_params_from_flax(params: Mapping,
+                               model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The JAX ``FusionHeadV2`` (or one of its blocks) params -> a state dict for the port's
+    twin `model`."""
+    return tower_params_from_flax(params, v2_key, _shapes(model))
+
+
+def mambair_params_from_flax(params: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The JAX ``MambaIR`` params -> a state dict for the port's ``MambaIR``."""
+    return tower_params_from_flax(params, mambair_key, _shapes(model))
 
 
 def load_tower_state(module: torch.nn.Module, sd: Mapping[str, torch.Tensor],

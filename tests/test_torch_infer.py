@@ -139,6 +139,7 @@ def test_port_imports_without_jax():
         "sys.modules['msgpack'] = None\n"
         "sys.modules['regex'] = None\n"
         "sys.modules['torch.utils.tensorboard'] = None\n"
+        "sys.modules['safetensors'] = None\n"
         "import importlib, pkgutil\n"
         "import freqfusion_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
@@ -154,10 +155,12 @@ def test_port_imports_without_jax():
         "        'data.cached', 'data.extract', 'utils.metrics', 'utils.logger',\n"
         "        'parallel.mesh', 'cli.train', 'utils.niqe', 'utils.lpips', 'utils.dists',\n"
         "        'utils.musiq', 'utils.maniqa', 'utils.clipiqa', 'utils.perceptual_metrics',\n"
-        "        'losses.vgg', 'losses.clip', 'models.fusion_variants', 'cli.eval']\n"
+        "        'losses.vgg', 'losses.clip', 'models.fusion_variants', 'cli.eval',\n"
+        "        'models.fusion_v2', 'models.mambair', 'models.vae', 'models.tsdsr',\n"
+        "        'utils.summary', 'utils.profiling']\n"
         "assert all(pkg.__name__ + '.' + n in names for n in need), names\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', 'freqfusion_tpu.', 'optax',\n"
-        "                                            'msgpack', 'regex'))\n"
+        "                                            'msgpack', 'regex', 'safetensors'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
     # no import statement of the port or of chip_smoke.py names the JAX side, wherever in a
