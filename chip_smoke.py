@@ -34,6 +34,16 @@ Phases, each printing JSON lines; any failure raises and the exit code is not 0:
      LKA-gate kernels must have launched once per image and every expert kernel as often as
      in its solo phase; the head's bands, the fused image and the output are checked against
      the plain versions, and the forward and the head alone are timed on both paths;
+ 7b. bf16: the same model at bf16 (FREQFUSION_DTYPE=bfloat16): every kernel of the path at
+     bf16 at the f32 summaries' shapes against its plain bf16 version (max |Δ| <= 1e-2 x
+     max|plain|, the f32 channel sums within 1e-3) and a float64 evaluation of the same bf16
+     inputs (at most twice the plain bf16 version's distance), `kernel_bf16` lines with a
+     bf16 bound (2-byte elements, bf16 tensor cores at 989 TFLOP/s); infer.io.main at
+     dtype="bfloat16" on the three requests (launches equal to the f32 phase's), the
+     runner on the 640x480 frame with FREQFUSION_DTYPE=bfloat16 (6 chunks of the per-image
+     launches); the whole forward's fused image within 1.5x the plain bf16 path's RMS
+     distance from the f32 kernel forward, PSNR of both, ms and PSNR by expert and the
+     head's ms at both dtypes; per-image ms at the three buckets on both bf16 paths;
   8. tiled: the same FreqFusionSR through the submission runner (cli/test.py, which times
      infer.io.main and writes results.json) on three frames that each take another way in (640x480: over the whole-image pixel budget, 12 tiles of 192 px in 6
      chunks of 2; 40x30: smaller than its reflect padding, one tile, the chunk padded by
@@ -85,7 +95,9 @@ B12 one launch each, within SLICE_RTOL x max|plain|).
 With --profile [dat|hat|ens|head|tiled] (or several, comma-separated: --profile hat,ens),
 one forward of each model named (DAT if none is named; `head` is the fusion head alone on
 fixed expert outputs, `tiled` one chunk of two 192-px tiles on the kernel path and on the
-plain path) is also traced with torch.profiler and its device time is printed by kernel. The last two lines are the kernels' summary and
+plain path) is also traced with torch.profiler and its device time is printed by kernel.
+The last two lines are the kernels' summary (each kernel's f32 numbers and its bf16 ones:
+`ms_bf16`, `plain_ms_bf16`, `bound_bf16_ms`, `max_abs_err_bf16`, `launches_bf16`) and
 {"ok": true, "device": {...}}. It exits non-zero without a CUDA card. The PNGs go to
 build/chip_smoke/ in the checkout.
 """
@@ -2694,6 +2706,396 @@ def mambair_slice(gen_cpu: torch.Generator) -> dict:
     return counts
 
 
+# ---- bf16 serving (FREQFUSION_DTYPE=bfloat16): every kernel of the path in its bf16
+# instantiation (bf16 in device memory, bf16 products accumulated in f32)
+BF16 = torch.bfloat16
+BF16_REL = 1e-2          # max |kernel - plain| <= BF16_REL * max|plain| (~2.5 bf16 ulps at max)
+BF16_SUMS_RTOL = 1e-3    # B1's, B5a's and B7's f32 channel sums, relative to sum|.|
+BF16_F64_FACTOR = 2.0    # the kernel's max distance from float64 <= 2x the plain bf16 version's
+BF16_FORWARD_FACTOR = 1.5   # the whole forward's RMS distance from f32: kernel <= 1.5x plain
+PEAK_BF16_TC = 989e12    # dense bf16 tensor cores; one TF32 pass, as these kernels run, caps
+                         # the products at 495e12
+
+
+def bf16_bound(cuda_flops: float, tc_flops: float, nelems: float) -> tuple:
+    """(least milliseconds, what sets it) of a bf16 kernel: the larger of its elements at 2
+    bytes over the memory rate, and its products over the bf16 tensor-core peak or its other
+    operations over the CUDA cores' f32 peak."""
+    t_ops = max(cuda_flops / PEAK_FLOPS, tc_flops / PEAK_BF16_TC)
+    t_bytes = 2 * nelems / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def as_dtype(t, dtype):
+    return t.to(dtype) if isinstance(t, torch.Tensor) and t.is_floating_point() else t
+
+
+def bf16_case(res16: dict, key: str, case: str, kernel, plain, args: tuple, bnd: tuple,
+              kw: dict = None, summary: bool = True, iters: int = 5, shape=None) -> None:
+    """`key`'s kernel and its plain version on the bf16 copies of `args` (f32 tensors, and
+    other arguments as they are), and the plain version on float64 copies of the same bf16
+    values: the kernel within BF16_REL * max|plain| of the plain bf16 version, and its
+    largest distance from float64 at most BF16_F64_FACTOR times the plain version's. A
+    tuple result's second element are f32 channel sums, within BF16_SUMS_RTOL."""
+    kw = kw or {}
+    a16 = tuple(as_dtype(t, BF16) for t in args)
+    k16 = {k: as_dtype(v, BF16) for k, v in kw.items()}
+    with torch.inference_mode():
+        got, want = kernel(*a16, **k16), plain(*a16, **k16)
+        ref = plain(*(as_dtype(t, torch.float64) for t in a16),
+                    **{k: as_dtype(v, torch.float64) for k, v in k16.items()})
+        torch.cuda.synchronize()
+        g, w, r = (o[0] if isinstance(o, tuple) else o for o in (got, want, ref))
+        require(g.dtype == BF16 and w.dtype == BF16, f"{key} at bf16 gave {g.dtype}, {w.dtype}")
+        scale = w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        dist, plain_dist = ((t.double() - r).abs().max().item() for t in (g, w))
+        finite = bool(torch.isfinite(g).all())
+        sums = {}
+        if isinstance(got, tuple):
+            sums["sums_max_rel_err"] = ((got[1] - want[1]).abs().reshape(want[1].shape[0], -1)
+                                        / w.float().abs().sum((1, 2)).reshape(
+                                            w.shape[0], -1)).max().item()
+        del got, want, ref, g, w, r
+        ms = cuda_ms(lambda: kernel(*a16, **k16), iters=iters)
+        plain_ms = cuda_ms(lambda: plain(*a16, **k16), iters=iters)
+    emit("kernel_bf16", kernel=key, case=case, shape=shape or list(args[0].shape),
+         max_abs_err=err, bound=BF16_REL * scale, max_abs_plain=scale, f64_max_abs=dist,
+         plain_f64_max_abs=plain_dist, f64_factor=BF16_F64_FACTOR, ms=ms, plain_ms=plain_ms,
+         bound_ms=bnd[0], bound_by=bnd[1], **sums)
+    require(finite, f"{key} at bf16: non-finite output at {case}")
+    require(err <= BF16_REL * scale, f"{key} at bf16: error {err} > {BF16_REL} x {scale} at {case}")
+    require(dist <= BF16_F64_FACTOR * plain_dist,
+            f"{key} at bf16: {dist} from float64, the plain version {plain_dist}, at {case}")
+    if sums:
+        require(sums["sums_max_rel_err"] <= BF16_SUMS_RTOL,
+                f"{key} at bf16: sums error {sums['sums_max_rel_err']} at {case}")
+    r16 = res16.setdefault(key, {"err": 0.0, "rel": 0.0, "times": []})
+    r16["err"], r16["rel"] = max(r16["err"], err), max(r16["rel"], err / scale)
+    if summary:
+        r16["times"].append((ms, plain_ms, bnd))
+
+
+def bf16_kernel_cases(gen: torch.Generator) -> dict:
+    """Every kernel of the path at bf16, at the shapes of the f32 lines' summaries (the
+    512x352 bucket's; NAF's heaviest level; B3 also at NAF's intro and ending convs, its
+    CUDA-core kernel). Returns {kernel: {err, rel (err over max|plain|), ms, plain_ms,
+    bound}}."""
+    def r(*shape, std=1.0, mean=0.0):
+        return mean + std * torch.randn(*shape, generator=gen, device="cuda")
+
+    res16 = {}
+    # B1, B2: NAF's first HR level
+    _, b, h, w, c = BLOCK_CASES[0]
+    npix = b * h * w
+    x, p = r(b, h, w, c), block_params(c, gen)
+    a_args = (x, p["ln1_w"], p["ln1_b"], p["w1"], p["b1"], p["wdw"], p["bdw"])
+    bf16_case(res16, "naf_block_stage_a", "enc0_hr", nafblock.naf_block_stage_a,
+              nafblock.naf_block_stage_a_plain, a_args,
+              bf16_bound(npix * 45 * c, npix * 4 * c * c, 2 * npix * c + 2 * c * c + 24 * c),
+              iters=3)
+    with torch.inference_mode():
+        g16, sums16 = nafblock.naf_block_stage_a_plain(*(as_dtype(t, BF16) for t in a_args))
+        att = nafblock._att(sums16, h * w, p["sca_w"].to(BF16), p["sca_b"].to(BF16))
+    b_args = (g16, x, att, p["w3"], p["b3"], p["beta"], p["ln2_w"], p["ln2_b"], p["w4"],
+              p["b4"], p["w5"], p["b5"], p["gamma"])
+    bf16_case(res16, "naf_block_stage_b", "enc0_hr", nafblock.naf_block_stage_b,
+              nafblock.naf_block_stage_b_plain, b_args,
+              bf16_bound(npix * 16 * c, npix * 8 * c * c, 3 * npix * c + 4 * c * c + 9 * c),
+              iters=3)
+    del x, g16, a_args, b_args
+    # B3: DAT's 180 -> 180 conv (the summary) and NAF's two CUDA-core convs
+    for name, b, h, w, cin, cout in CONV_CASES[:3]:
+        args = (r(b, h, w, cin), r(3, 3, cin, cout, std=(9 * cin) ** -0.5), r(cout, std=0.1))
+        prod = b * h * w * 18 * cin * cout
+        wide = min(cin, cout) >= 32
+        bf16_case(res16, "conv3x3_dense", name, conv3x3.conv3x3_dense,
+                  conv3x3.conv3x3_dense_plain, args,
+                  bf16_bound(0.0 if wide else prod, prod if wide else 0.0,
+                             b * h * w * (cin + cout) + 9 * cin * cout + cout),
+                  summary=name == "dat_180", iters=3)
+        del args
+    # DAT: B4 (both window orientations' first, unshifted and shifted), B5a, B5b, B6
+    c, heads, hid = DAT_C, DAT_HEADS, DAT_HIDDEN
+    half, mid, co = hid // 2, c // 16, c // 2
+    hd = co // heads
+    for name, b, h, w, hs, ws, shifted in WATTN_CASES[:2]:
+        n, npix, nwin = hs * ws, b * h * w, b * (h // hs) * (w // ws)
+        mask = (torch.from_numpy(windows.shift_mask_types(hs, ws, hs // 2, ws // 2).copy()).cuda()
+                if shifted else None)
+        args = (r(b, h, w, c), r(c, 3 * co, std=c ** -0.5), r(3 * co, std=0.1),
+                r(heads, n, n, std=0.5), mask, (hs, ws), heads)
+        bf16_case(res16, "fused_window_attention_xqkv", name, wattn.fused_window_attention_xqkv,
+                  wattn.fused_window_attention_xqkv_plain, args,
+                  bf16_bound(nwin * heads * n * n * 8,
+                             npix * 2 * c * 3 * co + nwin * heads * n * n * 4 * hd,
+                             npix * (c + co) + c * 3 * co + 3 * co
+                             + (heads + (4 if shifted else 0)) * n * n))
+        del args
+    _, b, h, w = DAT_CASES[0]
+    npix = b * h * w
+    v = r(b, h, w, c)
+    a_args = (v, r(3, 3, 1, c, std=1 / 3), r(c, std=0.1), r(c, std=0.2, mean=1.0),
+              r(c, std=0.1))
+    bf16_case(res16, "aim_conv_branch", "bucket", aim.aim_conv_branch,
+              aim.aim_conv_branch_plain, a_args,
+              bf16_bound(npix * c * 30, 0.0, 2 * npix * c + 12 * c + b * c))
+    with torch.inference_mode():
+        cx16, sums16 = aim.aim_conv_branch_plain(*(as_dtype(t, BF16) for t in a_args))
+    b_args = (r(b, h, w, c), cx16, sums16 / (h * w), r(1, 1, c, mid, std=c ** -0.5),
+              r(mid, std=0.1), r(mid, std=0.2, mean=1.0), r(mid, std=0.1),
+              r(1, 1, mid, 1, std=mid ** -0.5), r(1, std=0.1), r(c, c, std=c ** -0.5),
+              r(c, std=0.1))
+    for swap in (False, True):
+        bf16_case(res16, "aim_gates_proj", f"bucket_swap{int(swap)}", aim.aim_gates_proj,
+                  aim.aim_gates_proj_plain, b_args,
+                  bf16_bound(npix * (2 * c * mid + 2 * mid + 8 * c), npix * 2 * c * c,
+                             3 * npix * c + b * c + c * mid + c * c + 3 * mid + c + 2),
+                  kw=dict(swap=swap))
+    del v, a_args, b_args, cx16
+    t_args = (r(b, h, w, c), r(b, h, w, c), r(c, std=0.1, mean=1.0), r(c, std=0.1),
+              r(c, hid, std=c ** -0.5), r(hid, std=0.1), r(half, std=0.1, mean=1.0),
+              r(half, std=0.1), r(3, 3, 1, half, std=1 / 3), r(half, std=0.1),
+              r(half, c, std=half ** -0.5), r(c, std=0.1))
+    bf16_case(res16, "fused_sgfn_tail", "bucket", sgfn.fused_sgfn_tail,
+              sgfn.fused_sgfn_tail_plain, t_args,
+              bf16_bound(npix * (8 * c + 10 * hid + 28 * half),
+                         npix * (2 * c * hid + 2 * half * c),
+                         3 * npix * c + c * hid + half * c + hid + 13 * half + 3 * c))
+    del t_args
+    # HAT-L: B7 (unshifted and shifted), B10, B8 (unshifted and in_shift), B9
+    c, heads, ws, ov, mid, hid = HAT_C, HAT_HEADS, HAT_WINDOW, HAT_OVERLAP, HAT_MID, HAT_HIDDEN
+    n, nk, hd, s = ws * ws, (ws + ov) ** 2, HAT_C // HAT_HEADS, HAT_WINDOW // 2
+    _, b, h, w = HAT_CASES[0]
+    npix, nwin = b * h * w, b * (h // ws) * (w // ws)
+    c_args = (r(b, h, w, c), r(c, std=0.1, mean=1.0), r(c, std=0.1),
+              r(3, 3, c, mid, std=(9 * c) ** -0.5), r(mid, std=0.1),
+              r(3, 3, mid, c, std=(9 * mid) ** -0.5), r(c, std=0.1))
+    for shift in (0, s):
+        bf16_case(res16, "cab_chain", f"bucket_shift{shift}", cab.cab_chain, cab.cab_chain_plain,
+                  c_args, bf16_bound(npix * (10 * c + 10 * mid), npix * 36 * c * mid,
+                                     2 * npix * c + 18 * c * mid + 3 * c + mid + b * c),
+                  kw=dict(out_shift=shift))
+    del c_args
+    m_args = (r(b, h, w, c), r(b, h, w, c), r(c, std=0.1, mean=1.0), r(c, std=0.1),
+              r(c, hid, std=c ** -0.5), r(hid, std=0.1), r(hid, c, std=hid ** -0.5),
+              r(c, std=0.1))
+    bf16_case(res16, "fused_residual_ln_mlp", "bucket", wattn.fused_residual_ln_mlp,
+              wattn.fused_residual_ln_mlp_plain, m_args,
+              bf16_bound(npix * (12 * c + 10 * hid), npix * 4 * c * hid,
+                         3 * npix * c + 2 * c * hid + hid + 3 * c))
+    del m_args
+    h_args = (r(b, h, w, c), r(b, h, w, c, std=3.0), r(c, std=0.1, mean=1.0),
+              r(c, std=0.1), r(c, std=0.1, mean=1.0), r(c, std=0.1),
+              r(c, 3 * c, std=c ** -0.5), r(3 * c, std=0.1), r(c, c, std=c ** -0.5),
+              r(c, std=0.1), r(c, hid, std=c ** -0.5), r(hid, std=0.1),
+              r(hid, c, std=hid ** -0.5), r(c, std=0.1), r(heads, n, n, std=0.5))
+    gate = r(b, 1, 1, c, std=0.2, mean=0.5)
+    types = torch.from_numpy(windows.shift_mask_types(ws, ws, s, s).copy()).cuda()
+    for case, mask, in_shift in (("bucket_unshifted", None, 0), ("bucket_in_shift", types, s)):
+        bf16_case(res16, "fused_hab_block", case, wattn.fused_hab_block,
+                  wattn.fused_hab_block_plain, h_args + (mask, (ws, ws), heads, 0.01),
+                  bf16_bound(npix * (24 * c + 10 * hid) + nwin * heads * n * n * 8,
+                             npix * (8 * c * c + 4 * c * hid) + nwin * heads * n * n * 4 * hd,
+                             3 * npix * c + 4 * c * c + 2 * c * hid + 8 * c + hid + b * c
+                             + (heads + (4 if in_shift else 0)) * n * n),
+                  kw=dict(cab_scale=gate, in_shift=in_shift))
+    del h_args
+    o_args = (r(b, h, w, c), r(b, h, w, c), r(b, h, w, c), r(c, c, std=c ** -0.5),
+              r(c, std=0.1), r(heads, n, nk, std=0.5), ws, ov, heads)
+    bf16_case(res16, "fused_overlap_attention", "bucket", wattn.fused_overlap_attention,
+              wattn.fused_overlap_attention_plain, o_args,
+              bf16_bound(nwin * heads * n * nk * 8,
+                         nwin * heads * n * nk * 4 * hd + npix * 2 * c * c,
+                         4 * npix * c + c * c + c + heads * n * nk))
+    del o_args
+    # the head: B11 on the 9 band tokens of 64, B12 on the 9 bands folded into the batch
+    _, b, h, w, t, d, heads = MHA_CASES[0]
+    hd, npix = d // heads, b * h * w
+    args = (r(b, h, w, t, d, std=0.6), r(d, 3 * d, std=d ** -0.5), r(3 * d, std=0.1),
+            r(d, d, std=d ** -0.5), r(d, std=0.1), r(d, std=0.1, mean=1.0), r(d, std=0.1),
+            heads)
+    bf16_case(res16, "fused_band_mha", "bucket", bandmha.fused_band_mha,
+              bandmha.fused_band_mha_plain, args,
+              bf16_bound(npix * (t * 10 * d + heads * t * t * (4 * hd + 8)), npix * t * 8 * d * d,
+                         2 * npix * t * d + 4 * d * d + 6 * d))
+    _, b, h, w, c = LKA_CASES[0]
+    nel = b * h * w * c
+    args = (r(b, h, w, c), r(5, 5, c, std=0.2), r(21, c, std=0.2), r(21, c, std=0.2),
+            r(c, c, std=c ** -0.5), r(c, std=0.2, mean=1.0), r(c, std=0.1))
+    bf16_case(res16, "lka_gate", "bucket", lka.lka_gate, lka.lka_gate_plain, args,
+              bf16_bound(nel * (2 * (25 + 21 + 21) + 8), nel * 2 * c, 2 * nel + c * c + 69 * c))
+    # B13 (DAT's pre-projected windows: the tiled path at 176-px tiles) and B14 (HAT's odd
+    # windows), at the table's shapes
+    c, heads = DAT_C // 2, DAT_HEADS
+    hd = c // heads
+    _, b, h, w, hs, ws, _ = QKV_CASES[0]
+    n, npix, nwin = hs * ws, b * h * w, b * (h // hs) * (w // ws)
+    args = (r(b, h, w, c), r(b, h, w, c), r(b, h, w, c), r(heads, n, n, std=0.5), None,
+            (hs, ws), heads)
+    bf16_case(res16, "fused_window_attention_qkv", "table", wattn.fused_window_attention_qkv,
+              wattn.fused_window_attention_qkv_plain, args,
+              bf16_bound(nwin * heads * n * n * 8, nwin * heads * n * n * 4 * hd,
+                         4 * npix * c + heads * n * n))
+    c, heads = HAT_C, HAT_HEADS
+    hd = c // heads
+    _, b, h, w, hs, ws, _ = WIN_CASES[0]
+    n, npix, nwin = hs * ws, b * h * w, b * (h // hs) * (w // ws)
+    args = (r(b, h, w, c), r(c, 3 * c, std=c ** -0.5), r(3 * c, std=0.1),
+            r(c, c, std=c ** -0.5), r(c, std=0.1), r(heads, n, n, std=0.5), None, (hs, ws),
+            heads)
+    bf16_case(res16, "fused_window_attention", "table", wattn.fused_window_attention,
+              wattn.fused_window_attention_plain, args,
+              bf16_bound(nwin * heads * n * n * 8,
+                         npix * 8 * c * c + nwin * heads * n * n * 4 * hd,
+                         2 * npix * c + 4 * c * c + 4 * c + heads * n * n))
+    del args
+    torch.cuda.empty_cache()
+    for r16 in res16.values():
+        times = r16.pop("times")
+        r16.update(ms=mean(t[0] for t in times), plain_ms=mean(t[1] for t in times),
+                   bound=(mean(t[2][0] for t in times), times[0][2][1]))
+    return res16
+
+
+def rms(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a.double() - b.double()).pow(2).mean().sqrt().item()
+
+
+def psnr_db(d: float) -> float:
+    """PSNR against a peak of 1 for an RMS distance d."""
+    return 20 * math.log10(1.0 / d) if d > 0 else float("inf")
+
+
+def bf16_slice(gen: torch.Generator, ens_counts: dict, per_forward: dict) -> dict:
+    """bf16 serving of the full FreqFusionSR (FREQFUSION_DTYPE=bfloat16) at the ensemble
+    phase's checkpoints: every kernel at bf16 against its plain bf16 version and float64
+    (`kernel_bf16` lines); then infer.io.main(dtype="bfloat16") serves the three requests,
+    whose launches must equal the f32 ensemble's, and the submission runner serves the
+    640x480 frame in tiles with FREQFUSION_DTYPE=bfloat16 set (launches: the per-image
+    counts of each of its 6 chunks); the whole forward at bf16 on both paths is held to the
+    f32 kernel forward (RMS distance of the fused image before any clamp, the kernel path's
+    at most BF16_FORWARD_FACTOR x the plain path's; PSNR of each); per-image forward times
+    at the three buckets on both bf16 paths. Returns {kernel: {...}} with the per-image
+    launches."""
+    t_phase = time.perf_counter()
+    res16 = bf16_kernel_cases(gen)
+    model_dir = os.path.join(OUT, "model_dir")
+    req_dir, sr_dir = os.path.join(OUT, "requests"), os.path.join(OUT, "sr_bf16")
+    big_dir = os.path.join(OUT, "requests_bf16_tiled")
+    save_dir = os.path.join(OUT, "results_bf16")
+    for d in (sr_dir, big_dir, os.path.join(save_dir, cli_test.MODEL_NAME, "valid")):
+        for f in list_images(d) if os.path.isdir(d) else []:
+            os.remove(f)
+    files = list_images(req_dir)
+    lrs = [load_image(f) for f in files]
+
+    # the main path at bf16: the directory contract with dtype="bfloat16"
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    served = serve_directory(model_dir, req_dir, sr_dir, dtype="bfloat16")
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = {k: n for k, n in read_launches().items() if n}
+    outs = [load_image(os.path.join(sr_dir, os.path.basename(f))) for f in files]
+    f32_outs = [load_image(os.path.join(OUT, "sr_ens", os.path.basename(f))) for f in files]
+    lsb = max(int(np.abs(np.round(a * 255) - np.round(b * 255)).max())
+              for a, b in zip(outs, f32_outs))
+    png_psnr = [psnr_db(float(np.sqrt(np.mean((a - b) ** 2)))) for a, b in zip(outs, f32_outs)]
+    emit("bf16_serve", images=served, seconds=serve_s, peak_mem_gib=peak, launches=counts,
+         per_image={k: n / len(REQUESTS) for k, n in counts.items()},
+         png_max_lsb_vs_f32=lsb, png_psnr_vs_f32_db=png_psnr)
+    require(served == len(REQUESTS), f"main at bf16 served {served} images")
+    for lr, arr in zip(lrs, outs):
+        require(arr.shape == (4 * lr.shape[0], 4 * lr.shape[1], 3), f"output {arr.shape}")
+    require(counts == ens_counts, f"launches at bf16 {counts}, at f32 {ens_counts}")
+
+    # the 640x480 frame in 192-px tiles through the runner, the dtype from the environment
+    write_requests(big_dir, TILED_REQUESTS[:1])
+    os.environ["FREQFUSION_MODEL_DIR"] = model_dir
+    os.environ["FREQFUSION_DTYPE"] = "bfloat16"
+    try:
+        reset_launches()
+        runtime_ms = cli_test.main(["--input", big_dir, "--save_dir", save_dir])
+        tiled_counts = {k: n for k, n in read_launches().items() if n}
+    finally:
+        del os.environ["FREQFUSION_DTYPE"]
+    chunks = -(-num_tiles(480, 640, 192, 32, 2) // 2)
+    expected = {k: n * chunks for k, n in per_forward.items()}
+    tiled_png = load_image(os.path.join(save_dir, cli_test.MODEL_NAME, "valid",
+                                        os.path.basename(list_images(big_dir)[0])))
+    emit("bf16_tiled", lr=list(TILED_REQUESTS[0]), chunks=chunks, seconds=runtime_ms / 1e3,
+         launches=tiled_counts, output=list(tiled_png.shape),
+         finite=bool(np.isfinite(tiled_png).all()))
+    require(tiled_counts == expected, f"tiled launches at bf16 {tiled_counts}, expected {expected}")
+    require(tiled_png.shape == (1920, 2560, 3), f"tiled output {tiled_png.shape}")
+
+    # the whole forward of image 0 at bf16, both paths, against the f32 kernel forward
+    pipe32 = build_pipeline(model_dir)
+    pipe16 = build_pipeline(model_dir, dtype=BF16)
+    m16 = pipe16.model
+    plans = [pipe16._whole_image_plan(lr.shape[0], lr.shape[1]) for lr in lrs]
+    with torch.inference_mode():
+        x = torch.from_numpy(pipe32._pad([lrs[0]], *plans[0])).cuda()
+        outs32, _, fused32, out32 = ens_forward(pipe32.model, x)
+        # by expert and the head (on each dtype's own expert outputs): ms of both dtypes;
+        # an expert's PSNR of its bf16 output against its f32 one (the model's: out_psnr)
+        outs16 = m16.experts(x.to(BF16))[0]
+        parts = {}
+        for name in ("hat", "dat", "nafnet"):
+            e32, e16 = getattr(pipe32.model.experts, name), getattr(m16.experts, name)
+            parts[name] = dict(
+                f32_ms=cuda_ms(lambda: e32(x), iters=2),
+                bf16_ms=cuda_ms(lambda: e16(x.to(BF16)), iters=2),
+                psnr_db=psnr_db(rms(outs16[name].clamp(0, 1), outs32[name].clamp(0, 1))))
+        parts["head"] = dict(
+            f32_ms=cuda_ms(lambda: pipe32.model.fusion(x, outs32), iters=3),
+            bf16_ms=cuda_ms(lambda: m16.fusion(x.to(BF16), outs16), iters=3))
+        del pipe32, outs16
+        torch.cuda.empty_cache()
+        _, _, fused_k, out_k = ens_forward(m16, x.to(BF16))
+        set_kernels(m16, False)
+        _, _, fused_p, out_p = ens_forward(m16, x.to(BF16))
+        set_kernels(m16, True)
+        torch.cuda.synchronize()
+    d_k, d_p = rms(fused_k, fused32), rms(fused_p, fused32)
+    o_k, o_p = rms(out_k, out32), rms(out_p, out32)
+    finite = bool(torch.isfinite(fused_k).all() and torch.isfinite(out_k).all())
+    emit("bf16_forward", bucket=list(plans[0]), by_part=parts, fused_rms_vs_f32_kernel=d_k,
+         fused_rms_vs_f32_plain=d_p, fused_psnr_kernel_db=psnr_db(d_k),
+         fused_psnr_plain_db=psnr_db(d_p), out_psnr_kernel_db=psnr_db(o_k),
+         out_psnr_plain_db=psnr_db(o_p),
+         fused_max_abs_kernel=(fused_k.double() - fused32.double()).abs().max().item(),
+         fused_max_abs_plain=(fused_p.double() - fused32.double()).abs().max().item(),
+         factor=BF16_FORWARD_FACTOR, finite=finite, dtype=str(out_k.dtype))
+    require(finite, "non-finite bf16 forward")
+    require(fused_k.dtype == BF16, f"the bf16 forward gave {fused_k.dtype}")
+    require(d_k <= BF16_FORWARD_FACTOR * d_p,
+            f"bf16 forward {d_k} from f32, the plain bf16 path {d_p}")
+    del fused32, out32, fused_k, out_k, fused_p, out_p, outs32
+
+    # per-image device time of the bf16 forward at each bucket, both paths
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        for lr, plan in zip(lrs, plans):
+            xb = torch.from_numpy(pipe16._pad([lr], *plan)).cuda().to(BF16)
+            ms = {}
+            for path, on in (("kernel", True), ("plain", False)):
+                set_kernels(m16, on)
+                ms[path] = cuda_ms(lambda: m16(xb), iters=2)
+            set_kernels(m16, True)
+            times.append(dict(lr=[lr.shape[1], lr.shape[0]], bucket=list(plan),
+                              kernel_ms=ms["kernel"], plain_ms=ms["plain"]))
+    emit("bf16_time", per_image=times, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         serve_seconds=serve_s, seconds=time.perf_counter() - t_phase)
+    for k, r16 in res16.items():
+        r16["launches"] = counts.get(k, 0) // len(REQUESTS)
+    return res16
+
+
 def profile_forward(tag: str, forward) -> None:
     """Device time of one `forward()` by kernel (torch.profiler), after one warm-up."""
     from torch.profiler import ProfilerActivity, profile
@@ -2776,6 +3178,9 @@ def main() -> None:
     paths.append(("ens", ens_slice(torch.Generator().manual_seed(SEED), profiled, solo)))
     torch.cuda.empty_cache()
     per_forward = {k: n // len(REQUESTS) for k, n in paths[-1][1].items()}
+    # bf16 serving: its own lines, outside `paths` (the f32 lines keep their launches)
+    res16 = bf16_slice(gen, paths[-1][1], per_forward)
+    torch.cuda.empty_cache()
     paths.append(("tiled", tiled_slice(per_forward, "tiled" in profiled)))
     torch.cuda.empty_cache()
     paths.append(("hat_odd", hat_odd_slice(torch.Generator().manual_seed(SEED))))
@@ -2796,7 +3201,11 @@ def main() -> None:
                 "plain_ms": res[k]["plain_ms"], "bound_ms": res[k]["bound"][0],
                 "bound_by": res[k]["bound"][1],
                 "bound_f32_ms": res[k].get("bound_f32", res[k]["bound"])[0],
-                "library_ms": res[k]["library_ms"], **res[k].get("extra", {})}
+                "library_ms": res[k]["library_ms"], **res[k].get("extra", {}),
+                "ms_bf16": res16[k]["ms"], "plain_ms_bf16": res16[k]["plain_ms"],
+                "bound_bf16_ms": res16[k]["bound"][0], "bound_bf16_by": res16[k]["bound"][1],
+                "max_abs_err_bf16": res16[k]["err"], "max_rel_err_bf16": res16[k]["rel"],
+                "launches_bf16": res16[k]["launches"]}
                for k, (src, rep) in KERNELS.items()]
     emit("done", seconds=time.perf_counter() - t0)
     print(smi, flush=True)

@@ -2,12 +2,15 @@
 
     python -m freqfusion_tpu_torch.cli.test --input <LR PNG directory> [--save_dir results]
         [--split valid|test] [--model_id 29] [--device cuda] [--precision highest|high]
+        [--dtype float32|bfloat16]
 
 Selects the team model, times the whole ``model_func`` call (model build, checkpoint
 loading, PNG decode and encode included) on the host clock after the device has finished,
 and writes the SR PNGs to ``<save_dir>/<model_name>/<split>`` and the runtime to
 ``<save_dir>/results.json``. The model directory is ``$FREQFUSION_MODEL_DIR`` or
-``model_zoo/team29``. The device is the card; without one the default raises.
+``model_zoo/team29``. The device is the card; without one the default raises. Without
+``--precision`` or ``--dtype`` the model reads ``FREQFUSION_PRECISION`` and
+``FREQFUSION_DTYPE`` (and the JAX ``main``'s other switches: ``infer/io.py:serving_options``).
 """
 
 from __future__ import annotations
@@ -55,14 +58,19 @@ def main(argv: Optional[Sequence[str]] = None, **model_kwargs) -> float:
     ap.add_argument("--split", type=str, default="valid", choices=["valid", "test"])
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device; the default raises without a card")
-    ap.add_argument("--precision", type=str, default="highest", choices=["highest", "high"],
-                    help="f32 products and convolutions: highest = f32, high = TF32 allowed")
+    ap.add_argument("--precision", type=str, default=None, choices=["highest", "high"],
+                    help="f32 products and convolutions: highest = f32, high = TF32 allowed "
+                         "(default: $FREQFUSION_PRECISION, else highest)")
+    ap.add_argument("--dtype", type=str, default=None, choices=["float32", "bfloat16"],
+                    help="serving dtype (default: $FREQFUSION_DTYPE, else float32)")
     args = ap.parse_args(argv)
 
     model_func, model_dir, name = select_model(args.model_id)
     out_dir = os.path.join(args.save_dir, name, args.split)
-    elapsed = run(model_func, model_dir, args.input, out_dir, args.device,
-                  precision=args.precision, **model_kwargs)
+    for k in ("precision", "dtype"):
+        if getattr(args, k) is not None:
+            model_kwargs.setdefault(k, getattr(args, k))
+    elapsed = run(model_func, model_dir, args.input, out_dir, args.device, **model_kwargs)
 
     results_path = os.path.join(args.save_dir, "results.json")
     results = {}

@@ -55,7 +55,8 @@
 //     wider than 12 takes its sums 12 at a time, a pass over the rows each. Neither pass is
 //     taken at C <= 192 with mid <= 12.
 //
-// Layout: NHWC, f32, contiguous; C % 4 == 0. wdw [9][C]; si_w2 [mid]; chvec [B][C], the
+// Layout: NHWC, contiguous, f32 or bf16 (B5a: v and conv_x; B5b: attened, conv_x and out);
+// C % 4 == 0. wdw [9][C]; si_w2 [mid]; chvec [B][C], the
 // C-Map before its sigmoid; B5b's fc1 and proj as GatesArgs says.
 
 #include "mma_f32x3.cuh"
@@ -76,10 +77,13 @@ __host__ __device__ inline ConvTiles conv_tiles(int C) {
     return {sq, ns, kConvThreads / sq < 16 ? kConvThreads / sq : 16};
 }
 
+// T: the storage type of v and cx (f32, or bf16: the CUDA-core taps multiply the bf16 values
+// in f32, and the sums are taken of cx before its rounding).
+template <typename T>
 __global__ void __launch_bounds__(kConvThreads, 2)
-aim_conv_branch_kernel(const float* __restrict__ v, const float* __restrict__ wdw,
+aim_conv_branch_kernel(const T* __restrict__ v, const float* __restrict__ wdw,
                        const float* __restrict__ bdw, const float* __restrict__ bns,
-                       const float* __restrict__ bnb, float* __restrict__ cx,
+                       const float* __restrict__ bnb, T* __restrict__ cx,
                        float* __restrict__ part, int H, int W, int C) {
     extern __shared__ float4 ring[];   // [kConvRing][tw + 2][sq]: input rows with their halo
     const ConvTiles tl = conv_tiles(C);
@@ -90,7 +94,7 @@ aim_conv_branch_kernel(const float* __restrict__ v, const float* __restrict__ wd
     const int x0 = blockIdx.x * tw, y0 = blockIdx.y * kConvRows, x = x0 + xl, c = 4 * (q0 + q);
     const bool mine = q < nqs && x < W;
     const int rowq = (tw + 2) * sq;   // float4s of a staged row
-    const float* vb = v + (size_t)bi * H * W * C;
+    const T* vb = v + (size_t)bi * H * W * C;
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 
     // input row y0 - 1 + i (with its columns x0 - 1 .. x0 + tw) into stage i % kConvRing, zero
@@ -102,8 +106,8 @@ aim_conv_branch_kernel(const float* __restrict__ v, const float* __restrict__ wd
             for (int e = tid; e < rowq; e += nthreads) {
                 const int px = e / sq, qq = e - px * sq, xx = x0 - 1 + px;
                 if (y >= 0 && y < H && xx >= 0 && xx < W && qq < nqs)
-                    cp_async16(reinterpret_cast<float*>(dst + e),
-                               vb + ((size_t)y * W + xx) * C + 4 * (q0 + qq));
+                    stage4(reinterpret_cast<float*>(dst + e),
+                           vb + ((size_t)y * W + xx) * C + 4 * (q0 + qq));
                 else
                     dst[e] = zero;
             }
@@ -147,7 +151,7 @@ aim_conv_branch_kernel(const float* __restrict__ v, const float* __restrict__ wd
             const float4 o = make_float4(
                 gelu_erf(fmaf(a2.x, s0.x, h0.x)), gelu_erf(fmaf(a2.y, s0.y, h0.y)),
                 gelu_erf(fmaf(a2.z, s0.z, h0.z)), gelu_erf(fmaf(a2.w, s0.w, h0.w)));
-            *reinterpret_cast<float4*>(cx + (((size_t)bi * H + y) * W + x) * C + c) = o;
+            st4(cx + (((size_t)bi * H + y) * W + x) * C + c, o);
             psum.x += o.x;
             psum.y += o.y;
             psum.z += o.z;
@@ -176,13 +180,15 @@ aim_conv_branch_kernel(const float* __restrict__ v, const float* __restrict__ wd
 }
 
 // B5b's arguments.
+template <typename T>
 struct GatesArgs {
-    const float *att, *cx, *chvec;   // attened, conv_x [npix][C]; the C-Map [B][C]
+    const T *att, *cx;    // attened, conv_x [npix][C]
+    const float* chvec;   // the C-Map [B][C]
     const float* w1;      // the S-Map's fc1 in groups of kMid: [ceil(mid / kMid)][C][kMid]
     const float *b1, *bns, *bnb, *w2, *b2;   // fc1's bias, BN's affine, fc2 [mid], its bias
     const float4* projp;  // mma_planes of proj [Kp][Kp]
     const float* pb;
-    float* out;
+    T* out;
     long long npix;
     int hw, C, mid, Kp, swap;
 };
@@ -192,8 +198,8 @@ struct GatesArgs {
 // (w1s, [C][kMid] in shared memory) in registers, a butterfly over the 4 lanes, then BN,
 // GELU and fc2 added to s in the order of the hidden units. STAGE: the row also goes into
 // A (zero in its padded columns), as the projection's operand.
-template <bool STAGE>
-__device__ __forceinline__ float smap_group(const GatesArgs& a, const float* src,
+template <bool STAGE, typename T>
+__device__ __forceinline__ float smap_group(const GatesArgs<T>& a, const T* src,
                                             const float* w1s, float* A, int ks, int p, int q,
                                             long long gp, int grp, float s) {
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -225,15 +231,18 @@ __device__ __forceinline__ float smap_group(const GatesArgs& a, const float* src
         t += __shfl_xor_sync(0xffffffffu, t, 1);
         t += __shfl_xor_sync(0xffffffffu, t, 2);
         const int j = grp * kMid + m;
-        if (j < a.mid) s = fmaf(gelu_erf(fmaf(t + a.b1[j], a.bns[j], a.bnb[j])), a.w2[j], s);
+        // GELU's output is an operand of the S-Map's second product: rounded to T, as the
+        // TPU kernel casts it
+        if (j < a.mid)
+            s = fmaf(round_to<T>(gelu_erf(fmaf(t + a.b1[j], a.bns[j], a.bnb[j]))), a.w2[j], s);
     }
     return s;
 }
 
 // WIDE: C above kMmaMaxK (192), the projection's K in pieces (tile_mma_piece); else in one.
-template <bool WIDE>
+template <bool WIDE, typename T>
 __global__ void __launch_bounds__(kMmaThreads, 1)
-aim_gates_proj_kernel(const GatesArgs a) {
+aim_gates_proj_kernel(const GatesArgs<T> a) {
     extern __shared__ float4 smem4[];
     const int C = a.C, Kp = a.Kp, Kt = WIDE ? tile_mma_piece(Kp) : Kp, ks = Kp / 8;
     float* A = reinterpret_cast<float*>(smem4);   // [128 x Kt] A-fragment order
@@ -243,8 +252,8 @@ aim_gates_proj_kernel(const GatesArgs a) {
     const long long p0 = (long long)blockIdx.x * kMmaRows;
     // the S-Map's input, gated by the C-Map; the other input, gated by the S-Map: either
     // wiring is y = src * s(C-Map) + oth * s(S-Map(src))
-    const float* src = a.swap ? a.cx : a.att;
-    const float* oth = a.swap ? a.att : a.cx;
+    const T* src = a.swap ? a.cx : a.att;
+    const T* oth = a.swap ? a.att : a.cx;
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 
     // the S-Map: 4 lanes a pixel, 8 pixels a warp, fc1's weights a group of kMid at a time in
@@ -314,21 +323,44 @@ aim_gates_proj_kernel(const GatesArgs a) {
     // the last's in out's rows of this block
     for (int k0 = 0; k0 < Kp; k0 += Kt) {
         const int kh = min(Kt, Kp - k0);
-        tile_mma(
+        tile_mma<kPasses<T>>(
             A, kh, a.projp + (size_t)(k0 / 8) * (Kp / 8) * 32, Kp / 8, Kp, ws,
             [&] { gated(k0, kh); },
             [&](int p, int n, float u0, float u1) {
                 const long long gp = p0 + p;
                 if (gp >= a.npix || n >= C) return;   // C is even: n + 1 < C too
-                float2* o = reinterpret_cast<float2*>(a.out + gp * C + n);
                 if (!WIDE || k0 == 0) {
-                    *o = make_float2(u0 + a.pb[n], u1 + a.pb[n + 1]);
-                } else {
+                    st2(a.out + gp * C + n, make_float2(u0 + a.pb[n], u1 + a.pb[n + 1]));
+                } else if constexpr (!kBf16<T>) {   // the pieces sum in out: f32 only
+                    float2* o = reinterpret_cast<float2*>(a.out + gp * C + n);
                     const float2 y = *o;
                     *o = make_float2(y.x + u0, y.y + u1);
                 }
             });
     }
+}
+
+template <bool WIDE, typename T>
+cudaError_t gates(const T* att, const T* cx, const float* chvec, const float* w1,
+                  const float* b1, const float* bns, const float* bnb, const float* w2,
+                  const float* b2, const float* projp, const float* pb, T* out, int B, int H,
+                  int W, int C, int mid, int Kp, int swap, cudaStream_t st) {
+    GatesArgs<T> a = {};
+    a.att = att; a.cx = cx; a.chvec = chvec; a.w1 = w1;
+    a.b1 = b1; a.bns = bns; a.bnb = bnb; a.w2 = w2; a.b2 = b2;
+    a.projp = reinterpret_cast<const float4*>(projp); a.pb = pb; a.out = out;
+    a.npix = (long long)B * H * W; a.hw = H * W; a.C = C; a.mid = mid; a.Kp = Kp;
+    a.swap = swap;
+    const size_t smem =
+        (size_t)(kMmaRows * tile_mma_piece(Kp) + tile_mma_ws() + kMmaRows) * sizeof(float);
+    const auto kernel = aim_gates_proj_kernel<WIDE, T>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const long long nblocks = (a.npix + kMmaRows - 1) / kMmaRows;
+    if (nblocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    kernel<<<(unsigned)nblocks, kMmaThreads, smem, st>>>(a);
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -341,20 +373,28 @@ int aim_conv_branch_blocks(int H, int W, int C) {
     return ((H + kConvRows - 1) / kConvRows) * ((W + conv_tiles(C).tw - 1) / conv_tiles(C).tw);
 }
 
+// v and cx f32, or bf16 where `bf16_io` is set; the rest f32.
 int aim_conv_branch(const float* v, const float* wdw, const float* bdw, const float* bns,
                     const float* bnb, float* cx, float* part, float* sums, int B, int H, int W,
-                    int C, void* stream) {
+                    int C, int bf16_io, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (C % 4 || C < 4 || B < 1 || H < 1 || W < 1) return cudaErrorInvalidValue;
     const ConvTiles tl = conv_tiles(C);
     const size_t smem = (size_t)kConvRing * (tl.tw + 2) * tl.sq * sizeof(float4);
-    cudaError_t err = cudaFuncSetAttribute(
-        aim_conv_branch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const void* kernel = bf16_io ? reinterpret_cast<const void*>(aim_conv_branch_kernel<bf16>)
+                                 : reinterpret_cast<const void*>(aim_conv_branch_kernel<float>);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((W + tl.tw - 1) / tl.tw, (H + kConvRows - 1) / kConvRows, B * tl.ns);
     if (grid.z > 65535) return cudaErrorInvalidValue;
-    aim_conv_branch_kernel<<<grid, tl.sq * tl.tw, smem, st>>>(v, wdw, bdw, bns, bnb, cx, part,
-                                                              H, W, C);
+    if (bf16_io)
+        aim_conv_branch_kernel<bf16><<<grid, tl.sq * tl.tw, smem, st>>>(
+            reinterpret_cast<const bf16*>(v), wdw, bdw, bns, bnb, reinterpret_cast<bf16*>(cx),
+            part, H, W, C);
+    else
+        aim_conv_branch_kernel<float><<<grid, tl.sq * tl.tw, smem, st>>>(v, wdw, bdw, bns, bnb,
+                                                                         cx, part, H, W, C);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     return sum_partials(part, sums, B, aim_conv_branch_blocks(H, W, C), C, st);
@@ -362,30 +402,28 @@ int aim_conv_branch(const float* v, const float* wdw, const float* bdw, const fl
 
 // out = proj(gated sum) + pb; w1 the S-Map's fc1 in groups of kMid [ceil(mid / kMid)][C][kMid]
 // zero past mid, projp the mma_planes of proj [Kp][Kp] (ops/kernels/aim.py: gates_planes).
+// att, cx and out f32, or bf16 where `bf16_io` is set (then C <= 192: the wide case sums its
+// K pieces in out); chvec and the weights f32.
 int aim_gates_proj(const float* att, const float* cx, const float* chvec, const float* w1,
                    const float* b1, const float* bns, const float* bnb, const float* w2,
                    const float* b2, const float* projp, const float* pb, float* out, int B,
-                   int H, int W, int C, int mid, int Kp, int swap, void* stream) {
+                   int H, int W, int C, int mid, int Kp, int swap, int bf16_io, void* stream) {
     if (C % 4 || Kp % 8 || Kp < C || Kp >= C + 8 || C * kMid > tile_mma_ws() || mid < 1 ||
         B < 1 || H < 1 || W < 1)
         return cudaErrorInvalidValue;
-    GatesArgs a = {};
-    a.att = att; a.cx = cx; a.chvec = chvec; a.w1 = w1;
-    a.b1 = b1; a.bns = bns; a.bnb = bnb; a.w2 = w2; a.b2 = b2;
-    a.projp = reinterpret_cast<const float4*>(projp); a.pb = pb; a.out = out;
-    a.npix = (long long)B * H * W; a.hw = H * W; a.C = C; a.mid = mid; a.Kp = Kp;
-    a.swap = swap;
     const bool wide = tile_mma_piece(Kp) != Kp;
-    const size_t smem =
-        (size_t)(kMmaRows * tile_mma_piece(Kp) + tile_mma_ws() + kMmaRows) * sizeof(float);
-    const auto kernel = wide ? aim_gates_proj_kernel<true> : aim_gates_proj_kernel<false>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const long long nblocks = (a.npix + kMmaRows - 1) / kMmaRows;
-    if (nblocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-    kernel<<<(unsigned)nblocks, kMmaThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-    return cudaGetLastError();
+    if (bf16_io && wide) return cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (bf16_io)
+        return gates<false>(reinterpret_cast<const bf16*>(att),
+                            reinterpret_cast<const bf16*>(cx), chvec, w1, b1, bns, bnb, w2, b2,
+                            projp, pb, reinterpret_cast<bf16*>(out), B, H, W, C, mid, Kp, swap,
+                            st);
+    if (wide)
+        return gates<true>(att, cx, chvec, w1, b1, bns, bnb, w2, b2, projp, pb, out, B, H, W, C,
+                           mid, Kp, swap, st);
+    return gates<false>(att, cx, chvec, w1, b1, bns, bnb, w2, b2, projp, pb, out, B, H, W, C,
+                        mid, Kp, swap, st);
 }
 
 }  // extern "C"

@@ -60,7 +60,8 @@
 // running max and sum (online softmax), the heads' output over n; out = n x wproj + bproj by
 // rows_linear, then + x. Any T and any D (a multiple of 16, as the wrapper pads it).
 //
-// Layout: f32, contiguous. wqkv and wproj as fragments of [D][3D] and [D][D] ([in][out]).
+// Layout: contiguous; x and out f32 or bf16 (bf16 products; q, k, v rounded to bf16 for the
+// f32 attention), the rest f32. wqkv and wproj as fragments of [D][3D] and [D][D] ([in][out]).
 
 #include <type_traits>
 
@@ -71,11 +72,12 @@ namespace {
 constexpr int kBandThreads = 512;   // 16 warps, one block an SM
 constexpr float kEps = 1e-5f;
 
+template <typename TS>
 struct BandArgs {
-    const float* x;                   // [npix][T][D]
+    const TS* x;                      // [npix][T][D]
     const float2 *wqkv, *wproj;       // B fragments of [D][3D], [D][D]
     const float *bqkv, *bproj, *lnw, *lnb;
-    float* out;
+    TS* out;
     long long npix;
     int T, D, Dt, heads, hd;   // Dt: LN's real columns of the D
     float scale;
@@ -89,7 +91,7 @@ struct BandArgs {
 // the sum in f32 (the tensor core's adds round toward zero). SYNC: a barrier between the
 // products and the epilogue, for an epilogue that writes over A (the caller's shares are at
 // most NT n-tiles: one pass).
-template <int MG, int NT, bool CHUNKED, bool SYNC, typename FragLoad, typename Epi>
+template <int MG, int NT, bool CHUNKED, bool SYNC, int P, typename FragLoad, typename Epi>
 __device__ __forceinline__ void band_product(FragLoad frag_a, int ksteps,
                                              const float2* __restrict__ W, int ntw, int nt0,
                                              int nt1, Epi epi) {
@@ -116,7 +118,7 @@ __device__ __forceinline__ void band_product(FragLoad frag_a, int ksteps,
 #pragma unroll
             for (int s = k0; s < k0 + 8; ++s) {
                 if (s >= k1) break;
-                FragA a[2];
+                Frag<4, P> a[2];
                 frag_a(a[0], 2 * mi, s);
                 frag_a(a[1], 2 * mi + 1, s);
                 uint32_t bh[NT][2], bl[NT][2];
@@ -129,18 +131,20 @@ __device__ __forceinline__ void band_product(FragLoad frag_a, int ksteps,
                     split_tf32(b.y, bh[j][1], bl[j][1]);
                 }
                 // the three terms of every tile interleaved, the small ones first
+                if constexpr (P == 3) {
 #pragma unroll
-                for (int j = 0; j < NT; ++j)
-                    if (FULL || j < mine) {
-                        mma_tf32(part[0][j], a[0].lo, bh[j]);
-                        mma_tf32(part[1][j], a[1].lo, bh[j]);
-                    }
+                    for (int j = 0; j < NT; ++j)
+                        if (FULL || j < mine) {
+                            mma_tf32(part[0][j], a[0].lo, bh[j]);
+                            mma_tf32(part[1][j], a[1].lo, bh[j]);
+                        }
 #pragma unroll
-                for (int j = 0; j < NT; ++j)
-                    if (FULL || j < mine) {
-                        mma_tf32(part[0][j], a[0].hi, bl[j]);
-                        mma_tf32(part[1][j], a[1].hi, bl[j]);
-                    }
+                    for (int j = 0; j < NT; ++j)
+                        if (FULL || j < mine) {
+                            mma_tf32(part[0][j], a[0].hi, bl[j]);
+                            mma_tf32(part[1][j], a[1].hi, bl[j]);
+                        }
+                }
 #pragma unroll
                 for (int j = 0; j < NT; ++j)
                     if (FULL || j < mine) {
@@ -282,8 +286,9 @@ __device__ __forceinline__ void band_attention(float* Q, const float* KV, int nr
 __host__ __device__ constexpr int band_ldkv(int D) { return 2 * (D + D / 4) + 4; }
 
 // R rows a group, NQ float4s of a row a lane holds in LN (8 lanes a row: D <= 32 NQ).
-template <int HACC, int R, bool RES, int NQ>
-__global__ void __launch_bounds__(kBandThreads, 1) band_mha_kernel(const BandArgs a) {
+template <int HACC, int R, bool RES, int NQ, typename TS>
+__global__ void __launch_bounds__(kBandThreads, 1) band_mha_kernel(const BandArgs<TS> a) {
+    constexpr int PS = kPasses<TS>;
     // resident weights: 128 rows, K = D <= 64 in one chunk, k | v in passes of 4 n-tiles, q
     // in passes of 2; else K in chunks, k | v in passes of 2 (fewer registers beside the
     // chunk's sums), q in passes of 4 (one a warp up to D = 128 at R = 128, 256 at 64, 512
@@ -307,10 +312,10 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_mha_kernel(const BandArg
     auto fetch_x = [&](long long grp) {
         if (grp < ngroups) {
             const int q4 = D / 4, n4 = (int)min((long long)P, a.npix - grp * P) * T * q4;
-            const float* src = a.x + grp * P * T * D;
+            const TS* src = a.x + grp * P * T * D;
             for (int e = tid; e < n4; e += kBandThreads) {
                 const int r = e / q4;
-                cp_async16(KV + r * ldo + 4 * (e - r * q4), src + 4 * e);
+                stage4(KV + r * ldo + 4 * (e - r * q4), src + 4 * e);
             }
         }
         cp_async_commit();
@@ -332,14 +337,14 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_mha_kernel(const BandArg
     }
     fetch_x(blockIdx.x);
     const float4* A4 = reinterpret_cast<const float4*>(A);
-    auto frag_ln = [&](FragA& f, int mt, int s) {   // A in fragment order: one 16-byte load
+    auto frag_ln = [&](Frag<4, PS>& f, int mt, int s) {   // A in fragment order: one 16-byte load
         const float4 v = A4[(mt * ks + s) * 32 + lane];
         f.set(0, v.x);
         f.set(1, v.y);
         f.set(2, v.z);
         f.set(3, v.w);
     };
-    auto frag_heads = [&](FragA& f, int mt, int s) { load_a(f, A, ldo, 16 * mt, 8 * s); };
+    auto frag_heads = [&](Frag<4, PS>& f, int mt, int s) { load_a(f, A, ldo, 16 * mt, 8 * s); };
 
     for (long long grp = blockIdx.x; grp < ngroups; grp += gridDim.x) {
         const long long row0 = grp * P * T;
@@ -413,33 +418,34 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_mha_kernel(const BandArg
         }
         __syncthreads();   // A written; KV's memory read: k | v may come
         // (2) k | v: columns D .. 3D of wqkv into KV's 0 .. 2D
-        band_product<MG, NTKV, !RES, false>(
+        // k, v and q rounded to the storage type where the TPU kernel casts them to its operand
+        // dtype (a no-op for f32); the attention (4) runs on CUDA cores in f32
+        band_product<MG, NTKV, !RES, false, PS>(
             frag_ln, ks, wqkv, 3 * D / 8, D / 8, 3 * D / 8, [&](int p, int n, float u0, float u1) {
                 const int c = n < 2 * D ? kv_col(n - D) : kv_col(D) + kv_col(n - 2 * D);
                 *reinterpret_cast<float2*>(KV + p * ldkv + c) =
-                    make_float2(u0 + a.bqkv[n], u1 + a.bqkv[n + 1]);
+                    make_float2(round_to<TS>(u0 + a.bqkv[n]), round_to<TS>(u1 + a.bqkv[n + 1]));
             });
         // (3) q, scaled, over A once every warp has read A
-        band_product<MG, NTQ, !RES, true>(frag_ln, ks, wqkv, 3 * D / 8, 0, D / 8,
+        band_product<MG, NTQ, !RES, true, PS>(frag_ln, ks, wqkv, 3 * D / 8, 0, D / 8,
                                [&](int p, int n, float u0, float u1) {
                                    *reinterpret_cast<float2*>(A + p * ldo + n) =
-                                       make_float2((u0 + a.bqkv[n]) * a.scale,
-                                                   (u1 + a.bqkv[n + 1]) * a.scale);
+                                       make_float2(round_to<TS>(u0 + a.bqkv[n]) * a.scale,
+                                                   round_to<TS>(u1 + a.bqkv[n + 1]) * a.scale);
                                });
         __syncthreads();
         band_attention<HACC>(A, KV, nrows, T, D, a.heads, a.hd, ldo, ldkv);   // (4)
         __syncthreads();   // the heads' output in A; KV read: the next group's x may come
         fetch_x(grp + gridDim.x);
         // (5) out = heads x wproj + bproj + x
-        band_product<MG, 2, !RES, false>(frag_heads, ks, wproj, D / 8, 0, D / 8,
+        band_product<MG, 2, !RES, false, PS>(frag_heads, ks, wproj, D / 8, 0, D / 8,
                                 [&](int p, int n, float u0, float u1) {
                                     if (p >= nrows) return;
                                     const long long i = (row0 + p) * D + n;
                                     const float2 xr =
                                         *reinterpret_cast<const float2*>(Xs + p * ldo + n);
-                                    *reinterpret_cast<float2*>(a.out + i) =
-                                        make_float2(u0 + a.bproj[n] + xr.x,
-                                                    u1 + a.bproj[n + 1] + xr.y);
+                                    st2(a.out + i, make_float2(u0 + a.bproj[n] + xr.x,
+                                                               u1 + a.bproj[n + 1] + xr.y));
                                 });
     }
     cp_async_wait<0>();   // the last fetch was empty; nothing is left in flight
@@ -451,12 +457,12 @@ __host__ __device__ constexpr long long band_smem(int R, int D, bool res) {
            (res ? 4LL * D * D : 0);
 }
 
-template <int HACC, int R, bool RES, int NQ>
-cudaError_t launch(const BandArgs& a, cudaStream_t st) {
+template <int HACC, int R, bool RES, int NQ, typename TS>
+cudaError_t launch(const BandArgs<TS>& a, cudaStream_t st) {
     const int D = a.D;
     const size_t smem = (size_t)band_smem(R, D, RES) * sizeof(float);
     if (smem > 232448 || D > 32 * NQ || a.T > R) return cudaErrorInvalidValue;
-    const auto kernel = band_mha_kernel<HACC, R, RES, NQ>;
+    const auto kernel = band_mha_kernel<HACC, R, RES, NQ, TS>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -548,10 +554,32 @@ __global__ void band_residual_kernel(const float4* __restrict__ x, float4* __res
     out[i] = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
+template <typename TS>
+void fill_band(BandArgs<TS>& a, const TS* x, const float* wqkv, const float* bqkv,
+               const float* wproj, const float* bproj, const float* lnw, const float* lnb,
+               TS* out, long long npix, int T, int D, int Dt, int heads, int hd, float scale) {
+    a.x = x; a.wqkv = reinterpret_cast<const float2*>(wqkv); a.bqkv = bqkv;
+    a.wproj = reinterpret_cast<const float2*>(wproj); a.bproj = bproj; a.lnw = lnw; a.lnb = lnb;
+    a.out = out; a.npix = npix; a.T = T; a.D = D; a.Dt = Dt; a.heads = heads; a.hd = hd;
+    a.scale = scale;
+}
+
+template <typename TS>
+cudaError_t band_launch(const BandArgs<TS>& a, int R, cudaStream_t st) {
+    const int D = a.D;
+    if (D <= 64)
+        return a.hd <= 16 ? launch<16, 128, true, 4>(a, st) : launch<32, 128, true, 4>(a, st);
+    if (R == 128) return launch<32, 128, false, 4>(a, st);
+    if (D <= 128) return launch<32, 64, false, 4>(a, st);
+    if (R == 64) return launch<32, 64, false, 6>(a, st);
+    return launch<32, 32, false, 12>(a, st);
+}
+
 }  // namespace
 
 extern "C" int rows_linear(const float* a, const float* wp, const float* bp, float* out,
-                           long long npix, int C, int Cout, int Kp, int Np, void* stream);
+                           float* y, long long npix, int C, int Cout, int Kp, int Np,
+                           int bf16_io, void* stream);
 
 // The wide route: out = x + MHA(LN(x)) on x [npix][T][D] for any T, D % 16 == 0; wqkv, wproj
 // the mma_planes of [D][3D] and [D][D] (ops/kernels/_mma.py: planes); n [npix T][D] and qkv
@@ -569,14 +597,16 @@ extern "C" int band_mha_wide(const float* x, const float* wqkv, const float* bqk
     band_ln_rows_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(x, lnw, lnb, n, rows, D, Dt);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    err = static_cast<cudaError_t>(rows_linear(n, wqkv, bqkv, qkv, rows, D, 3 * D, D, 3 * D, st));
+    err = static_cast<cudaError_t>(
+        rows_linear(n, wqkv, bqkv, qkv, nullptr, rows, D, 3 * D, D, 3 * D, 0, st));
     if (err != cudaSuccess) return err;
     const long long items = rows * heads * ((hd + 31) / 32);
     band_attention_wide_kernel<<<(unsigned)((items + 255) / 256), 256, 0, st>>>(
         qkv, n, rows, T, D, heads, hd, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    err = static_cast<cudaError_t>(rows_linear(n, wproj, bproj, out, rows, D, D, D, D, st));
+    err = static_cast<cudaError_t>(
+        rows_linear(n, wproj, bproj, out, nullptr, rows, D, D, D, D, 0, st));
     if (err != cudaSuccess) return err;
     const long long n4 = rows * D / 4;
     band_residual_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, st>>>(
@@ -588,24 +618,23 @@ extern "C" int band_mha_wide(const float* x, const float* wqkv, const float* bqk
 // (ops/kernels/_mma.py: fragments). D % 16 == 0 up to 384; heads of hd columns (hd % 4 == 0),
 // head h at columns h hd .. of q, k and v, heads * hd <= D (the columns past them zero); T up
 // to band_mha_rows; LN over the first Dt columns (the rest zero), scores scaled by `scale`.
+// x and out f32, or bf16 where `bf16_io` is set; the weights' fragments, biases and LN f32.
 extern "C" int band_mha(const float* x, const float* wqkv, const float* bqkv, const float* wproj,
                         const float* bproj, const float* lnw, const float* lnb, float* out,
                         long long npix, int T, int D, int Dt, int heads, int hd, float scale,
-                        void* stream) {
+                        int bf16_io, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int R = band_mha_rows(T, D);
     if (npix < 1 || D < 16 || D % 16 || Dt < 1 || Dt > D || heads < 1 || hd < 4 || hd % 4 ||
         heads * hd > D || T < 1 || R == 0)
         return cudaErrorInvalidValue;
-    BandArgs a = {};
-    a.x = x; a.wqkv = reinterpret_cast<const float2*>(wqkv); a.bqkv = bqkv;
-    a.wproj = reinterpret_cast<const float2*>(wproj); a.bproj = bproj; a.lnw = lnw; a.lnb = lnb;
-    a.out = out; a.npix = npix; a.T = T; a.D = D; a.Dt = Dt; a.heads = heads; a.hd = hd;
-    a.scale = scale;
-    if (D <= 64)
-        return a.hd <= 16 ? launch<16, 128, true, 4>(a, st) : launch<32, 128, true, 4>(a, st);
-    if (R == 128) return launch<32, 128, false, 4>(a, st);
-    if (D <= 128) return launch<32, 64, false, 4>(a, st);
-    if (R == 64) return launch<32, 64, false, 6>(a, st);
-    return launch<32, 32, false, 12>(a, st);
+    if (bf16_io) {
+        BandArgs<bf16> a = {};
+        fill_band(a, reinterpret_cast<const bf16*>(x), wqkv, bqkv, wproj, bproj, lnw, lnb,
+                  reinterpret_cast<bf16*>(out), npix, T, D, Dt, heads, hd, scale);
+        return band_launch(a, R, st);
+    }
+    BandArgs<float> a = {};
+    fill_band(a, x, wqkv, bqkv, wproj, bproj, lnw, lnb, out, npix, T, D, Dt, heads, hd, scale);
+    return band_launch(a, R, st);
 }

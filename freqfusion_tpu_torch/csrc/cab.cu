@@ -35,7 +35,7 @@
 // wrapper zero-pads the weights to [9][Cinp][Np] and the biases to [Np]; the intermediate
 // is stored Mp = 64 wide, its padded channels GELU(0) = 0.
 //
-// Layout: NHWC, f32, contiguous; C % 4 == 0.
+// Layout: NHWC, contiguous; C % 4 == 0. x, g and u are f32, or bf16 (bf16 products).
 
 #include "conv_gemm.cuh"
 
@@ -44,29 +44,49 @@ extern "C" int cab_chain_blocks(int H, int W) {
     return ((W + kTW - 1) / kTW) * ((H + kTH - 1) / kTH);
 }
 
+namespace {
+
+// x, g and u of storage type T; g, the GELU output between the convolutions, is rounded to
+// T where it is stored, as the TPU kernel casts it to its operand dtype.
+template <typename T>
+cudaError_t chain(const T* x, const float* lnw, const float* lnb, const float* w1,
+                  const float* b1, const float* w2, const float* b2, T* g, T* u, float* part,
+                  float* sums, int B, int H, int W, int C, int Cinp, int Np1, int Mp, int Np2,
+                  int shift, cudaStream_t st) {
+    const int smem = (int)conv_gemm_smem_bytes();
+    cudaError_t err = cudaFuncSetAttribute(conv3x3_gemm_kernel<true, T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(conv3x3_gemm_kernel<false, T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B);
+    conv3x3_gemm_kernel<true, T><<<grid, kThreads, smem, st>>>(x, lnw, lnb, w1, b1, g, nullptr,
+                                                               H, W, C, Cinp, Np1, Mp, 0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    conv3x3_gemm_kernel<false, T><<<grid, kThreads, smem, st>>>(
+        g, nullptr, nullptr, w2, b2, u, part, H, W, Mp, Mp, Np2, C, shift);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return sum_partials(part, sums, B, grid.x * grid.y, C, st);
+}
+
+}  // namespace
+
+// x, g [B,H,W,Mp] and u f32, or bf16 where `bf16_io` is set; weights, biases and sums f32.
 extern "C" int cab_chain(const float* x, const float* lnw, const float* lnb, const float* w1,
                          const float* b1, const float* w2, const float* b2, float* g, float* u,
                          float* part, float* sums, int B, int H, int W, int C, int Cinp,
-                         int Np1, int Mp, int Np2, int shift, void* stream) {
+                         int Np1, int Mp, int Np2, int shift, int bf16_io, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (C % 4 || Cinp % kCC || Cinp < C || Np1 % 8 || Mp % kCC || Mp > Np1 || Np2 % 8 ||
         Np2 < C || shift < 0 || shift >= H || shift >= W)
         return cudaErrorInvalidValue;
-    const int smem = (int)conv_gemm_smem_bytes();
-    cudaError_t err = cudaFuncSetAttribute(conv3x3_gemm_kernel<true>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(conv3x3_gemm_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B);
-    conv3x3_gemm_kernel<true><<<grid, kThreads, smem, st>>>(x, lnw, lnb, w1, b1, g, nullptr, H,
-                                                            W, C, Cinp, Np1, Mp, 0);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    conv3x3_gemm_kernel<false><<<grid, kThreads, smem, st>>>(g, nullptr, nullptr, w2, b2, u,
-                                                             part, H, W, Mp, Mp, Np2, C, shift);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    return sum_partials(part, sums, B, grid.x * grid.y, C, st);
+    if (bf16_io)
+        return chain(reinterpret_cast<const bf16*>(x), lnw, lnb, w1, b1, w2, b2,
+                     reinterpret_cast<bf16*>(g), reinterpret_cast<bf16*>(u), part, sums, B, H,
+                     W, C, Cinp, Np1, Mp, Np2, shift, st);
+    return chain(x, lnw, lnb, w1, b1, w2, b2, g, u, part, sums, B, H, W, C, Cinp, Np1, Mp, Np2,
+                 shift, st);
 }

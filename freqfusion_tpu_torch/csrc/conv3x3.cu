@@ -25,7 +25,9 @@
 // was 1.57 ms. The wrapper then hands over the weights zero-padded to [9][Cinp][Np] and the
 // bias [Np], both widths to multiples of 8 (180 -> 184).
 //
-// Layout: x [B,H,W,Cin], w [3][3][Cin][Cout] (HWIO), bias [Cout], out [B,H,W,Cout]; f32.
+// Layout: x [B,H,W,Cin], w [3][3][Cin][Cout] (HWIO), bias [Cout], out [B,H,W,Cout]. x and out
+// are f32, or bf16 (T): the CUDA-core kernel multiplies the bf16 values in f32, which is the
+// exact bf16-operand product; weights and bias are f32 (a bf16 weight's exact values).
 
 #include "conv_gemm.cuh"
 
@@ -37,16 +39,16 @@ constexpr int kCK = 4;                            // input channels per staged c
 
 // two blocks per SM (<= 128 registers a thread) for the narrow tiles; at COT = 16 the
 // 64 accumulators would spill under that cap
-template <int COT>
+template <int COT, typename T>
 __global__ void __launch_bounds__(kThreads, COT <= 8 ? 2 : 1)
-conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               const float* __restrict__ bias, float* __restrict__ out, int H, int W,
+conv3x3_kernel(const T* __restrict__ x, const float* __restrict__ w,
+               const float* __restrict__ bias, T* __restrict__ out, int H, int W,
                int Cin, int Cout) {
     __shared__ float xs[kCK * kHY * kHX];            // [ci][row][col]
     __shared__ __align__(16) float ws[9 * kCK * COT];  // [tap][ci][co]
     const int bi = blockIdx.z, ty0 = blockIdx.y * kTY, tx0 = blockIdx.x * kTX;
     const int tid = threadIdx.x, ox = tid % kTX, oy0 = (tid / kTX) * kPY;
-    const float* xb = x + (size_t)bi * H * W * Cin;
+    const T* xb = x + (size_t)bi * H * W * Cin;
 
     for (int co0 = 0; co0 < Cout; co0 += COT) {
         float acc[kPY][COT];
@@ -62,8 +64,7 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     const int yy = ty0 - 1 + hp / kHX, xq = tx0 - 1 + hp % kHX;
                     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
                     if (yy >= 0 && yy < H && xq >= 0 && xq < W)
-                        v = *reinterpret_cast<const float4*>(
-                            xb + ((size_t)yy * W + xq) * Cin + ci0);
+                        v = ld4(xb + ((size_t)yy * W + xq) * Cin + ci0);
                     xs[hp] = v.x;
                     xs[kHY * kHX + hp] = v.y;
                     xs[2 * kHY * kHX + hp] = v.z;
@@ -75,7 +76,7 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     const int yy = ty0 - 1 + hp / kHX, xq = tx0 - 1 + hp % kHX;
                     const bool live = ci < ck && yy >= 0 && yy < H && xq >= 0 && xq < W;
                     xs[ci * kHY * kHX + hp] =
-                        live ? xb[((size_t)yy * W + xq) * Cin + ci0 + ci] : 0.f;
+                        live ? ld1(xb + ((size_t)yy * W + xq) * Cin + ci0 + ci) : 0.f;
                 }
             }
             for (int e = tid; e < 9 * kCK * COT; e += kThreads) {
@@ -115,29 +116,50 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
         for (int i = 0; i < kPY; ++i) {
             const int y = ty0 + oy0 + i;
             if (y < H && xx < W) {
-                float* op = out + (((size_t)bi * H + y) * W + xx) * Cout + co0;
+                T* op = out + (((size_t)bi * H + y) * W + xx) * Cout + co0;
                 if (Cout % 4 == 0 && co0 + COT <= Cout) {  // 16-byte stores
 #pragma unroll
                     for (int c = 0; c < COT; c += 4)
-                        *reinterpret_cast<float4*>(op + c) = make_float4(
+                        st4(op + c, make_float4(
                             acc[i][c] + bias[co0 + c], acc[i][c + 1] + bias[co0 + c + 1],
-                            acc[i][c + 2] + bias[co0 + c + 2], acc[i][c + 3] + bias[co0 + c + 3]);
+                            acc[i][c + 2] + bias[co0 + c + 2], acc[i][c + 3] + bias[co0 + c + 3]));
                 } else {
 #pragma unroll
                     for (int c = 0; c < COT; ++c)
-                        if (co0 + c < Cout) op[c] = acc[i][c] + bias[co0 + c];
+                        if (co0 + c < Cout) st1(op + c, acc[i][c] + bias[co0 + c]);
                 }
             }
         }
     }
 }
 
-template <int COT>
-cudaError_t launch(const float* x, const float* w, const float* bias, float* out, int B,
+template <int COT, typename T>
+cudaError_t launch(const T* x, const float* w, const float* bias, T* out, int B,
                    int H, int W, int Cin, int Cout, cudaStream_t st) {
     dim3 grid((W + kTX - 1) / kTX, (H + kTY - 1) / kTY, B);
-    conv3x3_kernel<COT><<<grid, kThreads, 0, st>>>(x, w, bias, out, H, W, Cin, Cout);
+    conv3x3_kernel<COT, T><<<grid, kThreads, 0, st>>>(x, w, bias, out, H, W, Cin, Cout);
     return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dense(const T* x, const float* w, const float* bias, T* out, int B, int H, int W,
+                  int Cin, int Cout, const float* wpad, const float* bpad, int Cinp, int Np,
+                  cudaStream_t st) {
+    if (Cin % 4 == 0 && Cout % 4 == 0 && Cin >= 32 && Cout >= 32) {   // the wide case
+        if (!wpad || !bpad || Cinp % kCC || Cinp < Cin || Np % 8 || Np < Cout)
+            return cudaErrorInvalidValue;
+        const int smem = (int)conv_gemm_smem_bytes();
+        cudaError_t err = cudaFuncSetAttribute(
+            conv3x3_gemm_kernel<false, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return err;
+        dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B);
+        conv3x3_gemm_kernel<false, T><<<grid, kThreads, smem, st>>>(
+            x, nullptr, nullptr, wpad, bpad, out, nullptr, H, W, Cin, Cinp, Np, Cout, 0);
+        return cudaGetLastError();
+    }
+    if (Cout <= 4) return launch<4>(x, w, bias, out, B, H, W, Cin, Cout, st);
+    if (Cout <= 8) return launch<8>(x, w, bias, out, B, H, W, Cin, Cout, st);
+    return launch<16>(x, w, bias, out, B, H, W, Cin, Cout, st);
 }
 
 }  // namespace
@@ -147,23 +169,13 @@ extern "C" int conv3x3_dense_is_wide(int Cin, int Cout) {
     return Cin % 4 == 0 && Cout % 4 == 0 && Cin >= 32 && Cout >= 32;
 }
 
+// x and out f32, or bf16 where `bf16_io` is set.
 extern "C" int conv3x3_dense(const float* x, const float* w, const float* bias, float* out,
                              int B, int H, int W, int Cin, int Cout, const float* wpad,
-                             const float* bpad, int Cinp, int Np, void* stream) {
+                             const float* bpad, int Cinp, int Np, int bf16_io, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (conv3x3_dense_is_wide(Cin, Cout)) {
-        if (!wpad || !bpad || Cinp % kCC || Cinp < Cin || Np % 8 || Np < Cout)
-            return cudaErrorInvalidValue;
-        const int smem = (int)conv_gemm_smem_bytes();
-        cudaError_t err = cudaFuncSetAttribute(
-            conv3x3_gemm_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (err != cudaSuccess) return err;
-        dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B);
-        conv3x3_gemm_kernel<false><<<grid, kThreads, smem, st>>>(
-            x, nullptr, nullptr, wpad, bpad, out, nullptr, H, W, Cin, Cinp, Np, Cout, 0);
-        return cudaGetLastError();
-    }
-    if (Cout <= 4) return launch<4>(x, w, bias, out, B, H, W, Cin, Cout, st);
-    if (Cout <= 8) return launch<8>(x, w, bias, out, B, H, W, Cin, Cout, st);
-    return launch<16>(x, w, bias, out, B, H, W, Cin, Cout, st);
+    if (bf16_io)
+        return dense(reinterpret_cast<const bf16*>(x), w, bias, reinterpret_cast<bf16*>(out), B,
+                     H, W, Cin, Cout, wpad, bpad, Cinp, Np, st);
+    return dense(x, w, bias, out, B, H, W, Cin, Cout, wpad, bpad, Cinp, Np, st);
 }

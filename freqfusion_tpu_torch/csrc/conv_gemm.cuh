@@ -50,14 +50,17 @@ constexpr size_t conv_gemm_smem_bytes() {
 // load, the zeros outside the image being those of the normalised image, and GELU at the
 // store. Otherwise a plain conv + bias, stored at (y - shift, x - shift) with wrap-around,
 // and, where `part` is given, the per-channel sums of the block's outputs into
-// part[image][block][channel], added in a fixed order.
-template <bool FIRST>
+// part[image][block][channel], added in a fixed order. T: the storage type of x and out
+// (f32, or bf16 with bf16 products: the halo is converted to f32 as it is staged and rounded
+// back to bf16 where its fragments are set; the weights, the bias and the sums are f32).
+template <bool FIRST, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-conv3x3_gemm_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
+conv3x3_gemm_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
                     const float* __restrict__ lnb, const float* __restrict__ w,
-                    const float* __restrict__ bias, float* __restrict__ out,
+                    const float* __restrict__ bias, T* __restrict__ out,
                     float* __restrict__ part, int H, int W, int Cin, int Cinp, int Np, int Cst,
                     int shift) {
+    constexpr int P = kPasses<T>;
     extern __shared__ float4 smem4[];
     float* wsm = reinterpret_cast<float*>(smem4);  // [kStages][9][kCC][kLdW]
     float* xs = wsm + kStages * kWStage;            // [kStages][kHP][kLdX]
@@ -66,7 +69,7 @@ conv3x3_gemm_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int g = lane >> 2, t = lane & 3, wm = warp & 3, wn = warp >> 2;
     const int bi = blockIdx.z, ty0 = blockIdx.y * kTH, tx0 = blockIdx.x * kTW;
-    const float* xb = x + (size_t)bi * H * W * Cin;
+    const T* xb = x + (size_t)bi * H * W * Cin;
 
     if (FIRST) {
         for (int hp = warp; hp < kHP; hp += kThreads / 32) {
@@ -101,7 +104,7 @@ conv3x3_gemm_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
                 const int hp = e / (kCC / 4), q = (e % (kCC / 4)) * 4, ch = c0 + q;
                 const int yy = ty0 - 1 + hp / kHW, xx = tx0 - 1 + hp % kHW;
                 if (yy >= 0 && yy < H && xx >= 0 && xx < W && ch < Cin)
-                    cp_async16(xc + hp * kLdX + q, xb + ((size_t)yy * W + xx) * Cin + ch);
+                    stage4(xc + hp * kLdX + q, xb + ((size_t)yy * W + xx) * Cin + ch);
                 else
                     *reinterpret_cast<float4*>(xc + hp * kLdX + q) =
                         make_float4(0.f, 0.f, 0.f, 0.f);
@@ -161,7 +164,7 @@ conv3x3_gemm_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
 #pragma unroll 3
         for (int tap = 0; tap < 9; ++tap) {
             const int dy = tap / 3, dx = tap - 3 * dy;
-            FragA a[2];
+            Frag<4, P> a[2];
 #pragma unroll
             for (int m = 0; m < 2; ++m)
                 load_a(a[m], xc, kLdX, (wm + dy) * kHW + 16 * m + dx, 0);
@@ -169,7 +172,7 @@ conv3x3_gemm_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
             for (int j = 0; j < 4; ++j) {
                 const int nb = 32 * wn + 8 * j;
                 if (nb < ncols) {
-                    FragB b;
+                    Frag<2, P> b;
                     load_b_kn(b, wc + tap * kCC * kLdW, kLdW, 0, nb);
                     mma_f32x3(part_acc[0][j], a[0], b);
                     mma_f32x3(part_acc[1][j], a[1], b);
@@ -211,8 +214,7 @@ conv3x3_gemm_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
                             ox = xx >= shift ? xx - shift : xx - shift + W;
                         }
                     }
-                    *reinterpret_cast<float2*>(out + (((size_t)bi * H + oy) * W + ox) * Cst + n) =
-                        v;
+                    st2(out + (((size_t)bi * H + oy) * W + ox) * Cst + n, v);
                 }
         }
         if (!FIRST && part) {

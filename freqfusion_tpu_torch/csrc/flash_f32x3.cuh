@@ -52,29 +52,10 @@ __host__ __device__ constexpr int flash_smem_floats(int nw, int hd) {
            (hd <= 32 ? 0 : 16 * nw * (flash_hdp(hd) + 4));
 }
 
-// 4- and 8-byte asynchronous copies from device to shared memory.
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async8(float* smem, const float* gmem) {
-    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(gmem));
-}
-
-// The gather a caller supplies, for one (window, head):
-//   int nq, nk, hd; float scale;
-//   const float *k, *v;               // the images k and v are read from
-//   const float* q_row(int i)         // query i's hd floats
-//   float* out_row(int i)             // where its hd outputs go
-//   long long key(int j)              // offset of key j's hd floats in k and v; < 0: zero
-//   bool even                         // every key's offset and hd are even (8-byte copies)
-//   const float* bias_row(int i)      // nk floats of f32 bias for query i
-//   const float* mask_row(int i)      // nk floats added too, or null
-// flash_attention_f32x3 runs query rows [16 NW qgroup, 16 NW (qgroup + 1)) of it, with all
-// 32 NW threads of the block; smem holds flash_smem_floats(NW, hd) floats.
 template <int NW, bool QREG, typename Gather>
 __device__ __forceinline__ void flash_attention_f32x3(const Gather& G, int qgroup, float* smem) {
+    using T = typename Gather::T;
+    constexpr int P = kPasses<T>;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
     const int hd = G.hd, hdp = flash_hdp(hd), ldk = hdp + 4, ksteps = hdp / 8;
     const int nq = G.nq, nk = G.nk, nchunks = (nk + kFlashKeys - 1) / kFlashKeys;
@@ -124,22 +105,22 @@ __device__ __forceinline__ void flash_attention_f32x3(const Gather& G, int qgrou
         cp_async_commit();
     };
 
-    FragA qa[QREG ? 4 : 1];   // QREG: q of rows ra, rb over dims 8 kq + t, + 4
+    Frag<4, P> qa[QREG ? 4 : 1];   // QREG: q of rows ra, rb over dims 8 kq + t, + 4
     if constexpr (QREG) {
-        const float* pa = G.q_row(va ? ra : 0);
-        const float* pb = G.q_row(vb ? rb : 0);
+        const T* pa = G.q_row(va ? ra : 0);
+        const T* pb = G.q_row(vb ? rb : 0);
 #pragma unroll
         for (int kq = 0; kq < 4; ++kq) {
             const int d0 = 8 * kq + t, d1 = d0 + 4;
-            qa[kq].set(0, va && d0 < hd ? pa[d0] * scale : 0.f);
-            qa[kq].set(1, vb && d0 < hd ? pb[d0] * scale : 0.f);
-            qa[kq].set(2, va && d1 < hd ? pa[d1] * scale : 0.f);
-            qa[kq].set(3, vb && d1 < hd ? pb[d1] * scale : 0.f);
+            qa[kq].set(0, va && d0 < hd ? ld1(pa + d0) * scale : 0.f);
+            qa[kq].set(1, vb && d0 < hd ? ld1(pb + d0) * scale : 0.f);
+            qa[kq].set(2, va && d1 < hd ? ld1(pa + d1) * scale : 0.f);
+            qa[kq].set(3, vb && d1 < hd ? ld1(pb + d1) * scale : 0.f);
         }
     } else {   // visible after the first chunk's barrier
         for (int e = tid; e < 16 * NW * hdp; e += 32 * NW) {
             const int r = e / hdp, d = e - r * hdp;
-            Qs[r * ldk + d] = q0 + r < nq && d < hd ? G.q_row(q0 + r)[d] * scale : 0.f;
+            Qs[r * ldk + d] = q0 + r < nq && d < hd ? ld1(G.q_row(q0 + r) + d) * scale : 0.f;
         }
     }
     // bias (and mask) rows of ra and rb; a row past nq reads row 0's, its result dropped
@@ -177,7 +158,7 @@ __device__ __forceinline__ void flash_attention_f32x3(const Gather& G, int qgrou
                     if (kq >= ksteps) break;
 #pragma unroll
                     for (int j = 0; j < 4; ++j) {
-                        FragB b;
+                        Frag<2, P> b;
                         load_b_nk(b, kc, ldk, 8 * kq, 8 * j);
                         mma_f32x3(s[j], qa[kq], b);
                     }
@@ -191,11 +172,11 @@ __device__ __forceinline__ void flash_attention_f32x3(const Gather& G, int qgrou
                         for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
 #pragma unroll 2
                     for (int kq = k0; kq < min(ksteps, k0 + 8); ++kq) {
-                        FragA a;
+                        Frag<4, P> a;
                         load_a(a, Qs, ldk, 16 * warp, 8 * kq);
 #pragma unroll
                         for (int j = 0; j < 4; ++j) {
-                            FragB b;
+                            Frag<2, P> b;
                             load_b_nk(b, kc, ldk, 8 * kq, 8 * j);
                             mma_f32x3(part[j], a, b);
                         }
@@ -268,7 +249,7 @@ __device__ __forceinline__ void flash_attention_f32x3(const Gather& G, int qgrou
                 for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
-                FragA p;
+                Frag<4, P> p;
                 p.set(0, s[j][0]);
                 p.set(1, s[j][2]);
                 p.set(2, s[j][1]);
@@ -276,7 +257,7 @@ __device__ __forceinline__ void flash_attention_f32x3(const Gather& G, int qgrou
                 const float* v0 = vc + (8 * j + 2 * t) * kFlashLdV + g;
 #pragma unroll
                 for (int n = 0; n < 4; ++n) {
-                    FragB b;
+                    Frag<2, P> b;
                     b.set(0, v0[8 * n]);
                     b.set(1, v0[kFlashLdV + 8 * n]);
                     mma_f32x3(pv[n], p, b);
@@ -296,16 +277,16 @@ __device__ __forceinline__ void flash_attention_f32x3(const Gather& G, int qgrou
             l1 += __shfl_xor_sync(0xffffffffu, l1, off);
         }
         const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-        float* oa = G.out_row(va ? ra : 0);
-        float* ob = G.out_row(vb ? rb : 0);
+        T* oa = G.out_row(va ? ra : 0);
+        T* ob = G.out_row(vb ? rb : 0);
 #pragma unroll
         for (int n = 0; n < 4; ++n)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
                 const int d = d0 + 8 * n + 2 * t + e;
                 if (d < hd) {
-                    if (va) oa[d] = o[n][e] * inv0;
-                    if (vb) ob[d] = o[n][2 + e] * inv1;
+                    if (va) st1(oa + d, o[n][e] * inv0);
+                    if (vb) st1(ob + d, o[n][2 + e] * inv1);
                 }
             }
         cp_async_wait<0>();   // the last stage was empty

@@ -54,9 +54,10 @@
 // The heads of a window are neighbouring blocks, so x is read from device memory once and
 // again from L2.
 //
-// Layout: x [B,H,W,Cin] NHWC f32; wh [heads][Kp][96]; bh [heads][96]; bias [heads][N][N];
+// Layout: x [B,H,W,Cin] NHWC; wh [heads][Kp][96]; bh [heads][96]; bias [heads][N][N];
 // types [4][N][N] or null; att [B,H,W,heads*hd]; lnw, lnb [Cin] or both null. N % 32 == 0,
-// N <= 256, hd <= 32, Cin % 4 == 0, Kp % 8 == 0.
+// N <= 256, hd <= 32, Cin % 4 == 0, Kp % 8 == 0. x and att are f32, or bf16 (T; bf16
+// products, the parked q rounded to bf16 as the TPU kernel rounds qkv); the rest is f32.
 
 #include <cmath>
 
@@ -77,14 +78,15 @@ size_t smem_bytes(int N) {
     return (size_t)(2 * N * kLdKV + kPass * kLdX + kKChunk * kLdW + 3 * kPass) * sizeof(float);
 }
 
-template <bool LN>
+template <bool LN, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-xqkv_attention_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
+xqkv_attention_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
                       const float* __restrict__ lnb, const float* __restrict__ wh,
                       const float* __restrict__ bh, const float* __restrict__ bias,
-                      const float* __restrict__ types, float* __restrict__ out, int H, int W,
+                      const float* __restrict__ types, T* __restrict__ out, int H, int W,
                       int Cin, int Kp, int hs, int ws_, int heads, int hd, float scale,
                       int shift) {
+    constexpr int P = kPasses<T>;
     extern __shared__ float4 smem4[];
     const int N = hs * ws_;
     float* ks = reinterpret_cast<float*>(smem4);  // [N][kLdKV]
@@ -102,12 +104,12 @@ xqkv_attention_kernel(const float* __restrict__ x, const float* __restrict__ lnw
     const int bi = win / (n_wr * n_wc);
     win -= bi * n_wr * n_wc;
     const int wy = win / n_wc, wx = win % n_wc;
-    const float* xb = x + (size_t)bi * H * W * Cin;
+    const T* xb = x + (size_t)bi * H * W * Cin;
     const float* whh = wh + (size_t)head * Kp * kCols;
     const float* bhh = bh + head * kCols;
 
     const int co = heads * hd;
-    float* oh = out + (size_t)bi * H * W * co + head * hd;  // this head's columns
+    T* oh = out + (size_t)bi * H * W * co + head * hd;  // this head's columns
     auto pixel = [&](int tok) {  // token of the window -> its pixel's offset in `out`
         return ((size_t)(wy * hs + tok / ws_) * W + wx * ws_ + tok % ws_) * co;
     };
@@ -151,7 +153,7 @@ xqkv_attention_kernel(const float* __restrict__ x, const float* __restrict__ lnw
                 const int r = e / k4, c = (e % k4) * 4, ch = k0 + c;
                 float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
                 if (r0 + r < N && ch < Cin) {
-                    v = *reinterpret_cast<const float4*>(xb + rowoff[r] + ch);
+                    v = ld4(xb + rowoff[r] + ch);
                 }
                 if (LN && r0 + r < N && ch < Cin) {   // LN1 on load
                     const float u = lnst[2 * r], inv = lnst[2 * r + 1];
@@ -167,12 +169,12 @@ xqkv_attention_kernel(const float* __restrict__ x, const float* __restrict__ lnw
             cp_async_wait<0>();
             __syncthreads();  // the chunk of x and of the slab visible
             for (int kk = 0; kk < kc; kk += 8) {
-                FragA a[2];
+                Frag<4, P> a[2];
 #pragma unroll
                 for (int m = 0; m < 2; ++m) load_a(a[m], xsm, kLdX, 32 * wm + 16 * m, kk);
 #pragma unroll
                 for (int j = 0; j < 6; ++j) {
-                    FragB b;
+                    Frag<2, P> b;
                     load_b_kn(b, wsm, kLdW, kk, 48 * wn + 8 * j);
                     mma_f32x3(acc[0][j], a[0], b);
                     mma_f32x3(acc[1][j], a[1], b);
@@ -187,15 +189,15 @@ xqkv_attention_kernel(const float* __restrict__ x, const float* __restrict__ lnw
             for (int h = 0; h < 2; ++h) {
                 const int row = r0 + 32 * wm + 16 * m + g + 8 * h;
                 if (row >= N) continue;
-                float* qrow = oh + pixel(row);
+                T* qrow = oh + pixel(row);
 #pragma unroll
                 for (int j = 0; j < 6; ++j) {
                     const int n = 48 * wn + 8 * j + 2 * t, slot = n / kSlot, d = n % kSlot;
                     const float v0 = acc[m][j][2 * h] + bhh[n];
                     const float v1 = acc[m][j][2 * h + 1] + bhh[n + 1];
                     if (slot == 0) {
-                        if (d < hd) qrow[d] = v0 * scale;
-                        if (d + 1 < hd) qrow[d + 1] = v1 * scale;
+                        if (d < hd) st1(qrow + d, v0 * scale);
+                        if (d + 1 < hd) st1(qrow + d + 1, v1 * scale);
                     } else {
                         float* kv = (slot == 1 ? ks : vs) + row * kLdKV + d;
                         kv[0] = v0;
@@ -219,7 +221,7 @@ xqkv_attention_kernel(const float* __restrict__ x, const float* __restrict__ lnw
         __syncwarp();  // the previous rows' readers of qw are done
         for (int e = lane; e < 16 * kSlot; e += 32) {
             const int r = e / kSlot, d = e % kSlot;
-            qw[r * kLdX + d] = d < hd ? oh[pixel(i0 + r) + d] : 0.f;
+            qw[r * kLdX + d] = d < hd ? ld1(oh + pixel(i0 + r) + d) : 0.f;
         }
         __syncwarp();
         float o[4][4];
@@ -236,11 +238,11 @@ xqkv_attention_kernel(const float* __restrict__ x, const float* __restrict__ lnw
                 for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
             for (int kq = 0; kq < 4; ++kq) {
-                FragA a;
+                Frag<4, P> a;
                 load_a(a, qw, kLdX, 0, 8 * kq);
 #pragma unroll
                 for (int j = 0; j < kKeys / 8; ++j) {
-                    FragB b;
+                    Frag<2, P> b;
                     load_b_nk(b, ks, kLdKV, 8 * kq, kc0 + 8 * j);
                     mma_f32x3(s[j], a, b);
                 }
@@ -297,7 +299,7 @@ xqkv_attention_kernel(const float* __restrict__ x, const float* __restrict__ lnw
                 for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
 #pragma unroll
             for (int j = 0; j < kKeys / 8; ++j) {
-                FragA p;
+                Frag<4, P> p;
                 p.set(0, s[j][0]);
                 p.set(1, s[j][2]);
                 p.set(2, s[j][1]);
@@ -305,7 +307,7 @@ xqkv_attention_kernel(const float* __restrict__ x, const float* __restrict__ lnw
                 const float* v0 = vs + (size_t)(kc0 + 8 * j + 2 * t) * kLdKV + g;
 #pragma unroll
                 for (int n = 0; n < 4; ++n) {
-                    FragB b;
+                    Frag<2, P> b;
                     b.set(0, v0[8 * n]);
                     b.set(1, v0[kLdKV + 8 * n]);
                     mma_f32x3(pv[n], p, b);
@@ -331,8 +333,8 @@ xqkv_attention_kernel(const float* __restrict__ x, const float* __restrict__ lnw
             for (int e = 0; e < 2; ++e) {
                 const int d = 8 * n + 2 * t + e;
                 if (d < hd) {
-                    oh[pa + d] = o[n][e] * inv0;
-                    oh[pb + d] = o[n][2 + e] * inv1;
+                    st1(oh + pa + d, o[n][e] * inv0);
+                    st1(oh + pb + d, o[n][2 + e] * inv1);
                 }
             }
     }
@@ -340,29 +342,47 @@ xqkv_attention_kernel(const float* __restrict__ x, const float* __restrict__ lnw
 
 }  // namespace
 
+namespace {
+
+template <typename T>
+cudaError_t launch(const T* x, const float* lnw, const float* lnb, const float* wh,
+                   const float* bh, const float* bias, const float* types, T* att, int B, int H,
+                   int W, int Cin, int Kp, int hs, int ws, int heads, int hd, int shift,
+                   cudaStream_t st) {
+    const size_t smem = smem_bytes(hs * ws);
+    auto kernel = lnw ? xqkv_attention_kernel<true, T> : xqkv_attention_kernel<false, T>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const long long nblocks = (long long)B * (H / hs) * (W / ws) * heads;
+    if (nblocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    kernel<<<(unsigned)nblocks, kThreads, smem, st>>>(x, lnw, lnb, wh, bh, bias, types, att, H,
+                                                      W, Cin, Kp, hs, ws, heads, hd,
+                                                      1.f / sqrtf((float)hd), shift);
+    return cudaGetLastError();
+}
+
+}  // namespace
+
 // att = window attention of x's (hs x ws) windows after the qkv projection, before the output
 // projection: B4 (lnw = lnb = null, shift 0) and the attention half of the fused HAB block
 // (B8, LN1 = (lnw, lnb)); wh [heads][Kp][96] and bh [heads][96] are the per-head slabs
-// q | k | v.
+// q | k | v. x and att are f32, or bf16 where `bf16_io` is set.
 extern "C" int xqkv_attention(const float* x, const float* lnw, const float* lnb,
                               const float* wh, const float* bh, const float* bias,
                               const float* types, float* att, int B, int H, int W, int Cin,
-                              int Kp, int hs, int ws, int heads, int hd, int shift,
+                              int Kp, int hs, int ws, int heads, int hd, int shift, int bf16_io,
                               void* stream) {
     const int N = hs * ws;
     if (N % kKeys || N > kMaxN || hd > kSlot || hd < 1 || heads < 1 || Cin % 4 || Kp % 8 ||
         Kp < Cin || H % hs || W % ws || shift < 0 || shift >= H || shift >= W ||
         (lnw == nullptr) != (lnb == nullptr))
         return cudaErrorInvalidValue;
-    const size_t smem = smem_bytes(N);
-    auto kernel = lnw ? xqkv_attention_kernel<true> : xqkv_attention_kernel<false>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const long long nblocks = (long long)B * (H / hs) * (W / ws) * heads;
-    if (nblocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-    kernel<<<(unsigned)nblocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        x, lnw, lnb, wh, bh, bias, types, att, H, W, Cin, Kp, hs, ws, heads, hd,
-        1.f / sqrtf((float)hd), shift);
-    return cudaGetLastError();
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (bf16_io)
+        return launch(reinterpret_cast<const bf16*>(x), lnw, lnb, wh, bh, bias, types,
+                      reinterpret_cast<bf16*>(att), B, H, W, Cin, Kp, hs, ws, heads, hd, shift,
+                      st);
+    return launch(x, lnw, lnb, wh, bh, bias, types, att, B, H, W, Cin, Kp, hs, ws, heads, hd,
+                  shift, st);
 }

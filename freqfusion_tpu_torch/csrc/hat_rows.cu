@@ -41,7 +41,11 @@
 // coordinates. Widths are padded to multiples of 8, the MMA's k and n (180 -> 184; 360 and
 // 720 stay): the wrapper zero-pads the weights, the kernel zero-fills its tile's padding.
 //
-// Layout: NHWC, f32, contiguous; C % 4 == 0. cab_scale [B][C] or null.
+// Layout: NHWC, contiguous; C % 4 == 0. cab_scale [B][C] or null. Storage: a, x, conv_x and
+// out are f32, or bf16 (T; bf16 products, every A operand rounded to bf16 where its fragment
+// is set). y, which the TPU kernel keeps in f32, is parked in f32 (out itself for f32, an f32
+// scratch for bf16), and the hidden is f32 (its only reader is the next product, which rounds
+// it to bf16 as the TPU kernel's cast does).
 
 #include "mma_f32x3.cuh"
 
@@ -60,16 +64,21 @@ enum Mode { kLinear = 0, kProj = 1, kFc1 = 2, kFc2 = 3 };
 // bias and GELU; the projection is the linear mode, whose pieces sum in out, and
 // residual_kernel adds the residuals after it (a split proj epilogue spilled).
 __host__ __device__ constexpr bool pieces(int mode) { return mode == kFc2 || mode == kLinear; }
+// T: the storage type of x, conv_x and out; TA: that of `a` (T, or f32 where `a` is y or the
+// hidden).
+template <typename T, typename TA>
 struct RowArgs {
-    const float* a;      // att (kLinear, kProj), a or y (kFc1), the hidden (kFc2)
-    const float* x;      // the block's input x (kProj); shortcut or null (kFc1)
-    const float* cx;     // conv_x (kProj)
+    const TA* a;         // att (kLinear, kProj), a or y (kFc1), the hidden (kFc2)
+    const T* x;          // the block's input x (kProj); shortcut or null (kFc1)
+    const T* cx;         // conv_x (kProj)
     const float* cabs;   // cab_scale [B][C] or null (kProj)
     const float4* w;     // the product's weights, mma_planes of [Kp][Np]
     const float* bias;   // its bias
     const float *lnw, *lnb;   // LayerNorm affine (kFc1)
     const float *sgw, *sgb;   // LN_sg affine over the hidden's second half, or null (kFc1)
-    float* out;          // out; it holds y after kProj, or after kFc1 with a shortcut
+    T* out;              // out
+    float* y;            // y after kProj, or after kFc1 with a shortcut; the pieces' sums
+                         // of kLinear and kFc2 (out itself for f32)
     float* hid;          // the hidden [pixels][Np] (kFc1)
     long long npix;      // B * H * W
     int H, W, C, Kp, Np, nreal, shift;   // nreal: real columns of the product
@@ -111,10 +120,11 @@ __device__ __forceinline__ void ln_row_inplace(float* row, const float* __restri
     }
 }
 
-template <int MODE, bool SPLIT>
+template <int MODE, bool SPLIT, typename T, typename TA>
 __global__ void __launch_bounds__(kMmaThreads, 1)
-rows_kernel(const RowArgs g) {
+rows_kernel(const RowArgs<T, TA> g) {
     extern __shared__ float4 smem4[];
+    constexpr int P = kPasses<T>;
     const int C = g.C;
     // SPLIT: fc1 with K in more than one piece (fc2 and linear always take pieces; proj
     // at C > 192 is hab_tail's linear product and residual_kernel)
@@ -145,18 +155,18 @@ rows_kernel(const RowArgs g) {
             const long long gp = p0 + p;
             float u = 0.f, inv = 0.f;
             if (gp < g.npix) {
-                const float* y = g.a + gp * C;
                 if (g.x) {
                     for (int c = 4 * lane; c < C; c += 128) {
-                        const float4 v = *reinterpret_cast<const float4*>(y + c);
-                        const float4 s = *reinterpret_cast<const float4*>(g.x + gp * C + c);
-                        *reinterpret_cast<float4*>(g.out + gp * C + c) =
+                        const float4 v = ld4(g.a + gp * C + c);
+                        const float4 s = ld4(g.x + gp * C + c);
+                        *reinterpret_cast<float4*>(g.y + gp * C + c) =
                             make_float4(v.x + s.x, v.y + s.y, v.z + s.z, v.w + s.w);
                     }
                     __syncwarp();
-                    y = g.out + gp * C;
+                    warp_ln_stats(g.y + gp * C, C, kEps, u, inv);
+                } else {
+                    warp_ln_stats(g.a + gp * C, C, kEps, u, inv);
                 }
-                warp_ln_stats(y, C, kEps, u, inv);
             }
             if (lane == 0) {
                 lnst[2 * p] = u;
@@ -170,7 +180,6 @@ rows_kernel(const RowArgs g) {
         auto stage_a = [&] {
             if constexpr (MODE == kFc1 && SPLIT) {
                 // LN(y) of the piece's columns from the first pass's mean and 1/std
-                const float* y = g.x ? g.out : g.a;
                 const int k4 = kh / 4;
 #pragma unroll 4
                 for (int e = tid; e < kP * k4; e += kMmaThreads) {
@@ -178,7 +187,7 @@ rows_kernel(const RowArgs g) {
                     const long long gp = p0 + p;
                     float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
                     if (gp < g.npix && ch < C) {
-                        const float4 v = *reinterpret_cast<const float4*>(y + gp * C + ch);
+                        const float4 v = g.x ? ld4(g.y + gp * C + ch) : ld4(g.a + gp * C + ch);
                         const float4 w = *reinterpret_cast<const float4*>(g.lnw + ch);
                         const float4 b = *reinterpret_cast<const float4*>(g.lnb + ch);
                         const float u = lnst[2 * p], inv = lnst[2 * p + 1];
@@ -200,12 +209,12 @@ rows_kernel(const RowArgs g) {
                         const int c = 4 * lane + 128 * h;
                         v[h] = make_float4(0.f, 0.f, 0.f, 0.f);
                         if (gp < g.npix && c < C) {
-                            v[h] = *reinterpret_cast<const float4*>(g.a + gp * C + c);
+                            v[h] = ld4(g.a + gp * C + c);
                             if (g.x) {
-                                const float4 u = *reinterpret_cast<const float4*>(g.x + gp * C + c);
+                                const float4 u = ld4(g.x + gp * C + c);
                                 v[h] = make_float4(v[h].x + u.x, v[h].y + u.y, v[h].z + u.z,
                                                    v[h].w + u.w);
-                                *reinterpret_cast<float4*>(g.out + gp * C + c) = v[h];
+                                *reinterpret_cast<float4*>(g.y + gp * C + c) = v[h];
                             }
                         }
                         sum += (v[h].x + v[h].y) + (v[h].z + v[h].w);
@@ -244,15 +253,14 @@ rows_kernel(const RowArgs g) {
                     const int p = e / k4, c = (e % k4) * 4;
                     const long long gp = p0 + p;
                     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-                    if (gp < g.npix && k0 + c < width)
-                        v = *reinterpret_cast<const float4*>(g.a + gp * width + k0 + c);
+                    if (gp < g.npix && k0 + c < width) v = ld4(g.a + gp * width + k0 + c);
                     put4(A, p, c, ks, v);
                 }
             }
         };
         const bool first = k0 == 0, last = k0 + kh == g.Kp;   // `last`: fc1 in pieces
         // tile_mma synchronises before it reads A; src and img are written before the call
-        tile_mma(
+        tile_mma<P>(
             A, kh, g.w + (size_t)(k0 / 8) * (g.Np / 8) * 32, g.Np / 8, g.Np, ws, stage_a,
             [&](int p, int n, float u0, float u1) {   // columns n, n + 1 (n even)
                 const long long gp = p0 + p;
@@ -277,27 +285,34 @@ rows_kernel(const RowArgs g) {
                 // floats of a row of out, even: n < wout holds n + 1 < wout too
                 const int wout = MODE == kLinear ? g.nreal : C;
                 if (n >= wout) return;
-                float2* o = reinterpret_cast<float2*>(g.out + gp * wout + n);
+                const long long o = gp * wout + n;
                 const float2 b = *reinterpret_cast<const float2*>(g.bias + n);
+                // the sum so far is kept in y (f32; out itself for f32) until the last piece
+                auto put = [&](float2 v) {
+                    if (last) st2(g.out + o, v);
+                    else *reinterpret_cast<float2*>(g.y + o) = v;
+                };
                 if (MODE == kLinear) {
-                    const float2 y = first ? b : *o;
-                    *o = make_float2(y.x + u0, y.y + u1);
+                    const float2 y = first ? b : ld2(g.y + o);
+                    put(make_float2(y.x + u0, y.y + u1));
                 } else if (MODE == kProj) {
                     // element by element, src and img found again from the kernel's
                     // arguments: fewer registers live through tile_mma's loop
                     const long long* sp = reinterpret_cast<const long long*>(
                         reinterpret_cast<const float*>(smem4) + kP * g.Kp + tile_mma_ws());
                     const int* ip = reinterpret_cast<const int*>(sp + kP);
-                    const float* xs = g.x + sp[p] * C + n;
-                    const float* cx = g.cx + gp * C + n;
+                    const T* xs = g.x + sp[p] * C + n;
+                    const T* cx = g.cx + gp * C + n;
                     const float* cb = g.cabs ? g.cabs + ip[p] * C + n : nullptr;
-                    float* oe = g.out + gp * C + n;
-                    oe[0] = xs[0] + u0 + b.x + (cb ? g.conv_scale * cb[0] : g.conv_scale) * cx[0];
-                    oe[1] = xs[1] + u1 + b.y + (cb ? g.conv_scale * cb[1] : g.conv_scale) * cx[1];
-                } else {   // kFc2: out holds y, then y + the earlier pieces' sums
-                    const float2 y = *o;
-                    *o = first ? make_float2(y.x + (u0 + b.x), y.y + (u1 + b.y))
-                               : make_float2(y.x + u0, y.y + u1);
+                    float* oe = g.y + gp * C + n;   // y, f32
+                    oe[0] = ld1(xs) + u0 + b.x +
+                            (cb ? g.conv_scale * cb[0] : g.conv_scale) * ld1(cx);
+                    oe[1] = ld1(xs + 1) + u1 + b.y +
+                            (cb ? g.conv_scale * cb[1] : g.conv_scale) * ld1(cx + 1);
+                } else {   // kFc2: y holds y, then y + the earlier pieces' sums
+                    const float2 y = ld2(g.y + o);
+                    put(first ? make_float2(y.x + (u0 + b.x), y.y + (u1 + b.y))
+                              : make_float2(y.x + u0, y.y + u1));
                 }
             });
     }
@@ -328,7 +343,7 @@ rows_kernel(const RowArgs g) {
 
 // out += x[(y + s) % H][(x + s) % W] + conv_scale * cab_scale * conv_x, pixel by pixel: the
 // projection's residuals where C > kMmaMaxK (rows_linear wrote out = att @ wproj + bproj)
-__global__ void residual_kernel(const RowArgs g) {
+__global__ void residual_kernel(const RowArgs<float, float> g) {
     const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;   // a float2
     const int c2 = g.C / 2;
     if (e >= g.npix * c2) return;
@@ -351,21 +366,22 @@ __global__ void residual_kernel(const RowArgs g) {
     *o = make_float2(xs.x + u.x + s.x * cx.x, xs.y + u.y + s.y * cx.y);
 }
 
-template <int MODE, bool SPLIT>
-cudaError_t launch_split(const RowArgs& g, int Kt, cudaStream_t st) {
+template <int MODE, bool SPLIT, typename T, typename TA>
+cudaError_t launch_split(const RowArgs<T, TA>& g, int Kt, cudaStream_t st) {
     const size_t smem = (size_t)(kP * Kt + tile_mma_ws() + 3 * kP) * sizeof(float);
     if (smem > 227 * 1024) return cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(
-        rows_kernel<MODE, SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const auto kernel = rows_kernel<MODE, SPLIT, T, TA>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const long long nblocks = (g.npix + kP - 1) / kP;
     if (nblocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-    rows_kernel<MODE, SPLIT><<<(unsigned)nblocks, kMmaThreads, smem, st>>>(g);
+    kernel<<<(unsigned)nblocks, kMmaThreads, smem, st>>>(g);
     return cudaGetLastError();
 }
 
-template <int MODE>
-cudaError_t launch(const RowArgs& g, cudaStream_t st) {
+template <int MODE, typename T, typename TA>
+cudaError_t launch(const RowArgs<T, TA>& g, cudaStream_t st) {
     if (g.C % 4 || g.Kp % 8 || g.Np % 8 || g.npix < 1) return cudaErrorInvalidValue;
     const int Kt = tile_mma_piece(g.Kp);
     if constexpr (MODE == kFc1) {
@@ -375,72 +391,64 @@ cudaError_t launch(const RowArgs& g, cudaStream_t st) {
     return launch_split<MODE, false>(g, Kt, st);
 }
 
-cudaError_t fc1(const float* a, const float* shortcut, const float* lnw, const float* lnb,
+// y: where y = a + shortcut goes (f32; out itself for f32 storage).
+template <typename T, typename TA>
+cudaError_t fc1(const TA* a, const T* shortcut, const float* lnw, const float* lnb,
                 const float* w1, const float* b1, const float* sgw, const float* sgb,
-                float* hid, float* out, long long npix, int C, int nhid, int Kp, int K2p,
+                float* hid, T* out, float* y, long long npix, int C, int nhid, int Kp, int K2p,
                 cudaStream_t st) {
     if (Kp < C || K2p < nhid) return cudaErrorInvalidValue;
-    RowArgs g = {};
+    RowArgs<T, TA> g = {};
     g.a = a; g.x = shortcut; g.lnw = lnw; g.lnb = lnb; g.sgw = sgw; g.sgb = sgb;
     g.w = reinterpret_cast<const float4*>(w1); g.bias = b1;
-    g.out = out; g.hid = hid; g.npix = npix; g.C = C; g.Kp = Kp; g.Np = K2p; g.nreal = nhid;
+    g.out = out; g.y = y; g.hid = hid; g.npix = npix; g.C = C; g.Kp = Kp; g.Np = K2p;
+    g.nreal = nhid;
     return launch<kFc1>(g, st);
 }
 
-// fc1 and fc2 on y: from `a` (+ `shortcut`, then y is written to out) or from y in out.
-cudaError_t mlp(const float* a, const float* shortcut, const float* lnw, const float* lnb,
+// fc1 and fc2 on y: from `a` (+ `shortcut`, then y is written to y) or from y in `a` (TA =
+// f32). out = y + fc2.
+template <typename T, typename TA>
+cudaError_t mlp(const TA* a, const T* shortcut, const float* lnw, const float* lnb,
                 const float* w1, const float* b1, const float* w2, const float* b2, float* hid,
-                float* out, long long npix, int C, int nhid, int Kp, int Np, int K2p,
+                T* out, float* y, long long npix, int C, int nhid, int Kp, int Np, int K2p,
                 cudaStream_t st) {
     if (Np < C) return cudaErrorInvalidValue;
-    cudaError_t err = fc1(a, shortcut, lnw, lnb, w1, b1, nullptr, nullptr, hid, out, npix, C,
-                          nhid, Kp, K2p, st);
+    cudaError_t err = fc1(a, shortcut, lnw, lnb, w1, b1, nullptr, nullptr, hid, out, y, npix,
+                          C, nhid, Kp, K2p, st);
     if (err != cudaSuccess) return err;
-    RowArgs f = {};
+    RowArgs<T, float> f = {};
     f.a = hid; f.w = reinterpret_cast<const float4*>(w2); f.bias = b2; f.out = out;
+    f.y = shortcut ? y : const_cast<float*>(reinterpret_cast<const float*>(a));
     f.npix = npix; f.C = C; f.Kp = K2p; f.Np = Np; f.nreal = C;
     return launch<kFc2>(f, st);
 }
 
-}  // namespace
-
-// out [npix][Cout] = a [npix][C] @ w + bp, Cout even; wp = mma_planes of w [Kp][Np].
-extern "C" int rows_linear(const float* a, const float* wp, const float* bp, float* out,
-                           long long npix, int C, int Cout, int Kp, int Np, void* stream) {
-    if (Kp < C || Np < Cout || Cout < 2 || Cout % 2) return cudaErrorInvalidValue;
-    RowArgs g = {};
-    g.a = a; g.w = reinterpret_cast<const float4*>(wp); g.bias = bp; g.out = out;
+template <typename T>
+cudaError_t linear(const T* a, const float* wp, const float* bp, T* out, float* y,
+                   long long npix, int C, int Cout, int Kp, int Np, cudaStream_t st) {
+    RowArgs<T, T> g = {};
+    g.a = a; g.w = reinterpret_cast<const float4*>(wp); g.bias = bp; g.out = out; g.y = y;
     g.npix = npix; g.C = C; g.Kp = Kp; g.Np = Np; g.nreal = Cout;
-    return launch<kLinear>(g, static_cast<cudaStream_t>(stream));
+    return launch<kLinear>(g, st);
 }
 
-// y = a + shortcut into out, hid [npix][K2p] = GELU(LN(y) @ w1 + b1), w1 = mma_planes of
-// [Kp][K2p]; with sgw, LN_sg (sgw, sgb) over columns nhid/2 .. nhid - 1 of each hidden row.
-extern "C" int rows_ln_fc1(const float* a, const float* shortcut, const float* lnw,
-                           const float* lnb, const float* w1, const float* b1,
-                           const float* sgw, const float* sgb, float* hid, float* out,
-                           long long npix, int C, int nhid, int Kp, int K2p, void* stream) {
-    if (sgw && (nhid % 2 || nhid / 2 % 4)) return cudaErrorInvalidValue;
-    return fc1(a, shortcut, lnw, lnb, w1, b1, sgw, sgb, hid, out, npix, C, nhid, Kp, K2p,
-               static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int hab_tail(const float* att, const float* x, const float* cx, const float* cabs,
-                        const float* wp, const float* bp, const float* lnw, const float* lnb,
-                        const float* w1, const float* b1, const float* w2, const float* b2,
-                        float* hid, float* out, int B, int H, int W, int C, int nhid, int Kp,
-                        int Np, int K2p, int shift, float conv_scale, void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (shift < 0 || shift >= H || shift >= W || Kp < C || Np < C)
-        return cudaErrorInvalidValue;
-    RowArgs g = {};
+template <typename T>
+cudaError_t tail(const T* att, const T* x, const T* cx, const float* cabs, const float* wp,
+                 const float* bp, const float* lnw, const float* lnb, const float* w1,
+                 const float* b1, const float* w2, const float* b2, float* hid, T* out,
+                 float* y, int B, int H, int W, int C, int nhid, int Kp, int Np, int K2p,
+                 int shift, float conv_scale, cudaStream_t st) {
+    RowArgs<T, T> g = {};
     g.a = att; g.x = x; g.cx = cx; g.cabs = cabs; g.w = reinterpret_cast<const float4*>(wp);
-    g.bias = bp; g.out = out;
+    g.bias = bp; g.out = out; g.y = y;
     g.npix = (long long)B * H * W; g.H = H; g.W = W; g.C = C; g.Kp = Kp; g.Np = Np;
     g.nreal = C; g.shift = shift; g.conv_scale = conv_scale;
     cudaError_t err;
     if (tile_mma_piece(Kp) == Kp) {
         err = launch<kProj>(g, st);
+    } else if constexpr (kBf16<T>) {   // the pieces' path parks y in out: f32 only
+        return cudaErrorInvalidValue;
     } else {   // K in pieces: the linear product, then the residuals
         err = launch<kLinear>(g, st);
         if (err != cudaSuccess) return err;
@@ -450,15 +458,80 @@ extern "C" int hab_tail(const float* att, const float* x, const float* cx, const
         err = cudaGetLastError();
     }
     if (err != cudaSuccess) return err;
-    return mlp(out, nullptr, lnw, lnb, w1, b1, w2, b2, hid, out, g.npix, C, nhid, Kp, Np, K2p,
+    return mlp(static_cast<const float*>(y), static_cast<const T*>(nullptr), lnw, lnb, w1, b1,
+               w2, b2, hid, out, y, g.npix, C, nhid, Kp, Np, K2p, st);
+}
+
+}  // namespace
+
+// Storage: a, shortcut, x, cx and out are f32, or bf16 where `bf16_io` is set. y is f32
+// scratch [npix][C] (or [npix][Cout] for rows_linear) for bf16, where y is parked (and where
+// rows_linear's pieces sum when Kp > 192); for f32 it may be null, and out holds y.
+namespace {
+const bf16* as_bf16(const float* p) { return reinterpret_cast<const bf16*>(p); }
+bf16* as_bf16(float* p) { return reinterpret_cast<bf16*>(p); }
+}  // namespace
+
+// out [npix][Cout] = a [npix][C] @ w + bp, Cout even; wp = mma_planes of w [Kp][Np].
+extern "C" int rows_linear(const float* a, const float* wp, const float* bp, float* out,
+                           float* y, long long npix, int C, int Cout, int Kp, int Np,
+                           int bf16_io, void* stream) {
+    if (Kp < C || Np < Cout || Cout < 2 || Cout % 2) return cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (bf16_io) {
+        if (!y && tile_mma_piece(Kp) != Kp) return cudaErrorInvalidValue;
+        return linear(as_bf16(a), wp, bp, as_bf16(out), y, npix, C, Cout, Kp, Np, st);
+    }
+    return linear(a, wp, bp, out, out, npix, C, Cout, Kp, Np, st);
+}
+
+// y = a + shortcut into y (out for f32), hid [npix][K2p] = GELU(LN(y) @ w1 + b1), w1 =
+// mma_planes of [Kp][K2p]; with sgw, LN_sg (sgw, sgb) over columns nhid/2 .. nhid - 1 of each
+// hidden row.
+extern "C" int rows_ln_fc1(const float* a, const float* shortcut, const float* lnw,
+                           const float* lnb, const float* w1, const float* b1,
+                           const float* sgw, const float* sgb, float* hid, float* out,
+                           float* y, long long npix, int C, int nhid, int Kp, int K2p,
+                           int bf16_io, void* stream) {
+    if (sgw && (nhid % 2 || nhid / 2 % 4)) return cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (bf16_io) {
+        if (shortcut && !y) return cudaErrorInvalidValue;
+        return fc1(as_bf16(a), as_bf16(shortcut), lnw, lnb, w1, b1, sgw, sgb, hid, as_bf16(out),
+                   y, npix, C, nhid, Kp, K2p, st);
+    }
+    return fc1(a, shortcut, lnw, lnb, w1, b1, sgw, sgb, hid, out, out, npix, C, nhid, Kp, K2p,
                st);
+}
+
+extern "C" int hab_tail(const float* att, const float* x, const float* cx, const float* cabs,
+                        const float* wp, const float* bp, const float* lnw, const float* lnb,
+                        const float* w1, const float* b1, const float* w2, const float* b2,
+                        float* hid, float* out, float* y, int B, int H, int W, int C, int nhid,
+                        int Kp, int Np, int K2p, int shift, float conv_scale, int bf16_io,
+                        void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (shift < 0 || shift >= H || shift >= W || Kp < C || Np < C || (bf16_io && !y))
+        return cudaErrorInvalidValue;
+    if (bf16_io)
+        return tail(as_bf16(att), as_bf16(x), as_bf16(cx), cabs, wp, bp, lnw, lnb, w1, b1, w2,
+                    b2, hid, as_bf16(out), y, B, H, W, C, nhid, Kp, Np, K2p, shift, conv_scale,
+                    st);
+    return tail(att, x, cx, cabs, wp, bp, lnw, lnb, w1, b1, w2, b2, hid, out, out, B, H, W, C,
+                nhid, Kp, Np, K2p, shift, conv_scale, st);
 }
 
 extern "C" int residual_ln_mlp(const float* a, const float* shortcut, const float* lnw,
                                const float* lnb, const float* w1, const float* b1,
                                const float* w2, const float* b2, float* hid, float* out,
-                               long long npix, int C, int nhid, int Kp, int Np, int K2p,
-                               void* stream) {
-    return mlp(a, shortcut, lnw, lnb, w1, b1, w2, b2, hid, out, npix, C, nhid, Kp, Np, K2p,
-               static_cast<cudaStream_t>(stream));
+                               float* y, long long npix, int C, int nhid, int Kp, int Np, int K2p,
+                               int bf16_io, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (bf16_io) {
+        if (!y || !shortcut) return cudaErrorInvalidValue;
+        return mlp(as_bf16(a), as_bf16(shortcut), lnw, lnb, w1, b1, w2, b2, hid, as_bf16(out), y,
+                   npix, C, nhid, Kp, Np, K2p, st);
+    }
+    return mlp(a, shortcut, lnw, lnb, w1, b1, w2, b2, hid, out, out, npix, C, nhid, Kp, Np, K2p,
+               st);
 }

@@ -46,7 +46,9 @@
 //      walks) and takes K in chunks of 8 k-steps with the partial sums in registers across
 //      the chunks, the same epilogue after the last.
 //
-// Layout: NHWC, f32, contiguous; any C. w5 [25][C], wh [21][C] along W, wv [21][C] along H;
+// Layout: NHWC, contiguous; x and out f32 or bf16 (the 1x1 product on bf16 operands, `a` f32
+// scratch; C up to 1808 at bf16), the weights f32; any C. w5 [25][C], wh [21][C] along W,
+// wv [21][C] along H;
 // wp the mma_planes of wp [C][C] ([in][out]) zero-padded to [Kp][Np], Kp % 8 == 0,
 // Np % 32 == 0.
 
@@ -83,8 +85,9 @@ __device__ __forceinline__ void group_sync(int id, int n) {
     asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n));
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kChainThreads, 2)
-lka_chain_kernel(const float* __restrict__ x, const float* __restrict__ w5,
+lka_chain_kernel(const T* __restrict__ x, const float* __restrict__ w5,
                  const float* __restrict__ wh, const float* __restrict__ wv,
                  float* __restrict__ a, int H, int W, int C, int seg, int nseg) {
     extern __shared__ float4 smem4[];
@@ -116,7 +119,7 @@ lka_chain_kernel(const float* __restrict__ x, const float* __restrict__ w5,
             for (int i = 0; i < kACols + 4; ++i) {
                 const int xx = tc0 - 2 + i;
                 xv[i] = rin && xx >= 0 && xx < W
-                            ? __ldg(x + (img + (long long)r * W + xx) * C + c) : 0.f;
+                            ? ld1(x + (img + (long long)r * W + xx) * C + c) : 0.f;
             }
         };
         // x row r (in xv) into the partial sums; t1 row r - 2 is then whole: stored to
@@ -242,12 +245,13 @@ lka_chain_kernel(const float* __restrict__ x, const float* __restrict__ w5,
 // TR rows of `a` and (xs) of x into shared memory (kMixStages buffers each, cp.async one tile
 // ahead; columns C .. Kp and rows past P zero); without xs the epilogue reads x from device
 // memory (rows too wide for both tiles). A warp task is 16 rows x kMixNT n-tiles of a tile.
-template <bool VEC>
+template <bool VEC, typename T>
 __global__ void __launch_bounds__(kMixThreads, 2)
-lka_mix_kernel(const float* __restrict__ a, const float* __restrict__ x,
+lka_mix_kernel(const float* __restrict__ a, const T* __restrict__ x,
                const float4* __restrict__ wp, const float* __restrict__ scale,
-               const float* __restrict__ shift, float* __restrict__ out, long long P, int C,
+               const float* __restrict__ shift, T* __restrict__ out, long long P, int C,
                int Kp, int Np, int TR, bool xs) {
+    constexpr int PS = kPasses<T>;
     extern __shared__ float4 smem4[];
     const int lda = Kp + 4, tid = threadIdx.x, warp = tid >> 5;
     float* As = reinterpret_cast<float*>(smem4);   // [stages][TR][lda]
@@ -259,13 +263,13 @@ lka_mix_kernel(const float* __restrict__ a, const float* __restrict__ x,
         const int r = e / (lda - C);
         As[r * lda + C + e - r * (lda - C)] = 0.f;
     }
-    auto copy = [&](float* dst, const float* src, long long r0) {   // TR rows of src
+    auto copy = [&](float* dst, const auto* src, long long r0) {   // TR rows of src
         if (VEC) {
             const int q = C / 4;
             for (int e = tid; e < TR * q; e += kMixThreads) {
                 const int r = e / q, cc = 4 * (e - r * q);
                 if (r0 + r < P)
-                    cp_async16(dst + r * lda + cc, src + (r0 + r) * C + cc);
+                    stage4(dst + r * lda + cc, src + (r0 + r) * C + cc);
                 else
                     *reinterpret_cast<float4*>(dst + r * lda + cc) =
                         make_float4(0.f, 0.f, 0.f, 0.f);
@@ -273,11 +277,8 @@ lka_mix_kernel(const float* __restrict__ a, const float* __restrict__ x,
         } else {
             for (int e = tid; e < TR * C; e += kMixThreads) {
                 const int r = e / C, cc = e - r * C;
-                const unsigned d =
-                    static_cast<unsigned>(__cvta_generic_to_shared(dst + r * lda + cc));
                 if (r0 + r < P)
-                    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-                                 "l"(src + (r0 + r) * C + cc));
+                    cp_async4(dst + r * lda + cc, src + (r0 + r) * C + cc);
                 else
                     dst[r * lda + cc] = 0.f;
             }
@@ -318,7 +319,7 @@ lka_mix_kernel(const float* __restrict__ a, const float* __restrict__ x,
                     for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
 #pragma unroll 4
                 for (int s = k0; s < min(ksteps, k0 + 8); ++s) {
-                    FragA fa;
+                    Frag<4, PS> fa;
                     load_a(fa, At, lda, 16 * mt, 8 * s);
                     const float4* wk = wp + ((size_t)s * ntw + nt0) * 32 + lane;
                     uint32_t bh[kMixNT][2], bl[kMixNT][2];
@@ -332,11 +333,7 @@ lka_mix_kernel(const float* __restrict__ a, const float* __restrict__ x,
                     }
                     // the three terms of every tile interleaved, the small ones first
 #pragma unroll
-                    for (int j = 0; j < kMixNT; ++j) mma_tf32(part[j], fa.lo, bh[j]);
-#pragma unroll
-                    for (int j = 0; j < kMixNT; ++j) mma_tf32(part[j], fa.hi, bl[j]);
-#pragma unroll
-                    for (int j = 0; j < kMixNT; ++j) mma_tf32(part[j], fa.hi, bh[j]);
+                    for (int j = 0; j < kMixNT; ++j) mma_planes_step(part[j], fa, bh[j], bl[j]);
                 }
 #pragma unroll
                 for (int j = 0; j < kMixNT; ++j)
@@ -353,29 +350,29 @@ lka_mix_kernel(const float* __restrict__ a, const float* __restrict__ x,
                     if (n + e >= C) continue;
                     const float sc = scale[n + e], sh = shift[n + e];
                     if (va)
-                        out[ra * C + n + e] = (xs ? Xt[pa * lda + n + e] : x[ra * C + n + e]) *
-                                              sigmoid_f32(fmaf(acc[j][e], sc, sh));
+                        st1(out + ra * C + n + e,
+                            (xs ? Xt[pa * lda + n + e] : ld1(x + ra * C + n + e)) *
+                                sigmoid_f32(fmaf(acc[j][e], sc, sh)));
                     if (vb)
-                        out[rb * C + n + e] =
-                            (xs ? Xt[(pa + 8) * lda + n + e] : x[rb * C + n + e]) *
-                            sigmoid_f32(fmaf(acc[j][2 + e], sc, sh));
+                        st1(out + rb * C + n + e,
+                            (xs ? Xt[(pa + 8) * lda + n + e] : ld1(x + rb * C + n + e)) *
+                                sigmoid_f32(fmaf(acc[j][2 + e], sc, sh)));
                 }
                 } else if (n < C) {   // C % 4 == 0: n and n + 1 are both real
                     const float2 sc = *reinterpret_cast<const float2*>(scale + n);
                     const float2 sh = *reinterpret_cast<const float2*>(shift + n);
                     if (va) {
-                        const float2 xa = *reinterpret_cast<const float2*>(
-                            xs ? Xt + pa * lda + n : x + ra * C + n);
-                        *reinterpret_cast<float2*>(out + ra * C + n) =
+                        const float2 xa = xs ? ld2(Xt + pa * lda + n) : ld2(x + ra * C + n);
+                        st2(out + ra * C + n,
                             make_float2(xa.x * sigmoid_f32(fmaf(acc[j][0], sc.x, sh.x)),
-                                        xa.y * sigmoid_f32(fmaf(acc[j][1], sc.y, sh.y)));
+                                        xa.y * sigmoid_f32(fmaf(acc[j][1], sc.y, sh.y))));
                     }
                     if (vb) {
-                        const float2 xb = *reinterpret_cast<const float2*>(
-                            xs ? Xt + (pa + 8) * lda + n : x + rb * C + n);
-                        *reinterpret_cast<float2*>(out + rb * C + n) =
+                        const float2 xb =
+                            xs ? ld2(Xt + (pa + 8) * lda + n) : ld2(x + rb * C + n);
+                        st2(out + rb * C + n,
                             make_float2(xb.x * sigmoid_f32(fmaf(acc[j][2], sc.x, sh.x)),
-                                        xb.y * sigmoid_f32(fmaf(acc[j][3], sc.y, sh.y)));
+                                        xb.y * sigmoid_f32(fmaf(acc[j][3], sc.y, sh.y))));
                     }
                 }
             }
@@ -474,25 +471,23 @@ int lka_segments(int B, int H, int W, int C) {
 
 }  // namespace
 
-// a [B][H][W][C] scratch; wp the planes of wp [Kp][Np] (ops/kernels/_mma.py).
-extern "C" int lka_gate(const float* x, const float* w5, const float* wh, const float* wv,
-                        const float* wp, const float* scale, const float* shift, float* a,
-                        float* out, int B, int H, int W, int C, int Kp, int Np, void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (B < 1 || H < 1 || W < 1 || B > 65535 || C < 1 || Kp < C || Kp % 8 || Np < C ||
-        Np % (8 * kMixNT))
-        return cudaErrorInvalidValue;
+namespace {
+
+template <typename T>
+cudaError_t gate(const T* x, const float* w5, const float* wh, const float* wv,
+                 const float* wp, const float* scale, const float* shift, float* a, T* out,
+                 int B, int H, int W, int C, int Kp, int Np, cudaStream_t st) {
     const int nseg = lka_segments(B, H, W, C);
     if (nseg < 1) return cudaErrorInvalidDevice;
     const int seg = (H + nseg - 1) / nseg;
     const size_t smem = (size_t)(2 * kSteps * kT1R + kRing * kRingR) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
-        lka_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        lka_chain_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const long long gy = (long long)((C + kCH - 1) / kCH) * nseg;
     if (gy > 65535) return cudaErrorInvalidValue;
     dim3 grid((W + kTW - 1) / kTW, (unsigned)gy, B);
-    lka_chain_kernel<<<grid, kChainThreads, smem, st>>>(x, w5, wh, wv, a, H, W, C, seg, nseg);
+    lka_chain_kernel<T><<<grid, kChainThreads, smem, st>>>(x, w5, wh, wv, a, H, W, C, seg, nseg);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     int dev = 0, sms = 0;
@@ -505,16 +500,19 @@ extern "C" int lka_gate(const float* x, const float* w5, const float* wh, const 
     while (TR > 16 && 2LL * kMixStages * TR * (Kp + 4) * 4 > 110592) TR /= 2;
     const bool xs = 2LL * kMixStages * TR * (Kp + 4) * 4 <= 110592;
     const size_t msmem = (size_t)(xs ? 2 : 1) * kMixStages * TR * (Kp + 4) * sizeof(float);
-    if (msmem > 232448) {   // too wide to stage: A from device memory
+    if (msmem > 232448) {   // too wide to stage: A from device memory (f32 only)
+        if constexpr (kBf16<T>) return cudaErrorInvalidValue;
         const long long tasks = ((long long)B * H * W + 15) / 16 * (Np / (8 * kMixNT));
         const long long blocks = (tasks + kMixThreads / 32 - 1) / (kMixThreads / 32);
         const int grid3 = (int)(blocks < 4LL * sms ? blocks : 4LL * sms);
-        lka_mix_wide_kernel<<<grid3, kMixThreads, 0, st>>>(
-            a, x, reinterpret_cast<const float4*>(wp), scale, shift, out, (long long)B * H * W,
-            C, Kp, Np);
+        if constexpr (!kBf16<T>) {
+            lka_mix_wide_kernel<<<grid3, kMixThreads, 0, st>>>(
+                a, x, reinterpret_cast<const float4*>(wp), scale, shift, out,
+                (long long)B * H * W, C, Kp, Np);
+        }
         return cudaGetLastError();
     }
-    const auto mix = C % 4 ? lka_mix_kernel<false> : lka_mix_kernel<true>;
+    const auto mix = C % 4 ? lka_mix_kernel<false, T> : lka_mix_kernel<true, T>;
     err = cudaFuncSetAttribute(mix, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)msmem);
     if (err != cudaSuccess) return err;
     const long long P = (long long)B * H * W, ntiles = (P + TR - 1) / TR;
@@ -522,4 +520,22 @@ extern "C" int lka_gate(const float* x, const float* w5, const float* wh, const 
     mix<<<grid2, kMixThreads, msmem, st>>>(a, x, reinterpret_cast<const float4*>(wp), scale,
                                            shift, out, P, C, Kp, Np, TR, xs);
     return cudaGetLastError();
+}
+
+}  // namespace
+
+// a [B][H][W][C] f32 scratch; wp the planes of wp [Kp][Np] (ops/kernels/_mma.py). x and out
+// f32, or bf16 where `bf16_io` is set (then C <= 1808: the wide product is f32 only).
+extern "C" int lka_gate(const float* x, const float* w5, const float* wh, const float* wv,
+                        const float* wp, const float* scale, const float* shift, float* a,
+                        float* out, int B, int H, int W, int C, int Kp, int Np, int bf16_io,
+                        void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (B < 1 || H < 1 || W < 1 || B > 65535 || C < 1 || Kp < C || Kp % 8 || Np < C ||
+        Np % (8 * kMixNT))
+        return cudaErrorInvalidValue;
+    if (bf16_io)
+        return gate(reinterpret_cast<const bf16*>(x), w5, wh, wv, wp, scale, shift, a,
+                    reinterpret_cast<bf16*>(out), B, H, W, C, Kp, Np, st);
+    return gate(x, w5, wh, wv, wp, scale, shift, a, out, B, H, W, C, Kp, Np, st);
 }

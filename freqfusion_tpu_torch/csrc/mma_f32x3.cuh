@@ -26,6 +26,11 @@
 //
 // mma.sync first; wgmma (TF32 k = 8, 64-row warpgroups, operands by shared-memory
 // descriptor) and TMA are the later step.
+//
+// bf16 (the kernels' bf16 instantiations, P = 1 below): operands rounded to bf16 where their
+// fragments are set, one TF32 pass (exact for bf16 operands), f32 accumulation; the TF32
+// fragments and layouts serve both, so no product loop is written twice. bf16 fragments
+// (m16n8k16) and wgmma, at twice the TF32 rate, are later work (ROADMAP B-ii).
 #pragma once
 
 #include <cstdint>
@@ -42,11 +47,28 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
     lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
 }
 
-// An operand fragment of n registers, split once where it is loaded.
-template <int NR>
+// The bf16 instantiations (T = bf16, csrc/common.cuh) take bf16 operands: x rounded to bf16
+// (to nearest even), which a TF32 operand holds exactly (the same exponent, 7 of its 10
+// mantissa bits), so ONE TF32 pass gives the exact bf16-operand product, accumulated in
+// f32. The rounding happens where a fragment is set, which is where the TPU kernel casts
+// each matmul operand to its bf16 operand dtype (`.astype(dt)`, wattn._mxu_dtype).
+__device__ __forceinline__ uint32_t bf16_tf32(float x) {
+    return __float_as_uint(__bfloat162float(__float2bfloat16_rn(x)));
+}
+
+// TF32 passes of a product: 3 (f32-exact, 3xTF32) for f32 storage, 1 for bf16.
+template <typename T>
+constexpr int kPasses = kBf16<T> ? 1 : 3;
+
+// An operand fragment of n registers, split (P = 3) or rounded to bf16 (P = 1) once where
+// it is loaded; lo is unused at P = 1.
+template <int NR, int P = 3>
 struct Frag {
     uint32_t hi[NR], lo[NR];
-    __device__ __forceinline__ void set(int i, float x) { split_tf32(x, hi[i], lo[i]); }
+    __device__ __forceinline__ void set(int i, float x) {
+        if constexpr (P == 3) split_tf32(x, hi[i], lo[i]);
+        else hi[i] = bf16_tf32(x);
+    }
 };
 using FragA = Frag<4>;
 using FragB = Frag<2>;
@@ -60,15 +82,33 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// d += a * b in f32-exact 3xTF32: the two small terms first.
-__device__ __forceinline__ void mma_f32x3(float (&d)[4], const FragA& a, const FragB& b) {
-    mma_tf32(d, a.lo, b.hi);
-    mma_tf32(d, a.hi, b.lo);
+// d += a * b in f32-exact 3xTF32 (the two small terms first), or in one pass of bf16
+// operands.
+template <int P>
+__device__ __forceinline__ void mma_f32x3(float (&d)[4], const Frag<4, P>& a,
+                                          const Frag<2, P>& b) {
+    if constexpr (P == 3) {
+        mma_tf32(d, a.lo, b.hi);
+        mma_tf32(d, a.hi, b.lo);
+    }
     mma_tf32(d, a.hi, b.hi);
 }
 
+// d += a * (bh + bl) for a B fragment that comes split from the host (_mma.mma_planes: hi
+// and lo planes); a bf16 weight's lo plane is zero and is not read (P = 1).
+template <int P>
+__device__ __forceinline__ void mma_planes_step(float (&d)[4], const Frag<4, P>& a,
+                                                const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
+    if constexpr (P == 3) {
+        mma_tf32(d, a.lo, bh);
+        mma_tf32(d, a.hi, bl);
+    }
+    mma_tf32(d, a.hi, bh);
+}
+
 // A fragment of rows r0 .. r0+15, k0 .. k0+7 of a [row][k] array at stride ld.
-__device__ __forceinline__ void load_a(FragA& a, const float* s, int ld, int r0, int k0) {
+template <int P>
+__device__ __forceinline__ void load_a(Frag<4, P>& a, const float* s, int ld, int r0, int k0) {
     const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
     const float* p = s + (size_t)(r0 + g) * ld + k0 + t;
     a.set(0, p[0]);
@@ -78,7 +118,8 @@ __device__ __forceinline__ void load_a(FragA& a, const float* s, int ld, int r0,
 }
 
 // B fragment of k0 .. k0+7, n0 .. n0+7 of a [k][n] array at stride ld.
-__device__ __forceinline__ void load_b_kn(FragB& b, const float* s, int ld, int k0, int n0) {
+template <int P>
+__device__ __forceinline__ void load_b_kn(Frag<2, P>& b, const float* s, int ld, int k0, int n0) {
     const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
     const float* p = s + (size_t)(k0 + t) * ld + n0 + g;
     b.set(0, p[0]);
@@ -86,7 +127,8 @@ __device__ __forceinline__ void load_b_kn(FragB& b, const float* s, int ld, int 
 }
 
 // B fragment of k0 .. k0+7, n0 .. n0+7 of an [n][k] array at stride ld.
-__device__ __forceinline__ void load_b_nk(FragB& b, const float* s, int ld, int k0, int n0) {
+template <int P>
+__device__ __forceinline__ void load_b_nk(Frag<2, P>& b, const float* s, int ld, int k0, int n0) {
     const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
     const float* p = s + (size_t)(n0 + g) * ld + k0 + t;
     b.set(0, p[0]);
@@ -175,7 +217,9 @@ __device__ __forceinline__ void put4(float* A, int p, int c, int ksteps, float4 
 // Warp w owns m-tile w % 8 (rows 16 (w % 8) ..) and up to 8 n-tiles of a pass: 8 register
 // tiles, 24 MMAs a k-step. The n-tiles of a pass are shared between the two column groups
 // of warps (w / 8) as evenly as they fall, so a ragged N costs little.
-template <typename StageA, typename Epi>
+// P: the TF32 passes (kPasses of the caller's storage type): 3, or 1 for bf16 operands (A
+// rounded to bf16 where its fragment is set; W's hi plane only).
+template <int P = 3, typename StageA, typename Epi>
 __device__ __forceinline__ void tile_mma(const float* A, int K, const float4* __restrict__ W,
                                          int ntw, int N, float* ws, StageA stage_a, Epi epi) {
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
@@ -229,7 +273,7 @@ __device__ __forceinline__ void tile_mma(const float* A, int K, const float4* __
 #pragma unroll
         for (int s = 0; s < kMmaKS; ++s) {
             if (s >= nks) break;
-            FragA a;
+            Frag<4, P> a;
             const float4 v = a4[(c * kMmaKS + s) * 32];
             a.set(0, v.x);
             a.set(1, v.y);
@@ -249,12 +293,14 @@ __device__ __forceinline__ void tile_mma(const float* A, int K, const float4* __
                     bl[j][0] = __float_as_uint(b.z);
                     bl[j][1] = __float_as_uint(b.w);
                 }
+                if constexpr (P == 3) {
 #pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    if (j0 + j < mine) mma_tf32(part[j0 + j], a.lo, bh[j]);
+                    for (int j = 0; j < 4; ++j)
+                        if (j0 + j < mine) mma_tf32(part[j0 + j], a.lo, bh[j]);
 #pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    if (j0 + j < mine) mma_tf32(part[j0 + j], a.hi, bl[j]);
+                    for (int j = 0; j < 4; ++j)
+                        if (j0 + j < mine) mma_tf32(part[j0 + j], a.hi, bl[j]);
+                }
 #pragma unroll
                 for (int j = 0; j < 4; ++j)
                     if (j0 + j < mine) mma_tf32(part[j0 + j], a.hi, bh[j]);

@@ -76,7 +76,8 @@
 //     faster on the H100 and spilled: the product itself (tile_mma) is what holds it.
 //   * LN2's statistics are in f32 and every sum has a fixed order: no atomics.
 //
-// Layout: NHWC, f32, contiguous. Weights: w1p the mma_planes of w1 [C][2C] with its columns
+// Layout: NHWC, contiguous; x, g, att and out f32 or bf16 (bf16 products, the sums and y f32).
+// Weights: w1p the mma_planes of w1 [C][2C] with its columns
 // pass by pass; w3p, w4p, w5p the mma_planes of w3 [C][C], of w4 [C][2C] gate-interleaved and
 // of w5 [C][C]; wdw [9][2C]. Stage A takes C % 4 == 0 with Cp = C rounded up to the pass's
 // 32 channels at most 256: w1p is laid out at Cp (zero rows and columns past C), LN's
@@ -112,13 +113,14 @@ int stage_a_rows(int B, int H, int W, int C) {
 // group XOR-ed with p % 4, which keeps n in its half (gate, partner)
 __device__ __forceinline__ int t_col(int p, int n) { return n ^ ((p & 3) << 3); }
 
-template <int HH, int KC>
+template <int HH, int KC, typename TS>
 __global__ void __launch_bounds__(32 * kAWarps, 1)
-naf_stage_a_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
+naf_stage_a_kernel(const TS* __restrict__ x, const float* __restrict__ lnw,
                    const float* __restrict__ lnb, const float4* __restrict__ w1p,
                    const float* __restrict__ b1, const float* __restrict__ wdw,
-                   const float* __restrict__ bdw, float* __restrict__ g,
+                   const float* __restrict__ bdw, TS* __restrict__ g,
                    float* __restrict__ part, int H, int W, int C, int Cp) {
+    constexpr int P = kPasses<TS>;
     constexpr int M = kHaloW * HH, TH = HH - 2;    // product rows, output rows
     constexpr int NG = kAWarps / HH, NTW = 8 / NG;  // warps an m-tile, n-tiles a warp
     constexpr int KS = KC / 8, kStage4 = KS * 8 * 32;   // k-steps, float4s of a ring stage
@@ -130,7 +132,7 @@ naf_stage_a_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int bi = blockIdx.z, ty0 = blockIdx.y * TH, tx0 = blockIdx.x * kOutW;
-    const float* xb = x + (size_t)bi * H * W * C;
+    const TS* xb = x + (size_t)bi * H * W * C;
     const int ksteps = Cp / 8, nchunks = (ksteps + KS - 1) / KS, ntw = Cp / 4;
     const int total = Cp / kPassC * nchunks;        // (pass, chunk) steps
     auto live = [&](int p) {   // halo row p inside the image
@@ -165,7 +167,7 @@ naf_stage_a_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
             const int c = 4 * lane + 128 * h;
             v[k][h] = make_float4(0.f, 0.f, 0.f, 0.f);
             if (in && c < C)
-                v[k][h] = *reinterpret_cast<const float4*>(xb + ((size_t)y * W + xx) * C + c);
+                v[k][h] = ld4(xb + ((size_t)y * W + xx) * C + c);
         }
     }
 #pragma unroll
@@ -224,7 +226,7 @@ naf_stage_a_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
 #pragma unroll
             for (int s = 0; s < KS; ++s) {
                 if (s >= nks) break;
-                FragA a;
+                Frag<4, P> a;
                 const float4 v = a4[(c * KS + s) * 32];
                 a.set(0, v.x);
                 a.set(1, v.y);
@@ -243,10 +245,12 @@ naf_stage_a_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
                         bl[j][0] = __float_as_uint(b.z);
                         bl[j][1] = __float_as_uint(b.w);
                     }
+                    if constexpr (P == 3) {
 #pragma unroll
-                    for (int j = 0; j < 4; ++j) mma_tf32(pt[j0 + j], a.lo, bh[j]);
+                        for (int j = 0; j < 4; ++j) mma_tf32(pt[j0 + j], a.lo, bh[j]);
 #pragma unroll
-                    for (int j = 0; j < 4; ++j) mma_tf32(pt[j0 + j], a.hi, bl[j]);
+                        for (int j = 0; j < 4; ++j) mma_tf32(pt[j0 + j], a.hi, bl[j]);
+                    }
 #pragma unroll
                     for (int j = 0; j < 4; ++j) mma_tf32(pt[j0 + j], a.hi, bh[j]);
                 }
@@ -317,7 +321,7 @@ naf_stage_a_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
                 const float gv = (a + ba) * (b + bb);
                 const int y = ty0 + r - 2, xx = tx0 + ox;
                 if (y < H && xx < W && ch < C) {
-                    g[(((size_t)bi * H + y) * W + xx) * C + ch] = gv;
+                    st1(g + (((size_t)bi * H + y) * W + xx) * C + ch, gv);
                     psum += gv;
                 }
             }
@@ -334,30 +338,33 @@ naf_stage_a_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
     cp_async_wait<0>();
 }
 
-template <int HH, int KC>
-cudaError_t launch_stage_a(const float* x, const float* lnw, const float* lnb,
+template <int HH, int KC, typename T>
+cudaError_t launch_stage_a(const T* x, const float* lnw, const float* lnb,
                            const float* w1p, const float* b1, const float* wdw,
-                           const float* bdw, float* g, float* part, int B, int H, int W, int C,
+                           const float* bdw, T* g, float* part, int B, int H, int W, int C,
                            cudaStream_t st) {
     const int Cp = (C + kPassC - 1) / kPassC * kPassC;
     const size_t smem = (size_t)(kHaloW * HH * (Cp + kPassN) + 2 * KC * 128 + kAWarps * 32) *
                         sizeof(float);
     if (smem > 232448) return cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(naf_stage_a_kernel<HH, KC>,
+    cudaError_t err = cudaFuncSetAttribute(naf_stage_a_kernel<HH, KC, T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     dim3 grid((W + kOutW - 1) / kOutW, (H + HH - 3) / (HH - 2), B);
-    naf_stage_a_kernel<HH, KC><<<grid, 32 * kAWarps, smem, st>>>(
+    naf_stage_a_kernel<HH, KC, T><<<grid, 32 * kAWarps, smem, st>>>(
         x, lnw, lnb, reinterpret_cast<const float4*>(w1p), b1, wdw, bdw, g, part, H, W, C, Cp);
     return cudaGetLastError();
 }
 
 // ---- Stage B
+template <typename T>
 struct StageB {
-    const float *g, *x, *att;     // [npix][C], [npix][C], [B][C]
+    const T *g, *x, *att;         // [npix][C], [npix][C], [B][C]
     const float4 *w3, *w4, *w5;   // mma_planes: w3, w5 [C][C]; w4 [C][2C], gate-interleaved
     const float *b3, *beta, *ln2w, *ln2b, *b4, *b5, *gamma;
-    float* out;    // [npix][C]; y between the products in the device-memory design
+    T* out;        // [npix][C]
+    float* y;      // [npix][C] y between the products in the device-memory design: out
+                   // itself for f32, f32 scratch for bf16 (y stays f32, as in the TPU kernel)
     float* hid;    // [npix][C] the gated hidden (device-memory design)
     float* part;   // [npix][2C] sums over K pieces (device-memory design, C > kMmaMaxK)
     long long npix;
@@ -372,9 +379,10 @@ __device__ __forceinline__ int y_col(int p, int c) { return c ^ ((p & 3) << 3); 
 // C = 64: everything on chip. A (g * att, then LN2(y)), y and the gated hidden sit in
 // shared memory beside the ring (3 x 32 KB + 128 KB): the block reads g and x once and
 // writes out once.
+template <typename T>
 __global__ void __launch_bounds__(kMmaThreads, 1)
-naf_stage_b_onchip_kernel(const StageB a) {
-    constexpr int C = 64, KS = C / 8, C4 = C / 4;
+naf_stage_b_onchip_kernel(const StageB<T> a) {
+    constexpr int C = 64, KS = C / 8, C4 = C / 4, P = kPasses<T>;
     extern __shared__ float4 smem4[];
     float* A = reinterpret_cast<float*>(smem4);   // [128 x C] A-fragment order
     float* Hs = A + kMmaRows * C;                  // [128 x C] the hidden, A-fragment order
@@ -384,7 +392,7 @@ naf_stage_b_onchip_kernel(const StageB a) {
     const long long p0 = (long long)blockIdx.x * kMmaRows;
 
     // y = x + ((g * att) @ w3 + b3) * beta: x staged in Y, g * att in A
-    tile_mma(
+    tile_mma<P>(
         A, C, a.w3, C / 8, C, ws,
         [&] {
             for (int e = tid; e < kMmaRows * C4; e += kMmaThreads) {
@@ -409,7 +417,7 @@ naf_stage_b_onchip_kernel(const StageB a) {
         });
     // h = SimpleGate(LN2(y) @ w4 + b4): LN2 a warp a row (two floats a lane) into A; gate
     // channel j and its partner are columns 2j, 2j + 1, so the gate is one thread's pair
-    tile_mma(
+    tile_mma<P>(
         A, C, a.w4, 2 * C / 8, 2 * C, ws,
         [&] {
             for (int p = warp; p < kMmaRows; p += kMmaThreads / 32) {
@@ -428,15 +436,14 @@ naf_stage_b_onchip_kernel(const StageB a) {
             Hs[a_frag_index(p, j, KS)] = (u0 + a.b4[j]) * (u1 + a.b4[C + j]);
         });
     // out = y + (h @ w5 + b5) * gamma
-    tile_mma(
+    tile_mma<P>(
         Hs, C, a.w5, C / 8, C, ws, [] {},
         [&](int p, int n, float u0, float u1) {
             const long long gp = p0 + p;
             if (gp >= a.npix) return;
             const float2 y = *reinterpret_cast<const float2*>(Y + p * C + y_col(p, n));
-            *reinterpret_cast<float2*>(a.out + gp * C + n) =
-                make_float2(y.x + (u0 + a.b5[n]) * a.gamma[n],
-                            y.y + (u1 + a.b5[n + 1]) * a.gamma[n + 1]);
+            st2(a.out + gp * C + n, make_float2(y.x + (u0 + a.b5[n]) * a.gamma[n],
+                                                y.y + (u1 + a.b5[n + 1]) * a.gamma[n + 1]));
         });
 }
 
@@ -448,9 +455,11 @@ naf_stage_b_onchip_kernel(const StageB a) {
 // N in steps of 8: a C that is not a multiple of 8 runs them at Cp = C rounded up, on weights
 // zero-padded to Cp (ops/kernels/nafblock.py), A's columns past C staged as zeros and no
 // column past C stored; every array keeps its stride C and LN2 its statistics over C.
+template <typename T>
 __global__ void __launch_bounds__(kMmaThreads, 1)
-naf_stage_b_rows_kernel(const StageB a) {
+naf_stage_b_rows_kernel(const StageB<T> a) {
     extern __shared__ float4 smem4[];
+    constexpr int P = kPasses<T>;
     const int C = a.C, Cp = a.Cp, Kt = tile_mma_piece(Cp);
     float* A = reinterpret_cast<float*>(smem4);   // [128 x Kt] A-fragment order
     float* ws = A + kMmaRows * Kt;                 // tile_mma's ring
@@ -485,10 +494,10 @@ naf_stage_b_rows_kernel(const StageB a) {
         return false;
     };
 
-    // y = x + ((g * att) @ w3 + b3) * beta, into out
+    // y = x + ((g * att) @ w3 + b3) * beta, into y (out, or its f32 scratch)
     for (int k0 = 0; k0 < Cp; k0 += Kt) {
         const int kh = min(Kt, Cp - k0);
-        tile_mma(
+        tile_mma<P>(
             A, kh, a.w3 + (size_t)(k0 / 8) * (Cp / 8) * 32, Cp / 8, Cp, ws,
             [&] {
                 stage(k0, kh, [&](int, long long gp, int c) {
@@ -500,17 +509,17 @@ naf_stage_b_rows_kernel(const StageB a) {
             [&](int p, int n, float u0, float u1) {
                 const long long gp = p0 + p;
                 if (gp >= a.npix || n >= C || !summed(gp, n, k0, kh, u0, u1)) return;
-                const float2 xv = *reinterpret_cast<const float2*>(a.x + gp * C + n);
-                *reinterpret_cast<float2*>(a.out + gp * C + n) =
+                const float2 xv = ld2(a.x + gp * C + n);
+                *reinterpret_cast<float2*>(a.y + gp * C + n) =
                     make_float2(xv.x + (u0 + a.b3[n]) * a.beta[n],
                                 xv.y + (u1 + a.b3[n + 1]) * a.beta[n + 1]);
             });
     }
-    // LN2's statistics, a warp a row (tile_mma synchronised: out holds the block's y)
+    // LN2's statistics, a warp a row (tile_mma synchronised: y holds the block's y)
     for (int p = warp; p < kMmaRows; p += kMmaThreads / 32) {
         const long long gp = p0 + p;
         float u = 0.f, inv = 0.f;
-        if (gp < a.npix) warp_ln_stats(a.out + gp * C, C, kEps, u, inv);
+        if (gp < a.npix) warp_ln_stats(a.y + gp * C, C, kEps, u, inv);
         if (lane == 0) {
             lnst[2 * p] = u;
             lnst[2 * p + 1] = inv;
@@ -520,11 +529,11 @@ naf_stage_b_rows_kernel(const StageB a) {
     // columns 2j, 2j + 1 of the product, one thread's pair
     for (int k0 = 0; k0 < Cp; k0 += Kt) {
         const int kh = min(Kt, Cp - k0);
-        tile_mma(
+        tile_mma<P>(
             A, kh, a.w4 + (size_t)(k0 / 8) * (2 * Cp / 8) * 32, 2 * Cp / 8, 2 * Cp, ws,
             [&] {
                 stage(k0, kh, [&](int p, long long gp, int c) {
-                    const float4 v = ld4(a.out + gp * C + c);
+                    const float4 v = ld4(a.y + gp * C + c);
                     const float4 w = ld4(a.ln2w + c), b = ld4(a.ln2b + c);
                     const float u = lnst[2 * p], inv = lnst[2 * p + 1];
                     return make_float4((v.x - u) * inv * w.x + b.x, (v.y - u) * inv * w.y + b.y,
@@ -541,7 +550,7 @@ naf_stage_b_rows_kernel(const StageB a) {
     // out = y + (h @ w5 + b5) * gamma
     for (int k0 = 0; k0 < Cp; k0 += Kt) {
         const int kh = min(Kt, Cp - k0);
-        tile_mma(
+        tile_mma<P>(
             A, kh, a.w5 + (size_t)(k0 / 8) * (Cp / 8) * 32, Cp / 8, Cp, ws,
             [&] {
                 stage(k0, kh, [&](int, long long gp, int c) { return ld4(a.hid + gp * C + c); });
@@ -549,20 +558,20 @@ naf_stage_b_rows_kernel(const StageB a) {
             [&](int p, int n, float u0, float u1) {
                 const long long gp = p0 + p;
                 if (gp >= a.npix || n >= C || !summed(gp, n, k0, kh, u0, u1)) return;
-                float2* o = reinterpret_cast<float2*>(a.out + gp * C + n);
-                const float2 y = *o;
-                *o = make_float2(y.x + (u0 + a.b5[n]) * a.gamma[n],
-                                 y.y + (u1 + a.b5[n + 1]) * a.gamma[n + 1]);
+                const float2 y = ld2(a.y + gp * C + n);
+                st2(a.out + gp * C + n, make_float2(y.x + (u0 + a.b5[n]) * a.gamma[n],
+                                                    y.y + (u1 + a.b5[n + 1]) * a.gamma[n + 1]));
             });
     }
 }
 
-cudaError_t launch_stage_b(const StageB& a, cudaStream_t st) {
+template <typename T>
+cudaError_t launch_stage_b(const StageB<T>& a, cudaStream_t st) {
     const bool onchip = a.C == 64 && !a.hid;
     const size_t smem = (size_t)(onchip ? 3 * kMmaRows * 64 + tile_mma_ws()
                                         : kMmaRows * tile_mma_piece(a.Cp) + tile_mma_ws() +
                                               2 * kMmaRows) * sizeof(float);
-    const auto kernel = onchip ? naf_stage_b_onchip_kernel : naf_stage_b_rows_kernel;
+    const auto kernel = onchip ? naf_stage_b_onchip_kernel<T> : naf_stage_b_rows_kernel<T>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -570,6 +579,37 @@ cudaError_t launch_stage_b(const StageB& a, cudaStream_t st) {
     if (nblocks > 0x7fffffffLL) return cudaErrorInvalidValue;
     kernel<<<(unsigned)nblocks, kMmaThreads, smem, st>>>(a);
     return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t stage_a(const T* x, const float* lnw, const float* lnb, const float* w1p,
+                    const float* b1, const float* wdw, const float* bdw, T* g, float* part,
+                    int B, int H, int W, int C, int hh, cudaStream_t st) {
+    if (hh == 8)
+        return launch_stage_a<8, 32>(x, lnw, lnb, w1p, b1, wdw, bdw, g, part, B, H, W, C, st);
+    if (C <= 64)   // the pass's whole slab (Cp <= 64 rows) a ring stage: one barrier a pass
+        return launch_stage_a<16, 64>(x, lnw, lnb, w1p, b1, wdw, bdw, g, part, B, H, W, C, st);
+    return launch_stage_a<16, 32>(x, lnw, lnb, w1p, b1, wdw, bdw, g, part, B, H, W, C, st);
+}
+
+template <typename T>
+cudaError_t stage_b(const float* g, const float* x, const float* att, const float* w3p,
+                    const float* b3, const float* beta, const float* ln2w, const float* ln2b,
+                    const float* w4p, const float* b4, const float* w5p, const float* b5,
+                    const float* gamma, float* out, float* y, float* hid, float* part, int B,
+                    int H, int W, int C, cudaStream_t st) {
+    StageB<T> a = {};
+    a.g = reinterpret_cast<const T*>(g);
+    a.x = reinterpret_cast<const T*>(x);
+    a.att = reinterpret_cast<const T*>(att);
+    a.w3 = reinterpret_cast<const float4*>(w3p);
+    a.w4 = reinterpret_cast<const float4*>(w4p);
+    a.w5 = reinterpret_cast<const float4*>(w5p);
+    a.b3 = b3; a.beta = beta; a.ln2w = ln2w; a.ln2b = ln2b; a.b4 = b4; a.b5 = b5;
+    a.gamma = gamma; a.out = reinterpret_cast<T*>(out); a.hid = hid; a.part = part;
+    a.y = y ? y : out;
+    a.npix = (long long)B * H * W; a.hw = H * W; a.C = C; a.Cp = (C + 7) / 8 * 8;
+    return launch_stage_b(a, st);
 }
 
 }  // namespace
@@ -586,22 +626,20 @@ int naf_stage_a_blocks(int B, int H, int W, int C) {
 
 // g and sums = Σ_{H,W} g; w1p = the mma_planes of w1 [C][2C] zero-padded to [Cp][2Cp] (Cp =
 // C rounded up to 32) with its columns pass by pass (ops/kernels/nafblock.py), part
-// [B][naf_stage_a_blocks][C] scratch.
+// [B][naf_stage_a_blocks][C] scratch. x and g are f32, or bf16 where `bf16` is set; the
+// weights and the sums are f32 (the sums are taken of g before its rounding).
 int naf_stage_a(const float* x, const float* lnw, const float* lnb, const float* w1p,
                 const float* b1, const float* wdw, const float* bdw, float* g, float* part,
-                float* sums, int B, int H, int W, int C, void* stream) {
+                float* sums, int B, int H, int W, int C, int bf16_io, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (C % 4 || C < 4 || C > 256 || B < 1 || B > 65535 || H < 1 || W < 1)
         return cudaErrorInvalidValue;
     const int hh = stage_a_rows(B, H, W, C);
     if (hh == 0) return cudaErrorInvalidDevice;
-    cudaError_t err;
-    if (hh == 8)
-        err = launch_stage_a<8, 32>(x, lnw, lnb, w1p, b1, wdw, bdw, g, part, B, H, W, C, st);
-    else if (C <= 64)   // the pass's whole slab (Cp <= 64 rows) a ring stage: one barrier a pass
-        err = launch_stage_a<16, 64>(x, lnw, lnb, w1p, b1, wdw, bdw, g, part, B, H, W, C, st);
-    else
-        err = launch_stage_a<16, 32>(x, lnw, lnb, w1p, b1, wdw, bdw, g, part, B, H, W, C, st);
+    const cudaError_t err =
+        bf16_io ? stage_a(reinterpret_cast<const bf16*>(x), lnw, lnb, w1p, b1, wdw, bdw,
+                          reinterpret_cast<bf16*>(g), part, B, H, W, C, hh, st)
+                : stage_a(x, lnw, lnb, w1p, b1, wdw, bdw, g, part, B, H, W, C, hh, st);
     if (err != cudaSuccess) return err;
     return sum_partials(part, sums, B, naf_stage_a_blocks(B, H, W, C), C, st);
 }
@@ -611,25 +649,24 @@ int naf_stage_a(const float* x, const float* lnw, const float* lnb, const float*
 // to 8 (ops/kernels/nafblock.py: stage_b_planes); hid [B*H*W][C] scratch where C != 64, part
 // [B*H*W][2Cp] where Cp > 192. C % 4 == 0. At C = 64 the block keeps y and the hidden on chip
 // unless hid is given: then it takes the device-memory design of the other widths (so that
-// the two can be timed and tested).
+// the two can be timed and tested). g, x, att and out are f32, or bf16 where `bf16_io` is
+// set: then y [B*H*W][C] is f32 scratch where hid is given (y stays f32 between the
+// products, as in the TPU kernel), and hid is f32 in both.
 int naf_stage_b(const float* g, const float* x, const float* att, const float* w3p,
                 const float* b3, const float* beta, const float* ln2w, const float* ln2b,
                 const float* w4p, const float* b4, const float* w5p, const float* b5,
-                const float* gamma, float* out, float* hid, float* part, int B, int H, int W,
-                int C, void* stream) {
+                const float* gamma, float* out, float* y, float* hid, float* part, int B,
+                int H, int W, int C, int bf16_io, void* stream) {
     const int Cp = (C + 7) / 8 * 8;
     if (C % 4 || C < 4 || B < 1 || H < 1 || W < 1 || (C != 64 && !hid) ||
-        (Cp > kMmaMaxK && !part))
+        (Cp > kMmaMaxK && !part) || (bf16_io && hid && !y))
         return cudaErrorInvalidValue;
-    StageB a = {};
-    a.g = g; a.x = x; a.att = att;
-    a.w3 = reinterpret_cast<const float4*>(w3p);
-    a.w4 = reinterpret_cast<const float4*>(w4p);
-    a.w5 = reinterpret_cast<const float4*>(w5p);
-    a.b3 = b3; a.beta = beta; a.ln2w = ln2w; a.ln2b = ln2b; a.b4 = b4; a.b5 = b5;
-    a.gamma = gamma; a.out = out; a.hid = hid; a.part = part;
-    a.npix = (long long)B * H * W; a.hw = H * W; a.C = C; a.Cp = Cp;
-    return launch_stage_b(a, static_cast<cudaStream_t>(stream));
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (bf16_io)
+        return stage_b<bf16>(g, x, att, w3p, b3, beta, ln2w, ln2b, w4p, b4, w5p, b5, gamma,
+                             out, y, hid, part, B, H, W, C, st);
+    return stage_b<float>(g, x, att, w3p, b3, beta, ln2w, ln2b, w4p, b4, w5p, b5, gamma, out,
+                          nullptr, hid, part, B, H, W, C, st);
 }
 
 }  // extern "C"

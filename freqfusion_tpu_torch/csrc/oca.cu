@@ -23,7 +23,8 @@
 // head width. The query groups and heads of a window are neighbouring blocks, so its keys
 // come from L2.
 //
-// Layout: q, k, v, out [B,H,W,C] NHWC f32 with C = heads * hd; bias [heads][nq][nk].
+// Layout: q, k, v, out [B,H,W,C] NHWC, f32 or bf16 (bf16 products), with C = heads * hd;
+// bias [heads][nq][nk].
 // overlap even.
 
 #include "flash_f32x3.cuh"
@@ -32,9 +33,12 @@ namespace {
 
 constexpr int kOcaWarps = 8;
 
+template <typename TS>
 struct OverlapWindow {
-    const float *q, *k, *v, *bias;
-    float* out;
+    using T = TS;   // storage of q, k, v and out
+    const T *q, *k, *v;
+    const float* bias;
+    T* out;
     long long img;
     int nq, nk, hd, C, col, ws, ows, pad, H, W, wy, wx;
     float scale;
@@ -42,8 +46,8 @@ struct OverlapWindow {
     __device__ long long qpixel(int i) const {
         return img + (long long)(wy * ws + i / ws) * W + wx * ws + i % ws;
     }
-    __device__ const float* q_row(int i) const { return q + qpixel(i) * C + col; }
-    __device__ float* out_row(int i) const { return out + qpixel(i) * C + col; }
+    __device__ const T* q_row(int i) const { return q + qpixel(i) * C + col; }
+    __device__ T* out_row(int i) const { return out + qpixel(i) * C + col; }
     __device__ long long key(int j) const {
         const int yy = wy * ws - pad + j / ows, xx = wx * ws - pad + j % ows;
         if (yy < 0 || yy >= H || xx < 0 || xx >= W) return -1;
@@ -53,12 +57,11 @@ struct OverlapWindow {
     __device__ const float* mask_row(int) const { return nullptr; }
 };
 
-template <bool QREG>
+template <bool QREG, typename T>
 __global__ void __launch_bounds__(32 * kOcaWarps, 16 / kOcaWarps)
-oca_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ bias,
-                float* __restrict__ out, int H, int W, int C, int ws, int ows, int heads,
-                int hd, int qgroups, float scale) {
+oca_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                const float* __restrict__ bias, T* __restrict__ out, int H, int W, int C,
+                int ws, int ows, int heads, int hd, int qgroups, float scale) {
     extern __shared__ float4 smem4[];
     const int qg = blockIdx.x % qgroups;
     const int rest = blockIdx.x / qgroups, head = rest % heads;
@@ -66,7 +69,7 @@ oca_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int n_wc = W / ws, n_wr = H / ws;
     const int bi = win / (n_wr * n_wc);
     win -= bi * n_wr * n_wc;
-    OverlapWindow g;
+    OverlapWindow<T> g;
     g.q = q; g.k = k; g.v = v; g.out = out;
     g.nq = ws * ws; g.nk = ows * ows; g.hd = hd; g.C = C; g.col = head * hd;
     g.ws = ws; g.ows = ows; g.pad = (ows - ws) / 2; g.H = H; g.W = W;
@@ -78,32 +81,42 @@ oca_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     flash_attention_f32x3<kOcaWarps, QREG>(g, qg, reinterpret_cast<float*>(smem4));
 }
 
-template <bool QREG>
-cudaError_t launch_oca(const float* q, const float* k, const float* v, const float* bias,
-                       float* out, int B, int H, int W, int C, int ws, int ows, int heads,
-                       int hd, cudaStream_t st) {
+template <bool QREG, typename T>
+cudaError_t launch_oca(const T* q, const T* k, const T* v, const float* bias, T* out, int B,
+                       int H, int W, int C, int ws, int ows, int heads, int hd,
+                       cudaStream_t st) {
     const size_t smem = (size_t)flash_smem_floats(kOcaWarps, hd) * sizeof(float);
     if (smem > 232448) return cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
-        oca_attn_kernel<QREG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        oca_attn_kernel<QREG, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const int qgroups = (ws * ws + 16 * kOcaWarps - 1) / (16 * kOcaWarps);
     const long long nblocks = (long long)B * (H / ws) * (W / ws) * heads * qgroups;
     if (nblocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-    oca_attn_kernel<QREG><<<(unsigned)nblocks, 32 * kOcaWarps, smem, st>>>(
+    oca_attn_kernel<QREG, T><<<(unsigned)nblocks, 32 * kOcaWarps, smem, st>>>(
         q, k, v, bias, out, H, W, C, ws, ows, heads, hd, qgroups, 1.f / sqrtf((float)hd));
     return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t oca(const T* q, const T* k, const T* v, const float* bias, T* out, int B, int H,
+                int W, int C, int ws, int ows, int heads, int hd, cudaStream_t st) {
+    if (hd <= 32) return launch_oca<true>(q, k, v, bias, out, B, H, W, C, ws, ows, heads, hd, st);
+    return launch_oca<false>(q, k, v, bias, out, B, H, W, C, ws, ows, heads, hd, st);
+}
+
 }  // namespace
 
+// q, k, v and out f32, or bf16 where `bf16_io` is set; bias f32.
 extern "C" int oca_attention(const float* q, const float* k, const float* v,
                              const float* bias, float* out, int B, int H, int W, int C, int ws,
-                             int ows, int heads, int hd, void* stream) {
+                             int ows, int heads, int hd, int bf16_io, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (ws < 1 || ows < ws || (ows - ws) % 2 || hd < 1 || heads * hd != C || H % ws || W % ws)
         return cudaErrorInvalidValue;
-    if (hd <= 32)
-        return launch_oca<true>(q, k, v, bias, out, B, H, W, C, ws, ows, heads, hd, st);
-    return launch_oca<false>(q, k, v, bias, out, B, H, W, C, ws, ows, heads, hd, st);
+    if (bf16_io)
+        return oca(reinterpret_cast<const bf16*>(q), reinterpret_cast<const bf16*>(k),
+                   reinterpret_cast<const bf16*>(v), bias, reinterpret_cast<bf16*>(out), B, H,
+                   W, C, ws, ows, heads, hd, st);
+    return oca(q, k, v, bias, out, B, H, W, C, ws, ows, heads, hd, st);
 }

@@ -11,7 +11,12 @@ i+1 before it copies image i back. ``main`` (= ``model_func``) is the directory 
 builds ``FreqFusionSR``, loads the checkpoints it finds under ``model_dir`` (the experts'
 ``.pth``; the head from a native ``.ckpt`` that training wrote, in the port's ``torch.save``
 format or the JAX package's flax msgpack, else from a ``.pth``) and writes one x4 PNG per
-input image, whatever its size.
+input image, whatever its size. It serves in float32 or, with ``dtype="bfloat16"`` (or
+``FREQFUSION_DTYPE=bfloat16``), in bfloat16 as the JAX package's serving does: parameters and
+input cast to bf16, every kernel reading and writing bf16 with bf16 products, the output
+taken to f32 before the clamp and the uint8 conversion. The JAX ``main``'s environment
+switches and its ``FREQFUSION_CONFIG`` yaml (``utils/runtime.py``) are read where the
+caller gives no keyword (``serving_options``).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from ..models.experts import FreqFusionSR
 from ..models.fusion import FusionConfig
 from ..utils.convert import fusion_params_from_flax, load_torch_checkpoint
 from ..utils.imageio import list_images, load_image, save_image
+from ..utils.runtime import runtime_overrides
 from .tiling import require_device, tiled_sr, whole_image_sr
 
 # the JAX twin's defaults: 192-px tiles keep the overlap recompute low on DIV2K-sized
@@ -41,6 +47,8 @@ TILE_BATCH = 2
 #: precision -> whether f32 products and convolutions may take TF32: "highest" keeps f32
 #: (the JAX twin's "highest"), "high" allows TF32 (PyTorch's own default for cuDNN convs)
 PRECISIONS = {"highest": False, "high": True}
+#: serving dtypes by name (``FREQFUSION_DTYPE``, ``main(dtype=...)``)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @contextlib.contextmanager
@@ -64,7 +72,9 @@ class InferencePipeline:
     `overlap` px shared between neighbours. `tile` must suit the model (a multiple of 16
     for HAT's windows; DAT pads to its 32-px windows by itself). `precision` is pinned
     around every forward, whole or tiled, and the caller's setting restored after it:
-    "highest" runs f32 products and convolutions in f32, "high" lets them take TF32."""
+    "highest" runs f32 products and convolutions in f32, "high" lets them take TF32.
+    `dtype` (torch.float32 or torch.bfloat16) is the dtype of the parameters, the input and
+    every activation; the output leaves as f32 (``run_image``) or uint8."""
 
     # JAX twin's default: 280000 px covers every DIV2K x4 LR frame after 32-px padding.
     # No cap on distinct buckets: the JAX twin's (6) bounds its compile cache, and eager
@@ -82,6 +92,8 @@ class InferencePipeline:
         if precision not in PRECISIONS:
             raise ValueError(f"precision={precision!r}; expected one of {sorted(PRECISIONS)}")
         self.tile, self.overlap, self.tile_batch = tile, overlap, tile_batch
+        if dtype not in DTYPES.values():
+            raise ValueError(f"dtype={dtype}; expected torch.float32 or torch.bfloat16")
         self.precision = precision
         self.device = require_device(device)
         self.dtype = dtype
@@ -352,23 +364,85 @@ def load_checkpoints(model: FreqFusionSR, model_dir: str) -> None:
 def build_pipeline(model_dir: str, device="cuda", fusion_config: Optional[FusionConfig] = None,
                    expert_kwargs: Optional[dict] = None, tile: int = TILE,
                    overlap: int = OVERLAP, tile_batch: int = TILE_BATCH,
-                   precision: str = "highest") -> InferencePipeline:
+                   precision: str = "highest",
+                   dtype: torch.dtype = torch.float32) -> InferencePipeline:
     """``FreqFusionSR`` with seeded initial weights, filled from `model_dir`'s checkpoints,
-    behind an ``InferencePipeline`` on `device` at `precision`. `expert_kwargs` may hold
-    ``hat_kwargs``, ``dat_kwargs`` and ``nafnet_kwargs`` (tests build tiny experts with
-    them)."""
+    behind an ``InferencePipeline`` on `device` at `precision` and `dtype`. `expert_kwargs`
+    may hold ``hat_kwargs``, ``dat_kwargs`` and ``nafnet_kwargs`` (tests build tiny experts
+    with them)."""
     device = require_device(device)   # before the model is built: it takes seconds
     torch.manual_seed(0)
     model = FreqFusionSR(fusion_config or FusionConfig(), **(expert_kwargs or {}))
     load_checkpoints(model, model_dir)
-    return InferencePipeline(model, device, tile=tile, overlap=overlap, tile_batch=tile_batch,
-                             precision=precision)
+    return InferencePipeline(model, device, dtype=dtype, tile=tile, overlap=overlap,
+                             tile_batch=tile_batch, precision=precision)
+
+
+#: The ROADMAP item that holds the JAX package's precision "default" (bf16 operands on f32
+#: storage), which the port does not run yet.
+PRECISION_DEFAULT_ITEM = "ROADMAP B-ii: precision 'default' (bf16 operands on f32 storage)"
+
+
+def serving_options(**given) -> dict:
+    """The serving options of ``main``: each keyword the caller gave (not None), else the JAX
+    ``main``'s environment switch, else the default; the model and tiling from the
+    ``FREQFUSION_CONFIG`` yaml (``runtime_overrides``) where the caller gave none.
+
+    * ``dtype``: ``FREQFUSION_DTYPE`` (``float32`` | ``bfloat16``), default float32;
+    * ``precision``: ``FREQFUSION_PRECISION`` (``highest`` | ``high``), default highest. The
+      JAX value ``default`` (bf16 operands on f32 storage, the TPU's default class) raises;
+    * ``group_max``: ``FREQFUSION_U8_BATCH``, default 1;
+    * ``whole_image_px``, ``whole_image_shapes``: ``FREQFUSION_WHOLE_IMAGE_PX`` (0: every
+      image tiled) and ``FREQFUSION_WHOLE_IMAGE_SHAPES`` (a cap on distinct buckets), default
+      the pipeline's own (280000 px, no cap);
+    * ``fusion_config``, ``expert_kwargs``: the yaml's ``model`` (its ``expert_kwargs``, the
+      rest a ``FusionConfig``); ``tile``, ``overlap``, ``tile_batch``: its ``infer``.
+
+    ``FREQFUSION_USE_PALLAS`` has no counterpart: the plain versions serve only CPU tensors,
+    and with a card every kernel of the path runs."""
+    env = os.environ.get
+    out = dict.fromkeys(("fusion_config", "expert_kwargs", "whole_image_px",
+                         "whole_image_shapes"))
+    out.update(given)
+    if out.get("dtype") is None:
+        out["dtype"] = env("FREQFUSION_DTYPE", "float32")
+    if isinstance(out["dtype"], str):
+        if out["dtype"] not in DTYPES:
+            raise ValueError(f"dtype={out['dtype']!r}; expected one of {sorted(DTYPES)}")
+        out["dtype"] = DTYPES[out["dtype"]]
+    if out.get("precision") is None:
+        out["precision"] = env("FREQFUSION_PRECISION", "highest")
+    if out["precision"] == "default":
+        raise ValueError("precision 'default' (the JAX package's bf16 operands on f32 "
+                         f"storage) is not ported: {PRECISION_DEFAULT_ITEM}; serve with "
+                         "'highest', 'high', or dtype bfloat16")
+    if out.get("group_max") is None:
+        out["group_max"] = max(1, int(env("FREQFUSION_U8_BATCH", "1")))
+    if out.get("whole_image_px") is None and env("FREQFUSION_WHOLE_IMAGE_PX"):
+        out["whole_image_px"] = int(env("FREQFUSION_WHOLE_IMAGE_PX"))
+    if out.get("whole_image_shapes") is None and env("FREQFUSION_WHOLE_IMAGE_SHAPES"):
+        out["whole_image_shapes"] = int(env("FREQFUSION_WHOLE_IMAGE_SHAPES"))
+    ov = runtime_overrides()
+    if "model" in ov:
+        m = dict(ov["model"])
+        expert_kwargs = m.pop("expert_kwargs", None)
+        if out.get("expert_kwargs") is None:
+            out["expert_kwargs"] = expert_kwargs
+        if m and out.get("fusion_config") is None:
+            out["fusion_config"] = FusionConfig(**m)
+    for k, default in (("tile", TILE), ("overlap", OVERLAP), ("tile_batch", TILE_BATCH)):
+        if out.get(k) is None:
+            out[k] = ov.get("infer", {}).get(k, default)
+    return out
 
 
 def main(model_dir: str, input_path: str, output_path: str, device="cuda", *,
          fusion_config: Optional[FusionConfig] = None, expert_kwargs: Optional[dict] = None,
-         group_max: int = 1, tile: int = TILE, overlap: int = OVERLAP,
-         tile_batch: int = TILE_BATCH, precision: str = "highest") -> int:
+         group_max: Optional[int] = None, tile: Optional[int] = None,
+         overlap: Optional[int] = None, tile_batch: Optional[int] = None,
+         precision: Optional[str] = None, dtype=None,
+         whole_image_px: Optional[int] = None,
+         whole_image_shapes: Optional[int] = None) -> int:
     """The challenge contract ``model_func(model_dir, input_path, output_path, device)``:
     super-resolves every image of the directory `input_path` into `output_path` under the
     same file name, and returns their number. The device is the card unless the caller
@@ -379,9 +453,21 @@ def main(model_dir: str, input_path: str, output_path: str, device="cuda", *,
     An image whose plan is the tiled path waits for what is pending, then runs as
     `tile_batch` tiles of `tile` px a forward (`overlap` px shared) and is written.
     `precision` ("highest": f32, the default; "high": TF32 allowed) holds inside every
-    forward."""
-    pipe = build_pipeline(model_dir, device, fusion_config, expert_kwargs, tile, overlap,
-                          tile_batch, precision)
+    forward; `dtype` ("float32", the default, or "bfloat16", or the torch dtype) is the
+    serving dtype. A keyword left None is read from the environment and the
+    ``FREQFUSION_CONFIG`` yaml as the JAX ``main`` reads them (``serving_options``)."""
+    opt = serving_options(
+        fusion_config=fusion_config, expert_kwargs=expert_kwargs, group_max=group_max,
+        tile=tile, overlap=overlap, tile_batch=tile_batch, precision=precision, dtype=dtype,
+        whole_image_px=whole_image_px, whole_image_shapes=whole_image_shapes)
+    group_max = opt["group_max"]
+    pipe = build_pipeline(model_dir, device, opt["fusion_config"], opt["expert_kwargs"],
+                          opt["tile"], opt["overlap"], opt["tile_batch"], opt["precision"],
+                          opt["dtype"])
+    if opt.get("whole_image_px") is not None:
+        pipe.WHOLE_IMAGE_MAX_PX = opt["whole_image_px"]
+    if opt.get("whole_image_shapes") is not None:
+        pipe.WHOLE_IMAGE_MAX_SHAPES = opt["whole_image_shapes"]
     os.makedirs(output_path, exist_ok=True)
     files = list_images(input_path)
 

@@ -104,7 +104,8 @@ def tiled_sr(lr: np.ndarray, forward_batch: Callable[[torch.Tensor], torch.Tenso
     """x`scale` SR of an HWC float image of any size through fixed-shape tiles.
 
     `forward_batch`: [batch, tile, tile, 3] float32 on `device` -> [batch, s*tile, s*tile, 3]
-    on `device`, enqueued without waiting. A small image is reflect-padded up to one tile
+    on `device` (float32 or bfloat16: the stitch accumulates in f32), enqueued without
+    waiting. A small image is reflect-padded up to one tile
     (with numpy on the host, whose reflect folds as often as the pad needs); the last chunk
     is padded to `batch` by repeating its last tile. Returns [s*H, s*W, 3] float32 on
     `device`: the card unless the caller names another, and without a card the default

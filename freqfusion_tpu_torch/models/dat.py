@@ -136,9 +136,11 @@ class _AIM(nn.Module):
         """The C-Map before its sigmoid from a pooled [B,1,1,C] vector: 1x1 (C -> C/8) ->
         BN -> GELU -> 1x1 (C/8 -> C)."""
         fc1, bn, fc2 = (self.channel_interaction[i] for i in (1, 2, 4))
-        scale, shift = bn.affine_eval()
-        g = pooled @ fc1.weight.flatten(1).t() + fc1.bias
-        return gelu(g * scale + shift) @ fc2.weight.flatten(1).t() + fc2.bias
+        # in pooled's dtype: the f32 sums of a bf16 model's B5a keep f32, as in JAX
+        w1, b1, w2, b2, scale, shift = (t.to(pooled.dtype) for t in (
+            fc1.weight, fc1.bias, fc2.weight, fc2.bias, *bn.affine_eval()))
+        g = pooled @ w1.flatten(1).t() + b1
+        return gelu(g * scale + shift) @ w2.flatten(1).t() + b2
 
     def gates_proj(self, attened, conv_x, chmap, swap: bool) -> torch.Tensor:
         """Both gates, their sum and the projection: kernel B5b."""

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.kernels import _mma
 from ..ops.resize import resize
 from .layers import conv_nhwc
 
@@ -109,4 +110,7 @@ class LaplacianEdgeRefinement(nn.Module):
             feats.append(f * level_w[level])
         edge_map = conv_nhwc(self.fusion, torch.cat(feats, dim=-1))
         gate = torch.sigmoid(conv_nhwc(self.edge_gate, torch.cat([sr_img, edge_map], dim=-1)))
-        return (sr_img + gate * self.edge_strength * edge_map).clamp(0.0, 1.0)
+        # the residual sum in f32 for a bf16 model, rounded once (as its JAX twin's fusion)
+        f32 = _mma.up
+        return ((f32(sr_img) + f32(gate) * self.edge_strength * f32(edge_map)).clamp(0.0, 1.0)
+                .to(sr_img.dtype))

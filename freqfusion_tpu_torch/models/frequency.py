@@ -100,14 +100,21 @@ class FFTSplit(nn.Module):
         self.band_scale = nn.Parameter(torch.ones(2))
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        # cuFFT and the CPU's FFT take no bf16: a bf16 band is transformed in f32 and the
+        # result cast back (the JAX twin's matmul DFT rounds its bf16 operands instead, so
+        # this is the more exact of the two)
+        dt = x.dtype
+        x = x.float() if dt == torch.bfloat16 else x
+        logits, temperature, band_scale = (
+            t.to(x.dtype) for t in (self.freq_mask_logits, self.temperature, self.band_scale))
         h, w = x.shape[1], x.shape[2]
         spec = torch.fft.rfft2(x, dim=(1, 2), norm="ortho")      # [B, H, W//2+1, C]
-        mask = F.interpolate(self.freq_mask_logits, size=(spec.shape[1], spec.shape[2]),
+        mask = F.interpolate(logits, size=(spec.shape[1], spec.shape[2]),
                              mode="bilinear", align_corners=False)
-        mask = torch.sigmoid(mask * self.temperature.clamp(min=1.0))[0, 0, :, :, None]
+        mask = torch.sigmoid(mask * temperature.clamp(min=1.0))[0, 0, :, :, None]
         low = torch.fft.irfft2(spec * mask, s=(h, w), dim=(1, 2), norm="ortho")
         high = torch.fft.irfft2(spec * (1.0 - mask), s=(h, w), dim=(1, 2), norm="ortho")
-        return [low * self.band_scale[0], high * self.band_scale[1]]
+        return [(low * band_scale[0]).to(dt), (high * band_scale[1]).to(dt)]
 
 
 class BandSpatialAttention(nn.Module):

@@ -25,6 +25,7 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
+from ..ops.kernels import _mma
 from ..ops.resize import resize
 from .edge import LaplacianEdgeRefinement
 from .frequency import FrequencyDecomposition, MultiDomainFrequency
@@ -35,6 +36,11 @@ from .fusion_variants import MultiResolutionFusion
 from .hierarchical import HierarchicalFusion
 from .layers import conv_nhwc
 from .lka import EnhancedCollaborativeWithLKA, EnhancedCrossBandWithLKA
+
+# A bf16 model's elementwise glue (the experts' weighting, the refine and edge residuals)
+# takes its bf16 activations to f32 and rounds its result once, as XLA's fusions do for the
+# JAX twin: torch would round every op's output.
+f32 = _mma.up
 
 EXPERT_ORDER = ("hat", "dat", "nafnet")
 
@@ -165,9 +171,9 @@ class FusionHead(nn.Module):
         cfg = self.cfg
         h_hr, w_hr = lr.shape[1] * cfg.upscale, lr.shape[2] * cfg.upscale
         names = EXPERT_ORDER[: cfg.num_experts]
-        stack = torch.stack([expert_outputs[n] for n in names], dim=-2)   # [B,H,W,E,3]
+        stack = torch.stack([f32(expert_outputs[n]) for n in names], dim=-2)   # [B,H,W,E,3]
 
-        mags = [b.abs().mean(dim=-1, keepdim=True) for b in bands]
+        mags = [f32(b).abs().mean(dim=-1, keepdim=True) for b in bands]
         freq_sum = mags[0] + mags[1] + mags[2] + 1e-8
         # [high -> HAT, mid -> DAT, low -> NAFNet]
         guidance = torch.cat([mags[2] / freq_sum, mags[1] / freq_sum, mags[0] / freq_sum], -1)
@@ -175,14 +181,14 @@ class FusionHead(nn.Module):
         freq_weighted = (stack * guidance_hr[..., None]).sum(dim=-2)
 
         if cfg.enable_hierarchical:
-            fused = self.multi_res_fusion({n: expert_outputs[n] for n in names})
+            fused = f32(self.multi_res_fusion({n: expert_outputs[n] for n in names}))
             fused = fused * 0.7 + freq_weighted * 0.3
         elif cfg.enable_multi_resolution:   # the flat 64 / 128 / full-size baseline
-            fused = self.multi_res_fusion(lr, [expert_outputs[n] for n in names])
+            fused = f32(self.multi_res_fusion(lr, [expert_outputs[n] for n in names]))
             fused = fused * 0.7 + freq_weighted * 0.3
         else:
             # flat router fusion, routed from the LR image the router was built for
-            routing = self.freq_router(lr)                                # [B,H,W,E,bands]
+            routing = f32(self.freq_router(lr))                           # [B,H,W,E,bands]
             weighted = routing * self.expert_weights * torch.softmax(self.band_importance, 0)
             agg = weighted.sum(dim=-1)                                    # [B,H,W,E]
             agg = agg / (agg.sum(dim=-1, keepdim=True) + 1e-8)
@@ -190,18 +196,18 @@ class FusionHead(nn.Module):
 
         if cfg.enable_dynamic_selection:
             gates, difficulty = self.dynamic_selector(lr, self.multiscale(lr))
-            gates_hr = resize(gates, h_hr, w_hr, "bilinear")
+            gates_hr = resize(f32(gates), h_hr, w_hr, "bilinear")
             gated = (stack * gates_hr[..., None]).sum(dim=-2)
             dynamic_fused = gated / (gates_hr.sum(dim=-1, keepdim=True) + 1e-8)
-            difficulty_hr = resize(difficulty, h_hr, w_hr, "bilinear")
+            difficulty_hr = resize(f32(difficulty), h_hr, w_hr, "bilinear")
             fused = (fused * (1.0 - 0.3 * difficulty_hr)
                      + dynamic_fused * (0.3 * difficulty_hr))
-        return fused
+        return fused.to(lr.dtype)
 
     def refine(self, fused: torch.Tensor, lr: torch.Tensor) -> torch.Tensor:
-        up = resize(lr, fused.shape[1], fused.shape[2], "bilinear")
-        fused = fused + 0.1 * conv_nhwc(self.refine_net, fused)
-        return (fused + self.residual_scale * up).clamp(0.0, 1.0)
+        up = resize(f32(lr), fused.shape[1], fused.shape[2], "bilinear")
+        out = f32(fused) + 0.1 * f32(conv_nhwc(self.refine_net, fused))
+        return (out + self.residual_scale * up).clamp(0.0, 1.0).to(fused.dtype)
 
     def forward(self, lr: torch.Tensor, expert_outputs: Dict[str, torch.Tensor],
                 expert_features: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:

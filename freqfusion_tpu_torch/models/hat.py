@@ -100,8 +100,11 @@ class ChannelAttention(nn.Module):
     def gate(self, pooled: torch.Tensor) -> torch.Tensor:
         """The gate [B,1,1,C] from the pooled (mean) vector [B,1,1,C]."""
         fc1, fc2 = self.attention[1], self.attention[3]
-        y = F.relu(pooled @ fc1.weight.flatten(1).t() + fc1.bias)
-        return torch.sigmoid(y @ fc2.weight.flatten(1).t() + fc2.bias)
+        # in pooled's dtype: the f32 sums of a bf16 model's CAB chain keep f32, as in JAX
+        w1, b1, w2, b2 = (t.to(pooled.dtype) for t in (fc1.weight, fc1.bias, fc2.weight,
+                                                         fc2.bias))
+        y = F.relu(pooled @ w1.flatten(1).t() + b1)
+        return torch.sigmoid(y @ w2.flatten(1).t() + b2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:   # [B,H,W,C]
         return x * self.gate(x.mean(dim=(1, 2), keepdim=True))

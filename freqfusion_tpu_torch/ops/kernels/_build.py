@@ -30,30 +30,35 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-# C entry point -> argument types; every entry returns its cudaError_t as an int.
+# C entry point -> argument types; every entry returns its cudaError_t as an int. The int
+# before the stream of a kernel entry is its storage type (``io_code``: 0 f32, 1 bf16).
 SIGNATURES = {
-    "naf_stage_a": [_P] * 10 + [_I] * 4 + [_P],
-    "naf_stage_b": [_P] * 16 + [_I] * 4 + [_P],
-    "conv3x3_dense": [_P] * 4 + [_I] * 5 + [_P, _P, _I, _I, _P],
+    "naf_stage_a": [_P] * 10 + [_I] * 5 + [_P],
+    "naf_stage_b": [_P] * 17 + [_I] * 5 + [_P],
+    "conv3x3_dense": [_P] * 4 + [_I] * 5 + [_P, _P, _I, _I, _I, _P],
     "conv3x3_dense_is_wide": [_I, _I],
     "naf_stage_a_blocks": [_I] * 4,
-    "aim_conv_branch": [_P] * 8 + [_I] * 4 + [_P],
+    "aim_conv_branch": [_P] * 8 + [_I] * 5 + [_P],
     "aim_conv_branch_blocks": [_I] * 3,
-    "aim_gates_proj": [_P] * 12 + [_I] * 7 + [_P],
-    "rows_ln_fc1": [_P] * 10 + [_L] + [_I] * 4 + [_P],
-    "sgfn_gate_fc2": [_P] * 6 + [_I] * 7 + [_P],
-    "cab_chain": [_P] * 11 + [_I] * 9 + [_P],
+    "aim_gates_proj": [_P] * 12 + [_I] * 8 + [_P],
+    "rows_ln_fc1": [_P] * 11 + [_L] + [_I] * 5 + [_P],
+    "sgfn_gate_fc2": [_P] * 7 + [_I] * 8 + [_P],
+    "cab_chain": [_P] * 11 + [_I] * 10 + [_P],
     "cab_chain_blocks": [_I, _I],
-    "xqkv_attention": [_P] * 8 + [_I] * 10 + [_P],
-    "hab_tail": [_P] * 14 + [_I] * 9 + [_F, _P],
-    "residual_ln_mlp": [_P] * 10 + [_L] + [_I] * 5 + [_P],
-    "rows_linear": [_P] * 4 + [_L] + [_I] * 4 + [_P],
-    "wattn_qkv": [_P] * 6 + [_I] * 8 + [_P],
-    "oca_attention": [_P] * 5 + [_I] * 8 + [_P],
-    "band_mha": [_P] * 8 + [_L] + [_I] * 5 + [_F, _P],
+    "xqkv_attention": [_P] * 8 + [_I] * 11 + [_P],
+    "hab_tail": [_P] * 15 + [_I] * 9 + [_F, _I, _P],
+    "residual_ln_mlp": [_P] * 11 + [_L] + [_I] * 6 + [_P],
+    "rows_linear": [_P] * 5 + [_L] + [_I] * 5 + [_P],
+    "wattn_qkv": [_P] * 6 + [_I] * 9 + [_P],
+    "oca_attention": [_P] * 5 + [_I] * 9 + [_P],
+    "band_mha": [_P] * 8 + [_L] + [_I] * 5 + [_F, _I, _P],
     "band_mha_wide": [_P] * 10 + [_L] + [_I] * 5 + [_F, _P],
-    "lka_gate": [_P] * 9 + [_I] * 6 + [_P],
+    "lka_gate": [_P] * 9 + [_I] * 7 + [_P],
 }
+
+#: Storage types the kernels take: f32, and bf16 (bf16 in device memory, bf16 products with
+#: f32 accumulation, as the TPU kernels compute on bf16 refs).
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def find_nvcc() -> str:
@@ -154,13 +159,35 @@ def require_no_grad(name: str, *tensors: torch.Tensor) -> None:
                            "torch.no_grad() or torch.inference_mode()")
 
 
+def io_code(x: torch.Tensor, name: str = "x") -> int:
+    """The storage-type argument of a kernel entry for its activation x: 0 for float32, 1
+    for bfloat16; raises on any other dtype."""
+    if x.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{name}: expected float32 or bfloat16, got {x.dtype}")
+    return int(x.dtype == torch.bfloat16)
+
+
+def require_dtypes(name: str, x: torch.Tensor, *others) -> None:
+    """One dtype for every tensor of a call (None skipped): float32 or bfloat16, or float64
+    on the CPU, where the plain version serves as a reference. Raises on any other dtype
+    (float16 among them) and on a mix, on every device."""
+    ok = KERNEL_DTYPES + ((torch.float64,) if x.device.type == "cpu" else ())
+    if x.dtype not in ok:
+        raise ValueError(f"{name}: expected float32 or bfloat16, got {x.dtype}")
+    for t in others:
+        if t is not None and t.dtype != x.dtype:
+            raise ValueError(f"{name}: one dtype for every tensor of a call, got {x.dtype} "
+                             f"and {t.dtype}")
+
+
 def require(t: torch.Tensor, name: str, shape=None, contiguous: bool = True) -> None:
-    """Checks what every kernel takes: a contiguous float32 CUDA tensor of `shape`.
-    ``contiguous=False`` for a weight that the wrapper lays out anew, which may be a view."""
+    """Checks what every kernel takes: a contiguous float32 or bfloat16 CUDA tensor of
+    `shape` (``require_dtypes`` holds a call to one dtype). ``contiguous=False`` for a weight
+    that the wrapper lays out anew, which may be a view."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{name}: expected float32 or bfloat16, got {t.dtype}")
     if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if contiguous and t.data_ptr() % 16:

@@ -23,6 +23,15 @@ split from here, so that the kernel loads their two parts and splits nothing:
   once for each weight: for a kernel that keeps a weight resident in shared memory, where
   the planes would take twice the room, and splits each fragment as it loads it (B11).
 
+bf16 weights (FREQFUSION_DTYPE=bfloat16): a bf16 value is exact in TF32, so its hi plane is
+the value itself and its lo plane is zero; the bf16 kernels run one TF32 pass (the exact
+bf16-operand product) and never read lo. The planes and fragments hold f32 in both cases, and
+``kept`` keys them by dtype, so that an f32 and a bf16 copy of one weight never share planes.
+``f32(w)`` is a weight's exact f32 copy for the kernels' small f32 operands (biases, norms,
+depthwise taps); ``up(t)`` takes a plain version's bf16 input to f32 (f32 and f64 stay), and
+``rnd(t, dtype)`` is the rounding that the plain versions apply where the TPU kernel casts an
+intermediate to its bf16 operand dtype.
+
 ``MAX_ROW_K`` is the most rows of K that a row product stages at a time: ``kMmaMaxK`` of
 ``csrc/mma_f32x3.cuh``, what 128 rows of A leave of a block's shared memory beside the
 weight ring. A wider K goes in the pieces that ``piece_sizes`` lists, as the kernels take it
@@ -51,9 +60,13 @@ def piece_sizes(k: int) -> list[int]:
 
 def split_tf32(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(w_hi, w_lo) of a float32 tensor: w_hi = TF32(w), rounded to nearest with ties away
-    from zero, w_lo = w - w_hi (exact)."""
+    from zero, w_lo = w - w_hi (exact). Of a bfloat16 tensor: (w as float32, zeros), since
+    TF32 holds every bf16 value."""
+    if w.dtype == torch.bfloat16:
+        hi = w.float()
+        return hi, torch.zeros_like(hi)
     if w.dtype != torch.float32:
-        raise ValueError(f"split_tf32: expected float32, got {w.dtype}")
+        raise ValueError(f"split_tf32: expected float32 or bfloat16, got {w.dtype}")
     hi = ((w.contiguous().view(torch.int32) + _HALF_ULP) & _TF32_MASK).view(torch.float32)
     return hi, w - hi
 
@@ -71,13 +84,15 @@ def mma_planes(wp: torch.Tensor) -> torch.Tensor:
     if kp % 8 or npad % 8:
         raise ValueError(f"mma_planes: [{kp},{npad}] is not padded to multiples of 8")
     hi, lo = split_tf32(wp)
-    lo = (lo.view(torch.int32) + _HALF_ULP).view(torch.float32)
+    if wp.dtype == torch.float32:
+        lo = (lo.view(torch.int32) + _HALF_ULP).view(torch.float32)
     return torch.cat([b_fragments(hi), b_fragments(lo)], dim=-1)
 
 
 def b_fragments(wp: torch.Tensor) -> torch.Tensor:
     """wp [kp,npad] (multiples of 8) in the order of mma.sync.m16n8k8's B fragments, unsplit:
-    [kp/8, npad/8, 32 = lane 4g + t, 2 = (wp[t][g], wp[t+4][g]) of its 8x8 tile]."""
+    [kp/8, npad/8, 32 = lane 4g + t, 2 = (wp[t][g], wp[t+4][g]) of its 8x8 tile], float32."""
+    wp = wp.float()
     kp, npad = wp.shape
     if kp % 8 or npad % 8:
         raise ValueError(f"b_fragments: [{kp},{npad}] is not padded to multiples of 8")
@@ -105,7 +120,7 @@ def kept(spec: tuple, make, *ts: torch.Tensor):
             return make()
     w = ts[0]
     root = w if w._base is None else w._base
-    key = (spec, *[(t.shape, t.stride(), t.storage_offset(), t.device) for t in ts])
+    key = (spec, *[(t.shape, t.stride(), t.storage_offset(), t.device, t.dtype) for t in ts])
     storages = [t.untyped_storage() for t in ts]
     versions = [t._version for t in ts]
     table = _KEPT.get(root)
@@ -128,3 +143,25 @@ def planes(w: torch.Tensor, kp: int, npad: int) -> torch.Tensor:
 def fragments(w: torch.Tensor) -> torch.Tensor:
     """``b_fragments`` of w [K,N] (multiples of 8), made once for each weight (``kept``)."""
     return kept(("fragments",), lambda: b_fragments(w), w)
+
+
+def f32(w: torch.Tensor) -> torch.Tensor:
+    """w itself if it is float32, else its float32 copy, made once for each weight
+    (``kept``): the kernels read their small operands (biases, norms, taps) in f32, and a
+    bf16 weight's values are exact there."""
+    if w.dtype == torch.float32:
+        return w
+    return kept(("f32",), lambda: w.float().contiguous(), w)
+
+
+def up(t: torch.Tensor) -> torch.Tensor:
+    """A bfloat16 tensor as float32 (exact); any other tensor as it is (a float64 reference
+    stays float64)."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def rnd(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t rounded to bfloat16 and back to float32 where `dtype` is bfloat16: where the TPU
+    kernel casts an intermediate to its operand dtype (``.astype(dt)``); t itself for any
+    other dtype."""
+    return t.to(dtype).float() if dtype == torch.bfloat16 else t

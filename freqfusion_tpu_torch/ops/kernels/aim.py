@@ -15,6 +15,11 @@ the depthwise kernel (3,3,1,C) HWIO, 1x1 convs (1,1,I,O), proj [C,C] as [in,out]
 projection runs f32-exact on the tensor cores (3xTF32) on its weight split into TF32 hi and
 lo parts, and both it and the S-Map's padded fc1 are made once for each weight
 (``gates_planes``): the S-Map's fc1 and proj may be views (DAT passes its parameters' own).
+
+Every tensor of a call is float32, or every one bfloat16: then B5a computes in f32 on the
+bf16 values and rounds conv_x once (its sums are f32), and B5b rounds each matmul operand to
+bf16 as the TPU kernel casts it (the S-Map's source and its GELU output, the gated sum), with
+f32 accumulation and a bf16 output; at bf16 B5b takes C up to _mma.MAX_ROW_K (one K piece).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ SMAP_GROUP = 12
 def depthwise3x3_plain(x, wdw, bdw):
     """3x3 depthwise SAME conv of an NHWC tensor; wdw (3,3,1,C) HWIO."""
     c = x.shape[-1]
+    x, wdw, bdw = map(_mma.up, (x, wdw, bdw))
     y = F.conv2d(x.permute(0, 3, 1, 2), wdw.reshape(9, c).t().reshape(c, 1, 3, 3), bdw,
                  padding=1, groups=c)
     return y.permute(0, 2, 3, 1)
@@ -47,8 +53,9 @@ def depthwise3x3_plain(x, wdw, bdw):
 def aim_conv_branch_plain(v, wdw, bdw, bn_scale, bn_shift):
     """v [B,H,W,C] -> (conv_x [B,H,W,C], sums [B,1,1,C] = the sum of conv_x over H, W).
     bn_scale/bn_shift: the folded eval-mode BatchNorm affine."""
-    cx = F.gelu(depthwise3x3_plain(v, wdw, bdw) * bn_scale + bn_shift).contiguous()
-    return cx, cx.sum(dim=(1, 2), keepdim=True)
+    cx = F.gelu(depthwise3x3_plain(v, wdw, bdw) * _mma.up(bn_scale)
+                + _mma.up(bn_shift)).contiguous()
+    return cx.to(v.dtype), cx.sum(dim=(1, 2), keepdim=True)
 
 
 def aim_gates_proj_plain(attened, conv_x, chmap_vec, si_w1, si_b1, si_bn_scale,
@@ -57,15 +64,20 @@ def aim_gates_proj_plain(attened, conv_x, chmap_vec, si_w1, si_b1, si_bn_scale,
     swap=False (spatial block): attened * s(C-Map) + conv_x * s(S-Map(attened));
     swap=True (channel block):  attened * s(S-Map(conv_x)) + conv_x * s(C-Map)."""
     c = attened.shape[-1]
+    dt = attened.dtype
+    (attened, conv_x, chmap_vec, si_w1, si_b1, si_bn_scale, si_bn_shift, si_w2, si_b2,
+     proj_w, proj_b) = map(_mma.up, (attened, conv_x, chmap_vec, si_w1, si_b1, si_bn_scale,
+                                     si_bn_shift, si_w2, si_b2, proj_w, proj_b))
     src = conv_x if swap else attened
     g = src @ si_w1.reshape(c, -1) + si_b1
-    g = F.gelu(g * si_bn_scale + si_bn_shift) @ si_w2.reshape(-1, 1) + si_b2
+    g = (_mma.rnd(F.gelu(g * si_bn_scale + si_bn_shift), dt) @ si_w2.reshape(-1, 1)
+         + si_b2)
     smap, cgate = torch.sigmoid(g), torch.sigmoid(chmap_vec)
     if swap:
         y = attened * smap + conv_x * cgate
     else:
         y = attened * cgate + conv_x * smap
-    return y @ proj_w + proj_b
+    return (_mma.rnd(y, dt) @ proj_w + proj_b).to(dt)
 
 
 def smap_groups(w1: torch.Tensor) -> torch.Tensor:
@@ -86,22 +98,25 @@ def gates_planes(si_w1: torch.Tensor, proj_w: torch.Tensor):
     c, mid = si_w1.shape[-2:]
     kp = -(-c // 8) * 8
     w1 = si_w1.reshape(c, mid)
-    fc1 = _mma.kept(("aim_smap",), lambda: smap_groups(w1), w1)
+    fc1 = _mma.kept(("aim_smap",), lambda: smap_groups(_mma.up(w1)), w1)
     return kp, fc1, _mma.planes(proj_w, kp, kp)
 
 
 def aim_conv_branch(v, wdw, bdw, bn_scale, bn_shift):
     """Kernel B5a on CUDA, its plain version on the CPU. Returns (conv_x, sums [B,1,1,C])."""
     _build.require_no_grad("aim_conv_branch", v, wdw, bdw, bn_scale, bn_shift)
+    _build.require_dtypes("aim_conv_branch", v, wdw, bdw, bn_scale, bn_shift)
     if v.device.type == "cpu":
         return aim_conv_branch_plain(v, wdw, bdw, bn_scale, bn_shift)
     b, h, w, c = v.shape
     if c % 4 or c > MAX_C:
         raise ValueError(f"aim_conv_branch: C={c} is not a multiple of 4 up to {MAX_C}")
+    io = _build.io_code(v, "v")
     _build.require(v, "v")
     _build.require(wdw, "wdw", (3, 3, 1, c))
     for name, t in (("bdw", bdw), ("bn_scale", bn_scale), ("bn_shift", bn_shift)):
         _build.require(t, name, (c,))
+    wdw, bdw, bn_scale, bn_shift = map(_mma.f32, (wdw, bdw, bn_scale, bn_shift))
     lib = _build.library()
     cx = torch.empty_like(v)
     part = torch.empty((b, lib.aim_conv_branch_blocks(h, w, c), c), device=v.device,
@@ -110,7 +125,7 @@ def aim_conv_branch(v, wdw, bdw, bn_scale, bn_shift):
     with torch.cuda.device(v.device):
         err = lib.aim_conv_branch(v.data_ptr(), wdw.data_ptr(), bdw.data_ptr(),
                                   bn_scale.data_ptr(), bn_shift.data_ptr(), cx.data_ptr(),
-                                  part.data_ptr(), sums.data_ptr(), b, h, w, c,
+                                  part.data_ptr(), sums.data_ptr(), b, h, w, c, io,
                                   _build.stream_ptr(v.device))
     _build.check(err, "aim_conv_branch")
     launches["aim_conv_branch"] += 1
@@ -122,6 +137,8 @@ def aim_gates_proj(attened, conv_x, chmap_vec, si_w1, si_b1, si_bn_scale, si_bn_
     """Kernel B5b on CUDA, its plain version on the CPU. Returns [B,H,W,C]."""
     _build.require_no_grad("aim_gates_proj", attened, conv_x, chmap_vec, si_w1, si_b1,
                            si_bn_scale, si_bn_shift, si_w2, si_b2, proj_w, proj_b)
+    _build.require_dtypes("aim_gates_proj", attened, conv_x, si_w1, si_b1,
+                          si_bn_scale, si_bn_shift, si_w2, si_b2, proj_w, proj_b)
     if attened.device.type == "cpu":
         return aim_gates_proj_plain(attened, conv_x, chmap_vec, si_w1, si_b1, si_bn_scale,
                                     si_bn_shift, si_w2, si_b2, proj_w, proj_b, swap)
@@ -131,8 +148,13 @@ def aim_gates_proj(attened, conv_x, chmap_vec, si_w1, si_b1, si_bn_scale, si_bn_
         raise ValueError(f"aim_gates_proj: C={c} is not a multiple of 4 up to {MAX_C}")
     if not 1 <= mid <= MAX_MID:
         raise ValueError(f"aim_gates_proj: S-Map width {mid} outside [1, {MAX_MID}]")
+    io = _build.io_code(attened, "attened")
+    if io and c > _mma.MAX_ROW_K:
+        raise ValueError(f"aim_gates_proj: C={c} at bfloat16; the bf16 kernel takes C up to "
+                         f"{_mma.MAX_ROW_K} (its wide case sums K pieces in f32 out)")
     _build.require(attened, "attened")
     _build.require(conv_x, "conv_x", attened.shape)
+    # the C-Map may be f32 (from B5a's f32 sums) where attened is bf16
     _build.require(chmap_vec, "chmap_vec", (b, 1, 1, c))
     # fc1 and proj are laid out anew (gates_planes): views will do
     _build.require(si_w1, "si_w1", (1, 1, c, mid), contiguous=False)
@@ -144,6 +166,9 @@ def aim_gates_proj(attened, conv_x, chmap_vec, si_w1, si_b1, si_bn_scale, si_bn_
         _build.require(t, name, (mid,))
     _build.require(proj_b, "proj_b", (c,))
     kp, fc1, projp = gates_planes(si_w1, proj_w)
+    si_b1, si_bn_scale, si_bn_shift, si_w2, si_b2, proj_b = map(
+        _mma.f32, (si_b1, si_bn_scale, si_bn_shift, si_w2, si_b2, proj_b))
+    chmap_vec = _mma.up(chmap_vec).contiguous()
     lib = _build.library()
     out = torch.empty_like(attened)
     with torch.cuda.device(attened.device):
@@ -151,7 +176,7 @@ def aim_gates_proj(attened, conv_x, chmap_vec, si_w1, si_b1, si_bn_scale, si_bn_
                                  fc1.data_ptr(), si_b1.data_ptr(), si_bn_scale.data_ptr(),
                                  si_bn_shift.data_ptr(), si_w2.data_ptr(), si_b2.data_ptr(),
                                  projp.data_ptr(), proj_b.data_ptr(), out.data_ptr(),
-                                 b, h, w, c, mid, kp, int(bool(swap)),
+                                 b, h, w, c, mid, kp, int(bool(swap)), io,
                                  _build.stream_ptr(attened.device))
     _build.check(err, "aim_gates_proj")
     launches["aim_gates_proj"] += 1

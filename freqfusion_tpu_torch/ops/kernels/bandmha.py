@@ -16,6 +16,11 @@ on the weights laid out as B fragments once for each weight (``band_weights``). 
 tokens that do not fit one group (more than ``max_tokens``, or wider than ``MAX_D``) take the
 kernel's wide route (``band_mha_wide``: LN, the row product, the attention with an online
 softmax over any number of keys, the row product, the residual, through device memory).
+
+Every tensor of a call is float32, or every one bfloat16: then LN's output, q, k, v and the
+heads' output, the products' operands, are rounded to bf16 (the TPU kernel casts them to its
+operand dtype), the scores, the softmax and the sums run in f32, and the output is rounded to
+bf16 once. The wide route is f32 only.
 """
 
 from __future__ import annotations
@@ -52,12 +57,15 @@ def padded_widths(d: int, num_heads: int) -> tuple[int, int]:
 def fused_band_mha_plain(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int):
     *lead, t, d = stacked.shape
     hd = d // num_heads
-    qkv = layernorm(stacked, ln_w, ln_b) @ wqkv + bqkv
+    dt = stacked.dtype
+    stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b = map(
+        _mma.up, (stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b))
+    qkv = _mma.rnd(_mma.rnd(layernorm(stacked, ln_w, ln_b), dt) @ wqkv + bqkv, dt)
     # [..., T, 3, heads, hd] -> three [..., heads, T, hd]
     q, k, v = qkv.reshape(*lead, t, 3, num_heads, hd).movedim(-3, 0).transpose(-2, -3)
     attn = torch.softmax((q * hd ** -0.5) @ k.transpose(-1, -2), dim=-1)
     a = (attn @ v).transpose(-2, -3).reshape(*lead, t, d)
-    return stacked + a @ wproj + bproj
+    return (stacked + _mma.rnd(a, dt) @ wproj + bproj).to(dt)
 
 
 def band_weights(wqkv: torch.Tensor, wproj: torch.Tensor):
@@ -94,7 +102,8 @@ def _padded_params(wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int, dk: int
     """``_padded`` with wqkv and wproj as the fused route's B fragments, made once for each
     weight (``_mma.kept``)."""
     def make():
-        wq, bq, wp, *rest = _padded(wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads, dk, hdp)
+        wq, bq, wp, *rest = _padded(*map(_mma.up, (wqkv, bqkv, wproj, bproj, ln_w, ln_b)),
+                                    num_heads, dk, hdp)
         return (_mma.b_fragments(wq), bq, _mma.b_fragments(wp), *rest)
 
     return _mma.kept(("band_padded", num_heads, dk, hdp), make, wqkv, bqkv, wproj, bproj,
@@ -115,6 +124,7 @@ def _wide_params(wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int, dk: int, 
 def fused_band_mha(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int):
     """Kernel B11 on CUDA, its plain version on the CPU. Returns [B,H,W,T,D]."""
     _build.require_no_grad("fused_band_mha", stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b)
+    _build.require_dtypes("fused_band_mha", stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b)
     if stacked.device.type == "cpu":
         return fused_band_mha_plain(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads)
     if stacked.dim() != 5:
@@ -126,6 +136,11 @@ def fused_band_mha(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int
     if t < 1:
         raise ValueError(f"fused_band_mha: T={t}; expected at least one token")
     wide = dk > MAX_D or t > max_tokens(dk)
+    io = _build.io_code(stacked, "stacked")
+    if io and wide:
+        raise ValueError(f"fused_band_mha: D={d} (kernel width {dk}) with T={t} tokens at "
+                         f"bfloat16; the bf16 kernel takes D up to {MAX_D} and "
+                         f"{max_tokens(dk)} tokens (the wide route is f32 only)")
     _build.require(stacked, "stacked")
     # wqkv and wproj are laid out anew (band_weights, _padded_params): views will do
     for name, p, shape, contiguous in (("wqkv", wqkv, (d, 3 * d), False),
@@ -153,7 +168,8 @@ def fused_band_mha(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int
         _build.check(err, "band_mha_wide")
     else:
         if (dk, hdp) == (d, d // num_heads):
-            (wqkv_f, wproj_f), params = band_weights(wqkv, wproj), (bqkv, bproj, ln_w, ln_b)
+            (wqkv_f, wproj_f) = band_weights(wqkv, wproj)
+            params = tuple(map(_mma.f32, (bqkv, bproj, ln_w, ln_b)))
         else:
             wqkv_f, bq, wproj_f, bp, lw, lb = _padded_params(wqkv, bqkv, wproj, bproj, ln_w,
                                                              ln_b, num_heads, dk, hdp)
@@ -162,7 +178,7 @@ def fused_band_mha(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int
             err = lib.band_mha(x.data_ptr(), wqkv_f.data_ptr(), params[0].data_ptr(),
                                wproj_f.data_ptr(), params[1].data_ptr(), params[2].data_ptr(),
                                params[3].data_ptr(), out.data_ptr(), b * h * w, t, dk, d,
-                               num_heads, hdp, scale, _build.stream_ptr(stacked.device))
+                               num_heads, hdp, scale, io, _build.stream_ptr(stacked.device))
         _build.check(err, "band_mha")
     launches["fused_band_mha"] += 1
     return out if dk == d else out[..., :d].contiguous()

@@ -9,8 +9,10 @@ Twin of ``freqfusion_tpu/ops/pallas/cab.py:cab_chain``:
 and with ``out_shift = s`` the returned image is ``roll(u, (-s, -s), (1, 2))``, the roll
 folded into the store; the sums are those of u either way. On a CUDA tensor the wrapper
 launches the kernels from ``csrc/cab.cu`` or raises; on a CPU tensor it runs the plain
-PyTorch version. x [B,H,W,C] NHWC f32; w1 [3,3,C,mid], w2 [3,3,mid,C] HWIO; LayerNorm eps
-1e-5.
+PyTorch version. x [B,H,W,C] NHWC; w1 [3,3,C,mid], w2 [3,3,mid,C] HWIO; LayerNorm eps
+1e-5. Every tensor float32, or every one bfloat16: then LN1(x) and GELU's output, the
+convolutions' operands, are rounded to bf16 as the TPU kernel casts them, the products
+accumulate in f32, u is stored in bf16 and its sums are f32.
 """
 
 from __future__ import annotations
@@ -19,8 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from ..common import layernorm
-from . import _build
-from .conv3x3 import conv3x3_dense_plain, padded_conv_weights
+from . import _build, _mma
+from .conv3x3 import conv3x3_f32, padded_conv_weights
 
 #: Kernel launches since the last reset. Plain runs are not counted.
 launches = {"cab_chain": 0}
@@ -28,9 +30,12 @@ launches = {"cab_chain": 0}
 
 def cab_chain_plain(x, ln_w, ln_b, w1, b1, w2, b2, out_shift: int = 0):
     # SAME padding zeroes LN1(x), and again GELU(conv1 + b1): F.conv2d pads its own input
-    g = F.gelu(conv3x3_dense_plain(layernorm(x, ln_w, ln_b), w1, b1))
-    u = conv3x3_dense_plain(g, w2, b2)
+    dt = x.dtype
+    z = _mma.rnd(layernorm(*map(_mma.up, (x, ln_w, ln_b))), dt)
+    g = _mma.rnd(F.gelu(conv3x3_f32(z, w1, b1)), dt)
+    u = conv3x3_f32(g, w2, b2)
     sums = u.sum(dim=(1, 2), keepdim=True)
+    u = u.to(dt)
     if out_shift:
         u = torch.roll(u, (-out_shift, -out_shift), dims=(1, 2))
     return u, sums
@@ -49,6 +54,7 @@ def cab_chain(x, ln_w, ln_b, w1, b1, w2, b2, out_shift: int = 0):
     """Kernel B7 on CUDA, its plain version on the CPU. Returns (u [B,H,W,C] rolled by
     (-out_shift, -out_shift), sums [B,1,1,C])."""
     _build.require_no_grad("cab_chain", x, ln_w, ln_b, w1, b1, w2, b2)
+    _build.require_dtypes("cab_chain", x, ln_w, ln_b, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return cab_chain_plain(x, ln_w, ln_b, w1, b1, w2, b2, out_shift)
     b, h, w, c = x.shape
@@ -57,14 +63,17 @@ def cab_chain(x, ln_w, ln_b, w1, b1, w2, b2, out_shift: int = 0):
         raise ValueError(f"cab_chain: C={c} is not a multiple of 4")
     if not 0 <= out_shift < min(h, w):
         raise ValueError(f"cab_chain: out_shift={out_shift} outside [0, min(H, W)) at {h}x{w}")
+    io = _build.io_code(x)
     _build.require(x, "x")
     for name, t, shape in (("ln_w", ln_w, (c,)), ("ln_b", ln_b, (c,)),
                            ("w1", w1, (3, 3, c, mid)), ("b1", b1, (mid,)),
                            ("w2", w2, (3, 3, mid, c)), ("b2", b2, (c,))):
         _build.require(t, name, shape)
     cinp, np1, mp, np2, w1p, b1p, w2p, b2p = _padded_weights(w1, b1, w2, b2)
+    ln_w, ln_b = _mma.f32(ln_w), _mma.f32(ln_b)
     lib = _build.library()
-    g = torch.empty((b, h, w, mp), device=x.device, dtype=torch.float32)
+    # GELU's output between the convolutions, in x's dtype (the TPU kernel's operand cast)
+    g = torch.empty((b, h, w, mp), device=x.device, dtype=x.dtype)
     u = torch.empty_like(x)
     part = torch.empty((b, lib.cab_chain_blocks(h, w), c), device=x.device,
                        dtype=torch.float32)
@@ -73,7 +82,7 @@ def cab_chain(x, ln_w, ln_b, w1, b1, w2, b2, out_shift: int = 0):
         err = lib.cab_chain(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1p.data_ptr(),
                             b1p.data_ptr(), w2p.data_ptr(), b2p.data_ptr(), g.data_ptr(),
                             u.data_ptr(), part.data_ptr(), sums.data_ptr(), b, h, w, c, cinp,
-                            np1, mp, np2, out_shift, _build.stream_ptr(x.device))
+                            np1, mp, np2, out_shift, io, _build.stream_ptr(x.device))
     _build.check(err, "cab_chain")
     launches["cab_chain"] += 1
     return u, sums

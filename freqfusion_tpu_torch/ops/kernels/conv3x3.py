@@ -5,7 +5,9 @@ launches the kernel from ``csrc/conv3x3.cu`` or raises; on a CPU tensor it runs 
 version (``F.conv2d``). x [B,H,W,Cin] NHWC, w [3,3,Cin,Cout] HWIO, b [Cout]; f32. With both
 widths at 32 or more the source's implicit-GEMM kernel runs (HAT's and DAT's 180 -> 180,
 f32-exact 3xTF32 on the tensor cores), on weights that the wrapper zero-pads to multiples
-of 8 channels in and out, the MMA's k and n (``padded_conv_weights``).
+of 8 channels in and out, the MMA's k and n (``padded_conv_weights``). x, w and b are all
+float32 or all bfloat16; at bfloat16 the products take the bf16 values, accumulate in f32 and
+the output is rounded to bf16 once (the TPU kernel's bf16 operands).
 """
 
 from __future__ import annotations
@@ -13,34 +15,43 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _mma
 
 #: Kernel launches since the last reset. Plain runs are not counted.
 launches = {"conv3x3_dense": 0}
 
 
-def conv3x3_dense_plain(x, w, b):
+def conv3x3_f32(x, w, b):
+    """The convolution on the values of x, w and b, bf16 taken to f32, unrounded."""
+    x, w, b = map(_mma.up, (x, w, b))
     y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b, padding=1)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def conv3x3_dense_plain(x, w, b):
+    return conv3x3_f32(x, w, b).to(x.dtype)
+
+
 def padded_conv_weights(w, b):
     """(cinp, npad, w [9,cinp,npad], b [npad]): HWIO weights [3,3,Cin,Cout] and their bias
-    zero-padded to multiples of 8 in and out for the implicit-GEMM kernel; padded zeros
-    change nothing."""
+    zero-padded to multiples of 8 in and out for the implicit-GEMM kernel, in float32 (a bf16
+    weight's values exactly); padded zeros change nothing."""
     cin, cout = w.shape[2], w.shape[3]
     cinp, npad = -(-cin // 8) * 8, -(-cout // 8) * 8
-    return (cinp, npad, F.pad(w.reshape(9, cin, cout), (0, npad - cout, 0, cinp - cin)),
-            F.pad(b, (0, npad - cout)))
+    return (cinp, npad,
+            F.pad(_mma.up(w).reshape(9, cin, cout), (0, npad - cout, 0, cinp - cin)),
+            F.pad(_mma.up(b), (0, npad - cout)))
 
 
 def conv3x3_dense(x, w, b):
     """Kernel B3 on CUDA, its plain version on the CPU."""
     _build.require_no_grad("conv3x3_dense", x, w, b)
+    _build.require_dtypes("conv3x3_dense", x, w, b)
     if x.device.type == "cpu":
         return conv3x3_dense_plain(x, w, b)
     bsz, h, wd, cin = x.shape
     cout = w.shape[-1]
+    io = _build.io_code(x)
     _build.require(x, "x")
     _build.require(w, "w", (3, 3, cin, cout))
     _build.require(b, "b", (cout,))
@@ -48,12 +59,13 @@ def conv3x3_dense(x, w, b):
     wpad, bpad, cinp, npad = None, None, 0, 0
     if lib.conv3x3_dense_is_wide(cin, cout):
         cinp, npad, wpad, bpad = padded_conv_weights(w, b)
-    out = torch.empty((bsz, h, wd, cout), device=x.device, dtype=torch.float32)
+    w, b = _mma.f32(w), _mma.f32(b)
+    out = torch.empty((bsz, h, wd, cout), device=x.device, dtype=x.dtype)
     with torch.cuda.device(x.device):
         err = lib.conv3x3_dense(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
                                 bsz, h, wd, cin, cout,
                                 0 if wpad is None else wpad.data_ptr(),
-                                0 if bpad is None else bpad.data_ptr(), cinp, npad,
+                                0 if bpad is None else bpad.data_ptr(), cinp, npad, io,
                                 _build.stream_ptr(x.device))
     _build.check(err, "conv3x3_dense")
     launches["conv3x3_dense"] += 1

@@ -7,9 +7,14 @@ stages run their 1x1 products f32-exact on the tensor cores (3xTF32): w1, w3, w4
 split into TF32 hi and lo parts and laid out for them once for each weight
 (``stage_a_planes``, ``stage_b_planes``).
 
-Layouts (NHWC, f32): x, g [B,H,W,C]; w1, w4 [C,2C]; w3, w5 [C,C]; wdw [9,2C] (the 3x3
+Layouts (NHWC): x, g [B,H,W,C]; w1, w4 [C,2C]; w3, w5 [C,C]; wdw [9,2C] (the 3x3
 depthwise taps, row dy*3+dx); every other parameter a vector. w1, w3, w4 and w5 may be views
 (a model passes its convs' weights as views, so that their planes are kept on them).
+
+Dtypes: every tensor of a call float32, or every one bfloat16. At bfloat16 both versions
+compute what the TPU kernels compute on bf16 refs: f32 math with each matmul operand
+rounded to bf16 (LN outputs, g * att, the gate), f32 accumulation, f32 sums, and bf16
+outputs.
 """
 
 from __future__ import annotations
@@ -30,22 +35,27 @@ def _gate(t: torch.Tensor) -> torch.Tensor:
 
 
 def naf_block_stage_a_plain(x, ln_w, ln_b, w1, b1, wdw, bdw):
-    """x [B,H,W,C] → (g [B,H,W,C], sums [B,C] = Σ_{H,W} g)."""
-    t = channel_layernorm(x, ln_w, ln_b) @ w1 + b1
+    """x [B,H,W,C] → (g [B,H,W,C], sums [B,C] = Σ_{H,W} g, float32)."""
+    dt = x.dtype
+    x, ln_w, ln_b, w1, b1, wdw, bdw = map(_mma.up, (x, ln_w, ln_b, w1, b1, wdw, bdw))
+    t = _mma.rnd(channel_layernorm(x, ln_w, ln_b), dt) @ w1 + b1
     dw = t.shape[-1]
     # SAME padding zeroes t, the depthwise conv's input, not x
     t = F.conv2d(t.permute(0, 3, 1, 2), wdw.t().reshape(dw, 1, 3, 3), bdw,
                  padding=1, groups=dw).permute(0, 2, 3, 1)
     g = _gate(t).contiguous()
-    return g, g.sum(dim=(1, 2))
+    return g.to(dt), g.sum(dim=(1, 2))
 
 
 def naf_block_stage_b_plain(g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4, w5, b5,
                             gamma):
     """Pointwise second half; att [B,C]. Returns the block output [B,H,W,C]."""
-    y = x + ((g * att[:, None, None, :]) @ w3 + b3) * beta
-    h = _gate(channel_layernorm(y, ln2_w, ln2_b) @ w4 + b4)
-    return y + (h @ w5 + b5) * gamma
+    dt = g.dtype
+    g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4, w5, b5, gamma = map(
+        _mma.up, (g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4, w5, b5, gamma))
+    y = x + (_mma.rnd(g * att[:, None, None, :], dt) @ w3 + b3) * beta
+    h = _mma.rnd(_gate(_mma.rnd(channel_layernorm(y, ln2_w, ln2_b), dt) @ w4 + b4), dt)
+    return (y + (h @ w5 + b5) * gamma).to(dt)
 
 
 #: Gate channels of one pass of stage A's product; the pass's 64 columns are those channels
@@ -94,6 +104,7 @@ def stage_b_planes(w3: torch.Tensor, w4: torch.Tensor, w5: torch.Tensor) -> tupl
 def naf_block_stage_a(x, ln_w, ln_b, w1, b1, wdw, bdw):
     """Kernel B1 on CUDA, its plain version on the CPU. Returns (g, sums [B,C])."""
     _build.require_no_grad("naf_block_stage_a", x, ln_w, ln_b, w1, b1, wdw, bdw)
+    _build.require_dtypes("naf_block_stage_a", x, ln_w, ln_b, w1, b1, wdw, bdw)
     if x.device.type == "cpu":
         return naf_block_stage_a_plain(x, ln_w, ln_b, w1, b1, wdw, bdw)
     b, h, w, c = x.shape
@@ -102,12 +113,15 @@ def naf_block_stage_a(x, ln_w, ln_b, w1, b1, wdw, bdw):
     if c > STAGE_A_MAX_C:
         raise ValueError(f"naf_block_stage_a: C={c}; the kernel takes C up to {STAGE_A_MAX_C} "
                          "(it stages the halo's LN(x) whole)")
+    io = _build.io_code(x)
     _build.require(x, "x")
     for name, t, shape in (("ln_w", ln_w, (c,)), ("ln_b", ln_b, (c,)), ("b1", b1, (2 * c,)),
                            ("wdw", wdw, (9, 2 * c)), ("bdw", bdw, (2 * c,))):
         _build.require(t, name, shape)
-    _build.require(w1, "w1", (c, 2 * c), contiguous=False)   # laid out anew: a view will do
+    # laid out anew: a view will do
+    _build.require(w1, "w1", (c, 2 * c), contiguous=False)
     w1p = stage_a_planes(w1)
+    ln_w, ln_b, b1, wdw, bdw = (_mma.f32(t) for t in (ln_w, ln_b, b1, wdw, bdw))
     lib = _build.library()
     g = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -120,7 +134,7 @@ def naf_block_stage_a(x, ln_w, ln_b, w1, b1, wdw, bdw):
         err = lib.naf_stage_a(x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
                               w1p.data_ptr(), b1.data_ptr(), wdw.data_ptr(),
                               bdw.data_ptr(), g.data_ptr(), part.data_ptr(),
-                              sums.data_ptr(), b, h, w, c,
+                              sums.data_ptr(), b, h, w, c, io,
                               _build.stream_ptr(x.device))
     _build.check(err, "naf_stage_a")
     launches["naf_block_stage_a"] += 1
@@ -136,12 +150,15 @@ def naf_block_stage_b(g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4, w5, b5, gam
     against each other)."""
     _build.require_no_grad("naf_block_stage_b", g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4,
                            w5, b5, gamma)
+    _build.require_dtypes("naf_block_stage_b", g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4,
+                          w5, b5, gamma)
     if g.device.type == "cpu":
         return naf_block_stage_b_plain(g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4,
                                        w5, b5, gamma)
     b, h, w, c = g.shape
     if c % 4:
         raise ValueError(f"naf_block_stage_b: C={c} is not a multiple of 4")
+    io = _build.io_code(g, "g")
     _build.require(g, "g")
     _build.require(x, "x", g.shape)
     _build.require(att, "att", (b, c))
@@ -153,21 +170,26 @@ def naf_block_stage_b(g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4, w5, b5, gam
     for name, t, shape in (("w3", w3, (c, c)), ("w4", w4, (c, 2 * c)), ("w5", w5, (c, c))):
         _build.require(t, name, shape, contiguous=False)
     w3p, w4p, w5p = stage_b_planes(w3, w4, w5)
+    b3, beta, ln2_w, ln2_b, b4, b5, gamma = (_mma.f32(t)
+                                             for t in (b3, beta, ln2_w, ln2_b, b4, b5, gamma))
     lib = _build.library()
     out = torch.empty_like(g)
-    # scratch: the hidden where it does not stay on chip (C != 64, or not on_chip), the
-    # products' partial sums where K comes in pieces (Cp > MAX_ROW_K)
+    # f32 scratch: the hidden where it does not stay on chip (C != 64, or not on_chip), with
+    # y beside it at bf16 (out holds y at f32), the products' partial sums where K comes in
+    # pieces (Cp > MAX_ROW_K)
     cp = -(-c // 8) * 8
-    hid = torch.empty_like(g) if c != 64 or not on_chip else None
-    part = (torch.empty((b, h, w, 2 * cp), device=g.device, dtype=torch.float32)
-            if cp > _mma.MAX_ROW_K else None)
+    f32 = dict(device=g.device, dtype=torch.float32)
+    hid = torch.empty(g.shape, **f32) if c != 64 or not on_chip else None
+    y = torch.empty(g.shape, **f32) if hid is not None and io else None
+    part = torch.empty((b, h, w, 2 * cp), **f32) if cp > _mma.MAX_ROW_K else None
     with torch.cuda.device(g.device):
         err = lib.naf_stage_b(g.data_ptr(), x.data_ptr(), att.data_ptr(), w3p.data_ptr(),
                               b3.data_ptr(), beta.data_ptr(), ln2_w.data_ptr(),
                               ln2_b.data_ptr(), w4p.data_ptr(), b4.data_ptr(),
                               w5p.data_ptr(), b5.data_ptr(), gamma.data_ptr(),
-                              out.data_ptr(), None if hid is None else hid.data_ptr(),
-                              None if part is None else part.data_ptr(), b, h, w, c,
+                              out.data_ptr(), None if y is None else y.data_ptr(),
+                              None if hid is None else hid.data_ptr(),
+                              None if part is None else part.data_ptr(), b, h, w, c, io,
                               _build.stream_ptr(g.device))
     _build.check(err, "naf_stage_b")
     launches["naf_block_stage_b"] += 1
@@ -175,8 +197,9 @@ def naf_block_stage_b(g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4, w5, b5, gam
 
 
 def _att(sums, hw, sca_w, sca_b):
-    # the [B,C]x[C,C] SCA product between the stages stays torch, as it stays XLA in JAX
-    return (sums / hw) @ sca_w + sca_b
+    # the [B,C]x[C,C] SCA product between the stages stays torch, as it stays XLA in JAX:
+    # in f32 on the f32 sums, cast to the weights' dtype (the JAX twin's .astype(x.dtype))
+    return ((sums / hw) @ _mma.up(sca_w) + _mma.up(sca_b)).to(sca_w.dtype)
 
 
 def fused_naf_block(x, p):

@@ -11,7 +11,9 @@ On a CUDA tensor the wrapper launches its kernels (``csrc/hat_rows.cu``'s fc1 an
 ``csrc/sgfn.cu``'s gate + fc2, both f32-exact on the tensor cores in 3xTF32) or raises; on a
 CPU tensor it runs the plain PyTorch version. Parameters come in the JAX package's layouts:
 w1 [C,hidden], w2 [hidden/2,C] as [in,out]; wdw (3,3,1,hidden/2) HWIO. Both LayerNorms
-use eps 1e-5.
+use eps 1e-5. Every tensor of a call float32, or every one bfloat16: then LN(y) and the
+gate, the products' operands, are rounded to bf16 as the TPU kernel casts them, and y, the
+hidden and the accumulation stay f32 (the kernel parks y in an f32 scratch at bf16).
 """
 
 from __future__ import annotations
@@ -28,11 +30,14 @@ launches = {"fused_sgfn_tail": 0}
 
 
 def fused_sgfn_tail_plain(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw, w2, b2):
+    dt = a.dtype
+    a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw, w2, b2 = map(
+        _mma.up, (a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw, w2, b2))
     y = a + shortcut
-    x1, x2 = F.gelu(layernorm(y, ln_w, ln_b) @ w1 + b1).chunk(2, dim=-1)
+    x1, x2 = F.gelu(_mma.rnd(layernorm(y, ln_w, ln_b), dt) @ w1 + b1).chunk(2, dim=-1)
     # SAME padding zeroes LN_sg(x2), the depthwise conv's input, not x2 or y
     x2 = depthwise3x3_plain(layernorm(x2, sg_w, sg_b), wdw, bdw)
-    return y + (x1 * x2) @ w2 + b2
+    return (y + _mma.rnd(x1 * x2, dt) @ w2 + b2).to(dt)
 
 
 def _widths(c: int, hid: int) -> tuple[int, int, int]:
@@ -47,6 +52,8 @@ def fused_sgfn_tail(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw, w2, b
     (csrc/sgfn.cu); the hidden passes through device memory once."""
     _build.require_no_grad("fused_sgfn_tail", a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw,
                            bdw, w2, b2)
+    _build.require_dtypes("fused_sgfn_tail", a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw,
+                          bdw, w2, b2)
     if a.device.type == "cpu":
         return fused_sgfn_tail_plain(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw,
                                      w2, b2)
@@ -69,6 +76,7 @@ def _sgfn_launchers(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw, w2, b
     if c % 4 or half % 4 or 2 * half != hid:
         raise ValueError(f"fused_sgfn_tail: C={c} and hidden/2={hid / 2} must be multiples "
                          "of 4")
+    io = _build.io_code(a, "a")
     _build.require(a, "a")
     _build.require(shortcut, "shortcut", a.shape)
     for name, t, shape in (("ln_w", ln_w, (c,)), ("ln_b", ln_b, (c,)),
@@ -81,24 +89,29 @@ def _sgfn_launchers(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw, w2, b
     _build.require(w2, "w2", (half, c), contiguous=False)
     kp, k2p, npad = _widths(c, hid)
     w1p, w2p = _mma.planes(w1, kp, hid), _mma.planes(w2, k2p, npad)
+    ln_w, ln_b, b1, sg_w, sg_b, wdw, bdw, b2 = map(
+        _mma.f32, (ln_w, ln_b, b1, sg_w, sg_b, wdw, bdw, b2))
     lib = _build.library()
     hidden = torch.empty((b, h, w, hid), device=a.device, dtype=torch.float32)
     out = torch.empty_like(a)
+    # y between the launches: f32 scratch at bf16 (out holds it at f32)
+    y = torch.empty(a.shape, device=a.device, dtype=torch.float32) if io else None
+    yp = None if y is None else y.data_ptr()
 
     def fc1():
         with torch.cuda.device(a.device):
             err = lib.rows_ln_fc1(a.data_ptr(), shortcut.data_ptr(), ln_w.data_ptr(),
                                   ln_b.data_ptr(), w1p.data_ptr(), b1.data_ptr(),
                                   sg_w.data_ptr(), sg_b.data_ptr(), hidden.data_ptr(),
-                                  out.data_ptr(), b * h * w, c, hid, kp, hid,
+                                  out.data_ptr(), yp, b * h * w, c, hid, kp, hid, io,
                                   _build.stream_ptr(a.device))
         _build.check(err, "rows_ln_fc1")
 
     def gate_fc2():
         with torch.cuda.device(a.device):
             err = lib.sgfn_gate_fc2(hidden.data_ptr(), wdw.data_ptr(), bdw.data_ptr(),
-                                    w2p.data_ptr(), b2.data_ptr(), out.data_ptr(), b, h, w, c,
-                                    half, k2p, npad, _build.stream_ptr(a.device))
+                                    w2p.data_ptr(), b2.data_ptr(), out.data_ptr(), yp, b, h,
+                                    w, c, half, k2p, npad, io, _build.stream_ptr(a.device))
         _build.check(err, "sgfn_gate_fc2")
 
     return fc1, gate_fc2, out

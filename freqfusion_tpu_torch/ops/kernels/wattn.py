@@ -27,6 +27,13 @@ output projection. The caller rolls x
 before and the result after a shifted block; nothing here shifts. B13 takes the same bias
 and mask with q, k, v [B,H,W,C] projected (and zero-padded to whole windows) by the caller;
 B14 takes x [B,H,W,C] with the whole [C,3C] projection and the [C,C] output projection.
+
+Every tensor of a call is float32, or every one bfloat16. At bfloat16 the plain versions and
+the kernels compute what the TPU kernels compute on bf16 refs: each matmul operand rounded
+to bf16 (LN outputs, q scaled by the bf16 scale, k, v, the probabilities, the attention
+output, the GELU output), f32 accumulation, softmax, LayerNorm statistics and the residual
+stream y in f32, and outputs rounded to bf16 once. The kernels keep y in an f32 scratch
+where the f32 path parks it in the output; B8 takes C up to _mma.MAX_ROW_K at bf16.
 """
 
 from __future__ import annotations
@@ -65,10 +72,11 @@ def mask_types(mask, n_wr: int, n_wc: int, device) -> torch.Tensor:
     (``ops.windows.shift_mask_types``), which a caller keeps to spare building and checking
     O(image) * N^2 floats on every call."""
     if isinstance(mask, torch.Tensor) and mask.dim() == 3 and mask.shape[0] == 4:
-        if mask.device != torch.device(device) or mask.dtype != torch.float32:
-            raise ValueError(f"mask: expected float32 window types on {device}, got "
+        if mask.device != torch.device(device) or not mask.is_floating_point():
+            raise ValueError(f"mask: expected floating window types on {device}, got "
                              f"{mask.dtype} on {mask.device}")
-        return mask
+        # a bf16 model's copy holds the same {0, -100} exactly
+        return mask.float()
     if not isinstance(mask, np.ndarray):
         raise TypeError("mask: expected a numpy array [nW,N,N] or its window types as a "
                         f"tensor [4,N,N], got {type(mask).__name__} "
@@ -94,35 +102,45 @@ def _type_index(n_wr: int, n_wc: int, device) -> torch.Tensor:
     return (2 * r[:, None] + c[None, :]).reshape(-1)
 
 
+def _scale(hd: int, dt) -> float:
+    """1/sqrt(hd), in the operand dtype as the TPU kernels hold it (``jnp.asarray(hd ** -0.5,
+    dt)``): rounded to bf16 at bf16."""
+    return float(torch.tensor(hd ** -0.5).to(dt)) if dt == torch.bfloat16 else hd ** -0.5
+
+
 def fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads):
     """Multi-head attention inside (hs, ws) windows of pre-projected images [B,H,W,C]:
     softmax(q k^T / sqrt(head_dim) + bias (+ mask)) v. Returns [B,H,W,C]."""
     b, h, w, c = q.shape
     hs, ws = window
     n, hd = hs * ws, c // num_heads
+    dt = q.dtype
+    q, k, v, bias = map(_mma.up, (q, k, v, bias))
 
     def to_wins(t):  # [B*nW, heads, N, hd]
         return window_partition(t, hs, ws).reshape(-1, n, num_heads, hd).permute(0, 2, 1, 3)
 
-    attn = (to_wins(q) * hd ** -0.5) @ to_wins(k).transpose(-1, -2) + bias[None]
+    attn = (_mma.rnd(to_wins(q) * _scale(hd, dt), dt) @ to_wins(k).transpose(-1, -2)
+            + bias[None])
     if mask is not None:
         n_wr, n_wc = h // hs, w // ws
         per_win = mask_types(mask, n_wr, n_wc, q.device)[_type_index(n_wr, n_wc, q.device)]
         attn = (attn.reshape(b, n_wr * n_wc, num_heads, n, n)
                 + per_win[None, :, None]).reshape(-1, num_heads, n, n)
-    out = torch.softmax(attn, dim=-1) @ to_wins(v)
-    return window_reverse(out.permute(0, 2, 1, 3).reshape(-1, n, c), hs, ws, h, w)
+    out = _mma.rnd(torch.softmax(attn, dim=-1), dt) @ to_wins(v)
+    return window_reverse(out.permute(0, 2, 1, 3).reshape(-1, n, c), hs, ws, h, w).to(dt)
 
 
 def _launch_qkv(lib, q_ptr, k_ptr, v_ptr, ld, bias, types, out, window, num_heads, name):
     """csrc/wattn.cu's pre-projected attention into `out` [B,H,W,C]; q, k, v are device
-    addresses of images with `ld` floats a pixel."""
+    addresses of images of out's dtype with `ld` elements a pixel."""
     b, h, w, c = out.shape
+    bias = _mma.up(bias).contiguous()
     with torch.cuda.device(out.device):
         err = lib.wattn_qkv(q_ptr, k_ptr, v_ptr, bias.data_ptr(),
                             0 if types is None else types.data_ptr(), out.data_ptr(), b, h, w,
                             ld, window[0], window[1], num_heads, c // num_heads,
-                            _build.stream_ptr(out.device))
+                            _build.io_code(out), _build.stream_ptr(out.device))
     _build.check(err, name)
 
 
@@ -141,6 +159,7 @@ def fused_window_attention_qkv(q, k, v, bias, mask, window, num_heads):
     key is not masked: it scores its bias and takes part in the softmax. Returns [B,H,W,C]."""
     name = "fused_window_attention_qkv"
     _build.require_no_grad(name, q, k, v, bias)
+    _build.require_dtypes(name, q, k, v, bias)
     if q.device.type == "cpu":
         return fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads)
     b, h, w, c = q.shape
@@ -160,9 +179,26 @@ def fused_window_attention_qkv(q, k, v, bias, mask, window, num_heads):
 
 
 def fused_window_attention_plain(x, wqkv, bqkv, wproj, bproj, bias, mask, window, num_heads):
-    q, k, v = (x @ wqkv + bqkv).chunk(3, dim=-1)
+    dt = x.dtype
+    x, wqkv, bqkv, wproj, bproj = map(_mma.up, (x, wqkv, bqkv, wproj, bproj))
+    q, k, v = (x @ wqkv + bqkv).to(dt).chunk(3, dim=-1)
     att = fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads)
-    return att @ wproj + bproj
+    return (_mma.up(att) @ wproj + bproj).to(dt)
+
+
+def _rows_linear(lib, a, wp, bp, out, kp, np_, name="rows_linear"):
+    """csrc/hat_rows.cu's row product out [..., Cout] = a [..., C] @ w + b on the current
+    stream (wp the planes of w [kp, np_], bp f32); at bf16 with K in pieces its sums go
+    through an f32 scratch."""
+    c, cout = a.shape[-1], out.shape[-1]
+    io = _build.io_code(a)
+    y = (torch.empty(out.shape, device=a.device, dtype=torch.float32)
+         if io and kp > _mma.MAX_ROW_K else None)
+    with torch.cuda.device(a.device):
+        err = lib.rows_linear(a.data_ptr(), wp.data_ptr(), bp.data_ptr(), out.data_ptr(),
+                              None if y is None else y.data_ptr(), a.numel() // c, c, cout, kp,
+                              np_, io, _build.stream_ptr(a.device))
+    _build.check(err, name)
 
 
 def fused_window_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, window, num_heads):
@@ -173,6 +209,7 @@ def fused_window_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, window, num_
     of csrc/wattn.cu's pre-projected attention; q, k, v pass through device memory once."""
     name = "fused_window_attention"
     _build.require_no_grad(name, x, wqkv, bqkv, wproj, bproj, bias)
+    _build.require_dtypes(name, x, wqkv, bqkv, wproj, bproj, bias)
     if x.device.type == "cpu":
         return fused_window_attention_plain(x, wqkv, bqkv, wproj, bproj, bias, mask, window,
                                             num_heads)
@@ -182,6 +219,7 @@ def fused_window_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, window, num_
     _check_qkv_shape(name, h, w, c, window, num_heads)
     if c % 4:
         raise ValueError(f"{name}: C={c} is not a multiple of 4")
+    dt = x.dtype
     _build.require(x, "x")
     for nm, t, shape in (("bqkv", bqkv, (3 * c,)), ("bproj", bproj, (c,)),
                          ("bias", bias, (num_heads, n, n))):
@@ -193,27 +231,23 @@ def fused_window_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, window, num_
     kp, np3 = _ceil8(c), _ceil8(3 * c)
     wq, wpp = _mma.planes(wqkv, kp, np3), _mma.planes(wproj, kp, kp)
     lib = _build.library()
-    qkv = torch.empty((b, h, w, 3 * c), device=x.device, dtype=torch.float32)
+    # q | k | v in x's dtype: the TPU kernel rounds them to its operand dtype
+    qkv = torch.empty((b, h, w, 3 * c), device=x.device, dtype=dt)
     att = torch.empty_like(x)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = _build.stream_ptr(x.device)
-        err = lib.rows_linear(x.data_ptr(), wq.data_ptr(), bqkv.data_ptr(), qkv.data_ptr(),
-                              b * h * w, c, 3 * c, kp, np3, stream)
-        _build.check(err, "rows_linear")
-        p = qkv.data_ptr()
-        _launch_qkv(lib, p, p + 4 * c, p + 8 * c, 3 * c, bias, types, att, window, num_heads,
-                    "wattn_qkv")
-        err = lib.rows_linear(att.data_ptr(), wpp.data_ptr(), bproj.data_ptr(),
-                              out.data_ptr(), b * h * w, c, c, kp, kp, stream)
-    _build.check(err, "rows_linear")
+    _rows_linear(lib, x, wq, _mma.f32(bqkv), qkv, kp, np3)
+    p, e = qkv.data_ptr(), qkv.element_size()
+    _launch_qkv(lib, p, p + e * c, p + 2 * e * c, 3 * c, bias, types, att, window, num_heads,
+                "wattn_qkv")
+    _rows_linear(lib, att, wpp, _mma.f32(bproj), out, kp, kp)
     launches[name] += 1
     return out
 
 
 def fused_window_attention_xqkv_plain(x, wqkv, bqkv, bias, mask, window, num_heads):
     """Project this branch's q, k, v from x, then fused_window_attention_qkv_plain."""
-    q, k, v = (x @ wqkv + bqkv).chunk(3, dim=-1)
+    dt = x.dtype
+    q, k, v = (_mma.up(x) @ _mma.up(wqkv) + _mma.up(bqkv)).to(dt).chunk(3, dim=-1)
     return fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads)
 
 
@@ -245,7 +279,7 @@ def head_slabs(wqkv, bqkv, num_heads: int, hd: int, kp: int, cols=None):
     ``qkv.weight.t()``), and the slabs follow it when it changes in place or moves."""
     def make():
         w, b = (wqkv, bqkv) if cols is None else branch_qkv(wqkv, bqkv, *cols)
-        return _padded_head_weights(w, b, num_heads, hd, kp)
+        return _padded_head_weights(_mma.up(w), _mma.up(b), num_heads, hd, kp)
 
     return _mma.kept(("head_slabs", num_heads, hd, kp, cols), make, wqkv, bqkv)
 
@@ -259,6 +293,7 @@ def fused_window_attention_xqkv(x, wqkv, bqkv, bias, mask, window, num_heads, co
     (``head_slabs``), where the branch's columns, cut on every call, would be new tensors."""
     name = "fused_window_attention_xqkv"
     _build.require_no_grad(name, x, wqkv, bqkv, bias)
+    _build.require_dtypes(name, x, wqkv, bqkv, bias)
     if x.device.type == "cpu":
         if cols is not None:
             wqkv, bqkv = branch_qkv(wqkv, bqkv, *cols)
@@ -277,6 +312,7 @@ def fused_window_attention_xqkv(x, wqkv, bqkv, bias, mask, window, num_heads, co
                          f"whole heads up to {MAX_HEAD_DIM} wide (B13 takes the rest)")
     if cin % 4:
         raise ValueError(f"{name}: Cin={cin} is not a multiple of 4")
+    dt = x.dtype
     _build.require(x, "x")
     # the weights are laid out anew (head_slabs): a view will do
     _build.require(wqkv, "wqkv", (cin, wqkv.shape[1] if cols else 3 * co), contiguous=False)
@@ -288,7 +324,7 @@ def fused_window_attention_xqkv(x, wqkv, bqkv, bias, mask, window, num_heads, co
     _build.require(bias, "bias", (num_heads, n, n))
     types = None if mask is None else mask_types(mask, h // hs, w // ws, x.device)
     wh, bh = head_slabs(wqkv, bqkv, num_heads, hd, _ceil8(cin), cols)
-    out = torch.empty((b, h, w, co), device=x.device, dtype=torch.float32)
+    out = torch.empty((b, h, w, co), device=x.device, dtype=dt)
     _launch_xqkv(_build.library(), x, None, None, wh, bh, bias, types, out, window, num_heads,
                  hd, 0)
     launches[name] += 1
@@ -299,13 +335,15 @@ def _launch_xqkv(lib, x, ln_w, ln_b, wh, bh, bias, types, out, window, num_heads
     """csrc/hab_attention.cu's attention of x's windows into `out` [B,H,W,heads*hd], with
     the LayerNorm (ln_w, ln_b) on load where they are given."""
     b, h, w, cin = x.shape
+    ln_w, ln_b = (None if t is None else _mma.f32(t) for t in (ln_w, ln_b))
+    bias = _mma.up(bias).contiguous()
     with torch.cuda.device(x.device):
         err = lib.xqkv_attention(x.data_ptr(), 0 if ln_w is None else ln_w.data_ptr(),
                                  0 if ln_b is None else ln_b.data_ptr(), wh.data_ptr(),
                                  bh.data_ptr(), bias.data_ptr(),
                                  0 if types is None else types.data_ptr(), out.data_ptr(),
                                  b, h, w, cin, wh.shape[1], window[0], window[1], num_heads,
-                                 hd, shift, _build.stream_ptr(x.device))
+                                 hd, shift, _build.io_code(x), _build.stream_ptr(x.device))
     _build.check(err, "xqkv_attention")
 
 
@@ -322,19 +360,25 @@ def _mlp_planes(c: int, w1, w2):
     return kp, k2p, _mma.planes(w1, kp, k2p), _mma.planes(w2, k2p, kp)
 
 
-def _mlp_plain(y, ln_w, ln_b, w1, b1, w2, b2):
-    return y + F.gelu(layernorm(y, ln_w, ln_b) @ w1 + b1) @ w2 + b2
+def _mlp_plain(y, ln_w, ln_b, w1, b1, w2, b2, dt=torch.float32):
+    """y + fc2(GELU(fc1(LN y))) on f32 (or f64) y, the products' operands rounded to `dt`."""
+    ln_w, ln_b, w1, b1, w2, b2 = map(_mma.up, (ln_w, ln_b, w1, b1, w2, b2))
+    h = _mma.rnd(F.gelu(_mma.rnd(layernorm(y, ln_w, ln_b), dt) @ w1 + b1), dt)
+    return y + h @ w2 + b2
 
 
 def fused_hab_block_plain(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wproj, bproj,
                           w1, b1, w2, b2, bias, mask, window, num_heads, conv_scale,
                           cab_scale=None, in_shift: int = 0):
+    dt = x.dtype
+    x, conv_x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj = map(
+        _mma.up, (x, conv_x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj))
     xs = torch.roll(x, (-in_shift, -in_shift), dims=(1, 2)) if in_shift else x
-    q, k, v = (layernorm(xs, ln1_w, ln1_b) @ wqkv + bqkv).chunk(3, dim=-1)
+    q, k, v = (_mma.rnd(layernorm(xs, ln1_w, ln1_b), dt) @ wqkv + bqkv).to(dt).chunk(3, dim=-1)
     att = fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads)
-    cx = conv_x if cab_scale is None else conv_x * cab_scale
-    y = xs + att @ wproj + bproj + conv_scale * cx
-    return _mlp_plain(y, ln2_w, ln2_b, w1, b1, w2, b2)
+    cx = conv_x if cab_scale is None else conv_x * _mma.up(cab_scale)
+    y = xs + _mma.up(att) @ wproj + bproj + conv_scale * cx
+    return _mlp_plain(y, ln2_w, ln2_b, w1, b1, w2, b2, dt).to(dt)
 
 
 def fused_hab_block(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wproj, bproj, w1, b1,
@@ -354,6 +398,8 @@ def fused_hab_block(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wproj, bp
     _build.require_no_grad("fused_hab_block", x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv,
                            wproj, bproj, w1, b1, w2, b2, bias,
                            *([] if cab_scale is None else [cab_scale]))
+    _build.require_dtypes("fused_hab_block", x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv,
+                          wproj, bproj, w1, b1, w2, b2, bias)
     wsh, wsw = window
     if in_shift and (mask is None or 2 * in_shift != wsh or 2 * in_shift != wsw):
         raise ValueError(f"fused_hab_block: in_shift={in_shift} needs a shift mask and a "
@@ -389,6 +435,10 @@ def _hab_block_launchers(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wpro
                          f"heads; the kernel takes multiples of 64 tokens up to {MAX_TOKENS}, "
                          f"whole heads up to {MAX_HEAD_DIM} wide and C a multiple of 4 (B14 "
                          "takes the rest)")
+    io = _build.io_code(x)
+    if io and _ceil8(c) > _mma.MAX_ROW_K:
+        raise ValueError(f"fused_hab_block: C={c} at bfloat16; the bf16 kernel takes C up to "
+                         f"{_mma.MAX_ROW_K} (its projection in K pieces is f32 only)")
     _build.require(x, "x")
     _build.require(conv_x, "conv_x", x.shape)
     for name, t, shape in (("ln1_w", ln1_w, (c,)), ("ln1_b", ln1_b, (c,)),
@@ -400,16 +450,20 @@ def _hab_block_launchers(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wpro
     for name, t, shape in (("wqkv", wqkv, (c, 3 * c)), ("wproj", wproj, (c, c)),
                            ("w1", w1, (c, hid)), ("w2", w2, (hid, c))):
         _build.require(t, name, shape, contiguous=False)
-    if cab_scale is not None:
+    if cab_scale is not None:   # may be f32 (from B7's f32 sums) where x is bf16
         _build.require(cab_scale, "cab_scale", (b, 1, 1, c))
+        cab_scale = _mma.up(cab_scale).contiguous()
     types = None if mask is None else mask_types(mask, h // wsh, w // wsw, x.device)
     kp, k2p, w1p, w2p = _mlp_planes(c, w1, w2)
     wh, bh = head_slabs(wqkv, bqkv, num_heads, hd, kp)
     wpp = _mma.planes(wproj, kp, kp)
+    bproj, ln2_w, ln2_b, b1, b2 = map(_mma.f32, (bproj, ln2_w, ln2_b, b1, b2))
     lib = _build.library()
     att = torch.empty_like(x)
     out = torch.empty_like(x)
     hidden = torch.empty((b, h, w, k2p), device=x.device, dtype=torch.float32)
+    # y between the products: f32 scratch at bf16 (out holds it at f32)
+    y = torch.empty(x.shape, device=x.device, dtype=torch.float32) if io else None
 
     def attention():
         _launch_xqkv(lib, x, ln1_w, ln1_b, wh, bh, bias, types, att, window, num_heads, hd,
@@ -421,8 +475,9 @@ def _hab_block_launchers(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wpro
                                0 if cab_scale is None else cab_scale.data_ptr(),
                                wpp.data_ptr(), bproj.data_ptr(), ln2_w.data_ptr(),
                                ln2_b.data_ptr(), w1p.data_ptr(), b1.data_ptr(), w2p.data_ptr(),
-                               b2.data_ptr(), hidden.data_ptr(), out.data_ptr(), b, h, w, c,
-                               hid, kp, kp, k2p, in_shift, float(conv_scale),
+                               b2.data_ptr(), hidden.data_ptr(), out.data_ptr(),
+                               None if y is None else y.data_ptr(), b, h, w, c, hid, kp, kp,
+                               k2p, in_shift, float(conv_scale), io,
                                _build.stream_ptr(x.device))
         _build.check(err, "hab_tail")
 
@@ -433,6 +488,8 @@ def fused_overlap_attention_plain(q, k, v, wproj, bproj, bias, window: int, over
                                   num_heads: int):
     b, h, w, c = q.shape
     hd = c // num_heads
+    dt = q.dtype
+    q, k, v, wproj, bproj, bias = map(_mma.up, (q, k, v, wproj, bproj, bias))
 
     def heads(t):  # [B*nW, n, C] -> [B*nW, heads, n, hd]
         return t.reshape(t.shape[0], t.shape[1], num_heads, hd).permute(0, 2, 1, 3)
@@ -440,10 +497,11 @@ def fused_overlap_attention_plain(q, k, v, wproj, bproj, bias, window: int, over
     # k and v are zero-padded after their projection: a padded key scores its bias alone
     kw = heads(extract_overlapping_windows(k, window, overlap))
     vw = heads(extract_overlapping_windows(v, window, overlap))
-    attn = (heads(window_partition(q, window, window)) * hd ** -0.5) @ kw.transpose(-1, -2)
-    out = torch.softmax(attn + bias[None], dim=-1) @ vw
-    out = out.permute(0, 2, 1, 3).reshape(-1, window * window, c) @ wproj + bproj
-    return window_reverse(out, window, window, h, w)
+    qs = _mma.rnd(heads(window_partition(q, window, window)) * _scale(hd, dt), dt)
+    attn = qs @ kw.transpose(-1, -2)
+    out = _mma.rnd(torch.softmax(attn + bias[None], dim=-1), dt) @ vw
+    out = _mma.rnd(out.permute(0, 2, 1, 3).reshape(-1, window * window, c), dt) @ wproj + bproj
+    return window_reverse(out, window, window, h, w).to(dt)
 
 
 def fused_overlap_attention(q, k, v, wproj, bproj, bias, window: int, overlap: int,
@@ -453,6 +511,7 @@ def fused_overlap_attention(q, k, v, wproj, bproj, bias, window: int, overlap: i
     q, k, v [B,H,W,C], with the output projection. bias [heads, window^2,
     (window + overlap)^2]. Returns [B,H,W,C]."""
     _build.require_no_grad("fused_overlap_attention", q, k, v, wproj, bproj, bias)
+    _build.require_dtypes("fused_overlap_attention", q, k, v, wproj, bproj, bias)
     if q.device.type == "cpu":
         return fused_overlap_attention_plain(q, k, v, wproj, bproj, bias, window, overlap,
                                              num_heads)
@@ -481,14 +540,17 @@ def _overlap_launchers(q, k, v, wproj, bproj, bias, window, overlap, num_heads):
     if hd * num_heads != c or c % 4:
         raise ValueError(f"fused_overlap_attention: C={c} over {num_heads} heads; the kernel "
                          f"takes whole heads and C a multiple of 4")
+    io = _build.io_code(q, "q")
     _build.require(q, "q")
     _build.require(k, "k", q.shape)
     _build.require(v, "v", q.shape)
-    _build.require(wproj, "wproj", (c, c), contiguous=False)   # laid out anew: a view will do
+    # laid out anew: a view will do
+    _build.require(wproj, "wproj", (c, c), contiguous=False)
     _build.require(bproj, "bproj", (c,))
     _build.require(bias, "bias", (num_heads, nq, nk))
     kp = _ceil8(c)
     wpp = _mma.planes(wproj, kp, kp)
+    bproj, bias = _mma.f32(bproj), _mma.up(bias).contiguous()
     lib = _build.library()
     att = torch.empty_like(q)
     out = torch.empty_like(q)
@@ -496,33 +558,32 @@ def _overlap_launchers(q, k, v, wproj, bproj, bias, window, overlap, num_heads):
     def attention():
         with torch.cuda.device(q.device):
             err = lib.oca_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                                    att.data_ptr(), b, h, w, c, window, ows, num_heads, hd,
+                                    att.data_ptr(), b, h, w, c, window, ows, num_heads, hd, io,
                                     _build.stream_ptr(q.device))
         _build.check(err, "oca_attention")
 
     def proj():
-        with torch.cuda.device(q.device):
-            err = lib.rows_linear(att.data_ptr(), wpp.data_ptr(), bproj.data_ptr(),
-                                  out.data_ptr(), b * h * w, c, c, kp, kp,
-                                  _build.stream_ptr(q.device))
-        _build.check(err, "rows_linear")
+        _rows_linear(lib, att, wpp, bproj, out, kp, kp)
 
     return attention, proj, out
 
 
 def fused_residual_ln_mlp_plain(a, shortcut, ln_w, ln_b, w1, b1, w2, b2):
-    return _mlp_plain(a + shortcut, ln_w, ln_b, w1, b1, w2, b2)
+    return _mlp_plain(_mma.up(a) + _mma.up(shortcut), ln_w, ln_b, w1, b1, w2, b2,
+                      a.dtype).to(a.dtype)
 
 
 def fused_residual_ln_mlp(a, shortcut, ln_w, ln_b, w1, b1, w2, b2):
     """Kernel B10 on CUDA, its plain version on the CPU: y = a + shortcut;
     out = y + fc2(GELU(fc1(LN y))) on [..., C] rows (any leading shape)."""
     _build.require_no_grad("fused_residual_ln_mlp", a, shortcut, ln_w, ln_b, w1, b1, w2, b2)
+    _build.require_dtypes("fused_residual_ln_mlp", a, shortcut, ln_w, ln_b, w1, b1, w2, b2)
     if a.device.type == "cpu":
         return fused_residual_ln_mlp_plain(a, shortcut, ln_w, ln_b, w1, b1, w2, b2)
     c, hid = a.shape[-1], w1.shape[1]
     if c % 4:
         raise ValueError(f"fused_residual_ln_mlp: C={c}; the kernel takes C a multiple of 4")
+    io = _build.io_code(a, "a")
     _build.require(a, "a")
     _build.require(shortcut, "shortcut", a.shape)
     for name, t, shape in (("ln_w", ln_w, (c,)), ("ln_b", ln_b, (c,)), ("b1", b1, (hid,)),
@@ -532,14 +593,19 @@ def fused_residual_ln_mlp(a, shortcut, ln_w, ln_b, w1, b1, w2, b2):
     _build.require(w1, "w1", (c, hid), contiguous=False)
     _build.require(w2, "w2", (hid, c), contiguous=False)
     kp, k2p, w1p, w2p = _mlp_planes(c, w1, w2)
+    ln_w, ln_b, b1, b2 = map(_mma.f32, (ln_w, ln_b, b1, b2))
     lib = _build.library()
     out = torch.empty_like(a)
-    hidden = torch.empty((a.numel() // c, k2p), device=a.device, dtype=torch.float32)
+    f32 = dict(device=a.device, dtype=torch.float32)
+    hidden = torch.empty((a.numel() // c, k2p), **f32)
+    # y between the products: f32 scratch at bf16 (out holds it at f32)
+    y = torch.empty(a.shape, **f32) if io else None
     with torch.cuda.device(a.device):
         err = lib.residual_ln_mlp(a.data_ptr(), shortcut.data_ptr(), ln_w.data_ptr(),
                                   ln_b.data_ptr(), w1p.data_ptr(), b1.data_ptr(),
                                   w2p.data_ptr(), b2.data_ptr(), hidden.data_ptr(),
-                                  out.data_ptr(), a.numel() // c, c, hid, kp, kp, k2p,
+                                  out.data_ptr(), None if y is None else y.data_ptr(),
+                                  a.numel() // c, c, hid, kp, kp, k2p, io,
                                   _build.stream_ptr(a.device))
     _build.check(err, "residual_ln_mlp")
     launches["fused_residual_ln_mlp"] += 1

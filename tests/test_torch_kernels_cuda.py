@@ -920,3 +920,131 @@ def test_small_fusion_head_on_the_card(gen):
     assert (bandmha.launches["fused_band_mha"], lka.launches["lka_gate"]) == (n0[0] + 1, n0[1] + 1)
     assert got.shape == (1, 192, 256, 3)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+# ---- bf16 (FREQFUSION_DTYPE=bfloat16): every kernel's bf16 instantiation against its plain
+# bf16 version (max |Δ| <= 1e-2 x max|plain|) and against a float64 evaluation of the same
+# bf16 inputs (at most twice the plain bf16 version's distance)
+
+def _bf16_cases(gen):
+    def r(*shape, std=1.0, mean=0.0):
+        return mean + std * torch.randn(*shape, generator=gen, device="cuda")
+
+    c, hid, half = 180, 720, 360
+    p, p128 = _block_params(64, gen), _block_params(128, gen)
+    stage_b = ("w3", "b3", "beta", "ln2_w", "ln2_b", "w4", "b4", "w5", "b5", "gamma")
+    x64 = r(2, 37, 45, 64)
+    types = torch.from_numpy(windows.shift_mask_types(16, 16, 8, 8).copy()).cuda()
+    hab = (r(1, 32, 48, c), r(1, 32, 48, c, std=3.0), r(c, std=0.1, mean=1.0), r(c, std=0.1),
+           r(c, std=0.1, mean=1.0), r(c, std=0.1), r(c, 3 * c, std=c ** -0.5), r(3 * c, std=0.1),
+           r(c, c, std=c ** -0.5), r(c, std=0.1), r(c, 360, std=c ** -0.5), r(360, std=0.1),
+           r(360, c, std=360 ** -0.5), r(c, std=0.1), r(6, 256, 256, std=0.5))
+    return {
+        "naf_block_stage_a": (nafblock.naf_block_stage_a, nafblock.naf_block_stage_a_plain,
+                              (x64, p["ln1_w"], p["ln1_b"], p["w1"], p["b1"], p["wdw"],
+                               p["bdw"]), {}),
+        "naf_block_stage_b": (nafblock.naf_block_stage_b, nafblock.naf_block_stage_b_plain,
+                              (r(2, 37, 45, 64), x64, r(2, 64), *(p[k] for k in stage_b)),
+                              {}),
+        "naf_block_stage_b_c128": (nafblock.naf_block_stage_b, nafblock.naf_block_stage_b_plain,
+                                   (r(1, 19, 23, 128), r(1, 19, 23, 128), r(1, 128),
+                                    *(p128[k] for k in stage_b)), {}),
+        "conv3x3_narrow": (conv3x3.conv3x3_dense, conv3x3.conv3x3_dense_plain,
+                           (r(1, 37, 45, 3), r(3, 3, 3, 64, std=0.2), r(64, std=0.1)), {}),
+        "conv3x3_wide": (conv3x3.conv3x3_dense, conv3x3.conv3x3_dense_plain,
+                         (r(2, 37, 45, c), r(3, 3, c, c, std=(9 * c) ** -0.5), r(c, std=0.1)),
+                         {}),
+        "xqkv": (wattn.fused_window_attention_xqkv, wattn.fused_window_attention_xqkv_plain,
+                 (r(2, 32, 64, c), r(c, 270, std=c ** -0.5), r(270, std=0.1),
+                  r(3, 256, 256, std=0.5), None, (8, 32), 3), {}),
+        "aim_conv_branch": (aim.aim_conv_branch, aim.aim_conv_branch_plain,
+                            (r(2, 37, 45, c), r(3, 3, 1, c, std=1 / 3), r(c, std=0.1),
+                             r(c, std=0.2, mean=1.0), r(c, std=0.1)), {}),
+        "aim_gates_proj": (aim.aim_gates_proj, aim.aim_gates_proj_plain,
+                           (r(2, 37, 45, c), r(2, 37, 45, c), r(2, 1, 1, c),
+                            r(1, 1, c, 11, std=c ** -0.5), r(11, std=0.1),
+                            r(11, std=0.2, mean=1.0), r(11, std=0.1),
+                            r(1, 1, 11, 1, std=0.3), r(1, std=0.1), r(c, c, std=c ** -0.5),
+                            r(c, std=0.1)), {"swap": True}),
+        "sgfn": (sgfn.fused_sgfn_tail, sgfn.fused_sgfn_tail_plain,
+                 (r(2, 37, 45, c), r(2, 37, 45, c), r(c, std=0.1, mean=1.0), r(c, std=0.1),
+                  r(c, hid, std=c ** -0.5), r(hid, std=0.1), r(half, std=0.1, mean=1.0),
+                  r(half, std=0.1), r(3, 3, 1, half, std=1 / 3), r(half, std=0.1),
+                  r(half, c, std=half ** -0.5), r(c, std=0.1)), {}),
+        "cab_chain": (cab.cab_chain, cab.cab_chain_plain,
+                      (r(1, 32, 64, c), r(c, std=0.1, mean=1.0), r(c, std=0.1),
+                       r(3, 3, c, 60, std=(9 * c) ** -0.5), r(60, std=0.1),
+                       r(3, 3, 60, c, std=(540) ** -0.5), r(c, std=0.1)), {"out_shift": 8}),
+        "hab_block": (wattn.fused_hab_block, wattn.fused_hab_block_plain,
+                      hab + (types, (16, 16), 6, 0.01),
+                      {"cab_scale": r(1, 1, 1, c, std=0.2, mean=0.5), "in_shift": 8}),
+        "overlap": (wattn.fused_overlap_attention, wattn.fused_overlap_attention_plain,
+                    (r(1, 32, 48, c), r(1, 32, 48, c), r(1, 32, 48, c), r(c, c, std=c ** -0.5),
+                     r(c, std=0.1), r(6, 256, 576, std=0.5), 16, 8, 6), {}),
+        "residual_mlp": (wattn.fused_residual_ln_mlp, wattn.fused_residual_ln_mlp_plain,
+                         (r(2, 37, 45, c), r(2, 37, 45, c), r(c, std=0.1, mean=1.0),
+                          r(c, std=0.1), r(c, 360, std=c ** -0.5), r(360, std=0.1),
+                          r(360, c, std=360 ** -0.5), r(c, std=0.1)), {}),
+        "band_mha": (bandmha.fused_band_mha, bandmha.fused_band_mha_plain,
+                     (r(2, 17, 23, 9, 64, std=0.6), r(64, 192, std=0.125), r(192, std=0.1),
+                      r(64, 64, std=0.125), r(64, std=0.1), r(64, std=0.1, mean=1.0),
+                      r(64, std=0.1), 4), {}),
+        "lka_gate": (lka.lka_gate, lka.lka_gate_plain,
+                     (r(3, 37, 45, 64), r(5, 5, 64, std=0.2), r(21, 64, std=0.2),
+                      r(21, 64, std=0.2), r(64, 64, std=0.125), r(64, std=0.2, mean=1.0),
+                      r(64, std=0.1)), {}),
+        "wattn_qkv": (wattn.fused_window_attention_qkv, wattn.fused_window_attention_qkv_plain,
+                      (r(2, 24, 40, 96), r(2, 24, 40, 96), r(2, 24, 40, 96),
+                       r(2, 64, 64, std=0.5), None, (8, 8), 2), {}),
+        "window_attention": (wattn.fused_window_attention, wattn.fused_window_attention_plain,
+                             (r(1, 30, 45, c), r(c, 3 * c, std=c ** -0.5), r(3 * c, std=0.1),
+                              r(c, c, std=c ** -0.5), r(c, std=0.1), r(6, 225, 225, std=0.5),
+                              None, (15, 15), 6), {}),
+    }
+
+
+BF16_CASES = ["naf_block_stage_a", "naf_block_stage_b", "naf_block_stage_b_c128",
+              "conv3x3_narrow", "conv3x3_wide", "xqkv", "aim_conv_branch", "aim_gates_proj",
+              "sgfn", "cab_chain", "hab_block", "overlap", "residual_mlp", "band_mha",
+              "lka_gate", "wattn_qkv", "window_attention"]
+
+
+def _as(t, dtype):
+    return t.to(dtype) if isinstance(t, torch.Tensor) and t.is_floating_point() else t
+
+
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_kernel_at_bf16_matches_plain_and_float64(gen, case):
+    kernel, plain, args, kw = _bf16_cases(gen)[case]
+    a16 = [_as(t, torch.bfloat16) for t in args]
+    k16 = {k: _as(v, torch.bfloat16) for k, v in kw.items()}
+    with torch.inference_mode():
+        got, want = kernel(*a16, **k16), plain(*a16, **k16)
+        ref = plain(*(_as(t, torch.float64) for t in a16),
+                    **{k: _as(v, torch.float64) for k, v in k16.items()})
+    g, w, f = (o[0] if isinstance(o, tuple) else o for o in (got, want, ref))
+    assert g.dtype == w.dtype == torch.bfloat16
+    assert (g.float() - w.float()).abs().max() <= 1e-2 * w.float().abs().max()
+    assert (g.double() - f).abs().max() <= 2 * (w.double() - f).abs().max()
+    if isinstance(got, tuple):   # the f32 channel sums
+        assert got[1].dtype == torch.float32
+        denom = w.float().abs().sum((1, 2)).reshape(got[1].shape)
+        assert ((got[1] - want[1]).abs() <= 1e-3 * denom).all()
+
+
+def test_kernels_refuse_float16_and_mixed_dtypes_on_the_card(gen):
+    x = torch.randn(1, 16, 16, 32, generator=gen, device="cuda")
+    w, b = torch.randn(3, 3, 32, 32, device="cuda"), torch.randn(32, device="cuda")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        conv3x3.conv3x3_dense(x.half(), w.half(), b.half())
+    with pytest.raises(ValueError, match="one dtype"):
+        conv3x3.conv3x3_dense(x.bfloat16(), w, b)
+    with pytest.raises(ValueError, match="bfloat16"):   # the wide route is f32 only
+        bandmha.fused_band_mha(torch.randn(1, 2, 2, 9, 512, device="cuda").bfloat16(),
+                               *(t.bfloat16() for t in (
+                                   torch.randn(512, 1536, device="cuda"),
+                                   torch.randn(1536, device="cuda"),
+                                   torch.randn(512, 512, device="cuda"),
+                                   torch.randn(512, device="cuda"),
+                                   torch.ones(512, device="cuda"),
+                                   torch.zeros(512, device="cuda"))), 8)
