@@ -5,8 +5,10 @@
 
 Phases, each printing JSON lines; any failure raises and the exit code is not 0:
   1. device: the card (nvidia-smi name and power limit), TF32 off for every comparison;
-  2. build: nvcc builds freqfusion_tpu_torch/csrc into a library (seconds printed), and
-     ptxas -v must show every tensor-core kernel at <= 128 registers with no spill;
+  2. build: nvcc builds freqfusion_tpu_torch/csrc into a library (seconds printed): three
+     instantiations of every kernel (f32; bf16; precision "default", f32 storage with bf16
+     operands), and ptxas -v must show every instantiation of every tensor-core kernel and
+     of B5a (aim_conv_branch_kernel) at <= 128 registers with no spill;
   3. kernels: each CUDA kernel against its plain PyTorch version at the slices' shapes,
      with its time, the plain version's, the card's bound for the same work and, where one
      PyTorch call computes the same function, that call's time; B6, B8 and B10 also at
@@ -44,7 +46,27 @@ Phases, each printing JSON lines; any failure raises and the exit code is not 0:
      launches); the whole forward's fused image within 1.5x the plain bf16 path's RMS
      distance from the f32 kernel forward, PSNR of both, ms and PSNR by expert and the
      head's ms at both dtypes; per-image ms at the three buckets on both bf16 paths;
-  8. tiled: the same FreqFusionSR through the submission runner (cli/test.py, which times
+  7c. default: the same model at precision "default" (FREQFUSION_PRECISION=default: f32
+     storage, every kernel's matmul operands rounded to bf16, f32 accumulation, TF32 in the
+     glue): every kernel's default instantiation (B5a: its f32 one) at the bf16 phase's
+     shapes on the same f32 inputs against its plain default version (max |Δ| <= 1e-2 x
+     max|plain|, the f32 channel sums within 1e-3), a float64 evaluation (at most twice the
+     plain default version's distance) and the rounding check (RMS |kernel - plain default|
+     <= 0.25 x RMS |plain default - plain f32|, which the f32 kernel and, for an attention,
+     the plain default version with p unrounded must fail; B8's two launches also each
+     against its plain half, `kernel_default_half` lines; beside each ratio the plain
+     default version's own with float64 sums), `kernel_default` lines with a default bound
+     (4-byte elements, bf16 tensor cores at 989 TFLOP/s); infer.io.main at
+     precision="default" on the three requests (launches equal to the f32 phase's, both
+     TF32 flags on and bf16 operands inside every forward, the caller's state after), the
+     runner on the 640x480 frame with FREQFUSION_PRECISION=default; the whole forward's
+     fused image within 1.5x the plain default path's RMS distance from the f32 kernel
+     forward, PSNR of both; per-image ms at the three buckets on both default paths and the
+     f32 kernel path;
+ 7d. bf16_wide: the bf16 routes that took f32 only before (B5b and B8 at C = 256 and 384,
+     B11's wide route at D = 400 and 512 and at 65 and 129 tokens, B12 at C = 1816 and
+     2048), each against its plain bf16 version at the bf16 bounds of 7b;
+ 8. tiled: the same FreqFusionSR through the submission runner (cli/test.py, which times
      infer.io.main and writes results.json) on three frames that each take another way in (640x480: over the whole-image pixel budget, 12 tiles of 192 px in 6
      chunks of 2; 40x30: smaller than its reflect padding, one tile, the chunk padded by
      repeat; 510x339: whole, in the same stream), then the 640x480 frame again at tile 176,
@@ -96,8 +118,10 @@ With --profile [dat|hat|ens|head|tiled] (or several, comma-separated: --profile 
 one forward of each model named (DAT if none is named; `head` is the fusion head alone on
 fixed expert outputs, `tiled` one chunk of two 192-px tiles on the kernel path and on the
 plain path) is also traced with torch.profiler and its device time is printed by kernel.
-The last two lines are the kernels' summary (each kernel's f32 numbers and its bf16 ones:
-`ms_bf16`, `plain_ms_bf16`, `bound_bf16_ms`, `max_abs_err_bf16`, `launches_bf16`) and
+The last two lines are the kernels' summary (each kernel's instantiations, its f32 numbers,
+its bf16 ones: `ms_bf16`, `plain_ms_bf16`, `bound_bf16_ms`, `max_abs_err_bf16`,
+`launches_bf16`, and its default ones: `ms_default`, `plain_ms_default`,
+`bound_default_ms`, `max_abs_err_default`, `rounding_gap_default`, `launches_default`) and
 {"ok": true, "device": {...}}. It exits non-zero without a CUDA card. The PNGs go to
 build/chip_smoke/ in the checkout.
 """
@@ -121,7 +145,7 @@ import torch.nn.functional as F
 from PIL import Image
 
 from freqfusion_tpu_torch.cli import test as cli_test
-from freqfusion_tpu_torch.infer.io import InferencePipeline, build_pipeline
+from freqfusion_tpu_torch.infer.io import InferencePipeline, build_pipeline, pinned_precision
 from freqfusion_tpu_torch.infer.io import main as serve_directory
 from freqfusion_tpu_torch.infer.tiling import num_tiles
 from freqfusion_tpu_torch.models import dat as dat_model
@@ -299,12 +323,12 @@ def phase_device() -> tuple:
     return name, smi
 
 
-# the tensor-core kernels (every instantiation): at most 128 registers a thread (16 warps an
-# SM, or two blocks of 8) and no spill
+# the tensor-core kernels and B5a (every instantiation: f32, bf16 and, but for B5a, precision
+# "default"): at most 128 registers a thread (16 warps an SM, or two blocks of 8) and no spill
 TC_KERNELS = ("conv3x3_gemm_kernel", "xqkv_attention_kernel", "oca_attn_kernel",
               "wattn_qkv_kernel", "sgfn_gate_fc2_kernel", "rows_kernel", "naf_stage_a_kernel",
               "naf_stage_b_onchip_kernel", "naf_stage_b_rows_kernel", "aim_gates_proj_kernel",
-              "band_mha_kernel", "lka_mix_kernel")
+              "band_mha_kernel", "lka_mix_kernel", "aim_conv_branch_kernel")
 
 
 def ptxas_report(log: str) -> list:
@@ -329,6 +353,7 @@ def phase_build() -> None:
     report = ptxas_report(log)
     _build.library()
     emit("build", seconds=secs, library=os.path.relpath(path, ROOT),
+         instantiations={t: sum(t in k for k, _, _ in report) for t in TC_KERNELS},
          ptxas=[dict(kernel=k[:96], registers=r, spill_bytes=sp) for k, r, sp in report])
     tc = [(k, r, sp) for k, r, sp in report if any(t in k for t in TC_KERNELS)]
     for t in TC_KERNELS:
@@ -675,8 +700,8 @@ def hat_kernel_cases(gen: torch.Generator, res: dict) -> None:
             plain_ms = cuda_ms(lambda: wattn.fused_hab_block_plain(
                 *h_args, mask, (ws, ws), heads, 0.01, **kw), iters=5)
             # the two halves apart: the attention (one launch) and the tail (three)
-            attention, tail, _ = wattn._hab_block_launchers(*h_args, mask, (ws, ws), heads,
-                                                            0.01, **kw)
+            attention, tail, _, _ = wattn._hab_block_launchers(*h_args, mask, (ws, ws), heads,
+                                                               0.01, **kw)
             attention_ms, tail_ms = cuda_ms(attention, iters=5), cuda_ms(tail, iters=5)
             # products: qkv and proj (8 C^2), the MLP (4 C hid), q k^T and p v (4 N hd a row);
             # the rest: LNs, residuals, GELU, bias (+ mask) and softmax
@@ -2731,7 +2756,8 @@ def as_dtype(t, dtype):
 
 
 def bf16_case(res16: dict, key: str, case: str, kernel, plain, args: tuple, bnd: tuple,
-              kw: dict = None, summary: bool = True, iters: int = 5, shape=None) -> None:
+              kw: dict = None, summary: bool = True, iters: int = 5, shape=None,
+              phase: str = "kernel_bf16") -> None:
     """`key`'s kernel and its plain version on the bf16 copies of `args` (f32 tensors, and
     other arguments as they are), and the plain version on float64 copies of the same bf16
     values: the kernel within BF16_REL * max|plain| of the plain bf16 version, and its
@@ -2759,7 +2785,7 @@ def bf16_case(res16: dict, key: str, case: str, kernel, plain, args: tuple, bnd:
         del got, want, ref, g, w, r
         ms = cuda_ms(lambda: kernel(*a16, **k16), iters=iters)
         plain_ms = cuda_ms(lambda: plain(*a16, **k16), iters=iters)
-    emit("kernel_bf16", kernel=key, case=case, shape=shape or list(args[0].shape),
+    emit(phase, kernel=key, case=case, shape=shape or list(args[0].shape),
          max_abs_err=err, bound=BF16_REL * scale, max_abs_plain=scale, f64_max_abs=dist,
          plain_f64_max_abs=plain_dist, f64_factor=BF16_F64_FACTOR, ms=ms, plain_ms=plain_ms,
          bound_ms=bnd[0], bound_by=bnd[1], **sums)
@@ -2776,13 +2802,221 @@ def bf16_case(res16: dict, key: str, case: str, kernel, plain, args: tuple, bnd:
         r16["times"].append((ms, plain_ms, bnd))
 
 
-def bf16_kernel_cases(gen: torch.Generator) -> dict:
-    """Every kernel of the path at bf16, at the shapes of the f32 lines' summaries (the
-    512x352 bucket's; NAF's heaviest level; B3 also at NAF's intro and ending convs, its
-    CUDA-core kernel). Returns {kernel: {err, rel (err over max|plain|), ms, plain_ms,
-    bound}}."""
+# ---- precision "default" (FREQFUSION_PRECISION=default): f32 in device memory, every
+# kernel's matmul operands rounded to bf16 where the TPU kernel casts them, f32 accumulation
+DEFAULT_REL = 1e-2          # max |kernel - plain default| <= DEFAULT_REL * max|plain default|
+DEFAULT_SUMS_RTOL = 1e-3    # f32 channel sums, relative to sum|.|
+DEFAULT_F64_FACTOR = 2.0    # max distance from float64 <= 2x the plain default version's
+DEFAULT_ROUNDING = 0.25     # RMS |kernel - plain default| <= 0.25 x RMS |plain default -
+                            # plain f32|: a kernel that skipped the rounding fails it (the
+                            # kernel at f32 operands, which skips every rounding, must fail it)
+DEFAULT_FORWARD_FACTOR = 1.5   # the fused image's RMS from f32: kernel <= 1.5x plain default
+NO_OPERANDS = ("aim_conv_branch",)   # B5a: no product, its f32 instantiation at default
+
+
+def default_bound(cuda_flops: float, tc_flops: float, nelems: float) -> tuple:
+    """(least milliseconds, what sets it) of a kernel at precision "default": the larger of
+    its elements at 4 bytes (f32 storage) over the memory rate, and its products over the
+    bf16 tensor-core peak or its other operations over the CUDA cores' f32 peak."""
+    t_ops = max(cuda_flops / PEAK_FLOPS, tc_flops / PEAK_BF16_TC)
+    t_bytes = 4 * nelems / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def unrounded_probs(module, fn):
+    """fn() with `module`'s plain versions leaving the normalised probabilities unrounded
+    (``module._probs`` at f32: one rounding point of the TPU kernels, ``softmax(.).astype(dt)``
+    or the band attention's p): the partial-skip control of an attention's rounding check."""
+    real = module._probs
+    module._probs = lambda scores, mdt: real(scores, torch.float32)
+    try:
+        return fn()
+    finally:
+        module._probs = real
+
+
+def rounding_readings(key: str, case: str, got, want, want32, controls: dict,
+                      alt=None) -> tuple:
+    """The rounding check of a default kernel's output `got` against its plain default version
+    `want`, whose RMS distance from the plain f32 version `want32` is the gap: (RMS |got -
+    want| / gap, {label: RMS |control - want| / gap}, RMS |alt - want| / gap or None), and
+    requires the first at most DEFAULT_ROUNDING and every control above it (a control is
+    what a kernel that skipped some rounding gives: the kernel at f32 operands, or the plain
+    default version with one rounding point left out). `alt` is the plain default version
+    with float64 sums and the same roundings: another correct implementation, whose distance
+    is the spread that the bound has to leave room for."""
+    gap = rms(want, want32)
+    ratio = rms(got, want) / gap
+    ctl = {label: rms(c, want) / gap for label, c in controls.items()}
+    alt_ratio = None if alt is None else rms(alt, want) / gap
+    require(ratio <= DEFAULT_ROUNDING,
+            f"{key} at default: RMS {ratio} x the rounding gap {gap} from plain default at "
+            f"{case}: did the kernel round its operands?")
+    for label, c in ctl.items():
+        require(c > DEFAULT_ROUNDING,
+                f"{key} at {case}: the control '{label}' sits {c} x the rounding gap from "
+                f"plain default, within the rounding check's {DEFAULT_ROUNDING}")
+    return ratio, ctl, alt_ratio
+
+
+def default_case(res: dict, key: str, case: str, kernel, plain, args: tuple, bnd: tuple,
+                 kw: dict = None, summary: bool = True, iters: int = 5, shape=None,
+                 probs=None) -> None:
+    """`key`'s kernel and its plain version at precision "default" (the process-wide bf16
+    operands that ``pinned_precision("default")`` sets) on the same f32 `args`, the plain
+    version at f32 operands, and on float64 copies (unrounded): the kernel within
+    DEFAULT_REL * max|plain default|, at most DEFAULT_F64_FACTOR times the plain default
+    version's distance from float64, and the rounding check (``rounding_readings``): its RMS
+    distance from the plain default version at most DEFAULT_ROUNDING times the plain default
+    version's RMS distance from the plain f32 one, with the kernel at f32 operands as a
+    control and, for an attention (`probs`: the module whose ``_probs`` its plain version
+    takes), the plain default version with the probabilities left unrounded as another; the
+    plain default version on float64 copies (``mxu_dtype`` bf16: the same roundings, other
+    sums) is reported beside it. The check takes RMS distances, not maxima: two correct
+    implementations of one rounding point disagree where f32 sums in another order put a
+    value on the other side of a bf16 rounding boundary, one bf16 ulp of an operand at a few
+    elements in 1e4, and over the millions of outputs of a served shape the largest such
+    disagreement reaches 0.1 to 0.6 of the largest rounding distance (its max ratio is
+    reported). A tuple result's second element are f32 channel sums, within
+    DEFAULT_SUMS_RTOL. NO_OPERANDS kernels (B5a) run their f32 instantiation: equal to the
+    kernel at f32 operands, bit for bit, and within KERNEL_ATOL of plain."""
+    kw = kw or {}
+    f32_only = key in NO_OPERANDS
+
+    def at_default(fn):
+        with _mma.operands(BF16):
+            return fn(*args, **kw)
+
+    def first(o):
+        return o[0] if isinstance(o, tuple) else o
+
+    with torch.inference_mode():
+        got, want = at_default(kernel), at_default(plain)
+        got32, want32 = kernel(*args, **kw), plain(*args, **kw)
+        args64 = [as_dtype(t, torch.float64) for t in args]
+        kw64 = {k: as_dtype(v, torch.float64) for k, v in kw.items()}
+        ref = plain(*args64, **kw64)
+        alt = None if f32_only else first(plain(*args64, **kw64, mxu_dtype=BF16))
+        controls = {} if probs is None else {
+            "p unrounded": first(unrounded_probs(probs, lambda: at_default(plain)))}
+        torch.cuda.synchronize()
+        g, w, g32, w32, r = (first(o) for o in (got, want, got32, want32, ref))
+        require(g.dtype == torch.float32 and w.dtype == torch.float32,
+                f"{key} at default gave {g.dtype}, {w.dtype}")
+        scale = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        gap = (w - w32).abs().max().item()
+        dist, plain_dist = ((t.double() - r).abs().max().item() for t in (g, w))
+        same_as_f32 = bool(torch.equal(g, g32))
+        finite = bool(torch.isfinite(g).all())
+        sums = {}
+        if isinstance(got, tuple):
+            sums["sums_max_rel_err"] = ((got[1] - want[1]).abs().reshape(w.shape[0], -1)
+                                        / w.abs().sum((1, 2)).reshape(w.shape[0], -1)
+                                        ).max().item()
+        readings = {}
+        if not f32_only:
+            ratio, ctl, alt_ratio = rounding_readings(key, case, g, w, w32,
+                                                      {"f32 kernel": g32, **controls}, alt)
+            readings = dict(rms_ratio=ratio, control_rms_ratios=ctl,
+                            f64_sums_rms_ratio=alt_ratio)
+        del got, want, got32, want32, ref, g, w, g32, w32, r, alt, controls
+        ms = cuda_ms(lambda: at_default(kernel), iters=iters)
+        plain_ms = cuda_ms(lambda: at_default(plain), iters=iters)
+    emit("kernel_default", kernel=key, case=case, shape=shape or list(args[0].shape),
+         instantiation="f32 (no operand)" if f32_only else "<float, 1 pass>",
+         max_abs_err=err, bound=KERNEL_ATOL if f32_only else DEFAULT_REL * scale,
+         max_abs_plain=scale, f64_max_abs=dist, plain_f64_max_abs=plain_dist,
+         f64_factor=DEFAULT_F64_FACTOR, rounding_gap=gap,
+         max_ratio=err / gap if gap else None, **readings,
+         rounding_bound=DEFAULT_ROUNDING, ms=ms, plain_ms=plain_ms,
+         bound_ms=bnd[0], bound_by=bnd[1], **sums)
+    require(finite, f"{key} at default: non-finite output at {case}")
+    if f32_only:
+        require(same_as_f32 and gap == 0, f"{key} at default is not its f32 path at {case}")
+        require(err <= KERNEL_ATOL, f"{key} at default: error {err} at {case}")
+    else:
+        require(err <= DEFAULT_REL * scale,
+                f"{key} at default: error {err} > {DEFAULT_REL} x {scale} at {case}")
+        require(dist <= DEFAULT_F64_FACTOR * plain_dist,
+                f"{key} at default: {dist} from float64, the plain version {plain_dist}, "
+                f"at {case}")
+    if sums:
+        require(sums["sums_max_rel_err"] <= DEFAULT_SUMS_RTOL,
+                f"{key} at default: sums error {sums['sums_max_rel_err']} at {case}")
+    rd = res.setdefault(key, {"err": 0.0, "rel": 0.0, "gap": 0.0, "rms_ratio": 0.0,
+                              "times": []})
+    rd["err"], rd["rel"] = max(rd["err"], err), max(rd["rel"], err / scale)
+    rd["gap"] = max(rd["gap"], gap)
+    rd["rms_ratio"] = max(rd["rms_ratio"], readings.get("rms_ratio", 0.0))
+    if summary:
+        rd["times"].append((ms, plain_ms, bnd))
+
+
+def hab_halves_default(case: str, h_args: tuple, mask, window: int, heads: int, gate,
+                       in_shift: int) -> None:
+    """B8's two launches at precision "default", each held by the rounding check to its plain
+    half on the same inputs: the attention (``wattn._hab_attention_plain``; controls: the f32
+    instantiation's attention, the plain default half with p unrounded) and the tail on the
+    kernel's heads' output (``wattn._hab_tail_plain``; control: the f32 tail on that output).
+    The whole block re-rounds the attention's small disagreements downstream (the heads'
+    output as the projection's operand, LN2's and GELU's outputs), so that its ratio sits near
+    that of two correct implementations; a half shows a skipped rounding point plainly."""
+    x, cx, l1w, l1b, l2w, l2b, wqkv, bqkv, wproj, bproj, w1, b1, w2, b2, bias = h_args
+    a_args = (x, l1w, l1b, wqkv, bqkv, bias, mask, (window, window), heads, in_shift)
+    t_args = (x, cx, l2w, l2b, wproj, bproj, w1, b1, w2, b2, 0.01, gate, in_shift)
+
+    def launchers():
+        return wattn._hab_block_launchers(*h_args, mask, (window, window), heads, 0.01, gate,
+                                          in_shift)
+
+    with torch.inference_mode():
+        with _mma.operands(BF16):
+            attention, tail, att, out = launchers()
+            attention()
+            tail()
+            a_d = wattn._hab_attention_plain(*a_args)
+            a_p = unrounded_probs(wattn, lambda: wattn._hab_attention_plain(*a_args))
+            t_d = wattn._hab_tail_plain(att, *t_args)
+        attention32, tail32, att32, out32 = launchers()
+        attention32()
+        a_f = wattn._hab_attention_plain(*a_args)
+        a64 = [as_dtype(t, torch.float64) for t in a_args]
+        a_alt = wattn._hab_attention_plain(*a64, mxu_dtype=BF16)
+        attn = rounding_readings("fused_hab_block attention", case, att, a_d, a_f,
+                                 {"f32 kernel": att32.clone(), "p unrounded": a_p}, a_alt)
+        del a_p, a_f, a_alt, a64
+        att32.copy_(att)   # the f32 tail on the default attention's output
+        tail32()
+        t_f = wattn._hab_tail_plain(att, *t_args)
+        t_alt = wattn._hab_tail_plain(att.double(),
+                                      *[as_dtype(t, torch.float64) for t in t_args],
+                                      mxu_dtype=BF16)
+        tl = rounding_readings("fused_hab_block tail", case, out, t_d, t_f,
+                               {"f32 kernel": out32}, t_alt)
+        torch.cuda.synchronize()
+    for half, (ratio, ctl, alt) in (("attention", attn), ("tail", tl)):
+        emit("kernel_default_half", kernel="fused_hab_block", half=half, case=case,
+             rms_ratio=ratio, control_rms_ratios=ctl, f64_sums_rms_ratio=alt,
+             rounding_bound=DEFAULT_ROUNDING)
+
+
+def mode_kernel_cases(gen: torch.Generator, mode: str) -> dict:
+    """Every kernel of the path at bf16 (`mode` "bf16": `bf16_case`) or at precision
+    "default" (`default_case`), at the shapes of the f32 lines' summaries (the 512x352
+    bucket's; NAF's heaviest level; B3 also at NAF's intro and ending convs, its CUDA-core
+    kernel). Returns {kernel: {err, rel (err over max|plain|), ms, plain_ms, bound}}."""
     def r(*shape, std=1.0, mean=0.0):
         return mean + std * torch.randn(*shape, generator=gen, device="cuda")
+
+    check, bound = ((bf16_case, bf16_bound) if mode == "bf16"
+                    else (default_case, default_bound))
+    # the inputs a case builds from another kernel's plain output: in the mode's storage
+    # type and operands
+    stored = (lambda t: as_dtype(t, BF16)) if mode == "bf16" else (lambda t: t)
+    mdt = BF16 if mode == "default" else None
+    # an attention's partial-skip control (default_case: probs), at default only
+    probs = (lambda m: {"probs": m}) if mode == "default" else (lambda m: {})
 
     res16 = {}
     # B1, B2: NAF's first HR level
@@ -2790,18 +3024,18 @@ def bf16_kernel_cases(gen: torch.Generator) -> dict:
     npix = b * h * w
     x, p = r(b, h, w, c), block_params(c, gen)
     a_args = (x, p["ln1_w"], p["ln1_b"], p["w1"], p["b1"], p["wdw"], p["bdw"])
-    bf16_case(res16, "naf_block_stage_a", "enc0_hr", nafblock.naf_block_stage_a,
+    check(res16, "naf_block_stage_a", "enc0_hr", nafblock.naf_block_stage_a,
               nafblock.naf_block_stage_a_plain, a_args,
-              bf16_bound(npix * 45 * c, npix * 4 * c * c, 2 * npix * c + 2 * c * c + 24 * c),
+              bound(npix * 45 * c, npix * 4 * c * c, 2 * npix * c + 2 * c * c + 24 * c),
               iters=3)
     with torch.inference_mode():
-        g16, sums16 = nafblock.naf_block_stage_a_plain(*(as_dtype(t, BF16) for t in a_args))
-        att = nafblock._att(sums16, h * w, p["sca_w"].to(BF16), p["sca_b"].to(BF16))
+        g16, sums16 = nafblock.naf_block_stage_a_plain(*map(stored, a_args), mxu_dtype=mdt)
+        att = nafblock._att(sums16, h * w, stored(p["sca_w"]), stored(p["sca_b"]))
     b_args = (g16, x, att, p["w3"], p["b3"], p["beta"], p["ln2_w"], p["ln2_b"], p["w4"],
               p["b4"], p["w5"], p["b5"], p["gamma"])
-    bf16_case(res16, "naf_block_stage_b", "enc0_hr", nafblock.naf_block_stage_b,
+    check(res16, "naf_block_stage_b", "enc0_hr", nafblock.naf_block_stage_b,
               nafblock.naf_block_stage_b_plain, b_args,
-              bf16_bound(npix * 16 * c, npix * 8 * c * c, 3 * npix * c + 4 * c * c + 9 * c),
+              bound(npix * 16 * c, npix * 8 * c * c, 3 * npix * c + 4 * c * c + 9 * c),
               iters=3)
     del x, g16, a_args, b_args
     # B3: DAT's 180 -> 180 conv (the summary) and NAF's two CUDA-core convs
@@ -2809,9 +3043,9 @@ def bf16_kernel_cases(gen: torch.Generator) -> dict:
         args = (r(b, h, w, cin), r(3, 3, cin, cout, std=(9 * cin) ** -0.5), r(cout, std=0.1))
         prod = b * h * w * 18 * cin * cout
         wide = min(cin, cout) >= 32
-        bf16_case(res16, "conv3x3_dense", name, conv3x3.conv3x3_dense,
+        check(res16, "conv3x3_dense", name, conv3x3.conv3x3_dense,
                   conv3x3.conv3x3_dense_plain, args,
-                  bf16_bound(0.0 if wide else prod, prod if wide else 0.0,
+                  bound(0.0 if wide else prod, prod if wide else 0.0,
                              b * h * w * (cin + cout) + 9 * cin * cout + cout),
                   summary=name == "dat_180", iters=3)
         del args
@@ -2825,31 +3059,32 @@ def bf16_kernel_cases(gen: torch.Generator) -> dict:
                 if shifted else None)
         args = (r(b, h, w, c), r(c, 3 * co, std=c ** -0.5), r(3 * co, std=0.1),
                 r(heads, n, n, std=0.5), mask, (hs, ws), heads)
-        bf16_case(res16, "fused_window_attention_xqkv", name, wattn.fused_window_attention_xqkv,
+        check(res16, "fused_window_attention_xqkv", name, wattn.fused_window_attention_xqkv,
                   wattn.fused_window_attention_xqkv_plain, args,
-                  bf16_bound(nwin * heads * n * n * 8,
+                  bound(nwin * heads * n * n * 8,
                              npix * 2 * c * 3 * co + nwin * heads * n * n * 4 * hd,
                              npix * (c + co) + c * 3 * co + 3 * co
-                             + (heads + (4 if shifted else 0)) * n * n))
+                             + (heads + (4 if shifted else 0)) * n * n),
+                  **probs(wattn))
         del args
     _, b, h, w = DAT_CASES[0]
     npix = b * h * w
     v = r(b, h, w, c)
     a_args = (v, r(3, 3, 1, c, std=1 / 3), r(c, std=0.1), r(c, std=0.2, mean=1.0),
               r(c, std=0.1))
-    bf16_case(res16, "aim_conv_branch", "bucket", aim.aim_conv_branch,
+    check(res16, "aim_conv_branch", "bucket", aim.aim_conv_branch,
               aim.aim_conv_branch_plain, a_args,
-              bf16_bound(npix * c * 30, 0.0, 2 * npix * c + 12 * c + b * c))
+              bound(npix * c * 30, 0.0, 2 * npix * c + 12 * c + b * c))
     with torch.inference_mode():
-        cx16, sums16 = aim.aim_conv_branch_plain(*(as_dtype(t, BF16) for t in a_args))
+        cx16, sums16 = aim.aim_conv_branch_plain(*map(stored, a_args))
     b_args = (r(b, h, w, c), cx16, sums16 / (h * w), r(1, 1, c, mid, std=c ** -0.5),
               r(mid, std=0.1), r(mid, std=0.2, mean=1.0), r(mid, std=0.1),
               r(1, 1, mid, 1, std=mid ** -0.5), r(1, std=0.1), r(c, c, std=c ** -0.5),
               r(c, std=0.1))
     for swap in (False, True):
-        bf16_case(res16, "aim_gates_proj", f"bucket_swap{int(swap)}", aim.aim_gates_proj,
+        check(res16, "aim_gates_proj", f"bucket_swap{int(swap)}", aim.aim_gates_proj,
                   aim.aim_gates_proj_plain, b_args,
-                  bf16_bound(npix * (2 * c * mid + 2 * mid + 8 * c), npix * 2 * c * c,
+                  bound(npix * (2 * c * mid + 2 * mid + 8 * c), npix * 2 * c * c,
                              3 * npix * c + b * c + c * mid + c * c + 3 * mid + c + 2),
                   kw=dict(swap=swap))
     del v, a_args, b_args, cx16
@@ -2857,9 +3092,9 @@ def bf16_kernel_cases(gen: torch.Generator) -> dict:
               r(c, hid, std=c ** -0.5), r(hid, std=0.1), r(half, std=0.1, mean=1.0),
               r(half, std=0.1), r(3, 3, 1, half, std=1 / 3), r(half, std=0.1),
               r(half, c, std=half ** -0.5), r(c, std=0.1))
-    bf16_case(res16, "fused_sgfn_tail", "bucket", sgfn.fused_sgfn_tail,
+    check(res16, "fused_sgfn_tail", "bucket", sgfn.fused_sgfn_tail,
               sgfn.fused_sgfn_tail_plain, t_args,
-              bf16_bound(npix * (8 * c + 10 * hid + 28 * half),
+              bound(npix * (8 * c + 10 * hid + 28 * half),
                          npix * (2 * c * hid + 2 * half * c),
                          3 * npix * c + c * hid + half * c + hid + 13 * half + 3 * c))
     del t_args
@@ -2872,17 +3107,17 @@ def bf16_kernel_cases(gen: torch.Generator) -> dict:
               r(3, 3, c, mid, std=(9 * c) ** -0.5), r(mid, std=0.1),
               r(3, 3, mid, c, std=(9 * mid) ** -0.5), r(c, std=0.1))
     for shift in (0, s):
-        bf16_case(res16, "cab_chain", f"bucket_shift{shift}", cab.cab_chain, cab.cab_chain_plain,
-                  c_args, bf16_bound(npix * (10 * c + 10 * mid), npix * 36 * c * mid,
+        check(res16, "cab_chain", f"bucket_shift{shift}", cab.cab_chain, cab.cab_chain_plain,
+                  c_args, bound(npix * (10 * c + 10 * mid), npix * 36 * c * mid,
                                      2 * npix * c + 18 * c * mid + 3 * c + mid + b * c),
                   kw=dict(out_shift=shift))
     del c_args
     m_args = (r(b, h, w, c), r(b, h, w, c), r(c, std=0.1, mean=1.0), r(c, std=0.1),
               r(c, hid, std=c ** -0.5), r(hid, std=0.1), r(hid, c, std=hid ** -0.5),
               r(c, std=0.1))
-    bf16_case(res16, "fused_residual_ln_mlp", "bucket", wattn.fused_residual_ln_mlp,
+    check(res16, "fused_residual_ln_mlp", "bucket", wattn.fused_residual_ln_mlp,
               wattn.fused_residual_ln_mlp_plain, m_args,
-              bf16_bound(npix * (12 * c + 10 * hid), npix * 4 * c * hid,
+              bound(npix * (12 * c + 10 * hid), npix * 4 * c * hid,
                          3 * npix * c + 2 * c * hid + hid + 3 * c))
     del m_args
     h_args = (r(b, h, w, c), r(b, h, w, c, std=3.0), r(c, std=0.1, mean=1.0),
@@ -2893,21 +3128,25 @@ def bf16_kernel_cases(gen: torch.Generator) -> dict:
     gate = r(b, 1, 1, c, std=0.2, mean=0.5)
     types = torch.from_numpy(windows.shift_mask_types(ws, ws, s, s).copy()).cuda()
     for case, mask, in_shift in (("bucket_unshifted", None, 0), ("bucket_in_shift", types, s)):
-        bf16_case(res16, "fused_hab_block", case, wattn.fused_hab_block,
+        check(res16, "fused_hab_block", case, wattn.fused_hab_block,
                   wattn.fused_hab_block_plain, h_args + (mask, (ws, ws), heads, 0.01),
-                  bf16_bound(npix * (24 * c + 10 * hid) + nwin * heads * n * n * 8,
+                  bound(npix * (24 * c + 10 * hid) + nwin * heads * n * n * 8,
                              npix * (8 * c * c + 4 * c * hid) + nwin * heads * n * n * 4 * hd,
                              3 * npix * c + 4 * c * c + 2 * c * hid + 8 * c + hid + b * c
                              + (heads + (4 if in_shift else 0)) * n * n),
-                  kw=dict(cab_scale=gate, in_shift=in_shift))
+                  kw=dict(cab_scale=gate, in_shift=in_shift),
+                  **probs(wattn))
+        if mode == "default":
+            hab_halves_default(case, h_args, mask, ws, heads, gate, in_shift)
     del h_args
     o_args = (r(b, h, w, c), r(b, h, w, c), r(b, h, w, c), r(c, c, std=c ** -0.5),
               r(c, std=0.1), r(heads, n, nk, std=0.5), ws, ov, heads)
-    bf16_case(res16, "fused_overlap_attention", "bucket", wattn.fused_overlap_attention,
+    check(res16, "fused_overlap_attention", "bucket", wattn.fused_overlap_attention,
               wattn.fused_overlap_attention_plain, o_args,
-              bf16_bound(nwin * heads * n * nk * 8,
+              bound(nwin * heads * n * nk * 8,
                          nwin * heads * n * nk * 4 * hd + npix * 2 * c * c,
-                         4 * npix * c + c * c + c + heads * n * nk))
+                         4 * npix * c + c * c + c + heads * n * nk),
+                  **probs(wattn))
     del o_args
     # the head: B11 on the 9 band tokens of 64, B12 on the 9 bands folded into the batch
     _, b, h, w, t, d, heads = MHA_CASES[0]
@@ -2915,16 +3154,17 @@ def bf16_kernel_cases(gen: torch.Generator) -> dict:
     args = (r(b, h, w, t, d, std=0.6), r(d, 3 * d, std=d ** -0.5), r(3 * d, std=0.1),
             r(d, d, std=d ** -0.5), r(d, std=0.1), r(d, std=0.1, mean=1.0), r(d, std=0.1),
             heads)
-    bf16_case(res16, "fused_band_mha", "bucket", bandmha.fused_band_mha,
+    check(res16, "fused_band_mha", "bucket", bandmha.fused_band_mha,
               bandmha.fused_band_mha_plain, args,
-              bf16_bound(npix * (t * 10 * d + heads * t * t * (4 * hd + 8)), npix * t * 8 * d * d,
-                         2 * npix * t * d + 4 * d * d + 6 * d))
+              bound(npix * (t * 10 * d + heads * t * t * (4 * hd + 8)), npix * t * 8 * d * d,
+                         2 * npix * t * d + 4 * d * d + 6 * d),
+                  **probs(bandmha))
     _, b, h, w, c = LKA_CASES[0]
     nel = b * h * w * c
     args = (r(b, h, w, c), r(5, 5, c, std=0.2), r(21, c, std=0.2), r(21, c, std=0.2),
             r(c, c, std=c ** -0.5), r(c, std=0.2, mean=1.0), r(c, std=0.1))
-    bf16_case(res16, "lka_gate", "bucket", lka.lka_gate, lka.lka_gate_plain, args,
-              bf16_bound(nel * (2 * (25 + 21 + 21) + 8), nel * 2 * c, 2 * nel + c * c + 69 * c))
+    check(res16, "lka_gate", "bucket", lka.lka_gate, lka.lka_gate_plain, args,
+              bound(nel * (2 * (25 + 21 + 21) + 8), nel * 2 * c, 2 * nel + c * c + 69 * c))
     # B13 (DAT's pre-projected windows: the tiled path at 176-px tiles) and B14 (HAT's odd
     # windows), at the table's shapes
     c, heads = DAT_C // 2, DAT_HEADS
@@ -2933,10 +3173,11 @@ def bf16_kernel_cases(gen: torch.Generator) -> dict:
     n, npix, nwin = hs * ws, b * h * w, b * (h // hs) * (w // ws)
     args = (r(b, h, w, c), r(b, h, w, c), r(b, h, w, c), r(heads, n, n, std=0.5), None,
             (hs, ws), heads)
-    bf16_case(res16, "fused_window_attention_qkv", "table", wattn.fused_window_attention_qkv,
+    check(res16, "fused_window_attention_qkv", "table", wattn.fused_window_attention_qkv,
               wattn.fused_window_attention_qkv_plain, args,
-              bf16_bound(nwin * heads * n * n * 8, nwin * heads * n * n * 4 * hd,
-                         4 * npix * c + heads * n * n))
+              bound(nwin * heads * n * n * 8, nwin * heads * n * n * 4 * hd,
+                         4 * npix * c + heads * n * n),
+                  **probs(wattn))
     c, heads = HAT_C, HAT_HEADS
     hd = c // heads
     _, b, h, w, hs, ws, _ = WIN_CASES[0]
@@ -2944,11 +3185,12 @@ def bf16_kernel_cases(gen: torch.Generator) -> dict:
     args = (r(b, h, w, c), r(c, 3 * c, std=c ** -0.5), r(3 * c, std=0.1),
             r(c, c, std=c ** -0.5), r(c, std=0.1), r(heads, n, n, std=0.5), None, (hs, ws),
             heads)
-    bf16_case(res16, "fused_window_attention", "table", wattn.fused_window_attention,
+    check(res16, "fused_window_attention", "table", wattn.fused_window_attention,
               wattn.fused_window_attention_plain, args,
-              bf16_bound(nwin * heads * n * n * 8,
+              bound(nwin * heads * n * n * 8,
                          npix * 8 * c * c + nwin * heads * n * n * 4 * hd,
-                         2 * npix * c + 4 * c * c + 4 * c + heads * n * n))
+                         2 * npix * c + 4 * c * c + 4 * c + heads * n * n),
+                  **probs(wattn))
     del args
     torch.cuda.empty_cache()
     for r16 in res16.values():
@@ -2979,7 +3221,7 @@ def bf16_slice(gen: torch.Generator, ens_counts: dict, per_forward: dict) -> dic
     at the three buckets on both bf16 paths. Returns {kernel: {...}} with the per-image
     launches."""
     t_phase = time.perf_counter()
-    res16 = bf16_kernel_cases(gen)
+    res16 = mode_kernel_cases(gen, "bf16")
     model_dir = os.path.join(OUT, "model_dir")
     req_dir, sr_dir = os.path.join(OUT, "requests"), os.path.join(OUT, "sr_bf16")
     big_dir = os.path.join(OUT, "requests_bf16_tiled")
@@ -3096,6 +3338,217 @@ def bf16_slice(gen: torch.Generator, ens_counts: dict, per_forward: dict) -> dic
     return res16
 
 
+def default_slice(gen: torch.Generator, ens_counts: dict, per_forward: dict) -> dict:
+    """Serving at precision "default" (FREQFUSION_PRECISION=default: f32 storage, every
+    kernel's matmul operands rounded to bf16, TF32 in the glue) of the full FreqFusionSR at
+    the ensemble phase's checkpoints: every kernel's default instantiation against its plain
+    default version, the plain f32 version and float64 (`kernel_default` lines); then
+    infer.io.main(precision="default") serves the three requests, whose launches must equal
+    the f32 ensemble's, with both TF32 flags on and bf16 operands inside every forward and
+    the caller's state after; the submission runner serves the 640x480 frame in tiles with
+    FREQFUSION_PRECISION=default set (launches: the per-image counts of each of its 6
+    chunks); the whole forward at default on both paths is held to the f32 kernel forward
+    (RMS distance of the fused image before any clamp, the kernel path's at most
+    DEFAULT_FORWARD_FACTOR x the plain default path's; PSNR of each); per-image forward
+    times at the three buckets on both default paths and the f32 kernel path. Returns
+    {kernel: {...}} with the per-image launches."""
+    t_phase = time.perf_counter()
+    resd = mode_kernel_cases(gen, "default")
+    model_dir = os.path.join(OUT, "model_dir")
+    req_dir, sr_dir = os.path.join(OUT, "requests"), os.path.join(OUT, "sr_default")
+    big_dir = os.path.join(OUT, "requests_default_tiled")
+    save_dir = os.path.join(OUT, "results_default")
+    for d in (sr_dir, big_dir, os.path.join(save_dir, cli_test.MODEL_NAME, "valid")):
+        for f in list_images(d) if os.path.isdir(d) else []:
+            os.remove(f)
+    files = list_images(req_dir)
+    lrs = [load_image(f) for f in files]
+
+    def state():
+        return (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+                str(_mma.operand_dtype(torch.float32)))
+
+    # the main path at default: the directory contract with precision="default", the TF32
+    # flags and the operand dtype recorded inside every forward
+    seen, forward = [], FreqFusionSR.forward
+
+    def recording(self, *a, **k):
+        seen.append(state())
+        return forward(self, *a, **k)
+
+    before = state()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    FreqFusionSR.forward = recording
+    try:
+        t0 = time.perf_counter()
+        served = serve_directory(model_dir, req_dir, sr_dir, precision="default")
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    finally:
+        FreqFusionSR.forward = forward
+    after = state()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = {k: n for k, n in read_launches().items() if n}
+    outs = [load_image(os.path.join(sr_dir, os.path.basename(f))) for f in files]
+    f32_outs = [load_image(os.path.join(OUT, "sr_ens", os.path.basename(f))) for f in files]
+    lsb = max(int(np.abs(np.round(a * 255) - np.round(b * 255)).max())
+              for a, b in zip(outs, f32_outs))
+    png_psnr = [psnr_db(float(np.sqrt(np.mean((a - b) ** 2)))) for a, b in zip(outs, f32_outs)]
+    inside = sorted(set(seen))
+    emit("default_serve", images=served, seconds=serve_s, peak_mem_gib=peak, launches=counts,
+         per_image={k: n / len(REQUESTS) for k, n in counts.items()},
+         png_max_lsb_vs_f32=lsb, png_psnr_vs_f32_db=png_psnr,
+         state_inside=[list(s) for s in inside], state_before=list(before),
+         state_after=list(after))
+    require(served == len(REQUESTS), f"main at default served {served} images")
+    for lr, arr in zip(lrs, outs):
+        require(arr.shape == (4 * lr.shape[0], 4 * lr.shape[1], 3), f"output {arr.shape}")
+    require(counts == ens_counts, f"launches at default {counts}, at f32 {ens_counts}")
+    require(inside == [(True, True, str(BF16))], f"state inside the forwards {inside}")
+    require(after == before, f"state after main {after}, before {before}")
+
+    # the 640x480 frame in 192-px tiles through the runner, the precision from the environment
+    write_requests(big_dir, TILED_REQUESTS[:1])
+    os.environ["FREQFUSION_MODEL_DIR"] = model_dir
+    os.environ["FREQFUSION_PRECISION"] = "default"
+    try:
+        reset_launches()
+        runtime_ms = cli_test.main(["--input", big_dir, "--save_dir", save_dir])
+        tiled_counts = {k: n for k, n in read_launches().items() if n}
+    finally:
+        del os.environ["FREQFUSION_PRECISION"]
+    chunks = -(-num_tiles(480, 640, 192, 32, 2) // 2)
+    expected = {k: n * chunks for k, n in per_forward.items()}
+    tiled_png = load_image(os.path.join(save_dir, cli_test.MODEL_NAME, "valid",
+                                        os.path.basename(list_images(big_dir)[0])))
+    emit("default_tiled", lr=list(TILED_REQUESTS[0]), chunks=chunks, seconds=runtime_ms / 1e3,
+         launches=tiled_counts, output=list(tiled_png.shape),
+         finite=bool(np.isfinite(tiled_png).all()))
+    require(tiled_counts == expected,
+            f"tiled launches at default {tiled_counts}, expected {expected}")
+    require(tiled_png.shape == (1920, 2560, 3), f"tiled output {tiled_png.shape}")
+
+    # the whole forward of image 0 at default, both paths, against the f32 kernel forward
+    pipe = build_pipeline(model_dir, precision="default")
+    model = pipe.model
+    plans = [pipe._whole_image_plan(lr.shape[0], lr.shape[1]) for lr in lrs]
+    with torch.inference_mode():
+        x = torch.from_numpy(pipe._pad([lrs[0]], *plans[0])).cuda()
+        _, _, fused32, out32 = ens_forward(model, x)
+        with pinned_precision("default"):
+            _, _, fused_k, out_k = ens_forward(model, x)
+            set_kernels(model, False)
+            _, _, fused_p, out_p = ens_forward(model, x)
+            set_kernels(model, True)
+        torch.cuda.synchronize()
+    d_k, d_p = rms(fused_k, fused32), rms(fused_p, fused32)
+    o_k, o_p = rms(out_k, out32), rms(out_p, out32)
+    finite = bool(torch.isfinite(fused_k).all() and torch.isfinite(out_k).all())
+    emit("default_forward", bucket=list(plans[0]), fused_rms_vs_f32_kernel=d_k,
+         fused_rms_vs_f32_plain=d_p, fused_psnr_kernel_db=psnr_db(d_k),
+         fused_psnr_plain_db=psnr_db(d_p), out_psnr_kernel_db=psnr_db(o_k),
+         out_psnr_plain_db=psnr_db(o_p),
+         fused_kernel_vs_plain_rms=rms(fused_k, fused_p),
+         fused_max_abs_kernel=(fused_k.double() - fused32.double()).abs().max().item(),
+         fused_max_abs_plain=(fused_p.double() - fused32.double()).abs().max().item(),
+         factor=DEFAULT_FORWARD_FACTOR, finite=finite, dtype=str(out_k.dtype))
+    require(finite, "non-finite forward at default")
+    require(fused_k.dtype == torch.float32, f"the default forward gave {fused_k.dtype}")
+    require(0 < d_k <= DEFAULT_FORWARD_FACTOR * d_p,
+            f"default forward {d_k} from f32, the plain default path {d_p}")
+    del fused32, out32, fused_k, out_k, fused_p, out_p
+
+    # per-image device time of the forward at each bucket: both default paths, f32 kernels
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        for lr, plan in zip(lrs, plans):
+            xb = torch.from_numpy(pipe._pad([lr], *plan)).cuda()
+            ms = {"f32_kernel": cuda_ms(lambda: model(xb), iters=2)}
+            with pinned_precision("default"):
+                for path, on in (("kernel", True), ("plain", False)):
+                    set_kernels(model, on)
+                    ms[path] = cuda_ms(lambda: model(xb), iters=2)
+                set_kernels(model, True)
+            times.append(dict(lr=[lr.shape[1], lr.shape[0]], bucket=list(plan),
+                              kernel_ms=ms["kernel"], plain_ms=ms["plain"],
+                              f32_kernel_ms=ms["f32_kernel"]))
+    emit("default_time", per_image=times,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, serve_seconds=serve_s,
+         seconds=time.perf_counter() - t_phase)
+    del pipe, model
+    torch.cuda.empty_cache()
+    for k, rd in resd.items():
+        rd["launches"] = counts.get(k, 0) // len(REQUESTS)
+    return resd
+
+
+def bf16_wide_cases(gen: torch.Generator) -> None:
+    """The bf16 routes that took f32 only until the K pieces summed in an f32 scratch: B5b
+    and B8 above C = 192 (C = 256 and 384 on [1,128,256,C]; B5b's S-Map 16 and 32 wide), B11's
+    wide route (the repair shapes D = 400 and 512, 65 tokens at D = 128, 129 at D = 64) and
+    B12 above C = 1808 (1816 and 2048): each one launch of its kernel against its plain bf16
+    version and float64, at the bounds of `bf16_case` (`bf16_wide` lines)."""
+    def r(*shape, std=1.0, mean=0.0):
+        return mean + std * torch.randn(*shape, generator=gen, device="cuda")
+
+    res = {}
+
+    def one(key, case, counts, kernel, plain, args, bnd, kw=None, shape=None):
+        before = counts[key]
+        bf16_case(res, key, case, kernel, plain, args, bnd, kw=kw, summary=False, iters=2,
+                  shape=shape, phase="bf16_wide")
+        require(counts[key] > before, f"{key} at {case}: the kernel did not launch")
+
+    b, h, w, ws = 1, 128, 256, HAT_WINDOW
+    npix, n = b * h * w, ws * ws
+    types = torch.from_numpy(windows.shift_mask_types(ws, ws, ws // 2, ws // 2).copy()).cuda()
+    for c in WIDE_ROWS:
+        for mid in (16, 32):
+            args = (r(b, h, w, c), r(b, h, w, c), r(b, 1, 1, c), r(1, 1, c, mid, std=c ** -0.5),
+                    r(mid, std=0.1), r(mid, std=0.2, mean=1.0), r(mid, std=0.1),
+                    r(1, 1, mid, 1, std=mid ** -0.5), r(1, std=0.1), r(c, c, std=c ** -0.5),
+                    r(c, std=0.1))
+            one("aim_gates_proj", f"c{c}_mid{mid}", aim.launches, aim.aim_gates_proj,
+                aim.aim_gates_proj_plain, args,
+                bf16_bound(npix * (2 * c * mid + 2 * mid + 8 * c), npix * 2 * c * c,
+                           3 * npix * c + c * mid + c * c))
+        hid, heads = 2 * c, c // 32
+        hd, nwin = c // heads, b * (h // ws) * (w // ws)
+        ln = (r(c, std=0.1, mean=1.0), r(c, std=0.1))
+        args = (r(b, h, w, c), r(b, h, w, c, std=3.0), *ln, *ln, r(c, 3 * c, std=c ** -0.5),
+                r(3 * c, std=0.1), r(c, c, std=c ** -0.5), r(c, std=0.1),
+                r(c, hid, std=c ** -0.5), r(hid, std=0.1), r(hid, c, std=hid ** -0.5),
+                r(c, std=0.1), r(heads, n, n, std=0.5), types, (ws, ws), heads, 0.01)
+        one("fused_hab_block", f"c{c}", wattn.launches, wattn.fused_hab_block,
+            wattn.fused_hab_block_plain, args,
+            bf16_bound(npix * (24 * c + 10 * hid) + nwin * heads * n * n * 8,
+                       npix * (8 * c * c + 4 * c * hid) + nwin * heads * n * n * 4 * hd,
+                       3 * npix * c + 4 * c * c + 2 * c * hid),
+            kw=dict(cab_scale=r(b, 1, 1, c, std=0.2, mean=0.5), in_shift=ws // 2))
+        del args
+    for case, (b, h, w, t, d, heads) in (("d400", (1, 16, 24, 9, 400, 4)),
+                                         ("d512", (1, 16, 24, 9, 512, 4)),
+                                         ("t65_d128", (1, 8, 12, 65, 128, 4)),
+                                         ("t129_d64", (1, 8, 12, 129, 64, 4))):
+        npix, hd = b * h * w, d // heads
+        args = (r(b, h, w, t, d, std=0.6), r(d, 3 * d, std=d ** -0.5), r(3 * d, std=0.1),
+                r(d, d, std=d ** -0.5), r(d, std=0.1), r(d, std=0.1, mean=1.0), r(d, std=0.1),
+                heads)
+        one("fused_band_mha", case, bandmha.launches, bandmha.fused_band_mha,
+            bandmha.fused_band_mha_plain, args,
+            bf16_bound(npix * (t * 10 * d + heads * t * t * (4 * hd + 8)), npix * t * 8 * d * d,
+                       2 * npix * t * d + 4 * d * d + 6 * d))
+    for case, (b, h, w, c) in (("c1816", (1, 32, 48, 1816)), ("c2048", (1, 32, 48, 2048))):
+        nel = b * h * w * c
+        args = (r(b, h, w, c), r(5, 5, c, std=0.2), r(21, c, std=0.2), r(21, c, std=0.2),
+                r(c, c, std=c ** -0.5), r(c, std=0.2, mean=1.0), r(c, std=0.1))
+        one("lka_gate", case, lka.launches, lka.lka_gate, lka.lka_gate_plain, args,
+            bf16_bound(nel * (2 * (25 + 21 + 21) + 8), nel * 2 * c, 2 * nel + c * c + 69 * c))
+    torch.cuda.empty_cache()
+
+
 def profile_forward(tag: str, forward) -> None:
     """Device time of one `forward()` by kernel (torch.profiler), after one warm-up."""
     from torch.profiler import ProfilerActivity, profile
@@ -3181,6 +3634,10 @@ def main() -> None:
     # bf16 serving: its own lines, outside `paths` (the f32 lines keep their launches)
     res16 = bf16_slice(gen, paths[-1][1], per_forward)
     torch.cuda.empty_cache()
+    # precision "default": its own lines too
+    resd = default_slice(gen, paths[-1][1], per_forward)
+    torch.cuda.empty_cache()
+    bf16_wide_cases(gen)
     paths.append(("tiled", tiled_slice(per_forward, "tiled" in profiled)))
     torch.cuda.empty_cache()
     paths.append(("hat_odd", hat_odd_slice(torch.Generator().manual_seed(SEED))))
@@ -3205,7 +3662,16 @@ def main() -> None:
                 "ms_bf16": res16[k]["ms"], "plain_ms_bf16": res16[k]["plain_ms"],
                 "bound_bf16_ms": res16[k]["bound"][0], "bound_bf16_by": res16[k]["bound"][1],
                 "max_abs_err_bf16": res16[k]["err"], "max_rel_err_bf16": res16[k]["rel"],
-                "launches_bf16": res16[k]["launches"]}
+                "launches_bf16": res16[k]["launches"],
+                "instantiations": (["f32", "bf16"] if k in NO_OPERANDS
+                                   else ["f32", "bf16", "default"]),
+                "ms_default": resd[k]["ms"], "plain_ms_default": resd[k]["plain_ms"],
+                "bound_default_ms": resd[k]["bound"][0],
+                "bound_default_by": resd[k]["bound"][1],
+                "max_abs_err_default": resd[k]["err"], "max_rel_err_default": resd[k]["rel"],
+                "rounding_gap_default": resd[k]["gap"],
+                "rounding_rms_ratio_default": resd[k]["rms_ratio"],
+                "launches_default": resd[k]["launches"]}
                for k, (src, rep) in KERNELS.items()]
     emit("done", seconds=time.perf_counter() - t0)
     print(smi, flush=True)

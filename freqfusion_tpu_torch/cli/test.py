@@ -1,7 +1,8 @@
 """NTIRE-style submission runner of the port. Twin of the repository's root ``test.py``.
 
     python -m freqfusion_tpu_torch.cli.test --input <LR PNG directory> [--save_dir results]
-        [--split valid|test] [--model_id 29] [--device cuda] [--precision highest|high]
+        [--split valid|test] [--model_id 29] [--device cuda]
+        [--precision highest|high|default]
         [--dtype float32|bfloat16]
 
 Selects the team model, times the whole ``model_func`` call (model build, checkpoint
@@ -58,9 +59,11 @@ def main(argv: Optional[Sequence[str]] = None, **model_kwargs) -> float:
     ap.add_argument("--split", type=str, default="valid", choices=["valid", "test"])
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device; the default raises without a card")
-    ap.add_argument("--precision", type=str, default=None, choices=["highest", "high"],
-                    help="f32 products and convolutions: highest = f32, high = TF32 allowed "
-                         "(default: $FREQFUSION_PRECISION, else highest)")
+    ap.add_argument("--precision", type=str, default=None,
+                    choices=["highest", "high", "default"],
+                    help="highest = f32, high = TF32 allowed, default = the kernels' matmul "
+                         "operands in bf16 on f32 storage, TF32 allowed (default: "
+                         "$FREQFUSION_PRECISION, else highest)")
     ap.add_argument("--dtype", type=str, default=None, choices=["float32", "bfloat16"],
                     help="serving dtype (default: $FREQFUSION_DTYPE, else float32)")
     args = ap.parse_args(argv)

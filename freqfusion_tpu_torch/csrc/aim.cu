@@ -51,9 +51,14 @@
 //     stores only the columns below C. The sigmoids are f32 with expf.
 //   * Above C = 192 (WIDE) a row no longer fits beside the ring: the S-Map is a first pass
 //     over src from device memory, then the gated sum is staged in K pieces of at most 192
-//     (tile_mma_piece) and each piece's sums are added in out's rows of the block. An S-Map
-//     wider than 12 takes its sums 12 at a time, a pass over the rows each. Neither pass is
-//     taken at C <= 192 with mid <= 12.
+//     (tile_mma_piece) and each piece's sums are added in f32 in the block's rows of y (out
+//     itself for f32 storage, an f32 scratch for bf16), the last piece storing out once. An
+//     S-Map wider than 12 takes its sums 12 at a time, a pass over the rows each. Neither
+//     pass is taken at C <= 192 with mid <= 12.
+//   * P = 1 (bf16, and precision "default" on f32 storage): the S-Map's source and fc1, its
+//     GELU output and fc2, and the gated sum and proj are rounded to bf16 as operands, as the
+//     TPU kernel casts them; B5a has no product and no operand mode (its f32 instantiation
+//     serves precision "default").
 //
 // Layout: NHWC, contiguous, f32 or bf16 (B5a: v and conv_x; B5b: attened, conv_x and out);
 // C % 4 == 0. wdw [9][C]; si_w2 [mid]; chvec [B][C], the
@@ -78,7 +83,9 @@ __host__ __device__ inline ConvTiles conv_tiles(int C) {
 }
 
 // T: the storage type of v and cx (f32, or bf16: the CUDA-core taps multiply the bf16 values
-// in f32, and the sums are taken of cx before its rounding).
+// in f32, and the sums are taken of cx before its rounding). At bf16 a staged quad is its 8
+// raw bytes, copied by cp.async and converted where it is read: a load and a conversion in
+// the staging loop kept registers live across it, and the kernel spilled under its cap.
 template <typename T>
 __global__ void __launch_bounds__(kConvThreads, 2)
 aim_conv_branch_kernel(const T* __restrict__ v, const float* __restrict__ wdw,
@@ -98,21 +105,36 @@ aim_conv_branch_kernel(const T* __restrict__ v, const float* __restrict__ wdw,
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 
     // input row y0 - 1 + i (with its columns x0 - 1 .. x0 + tw) into stage i % kConvRing, zero
-    // outside the image (SAME padding); one commit group a row, empty past the strip
+    // outside the image (SAME padding); one commit group a row, empty past the strip. A
+    // stage holds rowq float4s, or at bf16 rowq raw quads of 8 bytes in its first half.
+    uint2* ring2 = reinterpret_cast<uint2*>(ring);
     auto stage = [&](int i) {
         if (i < kConvRows + 2) {
-            const int y = y0 - 1 + i;
-            float4* dst = ring + (i % kConvRing) * rowq;
+            const int y = y0 - 1 + i, s0 = (i % kConvRing) * rowq;
             for (int e = tid; e < rowq; e += nthreads) {
                 const int px = e / sq, qq = e - px * sq, xx = x0 - 1 + px;
-                if (y >= 0 && y < H && xx >= 0 && xx < W && qq < nqs)
-                    stage4(reinterpret_cast<float*>(dst + e),
-                           vb + ((size_t)y * W + xx) * C + 4 * (q0 + qq));
-                else
-                    dst[e] = zero;
+                const bool in = y >= 0 && y < H && xx >= 0 && xx < W && qq < nqs;
+                const T* src = vb + ((size_t)y * W + xx) * C + 4 * (q0 + qq);
+                if constexpr (kBf16<T>) {
+                    if (in)
+                        cp_async8(reinterpret_cast<float*>(ring2 + s0 + e),
+                                  reinterpret_cast<const float*>(src));
+                    else
+                        ring2[s0 + e] = make_uint2(0u, 0u);
+                } else {
+                    if (in)
+                        stage4(reinterpret_cast<float*>(ring + s0 + e), src);
+                    else
+                        ring[s0 + e] = zero;
+                }
             }
         }
         cp_async_commit();
+    };
+    // the staged quad at index j of the ring, as f32
+    auto quad = [&](int j) -> float4 {
+        if constexpr (kBf16<T>) return ld4(reinterpret_cast<const bf16*>(ring2 + j));
+        else return ring[j];
     };
 #pragma unroll
     for (int i = 0; i < kConvRing - 1; ++i) stage(i);
@@ -140,8 +162,8 @@ aim_conv_branch_kernel(const T* __restrict__ v, const float* __restrict__ wdw,
         // be refilled
         __syncthreads();
         stage(i + kConvRing - 1);
-        const float4* row = ring + (i % kConvRing) * rowq + xl * sq + q;
-        const float4 l = row[0], m = row[sq], r = row[2 * sq];
+        const int row = (i % kConvRing) * rowq + xl * sq + q;
+        const float4 l = quad(row), m = quad(row + sq), r = quad(row + 2 * sq);
         float4 a0 = mine ? ld4(bdw + c) : zero;
         taps(a2, l, m, r, 2);
         taps(a1, l, m, r, 1);
@@ -189,6 +211,7 @@ struct GatesArgs {
     const float4* projp;  // mma_planes of proj [Kp][Kp]
     const float* pb;
     T* out;
+    float* y;             // WIDE: the K pieces' sums, f32 [npix][C] (out itself for f32)
     long long npix;
     int hw, C, mid, Kp, swap;
 };
@@ -197,8 +220,10 @@ struct GatesArgs {
 // the channels 4q, 4q + 16, ..): the dot products of src's row with the group's fc1 columns
 // (w1s, [C][kMid] in shared memory) in registers, a butterfly over the 4 lanes, then BN,
 // GELU and fc2 added to s in the order of the hidden units. STAGE: the row also goes into
-// A (zero in its padded columns), as the projection's operand.
-template <bool STAGE, typename T>
+// A (zero in its padded columns), as the projection's operand (unrounded: the gated sum is
+// taken of it in f32). At P = 1 the row, fc1 (rounded where it is staged), GELU's output
+// and fc2 are bf16 operands.
+template <bool STAGE, int P, typename T>
 __device__ __forceinline__ float smap_group(const GatesArgs<T>& a, const T* src,
                                             const float* w1s, float* A, int ks, int p, int q,
                                             long long gp, int grp, float s) {
@@ -213,7 +238,7 @@ __device__ __forceinline__ float smap_group(const GatesArgs<T>& a, const T* src,
         if (c >= a.C) continue;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-            const float x = lane4(v, i);
+            const float x = rop<P>(lane4(v, i));
             const float4* wr = reinterpret_cast<const float4*>(w1s + (c + i) * kMid);
 #pragma unroll
             for (int m4 = 0; m4 < kMid / 4; ++m4) {
@@ -231,16 +256,17 @@ __device__ __forceinline__ float smap_group(const GatesArgs<T>& a, const T* src,
         t += __shfl_xor_sync(0xffffffffu, t, 1);
         t += __shfl_xor_sync(0xffffffffu, t, 2);
         const int j = grp * kMid + m;
-        // GELU's output is an operand of the S-Map's second product: rounded to T, as the
-        // TPU kernel casts it
+        // GELU's output is an operand of the S-Map's second product: rounded at P = 1, as
+        // the TPU kernel casts it
         if (j < a.mid)
-            s = fmaf(round_to<T>(gelu_erf(fmaf(t + a.b1[j], a.bns[j], a.bnb[j]))), a.w2[j], s);
+            s = fmaf(rop<P>(gelu_erf(fmaf(t + a.b1[j], a.bns[j], a.bnb[j]))), rop<P>(a.w2[j]),
+                     s);
     }
     return s;
 }
 
 // WIDE: C above kMmaMaxK (192), the projection's K in pieces (tile_mma_piece); else in one.
-template <bool WIDE, typename T>
+template <bool WIDE, int P, typename T>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 aim_gates_proj_kernel(const GatesArgs<T> a) {
     extern __shared__ float4 smem4[];
@@ -261,17 +287,18 @@ aim_gates_proj_kernel(const GatesArgs<T> a) {
     // stages src into A; a further group (mid > kMid) passes over src's rows again, from
     // device memory, as every group does above 192 (A then takes the gated sum in pieces).
     float* w1s = ws;
-    for (int e = tid; e < C * kMid; e += kMmaThreads) w1s[e] = a.w1[e];
+    for (int e = tid; e < C * kMid; e += kMmaThreads) w1s[e] = rop<P>(a.w1[e]);
     __syncthreads();
     {
         const int p = 8 * warp + (lane >> 2), q = lane & 3;
         const long long gp = p0 + p;
-        float s = smap_group<!WIDE>(a, src, w1s, A, ks, p, q, gp, 0, 0.f);
+        float s = smap_group<!WIDE, P>(a, src, w1s, A, ks, p, q, gp, 0, 0.f);
         for (int grp = 1; grp * kMid < a.mid; ++grp) {
             __syncthreads();   // every lane is past its reads of the last group's weights
-            for (int e = tid; e < C * kMid; e += kMmaThreads) w1s[e] = a.w1[grp * C * kMid + e];
+            for (int e = tid; e < C * kMid; e += kMmaThreads)
+                w1s[e] = rop<P>(a.w1[grp * C * kMid + e]);
             __syncthreads();
-            s = smap_group<false>(a, src, w1s, A, ks, p, q, gp, grp, s);
+            s = smap_group<false, P>(a, src, w1s, A, ks, p, q, gp, grp, s);
         }
         if (q == 0) smap[p] = s;
     }
@@ -320,40 +347,46 @@ aim_gates_proj_kernel(const GatesArgs<T> a) {
         }
     };
     // the projection (tile_mma synchronises first); in pieces, each piece's sums added to
-    // the last's in out's rows of this block
+    // the last's in f32 in y's rows of this block, the last piece storing out
     for (int k0 = 0; k0 < Kp; k0 += Kt) {
         const int kh = min(Kt, Kp - k0);
-        tile_mma<kPasses<T>>(
+        const bool last = k0 + kh == Kp;
+        tile_mma<P>(
             A, kh, a.projp + (size_t)(k0 / 8) * (Kp / 8) * 32, Kp / 8, Kp, ws,
             [&] { gated(k0, kh); },
             [&](int p, int n, float u0, float u1) {
                 const long long gp = p0 + p;
                 if (gp >= a.npix || n >= C) return;   // C is even: n + 1 < C too
-                if (!WIDE || k0 == 0) {
+                if (!WIDE) {
                     st2(a.out + gp * C + n, make_float2(u0 + a.pb[n], u1 + a.pb[n + 1]));
-                } else if constexpr (!kBf16<T>) {   // the pieces sum in out: f32 only
-                    float2* o = reinterpret_cast<float2*>(a.out + gp * C + n);
-                    const float2 y = *o;
-                    *o = make_float2(y.x + u0, y.y + u1);
+                    return;
                 }
+                float2* yp = reinterpret_cast<float2*>(a.y + gp * C + n);
+                float2 s = make_float2(u0 + a.pb[n], u1 + a.pb[n + 1]);
+                if (k0 > 0) {
+                    const float2 y = *yp;
+                    s = make_float2(y.x + u0, y.y + u1);
+                }
+                if (last) st2(a.out + gp * C + n, s);
+                else *yp = s;
             });
     }
 }
 
-template <bool WIDE, typename T>
+template <bool WIDE, int P, typename T>
 cudaError_t gates(const T* att, const T* cx, const float* chvec, const float* w1,
                   const float* b1, const float* bns, const float* bnb, const float* w2,
-                  const float* b2, const float* projp, const float* pb, T* out, int B, int H,
-                  int W, int C, int mid, int Kp, int swap, cudaStream_t st) {
+                  const float* b2, const float* projp, const float* pb, T* out, float* y,
+                  int B, int H, int W, int C, int mid, int Kp, int swap, cudaStream_t st) {
     GatesArgs<T> a = {};
     a.att = att; a.cx = cx; a.chvec = chvec; a.w1 = w1;
     a.b1 = b1; a.bns = bns; a.bnb = bnb; a.w2 = w2; a.b2 = b2;
-    a.projp = reinterpret_cast<const float4*>(projp); a.pb = pb; a.out = out;
+    a.projp = reinterpret_cast<const float4*>(projp); a.pb = pb; a.out = out; a.y = y;
     a.npix = (long long)B * H * W; a.hw = H * W; a.C = C; a.mid = mid; a.Kp = Kp;
     a.swap = swap;
     const size_t smem =
         (size_t)(kMmaRows * tile_mma_piece(Kp) + tile_mma_ws() + kMmaRows) * sizeof(float);
-    const auto kernel = aim_gates_proj_kernel<WIDE, T>;
+    const auto kernel = aim_gates_proj_kernel<WIDE, P, T>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -373,57 +406,57 @@ int aim_conv_branch_blocks(int H, int W, int C) {
     return ((H + kConvRows - 1) / kConvRows) * ((W + conv_tiles(C).tw - 1) / conv_tiles(C).tw);
 }
 
-// v and cx f32, or bf16 where `bf16_io` is set; the rest f32.
+// v and cx in the storage type of `mode` (common.cuh: IoMode; B5a takes no product, so
+// modes 0 and 2 are one instantiation); the rest f32.
 int aim_conv_branch(const float* v, const float* wdw, const float* bdw, const float* bns,
                     const float* bnb, float* cx, float* part, float* sums, int B, int H, int W,
-                    int C, int bf16_io, void* stream) {
+                    int C, int mode, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (C % 4 || C < 4 || B < 1 || H < 1 || W < 1) return cudaErrorInvalidValue;
     const ConvTiles tl = conv_tiles(C);
     const size_t smem = (size_t)kConvRing * (tl.tw + 2) * tl.sq * sizeof(float4);
-    const void* kernel = bf16_io ? reinterpret_cast<const void*>(aim_conv_branch_kernel<bf16>)
-                                 : reinterpret_cast<const void*>(aim_conv_branch_kernel<float>);
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
     const dim3 grid((W + tl.tw - 1) / tl.tw, (H + kConvRows - 1) / kConvRows, B * tl.ns);
     if (grid.z > 65535) return cudaErrorInvalidValue;
-    if (bf16_io)
-        aim_conv_branch_kernel<bf16><<<grid, tl.sq * tl.tw, smem, st>>>(
-            reinterpret_cast<const bf16*>(v), wdw, bdw, bns, bnb, reinterpret_cast<bf16*>(cx),
-            part, H, W, C);
-    else
-        aim_conv_branch_kernel<float><<<grid, tl.sq * tl.tw, smem, st>>>(v, wdw, bdw, bns, bnb,
-                                                                         cx, part, H, W, C);
-    err = cudaGetLastError();
+    const cudaError_t err = by_mode(mode, [&](auto m) {
+        using T = typename decltype(m)::T;
+        const auto kernel = aim_conv_branch_kernel<T>;
+        cudaError_t e =
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return e;
+        kernel<<<grid, tl.sq * tl.tw, smem, st>>>(as<T>(v), wdw, bdw, bns, bnb, as<T>(cx), part,
+                                                  H, W, C);
+        return cudaGetLastError();
+    });
     if (err != cudaSuccess) return err;
     return sum_partials(part, sums, B, aim_conv_branch_blocks(H, W, C), C, st);
 }
 
 // out = proj(gated sum) + pb; w1 the S-Map's fc1 in groups of kMid [ceil(mid / kMid)][C][kMid]
 // zero past mid, projp the mma_planes of proj [Kp][Kp] (ops/kernels/aim.py: gates_planes).
-// att, cx and out f32, or bf16 where `bf16_io` is set (then C <= 192: the wide case sums its
-// K pieces in out); chvec and the weights f32.
+// att, cx and out in the storage type of `mode` (common.cuh: IoMode); chvec and the weights
+// f32. y: at bf16 above C = 192, f32 scratch [B*H*W][C] where the K pieces sum (null
+// otherwise: f32 storage sums them in out).
 int aim_gates_proj(const float* att, const float* cx, const float* chvec, const float* w1,
                    const float* b1, const float* bns, const float* bnb, const float* w2,
-                   const float* b2, const float* projp, const float* pb, float* out, int B,
-                   int H, int W, int C, int mid, int Kp, int swap, int bf16_io, void* stream) {
+                   const float* b2, const float* projp, const float* pb, float* out, float* y,
+                   int B, int H, int W, int C, int mid, int Kp, int swap, int mode,
+                   void* stream) {
     if (C % 4 || Kp % 8 || Kp < C || Kp >= C + 8 || C * kMid > tile_mma_ws() || mid < 1 ||
         B < 1 || H < 1 || W < 1)
         return cudaErrorInvalidValue;
     const bool wide = tile_mma_piece(Kp) != Kp;
-    if (bf16_io && wide) return cudaErrorInvalidValue;
+    if (mode == 1 && wide && !y) return cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (bf16_io)
-        return gates<false>(reinterpret_cast<const bf16*>(att),
-                            reinterpret_cast<const bf16*>(cx), chvec, w1, b1, bns, bnb, w2, b2,
-                            projp, pb, reinterpret_cast<bf16*>(out), B, H, W, C, mid, Kp, swap,
-                            st);
-    if (wide)
-        return gates<true>(att, cx, chvec, w1, b1, bns, bnb, w2, b2, projp, pb, out, B, H, W, C,
-                           mid, Kp, swap, st);
-    return gates<false>(att, cx, chvec, w1, b1, bns, bnb, w2, b2, projp, pb, out, B, H, W, C,
-                        mid, Kp, swap, st);
+    return by_mode(mode, [&](auto m) {
+        using T = typename decltype(m)::T;
+        constexpr int P = decltype(m)::P;
+        if (wide)
+            return gates<true, P>(as<T>(att), as<T>(cx), chvec, w1, b1, bns, bnb, w2, b2, projp,
+                                  pb, as<T>(out), kBf16<T> ? y : out, B, H, W, C, mid, Kp, swap,
+                                  st);
+        return gates<false, P>(as<T>(att), as<T>(cx), chvec, w1, b1, bns, bnb, w2, b2, projp, pb,
+                               as<T>(out), nullptr, B, H, W, C, mid, Kp, swap, st);
+    });
 }
 
 }  // extern "C"

@@ -60,8 +60,13 @@
 // running max and sum (online softmax), the heads' output over n; out = n x wproj + bproj by
 // rows_linear, then + x. Any T and any D (a multiple of 16, as the wrapper pads it).
 //
-// Layout: contiguous; x and out f32 or bf16 (bf16 products; q, k, v rounded to bf16 for the
-// f32 attention), the rest f32. wqkv and wproj as fragments of [D][3D] and [D][D] ([in][out]).
+// Layout: contiguous; x and out f32 or bf16, the rest f32. At P = 1 (bf16, and precision
+// "default" on f32 storage) the products take bf16 operands, q, k, v are rounded to bf16
+// for the f32 attention, and the attention rounds where the TPU kernel's does (each product
+// of a score and of p v, exp(s - the row's max) in the sum, the probabilities), on either
+// route. wqkv and wproj as fragments of [D][3D] and [D][D]
+// ([in][out]); the wide route's scratch (n, qkv) is f32 in every mode, and at bf16 its
+// projection goes to qkv's memory and the residual is added there in f32 before the store.
 
 #include <type_traits>
 
@@ -85,13 +90,15 @@ struct BandArgs {
 
 // acc(p, n) = sum_k A(p, k) W(k, n) for the n-tiles [nt0, nt1) of W, f32-exact (3xTF32), and
 // epi(p, n, acc(p, n), acc(p, n + 1)) for each even n, by the thread that holds them.
-// frag_a(FragA&, m-tile, k-step) gives A's fragments; W holds B's, unsplit, [ks][ntw][32].
+// frag_a(Frag<4, P>&, m-tile, k-step) gives A's fragments; W holds B's, unsplit, [ks][ntw][32].
 // Warp w owns m-tiles 2 (w % MG), +1 and the (w / MG)-th share of the n-tiles, in passes of
 // NT. CHUNKED: K may pass 8 k-steps, and each chunk of 8 goes into fresh registers added to
 // the sum in f32 (the tensor core's adds round toward zero). SYNC: a barrier between the
 // products and the epilogue, for an epilogue that writes over A (the caller's shares are at
-// most NT n-tiles: one pass).
-template <int MG, int NT, bool CHUNKED, bool SYNC, int P, typename FragLoad, typename Epi>
+// most NT n-tiles: one pass). P: the TF32 passes; RW: W holds f32 weights whose bf16
+// rounding the one pass takes (precision "default"; a bf16 weight is exact as it is).
+template <int MG, int NT, bool CHUNKED, bool SYNC, int P, bool RW, typename FragLoad,
+          typename Epi>
 __device__ __forceinline__ void band_product(FragLoad frag_a, int ksteps,
                                              const float2* __restrict__ W, int ntw, int nt0,
                                              int nt1, Epi epi) {
@@ -127,8 +134,13 @@ __device__ __forceinline__ void band_product(FragLoad frag_a, int ksteps,
                     const float2 b = FULL || j < mine
                                          ? W[((size_t)s * ntw + base + j) * 32 + lane]
                                          : make_float2(0.f, 0.f);
-                    split_tf32(b.x, bh[j][0], bl[j][0]);
-                    split_tf32(b.y, bh[j][1], bl[j][1]);
+                    if constexpr (RW) {   // an f32 weight's bf16 rounding (one pass)
+                        bh[j][0] = bf16_tf32(b.x);
+                        bh[j][1] = bf16_tf32(b.y);
+                    } else {   // its TF32 split; a bf16 weight's hi is its exact value
+                        split_tf32(b.x, bh[j][0], bl[j][0]);
+                        split_tf32(b.y, bh[j][1], bl[j][1]);
+                    }
                 }
                 // the three terms of every tile interleaved, the small ones first
                 if constexpr (P == 3) {
@@ -281,14 +293,142 @@ __device__ __forceinline__ void band_attention(float* Q, const float* KV, int nr
     }
 }
 
+// The same attention at P = 1, rounding where the TPU kernel does (bandmha.py: _kernel):
+// each product q_c k_c of a score (q arrives scaled), exp(s - the row's max) in the sum, the
+// normalised probabilities and each product p v. The max is the row's over every head and
+// key, as the TPU kernel takes it: each head's max goes to its slot in the padding of its
+// row's k in KV (D / 4 slots, one for each of up to D / 4 heads), read back by the row's
+// heads after a barrier; then a walk for the sum and one for p v. A head up to 16 wide
+// keeps its scores, then its exp(s - max), in registers for up to 16 keys (9 in the head);
+// a wider one, or more keys, takes them anew in each walk. A round takes whole rows.
+__device__ __forceinline__ int band_max_slot(int h) { return 20 * (h >> 2) + 16 + (h & 3); }
+
+template <int HACC>
+__device__ __forceinline__ void band_attention_rounded(float* Q, float* KV, int nrows, int T,
+                                                       int D, int nh, int hd, int ldo,
+                                                       int ldkv) {
+    constexpr bool QREG = HACC == 16;
+    constexpr int KS = QREG ? 16 : 1;
+    const int vo = kv_col(D);   // v's first column
+    const int parts = QREG ? 1 : (hd + HACC - 1) / HACC, items = nrows * nh * parts;
+    const int round = kBandThreads / (nh * parts) * (nh * parts);
+    for (int it0 = 0; it0 < items; it0 += round) {   // the same rounds in every thread
+        const int it = threadIdx.x < round ? it0 + threadIdx.x : items;
+        const int part = it % parts, h = it / parts % nh;
+        const int row = it / parts / nh, c0 = h * hd, d0 = part * HACC;
+        float* qp = Q + row * ldo + c0;
+        const float* kv0 = KV + row / T * T * ldkv;   // the pixel's first key
+        float acc[HACC];
+#pragma unroll
+        for (int d = 0; d < HACC; ++d) acc[d] = 0.f;
+        float q[QREG ? HACC : 1];
+        if (QREG && it < items) {
+#pragma unroll
+            for (int d = 0; d < HACC; d += 4) {
+                if (d >= hd) break;
+                const float4 v = ld4(qp + d);
+                q[d] = v.x;
+                q[d + 1] = v.y;
+                q[d + 2] = v.z;
+                q[d + 3] = v.w;
+            }
+        }
+        auto score = [&](const float* kv) {   // each product rounded, summed in f32
+            float s = 0.f;
+            if constexpr (QREG) {
+#pragma unroll
+                for (int d = 0; d < HACC; d += 4) {
+                    if (d >= hd) break;
+                    const float4 k = ld4(kv + kv_col(c0 + d));
+                    s += rop<1>(q[d] * k.x) + rop<1>(q[d + 1] * k.y);
+                    s += rop<1>(q[d + 2] * k.z) + rop<1>(q[d + 3] * k.w);
+                }
+            } else {
+#pragma unroll 1   // unrolled, the wide heads' walks spilled
+                for (int d = 0; d < hd; d += 4) {
+                    const float4 k = ld4(kv + kv_col(c0 + d)), qq = ld4(qp + d);
+                    s += rop<1>(qq.x * k.x) + rop<1>(qq.y * k.y);
+                    s += rop<1>(qq.z * k.z) + rop<1>(qq.w * k.w);
+                }
+            }
+            return s;
+        };
+        auto pv = [&](const float* kv, float p) {   // acc += p v, each product rounded
+#pragma unroll
+            for (int d = 0; d < HACC; d += 4) {
+                if (d0 + d >= hd) break;
+                const float4 v = ld4(kv + vo + kv_col(c0 + d0 + d));
+                acc[d] += rop<1>(p * v.x);
+                acc[d + 1] += rop<1>(p * v.y);
+                acc[d + 2] += rop<1>(p * v.z);
+                acc[d + 3] += rop<1>(p * v.w);
+            }
+        };
+        float sc[KS];
+        const bool keep = QREG && T <= KS;
+        if (it < items && part == 0) {   // this head's max, to the row's slot
+            float m = -3.0e38f;
+            if (keep) {
+#pragma unroll
+                for (int j = 0; j < KS; ++j) {
+                    if (j < T) {
+                        sc[j] = score(kv0 + j * ldkv);
+                        m = fmaxf(m, sc[j]);
+                    }
+                }
+            } else {
+#pragma unroll 1
+                for (int j = 0; j < T; ++j) m = fmaxf(m, score(kv0 + j * ldkv));
+            }
+            KV[row * ldkv + band_max_slot(h)] = m;
+        }
+        __syncthreads();   // the round's maxima are in
+        if (it < items) {
+            float m = -3.0e38f;
+            for (int h2 = 0; h2 < nh; ++h2) m = fmaxf(m, KV[row * ldkv + band_max_slot(h2)]);
+            float z = 0.f;
+            if (keep) {
+#pragma unroll
+                for (int j = 0; j < KS; ++j) {
+                    if (j < T) {
+                        sc[j] = expf(sc[j] - m);
+                        z += rop<1>(sc[j]);
+                    }
+                }
+#pragma unroll
+                for (int j = 0; j < KS; ++j)
+                    if (j < T) pv(kv0 + j * ldkv, rop<1>(sc[j] / z));
+            } else {
+#pragma unroll 1
+                for (int j = 0; j < T; ++j) z += rop<1>(expf(score(kv0 + j * ldkv) - m));
+#pragma unroll 1
+                for (int j = 0; j < T; ++j) {
+                    const float* kv = kv0 + j * ldkv;
+                    pv(kv, rop<1>(expf(score(kv) - m) / z));
+                }
+            }
+        }
+        __syncthreads();   // every thread of the round has read its q
+        if (it < items) {
+#pragma unroll
+            for (int d = 0; d < HACC; d += 4) {
+                if (d0 + d >= hd) break;
+                *reinterpret_cast<float4*>(qp + d0 + d) =
+                    make_float4(acc[d], acc[d + 1], acc[d + 2], acc[d + 3]);
+            }
+        }
+    }
+}
+
 // Floats of a row of KV: k and v, each with kv_col's padding, and 4 more, so that the next
 // pixel's rows (T of them apart) start on other banks.
 __host__ __device__ constexpr int band_ldkv(int D) { return 2 * (D + D / 4) + 4; }
 
 // R rows a group, NQ float4s of a row a lane holds in LN (8 lanes a row: D <= 32 NQ).
-template <int HACC, int R, bool RES, int NQ, typename TS>
+template <int HACC, int R, bool RES, int NQ, typename TS, int PS>
 __global__ void __launch_bounds__(kBandThreads, 1) band_mha_kernel(const BandArgs<TS> a) {
-    constexpr int PS = kPasses<TS>;
+    // precision "default": the f32 weights' fragments rounded to bf16 as they are loaded
+    constexpr bool kRW = PS == 1 && !kBf16<TS>;
     // resident weights: 128 rows, K = D <= 64 in one chunk, k | v in passes of 4 n-tiles, q
     // in passes of 2; else K in chunks, k | v in passes of 2 (fewer registers beside the
     // chunk's sums), q in passes of 4 (one a warp up to D = 128 at R = 128, 256 at 64, 512
@@ -418,27 +558,30 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_mha_kernel(const BandArg
         }
         __syncthreads();   // A written; KV's memory read: k | v may come
         // (2) k | v: columns D .. 3D of wqkv into KV's 0 .. 2D
-        // k, v and q rounded to the storage type where the TPU kernel casts them to its operand
-        // dtype (a no-op for f32); the attention (4) runs on CUDA cores in f32
-        band_product<MG, NTKV, !RES, false, PS>(
+        // k, v and q rounded to bf16 at PS = 1, where the TPU kernel casts them to its operand
+        // dtype; the attention (4) runs on CUDA cores in f32
+        band_product<MG, NTKV, !RES, false, PS, kRW>(
             frag_ln, ks, wqkv, 3 * D / 8, D / 8, 3 * D / 8, [&](int p, int n, float u0, float u1) {
                 const int c = n < 2 * D ? kv_col(n - D) : kv_col(D) + kv_col(n - 2 * D);
                 *reinterpret_cast<float2*>(KV + p * ldkv + c) =
-                    make_float2(round_to<TS>(u0 + a.bqkv[n]), round_to<TS>(u1 + a.bqkv[n + 1]));
+                    make_float2(rop<PS>(u0 + a.bqkv[n]), rop<PS>(u1 + a.bqkv[n + 1]));
             });
         // (3) q, scaled, over A once every warp has read A
-        band_product<MG, NTQ, !RES, true, PS>(frag_ln, ks, wqkv, 3 * D / 8, 0, D / 8,
+        band_product<MG, NTQ, !RES, true, PS, kRW>(frag_ln, ks, wqkv, 3 * D / 8, 0, D / 8,
                                [&](int p, int n, float u0, float u1) {
                                    *reinterpret_cast<float2*>(A + p * ldo + n) =
-                                       make_float2(round_to<TS>(u0 + a.bqkv[n]) * a.scale,
-                                                   round_to<TS>(u1 + a.bqkv[n + 1]) * a.scale);
+                                       make_float2(rop<PS>(u0 + a.bqkv[n]) * a.scale,
+                                                   rop<PS>(u1 + a.bqkv[n + 1]) * a.scale);
                                });
         __syncthreads();
-        band_attention<HACC>(A, KV, nrows, T, D, a.heads, a.hd, ldo, ldkv);   // (4)
+        if constexpr (PS == 1)   // (4)
+            band_attention_rounded<HACC>(A, KV, nrows, T, D, a.heads, a.hd, ldo, ldkv);
+        else
+            band_attention<HACC>(A, KV, nrows, T, D, a.heads, a.hd, ldo, ldkv);
         __syncthreads();   // the heads' output in A; KV read: the next group's x may come
         fetch_x(grp + gridDim.x);
         // (5) out = heads x wproj + bproj + x
-        band_product<MG, 2, !RES, false, PS>(frag_heads, ks, wproj, D / 8, 0, D / 8,
+        band_product<MG, 2, !RES, false, PS, kRW>(frag_heads, ks, wproj, D / 8, 0, D / 8,
                                 [&](int p, int n, float u0, float u1) {
                                     if (p >= nrows) return;
                                     const long long i = (row0 + p) * D + n;
@@ -457,12 +600,12 @@ __host__ __device__ constexpr long long band_smem(int R, int D, bool res) {
            (res ? 4LL * D * D : 0);
 }
 
-template <int HACC, int R, bool RES, int NQ, typename TS>
+template <int HACC, int R, bool RES, int NQ, int PS, typename TS>
 cudaError_t launch(const BandArgs<TS>& a, cudaStream_t st) {
     const int D = a.D;
     const size_t smem = (size_t)band_smem(R, D, RES) * sizeof(float);
     if (smem > 232448 || D > 32 * NQ || a.T > R) return cudaErrorInvalidValue;
-    const auto kernel = band_mha_kernel<HACC, R, RES, NQ, TS>;
+    const auto kernel = band_mha_kernel<HACC, R, RES, NQ, TS, PS>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -492,23 +635,28 @@ int band_mha_rows(int T, int D) {
 // ---- The wide route
 
 // n[r] = LN(x[r]) over the first Dt of D columns (the rest are zero in x and in LN's affine):
-// a warp a row, f32, eps 1e-5.
-__global__ void band_ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
+// a warp a row, f32, eps 1e-5; n is f32.
+template <typename T>
+__global__ void band_ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
                                     const float* __restrict__ lnb, float* __restrict__ n,
                                     long long rows, int D, int Dt) {
     const long long r = (long long)blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
     if (r >= rows) return;
     const int lane = threadIdx.x & 31;
-    const float* src = x + r * D;
+    const T* src = x + r * D;
     float u, inv;
     warp_ln_stats(src, Dt, kEps, u, inv);
-    for (int c = lane; c < D; c += 32) n[r * D + c] = (src[c] - u) * inv * lnw[c] + lnb[c];
+    for (int c = lane; c < D; c += 32) n[r * D + c] = (ld1(src + c) - u) * inv * lnw[c] + lnb[c];
 }
 
 // The attention of the wide route: one thread per (row, head, part of 32 output columns)
 // takes its head's q (row r of qkv [rows][3D], columns h hd ..) against the T keys of its
 // pixel (columns D + h hd .. and, for v, 2D + h hd ..) with a running max and sum, and writes
-// its part of the head's output to o [rows][D]. q arrives scaled by `scale` here.
+// its part of the head's output to o [rows][D]. q arrives unscaled. At P = 1 q, k and v are
+// rounded to bf16 as they are read and the walk rounds where the fused route's does: the
+// row's max over every head (each thread takes every head's scores for it), then a walk for
+// the sum and one for p v.
+template <int P>
 __global__ void band_attention_wide_kernel(const float* __restrict__ qkv, float* __restrict__ o,
                                            long long rows, int T, int D, int heads, int hd,
                                            float scale) {
@@ -518,25 +666,53 @@ __global__ void band_attention_wide_kernel(const float* __restrict__ qkv, float*
     const int part = (int)(it % parts), h = (int)(it / parts % heads);
     const long long r = it / parts / heads;
     const int c0 = h * hd, d0 = 32 * part, nd = min(32, hd - d0);
-    const float* q = qkv + r * 3 * D + c0;
-    const float* kv = qkv + (r / T) * T * 3 * D;   // the pixel's first row
+    const float* q = qkv + r * 3 * D;
+    const float* kv0 = qkv + (r / T) * T * 3 * D;   // the pixel's first row
+    // the score of head c / hd against the key at kv, scaled; at P = 1 each product rounded
+    auto score = [&](const float* kv, int c) {
+        const float* k = kv + D + c;
+        float s = 0.f;
+        if constexpr (P == 1) {
+            for (int d = 0; d < hd; ++d) s += rop<P>(rop<P>(q[c + d]) * scale * rop<P>(k[d]));
+            return s;
+        } else {
+            for (int d = 0; d < hd; ++d) s = fmaf(q[c + d], k[d], s);
+            return s * scale;
+        }
+    };
     float acc[32];
 #pragma unroll
     for (int d = 0; d < 32; ++d) acc[d] = 0.f;
-    float m = -3.0e38f, l = 0.f;   // the first key's corr is exp(-3e38 - s) = 0
-    for (int j = 0; j < T; ++j, kv += 3 * D) {
-        const float* k = kv + D + c0;
-        float s = 0.f;
-        for (int d = 0; d < hd; ++d) s = fmaf(q[d], k[d], s);
-        s *= scale;
-        const float mn = fmaxf(m, s);
-        const float corr = expf(m - mn), p = expf(s - mn);
-        l = fmaf(l, corr, p);
-        const float* v = kv + 2 * D + c0 + d0;
+    float l = 1.f;
+    if constexpr (P == 1) {
+        float m = -3.0e38f;
+        for (int c = 0; c < heads * hd; c += hd)
+            for (int j = 0; j < T; ++j) m = fmaxf(m, score(kv0 + (long long)j * 3 * D, c));
+        float z = 0.f;
+        for (int j = 0; j < T; ++j) z += rop<P>(expf(score(kv0 + (long long)j * 3 * D, c0) - m));
+        for (int j = 0; j < T; ++j) {
+            const float* kv = kv0 + (long long)j * 3 * D;
+            const float p = rop<P>(expf(score(kv, c0) - m) / z);
+            const float* v = kv + 2 * D + c0 + d0;
 #pragma unroll
-        for (int d = 0; d < 32; ++d)
-            if (d < nd) acc[d] = fmaf(acc[d], corr, p * v[d]);
-        m = mn;
+            for (int d = 0; d < 32; ++d)
+                if (d < nd) acc[d] += rop<P>(p * rop<P>(v[d]));
+        }
+    } else {
+        float m = -3.0e38f;   // the first key's corr is exp(-3e38 - s) = 0
+        l = 0.f;
+        for (int j = 0; j < T; ++j) {
+            const float* kv = kv0 + (long long)j * 3 * D;
+            const float s = score(kv, c0);
+            const float mn = fmaxf(m, s);
+            const float corr = expf(m - mn), p = expf(s - mn);
+            l = fmaf(l, corr, p);
+            const float* v = kv + 2 * D + c0 + d0;
+#pragma unroll
+            for (int d = 0; d < 32; ++d)
+                if (d < nd) acc[d] = fmaf(acc[d], corr, p * v[d]);
+            m = mn;
+        }
     }
     const float inv = 1.f / l;
     float* dst = o + r * D + c0 + d0;
@@ -545,13 +721,14 @@ __global__ void band_attention_wide_kernel(const float* __restrict__ qkv, float*
         if (d < nd) dst[d] = acc[d] * inv;
 }
 
-// out += x, float4s
-__global__ void band_residual_kernel(const float4* __restrict__ x, float4* __restrict__ out,
+// out = y + x, four elements a thread, rounded to T once (y f32; out itself for f32)
+template <typename T>
+__global__ void band_residual_kernel(const T* __restrict__ x, const float* y, T* out,
                                      long long n4) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n4) return;
-    const float4 a = out[i], b = x[i];
-    out[i] = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+    const float4 a = ld4(y + 4 * i), b = ld4(x + 4 * i);
+    st4(out + 4 * i, make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w));
 }
 
 template <typename TS>
@@ -564,77 +741,95 @@ void fill_band(BandArgs<TS>& a, const TS* x, const float* wqkv, const float* bqk
     a.scale = scale;
 }
 
-template <typename TS>
+template <int PS, typename TS>
 cudaError_t band_launch(const BandArgs<TS>& a, int R, cudaStream_t st) {
     const int D = a.D;
     if (D <= 64)
-        return a.hd <= 16 ? launch<16, 128, true, 4>(a, st) : launch<32, 128, true, 4>(a, st);
-    if (R == 128) return launch<32, 128, false, 4>(a, st);
-    if (D <= 128) return launch<32, 64, false, 4>(a, st);
-    if (R == 64) return launch<32, 64, false, 6>(a, st);
-    return launch<32, 32, false, 12>(a, st);
+        return a.hd <= 16 ? launch<16, 128, true, 4, PS>(a, st)
+                          : launch<32, 128, true, 4, PS>(a, st);
+    if (R == 128) return launch<32, 128, false, 4, PS>(a, st);
+    if (D <= 128) return launch<32, 64, false, 4, PS>(a, st);
+    if (R == 64) return launch<32, 64, false, 6, PS>(a, st);
+    return launch<32, 32, false, 12, PS>(a, st);
 }
 
 }  // namespace
 
 extern "C" int rows_linear(const float* a, const float* wp, const float* bp, float* out,
                            float* y, long long npix, int C, int Cout, int Kp, int Np,
-                           int bf16_io, void* stream);
+                           int mode, void* stream);
+
+namespace {
+template <typename T, int P>
+cudaError_t band_wide(const T* x, const float* wqkv, const float* bqkv, const float* wproj,
+                      const float* bproj, const float* lnw, const float* lnb, float* n,
+                      float* qkv, T* out, long long npix, int T_, int D, int Dt, int heads,
+                      int hd, float scale, cudaStream_t st) {
+    const long long rows = npix * T_;
+    // the row products on f32 scratch: f32 storage, 3 passes or 1 (common.cuh: IoMode)
+    const int rmode = P == 1 ? 2 : 0;
+    band_ln_rows_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(x, lnw, lnb, n, rows, D, Dt);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = static_cast<cudaError_t>(
+        rows_linear(n, wqkv, bqkv, qkv, nullptr, rows, D, 3 * D, D, 3 * D, rmode, st));
+    if (err != cudaSuccess) return err;
+    const long long items = rows * heads * ((hd + 31) / 32);
+    band_attention_wide_kernel<P><<<(unsigned)((items + 255) / 256), 256, 0, st>>>(
+        qkv, n, rows, T_, D, heads, hd, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    // the projection in f32: out itself for f32 storage, qkv's memory (free now) for bf16
+    float* y = kBf16<T> ? qkv : reinterpret_cast<float*>(out);
+    err = static_cast<cudaError_t>(
+        rows_linear(n, wproj, bproj, y, nullptr, rows, D, D, D, D, rmode, st));
+    if (err != cudaSuccess) return err;
+    const long long n4 = rows * D / 4;
+    band_residual_kernel<T><<<(unsigned)((n4 + 255) / 256), 256, 0, st>>>(x, y, out, n4);
+    return cudaGetLastError();
+}
+}  // namespace
 
 // The wide route: out = x + MHA(LN(x)) on x [npix][T][D] for any T, D % 16 == 0; wqkv, wproj
-// the mma_planes of [D][3D] and [D][D] (ops/kernels/_mma.py: planes); n [npix T][D] and qkv
-// [npix T][3D] scratch. Heads, Dt and scale as band_mha's.
+// the mma_planes of [D][3D] and [D][D] (ops/kernels/_mma.py: planes; of the weights' bf16
+// rounding at P = 1); n [npix T][D] and qkv [npix T][3D] f32 scratch. x and out in the storage
+// type of `mode` (common.cuh: IoMode). Heads, Dt and scale as band_mha's.
 extern "C" int band_mha_wide(const float* x, const float* wqkv, const float* bqkv,
                              const float* wproj, const float* bproj, const float* lnw,
                              const float* lnb, float* n, float* qkv, float* out, long long npix,
-                             int T, int D, int Dt, int heads, int hd, float scale,
+                             int T, int D, int Dt, int heads, int hd, float scale, int mode,
                              void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (npix < 1 || T < 1 || D < 16 || D % 16 || Dt < 1 || Dt > D || heads < 1 || hd < 1 ||
         heads * hd > D)
         return cudaErrorInvalidValue;
-    const long long rows = npix * T;
-    band_ln_rows_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(x, lnw, lnb, n, rows, D, Dt);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    err = static_cast<cudaError_t>(
-        rows_linear(n, wqkv, bqkv, qkv, nullptr, rows, D, 3 * D, D, 3 * D, 0, st));
-    if (err != cudaSuccess) return err;
-    const long long items = rows * heads * ((hd + 31) / 32);
-    band_attention_wide_kernel<<<(unsigned)((items + 255) / 256), 256, 0, st>>>(
-        qkv, n, rows, T, D, heads, hd, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    err = static_cast<cudaError_t>(
-        rows_linear(n, wproj, bproj, out, nullptr, rows, D, D, D, D, 0, st));
-    if (err != cudaSuccess) return err;
-    const long long n4 = rows * D / 4;
-    band_residual_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, st>>>(
-        reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(out), n4);
-    return cudaGetLastError();
+    return by_mode(mode, [&](auto m) {
+        using S = typename decltype(m)::T;
+        return band_wide<S, decltype(m)::P>(as<S>(x), wqkv, bqkv, wproj, bproj, lnw, lnb, n, qkv,
+                                            as<S>(out), npix, T, D, Dt, heads, hd, scale, st);
+    });
 }
 
 // out = x + MHA(LN(x)) on x [npix][T][D]; wqkv, wproj the B fragments of [D][3D] and [D][D]
 // (ops/kernels/_mma.py: fragments). D % 16 == 0 up to 384; heads of hd columns (hd % 4 == 0),
 // head h at columns h hd .. of q, k and v, heads * hd <= D (the columns past them zero); T up
 // to band_mha_rows; LN over the first Dt columns (the rest zero), scores scaled by `scale`.
-// x and out f32, or bf16 where `bf16_io` is set; the weights' fragments, biases and LN f32.
+// x and out in the storage type of `mode` (common.cuh: IoMode); the weights' fragments,
+// biases and LN f32.
 extern "C" int band_mha(const float* x, const float* wqkv, const float* bqkv, const float* wproj,
                         const float* bproj, const float* lnw, const float* lnb, float* out,
                         long long npix, int T, int D, int Dt, int heads, int hd, float scale,
-                        int bf16_io, void* stream) {
+                        int mode, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int R = band_mha_rows(T, D);
     if (npix < 1 || D < 16 || D % 16 || Dt < 1 || Dt > D || heads < 1 || hd < 4 || hd % 4 ||
         heads * hd > D || T < 1 || R == 0)
         return cudaErrorInvalidValue;
-    if (bf16_io) {
-        BandArgs<bf16> a = {};
-        fill_band(a, reinterpret_cast<const bf16*>(x), wqkv, bqkv, wproj, bproj, lnw, lnb,
-                  reinterpret_cast<bf16*>(out), npix, T, D, Dt, heads, hd, scale);
-        return band_launch(a, R, st);
-    }
-    BandArgs<float> a = {};
-    fill_band(a, x, wqkv, bqkv, wproj, bproj, lnw, lnb, out, npix, T, D, Dt, heads, hd, scale);
-    return band_launch(a, R, st);
+    return by_mode(mode, [&](auto m) {
+        using S = typename decltype(m)::T;
+        BandArgs<S> a = {};
+        fill_band(a, as<S>(x), wqkv, bqkv, wproj, bproj, lnw, lnb, as<S>(out), npix, T, D, Dt,
+                  heads, hd, scale);
+        return band_launch<decltype(m)::P>(a, R, st);
+    });
 }

@@ -35,7 +35,8 @@
 // wrapper zero-pads the weights to [9][Cinp][Np] and the biases to [Np]; the intermediate
 // is stored Mp = 64 wide, its padded channels GELU(0) = 0.
 //
-// Layout: NHWC, contiguous; C % 4 == 0. x, g and u are f32, or bf16 (bf16 products).
+// Layout: NHWC, contiguous; C % 4 == 0. x, g and u are f32, or bf16; the products take
+// bf16 operands at bf16 and at precision "default" (P = 1).
 
 #include "conv_gemm.cuh"
 
@@ -46,26 +47,27 @@ extern "C" int cab_chain_blocks(int H, int W) {
 
 namespace {
 
-// x, g and u of storage type T; g, the GELU output between the convolutions, is rounded to
-// T where it is stored, as the TPU kernel casts it to its operand dtype.
-template <typename T>
+// x, g and u of storage type T; g, the GELU output between the convolutions, is stored in
+// T and rounded to bf16 as an operand at P = 1, as the TPU kernel casts it to its operand
+// dtype.
+template <typename T, int P>
 cudaError_t chain(const T* x, const float* lnw, const float* lnb, const float* w1,
                   const float* b1, const float* w2, const float* b2, T* g, T* u, float* part,
                   float* sums, int B, int H, int W, int C, int Cinp, int Np1, int Mp, int Np2,
                   int shift, cudaStream_t st) {
     const int smem = (int)conv_gemm_smem_bytes();
-    cudaError_t err = cudaFuncSetAttribute(conv3x3_gemm_kernel<true, T>,
+    cudaError_t err = cudaFuncSetAttribute(conv3x3_gemm_kernel<true, T, P>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(conv3x3_gemm_kernel<false, T>,
+    err = cudaFuncSetAttribute(conv3x3_gemm_kernel<false, T, P>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B);
-    conv3x3_gemm_kernel<true, T><<<grid, kThreads, smem, st>>>(x, lnw, lnb, w1, b1, g, nullptr,
-                                                               H, W, C, Cinp, Np1, Mp, 0);
+    conv3x3_gemm_kernel<true, T, P><<<grid, kThreads, smem, st>>>(
+        x, lnw, lnb, w1, b1, g, nullptr, H, W, C, Cinp, Np1, Mp, 0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    conv3x3_gemm_kernel<false, T><<<grid, kThreads, smem, st>>>(
+    conv3x3_gemm_kernel<false, T, P><<<grid, kThreads, smem, st>>>(
         g, nullptr, nullptr, w2, b2, u, part, H, W, Mp, Mp, Np2, C, shift);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -74,19 +76,19 @@ cudaError_t chain(const T* x, const float* lnw, const float* lnb, const float* w
 
 }  // namespace
 
-// x, g [B,H,W,Mp] and u f32, or bf16 where `bf16_io` is set; weights, biases and sums f32.
+// x, g [B,H,W,Mp] and u in the storage type of `mode` (common.cuh: Mode); weights, biases
+// and sums f32.
 extern "C" int cab_chain(const float* x, const float* lnw, const float* lnb, const float* w1,
                          const float* b1, const float* w2, const float* b2, float* g, float* u,
                          float* part, float* sums, int B, int H, int W, int C, int Cinp,
-                         int Np1, int Mp, int Np2, int shift, int bf16_io, void* stream) {
+                         int Np1, int Mp, int Np2, int shift, int mode, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (C % 4 || Cinp % kCC || Cinp < C || Np1 % 8 || Mp % kCC || Mp > Np1 || Np2 % 8 ||
         Np2 < C || shift < 0 || shift >= H || shift >= W)
         return cudaErrorInvalidValue;
-    if (bf16_io)
-        return chain(reinterpret_cast<const bf16*>(x), lnw, lnb, w1, b1, w2, b2,
-                     reinterpret_cast<bf16*>(g), reinterpret_cast<bf16*>(u), part, sums, B, H,
-                     W, C, Cinp, Np1, Mp, Np2, shift, st);
-    return chain(x, lnw, lnb, w1, b1, w2, b2, g, u, part, sums, B, H, W, C, Cinp, Np1, Mp, Np2,
-                 shift, st);
+    return by_mode(mode, [&](auto m) {
+        using T = typename decltype(m)::T;
+        return chain<T, decltype(m)::P>(as<T>(x), lnw, lnb, w1, b1, w2, b2, as<T>(g), as<T>(u),
+                                        part, sums, B, H, W, C, Cinp, Np1, Mp, Np2, shift, st);
+    });
 }

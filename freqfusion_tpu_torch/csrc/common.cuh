@@ -1,10 +1,18 @@
 // Shared device helpers for the hand-written kernels (sm_90a).
 //
-// Storage types. Every kernel on the serving path has two instantiations: T = float (the
-// f32 path) and T = bf16 (FREQFUSION_DTYPE=bfloat16: activations read and written as bf16).
+// Storage types and operand modes. Every kernel on the serving path has three
+// instantiations, each a storage type T and a number of TF32 passes P a product takes
+// (mma_f32x3.cuh):
+//   <float, 3>  the f32 path: f32-exact products (3xTF32);
+//   <float, 1>  precision "default", the JAX package's shipped serving numerics: f32 in
+//               device memory, every matmul operand rounded to bf16 where the TPU kernel
+//               casts it (`.astype(dt)`), one TF32 pass, f32 accumulation;
+//   <bf16, 1>   FREQFUSION_DTYPE=bfloat16: activations read and written as bf16, the same
+//               operand rounding.
 // Loads convert to f32 where they land (registers, or shared memory, which holds f32 in
-// both), arithmetic runs in f32, and stores round to T once. The overloads below take the
-// element type from the pointer, so one body serves both instantiations.
+// all three), arithmetic runs in f32, and stores round to T once. The overloads below take
+// the element type from the pointer, so one body serves every instantiation. P, not T,
+// decides whether an operand is rounded (rop<P>); T decides only what is stored.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -16,6 +24,29 @@ using bf16 = __nv_bfloat16;
 
 template <typename T>
 constexpr bool kBf16 = std::is_same<T, bf16>::value;
+
+// The modes of a C entry's `mode` argument (ops/kernels/_build.py: io_code): 0 f32 storage,
+// 3 passes; 1 bf16 storage, 1 pass; 2 f32 storage, 1 pass (precision "default").
+template <typename T_, int P_>
+struct IoMode {
+    using T = T_;
+    static constexpr int P = P_;
+};
+// f(IoMode<T, P>{}) for a C entry's `mode`; cudaErrorInvalidValue for any other value.
+template <typename F>
+cudaError_t by_mode(int mode, F&& f) {
+    switch (mode) {
+        case 0: return f(IoMode<float, 3>{});
+        case 1: return f(IoMode<bf16, 1>{});
+        case 2: return f(IoMode<float, 1>{});
+        default: return cudaErrorInvalidValue;
+    }
+}
+// A C entry's f32 pointer as the storage type T of its mode.
+template <typename T>
+T* as(float* p) { return reinterpret_cast<T*>(p); }
+template <typename T>
+const T* as(const float* p) { return reinterpret_cast<const T*>(p); }
 
 constexpr int kThreads = 256;  // every block of these kernels: 16 x 16 thread groups
 
@@ -39,10 +70,14 @@ __device__ __forceinline__ T from_f32(float x) {
     if constexpr (kBf16<T>) return __float2bfloat16_rn(x);
     else return x;
 }
-// x rounded to T and back: where the TPU kernel casts an intermediate to the operand
-// dtype (`.astype(dt)`) and the value stays in f32 registers here
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
+// A matmul operand of a kernel that takes P TF32 passes: x rounded to bf16 and back (to
+// nearest even) at P = 1, where the TPU kernel casts it to its bf16 operand dtype
+// (`.astype(dt)`) and the value stays in f32 registers here; x itself at P = 3.
+template <int P>
+__device__ __forceinline__ float rop(float x) {
+    if constexpr (P == 1) return __bfloat162float(__float2bfloat16_rn(x));
+    else return x;
+}
 
 // Four elements at p (4-element aligned) as a float4; two as a float2.
 __device__ __forceinline__ float4 ld4(const bf16* p) {

@@ -26,8 +26,10 @@
 // bias [Np], both widths to multiples of 8 (180 -> 184).
 //
 // Layout: x [B,H,W,Cin], w [3][3][Cin][Cout] (HWIO), bias [Cout], out [B,H,W,Cout]. x and out
-// are f32, or bf16 (T): the CUDA-core kernel multiplies the bf16 values in f32, which is the
-// exact bf16-operand product; weights and bias are f32 (a bf16 weight's exact values).
+// are f32, or bf16 (T); weights and bias are f32 (a bf16 weight's exact values). At P = 1
+// (bf16, and precision "default" on f32 storage) the CUDA-core kernel rounds x and w to bf16
+// as it stages them and multiplies the rounded values in f32, which is the exact
+// bf16-operand product: the TPU kernel casts every case's operands (cab.py:conv3x3_dense).
 
 #include "conv_gemm.cuh"
 
@@ -39,7 +41,7 @@ constexpr int kCK = 4;                            // input channels per staged c
 
 // two blocks per SM (<= 128 registers a thread) for the narrow tiles; at COT = 16 the
 // 64 accumulators would spill under that cap
-template <int COT, typename T>
+template <int COT, typename T, int P>
 __global__ void __launch_bounds__(kThreads, COT <= 8 ? 2 : 1)
 conv3x3_kernel(const T* __restrict__ x, const float* __restrict__ w,
                const float* __restrict__ bias, T* __restrict__ out, int H, int W,
@@ -65,10 +67,10 @@ conv3x3_kernel(const T* __restrict__ x, const float* __restrict__ w,
                     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
                     if (yy >= 0 && yy < H && xq >= 0 && xq < W)
                         v = ld4(xb + ((size_t)yy * W + xq) * Cin + ci0);
-                    xs[hp] = v.x;
-                    xs[kHY * kHX + hp] = v.y;
-                    xs[2 * kHY * kHX + hp] = v.z;
-                    xs[3 * kHY * kHX + hp] = v.w;
+                    xs[hp] = rop<P>(v.x);
+                    xs[kHY * kHX + hp] = rop<P>(v.y);
+                    xs[2 * kHY * kHX + hp] = rop<P>(v.z);
+                    xs[3 * kHY * kHX + hp] = rop<P>(v.w);
                 }
             } else {  // channel-fastest, so neighbouring threads read neighbouring floats
                 for (int e = tid; e < kCK * kHY * kHX; e += kThreads) {
@@ -76,14 +78,14 @@ conv3x3_kernel(const T* __restrict__ x, const float* __restrict__ w,
                     const int yy = ty0 - 1 + hp / kHX, xq = tx0 - 1 + hp % kHX;
                     const bool live = ci < ck && yy >= 0 && yy < H && xq >= 0 && xq < W;
                     xs[ci * kHY * kHX + hp] =
-                        live ? ld1(xb + ((size_t)yy * W + xq) * Cin + ci0 + ci) : 0.f;
+                        live ? rop<P>(ld1(xb + ((size_t)yy * W + xq) * Cin + ci0 + ci)) : 0.f;
                 }
             }
             for (int e = tid; e < 9 * kCK * COT; e += kThreads) {
                 const int tap = e / (kCK * COT), r = e % (kCK * COT);
                 const int ci = r / COT, co = r % COT;
                 const bool live = ci < ck && co0 + co < Cout;
-                ws[e] = live ? w[((size_t)tap * Cin + ci0 + ci) * Cout + co0 + co] : 0.f;
+                ws[e] = live ? rop<P>(w[((size_t)tap * Cin + ci0 + ci) * Cout + co0 + co]) : 0.f;
             }
             __syncthreads();
             for (int ci = 0; ci < ck; ++ci) {
@@ -133,15 +135,15 @@ conv3x3_kernel(const T* __restrict__ x, const float* __restrict__ w,
     }
 }
 
-template <int COT, typename T>
+template <int COT, int P, typename T>
 cudaError_t launch(const T* x, const float* w, const float* bias, T* out, int B,
                    int H, int W, int Cin, int Cout, cudaStream_t st) {
     dim3 grid((W + kTX - 1) / kTX, (H + kTY - 1) / kTY, B);
-    conv3x3_kernel<COT, T><<<grid, kThreads, 0, st>>>(x, w, bias, out, H, W, Cin, Cout);
+    conv3x3_kernel<COT, T, P><<<grid, kThreads, 0, st>>>(x, w, bias, out, H, W, Cin, Cout);
     return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int P>
 cudaError_t dense(const T* x, const float* w, const float* bias, T* out, int B, int H, int W,
                   int Cin, int Cout, const float* wpad, const float* bpad, int Cinp, int Np,
                   cudaStream_t st) {
@@ -150,16 +152,16 @@ cudaError_t dense(const T* x, const float* w, const float* bias, T* out, int B, 
             return cudaErrorInvalidValue;
         const int smem = (int)conv_gemm_smem_bytes();
         cudaError_t err = cudaFuncSetAttribute(
-            conv3x3_gemm_kernel<false, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+            conv3x3_gemm_kernel<false, T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (err != cudaSuccess) return err;
         dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B);
-        conv3x3_gemm_kernel<false, T><<<grid, kThreads, smem, st>>>(
+        conv3x3_gemm_kernel<false, T, P><<<grid, kThreads, smem, st>>>(
             x, nullptr, nullptr, wpad, bpad, out, nullptr, H, W, Cin, Cinp, Np, Cout, 0);
         return cudaGetLastError();
     }
-    if (Cout <= 4) return launch<4>(x, w, bias, out, B, H, W, Cin, Cout, st);
-    if (Cout <= 8) return launch<8>(x, w, bias, out, B, H, W, Cin, Cout, st);
-    return launch<16>(x, w, bias, out, B, H, W, Cin, Cout, st);
+    if (Cout <= 4) return launch<4, P>(x, w, bias, out, B, H, W, Cin, Cout, st);
+    if (Cout <= 8) return launch<8, P>(x, w, bias, out, B, H, W, Cin, Cout, st);
+    return launch<16, P>(x, w, bias, out, B, H, W, Cin, Cout, st);
 }
 
 }  // namespace
@@ -169,13 +171,14 @@ extern "C" int conv3x3_dense_is_wide(int Cin, int Cout) {
     return Cin % 4 == 0 && Cout % 4 == 0 && Cin >= 32 && Cout >= 32;
 }
 
-// x and out f32, or bf16 where `bf16_io` is set.
+// x and out in the storage type of `mode` (common.cuh: Mode).
 extern "C" int conv3x3_dense(const float* x, const float* w, const float* bias, float* out,
                              int B, int H, int W, int Cin, int Cout, const float* wpad,
-                             const float* bpad, int Cinp, int Np, int bf16_io, void* stream) {
+                             const float* bpad, int Cinp, int Np, int mode, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (bf16_io)
-        return dense(reinterpret_cast<const bf16*>(x), w, bias, reinterpret_cast<bf16*>(out), B,
-                     H, W, Cin, Cout, wpad, bpad, Cinp, Np, st);
-    return dense(x, w, bias, out, B, H, W, Cin, Cout, wpad, bpad, Cinp, Np, st);
+    return by_mode(mode, [&](auto m) {
+        using T = typename decltype(m)::T;
+        return dense<T, decltype(m)::P>(as<T>(x), w, bias, as<T>(out), B, H, W, Cin, Cout, wpad,
+                                        bpad, Cinp, Np, st);
+    });
 }

@@ -51,16 +51,16 @@ constexpr size_t conv_gemm_smem_bytes() {
 // store. Otherwise a plain conv + bias, stored at (y - shift, x - shift) with wrap-around,
 // and, where `part` is given, the per-channel sums of the block's outputs into
 // part[image][block][channel], added in a fixed order. T: the storage type of x and out
-// (f32, or bf16 with bf16 products: the halo is converted to f32 as it is staged and rounded
-// back to bf16 where its fragments are set; the weights, the bias and the sums are f32).
-template <bool FIRST, typename T>
+// (f32, or bf16: the halo is converted to f32 as it is staged); P: the passes (3, or 1 with
+// the halo and the weights rounded to bf16 where their fragments are set; the weights, the
+// bias and the sums are f32 in device memory).
+template <bool FIRST, typename T, int P>
 __global__ void __launch_bounds__(kThreads, 2)
 conv3x3_gemm_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
                     const float* __restrict__ lnb, const float* __restrict__ w,
                     const float* __restrict__ bias, T* __restrict__ out,
                     float* __restrict__ part, int H, int W, int Cin, int Cinp, int Np, int Cst,
                     int shift) {
-    constexpr int P = kPasses<T>;
     extern __shared__ float4 smem4[];
     float* wsm = reinterpret_cast<float*>(smem4);  // [kStages][9][kCC][kLdW]
     float* xs = wsm + kStages * kWStage;            // [kStages][kHP][kLdX]

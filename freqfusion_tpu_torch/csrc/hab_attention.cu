@@ -33,7 +33,8 @@
 //     owns 2 m-tiles x 6 n-tiles of the pass's 128 x 96 product. k and v of the head stay in
 //     shared memory, [N][36] each (a row stride of 4 mod 8); the scaled q rows are parked in
 //     the output buffer, each token's own hd floats of this head: the warp that later
-//     overwrites them with the result reads them back first.
+//     overwrites them with the result reads them back first (at default q is parked
+//     rounded, and scaled as it is read back, as the TPU kernel scales the rounded q).
 //   * Scores and PV: a warp owns 16 query rows (an m-tile) at a time; their q rows go from
 //     the parked copy into the warp's slice of the (then idle) staging area, read as A
 //     fragments. QK^T runs over key chunks of 32 (four n-tiles, k = 32 in four k-steps)
@@ -56,8 +57,13 @@
 //
 // Layout: x [B,H,W,Cin] NHWC; wh [heads][Kp][96]; bh [heads][96]; bias [heads][N][N];
 // types [4][N][N] or null; att [B,H,W,heads*hd]; lnw, lnb [Cin] or both null. N % 32 == 0,
-// N <= 256, hd <= 32, Cin % 4 == 0, Kp % 8 == 0. x and att are f32, or bf16 (T; bf16
-// products, the parked q rounded to bf16 as the TPU kernel rounds qkv); the rest is f32.
+// N <= 256, hd <= 32, Cin % 4 == 0, Kp % 8 == 0. x and att are f32, or bf16 (T); the rest
+// is f32. At P = 1 the products take bf16 operands. At precision "default" (<float, 1>) they
+// are rounded where the TPU kernel casts them: q, k and v (qkv.astype(dt)), q times the
+// bf16 scale again, and the normalised probabilities (softmax(.).astype(dt)): a first walk
+// over the keys takes each row's max and sum, the second rounds exp(s - max) / sum; each
+// head's output is rounded as it is stored (jnp.dot(a, v).astype(dt)). The bf16 instantiation keeps the single online walk (the unnormalised probabilities rounded,
+// q scaled in f32 before its rounding), inside the bf16 bounds and at its times.
 
 #include <cmath>
 
@@ -78,7 +84,7 @@ size_t smem_bytes(int N) {
     return (size_t)(2 * N * kLdKV + kPass * kLdX + kKChunk * kLdW + 3 * kPass) * sizeof(float);
 }
 
-template <bool LN, typename T>
+template <bool LN, typename T, int P>
 __global__ void __launch_bounds__(kThreads, 2)
 xqkv_attention_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
                       const float* __restrict__ lnb, const float* __restrict__ wh,
@@ -86,7 +92,9 @@ xqkv_attention_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
                       const float* __restrict__ types, T* __restrict__ out, int H, int W,
                       int Cin, int Kp, int hs, int ws_, int heads, int hd, float scale,
                       int shift) {
-    constexpr int P = kPasses<T>;
+    // precision "default" (f32 storage, one pass) rounds where the TPU kernel does, below;
+    // the bf16 instantiation keeps its single online-softmax walk
+    constexpr bool kDef = P == 1 && !kBf16<T>;
     extern __shared__ float4 smem4[];
     const int N = hs * ws_;
     float* ks = reinterpret_cast<float*>(smem4);  // [N][kLdKV]
@@ -181,8 +189,8 @@ xqkv_attention_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
                 }
             }
         }
-        // q scaled and parked in out, k and v into shared memory (their padded columns
-        // are zeros: zero weights and bias)
+        // q (scaled; at default rounded) parked in out, k and v into shared memory (their
+        // padded columns are zeros: zero weights and bias)
 #pragma unroll
         for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -195,9 +203,11 @@ xqkv_attention_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
                     const int n = 48 * wn + 8 * j + 2 * t, slot = n / kSlot, d = n % kSlot;
                     const float v0 = acc[m][j][2 * h] + bhh[n];
                     const float v1 = acc[m][j][2 * h + 1] + bhh[n + 1];
-                    if (slot == 0) {
-                        if (d < hd) st1(qrow + d, v0 * scale);
-                        if (d + 1 < hd) st1(qrow + d + 1, v1 * scale);
+                    if (slot == 0) {   // q scaled; at P = 1 q rounded, scaled on its load
+                        if (d < hd)
+                            st1(qrow + d, kDef ? rop<P>(v0) : v0 * scale);
+                        if (d + 1 < hd)
+                            st1(qrow + d + 1, kDef ? rop<P>(v1) : v1 * scale);
                     } else {
                         float* kv = (slot == 1 ? ks : vs) + row * kLdKV + d;
                         kv[0] = v0;
@@ -215,128 +225,256 @@ xqkv_attention_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
     for (int i0 = 16 * warp; i0 < N; i0 += 16 * (kThreads / 32)) {
         const int ra = i0 + g, rb = ra + 8;
         const size_t pa = pixel(ra), pb = pixel(rb);
-        // the warp's 16 scaled q rows, d < hd, into its slice of the staging area (free
+        // the warp's 16 scaled q rows (at default scaled here as the TPU kernel scales them:
+        // bf16(q) * bf16(scale), rounded), d < hd, into its slice of the staging area (free
         // since the projection's last barrier): read once, then an A fragment a k-step
         float* qw = xsm + warp * 16 * kLdX;
         __syncwarp();  // the previous rows' readers of qw are done
         for (int e = lane; e < 16 * kSlot; e += 32) {
             const int r = e / kSlot, d = e % kSlot;
-            qw[r * kLdX + d] = d < hd ? ld1(oh + pixel(i0 + r) + d) : 0.f;
+            const float q = d < hd ? ld1(oh + pixel(i0 + r) + d) : 0.f;
+            qw[r * kLdX + d] = kDef ? rop<P>(q * rop<P>(scale)) : q;
         }
         __syncwarp();
-        float o[4][4];
+        if constexpr (kDef) {
+            // Precision "default": the TPU kernel rounds the normalised probabilities
+            // (softmax(.).astype(dt)), so a first walk over the keys takes the rows' max and
+            // sum, and the second rounds exp(s - max) / sum before PV. The scores of keys
+            // kc0 .. kc0 + 31 for rows ra and rb, bias (and mask) added, and their maxima
+            // over the chunk (the 4 lanes of a row reduced).
+            auto scores = [&](int kc0, float (&s)[kKeys / 8][4], float& c0, float& c1) {
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
+                for (int j = 0; j < kKeys / 8; ++j)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-        float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-        for (int kc0 = 0; kc0 < N; kc0 += kKeys) {
-            float s[kKeys / 8][4];
+                    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-            for (int j = 0; j < kKeys / 8; ++j)
+                for (int kq = 0; kq < 4; ++kq) {
+                    Frag<4, P> a;
+                    load_a(a, qw, kLdX, 0, 8 * kq);
 #pragma unroll
-                for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-            for (int kq = 0; kq < 4; ++kq) {
-                Frag<4, P> a;
-                load_a(a, qw, kLdX, 0, 8 * kq);
+                    for (int j = 0; j < kKeys / 8; ++j) {
+                        Frag<2, P> b;
+                        load_b_nk(b, ks, kLdKV, 8 * kq, kc0 + 8 * j);
+                        mma_f32x3(s[j], a, b);
+                    }
+                }
+                c0 = -INFINITY;
+                c1 = -INFINITY;
 #pragma unroll
                 for (int j = 0; j < kKeys / 8; ++j) {
-                    Frag<2, P> b;
-                    load_b_nk(b, ks, kLdKV, 8 * kq, kc0 + 8 * j);
-                    mma_f32x3(s[j], a, b);
+                    const int key = kc0 + 8 * j + 2 * t;
+                    const float2 ba =
+                        *reinterpret_cast<const float2*>(bias_h + (size_t)ra * N + key);
+                    const float2 bb =
+                        *reinterpret_cast<const float2*>(bias_h + (size_t)rb * N + key);
+                    s[j][0] += ba.x;
+                    s[j][1] += ba.y;
+                    s[j][2] += bb.x;
+                    s[j][3] += bb.y;
+                    if (mask_t) {
+                        const float2 ma =
+                            *reinterpret_cast<const float2*>(mask_t + (size_t)ra * N + key);
+                        const float2 mb =
+                            *reinterpret_cast<const float2*>(mask_t + (size_t)rb * N + key);
+                        s[j][0] += ma.x;
+                        s[j][1] += ma.y;
+                        s[j][2] += mb.x;
+                        s[j][3] += mb.y;
+                    }
+                    c0 = fmaxf(c0, fmaxf(s[j][0], s[j][1]));
+                    c1 = fmaxf(c1, fmaxf(s[j][2], s[j][3]));
+                }
+#pragma unroll
+                for (int off = 1; off < 4; off <<= 1) {  // the 4 lanes of a row
+                    c0 = fmaxf(c0, __shfl_xor_sync(0xffffffffu, c0, off));
+                    c1 = fmaxf(c1, __shfl_xor_sync(0xffffffffu, c1, off));
+                }
+            };
+            float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+#pragma unroll 1
+            for (int kc0 = 0; kc0 < N; kc0 += kKeys) {   // the rows' max and sum
+                float s[kKeys / 8][4], c0, c1;
+                scores(kc0, s, c0, c1);
+                const float n0 = fmaxf(m0, c0), n1 = fmaxf(m1, c1);
+                l0 *= expf(m0 - n0);  // 0 at the first chunk
+                l1 *= expf(m1 - n1);
+                m0 = n0;
+                m1 = n1;
+#pragma unroll
+                for (int j = 0; j < kKeys / 8; ++j) {
+                    l0 += expf(s[j][0] - n0) + expf(s[j][1] - n0);
+                    l1 += expf(s[j][2] - n1) + expf(s[j][3] - n1);
                 }
             }
-            float c0 = -INFINITY, c1 = -INFINITY;
 #pragma unroll
-            for (int j = 0; j < kKeys / 8; ++j) {
-                const int key = kc0 + 8 * j + 2 * t;
-                const float2 ba = *reinterpret_cast<const float2*>(bias_h + (size_t)ra * N + key);
-                const float2 bb = *reinterpret_cast<const float2*>(bias_h + (size_t)rb * N + key);
-                s[j][0] += ba.x;
-                s[j][1] += ba.y;
-                s[j][2] += bb.x;
-                s[j][3] += bb.y;
-                if (mask_t) {
-                    const float2 ma =
-                        *reinterpret_cast<const float2*>(mask_t + (size_t)ra * N + key);
-                    const float2 mb =
-                        *reinterpret_cast<const float2*>(mask_t + (size_t)rb * N + key);
-                    s[j][0] += ma.x;
-                    s[j][1] += ma.y;
-                    s[j][2] += mb.x;
-                    s[j][3] += mb.y;
-                }
-                c0 = fmaxf(c0, fmaxf(s[j][0], s[j][1]));
-                c1 = fmaxf(c1, fmaxf(s[j][2], s[j][3]));
+            for (int off = 1; off < 4; off <<= 1) {
+                l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+                l1 += __shfl_xor_sync(0xffffffffu, l1, off);
             }
-#pragma unroll
-            for (int off = 1; off < 4; off <<= 1) {  // the 4 lanes of a row
-                c0 = fmaxf(c0, __shfl_xor_sync(0xffffffffu, c0, off));
-                c1 = fmaxf(c1, __shfl_xor_sync(0xffffffffu, c1, off));
-            }
-            const float n0 = fmaxf(m0, c0), n1 = fmaxf(m1, c1);
-            const float al0 = expf(m0 - n0), al1 = expf(m1 - n1);  // 0 at the first chunk
-            m0 = n0;
-            m1 = n1;
-            l0 *= al0;
-            l1 *= al1;
-#pragma unroll
-            for (int j = 0; j < kKeys / 8; ++j) {
-                s[j][0] = expf(s[j][0] - n0);
-                s[j][1] = expf(s[j][1] - n0);
-                s[j][2] = expf(s[j][2] - n1);
-                s[j][3] = expf(s[j][3] - n1);
-                l0 += s[j][0] + s[j][1];
-                l1 += s[j][2] + s[j][3];
-            }
-            // P V, k-step j over keys kc0 + 8 j ..: k-position t is key 2t, t + 4 is 2t + 1;
-            // the chunk's sum in a fresh tile, added to the rescaled running one in f32
-            float pv[4][4];
+            float o[4][4];
 #pragma unroll
             for (int n = 0; n < 4; ++n)
 #pragma unroll
-                for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+                for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+#pragma unroll 1
+            for (int kc0 = 0; kc0 < N; kc0 += kKeys) {   // P V, p normalised and rounded
+                float s[kKeys / 8][4], c0, c1;
+                scores(kc0, s, c0, c1);
+                float pv[4][4];
 #pragma unroll
-            for (int j = 0; j < kKeys / 8; ++j) {
-                Frag<4, P> p;
-                p.set(0, s[j][0]);
-                p.set(1, s[j][2]);
-                p.set(2, s[j][1]);
-                p.set(3, s[j][3]);
-                const float* v0 = vs + (size_t)(kc0 + 8 * j + 2 * t) * kLdKV + g;
+                for (int n = 0; n < 4; ++n)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+                // rolled without LN: with the loop unrolled, that instantiation spilled
+                // under its 128 registers (and with it rolled, the LN one did)
+#pragma unroll(LN ? kKeys / 8 : 1)
+                for (int j = 0; j < kKeys / 8; ++j) {
+                    Frag<4, P> p;   // k-positions t, t + 4 are keys 2t, 2t + 1, as below
+                    p.set(0, expf(s[j][0] - m0) / l0);
+                    p.set(1, expf(s[j][2] - m1) / l1);
+                    p.set(2, expf(s[j][1] - m0) / l0);
+                    p.set(3, expf(s[j][3] - m1) / l1);
+                    const float* v0 = vs + (size_t)(kc0 + 8 * j + 2 * t) * kLdKV + g;
+#pragma unroll
+                    for (int n = 0; n < 4; ++n) {
+                        Frag<2, P> b;
+                        b.set(0, v0[8 * n]);
+                        b.set(1, v0[kLdKV + 8 * n]);
+                        mma_f32x3(pv[n], p, b);
+                    }
+                }
+#pragma unroll
+                for (int n = 0; n < 4; ++n)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) o[n][e] += pv[n][e];
+            }
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int d = 8 * n + 2 * t + e;
+                    if (d < hd) {   // p was normalised before PV; the output rounded
+                        st1(oh + pa + d, rop<P>(o[n][e]));   // as the TPU kernel's head outputs
+                        st1(oh + pb + d, rop<P>(o[n][2 + e]));
+                    }
+                }
+        } else {
+            float o[4][4];
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+            float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+            for (int kc0 = 0; kc0 < N; kc0 += kKeys) {
+                float s[kKeys / 8][4];
+#pragma unroll
+                for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+                for (int kq = 0; kq < 4; ++kq) {
+                    Frag<4, P> a;
+                    load_a(a, qw, kLdX, 0, 8 * kq);
+#pragma unroll
+                    for (int j = 0; j < kKeys / 8; ++j) {
+                        Frag<2, P> b;
+                        load_b_nk(b, ks, kLdKV, 8 * kq, kc0 + 8 * j);
+                        mma_f32x3(s[j], a, b);
+                    }
+                }
+                float c0 = -INFINITY, c1 = -INFINITY;
+#pragma unroll
+                for (int j = 0; j < kKeys / 8; ++j) {
+                    const int key = kc0 + 8 * j + 2 * t;
+                    const float2 ba =
+                        *reinterpret_cast<const float2*>(bias_h + (size_t)ra * N + key);
+                    const float2 bb =
+                        *reinterpret_cast<const float2*>(bias_h + (size_t)rb * N + key);
+                    s[j][0] += ba.x;
+                    s[j][1] += ba.y;
+                    s[j][2] += bb.x;
+                    s[j][3] += bb.y;
+                    if (mask_t) {
+                        const float2 ma =
+                            *reinterpret_cast<const float2*>(mask_t + (size_t)ra * N + key);
+                        const float2 mb =
+                            *reinterpret_cast<const float2*>(mask_t + (size_t)rb * N + key);
+                        s[j][0] += ma.x;
+                        s[j][1] += ma.y;
+                        s[j][2] += mb.x;
+                        s[j][3] += mb.y;
+                    }
+                    c0 = fmaxf(c0, fmaxf(s[j][0], s[j][1]));
+                    c1 = fmaxf(c1, fmaxf(s[j][2], s[j][3]));
+                }
+#pragma unroll
+                for (int off = 1; off < 4; off <<= 1) {  // the 4 lanes of a row
+                    c0 = fmaxf(c0, __shfl_xor_sync(0xffffffffu, c0, off));
+                    c1 = fmaxf(c1, __shfl_xor_sync(0xffffffffu, c1, off));
+                }
+                const float n0 = fmaxf(m0, c0), n1 = fmaxf(m1, c1);
+                const float al0 = expf(m0 - n0), al1 = expf(m1 - n1);  // 0 at the first chunk
+                m0 = n0;
+                m1 = n1;
+                l0 *= al0;
+                l1 *= al1;
+#pragma unroll
+                for (int j = 0; j < kKeys / 8; ++j) {
+                    s[j][0] = expf(s[j][0] - n0);
+                    s[j][1] = expf(s[j][1] - n0);
+                    s[j][2] = expf(s[j][2] - n1);
+                    s[j][3] = expf(s[j][3] - n1);
+                    l0 += s[j][0] + s[j][1];
+                    l1 += s[j][2] + s[j][3];
+                }
+                // P V, k-step j over keys kc0 + 8 j ..: k-position t is key 2t, t + 4 is 2t + 1;
+                // the chunk's sum in a fresh tile, added to the rescaled running one in f32
+                float pv[4][4];
+#pragma unroll
+                for (int n = 0; n < 4; ++n)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+                for (int j = 0; j < kKeys / 8; ++j) {
+                    Frag<4, P> p;
+                    p.set(0, s[j][0]);
+                    p.set(1, s[j][2]);
+                    p.set(2, s[j][1]);
+                    p.set(3, s[j][3]);
+                    const float* v0 = vs + (size_t)(kc0 + 8 * j + 2 * t) * kLdKV + g;
+#pragma unroll
+                    for (int n = 0; n < 4; ++n) {
+                        Frag<2, P> b;
+                        b.set(0, v0[8 * n]);
+                        b.set(1, v0[kLdKV + 8 * n]);
+                        mma_f32x3(pv[n], p, b);
+                    }
+                }
 #pragma unroll
                 for (int n = 0; n < 4; ++n) {
-                    Frag<2, P> b;
-                    b.set(0, v0[8 * n]);
-                    b.set(1, v0[kLdKV + 8 * n]);
-                    mma_f32x3(pv[n], p, b);
+                    o[n][0] = fmaf(o[n][0], al0, pv[n][0]);
+                    o[n][1] = fmaf(o[n][1], al0, pv[n][1]);
+                    o[n][2] = fmaf(o[n][2], al1, pv[n][2]);
+                    o[n][3] = fmaf(o[n][3], al1, pv[n][3]);
                 }
             }
 #pragma unroll
-            for (int n = 0; n < 4; ++n) {
-                o[n][0] = fmaf(o[n][0], al0, pv[n][0]);
-                o[n][1] = fmaf(o[n][1], al0, pv[n][1]);
-                o[n][2] = fmaf(o[n][2], al1, pv[n][2]);
-                o[n][3] = fmaf(o[n][3], al1, pv[n][3]);
+            for (int off = 1; off < 4; off <<= 1) {
+                l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+                l1 += __shfl_xor_sync(0xffffffffu, l1, off);
             }
-        }
+            const float inv0 = 1.f / l0, inv1 = 1.f / l1;
 #pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-            l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-            l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-        }
-        const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+            for (int n = 0; n < 4; ++n)
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                const int d = 8 * n + 2 * t + e;
-                if (d < hd) {
-                    st1(oh + pa + d, o[n][e] * inv0);
-                    st1(oh + pb + d, o[n][2 + e] * inv1);
+                for (int e = 0; e < 2; ++e) {
+                    const int d = 8 * n + 2 * t + e;
+                    if (d < hd) {
+                        st1(oh + pa + d, o[n][e] * inv0);
+                        st1(oh + pb + d, o[n][2 + e] * inv1);
+                    }
                 }
-            }
+        }
     }
 }
 
@@ -344,13 +482,13 @@ xqkv_attention_kernel(const T* __restrict__ x, const float* __restrict__ lnw,
 
 namespace {
 
-template <typename T>
+template <typename T, int P>
 cudaError_t launch(const T* x, const float* lnw, const float* lnb, const float* wh,
                    const float* bh, const float* bias, const float* types, T* att, int B, int H,
                    int W, int Cin, int Kp, int hs, int ws, int heads, int hd, int shift,
                    cudaStream_t st) {
     const size_t smem = smem_bytes(hs * ws);
-    auto kernel = lnw ? xqkv_attention_kernel<true, T> : xqkv_attention_kernel<false, T>;
+    auto kernel = lnw ? xqkv_attention_kernel<true, T, P> : xqkv_attention_kernel<false, T, P>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -367,11 +505,11 @@ cudaError_t launch(const T* x, const float* lnw, const float* lnb, const float* 
 // att = window attention of x's (hs x ws) windows after the qkv projection, before the output
 // projection: B4 (lnw = lnb = null, shift 0) and the attention half of the fused HAB block
 // (B8, LN1 = (lnw, lnb)); wh [heads][Kp][96] and bh [heads][96] are the per-head slabs
-// q | k | v. x and att are f32, or bf16 where `bf16_io` is set.
+// q | k | v. x and att in the storage type of `mode` (common.cuh: Mode).
 extern "C" int xqkv_attention(const float* x, const float* lnw, const float* lnb,
                               const float* wh, const float* bh, const float* bias,
                               const float* types, float* att, int B, int H, int W, int Cin,
-                              int Kp, int hs, int ws, int heads, int hd, int shift, int bf16_io,
+                              int Kp, int hs, int ws, int heads, int hd, int shift, int mode,
                               void* stream) {
     const int N = hs * ws;
     if (N % kKeys || N > kMaxN || hd > kSlot || hd < 1 || heads < 1 || Cin % 4 || Kp % 8 ||
@@ -379,10 +517,9 @@ extern "C" int xqkv_attention(const float* x, const float* lnw, const float* lnb
         (lnw == nullptr) != (lnb == nullptr))
         return cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (bf16_io)
-        return launch(reinterpret_cast<const bf16*>(x), lnw, lnb, wh, bh, bias, types,
-                      reinterpret_cast<bf16*>(att), B, H, W, Cin, Kp, hs, ws, heads, hd, shift,
-                      st);
-    return launch(x, lnw, lnb, wh, bh, bias, types, att, B, H, W, Cin, Kp, hs, ws, heads, hd,
-                  shift, st);
+    return by_mode(mode, [&](auto m) {
+        using T = typename decltype(m)::T;
+        return launch<T, decltype(m)::P>(as<T>(x), lnw, lnb, wh, bh, bias, types, as<T>(att), B,
+                                         H, W, Cin, Kp, hs, ws, heads, hd, shift, st);
+    });
 }

@@ -42,10 +42,13 @@
 // 720 stay): the wrapper zero-pads the weights, the kernel zero-fills its tile's padding.
 //
 // Layout: NHWC, contiguous; C % 4 == 0. cab_scale [B][C] or null. Storage: a, x, conv_x and
-// out are f32, or bf16 (T; bf16 products, every A operand rounded to bf16 where its fragment
-// is set). y, which the TPU kernel keeps in f32, is parked in f32 (out itself for f32, an f32
-// scratch for bf16), and the hidden is f32 (its only reader is the next product, which rounds
-// it to bf16 as the TPU kernel's cast does).
+// out are f32, or bf16 (T). P = 1 (bf16, and precision "default" on f32 storage): bf16
+// products, every A operand rounded to bf16 where its fragment is set. y, which the TPU
+// kernel keeps in f32, is parked in f32 (out itself for f32 storage, an f32 scratch for
+// bf16), and the hidden is f32 (its only reader is the next product, which rounds it to
+// bf16 at P = 1 as the TPU kernel's cast does). hab_tail at C > 192 at bf16 sums the
+// projection's K pieces in that f32 scratch and adds the residuals there: y is rounded
+// nowhere before fc2's store.
 
 #include "mma_f32x3.cuh"
 
@@ -120,11 +123,10 @@ __device__ __forceinline__ void ln_row_inplace(float* row, const float* __restri
     }
 }
 
-template <int MODE, bool SPLIT, typename T, typename TA>
+template <int MODE, bool SPLIT, int P, typename T, typename TA>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 rows_kernel(const RowArgs<T, TA> g) {
     extern __shared__ float4 smem4[];
-    constexpr int P = kPasses<T>;
     const int C = g.C;
     // SPLIT: fc1 with K in more than one piece (fc2 and linear always take pieces; proj
     // at C > 192 is hab_tail's linear product and residual_kernel)
@@ -341,9 +343,11 @@ rows_kernel(const RowArgs<T, TA> g) {
     }
 }
 
-// out += x[(y + s) % H][(x + s) % W] + conv_scale * cab_scale * conv_x, pixel by pixel: the
-// projection's residuals where C > kMmaMaxK (rows_linear wrote out = att @ wproj + bproj)
-__global__ void residual_kernel(const RowArgs<float, float> g) {
+// y += x[(y + s) % H][(x + s) % W] + conv_scale * cab_scale * conv_x, pixel by pixel, in f32:
+// the projection's residuals where C > kMmaMaxK (the linear mode wrote y = att @ wproj +
+// bproj; y is out itself for f32 storage)
+template <typename T>
+__global__ void residual_kernel(const RowArgs<T, T> g) {
     const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;   // a float2
     const int c2 = g.C / 2;
     if (e >= g.npix * c2) return;
@@ -353,11 +357,10 @@ __global__ void residual_kernel(const RowArgs<float, float> g) {
     int y = rem / g.W + g.shift, xx = rem % g.W + g.shift;
     if (y >= g.H) y -= g.H;
     if (xx >= g.W) xx -= g.W;
-    float2* o = reinterpret_cast<float2*>(g.out + gp * g.C + n);
+    float2* o = reinterpret_cast<float2*>(g.y + gp * g.C + n);
     const float2 u = *o;
-    const float2 xs = *reinterpret_cast<const float2*>(
-        g.x + (bi * hw + (long long)y * g.W + xx) * g.C + n);
-    const float2 cx = *reinterpret_cast<const float2*>(g.cx + gp * g.C + n);
+    const float2 xs = ld2(g.x + (bi * hw + (long long)y * g.W + xx) * g.C + n);
+    const float2 cx = ld2(g.cx + gp * g.C + n);
     float2 s = make_float2(g.conv_scale, g.conv_scale);
     if (g.cabs) {
         const float2 cb = *reinterpret_cast<const float2*>(g.cabs + (size_t)bi * g.C + n);
@@ -366,11 +369,11 @@ __global__ void residual_kernel(const RowArgs<float, float> g) {
     *o = make_float2(xs.x + u.x + s.x * cx.x, xs.y + u.y + s.y * cx.y);
 }
 
-template <int MODE, bool SPLIT, typename T, typename TA>
+template <int MODE, bool SPLIT, int P, typename T, typename TA>
 cudaError_t launch_split(const RowArgs<T, TA>& g, int Kt, cudaStream_t st) {
     const size_t smem = (size_t)(kP * Kt + tile_mma_ws() + 3 * kP) * sizeof(float);
     if (smem > 227 * 1024) return cudaErrorInvalidValue;
-    const auto kernel = rows_kernel<MODE, SPLIT, T, TA>;
+    const auto kernel = rows_kernel<MODE, SPLIT, P, T, TA>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -380,19 +383,19 @@ cudaError_t launch_split(const RowArgs<T, TA>& g, int Kt, cudaStream_t st) {
     return cudaGetLastError();
 }
 
-template <int MODE, typename T, typename TA>
+template <int MODE, int P, typename T, typename TA>
 cudaError_t launch(const RowArgs<T, TA>& g, cudaStream_t st) {
     if (g.C % 4 || g.Kp % 8 || g.Np % 8 || g.npix < 1) return cudaErrorInvalidValue;
     const int Kt = tile_mma_piece(g.Kp);
     if constexpr (MODE == kFc1) {
-        if (Kt != g.Kp) return launch_split<kFc1, true>(g, Kt, st);
+        if (Kt != g.Kp) return launch_split<kFc1, true, P>(g, Kt, st);
     }
     if (MODE == kProj && Kt != g.Kp) return cudaErrorInvalidValue;   // hab_tail splits it
-    return launch_split<MODE, false>(g, Kt, st);
+    return launch_split<MODE, false, P>(g, Kt, st);
 }
 
 // y: where y = a + shortcut goes (f32; out itself for f32 storage).
-template <typename T, typename TA>
+template <int P, typename T, typename TA>
 cudaError_t fc1(const TA* a, const T* shortcut, const float* lnw, const float* lnb,
                 const float* w1, const float* b1, const float* sgw, const float* sgb,
                 float* hid, T* out, float* y, long long npix, int C, int nhid, int Kp, int K2p,
@@ -403,37 +406,38 @@ cudaError_t fc1(const TA* a, const T* shortcut, const float* lnw, const float* l
     g.w = reinterpret_cast<const float4*>(w1); g.bias = b1;
     g.out = out; g.y = y; g.hid = hid; g.npix = npix; g.C = C; g.Kp = Kp; g.Np = K2p;
     g.nreal = nhid;
-    return launch<kFc1>(g, st);
+    return launch<kFc1, P>(g, st);
 }
 
 // fc1 and fc2 on y: from `a` (+ `shortcut`, then y is written to y) or from y in `a` (TA =
 // f32). out = y + fc2.
-template <typename T, typename TA>
+template <int P, typename T, typename TA>
 cudaError_t mlp(const TA* a, const T* shortcut, const float* lnw, const float* lnb,
                 const float* w1, const float* b1, const float* w2, const float* b2, float* hid,
                 T* out, float* y, long long npix, int C, int nhid, int Kp, int Np, int K2p,
                 cudaStream_t st) {
     if (Np < C) return cudaErrorInvalidValue;
-    cudaError_t err = fc1(a, shortcut, lnw, lnb, w1, b1, nullptr, nullptr, hid, out, y, npix,
+    cudaError_t err = fc1<P>(a, shortcut, lnw, lnb, w1, b1, nullptr, nullptr, hid, out, y, npix,
                           C, nhid, Kp, K2p, st);
     if (err != cudaSuccess) return err;
     RowArgs<T, float> f = {};
     f.a = hid; f.w = reinterpret_cast<const float4*>(w2); f.bias = b2; f.out = out;
     f.y = shortcut ? y : const_cast<float*>(reinterpret_cast<const float*>(a));
     f.npix = npix; f.C = C; f.Kp = K2p; f.Np = Np; f.nreal = C;
-    return launch<kFc2>(f, st);
+    return launch<kFc2, P>(f, st);
 }
 
-template <typename T>
+template <int P, typename T>
 cudaError_t linear(const T* a, const float* wp, const float* bp, T* out, float* y,
                    long long npix, int C, int Cout, int Kp, int Np, cudaStream_t st) {
     RowArgs<T, T> g = {};
     g.a = a; g.w = reinterpret_cast<const float4*>(wp); g.bias = bp; g.out = out; g.y = y;
     g.npix = npix; g.C = C; g.Kp = Kp; g.Np = Np; g.nreal = Cout;
-    return launch<kLinear>(g, st);
+    return launch<kLinear, P>(g, st);
 }
 
-template <typename T>
+// y: f32 [npix][C], out itself for f32 storage.
+template <int P, typename T>
 cudaError_t tail(const T* att, const T* x, const T* cx, const float* cabs, const float* wp,
                  const float* bp, const float* lnw, const float* lnb, const float* w1,
                  const float* b1, const float* w2, const float* b2, float* hid, T* out,
@@ -446,43 +450,43 @@ cudaError_t tail(const T* att, const T* x, const T* cx, const float* cabs, const
     g.nreal = C; g.shift = shift; g.conv_scale = conv_scale;
     cudaError_t err;
     if (tile_mma_piece(Kp) == Kp) {
-        err = launch<kProj>(g, st);
-    } else if constexpr (kBf16<T>) {   // the pieces' path parks y in out: f32 only
-        return cudaErrorInvalidValue;
-    } else {   // K in pieces: the linear product, then the residuals
-        err = launch<kLinear>(g, st);
+        err = launch<kProj, P>(g, st);
+    } else {   // K in pieces: the linear product into y, its pieces summed there in f32,
+               // then the residuals added to y
+        RowArgs<float, T> l = {};
+        l.a = att; l.w = g.w; l.bias = bp; l.out = y; l.y = y;
+        l.npix = g.npix; l.C = C; l.Kp = Kp; l.Np = Np; l.nreal = C;
+        err = launch<kLinear, P>(l, st);
         if (err != cudaSuccess) return err;
         const long long n2 = g.npix * (C / 2);
         if ((n2 + 255) / 256 > 0x7fffffffLL) return cudaErrorInvalidValue;
-        residual_kernel<<<(unsigned)((n2 + 255) / 256), 256, 0, st>>>(g);
+        residual_kernel<T><<<(unsigned)((n2 + 255) / 256), 256, 0, st>>>(g);
         err = cudaGetLastError();
     }
     if (err != cudaSuccess) return err;
-    return mlp(static_cast<const float*>(y), static_cast<const T*>(nullptr), lnw, lnb, w1, b1,
+    return mlp<P>(static_cast<const float*>(y), static_cast<const T*>(nullptr), lnw, lnb, w1, b1,
                w2, b2, hid, out, y, g.npix, C, nhid, Kp, Np, K2p, st);
 }
 
 }  // namespace
 
-// Storage: a, shortcut, x, cx and out are f32, or bf16 where `bf16_io` is set. y is f32
-// scratch [npix][C] (or [npix][Cout] for rows_linear) for bf16, where y is parked (and where
-// rows_linear's pieces sum when Kp > 192); for f32 it may be null, and out holds y.
-namespace {
-const bf16* as_bf16(const float* p) { return reinterpret_cast<const bf16*>(p); }
-bf16* as_bf16(float* p) { return reinterpret_cast<bf16*>(p); }
-}  // namespace
+// Storage: a, shortcut, x, cx and out in the storage type of `mode` (common.cuh: IoMode). y
+// is f32 scratch [npix][C] (or [npix][Cout] for rows_linear) for bf16, where y is parked (and
+// where rows_linear's and hab_tail's pieces sum when Kp > 192); for f32 storage it may be
+// null, and out holds y.
 
 // out [npix][Cout] = a [npix][C] @ w + bp, Cout even; wp = mma_planes of w [Kp][Np].
 extern "C" int rows_linear(const float* a, const float* wp, const float* bp, float* out,
                            float* y, long long npix, int C, int Cout, int Kp, int Np,
-                           int bf16_io, void* stream) {
+                           int mode, void* stream) {
     if (Kp < C || Np < Cout || Cout < 2 || Cout % 2) return cudaErrorInvalidValue;
+    if (mode == 1 && !y && tile_mma_piece(Kp) != Kp) return cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (bf16_io) {
-        if (!y && tile_mma_piece(Kp) != Kp) return cudaErrorInvalidValue;
-        return linear(as_bf16(a), wp, bp, as_bf16(out), y, npix, C, Cout, Kp, Np, st);
-    }
-    return linear(a, wp, bp, out, out, npix, C, Cout, Kp, Np, st);
+    return by_mode(mode, [&](auto m) {
+        using T = typename decltype(m)::T;
+        return linear<decltype(m)::P>(as<T>(a), wp, bp, as<T>(out), kBf16<T> ? y : out, npix, C,
+                                      Cout, Kp, Np, st);
+    });
 }
 
 // y = a + shortcut into y (out for f32), hid [npix][K2p] = GELU(LN(y) @ w1 + b1), w1 =
@@ -492,46 +496,45 @@ extern "C" int rows_ln_fc1(const float* a, const float* shortcut, const float* l
                            const float* lnb, const float* w1, const float* b1,
                            const float* sgw, const float* sgb, float* hid, float* out,
                            float* y, long long npix, int C, int nhid, int Kp, int K2p,
-                           int bf16_io, void* stream) {
+                           int mode, void* stream) {
     if (sgw && (nhid % 2 || nhid / 2 % 4)) return cudaErrorInvalidValue;
+    if (mode == 1 && shortcut && !y) return cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (bf16_io) {
-        if (shortcut && !y) return cudaErrorInvalidValue;
-        return fc1(as_bf16(a), as_bf16(shortcut), lnw, lnb, w1, b1, sgw, sgb, hid, as_bf16(out),
-                   y, npix, C, nhid, Kp, K2p, st);
-    }
-    return fc1(a, shortcut, lnw, lnb, w1, b1, sgw, sgb, hid, out, out, npix, C, nhid, Kp, K2p,
-               st);
+    return by_mode(mode, [&](auto m) {
+        using T = typename decltype(m)::T;
+        return fc1<decltype(m)::P>(as<T>(a), as<T>(shortcut), lnw, lnb, w1, b1, sgw, sgb, hid,
+                                   as<T>(out), kBf16<T> ? y : out, npix, C, nhid, Kp, K2p, st);
+    });
 }
 
 extern "C" int hab_tail(const float* att, const float* x, const float* cx, const float* cabs,
                         const float* wp, const float* bp, const float* lnw, const float* lnb,
                         const float* w1, const float* b1, const float* w2, const float* b2,
                         float* hid, float* out, float* y, int B, int H, int W, int C, int nhid,
-                        int Kp, int Np, int K2p, int shift, float conv_scale, int bf16_io,
+                        int Kp, int Np, int K2p, int shift, float conv_scale, int mode,
                         void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (shift < 0 || shift >= H || shift >= W || Kp < C || Np < C || (bf16_io && !y))
+    if (shift < 0 || shift >= H || shift >= W || Kp < C || Np < C || (mode == 1 && !y))
         return cudaErrorInvalidValue;
-    if (bf16_io)
-        return tail(as_bf16(att), as_bf16(x), as_bf16(cx), cabs, wp, bp, lnw, lnb, w1, b1, w2,
-                    b2, hid, as_bf16(out), y, B, H, W, C, nhid, Kp, Np, K2p, shift, conv_scale,
-                    st);
-    return tail(att, x, cx, cabs, wp, bp, lnw, lnb, w1, b1, w2, b2, hid, out, out, B, H, W, C,
-                nhid, Kp, Np, K2p, shift, conv_scale, st);
+    return by_mode(mode, [&](auto m) {
+        using T = typename decltype(m)::T;
+        return tail<decltype(m)::P>(as<T>(att), as<T>(x), as<T>(cx), cabs, wp, bp, lnw, lnb, w1,
+                                    b1, w2, b2, hid, as<T>(out), kBf16<T> ? y : out, B, H, W, C,
+                                    nhid, Kp, Np, K2p, shift, conv_scale, st);
+    });
 }
 
 extern "C" int residual_ln_mlp(const float* a, const float* shortcut, const float* lnw,
                                const float* lnb, const float* w1, const float* b1,
                                const float* w2, const float* b2, float* hid, float* out,
                                float* y, long long npix, int C, int nhid, int Kp, int Np, int K2p,
-                               int bf16_io, void* stream) {
+                               int mode, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (bf16_io) {
-        if (!y || !shortcut) return cudaErrorInvalidValue;
-        return mlp(as_bf16(a), as_bf16(shortcut), lnw, lnb, w1, b1, w2, b2, hid, as_bf16(out), y,
-                   npix, C, nhid, Kp, Np, K2p, st);
-    }
-    return mlp(a, shortcut, lnw, lnb, w1, b1, w2, b2, hid, out, out, npix, C, nhid, Kp, Np, K2p,
-               st);
+    if (mode == 1 && (!y || !shortcut)) return cudaErrorInvalidValue;
+    return by_mode(mode, [&](auto m) {
+        using T = typename decltype(m)::T;
+        return mlp<decltype(m)::P>(as<T>(a), as<T>(shortcut), lnw, lnb, w1, b1, w2, b2, hid,
+                                   as<T>(out), kBf16<T> ? y : out, npix, C, nhid, Kp, Np, K2p,
+                                   st);
+    });
 }

@@ -44,10 +44,13 @@
 //      Above C = 1808 a tile of 16 rows of `a` no longer fits twice: lka_mix_wide_kernel then
 //      reads A's fragments straight from device memory (L1 and L2 hold the rows a warp
 //      walks) and takes K in chunks of 8 k-steps with the partial sums in registers across
-//      the chunks, the same epilogue after the last.
+//      the chunks, the same epilogue after the last; the sums stay f32 to the store in
+//      every instantiation.
 //
-// Layout: NHWC, contiguous; x and out f32 or bf16 (the 1x1 product on bf16 operands, `a` f32
-// scratch; C up to 1808 at bf16), the weights f32; any C. w5 [25][C], wh [21][C] along W,
+// Layout: NHWC, contiguous; x and out f32 or bf16, `a` f32 scratch, the weights f32; any C.
+// P = 1 (bf16, and precision "default" on f32 storage): the 1x1 product on bf16 operands
+// (`a` rounded where its fragments are set, wp's planes those of its bf16 rounding), the only
+// product the TPU kernel casts (lka.py:87). w5 [25][C], wh [21][C] along W,
 // wv [21][C] along H;
 // wp the mma_planes of wp [C][C] ([in][out]) zero-padded to [Kp][Np], Kp % 8 == 0,
 // Np % 32 == 0.
@@ -245,13 +248,12 @@ lka_chain_kernel(const T* __restrict__ x, const float* __restrict__ w5,
 // TR rows of `a` and (xs) of x into shared memory (kMixStages buffers each, cp.async one tile
 // ahead; columns C .. Kp and rows past P zero); without xs the epilogue reads x from device
 // memory (rows too wide for both tiles). A warp task is 16 rows x kMixNT n-tiles of a tile.
-template <bool VEC, typename T>
+template <bool VEC, typename T, int PS>
 __global__ void __launch_bounds__(kMixThreads, 2)
 lka_mix_kernel(const float* __restrict__ a, const T* __restrict__ x,
                const float4* __restrict__ wp, const float* __restrict__ scale,
                const float* __restrict__ shift, T* __restrict__ out, long long P, int C,
                int Kp, int Np, int TR, bool xs) {
-    constexpr int PS = kPasses<T>;
     extern __shared__ float4 smem4[];
     const int lda = Kp + 4, tid = threadIdx.x, warp = tid >> 5;
     float* As = reinterpret_cast<float*>(smem4);   // [stages][TR][lda]
@@ -384,10 +386,11 @@ lka_mix_kernel(const float* __restrict__ a, const T* __restrict__ x,
 // out = x * sigmoid((a @ wp) * scale + shift) for rows too wide to stage (C > 1808): a warp
 // task is 16 rows x kMixNT n-tiles, A's fragments read from device memory (0 past row P and
 // column C), K in chunks of 8 k-steps, each into a fresh tile added in f32.
+template <typename T, int PS>
 __global__ void __launch_bounds__(kMixThreads)
-lka_mix_wide_kernel(const float* __restrict__ a, const float* __restrict__ x,
+lka_mix_wide_kernel(const float* __restrict__ a, const T* __restrict__ x,
                     const float4* __restrict__ wp, const float* __restrict__ scale,
-                    const float* __restrict__ shift, float* __restrict__ out, long long P, int C,
+                    const float* __restrict__ shift, T* __restrict__ out, long long P, int C,
                     int Kp, int Np) {
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
     const int ksteps = Kp / 8, ntw = Np / 8, ngroups = ntw / kMixNT;
@@ -411,7 +414,7 @@ lka_mix_wide_kernel(const float* __restrict__ a, const float* __restrict__ x,
                 for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
 #pragma unroll 2
             for (int s = k0; s < min(ksteps, k0 + 8); ++s) {
-                FragA fa;
+                Frag<4, PS> fa;
                 const int k = 8 * s + t;
                 fa.set(0, at(ra, va, k));
                 fa.set(1, at(rb, vb, k));
@@ -428,11 +431,7 @@ lka_mix_wide_kernel(const float* __restrict__ a, const float* __restrict__ x,
                     bl[j][1] = __float_as_uint(b.w);
                 }
 #pragma unroll
-                for (int j = 0; j < kMixNT; ++j) mma_tf32(part[j], fa.lo, bh[j]);
-#pragma unroll
-                for (int j = 0; j < kMixNT; ++j) mma_tf32(part[j], fa.hi, bl[j]);
-#pragma unroll
-                for (int j = 0; j < kMixNT; ++j) mma_tf32(part[j], fa.hi, bh[j]);
+                for (int j = 0; j < kMixNT; ++j) mma_planes_step(part[j], fa, bh[j], bl[j]);
             }
 #pragma unroll
             for (int j = 0; j < kMixNT; ++j)
@@ -446,10 +445,12 @@ lka_mix_wide_kernel(const float* __restrict__ a, const float* __restrict__ x,
             for (int e = 0; e < 2; ++e) {
                 if (n + e >= C) continue;
                 const float sc = scale[n + e], sh = shift[n + e];
-                if (va) out[ra * C + n + e] = x[ra * C + n + e] * sigmoid_f32(fmaf(acc[j][e], sc, sh));
+                if (va)
+                    st1(out + ra * C + n + e,
+                        ld1(x + ra * C + n + e) * sigmoid_f32(fmaf(acc[j][e], sc, sh)));
                 if (vb)
-                    out[rb * C + n + e] =
-                        x[rb * C + n + e] * sigmoid_f32(fmaf(acc[j][2 + e], sc, sh));
+                    st1(out + rb * C + n + e,
+                        ld1(x + rb * C + n + e) * sigmoid_f32(fmaf(acc[j][2 + e], sc, sh)));
             }
         }
     }
@@ -473,7 +474,7 @@ int lka_segments(int B, int H, int W, int C) {
 
 namespace {
 
-template <typename T>
+template <typename T, int PS>
 cudaError_t gate(const T* x, const float* w5, const float* wh, const float* wv,
                  const float* wp, const float* scale, const float* shift, float* a, T* out,
                  int B, int H, int W, int C, int Kp, int Np, cudaStream_t st) {
@@ -500,19 +501,16 @@ cudaError_t gate(const T* x, const float* w5, const float* wh, const float* wv,
     while (TR > 16 && 2LL * kMixStages * TR * (Kp + 4) * 4 > 110592) TR /= 2;
     const bool xs = 2LL * kMixStages * TR * (Kp + 4) * 4 <= 110592;
     const size_t msmem = (size_t)(xs ? 2 : 1) * kMixStages * TR * (Kp + 4) * sizeof(float);
-    if (msmem > 232448) {   // too wide to stage: A from device memory (f32 only)
-        if constexpr (kBf16<T>) return cudaErrorInvalidValue;
+    if (msmem > 232448) {   // too wide to stage: A from device memory
         const long long tasks = ((long long)B * H * W + 15) / 16 * (Np / (8 * kMixNT));
         const long long blocks = (tasks + kMixThreads / 32 - 1) / (kMixThreads / 32);
         const int grid3 = (int)(blocks < 4LL * sms ? blocks : 4LL * sms);
-        if constexpr (!kBf16<T>) {
-            lka_mix_wide_kernel<<<grid3, kMixThreads, 0, st>>>(
-                a, x, reinterpret_cast<const float4*>(wp), scale, shift, out,
-                (long long)B * H * W, C, Kp, Np);
-        }
+        lka_mix_wide_kernel<T, PS><<<grid3, kMixThreads, 0, st>>>(
+            a, x, reinterpret_cast<const float4*>(wp), scale, shift, out, (long long)B * H * W,
+            C, Kp, Np);
         return cudaGetLastError();
     }
-    const auto mix = C % 4 ? lka_mix_kernel<false, T> : lka_mix_kernel<true, T>;
+    const auto mix = C % 4 ? lka_mix_kernel<false, T, PS> : lka_mix_kernel<true, T, PS>;
     err = cudaFuncSetAttribute(mix, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)msmem);
     if (err != cudaSuccess) return err;
     const long long P = (long long)B * H * W, ntiles = (P + TR - 1) / TR;
@@ -525,17 +523,18 @@ cudaError_t gate(const T* x, const float* w5, const float* wh, const float* wv,
 }  // namespace
 
 // a [B][H][W][C] f32 scratch; wp the planes of wp [Kp][Np] (ops/kernels/_mma.py). x and out
-// f32, or bf16 where `bf16_io` is set (then C <= 1808: the wide product is f32 only).
+// in the storage type of `mode` (common.cuh: IoMode).
 extern "C" int lka_gate(const float* x, const float* w5, const float* wh, const float* wv,
                         const float* wp, const float* scale, const float* shift, float* a,
-                        float* out, int B, int H, int W, int C, int Kp, int Np, int bf16_io,
+                        float* out, int B, int H, int W, int C, int Kp, int Np, int mode,
                         void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (B < 1 || H < 1 || W < 1 || B > 65535 || C < 1 || Kp < C || Kp % 8 || Np < C ||
         Np % (8 * kMixNT))
         return cudaErrorInvalidValue;
-    if (bf16_io)
-        return gate(reinterpret_cast<const bf16*>(x), w5, wh, wv, wp, scale, shift, a,
-                    reinterpret_cast<bf16*>(out), B, H, W, C, Kp, Np, st);
-    return gate(x, w5, wh, wv, wp, scale, shift, a, out, B, H, W, C, Kp, Np, st);
+    return by_mode(mode, [&](auto m) {
+        using T = typename decltype(m)::T;
+        return gate<T, decltype(m)::P>(as<T>(x), w5, wh, wv, wp, scale, shift, a, as<T>(out), B,
+                                       H, W, C, Kp, Np, st);
+    });
 }

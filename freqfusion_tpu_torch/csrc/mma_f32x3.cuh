@@ -27,10 +27,12 @@
 // mma.sync first; wgmma (TF32 k = 8, 64-row warpgroups, operands by shared-memory
 // descriptor) and TMA are the later step.
 //
-// bf16 (the kernels' bf16 instantiations, P = 1 below): operands rounded to bf16 where their
-// fragments are set, one TF32 pass (exact for bf16 operands), f32 accumulation; the TF32
-// fragments and layouts serve both, so no product loop is written twice. bf16 fragments
-// (m16n8k16) and wgmma, at twice the TF32 rate, are later work (ROADMAP B-ii).
+// bf16 operands (P = 1 below: the kernels' <float, 1> and <bf16, 1> instantiations,
+// common.cuh): operands rounded to bf16 where their fragments are set, one TF32 pass (exact
+// for bf16 operands), f32 accumulation; the TF32 fragments and layouts serve both, so no
+// product loop is written twice. The pass count is a template parameter of its own beside
+// the storage type: f32 storage takes either. bf16 fragments (m16n8k16) and wgmma, at twice
+// the TF32 rate, are later work.
 #pragma once
 
 #include <cstdint>
@@ -47,7 +49,7 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
     lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
 }
 
-// The bf16 instantiations (T = bf16, csrc/common.cuh) take bf16 operands: x rounded to bf16
+// The one-pass instantiations (P = 1, csrc/common.cuh) take bf16 operands: x rounded to bf16
 // (to nearest even), which a TF32 operand holds exactly (the same exponent, 7 of its 10
 // mantissa bits), so ONE TF32 pass gives the exact bf16-operand product, accumulated in
 // f32. The rounding happens where a fragment is set, which is where the TPU kernel casts
@@ -56,13 +58,9 @@ __device__ __forceinline__ uint32_t bf16_tf32(float x) {
     return __float_as_uint(__bfloat162float(__float2bfloat16_rn(x)));
 }
 
-// TF32 passes of a product: 3 (f32-exact, 3xTF32) for f32 storage, 1 for bf16.
-template <typename T>
-constexpr int kPasses = kBf16<T> ? 1 : 3;
-
 // An operand fragment of n registers, split (P = 3) or rounded to bf16 (P = 1) once where
 // it is loaded; lo is unused at P = 1.
-template <int NR, int P = 3>
+template <int NR, int P>
 struct Frag {
     uint32_t hi[NR], lo[NR];
     __device__ __forceinline__ void set(int i, float x) {
@@ -70,8 +68,6 @@ struct Frag {
         else hi[i] = bf16_tf32(x);
     }
 };
-using FragA = Frag<4>;
-using FragB = Frag<2>;
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
@@ -95,7 +91,8 @@ __device__ __forceinline__ void mma_f32x3(float (&d)[4], const Frag<4, P>& a,
 }
 
 // d += a * (bh + bl) for a B fragment that comes split from the host (_mma.mma_planes: hi
-// and lo planes); a bf16 weight's lo plane is zero and is not read (P = 1).
+// and lo planes); at P = 1 the planes are of the bf16-rounded weight, whose lo plane is zero
+// and is not read.
 template <int P>
 __device__ __forceinline__ void mma_planes_step(float (&d)[4], const Frag<4, P>& a,
                                                 const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
@@ -217,9 +214,9 @@ __device__ __forceinline__ void put4(float* A, int p, int c, int ksteps, float4 
 // Warp w owns m-tile w % 8 (rows 16 (w % 8) ..) and up to 8 n-tiles of a pass: 8 register
 // tiles, 24 MMAs a k-step. The n-tiles of a pass are shared between the two column groups
 // of warps (w / 8) as evenly as they fall, so a ragged N costs little.
-// P: the TF32 passes (kPasses of the caller's storage type): 3, or 1 for bf16 operands (A
-// rounded to bf16 where its fragment is set; W's hi plane only).
-template <int P = 3, typename StageA, typename Epi>
+// P: the TF32 passes of the caller's instantiation: 3, or 1 for bf16 operands (A rounded
+// to bf16 where its fragment is set; W's hi plane only, the planes of the rounded weight).
+template <int P, typename StageA, typename Epi>
 __device__ __forceinline__ void tile_mma(const float* A, int K, const float4* __restrict__ W,
                                          int ntw, int N, float* ws, StageA stage_a, Epi epi) {
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;

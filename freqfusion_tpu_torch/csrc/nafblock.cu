@@ -76,7 +76,8 @@
 //     faster on the H100 and spilled: the product itself (tile_mma) is what holds it.
 //   * LN2's statistics are in f32 and every sum has a fixed order: no atomics.
 //
-// Layout: NHWC, contiguous; x, g, att and out f32 or bf16 (bf16 products, the sums and y f32).
+// Layout: NHWC, contiguous; x, g, att and out f32 or bf16 (the sums and y f32); the products
+// take bf16 operands at bf16 and at precision "default" (P = 1: common.cuh).
 // Weights: w1p the mma_planes of w1 [C][2C] with its columns
 // pass by pass; w3p, w4p, w5p the mma_planes of w3 [C][C], of w4 [C][2C] gate-interleaved and
 // of w5 [C][C]; wdw [9][2C]. Stage A takes C % 4 == 0 with Cp = C rounded up to the pass's
@@ -113,14 +114,13 @@ int stage_a_rows(int B, int H, int W, int C) {
 // group XOR-ed with p % 4, which keeps n in its half (gate, partner)
 __device__ __forceinline__ int t_col(int p, int n) { return n ^ ((p & 3) << 3); }
 
-template <int HH, int KC, typename TS>
+template <int HH, int KC, typename TS, int P>
 __global__ void __launch_bounds__(32 * kAWarps, 1)
 naf_stage_a_kernel(const TS* __restrict__ x, const float* __restrict__ lnw,
                    const float* __restrict__ lnb, const float4* __restrict__ w1p,
                    const float* __restrict__ b1, const float* __restrict__ wdw,
                    const float* __restrict__ bdw, TS* __restrict__ g,
                    float* __restrict__ part, int H, int W, int C, int Cp) {
-    constexpr int P = kPasses<TS>;
     constexpr int M = kHaloW * HH, TH = HH - 2;    // product rows, output rows
     constexpr int NG = kAWarps / HH, NTW = 8 / NG;  // warps an m-tile, n-tiles a warp
     constexpr int KS = KC / 8, kStage4 = KS * 8 * 32;   // k-steps, float4s of a ring stage
@@ -338,7 +338,7 @@ naf_stage_a_kernel(const TS* __restrict__ x, const float* __restrict__ lnw,
     cp_async_wait<0>();
 }
 
-template <int HH, int KC, typename T>
+template <int HH, int KC, typename T, int P>
 cudaError_t launch_stage_a(const T* x, const float* lnw, const float* lnb,
                            const float* w1p, const float* b1, const float* wdw,
                            const float* bdw, T* g, float* part, int B, int H, int W, int C,
@@ -347,11 +347,11 @@ cudaError_t launch_stage_a(const T* x, const float* lnw, const float* lnb,
     const size_t smem = (size_t)(kHaloW * HH * (Cp + kPassN) + 2 * KC * 128 + kAWarps * 32) *
                         sizeof(float);
     if (smem > 232448) return cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(naf_stage_a_kernel<HH, KC, T>,
+    cudaError_t err = cudaFuncSetAttribute(naf_stage_a_kernel<HH, KC, T, P>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     dim3 grid((W + kOutW - 1) / kOutW, (H + HH - 3) / (HH - 2), B);
-    naf_stage_a_kernel<HH, KC, T><<<grid, 32 * kAWarps, smem, st>>>(
+    naf_stage_a_kernel<HH, KC, T, P><<<grid, 32 * kAWarps, smem, st>>>(
         x, lnw, lnb, reinterpret_cast<const float4*>(w1p), b1, wdw, bdw, g, part, H, W, C, Cp);
     return cudaGetLastError();
 }
@@ -364,7 +364,8 @@ struct StageB {
     const float *b3, *beta, *ln2w, *ln2b, *b4, *b5, *gamma;
     T* out;        // [npix][C]
     float* y;      // [npix][C] y between the products in the device-memory design: out
-                   // itself for f32, f32 scratch for bf16 (y stays f32, as in the TPU kernel)
+                   // itself for f32 storage, f32 scratch for bf16 (y stays f32, as in the
+                   // TPU kernel)
     float* hid;    // [npix][C] the gated hidden (device-memory design)
     float* part;   // [npix][2C] sums over K pieces (device-memory design, C > kMmaMaxK)
     long long npix;
@@ -379,10 +380,10 @@ __device__ __forceinline__ int y_col(int p, int c) { return c ^ ((p & 3) << 3); 
 // C = 64: everything on chip. A (g * att, then LN2(y)), y and the gated hidden sit in
 // shared memory beside the ring (3 x 32 KB + 128 KB): the block reads g and x once and
 // writes out once.
-template <typename T>
+template <typename T, int P>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 naf_stage_b_onchip_kernel(const StageB<T> a) {
-    constexpr int C = 64, KS = C / 8, C4 = C / 4, P = kPasses<T>;
+    constexpr int C = 64, KS = C / 8, C4 = C / 4;
     extern __shared__ float4 smem4[];
     float* A = reinterpret_cast<float*>(smem4);   // [128 x C] A-fragment order
     float* Hs = A + kMmaRows * C;                  // [128 x C] the hidden, A-fragment order
@@ -455,11 +456,10 @@ naf_stage_b_onchip_kernel(const StageB<T> a) {
 // N in steps of 8: a C that is not a multiple of 8 runs them at Cp = C rounded up, on weights
 // zero-padded to Cp (ops/kernels/nafblock.py), A's columns past C staged as zeros and no
 // column past C stored; every array keeps its stride C and LN2 its statistics over C.
-template <typename T>
+template <typename T, int P>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 naf_stage_b_rows_kernel(const StageB<T> a) {
     extern __shared__ float4 smem4[];
-    constexpr int P = kPasses<T>;
     const int C = a.C, Cp = a.Cp, Kt = tile_mma_piece(Cp);
     float* A = reinterpret_cast<float*>(smem4);   // [128 x Kt] A-fragment order
     float* ws = A + kMmaRows * Kt;                 // tile_mma's ring
@@ -565,13 +565,14 @@ naf_stage_b_rows_kernel(const StageB<T> a) {
     }
 }
 
-template <typename T>
+template <typename T, int P>
 cudaError_t launch_stage_b(const StageB<T>& a, cudaStream_t st) {
     const bool onchip = a.C == 64 && !a.hid;
     const size_t smem = (size_t)(onchip ? 3 * kMmaRows * 64 + tile_mma_ws()
                                         : kMmaRows * tile_mma_piece(a.Cp) + tile_mma_ws() +
                                               2 * kMmaRows) * sizeof(float);
-    const auto kernel = onchip ? naf_stage_b_onchip_kernel<T> : naf_stage_b_rows_kernel<T>;
+    const auto kernel =
+        onchip ? naf_stage_b_onchip_kernel<T, P> : naf_stage_b_rows_kernel<T, P>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -581,18 +582,19 @@ cudaError_t launch_stage_b(const StageB<T>& a, cudaStream_t st) {
     return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int P>
 cudaError_t stage_a(const T* x, const float* lnw, const float* lnb, const float* w1p,
                     const float* b1, const float* wdw, const float* bdw, T* g, float* part,
                     int B, int H, int W, int C, int hh, cudaStream_t st) {
     if (hh == 8)
-        return launch_stage_a<8, 32>(x, lnw, lnb, w1p, b1, wdw, bdw, g, part, B, H, W, C, st);
+        return launch_stage_a<8, 32, T, P>(x, lnw, lnb, w1p, b1, wdw, bdw, g, part, B, H, W, C, st);
     if (C <= 64)   // the pass's whole slab (Cp <= 64 rows) a ring stage: one barrier a pass
-        return launch_stage_a<16, 64>(x, lnw, lnb, w1p, b1, wdw, bdw, g, part, B, H, W, C, st);
-    return launch_stage_a<16, 32>(x, lnw, lnb, w1p, b1, wdw, bdw, g, part, B, H, W, C, st);
+        return launch_stage_a<16, 64, T, P>(x, lnw, lnb, w1p, b1, wdw, bdw, g, part, B, H, W, C,
+                                            st);
+    return launch_stage_a<16, 32, T, P>(x, lnw, lnb, w1p, b1, wdw, bdw, g, part, B, H, W, C, st);
 }
 
-template <typename T>
+template <typename T, int P>
 cudaError_t stage_b(const float* g, const float* x, const float* att, const float* w3p,
                     const float* b3, const float* beta, const float* ln2w, const float* ln2b,
                     const float* w4p, const float* b4, const float* w5p, const float* b5,
@@ -609,7 +611,7 @@ cudaError_t stage_b(const float* g, const float* x, const float* att, const floa
     a.gamma = gamma; a.out = reinterpret_cast<T*>(out); a.hid = hid; a.part = part;
     a.y = y ? y : out;
     a.npix = (long long)B * H * W; a.hw = H * W; a.C = C; a.Cp = (C + 7) / 8 * 8;
-    return launch_stage_b(a, st);
+    return launch_stage_b<T, P>(a, st);
 }
 
 }  // namespace
@@ -626,20 +628,21 @@ int naf_stage_a_blocks(int B, int H, int W, int C) {
 
 // g and sums = Σ_{H,W} g; w1p = the mma_planes of w1 [C][2C] zero-padded to [Cp][2Cp] (Cp =
 // C rounded up to 32) with its columns pass by pass (ops/kernels/nafblock.py), part
-// [B][naf_stage_a_blocks][C] scratch. x and g are f32, or bf16 where `bf16` is set; the
-// weights and the sums are f32 (the sums are taken of g before its rounding).
+// [B][naf_stage_a_blocks][C] scratch. x and g in the storage type of `mode` (common.cuh:
+// Mode); the weights and the sums are f32 (the sums are taken of g before its rounding).
 int naf_stage_a(const float* x, const float* lnw, const float* lnb, const float* w1p,
                 const float* b1, const float* wdw, const float* bdw, float* g, float* part,
-                float* sums, int B, int H, int W, int C, int bf16_io, void* stream) {
+                float* sums, int B, int H, int W, int C, int mode, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (C % 4 || C < 4 || C > 256 || B < 1 || B > 65535 || H < 1 || W < 1)
         return cudaErrorInvalidValue;
     const int hh = stage_a_rows(B, H, W, C);
     if (hh == 0) return cudaErrorInvalidDevice;
-    const cudaError_t err =
-        bf16_io ? stage_a(reinterpret_cast<const bf16*>(x), lnw, lnb, w1p, b1, wdw, bdw,
-                          reinterpret_cast<bf16*>(g), part, B, H, W, C, hh, st)
-                : stage_a(x, lnw, lnb, w1p, b1, wdw, bdw, g, part, B, H, W, C, hh, st);
+    const cudaError_t err = by_mode(mode, [&](auto m) {
+        using T = typename decltype(m)::T;
+        return stage_a<T, decltype(m)::P>(as<T>(x), lnw, lnb, w1p, b1, wdw, bdw, as<T>(g), part,
+                                          B, H, W, C, hh, st);
+    });
     if (err != cudaSuccess) return err;
     return sum_partials(part, sums, B, naf_stage_a_blocks(B, H, W, C), C, st);
 }
@@ -649,24 +652,25 @@ int naf_stage_a(const float* x, const float* lnw, const float* lnb, const float*
 // to 8 (ops/kernels/nafblock.py: stage_b_planes); hid [B*H*W][C] scratch where C != 64, part
 // [B*H*W][2Cp] where Cp > 192. C % 4 == 0. At C = 64 the block keeps y and the hidden on chip
 // unless hid is given: then it takes the device-memory design of the other widths (so that
-// the two can be timed and tested). g, x, att and out are f32, or bf16 where `bf16_io` is
-// set: then y [B*H*W][C] is f32 scratch where hid is given (y stays f32 between the
-// products, as in the TPU kernel), and hid is f32 in both.
+// the two can be timed and tested). g, x, att and out in the storage type of `mode`
+// (common.cuh: Mode): at bf16 y [B*H*W][C] is f32 scratch where hid is given (y stays f32
+// between the products, as in the TPU kernel), and hid is f32 in every mode.
 int naf_stage_b(const float* g, const float* x, const float* att, const float* w3p,
                 const float* b3, const float* beta, const float* ln2w, const float* ln2b,
                 const float* w4p, const float* b4, const float* w5p, const float* b5,
                 const float* gamma, float* out, float* y, float* hid, float* part, int B,
-                int H, int W, int C, int bf16_io, void* stream) {
+                int H, int W, int C, int mode, void* stream) {
     const int Cp = (C + 7) / 8 * 8;
     if (C % 4 || C < 4 || B < 1 || H < 1 || W < 1 || (C != 64 && !hid) ||
-        (Cp > kMmaMaxK && !part) || (bf16_io && hid && !y))
+        (Cp > kMmaMaxK && !part) || (mode == 1 && hid && !y))
         return cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (bf16_io)
-        return stage_b<bf16>(g, x, att, w3p, b3, beta, ln2w, ln2b, w4p, b4, w5p, b5, gamma,
-                             out, y, hid, part, B, H, W, C, st);
-    return stage_b<float>(g, x, att, w3p, b3, beta, ln2w, ln2b, w4p, b4, w5p, b5, gamma, out,
-                          nullptr, hid, part, B, H, W, C, st);
+    return by_mode(mode, [&](auto m) {
+        using T = typename decltype(m)::T;
+        return stage_b<T, decltype(m)::P>(g, x, att, w3p, b3, beta, ln2w, ln2b, w4p, b4, w5p, b5,
+                                          gamma, out, kBf16<T> ? y : nullptr, hid, part, B, H,
+                                          W, C, st);
+    });
 }
 
 }  // extern "C"

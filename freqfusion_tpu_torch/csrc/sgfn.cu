@@ -39,7 +39,7 @@
 // stays): the wrapper zero-pads the weights, the kernel zero-fills the padded columns of its
 // tile and stores only real columns.
 //
-// Layout: NHWC, contiguous; out f32 or bf16 (bf16 products), the hidden and y f32;
+// Layout: NHWC, contiguous; out f32 or bf16, the hidden and y f32 (bf16 products at P = 1);
 // C % 4 == 0, hid/2 % 4 == 0; hid [B,H,W,hid] = x1 | x2n; wdw [9][hid/2].
 
 #include "mma_f32x3.cuh"
@@ -49,10 +49,10 @@ namespace {
 constexpr int kTH = 8, kTW = 16;   // a block's tile: kMmaRows pixels
 static_assert(kTH * kTW == kMmaRows, "one tile_mma row a pixel");
 
-// T: the storage type of out (f32, or bf16 with bf16 products); y (f32) holds y = a +
-// shortcut from the first launch, then the pieces' sums (out itself for f32); the hidden is
-// f32, and the gate is rounded to bf16 where its fragments are set, as the TPU kernel casts it.
-template <typename T>
+// T: the storage type of out (f32, or bf16); y (f32) holds y = a + shortcut from the first
+// launch, then the pieces' sums (out itself for f32 storage); the hidden is f32, and at P = 1
+// the gate is rounded to bf16 where its fragments are set, as the TPU kernel casts it.
+template <typename T, int P>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 sgfn_gate_fc2_kernel(const float* __restrict__ hid, const float* __restrict__ wdw,
                      const float* __restrict__ bdw, const float4* __restrict__ w2,
@@ -109,7 +109,7 @@ sgfn_gate_fc2_kernel(const float* __restrict__ hid, const float* __restrict__ wd
             }
         };
         const bool first = k0 == 0, last = k0 + kh == K2p;
-        tile_mma<kPasses<T>>(G, kh, w2 + (size_t)(k0 / 8) * (Np / 8) * 32, Np / 8, Np, ws, stage_g,
+        tile_mma<P>(G, kh, w2 + (size_t)(k0 / 8) * (Np / 8) * 32, Np / 8, Np, ws, stage_g,
                  [&](int p, int n, float u0, float u1) {   // columns n, n + 1 (n even)
                      const int y = ty0 + p / kTW, x = tx0 + p % kTW;
                      // yb holds y, then y + the earlier pieces; out takes the last sum
@@ -130,33 +130,30 @@ sgfn_gate_fc2_kernel(const float* __restrict__ hid, const float* __restrict__ wd
 
 // out = y + (x1 * (dw3x3(x2n) + bdw)) @ w2 + b2, with y in out (rows_ln_fc1 parked it
 // there), x1 | x2n = hid [B,H,W,2*half] and w2 = mma_planes of [K2p][Np].
-// out f32, or bf16 where `bf16_io` is set; y the f32 scratch that rows_ln_fc1 parked y in
-// (null for f32: out holds y).
+// out in the storage type of `mode` (common.cuh: IoMode); y the f32 scratch that rows_ln_fc1
+// parked y in at bf16 (null for f32 storage: out holds y).
 extern "C" int sgfn_gate_fc2(const float* hid, const float* wdw, const float* bdw,
                              const float* w2, const float* b2, float* out, float* y, int B,
-                             int H, int W, int C, int half, int K2p, int Np, int bf16_io,
+                             int H, int W, int C, int half, int K2p, int Np, int mode,
                              void* stream) {
     if (C % 4 || half % 4 || K2p % 8 || Np % 8 || K2p < half || Np < C || B < 1 || H < 1 ||
-        W < 1 || (bf16_io && !y))
+        W < 1 || (mode == 1 && !y))
         return cudaErrorInvalidValue;
     const size_t smem =
         (size_t)(kMmaRows * tile_mma_piece(K2p) + tile_mma_ws()) * sizeof(float);
     if (smem > 227 * 1024) return cudaErrorInvalidValue;
-    const auto kernel =
-        bf16_io ? reinterpret_cast<const void*>(sgfn_gate_fc2_kernel<bf16>)
-                : reinterpret_cast<const void*>(sgfn_gate_fc2_kernel<float>);
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
     dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (bf16_io)
-        sgfn_gate_fc2_kernel<bf16><<<grid, kMmaThreads, smem, st>>>(
-            hid, wdw, bdw, reinterpret_cast<const float4*>(w2), b2,
-            reinterpret_cast<bf16*>(out), y, H, W, C, half, K2p, Np);
-    else
-        sgfn_gate_fc2_kernel<float><<<grid, kMmaThreads, smem, st>>>(
-            hid, wdw, bdw, reinterpret_cast<const float4*>(w2), b2, out, out, H, W, C, half,
-            K2p, Np);
-    return cudaGetLastError();
+    return by_mode(mode, [&](auto m) {
+        using T = typename decltype(m)::T;
+        const auto kernel = sgfn_gate_fc2_kernel<T, decltype(m)::P>;
+        cudaError_t err =
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+        kernel<<<grid, kMmaThreads, smem, st>>>(hid, wdw, bdw,
+                                                reinterpret_cast<const float4*>(w2), b2,
+                                                as<T>(out), kBf16<T> ? y : out, H, W, C, half,
+                                                K2p, Np);
+        return cudaGetLastError();
+    });
 }

@@ -32,9 +32,10 @@ namespace {
 
 constexpr int kQkvWarps = 4;
 
-template <typename TS>
+template <typename TS, int PS>
 struct RectWindow {
     using T = TS;   // storage of q, k, v and out
+    static constexpr int P = PS;   // TF32 passes (common.cuh)
     const T *q, *k, *v;
     const float *bias, *mask;
     T* out;
@@ -54,7 +55,7 @@ struct RectWindow {
     }
 };
 
-template <bool QREG, typename T>
+template <bool QREG, typename T, int P>
 __global__ void __launch_bounds__(32 * kQkvWarps, 16 / kQkvWarps)
 wattn_qkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const float* __restrict__ bias, const float* __restrict__ types,
@@ -68,7 +69,7 @@ wattn_qkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int n_wc = W / ws, n_wr = H / hs;
     const int bi = win / (n_wr * n_wc);
     win -= bi * n_wr * n_wc;
-    RectWindow<T> g;
+    RectWindow<T, P> g;
     g.q = q; g.k = k; g.v = v; g.out = out;
     g.nq = g.nk = hs * ws;
     g.hd = hd; g.ld = ld; g.co = heads * hd; g.col = head * hd;
@@ -82,46 +83,47 @@ wattn_qkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     flash_attention_f32x3<kQkvWarps, QREG>(g, qg, reinterpret_cast<float*>(smem4));
 }
 
-template <bool QREG, typename T>
+template <bool QREG, int P, typename T>
 cudaError_t launch_qkv(const T* q, const T* k, const T* v, const float* bias,
                        const float* types, T* out, int B, int H, int W, int ld, int hs,
                        int ws, int heads, int hd, cudaStream_t st) {
     const size_t smem = (size_t)flash_smem_floats(kQkvWarps, hd) * sizeof(float);
     if (smem > 232448) return cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
-        wattn_qkv_kernel<QREG, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        wattn_qkv_kernel<QREG, T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const int qgroups = (hs * ws + 16 * kQkvWarps - 1) / (16 * kQkvWarps);
     const long long nblocks = (long long)B * (H / hs) * (W / ws) * heads * qgroups;
     if (nblocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-    wattn_qkv_kernel<QREG, T><<<(unsigned)nblocks, 32 * kQkvWarps, smem, st>>>(
+    wattn_qkv_kernel<QREG, T, P><<<(unsigned)nblocks, 32 * kQkvWarps, smem, st>>>(
         q, k, v, bias, types, out, H, W, ld, hs, ws, heads, hd, qgroups,
         1.f / sqrtf((float)hd));
     return cudaGetLastError();
 }
 
-template <typename T>
+template <int P, typename T>
 cudaError_t qkv(const T* q, const T* k, const T* v, const float* bias, const float* types,
                 T* out, int B, int H, int W, int ld, int hs, int ws, int heads, int hd,
                 cudaStream_t st) {
     if (hd <= 32)
-        return launch_qkv<true>(q, k, v, bias, types, out, B, H, W, ld, hs, ws, heads, hd, st);
-    return launch_qkv<false>(q, k, v, bias, types, out, B, H, W, ld, hs, ws, heads, hd, st);
+        return launch_qkv<true, P>(q, k, v, bias, types, out, B, H, W, ld, hs, ws, heads, hd,
+                                   st);
+    return launch_qkv<false, P>(q, k, v, bias, types, out, B, H, W, ld, hs, ws, heads, hd, st);
 }
 
 }  // namespace
 
-// q, k, v and out f32, or bf16 where `bf16_io` is set; bias and types f32.
+// q, k, v and out in the storage type of `mode` (common.cuh: IoMode); bias and types f32.
 extern "C" int wattn_qkv(const float* q, const float* k, const float* v, const float* bias,
                          const float* types, float* out, int B, int H, int W, int ld, int hs,
-                         int ws, int heads, int hd, int bf16_io, void* stream) {
+                         int ws, int heads, int hd, int mode, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (hs < 1 || ws < 1 || hd < 1 || heads < 1 || ld < heads * hd || B < 1 || H % hs ||
         W % ws)
         return cudaErrorInvalidValue;
-    if (bf16_io)
-        return qkv(reinterpret_cast<const bf16*>(q), reinterpret_cast<const bf16*>(k),
-                   reinterpret_cast<const bf16*>(v), bias, types, reinterpret_cast<bf16*>(out),
-                   B, H, W, ld, hs, ws, heads, hd, st);
-    return qkv(q, k, v, bias, types, out, B, H, W, ld, hs, ws, heads, hd, st);
+    return by_mode(mode, [&](auto m) {
+        using T = typename decltype(m)::T;
+        return qkv<decltype(m)::P>(as<T>(q), as<T>(k), as<T>(v), bias, types, as<T>(out), B, H,
+                                   W, ld, hs, ws, heads, hd, st);
+    });
 }

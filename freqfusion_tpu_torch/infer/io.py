@@ -14,9 +14,12 @@ format or the JAX package's flax msgpack, else from a ``.pth``) and writes one x
 input image, whatever its size. It serves in float32 or, with ``dtype="bfloat16"`` (or
 ``FREQFUSION_DTYPE=bfloat16``), in bfloat16 as the JAX package's serving does: parameters and
 input cast to bf16, every kernel reading and writing bf16 with bf16 products, the output
-taken to f32 before the clamp and the uint8 conversion. The JAX ``main``'s environment
-switches and its ``FREQFUSION_CONFIG`` yaml (``utils/runtime.py``) are read where the
-caller gives no keyword (``serving_options``).
+taken to f32 before the clamp and the uint8 conversion. With ``precision="default"`` (or
+``FREQFUSION_PRECISION=default``) it serves the JAX pipeline's own default numerics: f32
+storage, every kernel's matmul operands rounded to bf16 with f32 accumulation, and TF32 in
+the cuDNN and cuBLAS glue; the port's default stays "highest" (f32-exact). The JAX
+``main``'s environment switches and its ``FREQFUSION_CONFIG`` yaml (``utils/runtime.py``)
+are read where the caller gives no keyword (``serving_options``).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from torch import nn
 
 from ..models.experts import FreqFusionSR
 from ..models.fusion import FusionConfig
+from ..ops.kernels import _mma
 from ..utils.convert import fusion_params_from_flax, load_torch_checkpoint
 from ..utils.imageio import list_images, load_image, save_image
 from ..utils.runtime import runtime_overrides
@@ -45,22 +49,28 @@ TILE = 192
 OVERLAP = 32
 TILE_BATCH = 2
 #: precision -> whether f32 products and convolutions may take TF32: "highest" keeps f32
-#: (the JAX twin's "highest"), "high" allows TF32 (PyTorch's own default for cuDNN convs)
-PRECISIONS = {"highest": False, "high": True}
+#: (the JAX twin's "highest"), "high" allows TF32 (PyTorch's own default for cuDNN convs),
+#: "default" allows it too (the H100's default class; the TPU's is a bf16 pass)
+PRECISIONS = {"highest": False, "high": True, "default": True}
+#: precision -> the kernels' matmul operand dtype (``_mma.operands``; None: f32-exact
+#: products): "default" rounds every kernel's operands to bf16, as the JAX package's Pallas
+#: kernels do on f32 storage (``wattn._mxu_dtype``)
+OPERANDS = {"highest": None, "high": None, "default": torch.bfloat16}
 #: serving dtypes by name (``FREQFUSION_DTYPE``, ``main(dtype=...)``)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @contextlib.contextmanager
 def pinned_precision(precision: str):
-    """Sets both TF32 flags for `precision` ("highest": off, "high": on), and restores the
-    caller's on the way out."""
+    """Sets both TF32 flags for `precision` ("highest": off, "high" and "default": on) and
+    the kernels' operand dtype (``OPERANDS``), and restores the caller's on the way out."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision={precision!r}; expected one of {sorted(PRECISIONS)}")
     old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = PRECISIONS[precision]
     try:
-        yield
+        with _mma.operands(OPERANDS[precision]):
+            yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
 
@@ -72,7 +82,9 @@ class InferencePipeline:
     `overlap` px shared between neighbours. `tile` must suit the model (a multiple of 16
     for HAT's windows; DAT pads to its 32-px windows by itself). `precision` is pinned
     around every forward, whole or tiled, and the caller's setting restored after it:
-    "highest" runs f32 products and convolutions in f32, "high" lets them take TF32.
+    "highest" runs f32 products and convolutions in f32, "high" lets them take TF32, and
+    "default" (the JAX pipeline's default) rounds every kernel's matmul operands to bf16 on
+    f32 storage and lets the glue take TF32.
     `dtype` (torch.float32 or torch.bfloat16) is the dtype of the parameters, the input and
     every activation; the output leaves as f32 (``run_image``) or uint8."""
 
@@ -378,19 +390,14 @@ def build_pipeline(model_dir: str, device="cuda", fusion_config: Optional[Fusion
                              tile_batch=tile_batch, precision=precision)
 
 
-#: The ROADMAP item that holds the JAX package's precision "default" (bf16 operands on f32
-#: storage), which the port does not run yet.
-PRECISION_DEFAULT_ITEM = "ROADMAP B-ii: precision 'default' (bf16 operands on f32 storage)"
-
-
 def serving_options(**given) -> dict:
     """The serving options of ``main``: each keyword the caller gave (not None), else the JAX
     ``main``'s environment switch, else the default; the model and tiling from the
     ``FREQFUSION_CONFIG`` yaml (``runtime_overrides``) where the caller gave none.
 
     * ``dtype``: ``FREQFUSION_DTYPE`` (``float32`` | ``bfloat16``), default float32;
-    * ``precision``: ``FREQFUSION_PRECISION`` (``highest`` | ``high``), default highest. The
-      JAX value ``default`` (bf16 operands on f32 storage, the TPU's default class) raises;
+    * ``precision``: ``FREQFUSION_PRECISION`` (``highest`` | ``high`` | ``default``), default
+      highest; ``default`` is the JAX pipeline's (bf16 operands on f32 storage);
     * ``group_max``: ``FREQFUSION_U8_BATCH``, default 1;
     * ``whole_image_px``, ``whole_image_shapes``: ``FREQFUSION_WHOLE_IMAGE_PX`` (0: every
       image tiled) and ``FREQFUSION_WHOLE_IMAGE_SHAPES`` (a cap on distinct buckets), default
@@ -412,10 +419,8 @@ def serving_options(**given) -> dict:
         out["dtype"] = DTYPES[out["dtype"]]
     if out.get("precision") is None:
         out["precision"] = env("FREQFUSION_PRECISION", "highest")
-    if out["precision"] == "default":
-        raise ValueError("precision 'default' (the JAX package's bf16 operands on f32 "
-                         f"storage) is not ported: {PRECISION_DEFAULT_ITEM}; serve with "
-                         "'highest', 'high', or dtype bfloat16")
+    if out["precision"] not in PRECISIONS:
+        raise ValueError(f"precision={out['precision']!r}; expected one of {sorted(PRECISIONS)}")
     if out.get("group_max") is None:
         out["group_max"] = max(1, int(env("FREQFUSION_U8_BATCH", "1")))
     if out.get("whole_image_px") is None and env("FREQFUSION_WHOLE_IMAGE_PX"):
@@ -452,9 +457,9 @@ def main(model_dir: str, input_path: str, output_path: str, device="cuda", *,
     of that batch), and group i+1 is dispatched before group i is copied back and written.
     An image whose plan is the tiled path waits for what is pending, then runs as
     `tile_batch` tiles of `tile` px a forward (`overlap` px shared) and is written.
-    `precision` ("highest": f32, the default; "high": TF32 allowed) holds inside every
-    forward; `dtype` ("float32", the default, or "bfloat16", or the torch dtype) is the
-    serving dtype. A keyword left None is read from the environment and the
+    `precision` ("highest": f32, the default; "high": TF32 allowed; "default": the JAX
+    pipeline's bf16 matmul operands on f32 storage) holds inside every forward; `dtype`
+    ("float32", the default, or "bfloat16", or the torch dtype) is the serving dtype. A keyword left None is read from the environment and the
     ``FREQFUSION_CONFIG`` yaml as the JAX ``main`` reads them (``serving_options``)."""
     opt = serving_options(
         fusion_config=fusion_config, expert_kwargs=expert_kwargs, group_max=group_max,

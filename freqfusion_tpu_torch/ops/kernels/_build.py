@@ -21,6 +21,8 @@ from pathlib import Path
 
 import torch
 
+from . import _mma
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -31,7 +33,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry point -> argument types; every entry returns its cudaError_t as an int. The int
-# before the stream of a kernel entry is its storage type (``io_code``: 0 f32, 1 bf16).
+# before the stream of a kernel entry is its instantiation (``io_code``: 0 f32, 1 bf16, 2 f32
+# storage with bf16 operands).
 SIGNATURES = {
     "naf_stage_a": [_P] * 10 + [_I] * 5 + [_P],
     "naf_stage_b": [_P] * 17 + [_I] * 5 + [_P],
@@ -40,7 +43,7 @@ SIGNATURES = {
     "naf_stage_a_blocks": [_I] * 4,
     "aim_conv_branch": [_P] * 8 + [_I] * 5 + [_P],
     "aim_conv_branch_blocks": [_I] * 3,
-    "aim_gates_proj": [_P] * 12 + [_I] * 8 + [_P],
+    "aim_gates_proj": [_P] * 13 + [_I] * 8 + [_P],
     "rows_ln_fc1": [_P] * 11 + [_L] + [_I] * 5 + [_P],
     "sgfn_gate_fc2": [_P] * 7 + [_I] * 8 + [_P],
     "cab_chain": [_P] * 11 + [_I] * 10 + [_P],
@@ -52,7 +55,7 @@ SIGNATURES = {
     "wattn_qkv": [_P] * 6 + [_I] * 9 + [_P],
     "oca_attention": [_P] * 5 + [_I] * 9 + [_P],
     "band_mha": [_P] * 8 + [_L] + [_I] * 5 + [_F, _I, _P],
-    "band_mha_wide": [_P] * 10 + [_L] + [_I] * 5 + [_F, _P],
+    "band_mha_wide": [_P] * 10 + [_L] + [_I] * 5 + [_F, _I, _P],
     "lka_gate": [_P] * 9 + [_I] * 7 + [_P],
 }
 
@@ -159,12 +162,16 @@ def require_no_grad(name: str, *tensors: torch.Tensor) -> None:
                            "torch.no_grad() or torch.inference_mode()")
 
 
-def io_code(x: torch.Tensor, name: str = "x") -> int:
-    """The storage-type argument of a kernel entry for its activation x: 0 for float32, 1
-    for bfloat16; raises on any other dtype."""
+def io_code(x: torch.Tensor, name: str = "x", mxu_dtype=None) -> int:
+    """The instantiation argument of a kernel entry for its activation x (csrc/common.cuh:
+    IoMode): 0 for float32 with f32-exact products, 1 for bfloat16, 2 for float32 with bf16
+    operands (precision "default": ``_mma.operand_dtype`` of x's dtype and `mxu_dtype` is
+    bfloat16); raises on any other dtype."""
     if x.dtype not in KERNEL_DTYPES:
         raise ValueError(f"{name}: expected float32 or bfloat16, got {x.dtype}")
-    return int(x.dtype == torch.bfloat16)
+    if x.dtype == torch.bfloat16:
+        return 1
+    return 2 if _mma.operand_dtype(x.dtype, mxu_dtype) == torch.bfloat16 else 0
 
 
 def require_dtypes(name: str, x: torch.Tensor, *others) -> None:

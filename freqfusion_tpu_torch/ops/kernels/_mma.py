@@ -27,6 +27,15 @@ bf16 weights (FREQFUSION_DTYPE=bfloat16): a bf16 value is exact in TF32, so its 
 the value itself and its lo plane is zero; the bf16 kernels run one TF32 pass (the exact
 bf16-operand product) and never read lo. The planes and fragments hold f32 in both cases, and
 ``kept`` keys them by dtype, so that an f32 and a bf16 copy of one weight never share planes.
+
+Precision "default" (f32 storage, bf16 operands: the JAX package's shipped serving numerics,
+``wattn._mxu_dtype``): the kernels' one-pass instantiation on f32 tensors. The operand dtype of
+a call is ``operand_dtype``: the wrapper's ``mxu_dtype`` where the caller gives one, else the
+process-wide one that ``operands`` sets (``infer.io.pinned_precision`` at "default"), else the
+storage dtype. At bf16 operands an f32 weight's planes are those of its bf16 rounding (``bf16``
+planes: hi the rounded values, lo zero), kept under their own key beside its 3xTF32 planes;
+a weight that a kernel stages itself (biases, norms, the attention's head slabs, B11's
+fragments) goes as it is, and the kernel rounds it where its fragment is set.
 ``f32(w)`` is a weight's exact f32 copy for the kernels' small f32 operands (biases, norms,
 depthwise taps); ``up(t)`` takes a plain version's bf16 input to f32 (f32 and f64 stay), and
 ``rnd(t, dtype)`` is the rounding that the plain versions apply where the TPU kernel casts an
@@ -40,6 +49,8 @@ weight ring. A wider K goes in the pieces that ``piece_sizes`` lists, as the ker
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch.utils.weak import WeakTensorKeyDictionary
@@ -47,6 +58,37 @@ from torch.utils.weak import WeakTensorKeyDictionary
 _HALF_ULP = 0x1000
 _TF32_MASK = -0x2000   # 0xffffe000 as an int32
 MAX_ROW_K = 192
+
+
+#: The process-wide matmul operand dtype of the kernels (None: each call's storage dtype).
+_OPERANDS = [None]
+
+
+def operand_dtype(dtype: torch.dtype, mxu_dtype=None) -> torch.dtype:
+    """The matmul operand dtype of a kernel call on storage `dtype`, as the JAX package's
+    ``_mxu_dtype`` picks it: `mxu_dtype` where given, else float64 for a float64 reference
+    (never rounded), else the process-wide dtype of ``operands``, else `dtype` itself. A
+    bfloat16 storage has bf16 operands whatever is asked: its values are bf16 already."""
+    if dtype == torch.bfloat16:
+        return dtype
+    if mxu_dtype is not None:
+        return mxu_dtype
+    if dtype == torch.float64 or _OPERANDS[0] is None:
+        return dtype
+    return _OPERANDS[0]
+
+
+@contextlib.contextmanager
+def operands(dtype):
+    """Sets the process-wide operand dtype (torch.bfloat16 for precision "default", None
+    for each call's storage dtype) and restores the one before on the way out."""
+    if dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"operands: expected None, float32 or bfloat16, got {dtype}")
+    old, _OPERANDS[0] = _OPERANDS[0], dtype
+    try:
+        yield
+    finally:
+        _OPERANDS[0] = old
 
 
 def piece_sizes(k: int) -> list[int]:
@@ -134,10 +176,18 @@ def kept(spec: tuple, make, *ts: torch.Tensor):
     return hit[2]
 
 
-def planes(w: torch.Tensor, kp: int, npad: int) -> torch.Tensor:
+def bf16_planes(w: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """w as the one-pass kernels take it at bf16 operands (`bf16`): its bf16 rounding where w
+    is float32, whose ``mma_planes`` are then hi = the rounded values and lo = 0; else w."""
+    return w.to(torch.bfloat16) if bf16 and w.dtype == torch.float32 else w
+
+
+def planes(w: torch.Tensor, kp: int, npad: int, bf16: bool = False) -> torch.Tensor:
     """``mma_planes`` of w [K,N] zero-padded to [kp,npad], made once for each weight
-    (``kept``)."""
-    return kept(("planes", kp, npad), lambda: mma_planes(padded(w, kp, npad)), w)
+    (``kept``); with `bf16` (precision "default": the kernel's code ``_build.io_code`` 2), those
+    of its bf16 rounding, under a key of their own."""
+    return kept(("planes", kp, npad, bf16),
+                lambda: mma_planes(padded(bf16_planes(w, bf16), kp, npad)), w)
 
 
 def fragments(w: torch.Tensor) -> torch.Tensor:
@@ -161,7 +211,9 @@ def up(t: torch.Tensor) -> torch.Tensor:
 
 
 def rnd(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """t rounded to bfloat16 and back to float32 where `dtype` is bfloat16: where the TPU
-    kernel casts an intermediate to its operand dtype (``.astype(dt)``); t itself for any
-    other dtype."""
-    return t.to(dtype).float() if dtype == torch.bfloat16 else t
+    """t rounded to bfloat16 and back to float32 (float64 for a float64 t) where `dtype` is
+    bfloat16: where the TPU kernel casts an intermediate or an operand to its operand dtype
+    (``.astype(dt)``); t itself for any other dtype."""
+    if dtype != torch.bfloat16:
+        return t
+    return t.to(dtype).to(torch.float64 if t.dtype == torch.float64 else torch.float32)

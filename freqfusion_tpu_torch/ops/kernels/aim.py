@@ -18,8 +18,12 @@ lo parts, and both it and the S-Map's padded fc1 are made once for each weight
 
 Every tensor of a call is float32, or every one bfloat16: then B5a computes in f32 on the
 bf16 values and rounds conv_x once (its sums are f32), and B5b rounds each matmul operand to
-bf16 as the TPU kernel casts it (the S-Map's source and its GELU output, the gated sum), with
-f32 accumulation and a bf16 output; at bf16 B5b takes C up to _mma.MAX_ROW_K (one K piece).
+bf16 as the TPU kernel casts it (the S-Map's source and its GELU output, the gated sum, and
+the weights), with f32 accumulation and a bf16 output; above _mma.MAX_ROW_K channels its K
+pieces sum in an f32 scratch and the output is rounded once. At float32 with bf16 operands
+(``mxu_dtype``, or precision "default": ``_mma.operand_dtype``) B5b rounds the same operands
+and stores f32; B5a has no product and no ``mxu_dtype`` (as ``aim.py:77``): its f32 kernel
+serves precision "default".
 """
 
 from __future__ import annotations
@@ -59,25 +63,28 @@ def aim_conv_branch_plain(v, wdw, bdw, bn_scale, bn_shift):
 
 
 def aim_gates_proj_plain(attened, conv_x, chmap_vec, si_w1, si_b1, si_bn_scale,
-                         si_bn_shift, si_w2, si_b2, proj_w, proj_b, swap: bool = False):
+                         si_bn_shift, si_w2, si_b2, proj_w, proj_b, swap: bool = False,
+                         mxu_dtype=None):
     """The pointwise AIM tail. chmap_vec [B,1,1,C] is the C-Map before its sigmoid.
     swap=False (spatial block): attened * s(C-Map) + conv_x * s(S-Map(attened));
     swap=True (channel block):  attened * s(S-Map(conv_x)) + conv_x * s(C-Map)."""
     c = attened.shape[-1]
     dt = attened.dtype
+    mdt = _mma.operand_dtype(dt, mxu_dtype)
     (attened, conv_x, chmap_vec, si_w1, si_b1, si_bn_scale, si_bn_shift, si_w2, si_b2,
      proj_w, proj_b) = map(_mma.up, (attened, conv_x, chmap_vec, si_w1, si_b1, si_bn_scale,
                                      si_bn_shift, si_w2, si_b2, proj_w, proj_b))
+    si_w1, si_w2, proj_w = (_mma.rnd(t, mdt) for t in (si_w1, si_w2, proj_w))
     src = conv_x if swap else attened
-    g = src @ si_w1.reshape(c, -1) + si_b1
-    g = (_mma.rnd(F.gelu(g * si_bn_scale + si_bn_shift), dt) @ si_w2.reshape(-1, 1)
+    g = _mma.rnd(src, mdt) @ si_w1.reshape(c, -1) + si_b1
+    g = (_mma.rnd(F.gelu(g * si_bn_scale + si_bn_shift), mdt) @ si_w2.reshape(-1, 1)
          + si_b2)
     smap, cgate = torch.sigmoid(g), torch.sigmoid(chmap_vec)
     if swap:
         y = attened * smap + conv_x * cgate
     else:
         y = attened * cgate + conv_x * smap
-    return (_mma.rnd(y, dt) @ proj_w + proj_b).to(dt)
+    return (_mma.rnd(y, mdt) @ proj_w + proj_b).to(dt)
 
 
 def smap_groups(w1: torch.Tensor) -> torch.Tensor:
@@ -90,16 +97,16 @@ def smap_groups(w1: torch.Tensor) -> torch.Tensor:
         0, 1).contiguous()
 
 
-def gates_planes(si_w1: torch.Tensor, proj_w: torch.Tensor):
+def gates_planes(si_w1: torch.Tensor, proj_w: torch.Tensor, bf16: bool = False):
     """(kp, the S-Map's fc1 in groups (``smap_groups``), the projection's planes): proj [C,C]
-    as tile_mma's B fragments, hi and lo, of [kp,kp] (kp = C padded to a multiple of 8).
-    Both are made once for each weight (``_mma.kept``), so the views that the model passes
-    will do."""
+    as tile_mma's B fragments, hi and lo, of [kp,kp] (kp = C padded to a multiple of 8; of
+    its bf16 rounding with `bf16`). Both are made once for each weight (``_mma.kept``), so
+    the views that the model passes will do; the kernel rounds fc1 as it stages it."""
     c, mid = si_w1.shape[-2:]
     kp = -(-c // 8) * 8
     w1 = si_w1.reshape(c, mid)
     fc1 = _mma.kept(("aim_smap",), lambda: smap_groups(_mma.up(w1)), w1)
-    return kp, fc1, _mma.planes(proj_w, kp, kp)
+    return kp, fc1, _mma.planes(proj_w, kp, kp, bf16)
 
 
 def aim_conv_branch(v, wdw, bdw, bn_scale, bn_shift):
@@ -111,7 +118,7 @@ def aim_conv_branch(v, wdw, bdw, bn_scale, bn_shift):
     b, h, w, c = v.shape
     if c % 4 or c > MAX_C:
         raise ValueError(f"aim_conv_branch: C={c} is not a multiple of 4 up to {MAX_C}")
-    io = _build.io_code(v, "v")
+    io = _build.io_code(v, "v", torch.float32)   # no product: f32 operands at float32
     _build.require(v, "v")
     _build.require(wdw, "wdw", (3, 3, 1, c))
     for name, t in (("bdw", bdw), ("bn_scale", bn_scale), ("bn_shift", bn_shift)):
@@ -133,25 +140,23 @@ def aim_conv_branch(v, wdw, bdw, bn_scale, bn_shift):
 
 
 def aim_gates_proj(attened, conv_x, chmap_vec, si_w1, si_b1, si_bn_scale, si_bn_shift,
-                   si_w2, si_b2, proj_w, proj_b, swap: bool = False):
-    """Kernel B5b on CUDA, its plain version on the CPU. Returns [B,H,W,C]."""
+                   si_w2, si_b2, proj_w, proj_b, swap: bool = False, mxu_dtype=None):
+    """Kernel B5b on CUDA, its plain version on the CPU. Returns [B,H,W,C]. `mxu_dtype`:
+    the matmul operand dtype (``_mma.operand_dtype``; None: the process-wide one)."""
     _build.require_no_grad("aim_gates_proj", attened, conv_x, chmap_vec, si_w1, si_b1,
                            si_bn_scale, si_bn_shift, si_w2, si_b2, proj_w, proj_b)
     _build.require_dtypes("aim_gates_proj", attened, conv_x, si_w1, si_b1,
                           si_bn_scale, si_bn_shift, si_w2, si_b2, proj_w, proj_b)
     if attened.device.type == "cpu":
         return aim_gates_proj_plain(attened, conv_x, chmap_vec, si_w1, si_b1, si_bn_scale,
-                                    si_bn_shift, si_w2, si_b2, proj_w, proj_b, swap)
+                                    si_bn_shift, si_w2, si_b2, proj_w, proj_b, swap, mxu_dtype)
     b, h, w, c = attened.shape
     mid = si_w1.shape[-1]
     if c % 4 or c > MAX_C:
         raise ValueError(f"aim_gates_proj: C={c} is not a multiple of 4 up to {MAX_C}")
     if not 1 <= mid <= MAX_MID:
         raise ValueError(f"aim_gates_proj: S-Map width {mid} outside [1, {MAX_MID}]")
-    io = _build.io_code(attened, "attened")
-    if io and c > _mma.MAX_ROW_K:
-        raise ValueError(f"aim_gates_proj: C={c} at bfloat16; the bf16 kernel takes C up to "
-                         f"{_mma.MAX_ROW_K} (its wide case sums K pieces in f32 out)")
+    io = _build.io_code(attened, "attened", mxu_dtype)
     _build.require(attened, "attened")
     _build.require(conv_x, "conv_x", attened.shape)
     # the C-Map may be f32 (from B5a's f32 sums) where attened is bf16
@@ -165,17 +170,21 @@ def aim_gates_proj(attened, conv_x, chmap_vec, si_w1, si_b1, si_bn_scale, si_bn_
                     ("si_bn_shift", si_bn_shift)):
         _build.require(t, name, (mid,))
     _build.require(proj_b, "proj_b", (c,))
-    kp, fc1, projp = gates_planes(si_w1, proj_w)
+    kp, fc1, projp = gates_planes(si_w1, proj_w, io == 2)
     si_b1, si_bn_scale, si_bn_shift, si_w2, si_b2, proj_b = map(
         _mma.f32, (si_b1, si_bn_scale, si_bn_shift, si_w2, si_b2, proj_b))
     chmap_vec = _mma.up(chmap_vec).contiguous()
     lib = _build.library()
     out = torch.empty_like(attened)
+    # the K pieces' f32 sums above MAX_ROW_K channels at bf16 (f32 storage sums them in out)
+    y = (torch.empty(attened.shape, device=attened.device, dtype=torch.float32)
+         if io == 1 and kp > _mma.MAX_ROW_K else None)
     with torch.cuda.device(attened.device):
         err = lib.aim_gates_proj(attened.data_ptr(), conv_x.data_ptr(), chmap_vec.data_ptr(),
                                  fc1.data_ptr(), si_b1.data_ptr(), si_bn_scale.data_ptr(),
                                  si_bn_shift.data_ptr(), si_w2.data_ptr(), si_b2.data_ptr(),
                                  projp.data_ptr(), proj_b.data_ptr(), out.data_ptr(),
+                                 None if y is None else y.data_ptr(),
                                  b, h, w, c, mid, kp, int(bool(swap)), io,
                                  _build.stream_ptr(attened.device))
     _build.check(err, "aim_gates_proj")

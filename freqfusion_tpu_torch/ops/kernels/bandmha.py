@@ -19,8 +19,12 @@ softmax over any number of keys, the row product, the residual, through device m
 
 Every tensor of a call is float32, or every one bfloat16: then LN's output, q, k, v and the
 heads' output, the products' operands, are rounded to bf16 (the TPU kernel casts them to its
-operand dtype), the scores, the softmax and the sums run in f32, and the output is rounded to
-bf16 once. The wide route is f32 only.
+operand dtype), and so are each product of a score and of p v, exp(s - the row's max) in the
+softmax's sum and the probabilities, where the TPU kernel rounds them; the sums run in f32,
+and the output is rounded to bf16 once, on either route (the wide route keeps its scratch
+and the residual in f32). At float32 with bf16 operands (``mxu_dtype``, or precision
+"default": ``_mma.operand_dtype``) the same operands and the weights are rounded to bf16 and
+the output stays f32.
 """
 
 from __future__ import annotations
@@ -54,18 +58,40 @@ def padded_widths(d: int, num_heads: int) -> tuple[int, int]:
     return -(-max(d, num_heads * hdp) // 16) * 16, hdp
 
 
-def fused_band_mha_plain(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int):
+def _probs(e: torch.Tensor, mdt) -> torch.Tensor:
+    """e / (its sum over the keys), where e = exp(scores - the row's max): the sum taken of e
+    rounded to the operand dtype and the quotient rounded to it (``zsum`` and ``p`` of the TPU
+    kernel)."""
+    return _mma.rnd(e / _mma.rnd(e, mdt).sum(-1, keepdim=True), mdt)
+
+
+def fused_band_mha_plain(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int,
+                         mxu_dtype=None):
+    """At bf16 operands every rounding of the TPU kernel: LN's output, q, k, v, each
+    product q_c scale k_c of a score (summed in f32), exp(s - the row's max) in the sum, the
+    probabilities, each product p v (summed in f32) and the heads' output."""
     *lead, t, d = stacked.shape
     hd = d // num_heads
     dt = stacked.dtype
+    mdt = _mma.operand_dtype(dt, mxu_dtype)
     stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b = map(
         _mma.up, (stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b))
-    qkv = _mma.rnd(_mma.rnd(layernorm(stacked, ln_w, ln_b), dt) @ wqkv + bqkv, dt)
+    wqkv, wproj = _mma.rnd(wqkv, mdt), _mma.rnd(wproj, mdt)
+    qkv = _mma.rnd(_mma.rnd(layernorm(stacked, ln_w, ln_b), mdt) @ wqkv + bqkv, mdt)
     # [..., T, 3, heads, hd] -> three [..., heads, T, hd]
     q, k, v = qkv.reshape(*lead, t, 3, num_heads, hd).movedim(-3, 0).transpose(-2, -3)
-    attn = torch.softmax((q * hd ** -0.5) @ k.transpose(-1, -2), dim=-1)
-    a = (attn @ v).transpose(-2, -3).reshape(*lead, t, d)
-    return (stacked + _mma.rnd(a, dt) @ wproj + bproj).to(dt)
+    q = q * hd ** -0.5
+    if mdt != torch.bfloat16:
+        a = torch.softmax(q @ k.transpose(-1, -2), dim=-1) @ v
+    else:
+        s = _mma.rnd(q.unsqueeze(-2) * k.unsqueeze(-3), mdt).sum(-1)
+        # exp(s - the row's max over every head and key), as the TPU kernel takes it: a
+        # constant of each head's softmax, but not of what its roundings give (a head whose
+        # scores all lie some 87 below the row's max divides 0 by 0 there as on the TPU)
+        p = _probs(torch.exp(s - s.amax(dim=(-3, -1), keepdim=True)), mdt)
+        a = _mma.rnd(p.unsqueeze(-1) * v.unsqueeze(-3), mdt).sum(-2)
+    a = a.transpose(-2, -3).reshape(*lead, t, d)
+    return (stacked + _mma.rnd(a, mdt) @ wproj + bproj).to(dt)
 
 
 def band_weights(wqkv: torch.Tensor, wproj: torch.Tensor):
@@ -110,23 +136,30 @@ def _padded_params(wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int, dk: int
                      ln_w, ln_b)
 
 
-def _wide_params(wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int, dk: int, hdp: int):
-    """``_padded`` with wqkv and wproj as the row product's split planes (``_mma.mma_planes``),
-    for the wide route; made once for each weight (``_mma.kept``)."""
+def _wide_params(wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int, dk: int, hdp: int,
+                 bf16: bool = False):
+    """``_padded`` with wqkv and wproj as the row product's split planes (``_mma.mma_planes``;
+    of their bf16 roundings with `bf16`, or of bf16 weights), the rest f32, for the wide route;
+    made once for each weight (``_mma.kept``)."""
     def make():
-        wq, bq, wp, *rest = _padded(wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads, dk, hdp)
-        return (_mma.mma_planes(wq), bq, _mma.mma_planes(wp), *rest)
+        wq, bq, wp, *rest = _padded(*map(_mma.up, (wqkv, bqkv, wproj, bproj, ln_w, ln_b)),
+                                    num_heads, dk, hdp)
+        return (_mma.mma_planes(_mma.bf16_planes(wq, bf16)), bq,
+                _mma.mma_planes(_mma.bf16_planes(wp, bf16)), *rest)
 
-    return _mma.kept(("band_wide", num_heads, dk, hdp), make, wqkv, bqkv, wproj, bproj,
+    return _mma.kept(("band_wide", num_heads, dk, hdp, bf16), make, wqkv, bqkv, wproj, bproj,
                      ln_w, ln_b)
 
 
-def fused_band_mha(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int):
-    """Kernel B11 on CUDA, its plain version on the CPU. Returns [B,H,W,T,D]."""
+def fused_band_mha(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int,
+                   mxu_dtype=None):
+    """Kernel B11 on CUDA, its plain version on the CPU. Returns [B,H,W,T,D]. `mxu_dtype`:
+    the matmul operand dtype (``_mma.operand_dtype``; None: the process-wide one)."""
     _build.require_no_grad("fused_band_mha", stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b)
     _build.require_dtypes("fused_band_mha", stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b)
     if stacked.device.type == "cpu":
-        return fused_band_mha_plain(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads)
+        return fused_band_mha_plain(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads,
+                                    mxu_dtype)
     if stacked.dim() != 5:
         raise ValueError(f"fused_band_mha: expected [B,H,W,T,D], got {tuple(stacked.shape)}")
     b, h, w, t, d = stacked.shape
@@ -136,11 +169,7 @@ def fused_band_mha(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int
     if t < 1:
         raise ValueError(f"fused_band_mha: T={t}; expected at least one token")
     wide = dk > MAX_D or t > max_tokens(dk)
-    io = _build.io_code(stacked, "stacked")
-    if io and wide:
-        raise ValueError(f"fused_band_mha: D={d} (kernel width {dk}) with T={t} tokens at "
-                         f"bfloat16; the bf16 kernel takes D up to {MAX_D} and "
-                         f"{max_tokens(dk)} tokens (the wide route is f32 only)")
+    io = _build.io_code(stacked, "stacked", mxu_dtype)
     _build.require(stacked, "stacked")
     # wqkv and wproj are laid out anew (band_weights, _padded_params): views will do
     for name, p, shape, contiguous in (("wqkv", wqkv, (d, 3 * d), False),
@@ -157,14 +186,17 @@ def fused_band_mha(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int
     scale = (d // num_heads) ** -0.5   # LN and the scale keep the real widths
     if wide:
         wq, bq, wp, bp, lw, lb = _wide_params(wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads,
-                                              dk, hdp)
-        n = torch.empty_like(x)
-        qkv = x.new_empty((*x.shape[:-1], 3 * dk))
+                                              dk, hdp, io == 2)
+        # f32 scratch in every mode: LN's output and the heads' output, then q | k | v (and
+        # at bf16 the projection before the residual)
+        n = torch.empty(x.shape, device=x.device, dtype=torch.float32)
+        qkv = torch.empty((*x.shape[:-1], 3 * dk), device=x.device, dtype=torch.float32)
         with torch.cuda.device(stacked.device):
             err = lib.band_mha_wide(x.data_ptr(), wq.data_ptr(), bq.data_ptr(), wp.data_ptr(),
                                     bp.data_ptr(), lw.data_ptr(), lb.data_ptr(), n.data_ptr(),
                                     qkv.data_ptr(), out.data_ptr(), b * h * w, t, dk, d,
-                                    num_heads, hdp, scale, _build.stream_ptr(stacked.device))
+                                    num_heads, hdp, scale, io,
+                                    _build.stream_ptr(stacked.device))
         _build.check(err, "band_mha_wide")
     else:
         if (dk, hdp) == (d, d // num_heads):

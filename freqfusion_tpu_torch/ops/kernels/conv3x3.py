@@ -7,7 +7,10 @@ widths at 32 or more the source's implicit-GEMM kernel runs (HAT's and DAT's 180
 f32-exact 3xTF32 on the tensor cores), on weights that the wrapper zero-pads to multiples
 of 8 channels in and out, the MMA's k and n (``padded_conv_weights``). x, w and b are all
 float32 or all bfloat16; at bfloat16 the products take the bf16 values, accumulate in f32 and
-the output is rounded to bf16 once (the TPU kernel's bf16 operands).
+the output is rounded to bf16 once (the TPU kernel's bf16 operands). At float32 with bf16
+operands (``mxu_dtype``, or precision "default": ``_mma.operand_dtype``) x and w are rounded
+to bf16 as operands, in every case (the narrow CUDA-core ones too, as ``cab.py:276`` casts
+them), and the output stays f32.
 """
 
 from __future__ import annotations
@@ -28,8 +31,9 @@ def conv3x3_f32(x, w, b):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def conv3x3_dense_plain(x, w, b):
-    return conv3x3_f32(x, w, b).to(x.dtype)
+def conv3x3_dense_plain(x, w, b, mxu_dtype=None):
+    mdt = _mma.operand_dtype(x.dtype, mxu_dtype)
+    return conv3x3_f32(_mma.rnd(x, mdt), _mma.rnd(w, mdt), b).to(x.dtype)
 
 
 def padded_conv_weights(w, b):
@@ -43,15 +47,16 @@ def padded_conv_weights(w, b):
             F.pad(_mma.up(b), (0, npad - cout)))
 
 
-def conv3x3_dense(x, w, b):
-    """Kernel B3 on CUDA, its plain version on the CPU."""
+def conv3x3_dense(x, w, b, mxu_dtype=None):
+    """Kernel B3 on CUDA, its plain version on the CPU. `mxu_dtype`: the matmul operand
+    dtype (``_mma.operand_dtype``; None: the process-wide one)."""
     _build.require_no_grad("conv3x3_dense", x, w, b)
     _build.require_dtypes("conv3x3_dense", x, w, b)
     if x.device.type == "cpu":
-        return conv3x3_dense_plain(x, w, b)
+        return conv3x3_dense_plain(x, w, b, mxu_dtype)
     bsz, h, wd, cin = x.shape
     cout = w.shape[-1]
-    io = _build.io_code(x)
+    io = _build.io_code(x, mxu_dtype=mxu_dtype)
     _build.require(x, "x")
     _build.require(w, "w", (3, 3, cin, cout))
     _build.require(b, "b", (cout,))

@@ -21,7 +21,9 @@ in registers.
 x and every weight are float32, or all bfloat16: then the depthwise chain runs in f32 on the
 bf16 values, `a` stays f32 until the product rounds it to bf16 (its operand dtype, as the
 TPU kernel's on the TPU), the product accumulates in f32 and the output is rounded to bf16
-once; at bf16 C goes up to STAGED_MAX_C.
+once, at any C. At float32 with bf16 operands (``mxu_dtype``, or precision "default":
+``_mma.operand_dtype``) the product's two operands, `a` and wp, are rounded to bf16 and the
+rest stays f32: the TPU kernel casts only them (``lka.py:87``).
 """
 
 from __future__ import annotations
@@ -40,31 +42,30 @@ K = 21
 STAGED_MAX_C = 1808
 
 
-def lka_gate_plain(x, w5, wh, wv, wp, scale, shift):
+def lka_gate_plain(x, w5, wh, wv, wp, scale, shift, mxu_dtype=None):
     c = x.shape[-1]
     dt = x.dtype
+    mdt = _mma.operand_dtype(dt, mxu_dtype)
     x, w5, wh, wv, wp, scale, shift = map(_mma.up, (x, w5, wh, wv, wp, scale, shift))
     a = x.permute(0, 3, 1, 2)
     a = F.conv2d(a, w5.permute(2, 0, 1).reshape(c, 1, 5, 5), padding=(2, 2), groups=c)
     a = F.conv2d(a, wh.t().reshape(c, 1, 1, K), padding=(0, K // 2), groups=c)
     a = F.conv2d(a, wv.t().reshape(c, 1, K, 1), padding=(K // 2, 0), groups=c)
-    mixed = _mma.rnd(a.permute(0, 2, 3, 1), dt) @ wp
+    mixed = _mma.rnd(a.permute(0, 2, 3, 1), mdt) @ _mma.rnd(wp, mdt)
     return (x * torch.sigmoid(mixed * scale + shift)).to(dt)
 
 
-def lka_gate(x, w5, wh, wv, wp, scale, shift):
-    """Kernel B12 on CUDA, its plain version on the CPU. Returns [B,H,W,C]."""
+def lka_gate(x, w5, wh, wv, wp, scale, shift, mxu_dtype=None):
+    """Kernel B12 on CUDA, its plain version on the CPU. Returns [B,H,W,C]. `mxu_dtype`: the
+    1x1 product's operand dtype (``_mma.operand_dtype``; None: the process-wide one)."""
     _build.require_no_grad("lka_gate", x, w5, wh, wv, wp, scale, shift)
     _build.require_dtypes("lka_gate", x, w5, wh, wv, wp, scale, shift)
     if x.device.type == "cpu":
-        return lka_gate_plain(x, w5, wh, wv, wp, scale, shift)
+        return lka_gate_plain(x, w5, wh, wv, wp, scale, shift, mxu_dtype)
     if x.dim() != 4:
         raise ValueError(f"lka_gate: expected [B,H,W,C], got {tuple(x.shape)}")
     b, h, w, c = x.shape
-    io = _build.io_code(x)
-    if io and c > STAGED_MAX_C:
-        raise ValueError(f"lka_gate: C={c} at bfloat16; the bf16 kernel takes C up to "
-                         f"{STAGED_MAX_C} (the unstaged wide product is f32 only)")
+    io = _build.io_code(x, mxu_dtype=mxu_dtype)
     _build.require(x, "x")
     for name, t, shape in (("w5", w5, (5, 5, c)), ("wh", wh, (K, c)), ("wv", wv, (K, c)),
                            ("scale", scale, (c,)), ("shift", shift, (c,))):
@@ -73,7 +74,7 @@ def lka_gate(x, w5, wh, wv, wp, scale, shift):
     _build.require(wp, "wp", (c, c), contiguous=False)
     # the product takes K in steps of 8 and N in a warp's tasks of 32 columns
     kp, npad = -(-c // 8) * 8, -(-c // 32) * 32
-    wpp = _mma.planes(wp, kp, npad)
+    wpp = _mma.planes(wp, kp, npad, io == 2)
     w5, wh, wv, scale, shift = map(_mma.f32, (w5, wh, wv, scale, shift))
     lib = _build.library()
     a = torch.empty(x.shape, device=x.device, dtype=torch.float32)   # the chain's output

@@ -13,7 +13,9 @@ CPU tensor it runs the plain PyTorch version. Parameters come in the JAX package
 w1 [C,hidden], w2 [hidden/2,C] as [in,out]; wdw (3,3,1,hidden/2) HWIO. Both LayerNorms
 use eps 1e-5. Every tensor of a call float32, or every one bfloat16: then LN(y) and the
 gate, the products' operands, are rounded to bf16 as the TPU kernel casts them, and y, the
-hidden and the accumulation stay f32 (the kernel parks y in an f32 scratch at bf16).
+hidden and the accumulation stay f32 (the kernel parks y in an f32 scratch at bf16). At
+float32 with bf16 operands (``mxu_dtype``, or precision "default": ``_mma.operand_dtype``)
+the same operands and the weights are rounded to bf16, and every tensor stays f32.
 """
 
 from __future__ import annotations
@@ -29,15 +31,18 @@ from .aim import depthwise3x3_plain
 launches = {"fused_sgfn_tail": 0}
 
 
-def fused_sgfn_tail_plain(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw, w2, b2):
+def fused_sgfn_tail_plain(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw, w2, b2,
+                          mxu_dtype=None):
     dt = a.dtype
+    mdt = _mma.operand_dtype(dt, mxu_dtype)
     a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw, w2, b2 = map(
         _mma.up, (a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw, w2, b2))
     y = a + shortcut
-    x1, x2 = F.gelu(_mma.rnd(layernorm(y, ln_w, ln_b), dt) @ w1 + b1).chunk(2, dim=-1)
+    x1, x2 = F.gelu(_mma.rnd(layernorm(y, ln_w, ln_b), mdt) @ _mma.rnd(w1, mdt)
+                    + b1).chunk(2, dim=-1)
     # SAME padding zeroes LN_sg(x2), the depthwise conv's input, not x2 or y
     x2 = depthwise3x3_plain(layernorm(x2, sg_w, sg_b), wdw, bdw)
-    return (y + _mma.rnd(x1 * x2, dt) @ w2 + b2).to(dt)
+    return (y + _mma.rnd(x1 * x2, mdt) @ _mma.rnd(w2, mdt) + b2).to(dt)
 
 
 def _widths(c: int, hid: int) -> tuple[int, int, int]:
@@ -46,26 +51,29 @@ def _widths(c: int, hid: int) -> tuple[int, int, int]:
     return -(-c // 8) * 8, -(-(hid // 2) // 8) * 8, -(-c // 8) * 8
 
 
-def fused_sgfn_tail(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw, w2, b2):
+def fused_sgfn_tail(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw, w2, b2,
+                    mxu_dtype=None):
     """Kernel B6 on CUDA, its plain version on the CPU. Returns [B,H,W,C]. Two launches:
     fc1 with both LayerNorms (csrc/hat_rows.cu's row product), then the gate and fc2
-    (csrc/sgfn.cu); the hidden passes through device memory once."""
+    (csrc/sgfn.cu); the hidden passes through device memory once. `mxu_dtype`: the matmul
+    operand dtype (``_mma.operand_dtype``; None: the process-wide one)."""
     _build.require_no_grad("fused_sgfn_tail", a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw,
                            bdw, w2, b2)
     _build.require_dtypes("fused_sgfn_tail", a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw,
                           bdw, w2, b2)
     if a.device.type == "cpu":
         return fused_sgfn_tail_plain(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw,
-                                     w2, b2)
+                                     w2, b2, mxu_dtype)
     fc1, gate_fc2, out = _sgfn_launchers(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw,
-                                         bdw, w2, b2)
+                                         bdw, w2, b2, mxu_dtype)
     fc1()
     gate_fc2()
     launches["fused_sgfn_tail"] += 1
     return out
 
 
-def _sgfn_launchers(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw, w2, b2):
+def _sgfn_launchers(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw, w2, b2,
+                    mxu_dtype=None):
     """Checks B6's CUDA arguments and lays out its weights; returns (fc1, gate_fc2, out): two
     functions that each launch one half on the current stream (the second reads the hidden
     and the parked y that the first wrote) and the output they fill. ``fused_sgfn_tail``
@@ -76,7 +84,7 @@ def _sgfn_launchers(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw, w2, b
     if c % 4 or half % 4 or 2 * half != hid:
         raise ValueError(f"fused_sgfn_tail: C={c} and hidden/2={hid / 2} must be multiples "
                          "of 4")
-    io = _build.io_code(a, "a")
+    io = _build.io_code(a, "a", mxu_dtype)
     _build.require(a, "a")
     _build.require(shortcut, "shortcut", a.shape)
     for name, t, shape in (("ln_w", ln_w, (c,)), ("ln_b", ln_b, (c,)),
@@ -88,14 +96,14 @@ def _sgfn_launchers(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw, w2, b
     _build.require(w1, "w1", (c, hid), contiguous=False)
     _build.require(w2, "w2", (half, c), contiguous=False)
     kp, k2p, npad = _widths(c, hid)
-    w1p, w2p = _mma.planes(w1, kp, hid), _mma.planes(w2, k2p, npad)
+    w1p, w2p = _mma.planes(w1, kp, hid, io == 2), _mma.planes(w2, k2p, npad, io == 2)
     ln_w, ln_b, b1, sg_w, sg_b, wdw, bdw, b2 = map(
         _mma.f32, (ln_w, ln_b, b1, sg_w, sg_b, wdw, bdw, b2))
     lib = _build.library()
     hidden = torch.empty((b, h, w, hid), device=a.device, dtype=torch.float32)
     out = torch.empty_like(a)
     # y between the launches: f32 scratch at bf16 (out holds it at f32)
-    y = torch.empty(a.shape, device=a.device, dtype=torch.float32) if io else None
+    y = torch.empty(a.shape, device=a.device, dtype=torch.float32) if io == 1 else None
     yp = None if y is None else y.data_ptr()
 
     def fc1():

@@ -30,10 +30,13 @@ B14 takes x [B,H,W,C] with the whole [C,3C] projection and the [C,C] output proj
 
 Every tensor of a call is float32, or every one bfloat16. At bfloat16 the plain versions and
 the kernels compute what the TPU kernels compute on bf16 refs: each matmul operand rounded
-to bf16 (LN outputs, q scaled by the bf16 scale, k, v, the probabilities, the attention
-output, the GELU output), f32 accumulation, softmax, LayerNorm statistics and the residual
-stream y in f32, and outputs rounded to bf16 once. The kernels keep y in an f32 scratch
-where the f32 path parks it in the output; B8 takes C up to _mma.MAX_ROW_K at bf16.
+to bf16 (LN outputs, q rounded and scaled by the bf16 scale, k, v, the probabilities, the
+attention output, the GELU output, the weights), f32 accumulation, softmax, LayerNorm
+statistics and the residual stream y in f32, and outputs rounded to bf16 once. The kernels
+keep y in an f32 scratch where the f32 path parks it in the output, and sum a product's K
+pieces there above _mma.MAX_ROW_K channels. At float32 with bf16 operands (``mxu_dtype``, or
+precision "default": ``_mma.operand_dtype``) the same operands are rounded and every tensor
+stays f32, as the TPU kernels compute on f32 refs with a bf16 ``mxu_dtype``.
 """
 
 from __future__ import annotations
@@ -104,43 +107,52 @@ def _type_index(n_wr: int, n_wc: int, device) -> torch.Tensor:
 
 def _scale(hd: int, dt) -> float:
     """1/sqrt(hd), in the operand dtype as the TPU kernels hold it (``jnp.asarray(hd ** -0.5,
-    dt)``): rounded to bf16 at bf16."""
+    dt)``): rounded to bf16 at bf16 operands."""
     return float(torch.tensor(hd ** -0.5).to(dt)) if dt == torch.bfloat16 else hd ** -0.5
 
 
-def fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads):
+def _probs(scores: torch.Tensor, mdt) -> torch.Tensor:
+    """The softmax over the last axis, rounded to the operand dtype for the product with v
+    (``jax.nn.softmax(a).astype(dt)`` in the TPU kernels)."""
+    return _mma.rnd(torch.softmax(scores, dim=-1), mdt)
+
+
+def fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads, mxu_dtype=None):
     """Multi-head attention inside (hs, ws) windows of pre-projected images [B,H,W,C]:
     softmax(q k^T / sqrt(head_dim) + bias (+ mask)) v. Returns [B,H,W,C]."""
     b, h, w, c = q.shape
     hs, ws = window
     n, hd = hs * ws, c // num_heads
     dt = q.dtype
-    q, k, v, bias = map(_mma.up, (q, k, v, bias))
+    mdt = _mma.operand_dtype(dt, mxu_dtype)
+    q, k, v = (_mma.rnd(t, mdt) for t in (q, k, v))
+    bias = _mma.up(bias)
 
     def to_wins(t):  # [B*nW, heads, N, hd]
         return window_partition(t, hs, ws).reshape(-1, n, num_heads, hd).permute(0, 2, 1, 3)
 
-    attn = (_mma.rnd(to_wins(q) * _scale(hd, dt), dt) @ to_wins(k).transpose(-1, -2)
+    attn = (_mma.rnd(to_wins(q) * _scale(hd, mdt), mdt) @ to_wins(k).transpose(-1, -2)
             + bias[None])
     if mask is not None:
         n_wr, n_wc = h // hs, w // ws
         per_win = mask_types(mask, n_wr, n_wc, q.device)[_type_index(n_wr, n_wc, q.device)]
         attn = (attn.reshape(b, n_wr * n_wc, num_heads, n, n)
                 + per_win[None, :, None]).reshape(-1, num_heads, n, n)
-    out = _mma.rnd(torch.softmax(attn, dim=-1), dt) @ to_wins(v)
+    out = _mma.rnd(_probs(attn, mdt) @ to_wins(v), mdt)   # each head's output, as an operand
     return window_reverse(out.permute(0, 2, 1, 3).reshape(-1, n, c), hs, ws, h, w).to(dt)
 
 
-def _launch_qkv(lib, q_ptr, k_ptr, v_ptr, ld, bias, types, out, window, num_heads, name):
+def _launch_qkv(lib, q_ptr, k_ptr, v_ptr, ld, bias, types, out, window, num_heads, name, io):
     """csrc/wattn.cu's pre-projected attention into `out` [B,H,W,C]; q, k, v are device
-    addresses of images of out's dtype with `ld` elements a pixel."""
+    addresses of images of out's dtype with `ld` elements a pixel; `io` the instantiation
+    (``_build.io_code``)."""
     b, h, w, c = out.shape
     bias = _mma.up(bias).contiguous()
     with torch.cuda.device(out.device):
         err = lib.wattn_qkv(q_ptr, k_ptr, v_ptr, bias.data_ptr(),
                             0 if types is None else types.data_ptr(), out.data_ptr(), b, h, w,
-                            ld, window[0], window[1], num_heads, c // num_heads,
-                            _build.io_code(out), _build.stream_ptr(out.device))
+                            ld, window[0], window[1], num_heads, c // num_heads, io,
+                            _build.stream_ptr(out.device))
     _build.check(err, name)
 
 
@@ -152,16 +164,19 @@ def _check_qkv_shape(name, h, w, c, window, num_heads):
         raise ValueError(f"{name}: C={c} does not split into {num_heads} whole heads")
 
 
-def fused_window_attention_qkv(q, k, v, bias, mask, window, num_heads):
+def fused_window_attention_qkv(q, k, v, bias, mask, window, num_heads, mxu_dtype=None):
     """Kernel B13 on CUDA, its plain version on the CPU: multi-head attention inside
     (hs, ws) windows of pre-projected q, k, v [B,H,W,C], already zero-padded to whole
     windows and already rolled in a shifted block; any window and head width. A zero-padded
-    key is not masked: it scores its bias and takes part in the softmax. Returns [B,H,W,C]."""
+    key is not masked: it scores its bias and takes part in the softmax. Returns [B,H,W,C].
+    `mxu_dtype`: the matmul operand dtype (``_mma.operand_dtype``; None: the process-wide
+    one), as for every wrapper here."""
     name = "fused_window_attention_qkv"
     _build.require_no_grad(name, q, k, v, bias)
     _build.require_dtypes(name, q, k, v, bias)
     if q.device.type == "cpu":
-        return fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads)
+        return fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads,
+                                                mxu_dtype)
     b, h, w, c = q.shape
     hs, ws = window
     n = hs * ws
@@ -173,27 +188,28 @@ def fused_window_attention_qkv(q, k, v, bias, mask, window, num_heads):
     types = None if mask is None else mask_types(mask, h // hs, w // ws, q.device)
     out = torch.empty_like(q)
     _launch_qkv(_build.library(), q.data_ptr(), k.data_ptr(), v.data_ptr(), c, bias, types,
-                out, window, num_heads, "wattn_qkv")
+                out, window, num_heads, "wattn_qkv", _build.io_code(q, "q", mxu_dtype))
     launches[name] += 1
     return out
 
 
-def fused_window_attention_plain(x, wqkv, bqkv, wproj, bproj, bias, mask, window, num_heads):
+def fused_window_attention_plain(x, wqkv, bqkv, wproj, bproj, bias, mask, window, num_heads,
+                                 mxu_dtype=None):
     dt = x.dtype
+    mdt = _mma.operand_dtype(dt, mxu_dtype)
     x, wqkv, bqkv, wproj, bproj = map(_mma.up, (x, wqkv, bqkv, wproj, bproj))
-    q, k, v = (x @ wqkv + bqkv).to(dt).chunk(3, dim=-1)
-    att = fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads)
-    return (_mma.up(att) @ wproj + bproj).to(dt)
+    q, k, v = (_mma.rnd(x, mdt) @ _mma.rnd(wqkv, mdt) + bqkv).to(dt).chunk(3, dim=-1)
+    att = fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads, mxu_dtype)
+    return (_mma.rnd(att, mdt) @ _mma.rnd(wproj, mdt) + bproj).to(dt)
 
 
-def _rows_linear(lib, a, wp, bp, out, kp, np_, name="rows_linear"):
+def _rows_linear(lib, a, wp, bp, out, kp, np_, io, name="rows_linear"):
     """csrc/hat_rows.cu's row product out [..., Cout] = a [..., C] @ w + b on the current
-    stream (wp the planes of w [kp, np_], bp f32); at bf16 with K in pieces its sums go
-    through an f32 scratch."""
+    stream (wp the planes of w [kp, np_], bp f32; `io` the instantiation, ``_build.io_code``);
+    at bf16 with K in pieces its sums go through an f32 scratch."""
     c, cout = a.shape[-1], out.shape[-1]
-    io = _build.io_code(a)
     y = (torch.empty(out.shape, device=a.device, dtype=torch.float32)
-         if io and kp > _mma.MAX_ROW_K else None)
+         if io == 1 and kp > _mma.MAX_ROW_K else None)
     with torch.cuda.device(a.device):
         err = lib.rows_linear(a.data_ptr(), wp.data_ptr(), bp.data_ptr(), out.data_ptr(),
                               None if y is None else y.data_ptr(), a.numel() // c, c, cout, kp,
@@ -201,7 +217,8 @@ def _rows_linear(lib, a, wp, bp, out, kp, np_, name="rows_linear"):
     _build.check(err, name)
 
 
-def fused_window_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, window, num_heads):
+def fused_window_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, window, num_heads,
+                           mxu_dtype=None):
     """Kernel B14 on CUDA, its plain version on the CPU: one (S)W-MSA pass over an already
     rolled image x [B,H,W,C] of any parity, qkv projection [C,3C] -> attention in
     (hs, ws) windows with bias [heads,N,N] (+ the shift mask) -> output projection [C,C].
@@ -212,7 +229,7 @@ def fused_window_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, window, num_
     _build.require_dtypes(name, x, wqkv, bqkv, wproj, bproj, bias)
     if x.device.type == "cpu":
         return fused_window_attention_plain(x, wqkv, bqkv, wproj, bproj, bias, mask, window,
-                                            num_heads)
+                                            num_heads, mxu_dtype)
     b, h, w, c = x.shape
     hs, ws = window
     n = hs * ws
@@ -228,27 +245,30 @@ def fused_window_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, window, num_
     _build.require(wqkv, "wqkv", (c, 3 * c), contiguous=False)
     _build.require(wproj, "wproj", (c, c), contiguous=False)
     types = None if mask is None else mask_types(mask, h // hs, w // ws, x.device)
+    io = _build.io_code(x, mxu_dtype=mxu_dtype)
     kp, np3 = _ceil8(c), _ceil8(3 * c)
-    wq, wpp = _mma.planes(wqkv, kp, np3), _mma.planes(wproj, kp, kp)
+    wq, wpp = _mma.planes(wqkv, kp, np3, io == 2), _mma.planes(wproj, kp, kp, io == 2)
     lib = _build.library()
-    # q | k | v in x's dtype: the TPU kernel rounds them to its operand dtype
+    # q | k | v in x's dtype: the attention rounds them to its operand dtype
     qkv = torch.empty((b, h, w, 3 * c), device=x.device, dtype=dt)
     att = torch.empty_like(x)
     out = torch.empty_like(x)
-    _rows_linear(lib, x, wq, _mma.f32(bqkv), qkv, kp, np3)
+    _rows_linear(lib, x, wq, _mma.f32(bqkv), qkv, kp, np3, io)
     p, e = qkv.data_ptr(), qkv.element_size()
     _launch_qkv(lib, p, p + e * c, p + 2 * e * c, 3 * c, bias, types, att, window, num_heads,
-                "wattn_qkv")
-    _rows_linear(lib, att, wpp, _mma.f32(bproj), out, kp, kp)
+                "wattn_qkv", io)
+    _rows_linear(lib, att, wpp, _mma.f32(bproj), out, kp, kp, io)
     launches[name] += 1
     return out
 
 
-def fused_window_attention_xqkv_plain(x, wqkv, bqkv, bias, mask, window, num_heads):
+def fused_window_attention_xqkv_plain(x, wqkv, bqkv, bias, mask, window, num_heads,
+                                      mxu_dtype=None):
     """Project this branch's q, k, v from x, then fused_window_attention_qkv_plain."""
     dt = x.dtype
-    q, k, v = (_mma.up(x) @ _mma.up(wqkv) + _mma.up(bqkv)).to(dt).chunk(3, dim=-1)
-    return fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads)
+    mdt = _mma.operand_dtype(dt, mxu_dtype)
+    q, k, v = (_mma.rnd(x, mdt) @ _mma.rnd(wqkv, mdt) + _mma.up(bqkv)).to(dt).chunk(3, dim=-1)
+    return fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads, mxu_dtype)
 
 
 def branch_qkv(wqkv, bqkv, off: int, width: int):
@@ -284,7 +304,8 @@ def head_slabs(wqkv, bqkv, num_heads: int, hd: int, kp: int, cols=None):
     return _mma.kept(("head_slabs", num_heads, hd, kp, cols), make, wqkv, bqkv)
 
 
-def fused_window_attention_xqkv(x, wqkv, bqkv, bias, mask, window, num_heads, cols=None):
+def fused_window_attention_xqkv(x, wqkv, bqkv, bias, mask, window, num_heads, cols=None,
+                                mxu_dtype=None):
     """Kernel B4 on CUDA, its plain version on the CPU. Returns [B,H,W,co].
 
     With ``cols = (off, width)`` wqkv [Cin,3C] and bqkv [3C] are a whole projection and the
@@ -298,7 +319,7 @@ def fused_window_attention_xqkv(x, wqkv, bqkv, bias, mask, window, num_heads, co
         if cols is not None:
             wqkv, bqkv = branch_qkv(wqkv, bqkv, *cols)
         return fused_window_attention_xqkv_plain(x, wqkv, bqkv, bias, mask, window,
-                                                 num_heads)
+                                                 num_heads, mxu_dtype)
     b, h, w, cin = x.shape
     hs, ws = window
     n = hs * ws
@@ -326,14 +347,17 @@ def fused_window_attention_xqkv(x, wqkv, bqkv, bias, mask, window, num_heads, co
     wh, bh = head_slabs(wqkv, bqkv, num_heads, hd, _ceil8(cin), cols)
     out = torch.empty((b, h, w, co), device=x.device, dtype=dt)
     _launch_xqkv(_build.library(), x, None, None, wh, bh, bias, types, out, window, num_heads,
-                 hd, 0)
+                 hd, 0, _build.io_code(x, mxu_dtype=mxu_dtype))
     launches[name] += 1
     return out
 
 
-def _launch_xqkv(lib, x, ln_w, ln_b, wh, bh, bias, types, out, window, num_heads, hd, shift):
+def _launch_xqkv(lib, x, ln_w, ln_b, wh, bh, bias, types, out, window, num_heads, hd, shift,
+                 io):
     """csrc/hab_attention.cu's attention of x's windows into `out` [B,H,W,heads*hd], with
-    the LayerNorm (ln_w, ln_b) on load where they are given."""
+    the LayerNorm (ln_w, ln_b) on load where they are given; `io` the instantiation
+    (``_build.io_code``). The head slabs go as they are: the kernel rounds them at bf16
+    operands where their fragments are set."""
     b, h, w, cin = x.shape
     ln_w, ln_b = (None if t is None else _mma.f32(t) for t in (ln_w, ln_b))
     bias = _mma.up(bias).contiguous()
@@ -343,7 +367,7 @@ def _launch_xqkv(lib, x, ln_w, ln_b, wh, bh, bias, types, out, window, num_heads
                                  bh.data_ptr(), bias.data_ptr(),
                                  0 if types is None else types.data_ptr(), out.data_ptr(),
                                  b, h, w, cin, wh.shape[1], window[0], window[1], num_heads,
-                                 hd, shift, _build.io_code(x), _build.stream_ptr(x.device))
+                                 hd, shift, io, _build.stream_ptr(x.device))
     _build.check(err, "xqkv_attention")
 
 
@@ -351,39 +375,62 @@ def _ceil8(n: int) -> int:
     return -(-n // 8) * 8
 
 
-def _mlp_planes(c: int, w1, w2):
+def _mlp_planes(c: int, w1, w2, bf16: bool = False):
     """(kp, k2p, w1p, w2p) for an MLP on C-wide rows: fc1's weights [kp,k2p] and fc2's
-    [k2p,kp] as tile_mma's planes (_mma.planes, made once a weight). The row products take K
-    and N in multiples of 8, and the hidden, fc1's N and fc2's K, passes through a buffer
-    k2p wide; padded zeros change nothing."""
+    [k2p,kp] as tile_mma's planes (_mma.planes, made once a weight; of their bf16 roundings
+    with `bf16`). The row products take K and N in multiples of 8, and the hidden, fc1's N
+    and fc2's K, passes through a buffer k2p wide; padded zeros change nothing."""
     kp, k2p = _ceil8(c), _ceil8(w1.shape[1])
-    return kp, k2p, _mma.planes(w1, kp, k2p), _mma.planes(w2, k2p, kp)
+    return kp, k2p, _mma.planes(w1, kp, k2p, bf16), _mma.planes(w2, k2p, kp, bf16)
 
 
-def _mlp_plain(y, ln_w, ln_b, w1, b1, w2, b2, dt=torch.float32):
-    """y + fc2(GELU(fc1(LN y))) on f32 (or f64) y, the products' operands rounded to `dt`."""
+def _mlp_plain(y, ln_w, ln_b, w1, b1, w2, b2, mdt=torch.float32):
+    """y + fc2(GELU(fc1(LN y))) on f32 (or f64) y, the products' operands (the weights too)
+    rounded to the operand dtype `mdt`."""
     ln_w, ln_b, w1, b1, w2, b2 = map(_mma.up, (ln_w, ln_b, w1, b1, w2, b2))
-    h = _mma.rnd(F.gelu(_mma.rnd(layernorm(y, ln_w, ln_b), dt) @ w1 + b1), dt)
+    w1, w2 = _mma.rnd(w1, mdt), _mma.rnd(w2, mdt)
+    h = _mma.rnd(F.gelu(_mma.rnd(layernorm(y, ln_w, ln_b), mdt) @ w1 + b1), mdt)
     return y + h @ w2 + b2
+
+
+def _hab_attention_plain(x, ln1_w, ln1_b, wqkv, bqkv, bias, mask, window, num_heads,
+                         in_shift: int = 0, mxu_dtype=None):
+    """B8's first launch: the window attention of LN1 x, x read at (+s, +s) with wrap-around
+    for in_shift = s. Returns the heads' output [B,H,W,C] in x's dtype."""
+    dt = x.dtype
+    mdt = _mma.operand_dtype(dt, mxu_dtype)
+    x, ln1_w, ln1_b, wqkv, bqkv = map(_mma.up, (x, ln1_w, ln1_b, wqkv, bqkv))
+    xs = torch.roll(x, (-in_shift, -in_shift), dims=(1, 2)) if in_shift else x
+    q, k, v = (_mma.rnd(layernorm(xs, ln1_w, ln1_b), mdt) @ _mma.rnd(wqkv, mdt)
+               + bqkv).to(dt).chunk(3, dim=-1)
+    return fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads, mxu_dtype)
+
+
+def _hab_tail_plain(att, x, conv_x, ln2_w, ln2_b, wproj, bproj, w1, b1, w2, b2, conv_scale,
+                    cab_scale=None, in_shift: int = 0, mxu_dtype=None):
+    """B8's second launch on the heads' output att: y = x + proj(att) + conv_scale *
+    cab_scale * conv_x (x read as the first launch reads it), then y + fc2(GELU(fc1(LN2 y)))."""
+    dt = x.dtype
+    mdt = _mma.operand_dtype(dt, mxu_dtype)
+    x, conv_x, wproj, bproj = map(_mma.up, (x, conv_x, wproj, bproj))
+    xs = torch.roll(x, (-in_shift, -in_shift), dims=(1, 2)) if in_shift else x
+    cx = conv_x if cab_scale is None else conv_x * _mma.up(cab_scale)
+    y = xs + _mma.rnd(att, mdt) @ _mma.rnd(wproj, mdt) + bproj + conv_scale * cx
+    return _mlp_plain(y, ln2_w, ln2_b, w1, b1, w2, b2, mdt).to(dt)
 
 
 def fused_hab_block_plain(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wproj, bproj,
                           w1, b1, w2, b2, bias, mask, window, num_heads, conv_scale,
-                          cab_scale=None, in_shift: int = 0):
-    dt = x.dtype
-    x, conv_x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj = map(
-        _mma.up, (x, conv_x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj))
-    xs = torch.roll(x, (-in_shift, -in_shift), dims=(1, 2)) if in_shift else x
-    q, k, v = (_mma.rnd(layernorm(xs, ln1_w, ln1_b), dt) @ wqkv + bqkv).to(dt).chunk(3, dim=-1)
-    att = fused_window_attention_qkv_plain(q, k, v, bias, mask, window, num_heads)
-    cx = conv_x if cab_scale is None else conv_x * _mma.up(cab_scale)
-    y = xs + _mma.up(att) @ wproj + bproj + conv_scale * cx
-    return _mlp_plain(y, ln2_w, ln2_b, w1, b1, w2, b2, dt).to(dt)
+                          cab_scale=None, in_shift: int = 0, mxu_dtype=None):
+    att = _hab_attention_plain(x, ln1_w, ln1_b, wqkv, bqkv, bias, mask, window, num_heads,
+                               in_shift, mxu_dtype)
+    return _hab_tail_plain(att, x, conv_x, ln2_w, ln2_b, wproj, bproj, w1, b1, w2, b2,
+                           conv_scale, cab_scale, in_shift, mxu_dtype)
 
 
 def fused_hab_block(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wproj, bproj, w1, b1,
                     w2, b2, bias, mask, window, num_heads, conv_scale, cab_scale=None,
-                    in_shift: int = 0):
+                    in_shift: int = 0, mxu_dtype=None):
     """Kernel B8 on CUDA, its plain version on the CPU: a whole HAB without its CAB convs,
 
         y = x + proj(W-MSA(LN1 x)) + conv_scale * cab_scale * conv_x
@@ -407,10 +454,10 @@ def fused_hab_block(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wproj, bp
     if x.device.type == "cpu":
         return fused_hab_block_plain(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wproj,
                                      bproj, w1, b1, w2, b2, bias, mask, window, num_heads,
-                                     conv_scale, cab_scale, in_shift)
-    attention, tail, out = _hab_block_launchers(
+                                     conv_scale, cab_scale, in_shift, mxu_dtype)
+    attention, tail, _, out = _hab_block_launchers(
         x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wproj, bproj, w1, b1, w2, b2, bias,
-        mask, window, num_heads, conv_scale, cab_scale, in_shift)
+        mask, window, num_heads, conv_scale, cab_scale, in_shift, mxu_dtype)
     attention()
     tail()
     launches["fused_hab_block"] += 1
@@ -419,11 +466,11 @@ def fused_hab_block(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wproj, bp
 
 def _hab_block_launchers(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wproj, bproj, w1,
                          b1, w2, b2, bias, mask, window, num_heads, conv_scale, cab_scale,
-                         in_shift):
-    """Checks B8's CUDA arguments and lays out its weights; returns (attention, tail, out):
-    two functions that each launch one half of the block on the current stream (the tail
-    reads what the attention wrote) and the output they fill. ``fused_hab_block`` calls
-    both; a caller may time them apart."""
+                         in_shift, mxu_dtype=None):
+    """Checks B8's CUDA arguments and lays out its weights; returns (attention, tail, att,
+    out): two functions that each launch one half of the block on the current stream, the
+    heads' output that the attention writes and the tail reads, and the output they fill.
+    ``fused_hab_block`` calls both; a caller may time or check them apart."""
     wsh, wsw = window
     b, h, w, c = x.shape
     n, hd, hid = wsh * wsw, c // num_heads, w1.shape[1]
@@ -435,10 +482,7 @@ def _hab_block_launchers(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wpro
                          f"heads; the kernel takes multiples of 64 tokens up to {MAX_TOKENS}, "
                          f"whole heads up to {MAX_HEAD_DIM} wide and C a multiple of 4 (B14 "
                          "takes the rest)")
-    io = _build.io_code(x)
-    if io and _ceil8(c) > _mma.MAX_ROW_K:
-        raise ValueError(f"fused_hab_block: C={c} at bfloat16; the bf16 kernel takes C up to "
-                         f"{_mma.MAX_ROW_K} (its projection in K pieces is f32 only)")
+    io = _build.io_code(x, mxu_dtype=mxu_dtype)
     _build.require(x, "x")
     _build.require(conv_x, "conv_x", x.shape)
     for name, t, shape in (("ln1_w", ln1_w, (c,)), ("ln1_b", ln1_b, (c,)),
@@ -454,20 +498,20 @@ def _hab_block_launchers(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wpro
         _build.require(cab_scale, "cab_scale", (b, 1, 1, c))
         cab_scale = _mma.up(cab_scale).contiguous()
     types = None if mask is None else mask_types(mask, h // wsh, w // wsw, x.device)
-    kp, k2p, w1p, w2p = _mlp_planes(c, w1, w2)
+    kp, k2p, w1p, w2p = _mlp_planes(c, w1, w2, io == 2)
     wh, bh = head_slabs(wqkv, bqkv, num_heads, hd, kp)
-    wpp = _mma.planes(wproj, kp, kp)
+    wpp = _mma.planes(wproj, kp, kp, io == 2)
     bproj, ln2_w, ln2_b, b1, b2 = map(_mma.f32, (bproj, ln2_w, ln2_b, b1, b2))
     lib = _build.library()
     att = torch.empty_like(x)
     out = torch.empty_like(x)
     hidden = torch.empty((b, h, w, k2p), device=x.device, dtype=torch.float32)
-    # y between the products: f32 scratch at bf16 (out holds it at f32)
-    y = torch.empty(x.shape, device=x.device, dtype=torch.float32) if io else None
+    # y between the products: f32 scratch at bf16 (out holds it at f32 storage)
+    y = torch.empty(x.shape, device=x.device, dtype=torch.float32) if io == 1 else None
 
     def attention():
         _launch_xqkv(lib, x, ln1_w, ln1_b, wh, bh, bias, types, att, window, num_heads, hd,
-                     in_shift)
+                     in_shift, io)
 
     def tail():
         with torch.cuda.device(x.device):
@@ -481,15 +525,17 @@ def _hab_block_launchers(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wpro
                                _build.stream_ptr(x.device))
         _build.check(err, "hab_tail")
 
-    return attention, tail, out
+    return attention, tail, att, out
 
 
 def fused_overlap_attention_plain(q, k, v, wproj, bproj, bias, window: int, overlap: int,
-                                  num_heads: int):
+                                  num_heads: int, mxu_dtype=None):
     b, h, w, c = q.shape
     hd = c // num_heads
     dt = q.dtype
-    q, k, v, wproj, bproj, bias = map(_mma.up, (q, k, v, wproj, bproj, bias))
+    mdt = _mma.operand_dtype(dt, mxu_dtype)
+    q, k, v, wproj = (_mma.rnd(t, mdt) for t in (q, k, v, wproj))
+    bproj, bias = _mma.up(bproj), _mma.up(bias)
 
     def heads(t):  # [B*nW, n, C] -> [B*nW, heads, n, hd]
         return t.reshape(t.shape[0], t.shape[1], num_heads, hd).permute(0, 2, 1, 3)
@@ -497,15 +543,15 @@ def fused_overlap_attention_plain(q, k, v, wproj, bproj, bias, window: int, over
     # k and v are zero-padded after their projection: a padded key scores its bias alone
     kw = heads(extract_overlapping_windows(k, window, overlap))
     vw = heads(extract_overlapping_windows(v, window, overlap))
-    qs = _mma.rnd(heads(window_partition(q, window, window)) * _scale(hd, dt), dt)
+    qs = _mma.rnd(heads(window_partition(q, window, window)) * _scale(hd, mdt), mdt)
     attn = qs @ kw.transpose(-1, -2)
-    out = _mma.rnd(torch.softmax(attn + bias[None], dim=-1), dt) @ vw
-    out = _mma.rnd(out.permute(0, 2, 1, 3).reshape(-1, window * window, c), dt) @ wproj + bproj
+    out = _probs(attn + bias[None], mdt) @ vw
+    out = _mma.rnd(out.permute(0, 2, 1, 3).reshape(-1, window * window, c), mdt) @ wproj + bproj
     return window_reverse(out, window, window, h, w).to(dt)
 
 
 def fused_overlap_attention(q, k, v, wproj, bproj, bias, window: int, overlap: int,
-                            num_heads: int):
+                            num_heads: int, mxu_dtype=None):
     """Kernel B9 on CUDA, its plain version on the CPU: OCAB's attention of window x window
     queries over the (window + overlap)^2 keys and values around them, from pre-projected
     q, k, v [B,H,W,C], with the output projection. bias [heads, window^2,
@@ -514,16 +560,17 @@ def fused_overlap_attention(q, k, v, wproj, bproj, bias, window: int, overlap: i
     _build.require_dtypes("fused_overlap_attention", q, k, v, wproj, bproj, bias)
     if q.device.type == "cpu":
         return fused_overlap_attention_plain(q, k, v, wproj, bproj, bias, window, overlap,
-                                             num_heads)
+                                             num_heads, mxu_dtype)
     attention, proj, out = _overlap_launchers(q, k, v, wproj, bproj, bias, window, overlap,
-                                              num_heads)
+                                              num_heads, mxu_dtype)
     attention()
     proj()
     launches["fused_overlap_attention"] += 1
     return out
 
 
-def _overlap_launchers(q, k, v, wproj, bproj, bias, window, overlap, num_heads):
+def _overlap_launchers(q, k, v, wproj, bproj, bias, window, overlap, num_heads,
+                       mxu_dtype=None):
     """Checks B9's CUDA arguments and lays out its projection; returns (attention, proj,
     out): two functions that each launch one half on the current stream (the projection
     reads what the attention wrote) and the output they fill. ``fused_overlap_attention``
@@ -540,7 +587,7 @@ def _overlap_launchers(q, k, v, wproj, bproj, bias, window, overlap, num_heads):
     if hd * num_heads != c or c % 4:
         raise ValueError(f"fused_overlap_attention: C={c} over {num_heads} heads; the kernel "
                          f"takes whole heads and C a multiple of 4")
-    io = _build.io_code(q, "q")
+    io = _build.io_code(q, "q", mxu_dtype)
     _build.require(q, "q")
     _build.require(k, "k", q.shape)
     _build.require(v, "v", q.shape)
@@ -549,7 +596,7 @@ def _overlap_launchers(q, k, v, wproj, bproj, bias, window, overlap, num_heads):
     _build.require(bproj, "bproj", (c,))
     _build.require(bias, "bias", (num_heads, nq, nk))
     kp = _ceil8(c)
-    wpp = _mma.planes(wproj, kp, kp)
+    wpp = _mma.planes(wproj, kp, kp, io == 2)
     bproj, bias = _mma.f32(bproj), _mma.up(bias).contiguous()
     lib = _build.library()
     att = torch.empty_like(q)
@@ -563,27 +610,27 @@ def _overlap_launchers(q, k, v, wproj, bproj, bias, window, overlap, num_heads):
         _build.check(err, "oca_attention")
 
     def proj():
-        _rows_linear(lib, att, wpp, bproj, out, kp, kp)
+        _rows_linear(lib, att, wpp, bproj, out, kp, kp, io)
 
     return attention, proj, out
 
 
-def fused_residual_ln_mlp_plain(a, shortcut, ln_w, ln_b, w1, b1, w2, b2):
+def fused_residual_ln_mlp_plain(a, shortcut, ln_w, ln_b, w1, b1, w2, b2, mxu_dtype=None):
     return _mlp_plain(_mma.up(a) + _mma.up(shortcut), ln_w, ln_b, w1, b1, w2, b2,
-                      a.dtype).to(a.dtype)
+                      _mma.operand_dtype(a.dtype, mxu_dtype)).to(a.dtype)
 
 
-def fused_residual_ln_mlp(a, shortcut, ln_w, ln_b, w1, b1, w2, b2):
+def fused_residual_ln_mlp(a, shortcut, ln_w, ln_b, w1, b1, w2, b2, mxu_dtype=None):
     """Kernel B10 on CUDA, its plain version on the CPU: y = a + shortcut;
     out = y + fc2(GELU(fc1(LN y))) on [..., C] rows (any leading shape)."""
     _build.require_no_grad("fused_residual_ln_mlp", a, shortcut, ln_w, ln_b, w1, b1, w2, b2)
     _build.require_dtypes("fused_residual_ln_mlp", a, shortcut, ln_w, ln_b, w1, b1, w2, b2)
     if a.device.type == "cpu":
-        return fused_residual_ln_mlp_plain(a, shortcut, ln_w, ln_b, w1, b1, w2, b2)
+        return fused_residual_ln_mlp_plain(a, shortcut, ln_w, ln_b, w1, b1, w2, b2, mxu_dtype)
     c, hid = a.shape[-1], w1.shape[1]
     if c % 4:
         raise ValueError(f"fused_residual_ln_mlp: C={c}; the kernel takes C a multiple of 4")
-    io = _build.io_code(a, "a")
+    io = _build.io_code(a, "a", mxu_dtype)
     _build.require(a, "a")
     _build.require(shortcut, "shortcut", a.shape)
     for name, t, shape in (("ln_w", ln_w, (c,)), ("ln_b", ln_b, (c,)), ("b1", b1, (hid,)),
@@ -592,14 +639,14 @@ def fused_residual_ln_mlp(a, shortcut, ln_w, ln_b, w1, b1, w2, b2):
     # w1 and w2 are laid out anew (_mma.planes): a view will do
     _build.require(w1, "w1", (c, hid), contiguous=False)
     _build.require(w2, "w2", (hid, c), contiguous=False)
-    kp, k2p, w1p, w2p = _mlp_planes(c, w1, w2)
+    kp, k2p, w1p, w2p = _mlp_planes(c, w1, w2, io == 2)
     ln_w, ln_b, b1, b2 = map(_mma.f32, (ln_w, ln_b, b1, b2))
     lib = _build.library()
     out = torch.empty_like(a)
     f32 = dict(device=a.device, dtype=torch.float32)
     hidden = torch.empty((a.numel() // c, k2p), **f32)
-    # y between the products: f32 scratch at bf16 (out holds it at f32)
-    y = torch.empty(a.shape, **f32) if io else None
+    # y between the products: f32 scratch at bf16 (out holds it at f32 storage)
+    y = torch.empty(a.shape, **f32) if io == 1 else None
     with torch.cuda.device(a.device):
         err = lib.residual_ln_mlp(a.data_ptr(), shortcut.data_ptr(), ln_w.data_ptr(),
                                   ln_b.data_ptr(), w1p.data_ptr(), b1.data_ptr(),

@@ -142,8 +142,8 @@ def main() -> None:
             kw = dict(cab_scale=r(1, 1, 1, c, std=0.2, mean=0.5), in_shift=shift)
             out[f"b8{case}"] = cuda_ms(
                 lambda: wattn.fused_hab_block(*h_args, mask, (16, 16), 6, 0.01, **kw))
-            attention, _, _ = wattn._hab_block_launchers(*h_args, mask, (16, 16), 6, 0.01,
-                                                         **kw)
+            attention, _, _, _ = wattn._hab_block_launchers(*h_args, mask, (16, 16), 6, 0.01,
+                                                            **kw)
             out[f"b8_attention{case}"] = cuda_ms(attention)
         del h_args
         # B9 at the bucket: 256 queries against 576 keys a window, 6 heads of 30

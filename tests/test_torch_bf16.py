@@ -20,7 +20,8 @@
   reach.
 * The JAX ``main``'s switches: a ``FREQFUSION_CONFIG`` yaml that shrinks the model read
   alike by both packages, and ``FREQFUSION_U8_BATCH``, ``FREQFUSION_WHOLE_IMAGE_PX``,
-  ``FREQFUSION_WHOLE_IMAGE_SHAPES`` and ``FREQFUSION_PRECISION`` (``default`` refused).
+  ``FREQFUSION_WHOLE_IMAGE_SHAPES`` and ``FREQFUSION_PRECISION`` (``default`` served, a dtype
+  other than float32 and bfloat16 refused).
 * Refusals: a wrapper given float16, or float32 and bfloat16 in one call, raises.
 """
 
@@ -314,6 +315,7 @@ def test_wrappers_refuse_float16_and_mixes():
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         _build.io_code(x.half())
     assert _build.io_code(x) == 0 and _build.io_code(x.to(BF)) == 1
+    assert _build.io_code(x, mxu_dtype=BF) == 2
 
 
 # ---- the tiny model and main
@@ -498,13 +500,32 @@ def test_main_applies_the_whole_image_switches(served_pair, monkeypatch):
 
 
 @pytest.mark.parametrize("bad", [{"precision": "default"}, {"dtype": "float16"}])
-def test_main_refuses_precision_default_and_other_dtypes(served_pair, bad):
-    with pytest.raises(ValueError, match="ROADMAP B-ii" if "precision" in bad else "dtype"):
-        tio.main(served_pair["model_dir"], served_pair["inp"],
-                 str(served_pair["root"] / "refused"), "cpu", **bad)
+def test_main_refuses_precision_default_and_other_dtypes(served_pair, bad, monkeypatch):
+    """A dtype other than float32 and bfloat16 is refused. Precision "default", which this
+    case once refused, is served (bf16 operands on f32 storage): two PNGs at x4, bf16 on
+    bf16 storage at default (the bf16 instantiation)."""
+    import yaml
+
+    out = str(served_pair["root"] / ("served" if "precision" in bad else "refused"))
+    if "precision" not in bad:
+        with pytest.raises(ValueError, match="dtype"):
+            tio.main(served_pair["model_dir"], served_pair["inp"], out, "cpu", **bad)
+        return
+    with open(served_pair["yaml"], "w") as f:   # the tiny model
+        yaml.safe_dump({"model": {"expert_kwargs": EXPERTS}}, f)
+    monkeypatch.setenv("FREQFUSION_CONFIG", str(served_pair["yaml"]))
+    for dtype in ("float32", "bfloat16"):
+        assert tio.main(served_pair["model_dir"], served_pair["inp"], f"{out}_{dtype}", "cpu",
+                        dtype=dtype, **bad) == 2
+        for f, arr in _read(f"{out}_{dtype}").items():
+            assert arr.shape[2] == 3 and arr.shape[0] % 4 == 0, f
 
 
 def test_precision_default_from_the_environment_names_the_roadmap_item(monkeypatch):
+    """``FREQFUSION_PRECISION=default``, once refused with the ROADMAP item that held it, is
+    read as the JAX ``main`` reads it; an unknown precision still raises."""
     monkeypatch.setenv("FREQFUSION_PRECISION", "default")
-    with pytest.raises(ValueError, match="ROADMAP B-ii"):
+    assert tio.serving_options()["precision"] == "default"
+    monkeypatch.setenv("FREQFUSION_PRECISION", "fast")
+    with pytest.raises(ValueError, match="precision"):
         tio.serving_options()

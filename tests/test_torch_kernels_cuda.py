@@ -1039,12 +1039,39 @@ def test_kernels_refuse_float16_and_mixed_dtypes_on_the_card(gen):
         conv3x3.conv3x3_dense(x.half(), w.half(), b.half())
     with pytest.raises(ValueError, match="one dtype"):
         conv3x3.conv3x3_dense(x.bfloat16(), w, b)
-    with pytest.raises(ValueError, match="bfloat16"):   # the wide route is f32 only
-        bandmha.fused_band_mha(torch.randn(1, 2, 2, 9, 512, device="cuda").bfloat16(),
-                               *(t.bfloat16() for t in (
-                                   torch.randn(512, 1536, device="cuda"),
-                                   torch.randn(1536, device="cuda"),
-                                   torch.randn(512, 512, device="cuda"),
-                                   torch.randn(512, device="cuda"),
-                                   torch.ones(512, device="cuda"),
-                                   torch.zeros(512, device="cuda"))), 8)
+    # the wide route, once f32 only, serves bf16 (its scratch and residual in f32)
+    args = [torch.randn(1, 2, 2, 9, 512, generator=gen, device="cuda").bfloat16()] + [
+        t.bfloat16() for t in (torch.randn(512, 1536, generator=gen, device="cuda") / 23,
+                               torch.randn(1536, generator=gen, device="cuda"),
+                               torch.randn(512, 512, generator=gen, device="cuda") / 23,
+                               torch.randn(512, generator=gen, device="cuda"),
+                               torch.ones(512, device="cuda"), torch.zeros(512, device="cuda"))]
+    with torch.inference_mode():
+        got = bandmha.fused_band_mha(*args, 8)
+        want = bandmha.fused_band_mha_plain(*args, 8)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max() <= 1e-2 * want.float().abs().max()
+
+
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_kernel_at_precision_default_matches_plain(gen, case):
+    """Precision "default" (f32 storage, bf16 operands): each kernel's default instantiation
+    against its plain default version on the same f32 inputs within 1e-2 x max|plain|, at
+    most twice that version's distance from float64, and an RMS distance from it at most a
+    quarter of the plain default version's RMS distance from the plain f32 one (a kernel that
+    skipped the rounding sits at that distance). B5a has no product: its f32 path."""
+    from freqfusion_tpu_torch.ops.kernels import _mma
+    kernel, plain, args, kw = _bf16_cases(gen)[case]
+    with torch.inference_mode():
+        with _mma.operands(torch.bfloat16):
+            got, want = kernel(*args, **kw), plain(*args, **kw)
+        want32 = plain(*args, **kw)
+        ref = plain(*(_as(t, torch.float64) for t in args),
+                    **{k: _as(v, torch.float64) for k, v in kw.items()})
+    g, w, w32, f = (o[0] if isinstance(o, tuple) else o for o in (got, want, want32, ref))
+    assert g.dtype == w.dtype == torch.float32
+    assert (g - w).abs().max() <= 1e-2 * w.abs().max()
+    assert (g.double() - f).abs().max() <= 2 * (w.double() - f).abs().max()
+    if case != "aim_conv_branch":
+        rms = lambda a, b: (a.double() - b.double()).pow(2).mean().sqrt()   # noqa: E731
+        assert rms(g, w) <= 0.25 * rms(w, w32)

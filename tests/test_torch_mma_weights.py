@@ -397,3 +397,34 @@ def test_band_weights_are_unsplit_fragments_made_once_for_each_weight(d, heads):
         after = bandmha.band_weights(*mha.raw()[::2])
         assert after[0] is fq and after[1] is not fp
         assert torch.equal(_unpack_fragments(after[1]), mha.out_proj.weight.t())
+
+
+@pytest.mark.parametrize("first", ["f32", "default"])
+def test_default_planes_and_f32_planes_are_never_one_cache_entry(first):
+    """An f32 weight's planes at bf16 operands (precision "default": hi its bf16 rounding,
+    lo zero) and its 3xTF32 planes are kept under keys of their own, in either order of first
+    use; each is made once, and the two never stand for each other. The same holds for the
+    layouts that wrap ``kept`` themselves (B1's stage-A planes, B2's w4, B5b's projection)."""
+    from freqfusion_tpu_torch.ops.kernels import aim, nafblock
+
+    rng = np.random.default_rng(5)
+    w = torch.nn.Parameter(_r(rng, 40, 56), requires_grad=False)
+    want = {"f32": _mma.mma_planes(_mma.padded(w, 40, 56)),
+            "default": _mma.mma_planes(_mma.padded(w.to(torch.bfloat16), 40, 56))}
+    order = [first, "default" if first == "f32" else "f32"]
+    got = {}
+    for mode in order + order:   # the second round must hit the kept entries
+        p = _mma.planes(w, 40, 56, mode == "default")
+        assert torch.equal(p, want[mode]), mode
+        assert got.setdefault(mode, p) is p, mode
+    assert not torch.equal(got["f32"], got["default"])
+    assert not got["default"][..., 2:].any()
+    hi, _ = _unpack(got["default"])
+    assert torch.equal(hi[:40, :56], w.to(torch.bfloat16).float())
+    w1 = _r(rng, 32, 64)
+    for fn in (lambda bf: nafblock.stage_a_planes(w1, bf),
+               lambda bf: nafblock.stage_b_planes(w1[:, :32], w1, w1[:, 32:], bf)[1],
+               lambda bf: aim.gates_planes(w1[None, None, :, :4], w1[:, :32], bf)[2]):
+        a, b = (fn(mode == "default") for mode in order)
+        assert not torch.equal(a, b)
+        assert fn(order[0] == "default") is a and fn(order[1] == "default") is b
