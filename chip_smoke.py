@@ -85,6 +85,17 @@ Phases, each printing JSON lines; any failure raises and the exit code is not 0:
      memory), live training through cli/train.py (every expert kernel in every step, no
      expert parameter changed), and the trained checkpoint served through infer.io.main
      within 1 LSB of the model in memory;
+ 10b. parallel: the data-parallel paths (parallel_slice): cli/graft_entry.py's entry() (the
+     full FreqFusionSR on a 64x64 tile, every kernel of a served forward, against the plain
+     path) and dryrun_multichip over nccl on every card present; two gloo ranks sharing the
+     card against one process at the same global batch, a cached step of the shipped head
+     at batch 14 in float64 and a live step of the full model at batch 2 in float32 with
+     dropout and BatchNorm on (loss and grad_norm within 1e-5 relative, gradients within
+     1e-5 x max|g|, parameters and statistics within 1e-6, masks equal; in float32 1e-4 on
+     loss, grad_norm and gradients, the parameters of near-zero gradient within 2 lr); and
+     cli/bucket_histogram.py over the request shapes. Its `parallel` line gives seconds by
+     path, the `parallel_cached` / `parallel_live` lines the step seconds and peak GiB of
+     each rank and of one process;
  11. eval: the eval path at the towers' published widths (eval_slice): cli/eval.py on the
      ens phase's three served PNGs against seeded targets, with all five towers live from
      seeded random checkpoints (LPIPS-alex, DISTS-VGG16, MUSIQ, MANIQA ViT-B/8, CLIP
@@ -1794,9 +1805,10 @@ def write_pairs(root: str, n: int, split: str, seed: int) -> None:
 def train_slice(per_forward: dict) -> dict:
     """The training path on the card at full width (FusionConfig(), HAT-L, DAT, NAFNet-64,
     the yaml's 64-px LR patches), f32 with TF32 off:
-      1. extraction: extract_cached_features with the full ExpertEnsemble (the ens phase's
-         seeded weights, from its .pth files) on 4 HR/LR pairs at LR 96x96, 4 crops an image
-         at patch 64 in batches of 8 (and 1 crop an image for validation): every expert
+      1. extraction: cli/extract_features.py (extract_cached_features with the full
+         ExpertEnsemble; the ens phase's seeded weights, from its .pth files) on 4 HR/LR pairs
+         at LR 96x96, 4 crops an image at patch 64 in batches of 8 (and 1 crop an image for
+         validation): every expert
          kernel as often as a forward launches it, each batch; then one batch of 8 crops
          through the experts with kernels and with plain versions, every output and
          feature map within SLICE_RTOL;
@@ -1822,10 +1834,9 @@ def train_slice(per_forward: dict) -> dict:
     import argparse
     import shutil
 
+    from freqfusion_tpu_torch.cli import extract_features as cli_extract
     from freqfusion_tpu_torch.cli import train as cli_train
-    from freqfusion_tpu_torch.data.dataset import find_split_dirs, list_image_paths, match_pairs
     from freqfusion_tpu_torch.data.cached import CachedFeatureDataset, batch_iterator
-    from freqfusion_tpu_torch.data.extract import extract_cached_features
     from freqfusion_tpu_torch.infer.io import load_expert_checkpoints
     from freqfusion_tpu_torch.losses import CombinedLoss
     from freqfusion_tpu_torch.models import layers
@@ -1846,24 +1857,16 @@ def train_slice(per_forward: dict) -> dict:
     load_expert_checkpoints(ref, model_dir)
     ref = ref.cuda().eval()
 
-    # 1. extraction
-    def forward_batch(arr):
-        with torch.no_grad():
-            outs, feats = ref.experts(torch.from_numpy(arr).cuda())
-        return ({k: v.cpu().numpy() for k, v in outs.items()},
-                {k: v.cpu().numpy() for k, v in feats.items()})
-
-    def load_pair(lp, hp):
-        return load_image(str(lp)), load_image(str(hp))
-
+    # 1. extraction through the CLI (its seeding kept from the phases after it)
     reset_launches()
     t0 = time.perf_counter()
     written = {}
     for split, crops in (("train", 4), ("val", 1)):
-        pairs = match_pairs(*map(list_image_paths, find_split_dirs(data, split)))
-        written[split] = extract_cached_features(pairs, load_pair, forward_batch,
-                                                 os.path.join(root, f"cache_{split}"), patch=64,
-                                                 crops_per_image=crops, batch=8, seed=SEED)
+        with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
+            written[split] = cli_extract.main([
+                "--data-root", data, "--split", split, "--out",
+                os.path.join(root, f"cache_{split}"), "--model-dir", model_dir, "--patch", "64",
+                "--crops-per-image", str(crops), "--batch", "8", "--seed", str(SEED)])
     torch.cuda.synchronize()
     extract_s = time.perf_counter() - t0
     extract_counts = {k: n for k, n in read_launches().items() if n}
@@ -2128,6 +2131,267 @@ def train_slice(per_forward: dict) -> dict:
         for k, n in c.items():
             total[k] = total.get(k, 0) + n
     return total
+
+
+PARALLEL_RANKS = 2       # gloo ranks sharing the card in the parallel phase
+PARALLEL_LR = 1e-4       # the steps' learning rate (the train phase's check's)
+
+
+class _Masks:
+    """Inside the block, ``layers.dropout`` records each call's kept elements (bit-packed)."""
+
+    def __init__(self):
+        from freqfusion_tpu_torch.models import layers
+        self.layers, self.real, self.packed = layers, layers.dropout, []
+
+    def __enter__(self):
+        def recording(x, p, training):
+            y = self.real(x, p, training)
+            if training and p:
+                keep = (y != 0).cpu().numpy()
+                self.packed.append((keep.shape, np.packbits(keep.reshape(keep.shape[0], -1),
+                                                            axis=1)))
+            return y
+
+        self.layers.dropout = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.dropout = self.real
+
+
+def parallel_steps(rank: int, n: int, head_state: dict, batch14: dict, model_dir: str,
+                   batch2: dict, weights: dict) -> dict:
+    """One of `n` gloo ranks sharing the card (n = 1: one process, the reference): a cached
+    step of FusionConfig()'s head in float64 on `batch14` and a live step of the full
+    FreqFusionSR (experts from `model_dir`, head from `head_state`) in float32 on `batch2`,
+    both with dropout and BatchNorm on, at PARALLEL_LR. Returns each step's metrics,
+    gradients, state after, dropout masks, seconds and this process's peak GiB, and the
+    live step's launches."""
+    from freqfusion_tpu_torch.infer.io import load_expert_checkpoints
+    from freqfusion_tpu_torch.losses import CombinedLoss
+    from freqfusion_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from freqfusion_tpu_torch.training.steps import (make_frozen_expert_optimizer,
+                                                     make_live_train_step, make_optimizer,
+                                                     make_train_step)
+
+    mesh = make_mesh(n, "cuda", "gloo" if n > 1 else None, timeout_s=300)
+    out = {}
+
+    def run(tag, model, trained, step, batch, dtype):
+        gen = torch.Generator(mesh.device).manual_seed(SEED)
+        b = shard_batch(batch, mesh)
+        b = {k: ({n_: t.to(dtype) for n_, t in v.items()} if isinstance(v, dict)
+                 else v.to(dtype)) for k, v in b.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        with _Masks() as masks, pinned_precision("highest"):
+            m = step(b, gen)
+        torch.cuda.synchronize()
+        out[tag] = {"seconds": time.perf_counter() - t0,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                    "launches": {k: c for k, c in read_launches().items() if c},
+                    "metrics": {k: float(v) for k, v in m.items()},
+                    "grads": {k: p.grad.cpu() for k, p in trained.named_parameters()
+                              if p.grad is not None},
+                    "state": {k: t.cpu() for k, t in trained.state_dict().items()},
+                    "masks": masks.packed}
+
+    head = FusionHead().to(mesh.device, torch.float64)
+    head.load_state_dict(head_state)
+    opt = make_optimizer(head, lambda c: PARALLEL_LR, 1e-4, 1.0, 1)
+    run("cached", head, head, make_train_step(head, CombinedLoss(weights), opt, mesh), batch14,
+        torch.float64)
+    del head, opt
+    torch.cuda.empty_cache()
+    model = FreqFusionSR()
+    load_expert_checkpoints(model, model_dir)
+    model.fusion.load_state_dict(head_state)
+    model.to(mesh.device)
+    opt = make_frozen_expert_optimizer(model, lambda c: PARALLEL_LR, 1e-4, 1.0, 1)
+    run("live", model, model.fusion,
+        make_live_train_step(model, CombinedLoss(weights), opt, mesh), batch2, torch.float32)
+    if n == 1:   # the experts' float32 difference between one batch of 2 and two of 1
+        lr = torch.from_numpy(batch2["lr"]).to(mesh.device)
+        with torch.inference_mode(), pinned_precision("highest"):
+            whole = model.experts(lr)
+            parts = [model.experts(lr[i:i + 1]) for i in range(lr.shape[0])]
+        out["live"]["experts_batch_rel_diff"] = max(
+            float((whole[j][k] - torch.cat([p[j][k] for p in parts])).abs().max()
+                  / whole[j][k].abs().max()) for j in range(2) for k in whole[j])
+    return out
+
+
+def hold_ranks(tag: str, one: dict, ranks_out: list, rel: float, leaf_max: bool) -> dict:
+    """Each rank's step against one process's: loss and grad_norm within `rel` relative;
+    each gradient within `rel` x max|g| (of its leaf where `leaf_max`, float64; else of the
+    whole gradient, float32, whose leaves that cancel to near 0 hold rounding); the
+    parameters and BatchNorm statistics after the step within 1e-6, but (float32) elements
+    whose one-process |g| lies within that gradient bound, where AdamW's first step
+    g / (|g| + eps) follows the gradient's last bits: those within 2 lr, counted; the
+    dropout masks equal to one process's rows."""
+    top = max(float(g.abs().max()) for g in one["grads"].values())
+    res = {"loss_rel_err": 0.0, "grad_norm_rel_err": 0.0, "grad_err_over_bound": 0.0,
+           "max_state_err": 0.0, "unsettled_elements": 0, "unsettled_max_err": 0.0,
+           "masks": len(one["masks"]), "masks_equal": True}
+    for r, got in enumerate(ranks_out):
+        for k, key in (("total", "loss_rel_err"), ("grad_norm", "grad_norm_rel_err")):
+            res[key] = max(res[key], abs(got["metrics"][k] - one["metrics"][k])
+                           / abs(one["metrics"][k]))
+        require(sorted(got["grads"]) == sorted(one["grads"]), f"{tag}: gradient leaves differ")
+        unsettled = {}
+        for k, g in one["grads"].items():
+            bound = rel * (float(g.abs().max()) if leaf_max else top)
+            err = float((got["grads"][k] - g).abs().max())
+            res["grad_err_over_bound"] = max(res["grad_err_over_bound"],
+                                             err / bound if bound else float(err > 0) * 1e9)
+            if not leaf_max:
+                unsettled[k] = g.abs() <= bound
+        for k, v in one["state"].items():
+            if not v.is_floating_point():
+                require(torch.equal(got["state"][k], v), f"{tag}: {k} differs")
+                continue
+            d = (got["state"][k].double() - v.double()).abs()
+            u = unsettled.get(k)
+            if u is not None and bool(u.any()):
+                res["unsettled_elements"] += int(u.sum())
+                res["unsettled_max_err"] = max(res["unsettled_max_err"], float(d[u].max()))
+                d = d[~u]
+            if d.numel():
+                res["max_state_err"] = max(res["max_state_err"], float(d.max()))
+        require(len(got["masks"]) == len(one["masks"]), f"{tag}: dropout calls differ")
+        for (shape, bits), (shape_r, bits_r) in zip(one["masks"], got["masks"]):
+            per = shape[0] // len(ranks_out)
+            res["masks_equal"] &= (shape_r[0] == per and np.array_equal(
+                bits[r * per:(r + 1) * per], bits_r))
+    emit(f"parallel_{tag}_check", ranks=len(ranks_out), bound_rel=rel, bound_state=1e-6,
+         bound_unsettled=2 * PARALLEL_LR, **res)
+    require(res["loss_rel_err"] <= rel and res["grad_norm_rel_err"] <= rel,
+            f"{tag}: ranks against one process {res}")
+    require(res["grad_err_over_bound"] <= 1, f"{tag}: gradients {res}")
+    require(res["max_state_err"] <= 1e-6, f"{tag}: parameters or statistics {res}")
+    require(res["unsettled_max_err"] <= 2 * PARALLEL_LR * (1 + 1e-3), f"{tag}: {res}")
+    require(res["masks"] > 0 and res["masks_equal"], f"{tag}: dropout masks {res}")
+    return res
+
+
+def parallel_slice(per_forward: dict) -> dict:
+    """The data-parallel paths on the card (cli/graft_entry.py, parallel/mesh.py):
+      1. entry(): the full FreqFusionSR forward on a 64x64 tile launches every kernel of a
+         served forward as often as the ens phase's forward does, and agrees with the
+         plain path within SLICE_RTOL;
+      2. dryrun_multichip(torch.cuda.device_count()) over nccl: a cached and a live step on
+         that many ranks, a tile batch and a ragged uint8 group on as many replicas; its
+         four OK lines;
+      3. two gloo ranks sharing the card against one process at the same global batch
+         (parallel_steps, hold_ranks): a cached step of FusionConfig()'s head at batch 14
+         (7 a rank; 64-px LR patches from the train phase's cache) in float64 and a live
+         step of the full FreqFusionSR at batch 2 in float32, dropout and BatchNorm on (the
+         CPU tests' bounds in float64; in float32 1e-4 on loss, grad_norm and gradients);
+      4. cli/bucket_histogram.py over the ens and tiled phases' request shapes: the whole
+         and tiled counts those phases planned (3 whole; 1 whole and 2 tiled)."""
+    import yaml
+
+    from freqfusion_tpu_torch.cli import bucket_histogram, graft_entry
+    from freqfusion_tpu_torch.data.cached import CachedFeatureDataset, batch_iterator
+    from freqfusion_tpu_torch.parallel.mesh import run_ranks
+
+    t_phase = time.perf_counter()
+    times, counts_total = {}, {}
+
+    def add(counts):
+        for k, c in counts.items():
+            counts_total[k] = counts_total.get(k, 0) + c
+
+    # 1. entry()
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry("cuda")
+    reset_launches()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    counts = {k: c for k, c in read_launches().items() if c}
+    add(counts)
+    set_kernels(args[0], False)
+    plain = fn(*args)
+    set_kernels(args[0], True)
+    times["entry_s"] = time.perf_counter() - t0
+    want = {k: c for k, c in per_forward.items() if c}
+    require_plain("parallel_entry", list(args[1].shape), {"out": (out, plain)})
+    emit("parallel_entry", out=list(out.shape), launches=counts, seconds=times["entry_s"])
+    require(tuple(out.shape) == (1, 256, 256, 3), f"entry output {tuple(out.shape)}")
+    require(counts == want, f"entry launches {counts}, {want} expected")
+    del fn, args, out, plain
+    torch.cuda.empty_cache()
+
+    # 2. the JAX twin's dryrun over nccl on every card (the ranks' launches are their own)
+    n_cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    reset_launches()
+    lines = graft_entry.dryrun_multichip(n_cards, backend="nccl", device="cuda",
+                                         timeout_s=400)
+    add({k: c for k, c in read_launches().items() if c})
+    times["dryrun_s"] = time.perf_counter() - t0
+    emit("parallel_dryrun", n=n_cards, backend="nccl", lines=lines, seconds=times["dryrun_s"])
+    require(len(lines) == 4 and all(" OK" in line for line in lines), f"dryrun {lines}")
+
+    # 3. two gloo ranks sharing the card against one process
+    ds = CachedFeatureDataset(os.path.join(OUT, "train", "cache_train"), augment=False)
+    batch14 = next(batch_iterator(ds, 14, shuffle=False))
+    batch2 = {k: batch14[k][:2] for k in ("lr", "hr")}
+    head = FusionHead()
+    randomize_head_(head, torch.Generator().manual_seed(SEED + 1))
+    head_state = {k: (v.double() if v.is_floating_point() else v)
+                  for k, v in head.state_dict().items()}
+    with open(os.path.join(ROOT, "configs", "train_config.yaml")) as f:
+        weights = yaml.safe_load(f)["loss"]["stages"][2]["weights"]   # every loss
+    model_dir = os.path.join(OUT, "model_dir")
+    t0 = time.perf_counter()
+    ranks_out = run_ranks(parallel_steps, PARALLEL_RANKS, PARALLEL_RANKS, head_state,
+                          batch14, model_dir, batch2, weights, timeout_s=600)
+    times["gloo_ranks_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = parallel_steps(0, 1, head_state, batch14, model_dir, batch2, weights)
+    times["one_process_s"] = time.perf_counter() - t0
+    for r in ranks_out:
+        add(r["live"]["launches"])
+    for tag in ("cached", "live"):
+        emit(f"parallel_{tag}", ranks=PARALLEL_RANKS, global_batch=14 if tag == "cached" else 2,
+             dtype="float64" if tag == "cached" else "float32",
+             step_s_by_rank=[r[tag]["seconds"] for r in ranks_out],
+             step_s_one_process=one[tag]["seconds"],
+             peak_gib_by_rank=[r[tag]["peak_gib"] for r in ranks_out],
+             peak_gib_one_process=one[tag]["peak_gib"],
+             launches_by_rank=[r[tag]["launches"] for r in ranks_out],
+             loss=one[tag]["metrics"]["total"], grad_norm=one[tag]["metrics"]["grad_norm"],
+             experts_batch_rel_diff=one[tag].get("experts_batch_rel_diff"))
+        # float64: the CPU tests' 1e-5; float32: 1e-4, since the experts' kernels and cuDNN
+        # reduce in another order at batch 1 than at 2 (`experts_batch_rel_diff`)
+        hold_ranks(tag, one[tag], [r[tag] for r in ranks_out], 1e-5 if tag == "cached" else 1e-4,
+                   leaf_max=tag == "cached")
+    expert_forward = {k: c for k, c in per_forward.items() if c and k not in HEAD_KERNELS}
+    require(all(r["live"]["launches"] == expert_forward for r in ranks_out),
+            f"live step launches {[r['live']['launches'] for r in ranks_out]}")
+    require(one["cached"]["launches"] == {} and all(r["cached"]["launches"] == {}
+                                                    for r in ranks_out),
+            "a cached train step launched a kernel")
+
+    # 4. the bucket histogram of the served request shapes
+    t0 = time.perf_counter()
+    hist = {name: bucket_histogram.main(["--shapes", ",".join(f"{w}x{h}" for w, h in reqs)])
+            for name, reqs in (("ens", REQUESTS), ("tiled", TILED_REQUESTS))}
+    times["histogram_s"] = time.perf_counter() - t0
+    emit("parallel_histogram", **hist)
+    require(hist["ens"]["whole_image"] == len(REQUESTS) and hist["ens"]["tiled"] == 0,
+            f"ens plan {hist['ens']}")
+    require(hist["tiled"]["whole_image"] == 1 and hist["tiled"]["tiled"] == 2,
+            f"tiled plan {hist['tiled']}")
+    times["phase_s"] = time.perf_counter() - t_phase
+    emit("parallel", **times, nvidia_smi=subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip())
+    return counts_total
 
 
 def multires_head_repair() -> None:
@@ -3643,6 +3907,8 @@ def main() -> None:
     paths.append(("hat_odd", hat_odd_slice(torch.Generator().manual_seed(SEED))))
     torch.cuda.empty_cache()
     paths.append(("train", train_slice(per_forward)))
+    torch.cuda.empty_cache()
+    paths.append(("parallel", parallel_slice(per_forward)))
     torch.cuda.empty_cache()
     paths.append(("eval", eval_slice(os.path.join(OUT, "sr_ens"))))
     torch.cuda.empty_cache()

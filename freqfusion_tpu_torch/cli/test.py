@@ -3,7 +3,7 @@
     python -m freqfusion_tpu_torch.cli.test --input <LR PNG directory> [--save_dir results]
         [--split valid|test] [--model_id 29] [--device cuda]
         [--precision highest|high|default]
-        [--dtype float32|bfloat16]
+        [--dtype float32|bfloat16] [--n_devices N]
 
 Selects the team model, times the whole ``model_func`` call (model build, checkpoint
 loading, PNG decode and encode included) on the host clock after the device has finished,
@@ -12,6 +12,8 @@ and writes the SR PNGs to ``<save_dir>/<model_name>/<split>`` and the runtime to
 ``model_zoo/team29``. The device is the card; without one the default raises. Without
 ``--precision`` or ``--dtype`` the model reads ``FREQFUSION_PRECISION`` and
 ``FREQFUSION_DTYPE`` (and the JAX ``main``'s other switches: ``infer/io.py:serving_options``).
+``--n_devices`` is the number of cards that serve together, one replica a card (default:
+every card present).
 """
 
 from __future__ import annotations
@@ -66,11 +68,13 @@ def main(argv: Optional[Sequence[str]] = None, **model_kwargs) -> float:
                          "$FREQFUSION_PRECISION, else highest)")
     ap.add_argument("--dtype", type=str, default=None, choices=["float32", "bfloat16"],
                     help="serving dtype (default: $FREQFUSION_DTYPE, else float32)")
+    ap.add_argument("--n_devices", type=int, default=None,
+                    help="cards serving together, one replica each (default: every card)")
     args = ap.parse_args(argv)
 
     model_func, model_dir, name = select_model(args.model_id)
     out_dir = os.path.join(args.save_dir, name, args.split)
-    for k in ("precision", "dtype"):
+    for k in ("precision", "dtype", "n_devices"):
         if getattr(args, k) is not None:
             model_kwargs.setdefault(k, getattr(args, k))
     elapsed = run(model_func, model_dir, args.input, out_dir, args.device, **model_kwargs)

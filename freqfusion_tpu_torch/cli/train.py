@@ -3,6 +3,7 @@
     python -m freqfusion_tpu_torch.cli.train [--config configs/train_config.yaml]
         [--batch_size N] [--epochs N] [--data_root DIR] [--cached | --no-cached] [--debug]
         [--device cuda|cpu]
+    torchrun --nproc_per_node N -m freqfusion_tpu_torch.cli.train [...]
 
 The yaml and its overrides, in the root script's order: seeding, the cached (or live)
 datasets, the ``FusionHead``, ``CombinedLoss`` with the 3-stage curriculum, clip + AdamW +
@@ -18,6 +19,14 @@ LR/HR pairs under ``--data_root``, and validates on 64-px center crops, as the J
 does. The device is the card unless ``--device cpu`` is given; without a card the default
 raises. Products and convolutions run in f32 (TF32 off, serving's default precision).
 ``--debug`` cuts the run to 2 epochs of batch 2, repeat 1, validating every epoch.
+
+Data parallelism: under ``torchrun --nproc_per_node N`` (or with the yaml's
+``parallel.n_devices: N`` and N ranks launched) each rank trains on ``cuda:LOCAL_RANK`` (or
+the CPU, over gloo) with its rows of every global batch of ``data.batch_size``, which N must
+divide (``parallel/mesh.py``); the gradients are averaged before the clip and the
+batch-coupled ops see the global batch, so that the run computes what one process computes
+at the same batch. Validation splits each (padded) batch over the ranks and gathers the
+outputs; rank 0 alone writes checkpoints, logs and histograms; a resume loads on every rank.
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ from ..infer.tiling import require_device
 from ..losses import CombinedLoss
 from ..models.experts import FreqFusionSR
 from ..models.fusion import FusionConfig, FusionHead
-from ..parallel.mesh import make_mesh, shard_batch
+from ..parallel.mesh import Mesh, all_gather, make_mesh, replicate, shard_batch
 from ..training.checkpoint import CheckpointManager
 from ..training.ema import EMA
 from ..training.schedule import MultiStageLossScheduler, warmup_then_cosine_restarts
@@ -94,6 +103,27 @@ def _setup(cfg: dict, steps_per_epoch: int):
     return stages, criterion, schedule
 
 
+class _NoMetrics:
+    """The metrics logger of ranks other than 0: they write nothing."""
+
+    def scalars(self, *a, **k):
+        pass
+
+    histograms = images = close = scalars
+
+
+def _mesh(cfg: dict, device) -> Mesh:
+    return make_mesh(cfg.get("parallel", {}).get("n_devices"), device)
+
+
+def _loggers(cfg: dict, mesh: Mesh, name: str):
+    """(file logger, metrics logger): files on rank 0 only."""
+    lead = mesh.rank == 0
+    log = get_file_logger(name, os.path.join(cfg["train"]["log_dir"], f"{name}.log")
+                          if lead else None)
+    return log, (MetricsLogger(cfg["train"]["log_dir"]) if lead else _NoMetrics())
+
+
 def _resume(ckpt: CheckpointManager, module, optimizer, ema, log, device):
     """(first epoch, step) from latest.ckpt, its weights, optimizer and EMA state loaded."""
     record = ckpt.load(map_location=device)
@@ -107,12 +137,12 @@ def _resume(ckpt: CheckpointManager, module, optimizer, ema, log, device):
     return int(record["epoch"]) + 1, int(record.get("step", 0))
 
 
-def _train_epoch(step_fn, batches, module, ema, optimizer, metrics_log, cfg, device,
+def _train_epoch(step_fn, batches, module, ema, optimizer, metrics_log, cfg, mesh,
                  generator, global_step):
-    """One epoch of train steps; returns (images, global step)."""
+    """One epoch of train steps over global batches; returns (images, global step)."""
     n_images, batch_size = 0, cfg["data"]["batch_size"]
     for batch in batches:
-        metrics = step_fn(shard_batch(batch, device), generator)
+        metrics = step_fn(shard_batch(batch, mesh), generator)
         if ema:
             ema.update(module)
         global_step += 1
@@ -127,7 +157,9 @@ def _train_epoch(step_fn, batches, module, ema, optimizer, metrics_log, cfg, dev
     return n_images, global_step
 
 
-def _checkpoint(ckpt, epoch, module, optimizer, ema, global_step, val_metrics):
+def _checkpoint(ckpt, epoch, module, optimizer, ema, global_step, val_metrics, mesh):
+    if mesh.rank != 0:
+        return
     is_best = bool(val_metrics) and ckpt.is_best(val_metrics["psnr"])
     if is_best or ckpt.should_save(epoch):
         ckpt.save_checkpoint(epoch, {"model": module.state_dict(),
@@ -138,12 +170,14 @@ def _checkpoint(ckpt, epoch, module, optimizer, ema, global_step, val_metrics):
 
 
 def train(cfg: dict, device="cuda") -> Optional[float]:
-    """The whole run; returns the best validation PSNR (None without a validation)."""
+    """The whole run; returns the best validation PSNR (None without a validation, and on
+    ranks other than 0)."""
     device = require_device(device)
-    log = get_file_logger("train", os.path.join(cfg["train"]["log_dir"], "train.log"))
+    mesh = _mesh(cfg, device)
     if not cfg["data"]["cached"]:
-        return train_live(cfg, log, device)
-    make_mesh(cfg.get("parallel", {}).get("n_devices"), device)
+        return train_live(cfg, mesh)
+    device = mesh.device
+    log, metrics_log = _loggers(cfg, mesh, "train")
     torch.manual_seed(cfg["seed"])
     generator = torch.Generator(device=device).manual_seed(cfg["seed"])
 
@@ -152,7 +186,7 @@ def train(cfg: dict, device="cuda") -> Optional[float]:
     val_ds = CachedFeatureDataset(cfg["data"]["cached_val_dir"], augment=False)
     log.info(f"train samples: {len(train_ds)}, val samples: {len(val_ds)}")
 
-    model = build_model(cfg).to(device)
+    model = replicate(build_model(cfg).to(device), mesh)
     batch_size = cfg["data"]["batch_size"]
     stages, criterion, schedule = _setup(cfg, max(len(train_ds) // batch_size, 1))
     o = cfg["optim"]
@@ -163,11 +197,10 @@ def train(cfg: dict, device="cuda") -> Optional[float]:
     ema = EMA(model, cfg["ema"]["decay"]) if cfg["ema"]["enabled"] else None
     ckpt = CheckpointManager(cfg["train"]["checkpoint_dir"], max_best=cfg["train"]["max_best"],
                              save_every=cfg["train"]["save_every"])
-    metrics_log = MetricsLogger(cfg["train"]["log_dir"])
     start_epoch, global_step = _resume(ckpt, model, optimizer, ema, log, device)
 
-    train_step = make_train_step(model, criterion, optimizer)
-    eval_step = make_eval_step(model)
+    train_step = make_train_step(model, criterion, optimizer, mesh)
+    eval_step = make_eval_step(model, mesh)
     progress = ProgressLogger(cfg["train"]["epochs"])
     current_stage = None
     with pinned_precision("highest"):
@@ -179,7 +212,7 @@ def train(cfg: dict, device="cuda") -> Optional[float]:
             batches = prefetch(batch_iterator(train_ds, batch_size, shuffle=True,
                                               seed=cfg["seed"] + epoch))
             n_images, global_step = _train_epoch(train_step, batches, model, ema, optimizer,
-                                                 metrics_log, cfg, device, generator,
+                                                 metrics_log, cfg, mesh, generator,
                                                  global_step)
             log.info(progress.epoch_summary(epoch, n_images))
 
@@ -195,7 +228,7 @@ def train(cfg: dict, device="cuda") -> Optional[float]:
                     pad = batch_size - n_real
                     if pad:   # the validation batch padded to its static size, as JAX does
                         batch = _pad_batch(batch, pad)
-                    sr = eval_step(shard_batch(batch, device))[:n_real].cpu()
+                    sr = all_gather(eval_step(shard_batch(batch, mesh)), mesh)[:n_real].cpu()
                     calc.update(sr, batch["hr"][:n_real])
                     if not shown:
                         metrics_log.images("val/lr_sr_hr", batch["lr"][0], sr[0],
@@ -208,11 +241,11 @@ def train(cfg: dict, device="cuda") -> Optional[float]:
                                     epoch, "val/")
                 log.info(f"  val: PSNR {val_metrics['psnr']:.3f} dB, "
                          f"SSIM {val_metrics['ssim']:.4f}")
-            _checkpoint(ckpt, epoch, model, optimizer, ema, global_step, val_metrics)
+            _checkpoint(ckpt, epoch, model, optimizer, ema, global_step, val_metrics, mesh)
 
     metrics_log.close()
     log.info(f"done; best PSNR {ckpt.best_value()}")
-    return ckpt.best_value()
+    return ckpt.best_value() if mesh.rank == 0 else None
 
 
 def _pad_batch(batch, pad: int):
@@ -221,10 +254,11 @@ def _pad_batch(batch, pad: int):
     return np.concatenate([batch, batch[-1:].repeat(pad, 0)])
 
 
-def train_live(cfg: dict, log, device) -> Optional[float]:
+def train_live(cfg: dict, mesh: Mesh) -> Optional[float]:
     """Live mode: the frozen experts inside every step, EMA over the head's parameters,
     validation on fixed-shape center crops, best-K checkpoints of the head with resume."""
-    make_mesh(cfg.get("parallel", {}).get("n_devices"), device)
+    device = mesh.device
+    log, metrics_log = _loggers(cfg, mesh, "train")
     d = cfg["data"]
     lr_dir, hr_dir = find_split_dirs(d["root"], "train", d["scale"])
     ds = SRDataset(lr_dir, hr_dir, d["lr_patch"], d["scale"], repeat=d["repeat"],
@@ -243,6 +277,7 @@ def train_live(cfg: dict, log, device) -> Optional[float]:
     model = FreqFusionSR(fusion_config(cfg), **(cfg["model"].get("expert_kwargs") or {}))
     load_expert_checkpoints(model, cfg.get("model_dir", "model_zoo/team29"))
     model.to(device)
+    replicate(model.fusion, mesh)   # the experts are alike on every rank: the same files
     batch_size = d["batch_size"]
     stages, criterion, schedule = _setup(cfg, max(len(ds) // batch_size, 1))
     o = cfg["optim"]
@@ -251,7 +286,6 @@ def train_live(cfg: dict, log, device) -> Optional[float]:
     ema = EMA(model.fusion, cfg["ema"]["decay"]) if cfg["ema"]["enabled"] else None
     ckpt = CheckpointManager(cfg["train"]["checkpoint_dir"], max_best=cfg["train"]["max_best"],
                              save_every=cfg["train"]["save_every"])
-    metrics_log = MetricsLogger(cfg["train"]["log_dir"])
     start_epoch, global_step = _resume(ckpt, model.fusion, optimizer, ema, log, device)
 
     def batch_iter(dataset, epoch, shuffle=True):
@@ -262,8 +296,8 @@ def train_live(cfg: dict, log, device) -> Optional[float]:
             yield {"lr": np.stack([it["lr"] for it in items]),
                    "hr": np.stack([it["hr"] for it in items])}
 
-    train_step = make_live_train_step(model, criterion, optimizer)
-    eval_step = make_live_eval_step(model)
+    train_step = make_live_train_step(model, criterion, optimizer, mesh)
+    eval_step = make_live_eval_step(model, mesh)
     progress = ProgressLogger(cfg["train"]["epochs"])
     current_stage = None
     with pinned_precision("highest"):
@@ -274,7 +308,7 @@ def train_live(cfg: dict, log, device) -> Optional[float]:
                 log.info("loss " + stages.describe(epoch))
             n_images, global_step = _train_epoch(train_step, prefetch(batch_iter(ds, epoch)),
                                                  model.fusion, ema, optimizer, metrics_log, cfg,
-                                                 device, generator, global_step)
+                                                 mesh, generator, global_step)
             log.info(progress.epoch_summary(epoch, n_images))
 
             val_metrics = {}
@@ -284,7 +318,8 @@ def train_live(cfg: dict, log, device) -> Optional[float]:
                     ema.apply(model.fusion)
                 calc = MetricCalculator(crop_border=4, y_channel=True)
                 for batch in batch_iter(val_ds, 0, shuffle=False):
-                    calc.update(eval_step(shard_batch(batch, device)).cpu(), batch["hr"])
+                    sr = all_gather(eval_step(shard_batch(batch, mesh)), mesh)
+                    calc.update(sr.cpu(), batch["hr"])
                 if ema:
                     ema.restore(model.fusion)
                 val_metrics = calc.compute()
@@ -294,11 +329,12 @@ def train_live(cfg: dict, log, device) -> Optional[float]:
                          f"SSIM {val_metrics['ssim']:.4f}")
             # the head only (its BatchNorm statistics included); the experts reload from
             # model_dir
-            _checkpoint(ckpt, epoch, model.fusion, optimizer, ema, global_step, val_metrics)
+            _checkpoint(ckpt, epoch, model.fusion, optimizer, ema, global_step, val_metrics,
+                        mesh)
 
     metrics_log.close()
     log.info(f"live done; best PSNR {ckpt.best_value()}")
-    return ckpt.best_value()
+    return ckpt.best_value() if mesh.rank == 0 else None
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Optional[float]:
@@ -312,7 +348,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[float]:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     cfg = load_config(args.config, args)
-    return train(cfg, args.device)
+    try:
+        return train(cfg, args.device)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -20,11 +20,23 @@ storage, every kernel's matmul operands rounded to bf16 with f32 accumulation, a
 the cuDNN and cuBLAS glue; the port's default stays "highest" (f32-exact). The JAX
 ``main``'s environment switches and its ``FREQFUSION_CONFIG`` yaml (``utils/runtime.py``)
 are read where the caller gives no keyword (``serving_options``).
+
+Several cards (``n_devices``; None: every card present, as the JAX twin takes every device)
+serve from one process with one replica of the model a card (``cuda:0`` ..
+``cuda:n-1``): a tile batch or a whole-image uint8 batch is split into equal parts, one a
+replica, each launched from a thread of its own (a forward launches thousands of kernels;
+one thread would serialise the cards), and the outputs are gathered on card 0 in batch
+order. The JAX twin's mesh semantics hold: ``tile_batch`` rounds up to a multiple of
+``n_devices``, a single image takes the tiled path, ``u8_group_max`` is the mesh size and a
+ragged group pads by repeating its last image. ``device="cpu"`` with ``n_devices=k`` serves
+from k CPU replicas (the tests' stand-in for cards).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import copy
 import glob
 import os
 import time
@@ -86,7 +98,11 @@ class InferencePipeline:
     "default" (the JAX pipeline's default) rounds every kernel's matmul operands to bf16 on
     f32 storage and lets the glue take TF32.
     `dtype` (torch.float32 or torch.bfloat16) is the dtype of the parameters, the input and
-    every activation; the output leaves as f32 (``run_image``) or uint8."""
+    every activation; the output leaves as f32 (``run_image``) or uint8.
+    `n_devices` replicas serve a batch together (module docstring); None means every card
+    present for ``device="cuda"``, else one. More than the cards present raise, as does a
+    model whose forward takes a batch mean (``FusionHead.takes_batch_mean``): its replicas
+    would each take their own part's mean."""
 
     # JAX twin's default: 280000 px covers every DIV2K x4 LR frame after 32-px padding.
     # No cap on distinct buckets: the JAX twin's (6) bounds its compile cache, and eager
@@ -97,19 +113,32 @@ class InferencePipeline:
 
     def __init__(self, model: nn.Module, device="cuda", dtype: torch.dtype = torch.float32,
                  tile: int = TILE, overlap: int = OVERLAP, tile_batch: int = TILE_BATCH,
-                 precision: str = "highest"):
+                 precision: str = "highest", n_devices: Optional[int] = None):
         if tile < 1 or not 0 <= overlap < tile or tile_batch < 1:
             raise ValueError(f"tiling: tile={tile}, overlap={overlap}, tile_batch={tile_batch}; "
                              "expected tile >= 1, 0 <= overlap < tile and tile_batch >= 1")
         if precision not in PRECISIONS:
             raise ValueError(f"precision={precision!r}; expected one of {sorted(PRECISIONS)}")
-        self.tile, self.overlap, self.tile_batch = tile, overlap, tile_batch
         if dtype not in DTYPES.values():
             raise ValueError(f"dtype={dtype}; expected torch.float32 or torch.bfloat16")
         self.precision = precision
         self.device = require_device(device)
         self.dtype = dtype
+        self.devices = replica_devices(self.device, n_devices)
+        self.n_devices = n = len(self.devices)
+        if n > 1:
+            if any(getattr(m, "takes_batch_mean", False) for m in model.modules()):
+                raise ValueError(
+                    f"n_devices={n}: this model's forward takes a mean over its batch (the "
+                    "adaptive-band split with enable_multi_domain_freq off); its replicas "
+                    "would each take their own part's mean. Serve it on one device")
+            tile_batch = max(tile_batch, n)
+            tile_batch += (-tile_batch) % n
+            self.device = self.devices[0]
+        self.tile, self.overlap, self.tile_batch = tile, overlap, tile_batch
         self.model = model.to(device=self.device, dtype=dtype).eval()
+        self.replicas = [self.model] + [copy.deepcopy(self.model).to(d) for d in self.devices[1:]]
+        self._pool = concurrent.futures.ThreadPoolExecutor(n) if n > 1 else None
         self.upscale = model.upscale
 
     def _cliff_warn(self, key, msg):
@@ -169,16 +198,36 @@ class InferencePipeline:
     def _pinned_precision(self):
         return pinned_precision(self.precision)
 
-    def _forward_device(self, x: torch.Tensor) -> torch.Tensor:
-        """[B,hp,wp,3] on the device -> SR [B,s*hp,s*wp,3] on the device."""
-        with torch.inference_mode(), self._pinned_precision():
-            out = self.model(x.to(self.dtype))
+    def _run_replica(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Replica i's forward of x (moved to its device) -> SR on that device."""
+        device = self.devices[i]
+        with (torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()), \
+                torch.inference_mode():
+            out = self.replicas[i](x.to(device, self.dtype, non_blocking=True))
         return out[0] if isinstance(out, tuple) else out
 
-    def _forward(self, lrp: np.ndarray) -> torch.Tensor:
-        """[B,hp,wp,3] float host batch -> SR [B,s*hp,s*wp,3] on the device."""
+    def _forward_device(self, x: torch.Tensor) -> torch.Tensor:
+        """[B,hp,wp,3] (on any device) -> SR [B,s*hp,s*wp,3] on the device (card 0 of the
+        replicas). On several replicas B splits into equal parts, one a replica, each run
+        from a thread of its own; the caller makes B a multiple of ``n_devices``."""
+        with self._pinned_precision():
+            if self.n_devices == 1:
+                return self._run_replica(0, x)
+            if len(x) % self.n_devices:
+                raise ValueError(f"a batch of {len(x)} does not split over "
+                                 f"{self.n_devices} replicas")
+            futures = [self._pool.submit(self._run_replica, i, part)
+                       for i, part in enumerate(x.chunk(self.n_devices))]
+            outs = [f.result() for f in futures]
+        with torch.inference_mode():
+            return torch.cat([o.to(self.device, non_blocking=True) for o in outs])
+
+    def forward_batch(self, lrp: np.ndarray) -> torch.Tensor:
+        """[B,hp,wp,3] float host batch -> SR [B,s*hp,s*wp,3] on the device (card 0 of the
+        replicas), enqueued without waiting; B a multiple of ``n_devices``."""
         x = torch.from_numpy(np.ascontiguousarray(lrp, dtype=np.float32))
-        return self._forward_device(x.to(self.device, non_blocking=True))
+        return self._forward_device(x if self.n_devices > 1
+                                    else x.to(self.device, non_blocking=True))
 
     @staticmethod
     def _pad(lrs, hp: int, wp: int) -> np.ndarray:
@@ -202,11 +251,18 @@ class InferencePipeline:
         taken on the device, like the whole-image path's."""
         return self._to_u8(self.run_tiled(lr)).cpu().numpy()
 
+    @property
+    def u8_group_max(self) -> int:
+        """Images a whole-image dispatch on the replicas: the mesh size, as the JAX twin's
+        (on one device ``main`` groups by ``FREQFUSION_U8_BATCH``: ``serving_options``)."""
+        return self.n_devices
+
     def run_image(self, lr: np.ndarray) -> np.ndarray:
         """One HWC float image -> its SR image (float HWC, on the host): whole where the
-        plan allows it, else tiled."""
+        plan allows it, else tiled. On several replicas a single image takes the tiled path,
+        as on the JAX twin's mesh: its tile batches split over the replicas."""
         h, w, _ = lr.shape
-        plan = self._whole_image_plan(h, w)
+        plan = None if self.n_devices > 1 else self._whole_image_plan(h, w)
         if plan is None:
             return self.run_tiled(lr).cpu().numpy()
         sr = whole_image_sr(lr, self._forward_device, self.upscale, device=self.device,
@@ -219,13 +275,18 @@ class InferencePipeline:
         Returns a handle for ``materialize_u8``: round(clip(sr,0,1)*255) as uint8 is
         computed on the device and its copy to (pinned) host memory is queued on the
         current stream. Returns None when the images must take the tiled path
-        (``run_tiled_u8``)."""
+        (``run_tiled_u8``). On several replicas a group that the mesh size does not divide
+        is padded by repeating its last image; only the real images come back."""
         if plan is None:
             plan = self._whole_image_plan(lrs[0].shape[0], lrs[0].shape[1])
             if plan is None:
                 return None
         hp, wp = plan
-        u8 = self._to_u8(self._forward(self._pad(lrs, hp, wp)))
+        lrp = self._pad(lrs, hp, wp)
+        pad_b = (-len(lrs)) % self.n_devices
+        if pad_b:
+            lrp = np.concatenate([lrp, np.repeat(lrp[-1:], pad_b, axis=0)])
+        u8 = self._to_u8(self.forward_batch(lrp))
         done = None
         if u8.device.type == "cuda":
             host = torch.empty(u8.shape, dtype=torch.uint8, pin_memory=True)
@@ -244,6 +305,25 @@ class InferencePipeline:
         s = self.upscale
         arr = host.numpy()
         return [arr[i, : h * s, : w * s] for i, (h, w) in enumerate(metas)]
+
+
+def replica_devices(device: torch.device, n_devices: Optional[int]) -> list:
+    """The devices of `n_devices` replicas for `device`: None means every card for
+    ``cuda`` without an index, else one; cards ``cuda:0`` .. ``cuda:n-1``, or the CPU (or
+    `device`) repeated. Raises ``ValueError`` where fewer cards are present than asked for
+    (nothing shrinks the mesh)."""
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    if n_devices is None:
+        n_devices = cards if device.type == "cuda" and device.index is None else 1
+    if n_devices < 1:
+        raise ValueError(f"n_devices={n_devices}: expected at least 1")
+    if n_devices == 1:
+        return [device]
+    if device.type != "cuda":
+        return [device] * n_devices
+    if n_devices > cards:
+        raise ValueError(f"requested {n_devices} devices but only {cards} card(s) present")
+    return [torch.device("cuda", i) for i in range(n_devices)]
 
 
 def _find(model_dir: str, patterns) -> Optional[str]:
@@ -335,12 +415,14 @@ def read_native_checkpoint(path: str) -> dict:
     raise ValueError(f"{path}: neither a torch.save archive nor a flax msgpack checkpoint")
 
 
-def load_expert_checkpoints(model: FreqFusionSR, model_dir: str) -> None:
-    """The experts of `model` from ``pretrained/{hat,dat,nafnet}/**/*.pth`` under
-    `model_dir` (the reference's torch format; the ``nafnet.`` prefix of a NAFNetSR
-    checkpoint is stripped); a missing file warns and keeps the expert's weights."""
-    experts = {"hat": (model.experts.hat, None), "dat": (model.experts.dat, None),
-               "nafnet": (model.experts.nafnet.nafnet, "nafnet.")}
+def load_expert_checkpoints(model: nn.Module, model_dir: str) -> None:
+    """The experts of `model` (a ``FreqFusionSR`` or a bare ``ExpertEnsemble``) from
+    ``pretrained/{hat,dat,nafnet}/**/*.pth`` under `model_dir` (the reference's torch
+    format; the ``nafnet.`` prefix of a NAFNetSR checkpoint is stripped); a missing file
+    warns and keeps the expert's weights."""
+    ens = getattr(model, "experts", model)
+    experts = {"hat": (ens.hat, None), "dat": (ens.dat, None),
+               "nafnet": (ens.nafnet.nafnet, "nafnet.")}
     for name, (module, strip) in experts.items():
         path = _find(model_dir, [f"pretrained/{name}/*.pth", f"pretrained/{name}/**/*.pth"])
         if path is None:
@@ -377,9 +459,11 @@ def build_pipeline(model_dir: str, device="cuda", fusion_config: Optional[Fusion
                    expert_kwargs: Optional[dict] = None, tile: int = TILE,
                    overlap: int = OVERLAP, tile_batch: int = TILE_BATCH,
                    precision: str = "highest",
-                   dtype: torch.dtype = torch.float32) -> InferencePipeline:
+                   dtype: torch.dtype = torch.float32,
+                   n_devices: Optional[int] = None) -> InferencePipeline:
     """``FreqFusionSR`` with seeded initial weights, filled from `model_dir`'s checkpoints,
-    behind an ``InferencePipeline`` on `device` at `precision` and `dtype`. `expert_kwargs`
+    behind an ``InferencePipeline`` on `device` (`n_devices` replicas) at `precision` and
+    `dtype`. `expert_kwargs`
     may hold ``hat_kwargs``, ``dat_kwargs`` and ``nafnet_kwargs`` (tests build tiny experts
     with them)."""
     device = require_device(device)   # before the model is built: it takes seconds
@@ -387,7 +471,7 @@ def build_pipeline(model_dir: str, device="cuda", fusion_config: Optional[Fusion
     model = FreqFusionSR(fusion_config or FusionConfig(), **(expert_kwargs or {}))
     load_checkpoints(model, model_dir)
     return InferencePipeline(model, device, dtype=dtype, tile=tile, overlap=overlap,
-                             tile_batch=tile_batch, precision=precision)
+                             tile_batch=tile_batch, precision=precision, n_devices=n_devices)
 
 
 def serving_options(**given) -> dict:
@@ -447,7 +531,7 @@ def main(model_dir: str, input_path: str, output_path: str, device="cuda", *,
          overlap: Optional[int] = None, tile_batch: Optional[int] = None,
          precision: Optional[str] = None, dtype=None,
          whole_image_px: Optional[int] = None,
-         whole_image_shapes: Optional[int] = None) -> int:
+         whole_image_shapes: Optional[int] = None, n_devices: Optional[int] = None) -> int:
     """The challenge contract ``model_func(model_dir, input_path, output_path, device)``:
     super-resolves every image of the directory `input_path` into `output_path` under the
     same file name, and returns their number. The device is the card unless the caller
@@ -460,15 +544,17 @@ def main(model_dir: str, input_path: str, output_path: str, device="cuda", *,
     `precision` ("highest": f32, the default; "high": TF32 allowed; "default": the JAX
     pipeline's bf16 matmul operands on f32 storage) holds inside every forward; `dtype`
     ("float32", the default, or "bfloat16", or the torch dtype) is the serving dtype. A keyword left None is read from the environment and the
-    ``FREQFUSION_CONFIG`` yaml as the JAX ``main`` reads them (``serving_options``)."""
+    ``FREQFUSION_CONFIG`` yaml as the JAX ``main`` reads them (``serving_options``).
+    `n_devices` (None: every card present) replicas serve each group, which then holds up
+    to ``u8_group_max`` images, the mesh size (``InferencePipeline``)."""
     opt = serving_options(
         fusion_config=fusion_config, expert_kwargs=expert_kwargs, group_max=group_max,
         tile=tile, overlap=overlap, tile_batch=tile_batch, precision=precision, dtype=dtype,
         whole_image_px=whole_image_px, whole_image_shapes=whole_image_shapes)
-    group_max = opt["group_max"]
     pipe = build_pipeline(model_dir, device, opt["fusion_config"], opt["expert_kwargs"],
                           opt["tile"], opt["overlap"], opt["tile_batch"], opt["precision"],
-                          opt["dtype"])
+                          opt["dtype"], n_devices)
+    group_max = pipe.u8_group_max if pipe.n_devices > 1 else opt["group_max"]
     if opt.get("whole_image_px") is not None:
         pipe.WHOLE_IMAGE_MAX_PX = opt["whole_image_px"]
     if opt.get("whole_image_shapes") is not None:

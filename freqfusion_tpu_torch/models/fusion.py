@@ -27,6 +27,7 @@ from torch import nn
 
 from ..ops.kernels import _mma
 from ..ops.resize import resize
+from ..parallel.mesh import global_batch_mean
 from .edge import LaplacianEdgeRefinement
 from .frequency import FrequencyDecomposition, MultiDomainFrequency
 from .fusion_blocks import (AdaptiveFrequencyBandPredictor, CollaborativeFeatureLearning,
@@ -137,6 +138,12 @@ class FusionHead(nn.Module):
         self.residual_scale = nn.Parameter(torch.tensor(0.1))
         self.edge_refine = LaplacianEdgeRefinement() if cfg.enable_edge_enhance else None
 
+    @property
+    def takes_batch_mean(self) -> bool:
+        """Whether a forward couples the images of its batch (the adaptive-band split's
+        batch mean, reached with the multi-domain bands off)."""
+        return not self.cfg.enable_multi_domain_freq and self.cfg.enable_adaptive_bands
+
     # ----- Phase 2+3 ------------------------------------------------------
     def process_frequency_bands(self, lr: torch.Tensor) -> List[torch.Tensor]:
         cfg = self.cfg
@@ -149,9 +156,11 @@ class FusionHead(nn.Module):
         if cfg.enable_adaptive_bands:
             low_split, high_split = self.adaptive_band_predictor(lr)
             b = lr.shape[0]
-            # batch-mean splits, as the reference's .item() calls
+            # batch-mean splits, as the reference's .item() calls; on a mesh the global
+            # batch's, as the JAX twin's mean under a sharded jit
             low, mid, high = self.freq_decomp.adaptive(
-                lr, low_split.mean().expand(b), high_split.mean().expand(b))
+                lr, global_batch_mean(low_split).expand(b),
+                global_batch_mean(high_split).expand(b))
             low_scale = (low_split / 0.25).reshape(b, 1, 1, 1)
             high_scale = ((1.0 - high_split) / 0.25).reshape(b, 1, 1, 1)
             mid_scale = 1.0 + 0.1 * (1.0 - low_scale - high_scale)

@@ -10,6 +10,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.conv3x3 import conv3x3_dense, conv3x3_dense_plain
+from ..parallel.mesh import all_reduce_sum, current
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -52,17 +53,52 @@ def dropout_generator(generator: Optional[torch.Generator]):
 def dropout(x: torch.Tensor, p: float, training: bool) -> torch.Tensor:
     """Inverted dropout: in training, each element kept with probability 1 - p and scaled
     by 1 / (1 - p), the mask drawn from the generator of ``dropout_generator``; the
-    identity otherwise. The head's three dropouts (p = 0.1) all run through here."""
+    identity otherwise. The head's three dropouts (p = 0.1) all run through here. On a mesh
+    (``parallel.mesh.active``; every rank's generator seeded alike) the mask is drawn for
+    the global batch (axis 0) and the rank keeps its own rows, as one process would draw."""
     if not training or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=_DROPOUT_GENERATOR, device=x.device) >= p
+    mesh = current()
+    if mesh is None:
+        keep = torch.rand(x.shape, generator=_DROPOUT_GENERATOR, device=x.device) >= p
+    else:
+        b = x.shape[0]
+        keep = torch.rand((b * mesh.size, *x.shape[1:]), generator=_DROPOUT_GENERATOR,
+                          device=x.device)[mesh.rank * b:(mesh.rank + 1) * b] >= p
     return x * keep / (1.0 - p)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d (the reference's state-dict keys, `num_batches_tracked` included). In
     eval mode the port applies it as a fixed per-channel affine of its running statistics
-    (the JAX package's ``BatchNormEval``); in training, as the module (batch statistics)."""
+    (the JAX package's ``BatchNormEval``); in training, as the module (batch statistics).
+    On a mesh of several ranks (``parallel.mesh.active``) training takes the statistics of
+    the global batch, as the JAX twin does under a sharded ``jit``: the sums and the count,
+    then the squared deviations, all-reduced with their backward; the running variance takes
+    the global count's Bessel factor."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mesh = current()
+        if not self.training or mesh is None:
+            return super().forward(x)
+        axes = [0, *range(2, x.dim())]
+        count = x.numel() // x.shape[1] * mesh.size
+        mean = all_reduce_sum(x.sum(axes), mesh) / count
+        centred = x - mean.reshape(1, -1, *[1] * (x.dim() - 2))
+        var = all_reduce_sum(centred.square().sum(axes), mesh) / count
+        if self.track_running_stats:
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                m = (1.0 / float(self.num_batches_tracked) if self.momentum is None
+                     else self.momentum)
+                self.running_mean.mul_(1 - m).add_(mean.detach(), alpha=m)
+                self.running_var.mul_(1 - m).add_(var.detach() * count / max(count - 1, 1),
+                                                  alpha=m)
+        shape = (1, -1, *[1] * (x.dim() - 2))
+        y = centred * torch.rsqrt(var + self.eps).reshape(shape)
+        if self.affine:
+            y = y * self.weight.reshape(shape) + self.bias.reshape(shape)
+        return y
 
     def affine_eval(self):
         """(scale, shift) with eval-mode BN(x) = x * scale + shift."""

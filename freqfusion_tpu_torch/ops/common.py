@@ -36,6 +36,15 @@ def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
     return x.reshape(*lead, h * r, w * r, co)
 
 
+def pixel_unshuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Inverse of ``pixel_shuffle`` (torch's channel order) on NHWC."""
+    *lead, h, w, c = x.shape
+    x = x.reshape(*lead, h // r, r, w // r, r, c)
+    n = len(lead)
+    x = x.permute(*range(n), n, n + 2, n + 4, n + 1, n + 3)
+    return x.reshape(*lead, h // r, w // r, c * r * r)
+
+
 def pad_to_multiple(x: torch.Tensor, mult: int, mode: str = "reflect"):
     """Pad H/W of an NHWC batch at the bottom/right up to a multiple of `mult`.
 
@@ -51,6 +60,12 @@ def pad_to_multiple(x: torch.Tensor, mult: int, mode: str = "reflect"):
             nchw = F.pad(nchw, (0, pw, 0, ph), mode=mode)
         x = nchw.permute(0, 2, 3, 1).contiguous()
     return x, (h, w)
+
+
+def same_pad(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+    """Symmetric zero 'same' padding of H and W for an odd kh x kw kernel, on NHWC."""
+    ph, pw = kh // 2, kw // 2
+    return F.pad(x, (0, 0, pw, pw, ph, ph))
 
 
 def gaussian_1d(size: int, sigma: float) -> np.ndarray:

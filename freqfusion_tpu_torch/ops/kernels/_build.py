@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -142,6 +143,16 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+_COUNTING = threading.Lock()
+
+
+def count(launches: dict, name: str) -> None:
+    """One launch of `name` more in a wrapper module's `launches`: under a lock, since
+    serving replicas launch from threads of their own (``infer/io.py``)."""
+    with _COUNTING:
+        launches[name] += 1
 
 
 def check(err: int, name: str) -> None:

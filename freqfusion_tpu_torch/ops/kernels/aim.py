@@ -135,7 +135,7 @@ def aim_conv_branch(v, wdw, bdw, bn_scale, bn_shift):
                                   part.data_ptr(), sums.data_ptr(), b, h, w, c, io,
                                   _build.stream_ptr(v.device))
     _build.check(err, "aim_conv_branch")
-    launches["aim_conv_branch"] += 1
+    _build.count(launches, "aim_conv_branch")
     return cx, sums
 
 
@@ -188,5 +188,5 @@ def aim_gates_proj(attened, conv_x, chmap_vec, si_w1, si_b1, si_bn_scale, si_bn_
                                  b, h, w, c, mid, kp, int(bool(swap)), io,
                                  _build.stream_ptr(attened.device))
     _build.check(err, "aim_gates_proj")
-    launches["aim_gates_proj"] += 1
+    _build.count(launches, "aim_gates_proj")
     return out

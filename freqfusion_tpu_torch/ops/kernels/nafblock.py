@@ -147,7 +147,7 @@ def naf_block_stage_a(x, ln_w, ln_b, w1, b1, wdw, bdw, mxu_dtype=None):
                               sums.data_ptr(), b, h, w, c, io,
                               _build.stream_ptr(x.device))
     _build.check(err, "naf_stage_a")
-    launches["naf_block_stage_a"] += 1
+    _build.count(launches, "naf_block_stage_a")
     return g, sums
 
 
@@ -202,7 +202,7 @@ def naf_block_stage_b(g, x, att, w3, b3, beta, ln2_w, ln2_b, w4, b4, w5, b5, gam
                               None if part is None else part.data_ptr(), b, h, w, c, io,
                               _build.stream_ptr(g.device))
     _build.check(err, "naf_stage_b")
-    launches["naf_block_stage_b"] += 1
+    _build.count(launches, "naf_block_stage_b")
     return out
 
 

@@ -23,3 +23,8 @@ def resize(x: torch.Tensor, out_h: int, out_w: int, method: str = "bicubic") -> 
 def upsample(x: torch.Tensor, scale: int, method: str = "bicubic") -> torch.Tensor:
     """Integer-factor upsample of an NHWC batch."""
     return resize(x, x.shape[-3] * scale, x.shape[-2] * scale, method)
+
+
+def downsample(x: torch.Tensor, scale: int, method: str = "bilinear") -> torch.Tensor:
+    """Integer-factor downsample of an NHWC batch (torch's antialias=False)."""
+    return resize(x, x.shape[-3] // scale, x.shape[-2] // scale, method)

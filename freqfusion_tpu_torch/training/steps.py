@@ -15,6 +15,15 @@ the optimizer (they run under ``torch.no_grad()`` inside ``FreqFusionSR.forward`
 kernels launch and no gradient reaches them). In train mode the head runs plain torch ops;
 the eval steps run it in eval mode under ``torch.no_grad()``, where its band attention and
 LKA gate launch kernels B11 and B12 on the card.
+
+Every step takes a ``parallel.mesh.Mesh`` (None: one process). On a mesh of several ranks
+each rank steps on its rows of the global batch, with the batch-coupled ops over the global
+batch (``parallel.mesh.active``: BatchNorm statistics, dropout masks, the adaptive-band
+mean); the trained module's gradients are averaged over the ranks before the optimizer
+(whose clip then sees the global batch's gradient, as XLA's psum comes before optax's
+clip), and the loss components are averaged too, so that every rank reports and applies
+what one process would at the same global batch. Live mode averages the head's gradients
+only: the experts stay frozen and replicated.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from torch import nn
 
 from ..losses import CombinedLoss
 from ..models.layers import dropout_generator
+from ..parallel.mesh import Mesh, active, all_reduce_mean
 
 # optax.adamw's moments and epsilon, as the JAX package's make_optimizer leaves them
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -112,33 +122,39 @@ def _train_mode(model: nn.Module) -> None:
 
 
 def _step(model, trained: nn.Module, criterion, optimizer, forward, batch,
-          generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+          generator: Optional[torch.Generator], mesh: Optional[Mesh]) -> Dict[str, torch.Tensor]:
     _train_mode(model)
-    with dropout_generator(generator):
+    with active(mesh), dropout_generator(generator):
         sr = forward(batch).clamp(0.0, 1.0)
     total, components = criterion(sr, batch["hr"])
     optimizer.zero_grad(set_to_none=True)
     total.backward()
     metrics = {k: v.detach() for k, v in components.items()}
+    if mesh is not None and mesh.size > 1:
+        all_reduce_mean([p.grad for p in trained.parameters() if p.grad is not None], mesh)
+        metrics = all_reduce_mean(metrics, mesh)
     metrics["grad_norm"] = global_norm(trained.parameters()).detach()
     optimizer.step()
     return metrics
 
 
-def make_train_step(model: nn.Module, criterion: CombinedLoss, optimizer: OptaxAdamW):
+def make_train_step(model: nn.Module, criterion: CombinedLoss, optimizer: OptaxAdamW,
+                    mesh: Optional[Mesh] = None):
     """Cached mode: step(batch, generator=None) -> metrics (the loss components, ``total``
     and ``grad_norm`` of the unclipped gradients). `batch` holds lr, hr, expert_outputs and,
-    optionally, expert_features, on the model's device; `generator` draws the dropout."""
+    optionally, expert_features, on the model's device (on a mesh: this rank's rows);
+    `generator` draws the dropout."""
     def forward(batch):
         return model(batch["lr"], batch["expert_outputs"], batch.get("expert_features"))
 
     def step(batch, generator: Optional[torch.Generator] = None):
-        return _step(model, model, criterion, optimizer, forward, batch, generator)
+        return _step(model, model, criterion, optimizer, forward, batch, generator, mesh)
 
     return step
 
 
-def make_live_train_step(model: nn.Module, criterion: CombinedLoss, optimizer: OptaxAdamW):
+def make_live_train_step(model: nn.Module, criterion: CombinedLoss, optimizer: OptaxAdamW,
+                         mesh: Optional[Mesh] = None):
     """Live mode, model a ``FreqFusionSR``: step(batch {lr, hr}, generator=None) -> metrics.
     The experts run in eval mode under ``torch.no_grad()``; their features feed the head's
     collaborative branch."""
@@ -146,28 +162,32 @@ def make_live_train_step(model: nn.Module, criterion: CombinedLoss, optimizer: O
         return model(batch["lr"], with_features=True)
 
     def step(batch, generator: Optional[torch.Generator] = None):
-        return _step(model, model.fusion, criterion, optimizer, forward, batch, generator)
+        return _step(model, model.fusion, criterion, optimizer, forward, batch, generator,
+                     mesh)
 
     return step
 
 
-def make_eval_step(model: nn.Module):
-    """Cached mode: step(batch) -> clamp(head(lr, outputs, features)) in eval mode."""
+def make_eval_step(model: nn.Module, mesh: Optional[Mesh] = None):
+    """Cached mode: step(batch) -> clamp(head(lr, outputs, features)) in eval mode (on a
+    mesh, this rank's rows; a batch mean is the global batch's)."""
     @torch.no_grad()
     def step(batch):
         model.eval()
-        return model(batch["lr"], batch["expert_outputs"],
-                     batch.get("expert_features")).clamp(0.0, 1.0)
+        with active(mesh):
+            return model(batch["lr"], batch["expert_outputs"],
+                         batch.get("expert_features")).clamp(0.0, 1.0)
 
     return step
 
 
-def make_live_eval_step(model: nn.Module):
+def make_live_eval_step(model: nn.Module, mesh: Optional[Mesh] = None):
     """Live mode: step(batch) -> clamp(FreqFusionSR(lr)) in eval mode, without features, as
     served."""
     @torch.no_grad()
     def step(batch):
         model.eval()
-        return model(batch["lr"]).clamp(0.0, 1.0)
+        with active(mesh):
+            return model(batch["lr"]).clamp(0.0, 1.0)
 
     return step

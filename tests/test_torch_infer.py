@@ -157,7 +157,8 @@ def test_port_imports_without_jax():
         "        'utils.musiq', 'utils.maniqa', 'utils.clipiqa', 'utils.perceptual_metrics',\n"
         "        'losses.vgg', 'losses.clip', 'models.fusion_variants', 'cli.eval',\n"
         "        'models.fusion_v2', 'models.mambair', 'models.vae', 'models.tsdsr',\n"
-        "        'utils.summary', 'utils.profiling']\n"
+        "        'utils.summary', 'utils.profiling', 'parallel', 'cli.graft_entry',\n"
+        "        'cli.bucket_histogram', 'cli.extract_features']\n"
         "assert all(pkg.__name__ + '.' + n in names for n in need), names\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', 'freqfusion_tpu.', 'optax',\n"
         "                                            'msgpack', 'regex', 'safetensors'))\n"

@@ -1075,3 +1075,46 @@ def test_kernel_at_precision_default_matches_plain(gen, case):
     if case != "aim_conv_branch":
         rms = lambda a, b: (a.double() - b.double()).pow(2).mean().sqrt()   # noqa: E731
         assert rms(g, w) <= 0.25 * rms(w, w32)
+
+
+def test_two_gloo_ranks_sharing_the_card_step_as_one_process(gen):
+    """Two gloo ranks on the one card (``parallel/mesh.py``: collectives through host
+    copies) against one process at the same global batch of 4: two cached steps of a small
+    head in float64 with dropout and BatchNorm on, held as on the CPU
+    (``tests/test_torch_parallel.py``: 1e-5 relative, 1e-5 x each leaf's max|g|, 1e-6)."""
+    import torch_parallel_ranks as ranks
+    from freqfusion_tpu_torch.parallel.mesh import run_ranks
+
+    torch.manual_seed(3)
+    state = ranks.double(FusionHead(FusionConfig(**ranks.TINY)).state_dict())
+    batches = [ranks.head_batch(16, 16, 10), ranks.head_batch(16, 16, 20)]
+    two = run_ranks(ranks.cached_steps, 2, 2, ranks.TINY, state, batches, 1e-3, True, 0,
+                    torch.float64, "cuda", timeout_s=300)
+    one = ranks.cached_steps(0, 1, ranks.TINY, state, batches, 1e-3, True, 0, torch.float64,
+                             "cuda")
+    ranks.hold(one, two)
+
+
+def test_serving_on_every_card_present(gen):
+    """InferencePipeline(n_devices=None: every card) with the kernels: a tile batch and a
+    whole-image group split over the cards' replicas, within 1e-4 of one card."""
+    import copy
+    import torch_parallel_ranks as ranks
+    from freqfusion_tpu_torch.infer.io import InferencePipeline
+    from freqfusion_tpu_torch.models.experts import FreqFusionSR
+
+    n = torch.cuda.device_count()
+    torch.manual_seed(11)
+    ref = FreqFusionSR(FusionConfig(**ranks.TINY), **ranks.LIVE_EXPERTS)
+    one = InferencePipeline(copy.deepcopy(ref), "cuda:0", tile=32, overlap=8, tile_batch=2)
+    every = InferencePipeline(ref, "cuda", tile=32, overlap=8, tile_batch=2)
+    assert every.n_devices == n and every.tile_batch % n == 0
+    rng = np.random.default_rng(12)
+    x = rng.uniform(size=(2 * n, 32, 32, 3)).astype(np.float32)
+    got, want = every.forward_batch(x), one.forward_batch(x)
+    assert got.device == torch.device("cuda", 0)
+    assert float((got - want).abs().max()) <= 1e-4
+    lrs = [rng.uniform(size=(40, 50, 3)).astype(np.float32) for _ in range(max(n - 1, 1))]
+    for a, out in zip(lrs, every.materialize_u8(every.dispatch_batch_u8(lrs))):
+        w = one.materialize_u8(one.dispatch_batch_u8([a]))[0]
+        assert np.abs(out.astype(np.int32) - w.astype(np.int32)).max() <= 1
