@@ -50,6 +50,7 @@ from torch import nn
 from ..models.experts import FreqFusionSR
 from ..models.fusion import FusionConfig
 from ..ops.kernels import _mma
+from ..utils import profiling
 from ..utils.convert import fusion_params_from_flax, load_torch_checkpoint
 from ..utils.imageio import list_images, load_image, save_image
 from ..utils.runtime import runtime_overrides
@@ -198,12 +199,18 @@ class InferencePipeline:
     def _pinned_precision(self):
         return pinned_precision(self.precision)
 
-    def _run_replica(self, i: int, x: torch.Tensor) -> torch.Tensor:
-        """Replica i's forward of x (moved to its device) -> SR on that device."""
+    def _run_replica(self, i: int, x: torch.Tensor, within=None) -> torch.Tensor:
+        """Replica i's forward of x (moved to its device) -> SR on that device. `within`:
+        the spans' parent and request (``profiling.current()``) in a replica's thread."""
         device = self.devices[i]
         with (torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()), \
                 torch.inference_mode():
-            out = self.replicas[i](x.to(device, self.dtype, non_blocking=True))
+            if self.n_devices > 1:   # each replica moves its own part to its card
+                with profiling.span("ff.upload", within, replica=i):
+                    x = x.to(device, self.dtype, non_blocking=True)
+            x = x.to(self.dtype)
+            with profiling.span("ff.forward", within, replica=i):
+                out = self.replicas[i](x)
         return out[0] if isinstance(out, tuple) else out
 
     def _forward_device(self, x: torch.Tensor) -> torch.Tensor:
@@ -216,18 +223,21 @@ class InferencePipeline:
             if len(x) % self.n_devices:
                 raise ValueError(f"a batch of {len(x)} does not split over "
                                  f"{self.n_devices} replicas")
-            futures = [self._pool.submit(self._run_replica, i, part)
+            within = profiling.current()
+            futures = [self._pool.submit(self._run_replica, i, part, within)
                        for i, part in enumerate(x.chunk(self.n_devices))]
             outs = [f.result() for f in futures]
-        with torch.inference_mode():
+        with profiling.span("ff.gather"), torch.inference_mode():
             return torch.cat([o.to(self.device, non_blocking=True) for o in outs])
 
     def forward_batch(self, lrp: np.ndarray) -> torch.Tensor:
         """[B,hp,wp,3] float host batch -> SR [B,s*hp,s*wp,3] on the device (card 0 of the
         replicas), enqueued without waiting; B a multiple of ``n_devices``."""
         x = torch.from_numpy(np.ascontiguousarray(lrp, dtype=np.float32))
-        return self._forward_device(x if self.n_devices > 1
-                                    else x.to(self.device, non_blocking=True))
+        if self.n_devices == 1:
+            with profiling.span("ff.upload"):
+                x = x.to(self.device, non_blocking=True)
+        return self._forward_device(x)
 
     @staticmethod
     def _pad(lrs, hp: int, wp: int) -> np.ndarray:
@@ -242,7 +252,7 @@ class InferencePipeline:
     def run_tiled(self, lr: np.ndarray) -> torch.Tensor:
         """One HWC float image of any size through the tiled path -> its SR image
         [s*H, s*W, 3] float32 on the device."""
-        with torch.inference_mode():
+        with profiling.span("ff.tiled"), torch.inference_mode():
             return tiled_sr(lr, self._forward_device, self.tile, self.overlap,
                             self.tile_batch, self.upscale, self.device)
 
@@ -282,26 +292,33 @@ class InferencePipeline:
             if plan is None:
                 return None
         hp, wp = plan
-        lrp = self._pad(lrs, hp, wp)
-        pad_b = (-len(lrs)) % self.n_devices
-        if pad_b:
-            lrp = np.concatenate([lrp, np.repeat(lrp[-1:], pad_b, axis=0)])
-        u8 = self._to_u8(self.forward_batch(lrp))
-        done = None
-        if u8.device.type == "cuda":
-            host = torch.empty(u8.shape, dtype=torch.uint8, pin_memory=True)
-            host.copy_(u8, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-        else:
-            host = u8
-        return host, done, [(a.shape[0], a.shape[1]) for a in lrs]
+        with profiling.span("ff.dispatch", images=len(lrs), bucket=(hp, wp)) as dispatch:
+            with profiling.span("ff.pad"):
+                lrp = self._pad(lrs, hp, wp)
+                pad_b = (-len(lrs)) % self.n_devices
+                if pad_b:
+                    lrp = np.concatenate([lrp, np.repeat(lrp[-1:], pad_b, axis=0)])
+            sr = self.forward_batch(lrp)
+            with profiling.span("ff.to_u8"):
+                u8 = self._to_u8(sr)
+            done = None
+            with profiling.span("ff.host_copy"):
+                if u8.device.type == "cuda":
+                    host = torch.empty(u8.shape, dtype=torch.uint8, pin_memory=True)
+                    host.copy_(u8, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+                else:
+                    host = u8
+        request = getattr(dispatch, "request", None)   # for its materialize's span
+        return host, done, [(a.shape[0], a.shape[1]) for a in lrs], request
 
     def materialize_u8(self, handle):
         """Handle -> list of HWC uint8 arrays, one per image, cropped to x`upscale`."""
-        host, done, metas = handle
-        if done is not None:
-            done.synchronize()
+        host, done, metas, request = handle
+        with profiling.span("ff.materialize", (None, request)):
+            if done is not None:
+                done.synchronize()
         s = self.upscale
         arr = host.numpy()
         return [arr[i, : h * s, : w * s] for i, (h, w) in enumerate(metas)]

@@ -10,8 +10,8 @@ sides that have a neighbour), accumulated, and normalised.
 Where the JAX package stitches on the host (numpy, or its C++ library), the port stitches
 with torch ops on the device the tiles come from, in the same tile order: the padded LR
 image and the ramps are uploaded once before the loop, tiles are cut on the device, and
-nothing in the chunk loop copies between host and device or waits for the device, so chunk
-i+1 is enqueued before chunk i's result is needed.
+nothing in the chunk loop copies between host and device or waits for the device: each
+chunk's forward and stitch are enqueued while the device still runs the chunks before it.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from ..utils import profiling
 
 
 def require_device(device) -> torch.device:
@@ -124,11 +126,12 @@ def tiled_sr(lr: np.ndarray, forward_batch: Callable[[torch.Tensor], torch.Tenso
 
     # everything the loop needs from the host goes up before it: the image, and one ramp
     # per tile row and per tile column
-    x_dev = torch.from_numpy(np.ascontiguousarray(lr, dtype=np.float32)).to(device)
-    wys = torch.from_numpy(np.stack([
-        _ramp_profile(t_hr, ov_y * scale, y > 0, y + tile < hp) for y in ys])).to(device)
-    wxs = torch.from_numpy(np.stack([
-        _ramp_profile(t_hr, ov_x * scale, x > 0, x + tile < wp) for x in xs])).to(device)
+    with profiling.span("ff.upload"):
+        x_dev = torch.from_numpy(np.ascontiguousarray(lr, dtype=np.float32)).to(device)
+        wys = torch.from_numpy(np.stack([
+            _ramp_profile(t_hr, ov_y * scale, y > 0, y + tile < hp) for y in ys])).to(device)
+        wxs = torch.from_numpy(np.stack([
+            _ramp_profile(t_hr, ov_x * scale, x > 0, x + tile < wp) for x in xs])).to(device)
     row, colm = {y: i for i, y in enumerate(ys)}, {x: i for i, x in enumerate(xs)}
     out = torch.zeros((hp * scale, wp * scale, 3), dtype=torch.float32, device=device)
     acc = torch.zeros((hp * scale, wp * scale, 1), dtype=torch.float32, device=device)
@@ -144,16 +147,17 @@ def tiled_sr(lr: np.ndarray, forward_batch: Callable[[torch.Tensor], torch.Tenso
         out[ys_hr:ys_hr + t_hr, xs_hr:xs_hr + t_hr] += sr_tile * wmap
         acc[ys_hr:ys_hr + t_hr, xs_hr:xs_hr + t_hr] += wmap
 
-    # chunk i+1 is enqueued before chunk i is stitched, in the JAX package's tile order
-    chunks = [coords[i:i + batch] for i in range(0, len(coords), batch)]
-    pending = forward_batch(make_tiles(chunks[0]))
-    for ci, chunk in enumerate(chunks):
-        nxt = forward_batch(make_tiles(chunks[ci + 1])) if ci + 1 < len(chunks) else None
-        for j, (y, x) in enumerate(chunk):
-            accumulate(pending[j].float(), y, x)
-        pending = nxt
+    # each chunk is stitched after its forward, in the JAX package's tile order; nothing
+    # here waits for the device
+    for ci in range(0, len(coords), batch):
+        chunk = coords[ci:ci + batch]
+        with profiling.span("ff.chunk", chunk=ci // batch):
+            sr = forward_batch(make_tiles(chunk))
+            for j, (y, x) in enumerate(chunk):
+                accumulate(sr[j].float(), y, x)
 
-    out = out / torch.clamp(acc, min=1e-8)
+    with profiling.span("ff.normalize"):
+        out = out / torch.clamp(acc, min=1e-8)
     return out[: h * scale, : w * scale]
 
 

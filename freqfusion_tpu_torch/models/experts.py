@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ..ops.resize import resize
+from ..utils import profiling
 from .dat import DAT
 from .fusion import FusionConfig, FusionHead
 from .hat import HAT
@@ -35,9 +36,12 @@ class ExpertEnsemble(nn.Module):
     def forward(self, lr: torch.Tensor) -> Tuple[Dict[str, torch.Tensor],
                                                  Dict[str, torch.Tensor]]:
         h, w = lr.shape[1], lr.shape[2]
-        hat_sr, hat_feat = self.hat(lr)
-        dat_sr, dat_feat = self.dat(lr)
-        naf_sr, naf_feat = self.nafnet(lr)   # already clamped inside NAFNetSR
+        with profiling.span("ff.hat"):
+            hat_sr, hat_feat = self.hat(lr)
+        with profiling.span("ff.dat"):
+            dat_sr, dat_feat = self.dat(lr)
+        with profiling.span("ff.nafnet"):
+            naf_sr, naf_feat = self.nafnet(lr)   # already clamped inside NAFNetSR
         outputs = {"hat": hat_sr.clamp(0.0, 1.0), "dat": dat_sr.clamp(0.0, 1.0),
                    "nafnet": naf_sr}
         # every feature at LR resolution
@@ -64,4 +68,5 @@ class FreqFusionSR(nn.Module):
         # them, and their kernels (which have no backward) run with grad enabled too
         with torch.no_grad():
             outputs, features = self.experts(lr)
-        return self.fusion(lr, outputs, features if with_features else None)
+        with profiling.span("ff.head"):
+            return self.fusion(lr, outputs, features if with_features else None)

@@ -11,17 +11,18 @@ module on a machine without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
 
 import torch
 
+from ...utils import profiling
 from . import _mma
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -89,7 +90,9 @@ def _sources():
 def build() -> tuple[Path, float, str]:
     """Compiles the kernels if the hashed library is missing.
 
-    Returns (library path, seconds spent compiling (0 when cached), nvcc's output)."""
+    Returns (library path, seconds spent compiling (0 when cached), nvcc's output). The
+    objects and the unlinked library go to a directory of this build's own, so that builds
+    in two processes never share a file; the library is renamed into place whole."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
@@ -99,44 +102,39 @@ def build() -> tuple[Path, float, str]:
     if lib.exists():
         return lib, 0.0, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     nvcc = find_nvcc()
     t0 = time.perf_counter()
-    # one compiler per source, all running at once; then one link
-    jobs = []
-    for src in sorted(CSRC.glob("*.cu")):
-        obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.STDOUT, text=True)))
-    out, failed = "", None
-    for cmd, _, proc in jobs:
-        text = proc.communicate()[0]
-        out += text
-        if proc.returncode != 0 and failed is None:
-            failed = (cmd, proc.returncode, text)
-    objs = [obj for _, obj, _ in jobs]
-    if failed is None:
-        cmd = [nvcc, "-shared", "-o", str(tmp), *[str(o) for o in objs]]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        out += proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            failed = (cmd, proc.returncode, proc.stdout + proc.stderr)
-    for obj in objs:
-        obj.unlink(missing_ok=True)
-    secs = time.perf_counter() - t0
-    if failed is not None:
-        cmd, rc, text = failed
-        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
-    log.write_text(out)
-    os.replace(tmp, lib)  # atomic: a concurrent loader never sees a half-written file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR, prefix=f"{lib.stem}.") as work:
+        tmp = Path(work) / lib.name
+        # one compiler per source, all running at once; then one link
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(work) / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.STDOUT, text=True)))
+        out, failed = "", None
+        for cmd, _, proc in jobs:
+            text = proc.communicate()[0]
+            out += text
+            if proc.returncode != 0 and failed is None:
+                failed = (cmd, proc.returncode, text)
+        if failed is None:
+            cmd = [nvcc, "-shared", "-o", str(tmp), *[str(obj) for _, obj, _ in jobs]]
+            proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+            out += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                failed = (cmd, proc.returncode, proc.stdout + proc.stderr)
+        secs = time.perf_counter() - t0
+        if failed is not None:
+            cmd, rc, text = failed
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
+        log.write_text(out)
+        os.replace(tmp, lib)  # atomic: a concurrent loader never sees a half-written file
     return lib, secs, out
 
 
-@functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    path, _, _ = build()
+def _load(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -145,14 +143,32 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+_LIBRARY = None
+_LIBRARY_LOCK = threading.Lock()
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call: once for the process, under a lock,
+    since serving replicas make their first launches from threads of their own."""
+    global _LIBRARY
+    if _LIBRARY is None:
+        with _LIBRARY_LOCK:
+            if _LIBRARY is None:
+                _LIBRARY = _load(build()[0])
+    return _LIBRARY
+
+
 _COUNTING = threading.Lock()
 
 
-def count(launches: dict, name: str) -> None:
+def count(launches: dict, name: str, shape: tuple = ()) -> None:
     """One launch of `name` more in a wrapper module's `launches`: under a lock, since
-    serving replicas launch from threads of their own (``infer/io.py``)."""
+    serving replicas launch from threads of their own (``infer/io.py``). While a profiler
+    is profiling the recorder also tallies (name, shape) under ``launches``: `shape`
+    is the launch's arguments of its family's bound in ``perfbench/core/bounds.py``."""
     with _COUNTING:
         launches[name] += 1
+    profiling.count("launches", (name, shape))
 
 
 def check(err: int, name: str) -> None:

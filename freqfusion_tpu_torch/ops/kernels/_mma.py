@@ -55,6 +55,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.weak import WeakTensorKeyDictionary
 
+from ...utils import profiling
+
 _HALF_ULP = 0x1000
 _TF32_MASK = -0x2000   # 0xffffe000 as an int32
 MAX_ROW_K = 192
@@ -156,9 +158,11 @@ def kept(spec: tuple, make, *ts: torch.Tensor):
     when it was made, and a hit needs the same storage, so that an address the allocator
     hands out again cannot pass for the old memory. There is one entry for each spec and
     view: a replaced entry goes, with the storage it held. An inference tensor counts no
-    versions: for one, make() runs on every call."""
+    versions: for one, make() runs on every call. While a profiler is profiling, each
+    make() is counted under ``weights_made`` by spec[0] (``utils/profiling.py``)."""
     for t in ts:
         if t.is_inference():
+            profiling.count("weights_made", spec[0])
             return make()
     w = ts[0]
     root = w if w._base is None else w._base
@@ -172,6 +176,7 @@ def kept(spec: tuple, make, *ts: torch.Tensor):
     if (hit is None or hit[1] != versions
             or any(a._cdata != b._cdata for a, b in zip(hit[0], storages))):
         table.pop(key, None)   # the old entry and the memory it holds go first
+        profiling.count("weights_made", spec[0])
         hit = table[key] = (storages, versions, make())
     return hit[2]
 

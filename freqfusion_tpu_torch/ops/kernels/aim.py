@@ -135,7 +135,7 @@ def aim_conv_branch(v, wdw, bdw, bn_scale, bn_shift):
                                   part.data_ptr(), sums.data_ptr(), b, h, w, c, io,
                                   _build.stream_ptr(v.device))
     _build.check(err, "aim_conv_branch")
-    _build.count(launches, "aim_conv_branch")
+    _build.count(launches, "aim_conv_branch", (b, h, w, c))
     return cx, sums
 
 
@@ -188,5 +188,5 @@ def aim_gates_proj(attened, conv_x, chmap_vec, si_w1, si_b1, si_bn_scale, si_bn_
                                  b, h, w, c, mid, kp, int(bool(swap)), io,
                                  _build.stream_ptr(attened.device))
     _build.check(err, "aim_gates_proj")
-    _build.count(launches, "aim_gates_proj")
+    _build.count(launches, "aim_gates_proj", (b, h, w, c, mid))
     return out

@@ -212,5 +212,5 @@ def fused_band_mha(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int
                                params[3].data_ptr(), out.data_ptr(), b * h * w, t, dk, d,
                                num_heads, hdp, scale, io, _build.stream_ptr(stacked.device))
         _build.check(err, "band_mha")
-    _build.count(launches, "fused_band_mha")
+    _build.count(launches, "fused_band_mha", (b, h, w, t, d, num_heads))
     return out if dk == d else out[..., :d].contiguous()

@@ -89,5 +89,5 @@ def cab_chain(x, ln_w, ln_b, w1, b1, w2, b2, out_shift: int = 0, mxu_dtype=None)
                             u.data_ptr(), part.data_ptr(), sums.data_ptr(), b, h, w, c, cinp,
                             np1, mp, np2, out_shift, io, _build.stream_ptr(x.device))
     _build.check(err, "cab_chain")
-    _build.count(launches, "cab_chain")
+    _build.count(launches, "cab_chain", (b, h, w, c, mid))
     return u, sums

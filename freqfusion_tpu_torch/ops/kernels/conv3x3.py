@@ -73,5 +73,5 @@ def conv3x3_dense(x, w, b, mxu_dtype=None):
                                 0 if bpad is None else bpad.data_ptr(), cinp, npad, io,
                                 _build.stream_ptr(x.device))
     _build.check(err, "conv3x3_dense")
-    _build.count(launches, "conv3x3_dense")
+    _build.count(launches, "conv3x3_dense", (bsz, h, wd, cin, cout))
     return out

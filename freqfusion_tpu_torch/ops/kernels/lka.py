@@ -85,5 +85,5 @@ def lka_gate(x, w5, wh, wv, wp, scale, shift, mxu_dtype=None):
                            out.data_ptr(), b, h, w, c, kp, npad, io,
                            _build.stream_ptr(x.device))
     _build.check(err, "lka_gate")
-    _build.count(launches, "lka_gate")
+    _build.count(launches, "lka_gate", (b, h, w, c))
     return out

@@ -68,7 +68,7 @@ def fused_sgfn_tail(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw, w2, b
                                          bdw, w2, b2, mxu_dtype)
     fc1()
     gate_fc2()
-    _build.count(launches, "fused_sgfn_tail")
+    _build.count(launches, "fused_sgfn_tail", (*a.shape, w1.shape[-1]))
     return out
 
 

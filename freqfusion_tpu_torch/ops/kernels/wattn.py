@@ -189,7 +189,7 @@ def fused_window_attention_qkv(q, k, v, bias, mask, window, num_heads, mxu_dtype
     out = torch.empty_like(q)
     _launch_qkv(_build.library(), q.data_ptr(), k.data_ptr(), v.data_ptr(), c, bias, types,
                 out, window, num_heads, "wattn_qkv", _build.io_code(q, "q", mxu_dtype))
-    _build.count(launches, name)
+    _build.count(launches, name, (b, h, w, c, num_heads, hs, ws, mask is not None))
     return out
 
 
@@ -258,7 +258,7 @@ def fused_window_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, window, num_
     _launch_qkv(lib, p, p + e * c, p + 2 * e * c, 3 * c, bias, types, att, window, num_heads,
                 "wattn_qkv", io)
     _rows_linear(lib, att, wpp, _mma.f32(bproj), out, kp, kp, io)
-    _build.count(launches, name)
+    _build.count(launches, name, (b, h, w, c, num_heads, hs, ws, mask is not None))
     return out
 
 
@@ -348,7 +348,7 @@ def fused_window_attention_xqkv(x, wqkv, bqkv, bias, mask, window, num_heads, co
     out = torch.empty((b, h, w, co), device=x.device, dtype=dt)
     _launch_xqkv(_build.library(), x, None, None, wh, bh, bias, types, out, window, num_heads,
                  hd, 0, _build.io_code(x, mxu_dtype=mxu_dtype))
-    _build.count(launches, name)
+    _build.count(launches, name, (b, h, w, cin, co, num_heads, hs, ws, mask is not None))
     return out
 
 
@@ -460,7 +460,8 @@ def fused_hab_block(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wproj, bp
         mask, window, num_heads, conv_scale, cab_scale, in_shift, mxu_dtype)
     attention()
     tail()
-    _build.count(launches, "fused_hab_block")
+    _build.count(launches, "fused_hab_block",
+                 (*x.shape, w1.shape[1], num_heads, window[0], mask is not None))
     return out
 
 
@@ -565,7 +566,8 @@ def fused_overlap_attention(q, k, v, wproj, bproj, bias, window: int, overlap: i
                                               num_heads, mxu_dtype)
     attention()
     proj()
-    _build.count(launches, "fused_overlap_attention")
+    _build.count(launches, "fused_overlap_attention",
+                 (*q.shape, num_heads, window, window + overlap))
     return out
 
 
@@ -655,5 +657,6 @@ def fused_residual_ln_mlp(a, shortcut, ln_w, ln_b, w1, b1, w2, b2, mxu_dtype=Non
                                   a.numel() // c, c, hid, kp, kp, k2p, io,
                                   _build.stream_ptr(a.device))
     _build.check(err, "residual_ln_mlp")
-    _build.count(launches, "fused_residual_ln_mlp")
+    lead = a.shape[:-1] if a.dim() == 4 else (a.numel() // c, 1, 1)
+    _build.count(launches, "fused_residual_ln_mlp", (*lead, c, hid))
     return out
