@@ -337,7 +337,8 @@ def phase_device() -> tuple:
 # the tensor-core kernels and B5a (every instantiation: f32, bf16 and, but for B5a, precision
 # "default"): at most 128 registers a thread (16 warps an SM, or two blocks of 8) and no spill
 TC_KERNELS = ("conv3x3_gemm_kernel", "xqkv_attention_kernel", "oca_attn_kernel",
-              "wattn_qkv_kernel", "sgfn_gate_fc2_kernel", "rows_kernel", "naf_stage_a_kernel",
+              "wattn_qkv_kernel", "sgfn_gate_fc2_kernel", "rows_pipelined_kernel",
+              "naf_stage_a_kernel",
               "naf_stage_b_onchip_kernel", "naf_stage_b_rows_kernel", "aim_gates_proj_kernel",
               "band_mha_kernel", "lka_mix_kernel", "aim_conv_branch_kernel")
 

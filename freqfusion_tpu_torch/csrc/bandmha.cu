@@ -756,7 +756,7 @@ cudaError_t band_launch(const BandArgs<TS>& a, int R, cudaStream_t st) {
 }  // namespace
 
 extern "C" int rows_linear(const float* a, const float* wp, const float* bp, float* out,
-                           float* y, long long npix, int C, int Cout, int Kp, int Np,
+                           float* y, long long npix, int C, int Cout, int Kp, int Np, int grid,
                            int mode, void* stream);
 
 namespace {
@@ -764,7 +764,7 @@ template <typename T, int P>
 cudaError_t band_wide(const T* x, const float* wqkv, const float* bqkv, const float* wproj,
                       const float* bproj, const float* lnw, const float* lnb, float* n,
                       float* qkv, T* out, long long npix, int T_, int D, int Dt, int heads,
-                      int hd, float scale, cudaStream_t st) {
+                      int hd, float scale, int grid, cudaStream_t st) {
     const long long rows = npix * T_;
     // the row products on f32 scratch: f32 storage, 3 passes or 1 (common.cuh: IoMode)
     const int rmode = P == 1 ? 2 : 0;
@@ -772,7 +772,7 @@ cudaError_t band_wide(const T* x, const float* wqkv, const float* bqkv, const fl
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     err = static_cast<cudaError_t>(
-        rows_linear(n, wqkv, bqkv, qkv, nullptr, rows, D, 3 * D, D, 3 * D, rmode, st));
+        rows_linear(n, wqkv, bqkv, qkv, nullptr, rows, D, 3 * D, D, 3 * D, grid, rmode, st));
     if (err != cudaSuccess) return err;
     const long long items = rows * heads * ((hd + 31) / 32);
     band_attention_wide_kernel<P><<<(unsigned)((items + 255) / 256), 256, 0, st>>>(
@@ -782,7 +782,7 @@ cudaError_t band_wide(const T* x, const float* wqkv, const float* bqkv, const fl
     // the projection in f32: out itself for f32 storage, qkv's memory (free now) for bf16
     float* y = kBf16<T> ? qkv : reinterpret_cast<float*>(out);
     err = static_cast<cudaError_t>(
-        rows_linear(n, wproj, bproj, y, nullptr, rows, D, D, D, D, rmode, st));
+        rows_linear(n, wproj, bproj, y, nullptr, rows, D, D, D, D, grid, rmode, st));
     if (err != cudaSuccess) return err;
     const long long n4 = rows * D / 4;
     band_residual_kernel<T><<<(unsigned)((n4 + 255) / 256), 256, 0, st>>>(x, y, out, n4);
@@ -793,12 +793,13 @@ cudaError_t band_wide(const T* x, const float* wqkv, const float* bqkv, const fl
 // The wide route: out = x + MHA(LN(x)) on x [npix][T][D] for any T, D % 16 == 0; wqkv, wproj
 // the mma_planes of [D][3D] and [D][D] (ops/kernels/_mma.py: planes; of the weights' bf16
 // rounding at P = 1); n [npix T][D] and qkv [npix T][3D] f32 scratch. x and out in the storage
-// type of `mode` (common.cuh: IoMode). Heads, Dt and scale as band_mha's.
+// type of `mode` (common.cuh: IoMode). Heads, Dt and scale as band_mha's; grid the row
+// products' persistent blocks (rows_linear).
 extern "C" int band_mha_wide(const float* x, const float* wqkv, const float* bqkv,
                              const float* wproj, const float* bproj, const float* lnw,
                              const float* lnb, float* n, float* qkv, float* out, long long npix,
-                             int T, int D, int Dt, int heads, int hd, float scale, int mode,
-                             void* stream) {
+                             int T, int D, int Dt, int heads, int hd, float scale, int grid,
+                             int mode, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (npix < 1 || T < 1 || D < 16 || D % 16 || Dt < 1 || Dt > D || heads < 1 || hd < 1 ||
         heads * hd > D)
@@ -806,7 +807,8 @@ extern "C" int band_mha_wide(const float* x, const float* wqkv, const float* bqk
     return by_mode(mode, [&](auto m) {
         using S = typename decltype(m)::T;
         return band_wide<S, decltype(m)::P>(as<S>(x), wqkv, bqkv, wproj, bproj, lnw, lnb, n, qkv,
-                                            as<S>(out), npix, T, D, Dt, heads, hd, scale, st);
+                                            as<S>(out), npix, T, D, Dt, heads, hd, scale, grid,
+                                            st);
     });
 }
 

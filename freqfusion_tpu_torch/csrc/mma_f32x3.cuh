@@ -1,8 +1,9 @@
 // f32-exact products on Hopper's tensor cores: 3xTF32 with mma.sync (sm_80+, built for
 // sm_90a), the building block of the implicit-GEMM 3x3 conv (conv_gemm.cuh: B3, B7), the
 // HAB and overlapping attentions (hab_attention.cu: B8; oca.cu: B9), the band attention's
-// projections (bandmha.cu: B11) and the row products (tile_mma below: B6's two products,
-// B8's tail, B9's projection, B10, B14's projections).
+// projections (bandmha.cu: B11), the row products of tile_mma below (B2's, B5b's, B6's gate
+// and fc2) and the persistent row product of hat_rows.cu (B6's fc1, B8's tail, B9's
+// projection, B10, B14's projections).
 //
 // Why 3xTF32. A TF32 product keeps 10 mantissa bits of each operand: alone it would change
 // the precision class of every result (about 1e-3 relative). Splitting each f32 operand
@@ -24,8 +25,9 @@
 // [row][k] (A, or B stored [n][k]) wants a row stride of 4 mod 8 floats (g * stride + t
 // covers every bank); B stored [k][n] wants 8 or 24 mod 32 (t * stride + g).
 //
-// mma.sync first; wgmma (TF32 k = 8, 64-row warpgroups, operands by shared-memory
-// descriptor) and TMA are the later step.
+// mma.sync throughout; hat_rows.cu feeds it through bulk copies (the TMA's unit) and
+// mbarriers. wgmma (TF32 k = 8, 64-row warpgroups, operands by shared-memory descriptor) is
+// the later step.
 //
 // bf16 operands (P = 1 below: the kernels' <float, 1> and <bf16, 1> instantiations,
 // common.cuh): operands rounded to bf16 where their fragments are set, one TF32 pass (exact
@@ -133,8 +135,10 @@ __device__ __forceinline__ void load_b_nk(Frag<2, P>& b, const float* s, int ld,
 }
 
 
-// ---- tile_mma: the row product of csrc/hat_rows.cu (B6's fc1, B8's tail, B9's projection,
-// B10, B14's projections) and csrc/sgfn.cu (B6's gate + fc2).
+// ---- tile_mma: the row product of csrc/sgfn.cu (B6's gate + fc2), csrc/aim.cu (B5b's
+// projection) and csrc/nafblock.cu (B2's products), where a block builds its A with work of
+// its own on the CUDA cores (a halo depthwise conv, an S-Map, NAF's gates) before the
+// product. csrc/hat_rows.cu runs a persistent, warp-specialised product of its own.
 //
 // What bounds it: per block 128 rows x K x N of f32-exact products (3 TF32 MMAs a product)
 // against the weights' 8 bytes an element (hi and lo) read from L2 once a block, so the
@@ -151,8 +155,11 @@ __device__ __forceinline__ void load_b_nk(Frag<2, P>& b, const float* s, int ld,
 //     and the passes following one another in one ring, so that it never drains between
 //     them, and A's staging running while the first weight chunks are in flight. With one
 //     block of 16 warps an SM (94 KB of A, 128 KB of ring), A's staging, each pass's
-//     epilogue and each chunk's barrier still stop every MMA of the SM: that, not the
-//     operand split, is what holds the product at a third of the mma.sync ceiling.
+//     epilogue and each chunk's barrier still stop every MMA of the SM;
+//   * the `j0 + j < mine` test around each MMA below makes the compiler fence every
+//     mma.sync with a branch (BSSY, WARPSYNC, BSYNC in the SASS). hat_rows.cu's persistent
+//     product, which fixes a warp's n-tile count at compile time and leaves the epilogues to
+//     other warps, runs the same launches in 0.59 to 0.94 of the time (PERF.md).
 // The tensor core's adds round toward zero, so each chunk of kMmaKC rows goes into a fresh
 // register tile that is added to the running sum in f32: a chain of 3 kMmaKC / 8 MMAs
 // (24), short enough for the f32-exactness tests of B6, B8 and B10.

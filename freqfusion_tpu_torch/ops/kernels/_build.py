@@ -36,7 +36,8 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry point -> argument types; every entry returns its cudaError_t as an int. The int
 # before the stream of a kernel entry is its instantiation (``io_code``: 0 f32, 1 bf16, 2 f32
-# storage with bf16 operands).
+# storage with bf16 operands); the row products' entries (and the band attention's wide
+# route, which runs them) take their persistent grid before it (``_mma.row_grid``).
 SIGNATURES = {
     "naf_stage_a": [_P] * 10 + [_I] * 5 + [_P],
     "naf_stage_b": [_P] * 17 + [_I] * 5 + [_P],
@@ -46,18 +47,18 @@ SIGNATURES = {
     "aim_conv_branch": [_P] * 8 + [_I] * 5 + [_P],
     "aim_conv_branch_blocks": [_I] * 3,
     "aim_gates_proj": [_P] * 13 + [_I] * 8 + [_P],
-    "rows_ln_fc1": [_P] * 11 + [_L] + [_I] * 5 + [_P],
+    "rows_ln_fc1": [_P] * 11 + [_L] + [_I] * 6 + [_P],
     "sgfn_gate_fc2": [_P] * 7 + [_I] * 8 + [_P],
     "cab_chain": [_P] * 11 + [_I] * 10 + [_P],
     "cab_chain_blocks": [_I, _I],
     "xqkv_attention": [_P] * 8 + [_I] * 11 + [_P],
-    "hab_tail": [_P] * 15 + [_I] * 9 + [_F, _I, _P],
-    "residual_ln_mlp": [_P] * 11 + [_L] + [_I] * 6 + [_P],
-    "rows_linear": [_P] * 5 + [_L] + [_I] * 5 + [_P],
+    "hab_tail": [_P] * 15 + [_I] * 9 + [_F, _I, _I, _P],
+    "residual_ln_mlp": [_P] * 11 + [_L] + [_I] * 7 + [_P],
+    "rows_linear": [_P] * 5 + [_L] + [_I] * 6 + [_P],
     "wattn_qkv": [_P] * 6 + [_I] * 9 + [_P],
     "oca_attention": [_P] * 5 + [_I] * 9 + [_P],
     "band_mha": [_P] * 8 + [_L] + [_I] * 5 + [_F, _I, _P],
-    "band_mha_wide": [_P] * 10 + [_L] + [_I] * 5 + [_F, _I, _P],
+    "band_mha_wide": [_P] * 10 + [_L] + [_I] * 5 + [_F, _I, _I, _P],
     "lka_gate": [_P] * 9 + [_I] * 7 + [_P],
 }
 

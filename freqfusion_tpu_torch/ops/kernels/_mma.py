@@ -45,11 +45,16 @@ intermediate to its bf16 operand dtype.
 ``csrc/mma_f32x3.cuh``, what 128 rows of A leave of a block's shared memory beside the
 weight ring. A wider K goes in the pieces that ``piece_sizes`` lists, as the kernels take it
 (``tile_mma_piece``).
+
+The row product of ``csrc/hat_rows.cu`` is persistent: ``row_grid`` gives its launches'
+blocks, one an SM of the card (``sm_count``) and at most one a row tile of ``ROW_TILE``
+pixels; block b walks the tiles b, b + grid, ...
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -100,6 +105,31 @@ def piece_sizes(k: int) -> list[int]:
     n = -(-k // MAX_ROW_K)
     piece = (-(-k // n) + 7) // 8 * 8
     return [min(piece, k - i) for i in range(0, k, piece)]
+
+
+ROW_TILE = 128
+
+
+def row_tiles(rows: int) -> int:
+    """Row tiles of ROW_TILE pixels over `rows` rows, the last one ragged."""
+    return -(-rows // ROW_TILE)
+
+
+def row_grid(rows: int, sms: int) -> int:
+    """Blocks of a persistent row-product launch over `rows` rows on a card of `sms` SMs: one
+    an SM, at most one a row tile (and at least one)."""
+    return max(1, min(sms, row_tiles(rows)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of the card `device` (read once a card)."""
+    device = torch.device(device)
+    return _sms(torch.cuda.current_device() if device.index is None else device.index)
 
 
 def split_tf32(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -195,7 +195,8 @@ def fused_band_mha(stacked, wqkv, bqkv, wproj, bproj, ln_w, ln_b, num_heads: int
             err = lib.band_mha_wide(x.data_ptr(), wq.data_ptr(), bq.data_ptr(), wp.data_ptr(),
                                     bp.data_ptr(), lw.data_ptr(), lb.data_ptr(), n.data_ptr(),
                                     qkv.data_ptr(), out.data_ptr(), b * h * w, t, dk, d,
-                                    num_heads, hdp, scale, io,
+                                    num_heads, hdp, scale,
+                                    _mma.row_grid(b * h * w * t, _mma.sm_count(x.device)), io,
                                     _build.stream_ptr(stacked.device))
         _build.check(err, "band_mha_wide")
     else:

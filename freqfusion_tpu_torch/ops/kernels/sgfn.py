@@ -106,12 +106,14 @@ def _sgfn_launchers(a, shortcut, ln_w, ln_b, w1, b1, sg_w, sg_b, wdw, bdw, w2, b
     y = torch.empty(a.shape, device=a.device, dtype=torch.float32) if io == 1 else None
     yp = None if y is None else y.data_ptr()
 
+    grid = _mma.row_grid(b * h * w, _mma.sm_count(a.device))
+
     def fc1():
         with torch.cuda.device(a.device):
             err = lib.rows_ln_fc1(a.data_ptr(), shortcut.data_ptr(), ln_w.data_ptr(),
                                   ln_b.data_ptr(), w1p.data_ptr(), b1.data_ptr(),
                                   sg_w.data_ptr(), sg_b.data_ptr(), hidden.data_ptr(),
-                                  out.data_ptr(), yp, b * h * w, c, hid, kp, hid, io,
+                                  out.data_ptr(), yp, b * h * w, c, hid, kp, hid, grid, io,
                                   _build.stream_ptr(a.device))
         _build.check(err, "rows_ln_fc1")
 

@@ -208,12 +208,14 @@ def _rows_linear(lib, a, wp, bp, out, kp, np_, io, name="rows_linear"):
     stream (wp the planes of w [kp, np_], bp f32; `io` the instantiation, ``_build.io_code``);
     at bf16 with K in pieces its sums go through an f32 scratch."""
     c, cout = a.shape[-1], out.shape[-1]
+    rows = a.numel() // c
     y = (torch.empty(out.shape, device=a.device, dtype=torch.float32)
          if io == 1 and kp > _mma.MAX_ROW_K else None)
     with torch.cuda.device(a.device):
         err = lib.rows_linear(a.data_ptr(), wp.data_ptr(), bp.data_ptr(), out.data_ptr(),
-                              None if y is None else y.data_ptr(), a.numel() // c, c, cout, kp,
-                              np_, io, _build.stream_ptr(a.device))
+                              None if y is None else y.data_ptr(), rows, c, cout, kp, np_,
+                              _mma.row_grid(rows, _mma.sm_count(a.device)), io,
+                              _build.stream_ptr(a.device))
     _build.check(err, name)
 
 
@@ -514,6 +516,8 @@ def _hab_block_launchers(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wpro
         _launch_xqkv(lib, x, ln1_w, ln1_b, wh, bh, bias, types, att, window, num_heads, hd,
                      in_shift, io)
 
+    grid = _mma.row_grid(b * h * w, _mma.sm_count(x.device))
+
     def tail():
         with torch.cuda.device(x.device):
             err = lib.hab_tail(att.data_ptr(), x.data_ptr(), conv_x.data_ptr(),
@@ -522,7 +526,7 @@ def _hab_block_launchers(x, conv_x, ln1_w, ln1_b, ln2_w, ln2_b, wqkv, bqkv, wpro
                                ln2_b.data_ptr(), w1p.data_ptr(), b1.data_ptr(), w2p.data_ptr(),
                                b2.data_ptr(), hidden.data_ptr(), out.data_ptr(),
                                None if y is None else y.data_ptr(), b, h, w, c, hid, kp, kp,
-                               k2p, in_shift, float(conv_scale), io,
+                               k2p, in_shift, float(conv_scale), grid, io,
                                _build.stream_ptr(x.device))
         _build.check(err, "hab_tail")
 
@@ -649,12 +653,14 @@ def fused_residual_ln_mlp(a, shortcut, ln_w, ln_b, w1, b1, w2, b2, mxu_dtype=Non
     hidden = torch.empty((a.numel() // c, k2p), **f32)
     # y between the products: f32 scratch at bf16 (out holds it at f32 storage)
     y = torch.empty(a.shape, **f32) if io == 1 else None
+    rows = a.numel() // c
     with torch.cuda.device(a.device):
         err = lib.residual_ln_mlp(a.data_ptr(), shortcut.data_ptr(), ln_w.data_ptr(),
                                   ln_b.data_ptr(), w1p.data_ptr(), b1.data_ptr(),
                                   w2p.data_ptr(), b2.data_ptr(), hidden.data_ptr(),
                                   out.data_ptr(), None if y is None else y.data_ptr(),
-                                  a.numel() // c, c, hid, kp, kp, k2p, io,
+                                  rows, c, hid, kp, kp, k2p,
+                                  _mma.row_grid(rows, _mma.sm_count(a.device)), io,
                                   _build.stream_ptr(a.device))
     _build.check(err, "residual_ln_mlp")
     lead = a.shape[:-1] if a.dim() == 4 else (a.numel() // c, 1, 1)

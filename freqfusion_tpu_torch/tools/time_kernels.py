@@ -1,7 +1,7 @@
-"""Times the wrappers of B1, B2, B4, B5a, B5b, B6, B8 (and B8's attention alone), B9 (and its
-attention alone), B10, B11, B12, B13 and B14 at the shapes the serving path gives them (B13 and
-B14 at the shapes of PERF.md's table), so that two checkouts can be compared on one card in
-one call.
+"""Times the wrappers of B1, B2, B3, B4, B5a, B5b, B6 (and its two launches alone), B7, B8 (and
+its attention and its tail alone), B9 (and its attention and its projection alone), B10, B11,
+B12, B13 and B14 at the shapes the serving path gives them (B13 and B14 at the shapes of
+PERF.md's table), so that two checkouts can be compared on one card in one call.
 
     python -m freqfusion_tpu_torch.tools.time_kernels      # from a checkout's root; a card
 
@@ -24,7 +24,7 @@ import subprocess
 import torch
 
 from ..ops import windows
-from ..ops.kernels import aim, bandmha, lka, nafblock, sgfn, wattn
+from ..ops.kernels import aim, bandmha, cab, conv3x3, lka, nafblock, sgfn, wattn
 
 # NAF's three fused levels at the 512x352 bucket, a ragged image and a chunk of two tiles
 B1_SHAPES = {"c64": (1, 1408, 2048, 64), "c128": (1, 704, 1024, 128),
@@ -124,7 +124,17 @@ def main() -> None:
                   r(hid // 2, std=0.1), r(3, 3, 1, hid // 2, std=1 / 3), r(hid // 2, std=0.1),
                   r(hid // 2, c, std=(hid // 2) ** -0.5), r(c, std=0.1))
         out["b6"] = cuda_ms(lambda: sgfn.fused_sgfn_tail(*t_args))
+        fc1, gate_fc2, _ = sgfn._sgfn_launchers(*t_args)
+        out["b6_fc1"] = cuda_ms(fc1)
+        out["b6_gate_fc2"] = cuda_ms(gate_fc2)
         del t_args
+        # B3 (HAT's and DAT's 180 -> 180 convs) and B7 (HAT's CAB chain) at the bucket
+        c_args = (x, r(3, 3, 180, 180, std=1620 ** -0.5), r(180, std=0.1))
+        out["b3"] = cuda_ms(lambda: conv3x3.conv3x3_dense(*c_args))
+        k_args = (x, r(180, std=0.1, mean=1.0), r(180, std=0.1), r(3, 3, 180, 60, std=1620 ** -0.5),
+                  r(60, std=0.1), r(3, 3, 60, 180, std=540 ** -0.5), r(180, std=0.1))
+        out["b7"] = cuda_ms(lambda: cab.cab_chain(*k_args))
+        del c_args, k_args
         # HAT-L at the bucket: 6 heads of 30 in 16x16 windows, hidden 360
         hid = 360
         m_args = (x, r(1, 352, 512, c), r(c, std=0.1, mean=1.0), r(c, std=0.1),
@@ -142,16 +152,18 @@ def main() -> None:
             kw = dict(cab_scale=r(1, 1, 1, c, std=0.2, mean=0.5), in_shift=shift)
             out[f"b8{case}"] = cuda_ms(
                 lambda: wattn.fused_hab_block(*h_args, mask, (16, 16), 6, 0.01, **kw))
-            attention, _, _, _ = wattn._hab_block_launchers(*h_args, mask, (16, 16), 6, 0.01,
-                                                            **kw)
+            attention, tail, _, _ = wattn._hab_block_launchers(*h_args, mask, (16, 16), 6, 0.01,
+                                                               **kw)
             out[f"b8_attention{case}"] = cuda_ms(attention)
+            out[f"b8_tail{case}"] = cuda_ms(tail)
         del h_args
         # B9 at the bucket: 256 queries against 576 keys a window, 6 heads of 30
         o_args = (x, r(1, 352, 512, c), r(1, 352, 512, c), r(c, c, std=c ** -0.5),
                   r(c, std=0.1), r(6, 256, 576, std=0.5))
         out["b9"] = cuda_ms(lambda: wattn.fused_overlap_attention(*o_args, 16, 8, 6))
-        attention, _, _ = wattn._overlap_launchers(*o_args, 16, 8, 6)
+        attention, proj, _ = wattn._overlap_launchers(*o_args, 16, 8, 6)
         out["b9_attention"] = cuda_ms(attention)
+        out["b9_proj"] = cuda_ms(proj)
         del o_args
         # B13 at DAT's branch (90 channels, 3 heads of 30) and B14 at HAT-L's width
         for name, (b, h, w, hs, ws) in (("", (1, 352, 512, 8, 32)),

@@ -1118,3 +1118,104 @@ def test_serving_on_every_card_present(gen):
     for a, out in zip(lrs, every.materialize_u8(every.dispatch_batch_u8(lrs))):
         w = one.materialize_u8(one.dispatch_batch_u8([a]))[0]
         assert np.abs(out.astype(np.int32) - w.astype(np.int32)).max() <= 1
+
+
+# ---- the persistent row product (csrc/hat_rows.cu: rows_pipelined_kernel) in each of its
+# modes: proj, fc1 and fc2 (B8's tail, shifted, with cab_scale), fc1 with LN_sg (B6, with its
+# second launch), fc1 with a shortcut and fc2 (B10), linear (B9's projection)
+
+ROW_MODES = ["tail", "fc1_lnsg", "residual_mlp", "linear"]
+
+
+def _row_case(gen, mode, b, h, w, window=16):
+    """(kernel, plain, args) of one mode of the row product at [b,h,w,180], HAT's and DAT's
+    width. The tail takes its attention's output as an argument: both sides project the
+    same heads' output."""
+    c = 180
+    if mode == "tail":
+        types = torch.from_numpy(
+            windows.shift_mask_types(window, window, window // 2, window // 2).copy()).cuda()
+        args = (_r(gen, b, h, w, c), *_hab_args(gen, b, h, w, c, 6, window, 2 * c),
+                _r(gen, b, 1, 1, c, std=0.2, mean=0.5))
+
+        def kernel(att, *hab_and_cab):
+            _, tail, att_in, out = wattn._hab_block_launchers(
+                *hab_and_cab[:15], types, (window, window), 6, 0.01, hab_and_cab[15],
+                window // 2)
+            att_in.copy_(att)
+            tail()
+            return out
+
+        def plain(att, x, conv_x, _l1w, _l1b, l2w, l2b, _wq, _bq, wp, bp, w1, b1, w2, b2, _bias,
+                  cab_scale):
+            return wattn._hab_tail_plain(att, x, conv_x, l2w, l2b, wp, bp, w1, b1, w2, b2, 0.01,
+                                         cab_scale, window // 2)
+        return kernel, plain, args
+    if mode == "fc1_lnsg":
+        return sgfn.fused_sgfn_tail, sgfn.fused_sgfn_tail_plain, _sgfn_args(gen, b, h, w, c, 720)
+    if mode == "residual_mlp":
+        return (wattn.fused_residual_ln_mlp, wattn.fused_residual_ln_mlp_plain,
+                (_r(gen, b, h, w, c), _r(gen, b, h, w, c), _r(gen, c, std=0.1, mean=1.0),
+                 _r(gen, c, std=0.1), _r(gen, c, 360, std=c ** -0.5), _r(gen, 360, std=0.1),
+                 _r(gen, 360, c, std=360 ** -0.5), _r(gen, c, std=0.1)))
+    ov = window // 2
+    return (lambda *a: wattn.fused_overlap_attention(*a, window, ov, 6),
+            lambda *a: wattn.fused_overlap_attention_plain(*a, window, ov, 6),
+            (_r(gen, b, h, w, c), _r(gen, b, h, w, c), _r(gen, b, h, w, c),
+             _r(gen, c, c, std=c ** -0.5), _r(gen, c, std=0.1),
+             _r(gen, 6, window ** 2, (window + ov) ** 2, std=0.5)))
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "default"])
+@pytest.mark.parametrize("b,h,w", [(1, 352, 512), (2, 192, 192)])
+@pytest.mark.parametrize("mode", ROW_MODES)
+def test_row_product_matches_plain_at_the_served_shapes(gen, mode, b, h, w, precision):
+    """Each mode at the 512x352 bucket and a chunk of two 192-px tiles, in each
+    instantiation, held as the kernels' tests hold them: f32 within 1e-4 of the plain
+    version; bf16 within 1e-2 x max|plain bf16| and at most twice the plain version's
+    distance from float64; precision "default" the same on f32 storage, and an RMS distance
+    from the plain default version at most a quarter of that version's from the plain f32."""
+    from freqfusion_tpu_torch.ops.kernels import _mma
+    kernel, plain, args = _row_case(gen, mode, b, h, w)
+    with torch.inference_mode():
+        if precision == "f32":
+            torch.testing.assert_close(kernel(*args), plain(*args), atol=1e-4, rtol=0)
+            return
+        if precision == "bf16":
+            args = [_as(t, torch.bfloat16) for t in args]
+            got, want = kernel(*args), plain(*args)
+            assert got.dtype == want.dtype == torch.bfloat16
+        else:
+            with _mma.operands(torch.bfloat16):
+                got, want = kernel(*args), plain(*args)
+            want32 = plain(*args)
+        ref = plain(*(_as(t, torch.float64) for t in args))
+    assert (got.float() - want.float()).abs().max() <= 1e-2 * want.float().abs().max()
+    assert (got.double() - ref).abs().max() <= 2 * (want.double() - ref).abs().max()
+    if precision == "default":
+        rms = lambda a, b: (a.double() - b.double()).pow(2).mean().sqrt()   # noqa: E731
+        assert rms(got, want) <= 0.25 * rms(want, want32)
+
+
+@pytest.mark.parametrize("mode", ROW_MODES)
+def test_row_product_walks_ragged_tiles_over_many_waves(gen, mode, monkeypatch):
+    """A grid of 7 blocks (as on a card of 7 SMs) over pixel counts whose last row tile is
+    ragged and whose tiles are no multiple of the grid: B6 and B10 at [1,97,211] (20467
+    pixels: 160 tiles, the last of 115 rows, 22 waves and 6 tiles), the tail and B9 at
+    [3,40,56] in 8-px windows (6720 pixels: 53 tiles, the last of 64 rows, 7 waves and 4)."""
+    from freqfusion_tpu_torch.ops.kernels import _mma
+    monkeypatch.setattr(_mma, "sm_count", lambda device: 7)
+    shape = (1, 97, 211) if mode in ("fc1_lnsg", "residual_mlp") else (3, 40, 56)
+    kernel, plain, args = _row_case(gen, mode, *shape, window=8)
+    assert _mma.row_tiles(shape[0] * shape[1] * shape[2]) % 7 != 0
+    torch.testing.assert_close(kernel(*args), plain(*args), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("mode", ROW_MODES)
+def test_row_product_repeats_a_launch_bit_for_bit(gen, mode):
+    """No atomics and a fixed order of every sum: five launches on the same inputs give the
+    same bits, at the served chunk of two 192-px tiles."""
+    kernel, _, args = _row_case(gen, mode, 2, 192, 192)
+    first = kernel(*args).clone()
+    for _ in range(4):
+        assert torch.equal(kernel(*args), first)

@@ -1,7 +1,8 @@
-"""The host side of the tensor-core row product: weights split into TF32 hi and lo parts and
+"""The host side of the tensor-core row products: weights split into TF32 hi and lo parts and
 laid out as mma.sync B fragments (``ops/kernels/_mma.py``), for every wrapper that feeds
-``tile_mma`` (B6, B8's tail, B9's projection, B10, B14). CPU only: the layout and the split
-are plain tensor code, and what the kernel reads of them is checked here against numpy."""
+one (B6, B8's tail, B9's projection, B10, B14), and the persistent row product's grid. CPU
+only: the layout and the split are plain tensor code, and what the kernel reads of them is
+checked here against numpy."""
 
 import numpy as np
 import pytest
@@ -169,6 +170,18 @@ def test_row_products_take_k_in_pieces_of_at_most_192(c, want):
     assert all(p % 8 == 0 and p <= _mma.MAX_ROW_K for p in got)
     n = -(-kp // _mma.MAX_ROW_K)
     assert len(got) == n and got[0] == ((kp + n - 1) // n + 7) // 8 * 8
+
+
+@pytest.mark.parametrize("npix,sms,want", [(1, 132, 1), (128, 132, 1), (129, 132, 2),
+                                           (16896, 132, 132), (16897, 132, 132),
+                                           (180224, 132, 132), (180224, 7, 7), (5, 264, 1)])
+def test_row_grid_is_one_block_an_sm_and_at_most_one_a_tile(npix, sms, want):
+    """The launch's blocks: the card's SM count, or fewer where the pixels fill fewer row
+    tiles (a block never walks nothing)."""
+    tiles = _mma.row_tiles(npix)
+    assert tiles == -(-npix // 128) and (tiles - 1) * 128 < npix <= tiles * 128
+    grid = _mma.row_grid(npix, sms)
+    assert grid == want and 1 <= grid <= tiles
 
 
 def _hand_slab(wqkv, bqkv, heads, hd, kp):
