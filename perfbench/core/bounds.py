@@ -1,27 +1,30 @@
 """Published peaks of one H100 SXM and the least time each of the program's hand-written
 kernel launches could take, from its shape.
 
-Peaks (NVIDIA's data sheet, dense, at the 700 W limit): products on the tensor cores at
-495 TFLOP/s in TF32 (a float32 cell) and 989 TFLOP/s in bf16 (a bfloat16 cell), every other
+Peaks (NVIDIA's data sheet, dense, at the 700 W limit): products on the tensor cores at the
+peak of the configuration's numerics (``core/precision.py``: 495 TFLOP/s in TF32 for float32
+at ``highest``, 989 TFLOP/s in bf16 for bfloat16 and for float32 at ``default``), every other
 operation at 67 TFLOP/s on the CUDA cores, memory at 3.35 TB/s. A launch's bound is the
 largest of its products over the tensor-core peak, its other operations over the CUDA-core
 peak and its bytes over the memory rate, each input read once and each output written once,
-in elements of the served dtype. The operation and element counts are those the kernels'
+in elements of the stored dtype. The operation and element counts are those the kernels'
 own correctness checks use, one formula per kernel; a model's file (``models/<name>.py``,
 ``launches``) lists the launches of its forward from its sizes and the image.
 """
 
 from __future__ import annotations
 
+from perfbench.core.precision import numerics
+
 CUDA_CORE = 67e12
-TENSOR_CORE = {"float32": 495e12, "bfloat16": 989e12}
 MEMORY = 3.35e12
-ELEMENT_BYTES = {"float32": 4, "bfloat16": 2}
 
 
-def launch_s(cuda_flops: float, tc_flops: float, elements: float, dtype: str) -> float:
-    return max(cuda_flops / CUDA_CORE, tc_flops / TENSOR_CORE[dtype],
-               elements * ELEMENT_BYTES[dtype] / MEMORY)
+def launch_s(cuda_flops: float, tc_flops: float, elements: float, dtype: str,
+             precision: str = "highest") -> float:
+    num = numerics(dtype, precision)
+    return max(cuda_flops / CUDA_CORE, tc_flops / num.tensor_core,
+               elements * num.element_bytes / MEMORY)
 
 
 # one function a kernel: (CUDA-core FLOPs, tensor-core FLOPs, elements)
@@ -107,7 +110,8 @@ def lka_gate(b, h, w, c):
     return n * (2 * (25 + 21 + 21) + 8), n * 2 * c, 2 * n + c * c + 69 * c
 
 
-def forward_bound(model, cfg: dict, b: int, h: int, w: int, dtype: str) -> float:
+def forward_bound(model, cfg: dict, b: int, h: int, w: int, dtype: str,
+                  precision: str = "highest") -> float:
     """Least seconds the card could take for the hand-written kernels of one forward of
     `model` (a ``perfbench/models`` file) on a [b, h, w, 3] batch."""
-    return sum(launch_s(*work, dtype) for _, work in model.launches(cfg, b, h, w))
+    return sum(launch_s(*work, dtype, precision) for _, work in model.launches(cfg, b, h, w))

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from perfbench import models
-from perfbench.core import check, serve, trace, traffic, weights
+from perfbench.core import check, records, serve, trace, traffic, weights
 
 HERE = Path(__file__).resolve().parents[1]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -133,6 +133,7 @@ def run(spec: Spec, workload: str, seed: int, seconds: float, traced: bool, t_st
         if dev.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=activities)
+        records.reset_program_records()
         prof.start()
     with torch.profiler.record_function(trace.WINDOW):
         win = serve.serve_window(pipe, hooks, shapes, frame_of, seconds, group_max)
@@ -172,8 +173,9 @@ def run(spec: Spec, workload: str, seed: int, seconds: float, traced: bool, t_st
     scale = cfg["upscale"]
     # what the run learned, for the metric readers
     ctx = SimpleNamespace(
-        model=model, cfg=cfg, mix=mix, dtype=dtype_name, window_s=window_s,
-        requests=reqs, hr_px=sum(h * w * scale * scale for _, (h, w), _, _ in reqs),
+        model=model, cfg=cfg, mix=mix, dtype=dtype_name, precision=cfg["precision"],
+        window_s=window_s, requests=reqs,
+        hr_px=sum(h * w * scale * scale for _, (h, w), _, _ in reqs),
         latencies=[t1 - t0 for _, _, t0, t1 in reqs], dispatch=win.dispatch,
         forwards=forwards, timed=timed, setup_s=setup_s, n_devices=n_devices,
         trace=None)

@@ -23,6 +23,18 @@ def program_records():
     return rec if rec["spans"] or rec["counts"] else None
 
 
+def reset_program_records() -> None:
+    """Forgets what the program recorded before, so that a run reads only its own window
+    (a process that runs several windows, as the tests and ``tools/readings.py`` do)."""
+    try:
+        from freqfusion_tpu_torch.utils import profiling
+    except ImportError:
+        return
+    reset = getattr(profiling, "reset", None)
+    if reset is not None:
+        reset()
+
+
 def spans(rec: dict, name: str) -> list:
     """The recorded spans named `name`."""
     return [s for s in rec["spans"] if s.name == name]

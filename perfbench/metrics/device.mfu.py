@@ -1,11 +1,12 @@
 """Percent: model FLOPs of the requests served in the window (``FlopCounterMode`` on the plain
 reference at each served shape: a request's bucket, or its chunks of tiles) over the window's
-seconds, over the dense tensor-core peak of the cell's dtype times the cards."""
+seconds, over the dense tensor-core peak of the cell's numerics (``core/precision.py``: its
+dtype and precision) times the cards."""
 
 import json
 
-from perfbench.core.bounds import TENSOR_CORE
 from perfbench.core.flops import forward_flops
+from perfbench.core.precision import numerics
 from perfbench.reference.serving import tile_plan, whole_bucket
 
 
@@ -24,4 +25,5 @@ def read(run):
             ys, xs, _, _ = tile_plan(h, w, tile, mix["overlap"], tb)
             chunks = -(-len(ys) * len(xs) // tb)
             total += chunks * forward_flops(cfg, tb, tile, tile)
-    return 100.0 * total / run.window_s / (TENSOR_CORE[run.dtype] * run.n_devices)
+    peak = numerics(run.dtype, run.cfg["precision"]).tensor_core * run.n_devices
+    return 100.0 * total / run.window_s / peak

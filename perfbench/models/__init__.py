@@ -15,7 +15,15 @@ needs of one model is in that file, which gives
 * ``timed(model)``: {name: submodule} that a traced run puts CUDA events around;
 * ``launches(cfg, b, h, w)``: [(kernel, (CUDA-core FLOPs, tensor-core FLOPs, elements))] of
   the program's hand-written kernels in one forward of a [b, h, w, 3] batch, from
-  ``core/bounds``' formulas.
+  ``core/bounds``' formulas;
+* ``BOUNDS``: {kernel wrapper: formula} for the wrappers the model launches that
+  ``core/bounds`` has no formula for (``kernels.launched_roofline`` reads it): the formula
+  takes the shape the wrapper counts and gives (CUDA-core FLOPs, tensor-core FLOPs, elements);
+* ``TINY``: small sizes of the configuration's model keys, which the CPU tests put over the
+  configuration's (``perfbench/tests/conftest.py``).
+
+``load`` looks for the file in each directory of ``PATHS`` in turn: this one, and any a test
+puts before it.
 """
 
 from __future__ import annotations
@@ -29,12 +37,16 @@ import torch
 from perfbench.reference import serving
 
 HERE = Path(__file__).resolve().parent
+PATHS = [HERE]
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str):
-    """The module of ``models/<name>.py``."""
-    spec = importlib.util.spec_from_file_location(f"perfbench_model_{name}", HERE / f"{name}.py")
+    """The module of ``<name>.py`` in the first directory of ``PATHS`` that holds one."""
+    path = next((d / f"{name}.py" for d in PATHS if (d / f"{name}.py").exists()), None)
+    if path is None:
+        raise FileNotFoundError(f"no model file {name}.py in {[str(d) for d in PATHS]}")
+    spec = importlib.util.spec_from_file_location(f"perfbench_model_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod

@@ -28,6 +28,14 @@ EXPERTS = ("hat", "dat", "nafnet")
 UNSERVED = freqfusion.UNSERVED
 NUMBERS = {"hat": "rel_max", "dat": "rel_max", "nafnet": "rel_max", "bands": "rel_max",
            "fused": "rel_q999"}
+#: a small FreqFusionSR, for runs of the harness on the CPU
+TINY = {
+    "hat": dict(embed_dim=24, depths=[2], num_heads=[4], window=8, compress=3, squeeze=4,
+                conv_scale=0.01, overlap_ratio=0.5, mlp_ratio=2.0, num_feat=16, img_range=1.0),
+    "dat": dict(embed_dim=64, depths=[2], num_heads=[4], split_size=[4, 16], expansion=2.0,
+                num_feat=16, img_range=1.0),
+    "nafnet": dict(width=8, middle_blk_num=1, enc_blk_nums=[1, 1], dec_blk_nums=[1, 1]),
+    "head": dict(fusion_dim=16, num_heads=2, refine_depth=2, refine_channels=8, block_size=8)}
 
 
 def build(cfg: dict, device):
@@ -60,6 +68,33 @@ def taps(model):
 
 def timed(model):
     return {"hat": model.experts.hat, "dat": model.experts.dat, "head": model.fusion}
+
+
+def window_attention_qkv(b, h, w, c, heads, hs, ws, shifted):
+    """B13: attention of pre-projected q, k, v in (hs, ws) windows: q k^T and p v on the
+    tensor cores, bias (+ mask) and softmax on the CUDA cores; reads q, k, v, the bias and
+    the 4 mask types, writes the attended image."""
+    npix, n = b * h * w, hs * ws
+    nwin, hd = npix // n, c // heads
+    return (nwin * heads * n * n * 8, nwin * heads * n * n * 4 * hd,
+            4 * npix * c + (heads + (4 if shifted else 0)) * n * n)
+
+
+def window_attention(b, h, w, c, heads, hs, ws, shifted):
+    """B14: the qkv projection, B13's attention and the output projection; every product
+    on the tensor cores; reads x, the weights, the biases, the bias and the 4 mask types,
+    writes the attended image."""
+    npix, n = b * h * w, hs * ws
+    nwin, hd = npix // n, c // heads
+    return (nwin * heads * n * n * 8, npix * 8 * c * c + nwin * heads * n * n * 4 * hd,
+            2 * npix * c + 4 * c * c + 4 * c + (heads + (4 if shifted else 0)) * n * n)
+
+
+#: the bounds of this model's kernel wrappers that ``core/bounds.py`` lacks (B13 and B14,
+#: which a served forward launches only at tile 176, an odd side or a window under 8 px), by
+#: the operation and element counts of ``chip_smoke.py``'s checks of those kernels
+BOUNDS = {"fused_window_attention_qkv": window_attention_qkv,
+          "fused_window_attention": window_attention}
 
 
 def _dat_shifts(group, block):

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from conftest import tiny
+from perfbench import models
 from perfbench.core import cell
 from perfbench.reference.ops import round_mantissa
 from perfbench.tools.control import control
@@ -28,26 +29,35 @@ def run_tiny(workload, seed=20240611, replicas=1):
         overrides["traffic"] = {**overrides["traffic"], "n_devices": replicas,
                                 "run_length": [4, 6], "length": 12, "sample": {"first": 8}}
     # a window of some forwards even on a loaded machine, so that the sampled frames are served
-    result, rows, _ = cell.run(SPEC, workload, seed, WINDOW_S, False, time.perf_counter(),
-                               device="cpu", log=lambda m: None, overrides=overrides)
-    return result, dict((n, v) for n, v, _ in rows)
+    result, _, numbers = cell.run(SPEC, workload, seed, WINDOW_S, False, time.perf_counter(),
+                                  device="cpu", log=lambda m: None, overrides=overrides)
+    return result, numbers
+
+
+def config_of(workload):
+    return SPEC.config(SPEC.workload(workload)["config"])
 
 
 @pytest.mark.parametrize("workload,replicas", RUNS)
 def test_reference_agrees_with_the_program(workload, replicas):
     result, numbers = run_tiny(workload, replicas=replicas)
     assert result["correct"], numbers
-    assert result["attempted"] >= 1 and set(numbers) == set(SPEC.limits(workload))
-    if "bf16" not in workload:       # float32 on both sides: rounding only
-        assert max(numbers[n] for n in ("hat", "dat", "nafnet", "fused")) < 2e-6
+    assert result["attempted"] >= 1 and set(result["checks"]) == set(SPEC.limits(workload))
+    cfg = config_of(workload)
+    if (cfg["dtype"], cfg["precision"]) == ("float32", "highest"):   # f32 exact: rounding only
+        assert max(numbers[n] for n in models.load(cfg["model"]).NUMBERS) < 2e-6, numbers
         assert numbers["u8"] < 1e-3
 
 
-@pytest.mark.parametrize("workload", ["ff-f32.div2k", "ff-bf16.div2k"])
+@pytest.mark.parametrize("workload", ["ff-f32.div2k", "ff-bf16.div2k", "ff-default.div2k"])
 def test_control_reads_above_the_program(workload):
+    """Each number the cell compares of the model's, on the control, reads over three times
+    the program's."""
     _, program = run_tiny(workload, seed=5)
     numbers, _, _ = control(SPEC, workload, 5, torch.device("cpu"), overrides=tiny(workload))
-    for n in ("hat", "dat", "nafnet"):
+    compared = set(SPEC.limits(workload)) & set(models.load(config_of(workload)["model"]).NUMBERS)
+    assert compared
+    for n in compared:
         assert numbers[n] > 3 * program[n], (n, numbers[n], program[n])
 
 
@@ -85,6 +95,7 @@ def _patch(monkeypatch, fault):
 
 FAULTS = [("ff-f32.div2k", 1, "answer_altered"), ("ff-f32.div2k", 1, "state_unchanged"),
           ("ff-bf16.div2k", 1, "answer_altered"), ("ff-bf16.div2k", 1, "state_unchanged"),
+          ("ff-default.div2k", 1, "answer_altered"), ("ff-default.div2k", 1, "state_unchanged"),
           ("ff-f32.div2k", 4, "answer_altered"), ("ff-f32.div2k", 4, "half_batch"),
           ("ff-f32.div2k", 4, "no_exchange"), ("ff-f32.div2k", 4, "state_unchanged"),
           ("ff-f32.tiled-540p", 1, "answer_altered"), ("ff-f32.tiled-540p", 1, "half_batch"),

@@ -6,13 +6,15 @@ family by family, with the model file's bound; the warm forward makes no weight 
 fragments (at bf16 it makes the f32 copies of the tensors the model derives from its bf16
 parameters inside the forward, which the cache cannot keep: PERF.md names them); and every
 ``ff.*`` record starts within 100 us of its range in the profiler's trace. B13 and B14, which
-no served cell launches, are counted with their shapes too.
+no served cell launches, are counted with their shapes too, and bounded by the model file's
+``BOUNDS``. A traced short window of every cell reads every metric the cell reports.
 
     python -m pytest perfbench/tests/test_pb_tracing.py -m cuda -q -s
 """
 
 import importlib.util
 import json
+import time
 from collections import Counter
 from types import SimpleNamespace
 
@@ -23,7 +25,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from conftest import ROOT
 from perfbench import models
-from perfbench.core import bounds
+from perfbench.core import bounds, cell
 
 pytestmark = pytest.mark.cuda
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -66,7 +68,8 @@ def _same_clock(rec, events):
     return worst
 
 
-@pytest.mark.parametrize("config", ["freqfusion-f32", "freqfusion-bf16"])
+@pytest.mark.parametrize("config", ["freqfusion-f32", "freqfusion-bf16",
+                                    "freqfusion-default"])
 def test_one_forward_counts_the_model_files_launches(card, config):
     from freqfusion_tpu_torch.infer.io import InferencePipeline
 
@@ -87,11 +90,12 @@ def test_one_forward_counts_the_model_files_launches(card, config):
     enqueue = _reader("serve.enqueue_ms").read(run)
     roofline = _reader("kernels.launched_roofline")
     launches = rec["counts"]["launches"]
+    families = {**roofline.FAMILIES, **model.BOUNDS}
     counted = Counter()
     for (wrapper, _), n in launches.items():
-        counted[roofline.FAMILIES[wrapper].__name__] += n
+        counted[families[wrapper].__name__] += n
     listed = model.launches(cfg, 1, 352, 512)
-    least = bounds.forward_bound(model, cfg, 1, 352, 512, cfg["dtype"])
+    least = bounds.forward_bound(model, cfg, 1, 352, 512, cfg["dtype"], cfg["precision"])
     worst = _same_clock(rec, events)
     dispatch = next(s for s in rec["spans"] if s.name == "ff.dispatch")
     split = {s.name: (s.end_ns - s.start_ns) / 1e6 for s in rec["spans"]
@@ -104,7 +108,8 @@ def test_one_forward_counts_the_model_files_launches(card, config):
                       "split_ms": split, "worst_clock_us": worst / 1e3,
                       "launches": dict(counted)}))
     assert counted == Counter(f for f, _ in listed)
-    assert roofline.least_s(launches, cfg["dtype"]) == pytest.approx(least, rel=1e-9)
+    assert roofline.least_s(launches, cfg["dtype"], cfg["precision"],
+                            model.BOUNDS) == pytest.approx(least, rel=1e-9)
     kinds = rec["counts"].get("weights_made", {})
     if cfg["dtype"] == "float32":
         assert made == 0
@@ -142,4 +147,28 @@ def test_b13_and_b14_count_their_shapes(card):
             ("fused_window_attention", (1, 48, 72, c, 6, wh, wh, False)): 1}
     assert rec["counts"]["launches"] == want
     roofline = _reader("kernels.launched_roofline")
-    assert roofline.least_s(want, "float32") > 0
+    assert roofline.least_s(want, "float32") is None
+    b13_b14 = models.load("freqfusion_sr").BOUNDS
+    assert roofline.least_s(want, "float32", model_bounds=b13_b14) > 0
+
+
+@pytest.mark.parametrize("workload", [w["name"] for w in cell.Spec(ROOT).bench["workloads"]])
+def test_a_traced_window_reads_every_metric(card, workload):
+    """A traced window of a few seconds of the cell at its own size: every per-layer metric
+    the cell reports reads a number, and the trace saw the card busy."""
+    spec = cell.Spec(ROOT)
+    result, _, _ = cell.run(spec, workload, 4100000001, 3.0, True, time.perf_counter(),
+                            log=lambda m: None)
+    want = {m["name"] for m in spec.metrics(workload, True)}
+    print(json.dumps({"workload": workload, "metrics": result["metrics"],
+                      "device": result["device"], "correct": result["correct"]}))
+    assert set(result["metrics"]) == want
+    for name, m in result["metrics"].items():
+        assert isinstance(m["value"], (int, float)) and m["value"] >= 0, name
+    assert 0 < result["device"]["busy_s"] <= result["device"]["window_s"]
+    # the window's own records only, though this process served windows before
+    metrics = {k: m["value"] for k, m in result["metrics"].items()}
+    assert metrics["kernels.launched_roofline"] == pytest.approx(
+        metrics["kernels.port_roofline"], rel=1e-3)
+    if spec.config(spec.workload(workload)["config"])["dtype"] == "float32":
+        assert metrics["kernels.weights_made"] == 0

@@ -20,6 +20,18 @@ def test_launch_bound_takes_the_largest_of_three():
     assert bounds.launch_s(0, 0, 1e9, "float32") == pytest.approx(4e9 / 3.35e12)
     assert bounds.launch_s(0, 0, 1e9, "bfloat16") == pytest.approx(2e9 / 3.35e12)
     assert bounds.launch_s(67e12, 0, 0, "bfloat16") == pytest.approx(1.0)
+    # float32 at default: products on bf16 operands at bf16's peak, float32 elements
+    assert bounds.launch_s(0, 989e12, 0, "float32", "default") == pytest.approx(1.0)
+    assert bounds.launch_s(0, 0, 1e9, "float32", "default") == pytest.approx(4e9 / 3.35e12)
+    with pytest.raises(ValueError):
+        bounds.launch_s(0, 0, 0, "float32", "high")
+
+
+def test_precision_sets_the_control():
+    from perfbench.core.precision import numerics
+    assert [numerics(d, p).control for d, p in [("float32", "highest"), ("float32", "default"),
+                                                ("bfloat16", "highest")]] == [
+        "tf32", "fp8_e4m3", "fp8_e4m3"]
 
 
 def test_conv3x3_counts():

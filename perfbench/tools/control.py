@@ -1,7 +1,8 @@
 """The control of the check: the plain reference in the program's place, its products rounded
-to the next precision below the configuration's (TF32 for float32 with TF32 off, the 3-bit
-mantissa of fp8 e4m3 for bfloat16), judged by the cell's own numbers and limits on the
-requests a run of that seed would check. A correct check fails it.
+to the next precision below the configuration's (``core/precision.py``: TF32 for float32 at
+``highest``, the 3-bit mantissa of fp8 e4m3 for bf16 products: bfloat16, and float32 at
+``default``), judged by the cell's own numbers and limits on the requests a run of that seed
+would check. A correct check fails it.
 
     python3 perfbench/tools/control.py --workload ff-f32.div2k --seeds 11 12 13
 
@@ -19,9 +20,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
-#: the control of each served dtype
-ROUNDING = {"float32": "tf32", "bfloat16": "fp8_e4m3"}
-
 
 def control(spec, workload: str, seed: int, device, overrides=None, rounding=None):
     """(numbers, rows, correct) of the control for `seed`."""
@@ -29,6 +27,7 @@ def control(spec, workload: str, seed: int, device, overrides=None, rounding=Non
 
     from perfbench import models
     from perfbench.core import cell, check, traffic, weights
+    from perfbench.core.precision import numerics
     from perfbench.reference import serving
 
     wl = spec.workload(workload)
@@ -48,8 +47,8 @@ def control(spec, workload: str, seed: int, device, overrides=None, rounding=Non
     frames = {i: traffic.frame(seed, i, shapes[i]) for i in sampled}
     ref = models.reference(model, cfg, weights.make(leaves, seed, device, dtype), device)
     s = cfg["upscale"]
-    captured, served = check.reference_as_program(ref, model.NUMBERS, s, frames, mix,
-                                                  rounding or ROUNDING[cfg["dtype"]])
+    rounding = rounding or numerics(cfg["dtype"], cfg["precision"]).control
+    captured, served = check.reference_as_program(ref, model.NUMBERS, s, frames, mix, rounding)
     numbers = check.reference_numbers(ref, model.NUMBERS, s, frames, captured, served, mix)
     ok, rows = check.judge(numbers, spec.limits(workload))
     return numbers, rows, ok
